@@ -1,0 +1,22 @@
+"""daft_exprt_torch — the PyTorch/CUDA port of ``daft_exprt_tpu``.
+
+The port runs the synthesis path on an NVIDIA Hopper card (H100): the
+acoustic model's inference forward (``models/daft_exprt.py``) and the
+HiFi-GAN V1 generator (``models/hifigan.py``), with the Pallas kernels of
+the JAX package replaced by hand-written CUDA kernels (``ops/csrc``).
+
+It imports ``torch`` and numpy only: never ``jax``, ``flax`` or anything of
+``daft_exprt_tpu``. Every entry point takes ``device=`` and defaults to
+``cuda``; it raises when no CUDA device is present unless the caller asked
+for ``'cpu'`` (the CPU runs each kernel's plain PyTorch version).
+
+Layout:
+    text/      symbol table (copy of the JAX package's)
+    hparams.py config system (copy of the JAX package's)
+    bridge.py  JAX param pytrees (as numpy) -> torch state dicts
+    ops/       CUDA kernels (csrc/), their build step and PyTorch wrappers
+    models/    acoustic model (inference) and HiFi-GAN generator
+    generate.py  bucketed synthesis entry point
+"""
+
+__version__ = '0.1.0'

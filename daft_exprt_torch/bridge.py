@@ -1,0 +1,76 @@
+"""Carry JAX parameter trees (as numpy) into the port.
+
+``acoustic_state_from_jax`` is the inverse of
+``daft_exprt_tpu/checkpoint.py::convert_torch_state_dict``, but onto the
+port's own module names, which mirror the flax paths: the state-dict key
+of a leaf is its flax path joined by dots, with the leaf renamed and laid
+out torch's way:
+
+- Dense ``kernel`` (in, out)      -> ``weight`` (out, in)
+- Conv ``kernel`` (k, in, out)    -> ``weight`` (out, in, k)
+- LayerNorm ``scale``             -> ``weight``
+- Embed ``embedding``             -> ``weight``
+- ``bias``, ``post_multipliers``  -> as they are
+
+Any other leaf raises: nothing is left unmapped silently.
+
+``generator_from_jax`` is a copy: the JAX vocoder keeps its kernels in
+torch layout already ((out, in, k), and (in, out, k) for the transposed
+convs).
+"""
+import numpy as np
+import torch
+
+
+def _flatten(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flatten(tree[k], prefix + (str(k),))
+    else:
+        yield prefix, tree
+
+
+def _leaf(path, value):
+    name = path[-1]
+    arr = np.asarray(value, dtype=np.float32)
+    if name == 'kernel':
+        if arr.ndim == 2:
+            return 'weight', arr.T
+        if arr.ndim == 3:
+            return 'weight', arr.transpose(2, 1, 0)
+        raise ValueError(f'{"/".join(path)}: kernel of rank {arr.ndim}')
+    if name in ('scale', 'embedding'):
+        return 'weight', arr
+    if name in ('bias', 'post_multipliers'):
+        return name, arr
+    raise KeyError(f'bridge has no mapping for leaf {"/".join(path)}')
+
+
+def acoustic_state_from_jax(np_params):
+    """Flax DaftExprt params (nested dicts of arrays) -> torch state dict.
+    Load it with ``DaftExprt.load_bridged``."""
+    state = {}
+    for path, value in _flatten(np_params):
+        name, arr = _leaf(path, value)
+        key = '.'.join(path[:-1] + (name,))
+        if key in state:
+            raise KeyError(f'two leaves map to {key}')
+        state[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    return state
+
+
+def generator_from_jax(np_params):
+    """JAX HiFi-GAN params -> the port's params (same nesting, torch
+    tensors). Every leaf must be a 'w' or 'b' of a conv."""
+    out = {}
+    for name, sub in np_params.items():
+        if not isinstance(sub, dict):
+            raise KeyError(f'bridge: generator leaf {name} is not a layer')
+        if name.startswith('resblock_'):
+            out[name] = generator_from_jax(sub)
+            continue
+        if set(sub) != {'w', 'b'}:
+            raise KeyError(f'bridge: layer {name} has leaves {sorted(sub)}')
+        out[name] = {k: torch.from_numpy(
+            np.array(v, dtype=np.float32, copy=True)) for k, v in sub.items()}
+    return out

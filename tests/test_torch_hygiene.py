@@ -1,0 +1,84 @@
+"""The port stands alone: no JAX, flax, optax or daft_exprt_tpu import in
+daft_exprt_torch/ or chip_smoke.py; the package imports with JAX blocked;
+entry points default to CUDA and raise without it unless given 'cpu'."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'daft_exprt_tpu')
+
+
+def _port_files():
+    return sorted((ROOT / 'daft_exprt_torch').rglob('*.py')) + \
+        [ROOT / 'chip_smoke.py']
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, 'attr', getattr(node.func, 'id', ''))
+              in ('import_module', '__import__') and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+def test_no_jax_imports_in_the_port():
+    files = _port_files()
+    assert len(files) > 10 and all(f.is_file() for f in files)
+    bad = [(f.relative_to(ROOT).as_posix(), m) for f in files
+           for m in _imports(f) if m.split('.')[0] in FORBIDDEN]
+    assert bad == []
+
+
+def test_port_imports_with_jax_blocked():
+    code = (
+        'import sys\n'
+        'class Block:\n'
+        '    def find_spec(self, name, path=None, target=None):\n'
+        f'        if name.split(".")[0] in {FORBIDDEN!r}:\n'
+        '            raise ImportError("blocked: " + name)\n'
+        'sys.meta_path.insert(0, Block())\n'
+        'import daft_exprt_torch.generate, daft_exprt_torch.bridge\n'
+        'import daft_exprt_torch.models.daft_exprt\n'
+        'import daft_exprt_torch.models.hifigan\n'
+        'import daft_exprt_torch.hparams\n'
+        'assert not any(m.split(".")[0] in %r for m in sys.modules)\n'
+        'print("ok")\n' % (FORBIDDEN,))
+    res = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == 'ok'
+
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA card is present: the default device is valid')
+    from daft_exprt_torch.device import resolve_device
+    from daft_exprt_torch.hparams import HyperParams
+    from daft_exprt_torch.models.daft_exprt import DaftExprt
+    from daft_exprt_torch.models.hifigan import (
+        HiFiGanVocoder, init_generator_params,
+    )
+    hp = HyperParams(verbose=False, training_files='x', validation_files='x',
+                     output_directory='/nonexistent', language='english',
+                     speakers=['a'])
+    for call in (lambda: resolve_device(),
+                 lambda: resolve_device('cuda'),
+                 lambda: DaftExprt.from_hparams(hp),
+                 lambda: init_generator_params(0),
+                 lambda: HiFiGanVocoder({}, fast='bf16')):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+    assert resolve_device('cpu') == torch.device('cpu')
+    with pytest.raises(ValueError):
+        resolve_device('mps')
