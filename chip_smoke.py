@@ -17,7 +17,11 @@
    that it agrees with the float32 plain route (rel-L2 <= 5e-2).
 5. Times each kernel, its plain version and (attention) the library call
    with CUDA events at the path's shapes, beside the least time the card
-   could take (H100 SXM: 989 TFLOP/s bf16, 3.35 TB/s).
+   could take (H100 SXM: 989 TFLOP/s bf16, 3.35 TB/s). Each wrapper
+   counts its CUDA launches and its calls by input shape; the per-path
+   totals weight each shape's time by the path's calls at that shape, and
+   the run fails unless those calls times the launches per call add up to
+   the path's launch count.
 6. Prints the end-to-end audio-seconds per second at B=8.
 
 ``--profile`` adds a torch.profiler pass over one synthesis call: device
@@ -227,7 +231,7 @@ def main():
         q = q * 64 ** -0.5
         lengths = torch.tensor([t_att - 37 * i for i in range(B)],
                                dtype=torch.int32, device=dev).clamp(min=1)
-        att_inputs[t_att] = (q, k, v, lengths)
+        att_inputs[tuple(q.shape)] = (q, k, v, lengths)
         errs.setdefault('fused_attention', []).append(check(
             f'fused_attention T={t_att}', fused_attention(q, k, v, lengths),
             attention_plain(q, k, v, lengths), 1e-2))
@@ -238,13 +242,14 @@ def main():
         w = vk.pack_mrf_tc_weights(p, 0, ks, dils)
         x = torch.randn((B, T_l[lvl], C), generator=gen).to(dev)
         wb = [t.to(bf16) for t in w]
-        tc_inputs[lvl] = (x.to(bf16), wb)
+        mrf = vk.prepare_mrf(wb, ks, dils)
+        tc_inputs[tuple(x.shape)] = (lvl, x.to(bf16), mrf)
         errs.setdefault('fused_mrf_tc', []).append(check(
-            f'fused_mrf_tc L{lvl} bf16', vk.fused_mrf_tc(x.to(bf16), wb, ks,
-                                                         dils),
+            f'fused_mrf_tc L{lvl} bf16', vk.fused_mrf_tc(x.to(bf16), mrf),
             vk.mrf_tc_plain(x.to(bf16), wb, ks, dils), 1e-2))
         if lvl == 0:
-            check('fused_mrf_tc L0 float32', vk.fused_mrf_tc(x, w, ks, dils),
+            check('fused_mrf_tc L0 float32',
+                  vk.fused_mrf_tc(x, vk.prepare_mrf(w, ks, dils)),
                   vk.mrf_tc_plain(x, w, ks, dils), 1e-5)
         del x, w
     for lvl, (C_in, C) in ((2, (128, 64)), (3, (64, 32))):
@@ -259,10 +264,11 @@ def main():
         # the path hands L2 the L1 output as a transposed (B, T, C) tensor
         x = torch.randn((B, T_l[lvl - 1], C_in), generator=gen).to(
             dev, bf16).transpose(1, 2)
-        ph_inputs[lvl] = (x, w, ups, pst)
+        mrf = vk.prepare_mrf(w, ks, dils, ups, pst)
+        ph_inputs[tuple(x.shape)] = (lvl, x, mrf)
         errs.setdefault('fused_mrf_phase', []).append(check(
             f'fused_mrf_phase L{lvl}' + (' +conv_post' if post else ''),
-            vk.fused_mrf_phase(x, w, ks, dils, ups, pst),
+            vk.fused_mrf_phase(x, mrf),
             vk.mrf_phase_plain(x, w, ks, dils, ups, pst), 1e-2))
 
     # ---- 4. the synthesis path ------------------------------------------
@@ -286,13 +292,15 @@ def main():
 
     for kern in kernels:
         kern.launches = 0
+        kern.calls.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     mel, wav = synthesize()
     first_s = time.perf_counter() - t0
     launches = {kern.__name__: kern.launches for kern in kernels}
+    path_calls = {kern.__name__: dict(kern.calls) for kern in kernels}
     log(f'path: mel {mel.shape} wav {wav.shape} first call {first_s:.2f} s; '
-        f'launches {launches}')
+        f'launches {launches}; calls by input shape {path_calls}')
     assert mel.shape == (B, hp.n_mel_channels, T), mel.shape
     assert wav.shape == (B, T * 256), wav.shape
     assert np.isfinite(mel).all() and np.isfinite(wav).all()
@@ -305,53 +313,67 @@ def main():
     assert r <= 5e-2, r
 
     # ---- 5. timings -----------------------------------------------------
-    per_call = {'fused_attention': {L: 4, T: 4},
-                'fused_mrf_tc': {0: 1, 1: 1},
-                'fused_mrf_phase': {2: 1, 3: 1}}
+    # at each input shape the path called a kernel with; the path's calls
+    # at that shape weight the per-call times into the per-path totals
+    for name, inputs in (('fused_attention', att_inputs),
+                         ('fused_mrf_tc', tc_inputs),
+                         ('fused_mrf_phase', ph_inputs)):
+        assert set(path_calls[name]) == set(inputs), (
+            f'{name}: the path called it at {sorted(path_calls[name])}, '
+            f'checked and timed at {sorted(inputs)}')
+    by_name = {kern.__name__: kern for kern in kernels}
     shapes = {}
 
     def timed(name, key, desc, fn, plain, flops, nbytes, lib=None):
+        n0 = by_name[name].launches
+        fn()
+        per_launch = by_name[name].launches - n0    # launches per call
         ms = time_ms(torch, fn)
         plain_ms = time_ms(torch, plain)
         lib_ms = time_ms(torch, lib) if lib is not None else None
         b_ms, b_by = bound(flops, nbytes)
+        per_call = path_calls[name][key]
         shapes.setdefault(name, []).append(dict(
-            shape=desc, per_call=per_call[name][key], ms=ms,
-            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+            shape=desc, per_call=per_call, launches_per_call=per_launch,
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
             bound_by=b_by))
         log(f'time {name} {desc}: ms={ms:.4f} plain_ms={plain_ms:.4f} '
             f'library_ms={lib_ms if lib_ms is None else round(lib_ms, 4)} '
-            f'bound_ms={b_ms:.4f} ({b_by}) x{per_call[name][key]} per call')
+            f'bound_ms={b_ms:.4f} ({b_by}) x{per_call} per path call, '
+            f'{per_launch} launches each')
 
-    for t_att, (q, k, v, lengths) in att_inputs.items():
+    for (_, _, t_att, _), (q, k, v, lengths) in att_inputs.items():
         mask = (torch.arange(t_att, device=dev)[None, :] < lengths[:, None]
                 )[:, None, None, :]
-        timed('fused_attention', t_att, f'q,k,v (8,2,{t_att},64) bf16',
+        timed('fused_attention', tuple(q.shape),
+              f'q,k,v (8,2,{t_att},64) bf16',
               lambda: fused_attention(q, k, v, lengths),
               lambda: attention_plain(q, k, v, lengths),
               4 * B * 2 * t_att * t_att * 64, 4 * B * 2 * t_att * 64 * 2,
               lib=lambda: F.scaled_dot_product_attention(
                   q, k, v, attn_mask=mask, scale=1.0))
-    for lvl, (x, w) in tc_inputs.items():
+    for key, (lvl, x, mrf) in tc_inputs.items():
         Bx, Tx, C = x.shape
-        wbytes = sum(t.numel() * t.element_size() for t in w)
-        timed('fused_mrf_tc', lvl, f'L{lvl} x ({Bx},{Tx},{C}) bf16',
-              lambda: vk.fused_mrf_tc(x, w, ks, dils),
-              lambda: vk.mrf_tc_plain(x, w, ks, dils),
+        wbytes = sum(t.numel() * t.element_size() for t in mrf.packed)
+        timed('fused_mrf_tc', key, f'L{lvl} x ({Bx},{Tx},{C}) bf16',
+              lambda: vk.fused_mrf_tc(x, mrf),
+              lambda: vk.mrf_tc_plain(x, mrf.packed, ks, dils),
               252 * Bx * Tx * C * C, 2 * Bx * Tx * C * 2 + wbytes)
-    for lvl, (x, w, ups, pst) in ph_inputs.items():
+    for key, (lvl, x, mrf) in ph_inputs.items():
         Bx, C_in, T_in = x.shape
-        C = ups[0].shape[1]
+        C = mrf.ups[0].shape[1]
         N = 2 * T_in
+        pst = mrf.post
         c_out = 1 if pst is not None else C
         flops = 252 * Bx * N * C * C + 2 * Bx * N * C_in * C * 2 + (
             2 * Bx * N * C * 7 if pst is not None else 0)
-        wbytes = sum(t.numel() * t.element_size() for t in w) + \
-            ups[0].numel() * 2
-        timed('fused_mrf_phase', lvl,
+        wbytes = sum(t.numel() * t.element_size() for t in mrf.packed) + \
+            mrf.ups[0].numel() * 2
+        timed('fused_mrf_phase', key,
               f'L{lvl} x ({Bx},{C_in},{T_in}) -> ({Bx},{c_out},{N}) bf16',
-              lambda: vk.fused_mrf_phase(x, w, ks, dils, ups, pst),
-              lambda: vk.mrf_phase_plain(x, w, ks, dils, ups, pst),
+              lambda: vk.fused_mrf_phase(x, mrf),
+              lambda: vk.mrf_phase_plain(x, mrf.packed, ks, dils, mrf.ups,
+                                         pst),
               flops, Bx * C_in * T_in * 2 + Bx * c_out * N * 2 + wbytes)
 
     sources = {'fused_attention': 'daft_exprt_torch/ops/csrc/attention_fwd.cu',
@@ -363,6 +385,10 @@ def main():
         'fused_mrf_phase': 'daft_exprt_tpu/ops/vocoder_kernels.py:1431'}
     table = []
     for name, rows in shapes.items():
+        counted = sum(r['per_call'] * r['launches_per_call'] for r in rows)
+        assert counted == launches[name], (
+            f'{name}: {launches[name]} launches on the path, {counted} from '
+            'its calls by shape times launches per call')
         def total(key):
             return sum(r[key] * r['per_call'] for r in rows)
         lib = None if any(r['library_ms'] is None for r in rows) \

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from daft_exprt_torch.device import resolve_device
 from daft_exprt_torch.ops.vocoder_kernels import (
-    full_f32, fused_mrf_phase, fused_mrf_tc, pack_mrf_tc_weights,
+    full_f32, fused_mrf_phase, fused_mrf_tc, pack_mrf_tc_weights, prepare_mrf,
 )
 
 LRELU_SLOPE = 0.1
@@ -144,13 +144,40 @@ def init_generator_params(seed=0, config=None, std=0.01, device=None):
     return params
 
 
+def _fast_route(cfg, params, i):
+    """The fast route's kernel for level i: 'tc' (wide level, C >= 128),
+    'phase' (narrow level) or None (no fused kernel is ported for it)."""
+    u, k = cfg['upsample_rates'][i], cfg['upsample_kernel_sizes'][i]
+    pad = (k - u) // 2
+    if cfg['resblock'] != '1' or not (k - 2 * pad == u and u > 1
+                                      and k % u == 0):
+        return None
+    return 'tc' if params[f'ups_{i}']['w'].shape[1] >= 128 else 'phase'
+
+
 def pack_levels(params, config=None):
-    """Per level, the MRF weights the fused kernels take (ResBlock1)."""
+    """Per level, the :class:`MrfWeights` its fused kernel takes: the MRF
+    group's weights, plus the upsample at a narrow level and conv_post at
+    the last level. Levels with no fused kernel are left out."""
     cfg = config or DEFAULT_CONFIG
     ks = tuple(cfg['resblock_kernel_sizes'])
     dils = tuple(tuple(d) for d in cfg['resblock_dilation_sizes'])
-    return {i: pack_mrf_tc_weights(params, i, ks, dils)
-            for i in range(len(cfg['upsample_rates']))}
+    n_ups = len(cfg['upsample_rates'])
+    levels = {}
+    for i in range(n_ups):
+        route = _fast_route(cfg, params, i)
+        if route is None:
+            continue
+        ups = post = None
+        if route == 'phase':
+            u, k = cfg['upsample_rates'][i], cfg['upsample_kernel_sizes'][i]
+            ups = (params[f'ups_{i}']['w'], params[f'ups_{i}']['b'], u,
+                   (k - u) // 2)
+            if i == n_ups - 1:
+                post = (params['conv_post']['w'], params['conv_post']['b'])
+        levels[i] = prepare_mrf(pack_mrf_tc_weights(params, i, ks, dils), ks,
+                                dils, ups, post)
+    return levels
 
 
 def generator_forward(params, mel, config=None, use_fast=False, packed=None,
@@ -166,10 +193,8 @@ def generator_forward(params, mel, config=None, use_fast=False, packed=None,
     cfg = config or DEFAULT_CONFIG
     num_kernels = len(cfg['resblock_kernel_sizes'])
     resblock = _resblock1 if cfg['resblock'] == '1' else _resblock2
-    ks = tuple(cfg['resblock_kernel_sizes'])
-    dils = tuple(tuple(d) for d in cfg['resblock_dilation_sizes'])
-    n_ups = len(cfg['upsample_rates'])
-    if use_fast and cfg['resblock'] == '1' and packed is None:
+    fast = use_fast and cfg['resblock'] == '1'
+    if fast and packed is None:
         packed = pack_levels(params, cfg)
 
     x = _conv1d(mel, params['conv_pre']['w'], params['conv_pre']['b'])
@@ -177,34 +202,30 @@ def generator_forward(params, mel, config=None, use_fast=False, packed=None,
     for i, (u, k) in enumerate(zip(cfg['upsample_rates'],
                                    cfg['upsample_kernel_sizes'])):
         ups = params[f'ups_{i}']
-        c_out = ups['w'].shape[1]
         pad = (k - u) // 2
-        poly = k - 2 * pad == u and u > 1 and k % u == 0
-        if use_fast and cfg['resblock'] == '1' and poly and c_out >= 128:
+        route = _fast_route(cfg, params, i) if fast else None
+        if route == 'tc':
             # wide level: polyphase upsample emits (B, T, C); tc MRF kernel
             x = _conv_transpose1d_poly(_lrelu(x), ups['w'], ups['b'], u, pad,
                                        in_tc=tc)
-            x = fused_mrf_tc(x, packed[i], ks, dils)
+            x = fused_mrf_tc(x, packed[i])
             tc = True
             if _tap is not None:
                 _tap(i, x.transpose(1, 2))
             continue
-        if use_fast and cfg['resblock'] == '1' and poly:
+        if route == 'phase':
             # narrow level: upsample + MRF (+ conv_post) in one kernel route
-            post = (params['conv_post']['w'], params['conv_post']['b']) \
-                if i == n_ups - 1 else None
-            x = fused_mrf_phase(x.transpose(1, 2) if tc else x, packed[i],
-                                ks, dils, (ups['w'], ups['b'], u, pad), post)
+            x = fused_mrf_phase(x.transpose(1, 2) if tc else x, packed[i])
             tc = False
             if _tap is not None:
                 _tap(i, x)
-            if post is not None:
+            if packed[i].post is not None:
                 return x
             continue
-        if use_fast and cfg['resblock'] == '1':
+        if fast:
             raise NotImplementedError(
-                f'level {i} (k={k}, s={u}, C={c_out}) needs fused_mrf_ct, '
-                'which is not ported yet (ROADMAP Queue 2)')
+                f'level {i} (k={k}, s={u}, C={ups["w"].shape[1]}) needs '
+                'fused_mrf_ct, which is not ported yet (ROADMAP Queue 2)')
         if tc:
             x = x.transpose(1, 2)
             tc = False

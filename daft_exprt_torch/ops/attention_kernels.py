@@ -12,6 +12,7 @@ Bound on the card: bytes at T=128, operations at T=1024 (see the source
 note in the .cu file). Dropout is not ported: ``dropout_p > 0`` raises
 (the Philox dropout comes with the backward kernel in the training slice).
 """
+import collections
 import ctypes
 
 import torch
@@ -21,7 +22,7 @@ from daft_exprt_torch.ops import _build
 __all__ = ['fused_attention', 'attention_plain']
 
 MAX_T = 2048          # (16, T) float32 logit rows in shared memory
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIM = 64         # the only instantiation: the FFT blocks' head width
 
 
 def attention_plain(q, k, v, lengths):
@@ -50,7 +51,10 @@ def fused_attention(q, k, v, lengths, dropout_p=0.0):
 
     q, k, v: (B, H, T, D) in bfloat16 or float32, q already scaled by
     D**-0.5. On a CUDA tensor this launches ``attention_fwd.cu`` (or
-    raises); on a CPU tensor it runs :func:`attention_plain`."""
+    raises); on a CPU tensor it runs :func:`attention_plain`.
+
+    ``fused_attention.launches`` counts CUDA launches;
+    ``fused_attention.calls`` counts them by q's shape."""
     if dropout_p:
         raise NotImplementedError(
             'attention dropout is not ported yet: it comes with the '
@@ -66,9 +70,9 @@ def fused_attention(q, k, v, lengths, dropout_p=0.0):
             torch.bfloat16, torch.float32):
         raise ValueError('fused_attention: q, k, v must share bfloat16 or '
                          f'float32 (got {q.dtype}, {k.dtype}, {v.dtype})')
-    if D not in HEAD_DIMS or T > MAX_T:
+    if D != HEAD_DIM or T > MAX_T:
         raise ValueError(f'fused_attention: head dim {D} / length {T} not '
-                         f'supported (D in {HEAD_DIMS}, T <= {MAX_T})')
+                         f'supported (D = {HEAD_DIM}, T <= {MAX_T})')
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
@@ -77,7 +81,9 @@ def fused_attention(q, k, v, lengths, dropout_p=0.0):
                  1 if q.dtype == torch.bfloat16 else 0, _build.stream_ptr(q))
     _build.check(err, 'attention_fwd')
     fused_attention.launches += 1
+    fused_attention.calls[tuple(q.shape)] += 1
     return out
 
 
 fused_attention.launches = 0
+fused_attention.calls = collections.Counter()

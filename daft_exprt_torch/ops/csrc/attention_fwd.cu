@@ -162,13 +162,9 @@ cudaError_t launch_t(const void* q, const void* k, const void* v, const int* len
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v, const int* lengths, void* o,
                      int B, int H, int T_len, int D, cudaStream_t s) {
-  switch (D) {
-    case 16: return launch_t<T, 16>(q, k, v, lengths, o, B, H, T_len, s);
-    case 32: return launch_t<T, 32>(q, k, v, lengths, o, B, H, T_len, s);
-    case 64: return launch_t<T, 64>(q, k, v, lengths, o, B, H, T_len, s);
-    case 128: return launch_t<T, 128>(q, k, v, lengths, o, B, H, T_len, s);
-    default: return cudaErrorInvalidValue;
-  }
+  // D = 64: the FFT blocks' head width (2 heads of a 128-wide model)
+  if (D != 64) return cudaErrorInvalidValue;
+  return launch_t<T, 64>(q, k, v, lengths, o, B, H, T_len, s);
 }
 
 }  // namespace attn

@@ -14,6 +14,8 @@ the same function the port's kernels and plain versions compute.
   (float mode, fused upsample prologue, optional conv_post epilogue), for
   the narrow levels, in the standard (B, C, T) layout.
 
+Both wrappers take one level's weights as :class:`MrfWeights`, made once by
+:func:`prepare_mrf` (the plain layout and the kernels' layout side by side).
 Both CUDA routes run one launch per (chain, dilation) step
 (``mrf_common.cuh::step_kernel``); the sample ranges of every launch are
 planned here (:func:`_chain_steps`) so the CPU tests can replay the plan.
@@ -21,9 +23,9 @@ HBM traffic per group on the card: each step reads its float32 input and
 writes its float32 output over the (B, T + 2E, C) buffers, ~9 float32
 read+write passes for V1, against 252*B*T*C^2 FLOPs.
 """
+import collections
 import contextlib
 import ctypes
-import weakref
 from dataclasses import dataclass
 from typing import Optional
 
@@ -264,52 +266,58 @@ def _device_taps(w_kio, cdt):
     return w_kio.float().contiguous().reshape(-1)
 
 
-_prep_cache = {}        # id(tensor) -> (weakref, version, prepared value)
+@dataclass
+class MrfWeights:
+    """One level's weights for the MRF wrappers, made once by
+    :func:`prepare_mrf`. The plain versions read ``packed`` (from
+    :func:`pack_mrf_tc_weights`), ``ups`` and ``post``. For weights on a
+    CUDA device the CUDA routes read the same weights in the kernels'
+    format for ``dtype`` (None on the CPU): ``chains[j][i]`` = (w1, b1, w2,
+    b2) of chain j, dilation i, ``ups_dev`` = (per-phase taps, float32
+    bias) and ``post_dev`` = ((k, C) float32 taps, bias)."""
+    dtype: torch.dtype
+    device: torch.device
+    kernel_sizes: tuple
+    dilations: tuple
+    packed: list
+    chains: Optional[list] = None
+    ups: Optional[tuple] = None       # (w (C_in, C, k), b (C,), stride, pad)
+    ups_dev: Optional[tuple] = None
+    post: Optional[tuple] = None      # (w (1, C, k), b (1,))
+    post_dev: Optional[tuple] = None
 
 
-def _cached(key, version, build):
-    """``build()`` once per live tensor ``key`` and ``version``; the entry
-    goes when the tensor does."""
-    hit = _prep_cache.get(id(key))
-    if hit is not None and hit[0]() is key and hit[1] == version:
-        return hit[2]
-    val = build()
-    ref = weakref.ref(key, lambda _, k=id(key): _prep_cache.pop(k, None))
-    _prep_cache[id(key)] = (ref, version, val)
-    return val
-
-
-def _prepared_chains(weights, dilations, cdt):
-    """prep[j][i] = (w1, b1, w2, b2) in the kernel's format, cached on the
-    packed weight tensors."""
-    def build():
-        prep = []
-        for j, dils in enumerate(dilations):
-            w1, b1, w2, b2 = weights[4 * j:4 * j + 4]
-            prep.append([(_device_taps(w1[i], cdt),
-                          b1[i].float().contiguous(),
-                          _device_taps(w2[i], cdt),
-                          b2[i].float().contiguous())
-                         for i in range(len(dils))])
-        return prep
-    version = (cdt,) + tuple(w._version for w in weights)
-    return _cached(weights[0], version, build)
-
-
-def _prepared_ups(w, b, stride, padding, cdt):
-    def build():
+def prepare_mrf(packed, kernel_sizes, dilations, ups=None, post=None):
+    """:class:`MrfWeights` of one level, in the dtype and on the device of
+    ``packed``. ``ups`` = (w, b, stride, padding) of the level's
+    ConvTranspose1d and ``post`` = (w, b) of conv_post, for
+    :func:`fused_mrf_phase`."""
+    cdt, device = packed[0].dtype, packed[0].device
+    kernel_sizes = tuple(kernel_sizes)
+    dilations = tuple(tuple(d) for d in dilations)
+    mrf = MrfWeights(cdt, device, kernel_sizes, dilations, list(packed),
+                     ups=ups, post=post)
+    if device.type != 'cuda':
+        return mrf
+    mrf.chains = []
+    for j, dils in enumerate(dilations):
+        w1, b1, w2, b2 = packed[4 * j:4 * j + 4]
+        mrf.chains.append([(_device_taps(w1[i], cdt),
+                            b1[i].float().contiguous(),
+                            _device_taps(w2[i], cdt),
+                            b2[i].float().contiguous())
+                           for i in range(len(dils))])
+    if ups is not None:
+        w, b, stride, padding = ups
         _, _, _, _, taps = ups_geometry(w.shape[-1], stride, padding)
-        per_phase = [_device_taps(torch.stack([w[:, :, j] for j in tp]), cdt)
-                     for tp in taps]
-        return torch.cat(per_phase), b.float().contiguous()
-    return _cached(w, (cdt, stride, padding, w._version, b._version), build)
-
-
-def _prepared_post(w, b, cdt):
-    def build():
-        taps = w.to(cdt).float()[0].transpose(0, 1).contiguous()   # (k, C)
-        return taps, float(b.float()[0])
-    return _cached(w, (cdt, w._version, b._version), build)
+        mrf.ups_dev = (torch.cat([_device_taps(torch.stack(
+            [w[:, :, j] for j in tp]), cdt) for tp in taps]),
+            b.float().contiguous())
+    if post is not None:
+        w, b = post
+        mrf.post_dev = (w.to(cdt).float()[0].transpose(0, 1).contiguous(),
+                        float(b.float()[0]))
+    return mrf
 
 
 # ----------------------------------------------------------------------
@@ -372,28 +380,40 @@ def _tc_plan(x, prep, kernel_sizes, dilations, alloc):
                         bufs, E, out), out
 
 
-def fused_mrf_tc(x, weights, kernel_sizes, dilations):
+def _check_weights(name, x, mrf):
+    if x.dtype != mrf.dtype or x.device != mrf.device:
+        raise ValueError(f'{name}: x is {x.dtype} on {x.device} but the '
+                         f'weights were prepared as {mrf.dtype} on '
+                         f'{mrf.device}')
+
+
+def fused_mrf_tc(x, mrf):
     """Fused MRF group of a wide level. x: (B, T, C) in bfloat16 or float32;
-    ``weights`` from :func:`pack_mrf_tc_weights` (in x's dtype). Returns
-    (B, T, C) in x's dtype. On a CUDA tensor this launches ``mrf_tc.cu``
-    (or raises); on a CPU tensor it runs :func:`mrf_tc_plain`."""
+    ``mrf`` from :func:`prepare_mrf` in x's dtype. Returns (B, T, C) in x's
+    dtype. On a CUDA tensor this launches ``mrf_tc.cu`` (or raises); on a
+    CPU tensor it runs :func:`mrf_tc_plain`.
+
+    ``fused_mrf_tc.launches`` counts CUDA launches (one per chain step);
+    ``fused_mrf_tc.calls`` counts CUDA-route calls by x's shape."""
     if x.device.type == 'cpu':
-        return mrf_tc_plain(x, weights, kernel_sizes, dilations)
+        return mrf_tc_plain(x, mrf.packed, mrf.kernel_sizes, mrf.dilations)
     B, T, C = x.shape
     _check_cuda_input(x, 'fused_mrf_tc', TC_CHANNELS, C)
-    _check_kernel_sizes('fused_mrf_tc', kernel_sizes)
+    _check_kernel_sizes('fused_mrf_tc', mrf.kernel_sizes)
+    _check_weights('fused_mrf_tc', x, mrf)
     x = x.contiguous()
-    prep = _prepared_chains(weights, dilations, x.dtype)
-    steps, out = _tc_plan(x, prep, kernel_sizes, dilations,
+    steps, out = _tc_plan(x, mrf.chains, mrf.kernel_sizes, mrf.dilations,
                           _empty_on(x.device))
     fn = _fn('mrf_tc', 'mrf_tc_step', _STEP_ARGTYPES)
     for st in steps:
         _launch_step(fn, st, B, C, x.dtype)
-    fused_mrf_tc.launches += 1
+        fused_mrf_tc.launches += 1
+    fused_mrf_tc.calls[tuple(x.shape)] += 1
     return out
 
 
 fused_mrf_tc.launches = 0
+fused_mrf_tc.calls = collections.Counter()
 
 
 def _empty_on(device):
@@ -469,35 +489,39 @@ _POST_ARGTYPES = [_P, _I64, _I32, _I32, _F32, _P, _F32, _I32, _P, _I32,
                   _I32, _I32, _P]
 
 
-def fused_mrf_phase(x, weights, kernel_sizes, dilations, ups, post=None):
+def fused_mrf_phase(x, mrf):
     """Upsample + fused MRF group (+ conv_post) of a narrow level.
 
     x: (B, C_in, T_in), the level's PRE-upsample activation in the compute
     dtype (bfloat16 or float32; any strides, e.g. a transposed (B, T, C)
-    tensor). ``ups`` = (w (C_in, C, k), b (C,), stride, padding) of the
-    level's ConvTranspose1d; ``weights`` from :func:`pack_mrf_tc_weights`;
-    ``post`` = (w (1, C, k), b (1,)) of conv_post, or None. Returns the
-    level output (B, C, stride*T_in), or with ``post`` the waveform
-    (B, 1, stride*T_in) after tanh, in x's dtype. On a CUDA tensor this
-    launches ``mrf_phase.cu`` (or raises); on a CPU tensor it runs
-    :func:`mrf_phase_plain`."""
+    tensor). ``mrf`` from :func:`prepare_mrf` in x's dtype, with ``ups``
+    (the level's ConvTranspose1d) and, at the last level, ``post``
+    (conv_post). Returns the level output (B, C, stride*T_in), or with
+    ``post`` the waveform (B, 1, stride*T_in) after tanh, in x's dtype. On
+    a CUDA tensor this launches ``mrf_phase.cu`` (or raises); on a CPU
+    tensor it runs :func:`mrf_phase_plain`.
+
+    ``fused_mrf_phase.launches`` counts CUDA launches (the upsample, one
+    per chain step, conv_post); ``fused_mrf_phase.calls`` counts
+    CUDA-route calls by x's shape."""
+    if mrf.ups is None:
+        raise ValueError('fused_mrf_phase: the weights carry no upsample')
     if x.device.type == 'cpu':
-        return mrf_phase_plain(x, weights, kernel_sizes, dilations, ups, post)
-    w_u, b_u, stride, padding = ups
+        return mrf_phase_plain(x, mrf.packed, mrf.kernel_sizes,
+                               mrf.dilations, mrf.ups, mrf.post)
+    w_u, _, stride, _ = mrf.ups
     B, C_in, T_in = x.shape
     C = w_u.shape[1]
     cdt = x.dtype
     _check_cuda_input(x, 'fused_mrf_phase', PHASE_CHANNELS, C)
-    _check_kernel_sizes('fused_mrf_phase', kernel_sizes)
+    _check_kernel_sizes('fused_mrf_phase', mrf.kernel_sizes)
+    _check_weights('fused_mrf_phase', x, mrf)
     if (C_in, C) not in PHASE_UPS:
         raise ValueError(f'fused_mrf_phase: upsample {C_in}->{C} has no '
                          f'CUDA instantiation (built for {PHASE_UPS})')
     up, steps, tail, out = _phase_plan(
-        x, _prepared_chains(weights, dilations, cdt),
-        _prepared_ups(w_u, b_u, stride, padding, cdt), kernel_sizes,
-        dilations, ups, post,
-        _prepared_post(*post, cdt) if post is not None else None,
-        _empty_on(x.device))
+        x, mrf.chains, mrf.ups_dev, mrf.kernel_sizes, mrf.dilations, mrf.ups,
+        mrf.post, mrf.post_dev, _empty_on(x.device))
     stream = _build.stream_ptr(x)
     bf = int(cdt == torch.bfloat16)
     w_p, b_p = up.weights
@@ -508,9 +532,11 @@ def fused_mrf_phase(x, weights, kernel_sizes, dilations, ups, post=None):
         ctypes.cast((ctypes.c_int * stride)(*up.rows), ctypes.c_void_p),
         up.m_lo, up.m_hi, up.n_lo, up.n_hi, C_in, C, B, bf, stream)
     _build.check(err, 'MRF upsample')
+    fused_mrf_phase.launches += 1
     fn = _fn('mrf_phase', 'mrf_phase_step', _STEP_ARGTYPES)
     for st in steps:
         _launch_step(fn, st, B, C, cdt)
+        fused_mrf_phase.launches += 1
     if tail is not None:
         w_t, b_t = tail.weights
         err = _fn('mrf_phase', 'mrf_phase_post', _POST_ARGTYPES)(
@@ -518,8 +544,10 @@ def fused_mrf_phase(x, weights, kernel_sizes, dilations, ups, post=None):
             tail.scale, _build.ptr(w_t), b_t, tail.k, _build.ptr(out),
             stride * T_in, B, bf, stream)
         _build.check(err, 'MRF conv_post')
-    fused_mrf_phase.launches += 1
+        fused_mrf_phase.launches += 1
+    fused_mrf_phase.calls[tuple(x.shape)] += 1
     return out
 
 
 fused_mrf_phase.launches = 0
+fused_mrf_phase.calls = collections.Counter()

@@ -69,10 +69,11 @@ def test_attention_kernel_matches_plain(T, dtype):
                .cuda().to(dtype) for _ in range(3))
     q = q * D ** -0.5
     lengths = torch.tensor([T, T // 3, 1], dtype=torch.int32).cuda()
-    n = fused_attention.launches
+    n, c = fused_attention.launches, fused_attention.calls[(B, H, T, D)]
     out = fused_attention(q, k, v, lengths)
     torch.cuda.synchronize()
     assert fused_attention.launches == n + 1
+    assert fused_attention.calls[(B, H, T, D)] == c + 1
     ref = attention_plain(q, k, v, lengths)
     assert rel_l2(out.float().cpu(), ref.float().cpu()) < _band(dtype)
 
@@ -87,8 +88,10 @@ def test_mrf_tc_kernel_matches_plain(C, dtype):
     w = [t.cuda().to(dtype) for t in vk.pack_mrf_tc_weights(tp, 0, KS, DILS)]
     x = torch.from_numpy((rng.randn(2, 1000, C) * 0.5).astype(np.float32)
                          ).cuda().to(dtype)
-    out = vk.fused_mrf_tc(x, w, KS, DILS)
+    n = vk.fused_mrf_tc.launches
+    out = vk.fused_mrf_tc(x, vk.prepare_mrf(w, KS, DILS))
     torch.cuda.synchronize()
+    assert vk.fused_mrf_tc.launches == n + 9         # one per chain step
     ref = vk.mrf_tc_plain(x, w, KS, DILS)
     assert rel_l2(out.float().cpu(), ref.float().cpu()) < _band(dtype)
 
@@ -111,9 +114,21 @@ def test_mrf_phase_kernel_matches_plain(C_in, C, post, dtype):
     # channel-major input and a transposed channel-last one
     x = torch.from_numpy((rng.randn(2, C_in, 500) * 0.5).astype(np.float32)
                          ).cuda().to(dtype)
+    mrf = vk.prepare_mrf(w, KS, DILS, ups, pst)
     for xin in (x, x.transpose(1, 2).contiguous().transpose(1, 2)):
-        out = vk.fused_mrf_phase(xin, w, KS, DILS, ups, pst)
+        n = vk.fused_mrf_phase.launches
+        out = vk.fused_mrf_phase(xin, mrf)
         torch.cuda.synchronize()
+        # the upsample, one per chain step, conv_post
+        assert vk.fused_mrf_phase.launches == n + 10 + post
         ref = vk.mrf_phase_plain(xin, w, KS, DILS, ups, pst)
         assert out.shape == ref.shape
         assert rel_l2(out.float().cpu(), ref.float().cpu()) < _band(dtype)
+
+
+@pytest.mark.cuda
+def test_attention_kernel_raises_for_other_head_dims():
+    need_cuda()
+    q = torch.zeros((1, 2, 16, 32), device='cuda')
+    with pytest.raises(ValueError, match='head dim'):
+        fused_attention(q, q, q, torch.full((1,), 16, device='cuda'))

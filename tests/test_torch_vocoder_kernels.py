@@ -260,14 +260,40 @@ def test_wrappers_run_plain_versions_on_cpu():
     rng = np.random.RandomState(5)
     tp = to_torch(_phase_case(rng, 64, 32, True))
     w, ups, pst = _port_phase_args(tp, True)
+    mrf = vk.prepare_mrf(w, KS, DILS, ups, pst)
+    # CPU weights carry no kernel format
+    assert mrf.chains is None and mrf.ups_dev is None and mrf.post_dev is None
     x = torch.from_numpy((rng.randn(1, 64, 64) * 0.5).astype(np.float32))
     n_phase = vk.fused_mrf_phase.launches
-    assert torch.equal(vk.fused_mrf_phase(x, w, KS, DILS, ups, pst),
+    calls_phase = sum(vk.fused_mrf_phase.calls.values())
+    assert torch.equal(vk.fused_mrf_phase(x, mrf),
                        vk.mrf_phase_plain(x, w, KS, DILS, ups, pst))
     xt = torch.from_numpy((rng.randn(1, 64, 32) * 0.5).astype(np.float32))
     n_tc = vk.fused_mrf_tc.launches
-    assert torch.equal(vk.fused_mrf_tc(xt, w, KS, DILS),
+    calls_tc = sum(vk.fused_mrf_tc.calls.values())
+    assert torch.equal(vk.fused_mrf_tc(xt, vk.prepare_mrf(w, KS, DILS)),
                        vk.mrf_tc_plain(xt, w, KS, DILS))
-    # the CPU route launches no kernel
+    # the CPU route launches no kernel and counts no call
     assert vk.fused_mrf_phase.launches == n_phase
     assert vk.fused_mrf_tc.launches == n_tc
+    assert sum(vk.fused_mrf_phase.calls.values()) == calls_phase
+    assert sum(vk.fused_mrf_tc.calls.values()) == calls_tc
+    with pytest.raises(ValueError, match='no upsample'):
+        vk.fused_mrf_phase(x, vk.prepare_mrf(w, KS, DILS))
+
+
+def test_pack_levels_routes_v1():
+    """V1: the wide levels (C = 256, 128) take the tc kernel with no fused
+    upsample; the narrow ones (C = 64, 32) the phase kernel with their
+    upsample, and conv_post only at the last level."""
+    from daft_exprt_torch.models import hifigan as th
+    params = th.init_generator_params(0, th.DEFAULT_CONFIG, device='cpu')
+    levels = th.pack_levels(params)
+    assert sorted(levels) == [0, 1, 2, 3]
+    for i, C in enumerate((256, 128, 64, 32)):
+        mrf = levels[i]
+        assert mrf.packed[0].shape == (3, 3, C, C)
+        assert (mrf.ups is None) == (i < 2)
+        assert (mrf.post is None) == (i < 3)
+    assert levels[2].ups[2:] == (2, 1) and levels[3].ups[2:] == (2, 1)
+    assert levels[3].post[0] is params['conv_post']['w']
