@@ -4,7 +4,7 @@ upsample -> multi-receptive-field resblock group] x 4 -> lrelu -> conv_post
 -> tanh, on params kept as nested dicts in torch layout (the JAX package's
 own layout, so the bridge is a copy).
 
-Two routes, as ``generator_forward`` in the JAX package:
+Routes, as ``generator_forward`` in the JAX package:
 
 - the float32 plain route (``use_fast=False``): one PyTorch op per conv,
   the semantics of the JAX XLA branch (per-conv SAME padding);
@@ -12,9 +12,18 @@ Two routes, as ``generator_forward`` in the JAX package:
   wide levels' polyphase upsamples as plain PyTorch ops, the wide levels'
   MRF groups (C >= 128) through ``fused_mrf_tc`` and the narrow levels'
   upsample + MRF group (+ conv_post at the last level) through
-  ``fused_mrf_phase`` — the CUDA kernels on a CUDA tensor.
+  ``fused_mrf_phase`` — the CUDA kernels on a CUDA tensor;
+- the int8-static tier (``use_fast=True`` with ``int8_act_scales`` from
+  :func:`calibrate_act_scales`): the wide levels through
+  ``fused_mrf_tc_q8`` and, at batch >= ``PTC_MIN_BATCH``, the narrow
+  levels (p phases x C channels = 128) through ``fused_mrf_ptc`` with its
+  upsample prologue and, at the last level, the conv_post epilogue. A
+  narrow level at a smaller batch needs the int8 ``fused_mrf_phase``,
+  which is not ported: it raises.
 """
 import math
+import warnings
+from dataclasses import replace
 from typing import Any, Dict
 
 import numpy as np
@@ -23,10 +32,17 @@ import torch.nn.functional as F
 
 from daft_exprt_torch.device import resolve_device
 from daft_exprt_torch.ops.vocoder_kernels import (
-    full_f32, fused_mrf_phase, fused_mrf_tc, pack_mrf_tc_weights, prepare_mrf,
+    full_f32, fused_mrf_phase, fused_mrf_ptc, fused_mrf_tc, fused_mrf_tc_q8,
+    mrf_ptc_plain, mrf_tc_q8_plain, pack_mrf_ptc_weights, pack_mrf_tc_int8_weights, pack_mrf_tc_weights,
+    pack_post_ptc_weights, pack_ups_ptc_weights, prepare_mrf,
+    prepare_mrf_ptc, prepare_mrf_tc_q8, ptc_post_feasible, ptc_tile,
 )
 
 LRELU_SLOPE = 0.1
+# the int8 tier's narrow levels take the phase-tc kernel from this batch
+# size on (``DAFT_PTC_MIN_BATCH`` of the JAX package); below it they need
+# the int8 fused_mrf_phase (ROADMAP.md Queue 2 item 3)
+PTC_MIN_BATCH = 8
 
 DEFAULT_CONFIG = {
     'sampling_rate': 22050,
@@ -90,7 +106,10 @@ def _conv_transpose1d_poly(x, w, b, s, p, in_tc=False):
 
 
 def _lrelu(x):
-    return torch.where(x >= 0, x, LRELU_SLOPE * x)
+    """The slope is a constant of x's dtype, as in JAX, where the weakly
+    typed 0.1 becomes bf16(0.1) against a bf16 x: 0.1f * x rounded to bf16
+    differs on ~10% of the negative samples."""
+    return torch.where(x >= 0, x, x * x.new_tensor(LRELU_SLOPE))
 
 
 def _resblock1(params, x, dilations):
@@ -155,47 +174,120 @@ def _fast_route(cfg, params, i):
     return 'tc' if params[f'ups_{i}']['w'].shape[1] >= 128 else 'phase'
 
 
-def pack_levels(params, config=None):
-    """Per level, the :class:`MrfWeights` its fused kernel takes: the MRF
-    group's weights, plus the upsample at a narrow level and conv_post at
-    the last level. Levels with no fused kernel are left out."""
+def _phase_for(c):
+    """Phases that fill 128 lanes at channel width c (the JAX package's
+    ``_phase_for``)."""
+    if c <= 0 or c >= 128 or 128 % c != 0:
+        return 1
+    return min(8, 128 // c)
+
+
+def _ptc_phases(cfg, params):
+    """{level: (p, p_in)} of the narrow levels the phase-tc kernel takes
+    (``want_ptc`` of the JAX generator less its batch and tile checks):
+    p phases after the upsample, p_in before, p*C == p_in*C_in == 128."""
+    out, cur_p = {}, 1
+    for i, u in enumerate(cfg['upsample_rates']):
+        if _fast_route(cfg, params, i) != 'phase':
+            continue
+        c_in, c = params[f'ups_{i}']['w'].shape[:2]
+        p = _phase_for(c)
+        if not (p >= 2 and p == u * cur_p and p * c == 128
+                and cur_p * c_in == 128 and c % 32 == 0):
+            break
+        out[i] = (p, cur_p)
+        cur_p = p
+    return out
+
+
+def pack_levels(params, config=None, act_scales=None):
+    """Per level, the weights its fused kernel takes. Without
+    ``act_scales``: :class:`MrfWeights` (the MRF group's weights, plus the
+    upsample at a narrow level and conv_post at the last level). With the
+    int8 tier's ``act_scales``: :class:`MrfQ8Weights` for
+    ``fused_mrf_tc_q8`` (wide levels) and ``fused_mrf_ptc`` (narrow
+    levels, built from the params' dtype as the JAX tier packs them).
+    Levels with no fused kernel are left out."""
     cfg = config or DEFAULT_CONFIG
     ks = tuple(cfg['resblock_kernel_sizes'])
     dils = tuple(tuple(d) for d in cfg['resblock_dilation_sizes'])
     n_ups = len(cfg['upsample_rates'])
+    ptc = _ptc_phases(cfg, params) if act_scales is not None else {}
     levels = {}
     for i in range(n_ups):
         route = _fast_route(cfg, params, i)
         if route is None:
             continue
-        ups = post = None
-        if route == 'phase':
-            u, k = cfg['upsample_rates'][i], cfg['upsample_kernel_sizes'][i]
-            ups = (params[f'ups_{i}']['w'], params[f'ups_{i}']['b'], u,
-                   (k - u) // 2)
-            if i == n_ups - 1:
-                post = (params['conv_post']['w'], params['conv_post']['b'])
-        levels[i] = prepare_mrf(pack_mrf_tc_weights(params, i, ks, dils), ks,
-                                dils, ups, post)
+        u, k = cfg['upsample_rates'][i], cfg['upsample_kernel_sizes'][i]
+        ups = (params[f'ups_{i}']['w'], params[f'ups_{i}']['b'], u,
+               (k - u) // 2)
+        post = (params['conv_post']['w'], params['conv_post']['b']) \
+            if i == n_ups - 1 else None
+        if act_scales is None:
+            levels[i] = prepare_mrf(
+                pack_mrf_tc_weights(params, i, ks, dils), ks, dils,
+                ups if route == 'phase' else None, post if route == 'phase'
+                else None)
+        elif route == 'tc':
+            levels[i] = prepare_mrf_tc_q8(pack_mrf_tc_int8_weights(
+                params, i, ks, dils, act_scales[i]), ks, dils)
+        elif i in ptc:
+            p, p_in = ptc[i]
+            u_ptc = pack_ups_ptc_weights(*ups, p_in)
+            if post is not None:
+                post = pack_post_ptc_weights(*post, p, dtype=post[0].dtype)
+            levels[i] = prepare_mrf_ptc(
+                pack_mrf_ptc_weights(params, i, ks, dils, p, act_scales[i]),
+                ks, dils, p, tuple(u_ptc) + (k, u, (k - u) // 2, p_in),
+                post)
     return levels
 
 
+def _ptc_level(x, mrf, ptc_min_batch, plain):
+    """One narrow level of the int8 tier: x (B, T, C_in) sample-major ->
+    (B, p*T/p_in, C), or the waveform (B, 1, ...) when conv_post fused.
+    Returns (y, whether conv_post fused)."""
+    B, rows = x.shape[0], x.shape[1] // mrf.p_in
+    tile = ptc_tile(rows)
+    if B < ptc_min_batch or tile is None:
+        raise NotImplementedError(
+            f'int8 tier: a narrow level at batch {B} (phase-tc takes batch '
+            f'>= {ptc_min_batch}) or with {rows} rows (no tile of >= 64 '
+            'rows divides them) needs the int8 fused_mrf_phase, which is not '
+            'ported yet (ROADMAP.md Queue 2 item 3)')
+    if mrf.post is not None and not ptc_post_feasible(
+            mrf.kernel_sizes, mrf.dilations, mrf.p, mrf.post[0].shape[0],
+            tile):
+        mrf = replace(mrf, post=None, post_dev=None)
+    return (mrf_ptc_plain if plain else fused_mrf_ptc)(x, mrf, tile), \
+        mrf.post is not None
+
+
 def generator_forward(params, mel, config=None, use_fast=False, packed=None,
-                      _tap=None):
+                      int8_act_scales=None, ptc_min_batch=PTC_MIN_BATCH,
+                      plain=False, _tap=None):
     """mel: (B, n_mels, T) -> wav (B, 1, T * prod(upsample_rates)), in the
     dtype of ``mel`` (cast params to it first for the bf16 route).
 
     ``use_fast`` selects the fused-kernel route (see the module note);
-    ``packed``: :func:`pack_levels` of the same params, so the kernels'
-    weight layouts are built once. ``_tap(level, x)`` is called after
-    each level with the level output in (B, C, T) layout, or the waveform
-    at a last level whose kernel fused conv_post."""
+    ``int8_act_scales`` (from :func:`calibrate_act_scales`) its int8-static
+    tier, whose narrow levels take the phase-tc kernel from batch
+    ``ptc_min_batch`` on; ``packed``: :func:`pack_levels` of the same
+    params (and scales), so the kernels' weight layouts are built once;
+    ``plain`` runs the int8 tier's kernels' plain versions on any device
+    (the card-side reference of ``chip_smoke.py``). ``_tap(level, x)`` is
+    called after each level with the level output in (B, C, T) layout, or
+    the waveform at a last level whose kernel fused conv_post."""
     cfg = config or DEFAULT_CONFIG
     num_kernels = len(cfg['resblock_kernel_sizes'])
     resblock = _resblock1 if cfg['resblock'] == '1' else _resblock2
     fast = use_fast and cfg['resblock'] == '1'
+    int8 = int8_act_scales is not None
+    if int8 and not fast:
+        raise ValueError('the int8 tier runs in the fused kernels: it needs '
+                         'use_fast=True and ResBlock1')
     if fast and packed is None:
-        packed = pack_levels(params, cfg)
+        packed = pack_levels(params, cfg, int8_act_scales)
 
     x = _conv1d(mel, params['conv_pre']['w'], params['conv_pre']['b'])
     tc = False                     # x in (B, T, C) layout
@@ -208,10 +300,27 @@ def generator_forward(params, mel, config=None, use_fast=False, packed=None,
             # wide level: polyphase upsample emits (B, T, C); tc MRF kernel
             x = _conv_transpose1d_poly(_lrelu(x), ups['w'], ups['b'], u, pad,
                                        in_tc=tc)
-            x = fused_mrf_tc(x, packed[i])
+            if int8:
+                x = (mrf_tc_q8_plain if plain else fused_mrf_tc_q8)(
+                    x, packed[i])
+            else:
+                x = fused_mrf_tc(x, packed[i])
             tc = True
             if _tap is not None:
                 _tap(i, x.transpose(1, 2))
+            continue
+        if route == 'phase' and int8:
+            if i not in packed or not tc:
+                raise NotImplementedError(
+                    f'int8 tier: level {i} is not a phase-tc level (p*C == '
+                    '128 after a tc level); it needs the int8 fused_mrf_phase '
+                    '(ROADMAP.md Queue 2 item 3)')
+            # narrow level: int8 upsample + MRF (+ conv_post), phase-tc
+            x, post_done = _ptc_level(x, packed[i], ptc_min_batch, plain)
+            if _tap is not None:
+                _tap(i, x if post_done else x.transpose(1, 2))
+            if post_done:
+                return x
             continue
         if route == 'phase':
             # narrow level: upsample + MRF (+ conv_post) in one kernel route
@@ -243,6 +352,48 @@ def generator_forward(params, mel, config=None, use_fast=False, packed=None,
     return torch.tanh(x)
 
 
+def calibrate_act_scales(params, mels, config=None):
+    """Per-channel amax of every resblock conv input (after lrelu) in the
+    float32 reference forward (per-conv SAME padding) on calibration mels:
+    the int8 tier's static activation scales. Port of the JAX package's
+    ``calibrate_act_scales``. Returns {level: [(s1, s2) per resblock]}
+    with s1 (conv1 inputs: the residual stream) and s2 (conv2 inputs)
+    float32 (n_dil, C) tensors on the params' device."""
+    cfg = config or DEFAULT_CONFIG
+    if cfg['resblock'] != '1':
+        raise ValueError('static act-scale calibration targets the '
+                         'ResBlock1 fused kernels')
+    dev = params['conv_pre']['w'].device
+    mels = torch.as_tensor(mels, dtype=torch.float32, device=dev)
+    if mels.ndim == 2:
+        mels = mels[None]
+    scales = {}
+    with torch.no_grad(), full_f32():
+        x = _conv1d(mels, params['conv_pre']['w'], params['conv_pre']['b'])
+        for i, (u, k) in enumerate(zip(cfg['upsample_rates'],
+                                       cfg['upsample_kernel_sizes'])):
+            x = _conv_transpose1d(_lrelu(x), params[f'ups_{i}']['w'],
+                                  params[f'ups_{i}']['b'], u, (k - u) // 2)
+            xs, level = None, []
+            for j, dils in enumerate(cfg['resblock_dilation_sizes']):
+                rb = params[f'resblock_{i}_{j}']
+                cur, s1, s2 = x, [], []
+                for ii, d in enumerate(dils):
+                    t1 = _lrelu(cur)
+                    s1.append(t1.abs().amax(dim=(0, 2)))
+                    a = _conv1d(t1, rb[f'convs1_{ii}']['w'],
+                                rb[f'convs1_{ii}']['b'], dilation=d)
+                    t2 = _lrelu(a)
+                    s2.append(t2.abs().amax(dim=(0, 2)))
+                    cur = cur + _conv1d(t2, rb[f'convs2_{ii}']['w'],
+                                        rb[f'convs2_{ii}']['b'])
+                level.append((torch.stack(s1), torch.stack(s2)))
+                xs = cur if xs is None else xs + cur
+            x = xs / len(cfg['resblock_kernel_sizes'])
+            scales[i] = level
+    return scales
+
+
 def _to(params, dtype, device):
     return {k: (_to(v, dtype, device) if isinstance(v, dict)
                 else v.to(device=device, dtype=dtype))
@@ -255,29 +406,45 @@ class HiFiGanVocoder:
     - ``fast=False``: the float32 plain route (TF32 off).
     - ``fast=True`` / ``'bf16'``: bf16 params and activations through the
       fused MRF kernels.
-    - ``fast='int8'``: not ported yet; raises.
+    - ``fast='int8'`` with ``int8_calibration_mels``: the int8-static tier
+      (``bench.py``'s headline route). The act scales are calibrated once
+      on those mels in float32 (:func:`calibrate_act_scales`), then the
+      bf16 params are packed to int8. Narrow levels need batch >=
+      ``PTC_MIN_BATCH``. Without calibration mels (the int8-dynamic tier)
+      it raises: that tier is not ported.
     """
 
-    def __init__(self, params, config=None, fast=False, device=None):
-        if fast == 'int8':
-            raise NotImplementedError(
-                "HiFiGanVocoder(fast='int8') is not ported yet: the "
-                'int8-static tier (fused_mrf_tc q8, fused_mrf_ptc, '
-                'calibrate_act_scales) is ROADMAP Queue 2 item 1')
-        if fast not in (False, True, 'bf16'):
+    def __init__(self, params, config=None, fast=False, device=None,
+                 int8_calibration_mels=None):
+        if fast not in (False, True, 'bf16', 'int8'):
             raise ValueError(f'unknown vocoder tier fast={fast!r}')
+        if fast == 'int8' and int8_calibration_mels is None:
+            raise NotImplementedError(
+                "HiFiGanVocoder(fast='int8') without int8_calibration_mels is "
+                'the int8-dynamic tier: it needs fused_mrf_ct and the int8 '
+                'fused_mrf_phase, which are not ported yet (ROADMAP.md Queue '
+                '2 items 2 and 3)')
+        if int8_calibration_mels is not None and fast != 'int8':
+            warnings.warn('int8_calibration_mels given but the serving tier '
+                          f'is not int8 (fast={fast!r}): calibration ignored')
         self.config = config or DEFAULT_CONFIG
         self.device = resolve_device(device)
         self.fast = bool(fast)
         self.dtype = torch.bfloat16 if self.fast else torch.float32
+        self.act_scales = None
+        if fast == 'int8':
+            self.act_scales = calibrate_act_scales(
+                _to(params, torch.float32, self.device),
+                int8_calibration_mels, self.config)
         self.params = _to(params, self.dtype, self.device)
-        self.packed = pack_levels(self.params, self.config) if (
+        self.packed = pack_levels(self.params, self.config,
+                                  self.act_scales) if (
             self.fast and self.config['resblock'] == '1') else None
 
     def infer(self, mel_spec):
         """mel (n_mels, T) or (B, n_mels, T) -> float32 numpy wav in
-        [-1, 1]. The fast tier pads T to a multiple of 128 frames with the
-        mel floor log(1e-5), as the JAX wrapper does, and crops the wav."""
+        [-1, 1]. The fast tiers pad T to a multiple of 128 frames with the
+        mel floor log(1e-5), as the JAX wrapper does, and crop the wav."""
         mel = torch.as_tensor(np.asarray(mel_spec, dtype=np.float32))
         squeeze = mel.ndim == 2
         if squeeze:
@@ -292,7 +459,8 @@ class HiFiGanVocoder:
         with torch.no_grad():
             if self.fast:
                 wav = generator_forward(self.params, mel, self.config,
-                                        use_fast=True, packed=self.packed)
+                                        use_fast=True, packed=self.packed,
+                                        int8_act_scales=self.act_scales)
             else:
                 with full_f32():
                     wav = generator_forward(self.params, mel, self.config)

@@ -308,6 +308,29 @@ inline StepParams make_step_params(const void* in, long long in_bs, int in_off, 
   return p;
 }
 
+// ---------------------------------------------------------------------------
+// conv_post epilogue (mrf_phase.cu, mrf_ptc.cu)
+
+// conv_post epilogue: out[b, n] = tanh(bias + sum_tap sum_c
+//   w[tap][c] * cast(lrelu(R[n - h + tap][c] * scale)))
+template <typename CT>
+__global__ void post_kernel(const float* R, long long r_bs, int r_off, int C, float scale,
+                            const float* w, float bias, int kpost, CT* out, int N) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  const int b = blockIdx.y;
+  if (n >= N) return;
+  const int h = (kpost - 1) / 2;
+  const float* rb = R + b * r_bs;
+  float acc = 0.f;
+  for (int tap = 0; tap < kpost; ++tap) {
+    const float* row = rb + (long long)(n - h + tap + r_off) * C;
+    const float* wt = w + tap * C;
+    for (int c = 0; c < C; ++c)
+      acc = fmaf(to_f32(from_f32<CT>(lrelu(row[c] * scale))), wt[c], acc);
+  }
+  out[(long long)b * N + n] = from_f32<CT>(tanhf(acc + bias));
+}
+
 }  // namespace mrf
 
 // The C entry point shared by both libraries' step launchers. The argument

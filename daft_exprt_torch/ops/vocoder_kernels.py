@@ -1,5 +1,6 @@
-"""HiFi-GAN MRF kernels: the CUDA kernels ``csrc/mrf_tc.cu`` and
-``csrc/mrf_phase.cu``, their plain PyTorch versions and their wrappers.
+"""HiFi-GAN MRF kernels: the CUDA kernels ``csrc/mrf_tc.cu``,
+``csrc/mrf_phase.cu``, ``csrc/mrf_tc_q8.cu`` and ``csrc/mrf_ptc.cu``,
+their plain PyTorch versions and their wrappers.
 
 An MRF group is one upsample level's ResBlock1 chains averaged:
 ``mean_j chain_j(x)`` with ``chain(x): x += conv_k(lrelu(conv_{k,d}(lrelu(x))))``
@@ -13,11 +14,17 @@ the same function the port's kernels and plain versions compute.
 - :func:`fused_mrf_phase` replaces ``vocoder_kernels.py::fused_mrf_phase``
   (float mode, fused upsample prologue, optional conv_post epilogue), for
   the narrow levels, in the standard (B, C, T) layout.
+- :func:`fused_mrf_tc_q8` replaces ``fused_mrf_tc`` with ``q8=True`` and
+  :func:`fused_mrf_ptc` replaces ``fused_mrf_ptc`` (static mode, upsample
+  prologue, optional conv_post epilogue): the int8-static serving tier,
+  with their quantisation helpers and packers (second half of the file).
 
-Both wrappers take one level's weights as :class:`MrfWeights`, made once by
-:func:`prepare_mrf` (the plain layout and the kernels' layout side by side).
-Both CUDA routes run one launch per (chain, dilation) step
-(``mrf_common.cuh::step_kernel``); the sample ranges of every launch are
+The float wrappers take one level's weights as :class:`MrfWeights`, made
+once by :func:`prepare_mrf` (the plain layout and the kernels' layout side
+by side); the int8 ones :class:`MrfQ8Weights` from
+:func:`prepare_mrf_tc_q8` / :func:`prepare_mrf_ptc`. Every CUDA route runs
+one launch per (chain, dilation) step (``mrf_common.cuh::step_kernel``,
+``mrf_q8.cuh::step_q8_kernel``); the sample ranges of every launch are
 planned here (:func:`_chain_steps`) so the CPU tests can replay the plan.
 HBM traffic per group on the card: each step reads its float32 input and
 writes its float32 output over the (B, T + 2E, C) buffers, ~9 float32
@@ -551,3 +558,732 @@ def fused_mrf_phase(x, mrf):
 
 fused_mrf_phase.launches = 0
 fused_mrf_phase.calls = collections.Counter()
+
+
+# ----------------------------------------------------------------------
+# int8-static tier: quantisation helpers (port of vocoder_kernels.py:37-107)
+# ----------------------------------------------------------------------
+#
+# The f32 operations keep the JAX package's order, and every division by a
+# constant divides by a tensor on the same device: on CUDA, PyTorch turns a
+# division by a Python number into a multiplication by its reciprocal,
+# which is another rounding (and flips int8 values by one). The dequant
+# epilogues ``acc * scale + bias`` round once, as a fused multiply-add: the
+# JAX kernels compile them so on the CPU (bit-identical to the port's plain
+# versions there), and the CUDA kernels use ``__fmaf_rn``.
+
+def _const(x, value):
+    return torch.full((), value, dtype=torch.float32, device=x.device)
+
+
+def _fma(a, b, c):
+    """a * b + c in float32 with one rounding: the product of an int32
+    accumulator (|a| < 2^29) and a float32 is exact in float64. (Rounding
+    the float64 sum to float32 differs from a true FMA only when that sum
+    falls on a float32 tie.)"""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def quantize_rows(w, row_axes=(0,)):
+    """Symmetric int8 quantisation per output row: (q int8, scale f32),
+    the scale's amax taken over every axis but ``row_axes``."""
+    reduce = tuple(a for a in range(w.ndim) if a not in row_axes)
+    wf = w.float()
+    amax = wf.abs().amax(dim=reduce, keepdim=True)
+    s = amax.clamp(min=1e-30) / _const(wf, 127.0)
+    return torch.round(wf / s).to(torch.int8), s
+
+
+def quantize_lrelu_static(x, inv_s):
+    """int8 of lrelu(x) with a static per-channel multiplier ``inv_s``
+    (127/amax of the calibration): the slope folds into the multiplier.
+    Rounds half to even and saturates at +-127."""
+    m = torch.where(x >= 0, inv_s, LRELU_SLOPE * inv_s)
+    return torch.round(x * m).clamp(-127.0, 127.0).to(torch.int8)
+
+
+def requant_lrelu_s32(acc, b_i32, mult):
+    """The conv1 -> conv2 boundary in the s32 domain: int8 of
+    lrelu(acc*sw1 + b1) at the next conv's static scale, with
+    ``b_i32`` = round(b1/sw1) and ``mult`` = sw1*inv2."""
+    accb = acc + b_i32
+    m = torch.where(accb >= 0, mult, LRELU_SLOPE * mult)
+    return torch.round(accb.float() * m).clamp(-127.0, 127.0).to(torch.int8)
+
+
+def fuse_boundary_consts(sw1, b1, inv2):
+    """(b_i32, mult) of :func:`requant_lrelu_s32`; the s32 bias is clipped
+    to +-2^30 so an all-zero weight row cannot overflow the cast."""
+    b_i32 = torch.round(b1.float() / sw1).clamp(-2.0 ** 30, 2.0 ** 30)
+    return b_i32.to(torch.int32), (sw1 * inv2).float()
+
+
+def _act_scale(s_cal, margin, like):
+    """Static activation step from a calibrated amax: max(s, 1e-30) *
+    margin / 127, per channel."""
+    s = torch.as_tensor(s_cal, dtype=torch.float32, device=like.device)
+    return s.clamp(min=1e-30) * margin / _const(s, 127.0)
+
+
+def pack_mrf_tc_int8_weights(params, level, kernel_sizes, dilations,
+                             act_scales, margin=1.1):
+    """Port of ``pack_mrf_tc_int8_weights``: per block [wq1, inv1, b1i, m1,
+    wq2, sw2, b2] with wq (n_dil, k, C_in, C_out) int8 (the act scales
+    folded into the input channels, quantised per output channel) and
+    (n_dil, 1, C) vectors. ``act_scales``: the level's [(s1, s2) per
+    block] from :func:`calibrate_act_scales`, s shaped (n_dil, C)."""
+    out = []
+    for j, dils in enumerate(dilations):
+        rb = params[f'resblock_{level}_{j}']
+        packed = {}
+        for prefix, s_cal in zip(('convs1', 'convs2'), act_scales[j]):
+            wqs, sws, invs, bs = [], [], [], []
+            for i in range(len(dils)):
+                w = rb[f'{prefix}_{i}']['w'].permute(2, 1, 0)    # (k, ci, co)
+                s = _act_scale(s_cal[i], margin, w)
+                wq, sw = quantize_rows((w.float() * s[None, :, None])
+                                       .permute(2, 0, 1))       # rows = co
+                wqs.append(wq.permute(1, 2, 0))
+                sws.append(sw[:, 0, 0])
+                invs.append(1.0 / s)
+                bs.append(rb[f'{prefix}_{i}']['b'].float())
+            packed[prefix] = (torch.stack(wqs), torch.stack(sws)[:, None],
+                              torch.stack(invs)[:, None],
+                              torch.stack(bs)[:, None])
+        wq1, sw1, inv1, b1 = packed['convs1']
+        wq2, sw2, inv2, b2 = packed['convs2']
+        b1i, m1 = fuse_boundary_consts(sw1, b1, inv2)
+        out += [wq1, inv1, b1i, m1, wq2, sw2, b2]
+    return out
+
+
+# ----------------------------------------------------------------------
+# phase-tc packers and geometry (port of vocoder_kernels.py:870, 1591-1788)
+# ----------------------------------------------------------------------
+#
+# The TPU kernel keeps p phases x C channels in its 128 lanes: row q of a
+# (B, Q, p*C) phase-tc tensor holds samples p*q .. p*q + p - 1, so it is a
+# reshape of the sample-major (B, p*Q, C) tensor the port keeps. The
+# packers build the TPU kernel's shift matrices (held to JAX's by the
+# tests); :func:`prepare_mrf_ptc` reads the per-tap weights back out of
+# them for the port's sample-domain kernels.
+
+def _ptc_spec(k, d, p):
+    """Shift table of one dilated conv in phase-tc layout."""
+    half = (k - 1) // 2
+    ent = {}
+    for r in range(p):
+        for t in range(k):
+            s_, a = divmod(r + d * (t - half), p)
+            ent.setdefault(s_, []).append((a, r, t))
+    shifts = tuple(sorted(ent))
+    return dict(shifts=shifts, smin=shifts[0], smax=shifts[-1],
+                span=shifts[-1] - shifts[0], entries=ent)
+
+
+def _ptc_band(w, d, p, s_cal, margin=1.1):
+    """torch (C_out, C_in, k) -> (S, p*C_in, p*C_out) float32 shift
+    matrices with the static act scales folded into the input rows, the
+    kernel-side activation multiplier (1, p*C_in) and the shift table."""
+    C_out, C_in, k = w.shape
+    spec = _ptc_spec(k, d, p)
+    s = _act_scale(s_cal, margin, w)
+    wf = w.permute(1, 0, 2).float() * s[:, None, None]        # (ci, co, k)
+    M = wf.new_zeros((len(spec['shifts']), p * C_in, p * C_out))
+    for si, s_ in enumerate(spec['shifts']):
+        for a, r, t in spec['entries'][s_]:
+            M[si, a * C_in:(a + 1) * C_in, r * C_out:(r + 1) * C_out] += \
+                wf[:, :, t]
+    return M, (1.0 / s).repeat(p)[None, :], spec
+
+
+def _ptc_quant(M):
+    """Joint per-output-column int8 quantisation across the shift
+    matrices (they sum into one s32 accumulator)."""
+    amax = M.abs().amax(dim=(0, 1))
+    sw = amax.clamp(min=1e-30) / _const(amax, 127.0)
+    return torch.round(M / sw[None, None, :]).to(torch.int8), sw[None, :]
+
+
+def pack_mrf_ptc_weights(params, level, kernel_sizes, dilations, p,
+                         act_scales, margin=1.1):
+    """Port of ``pack_mrf_ptc_weights``, static form: per (block,
+    dilation) [W1 (S1, p*C, p*C) int8, inv1, b1i, m1, W2 (S2, ...) int8,
+    sw2, b2] with (1, p*C) row vectors."""
+    out = []
+    for j, dils in enumerate(dilations):
+        rb = params[f'resblock_{level}_{j}']
+        s1_cal, s2_cal = act_scales[j]
+        for i, d in enumerate(dils):
+            b1t = rb[f'convs1_{i}']['b'].float().repeat(p)[None, :]
+            b2t = rb[f'convs2_{i}']['b'].float().repeat(p)[None, :]
+            M1, inv1, _ = _ptc_band(rb[f'convs1_{i}']['w'], d, p, s1_cal[i],
+                                    margin)
+            M2, inv2, _ = _ptc_band(rb[f'convs2_{i}']['w'], 1, p, s2_cal[i],
+                                    margin)
+            q1, sw1 = _ptc_quant(M1)
+            q2, sw2 = _ptc_quant(M2)
+            b1i, m1 = fuse_boundary_consts(sw1, b1t, inv2)
+            out += [q1, inv1, b1i, m1, q2, sw2, b2t]
+    return out
+
+
+def _ups_phase_entries(k, stride, padding, p_in):
+    """(r, j, a, delta) contributions of a phase-layout transposed conv:
+    output phase r takes kernel tap j of input phase a at row offset
+    delta; also the offsets' range."""
+    if k - 2 * padding != stride:
+        raise ValueError('phase transposed conv requires k - 2*padding == '
+                         f'stride (got k={k}, padding={padding}, '
+                         f'stride={stride})')
+    entries = []
+    for r in range(stride * p_in):
+        for j in range(k):
+            if (r + padding - j) % stride != 0:
+                continue
+            e = (r + padding - j) // stride
+            entries.append((r, j, e % p_in, e // p_in))
+    return (entries, min(d for *_, d in entries),
+            max(d for *_, d in entries))
+
+
+def pack_ups_ptc_weights(w, b, stride, padding, p_in):
+    """ConvTranspose1d (torch (C_in, C_out, k)) -> the phase-tc upsample
+    weights (Uq (S, p_in*C_in, po*C_out) int8, sw (1, po*C_out), bias
+    (1, po*C_out), shifts): one weight scale per (output phase, channel);
+    the activation scale is dynamic, one per tile."""
+    C_in, C_out, k = w.shape
+    entries, _, _ = _ups_phase_entries(k, stride, padding, p_in)
+    po = stride * p_in
+    shifts = tuple(sorted({d for *_, d in entries}))
+    sidx = {s_: i for i, s_ in enumerate(shifts)}
+    U = w.new_zeros((len(shifts), p_in * C_in, po * C_out),
+                    dtype=torch.float32)
+    wf = w.float()
+    for r, j, a, d in entries:
+        U[sidx[d], a * C_in:(a + 1) * C_in, r * C_out:(r + 1) * C_out] += \
+            wf[:, :, j]
+    Uq, sw = _ptc_quant(U)
+    return Uq, sw, b.float().repeat(po)[None, :], shifts
+
+
+def pack_post_ptc_weights(w, b, p, dtype=torch.float32):
+    """conv_post (torch (C_out, C_in, k)) -> phase-tc epilogue weights
+    (P (S, p*C_in, p*C_out) in ``dtype``, bias (1, p*C_out) float32, k)."""
+    C_out, C_in, k = w.shape
+    spec = _ptc_spec(k, 1, p)
+    P = w.new_zeros((len(spec['shifts']), p * C_in, p * C_out),
+                    dtype=torch.float32)
+    wf = w.permute(1, 0, 2).float()
+    for si, s_ in enumerate(spec['shifts']):
+        for a, r, t in spec['entries'][s_]:
+            P[si, a * C_in:(a + 1) * C_in, r * C_out:(r + 1) * C_out] += \
+                wf[:, :, t]
+    return P.to(dtype), b.float().repeat(p)[None, :], k
+
+
+def ptc_chain_halo(kernel_sizes, dilations, p):
+    """Per-side halo in phase-tc rows of the fused chain, 64-aligned."""
+    worst = max(sum(_ptc_spec(k, d, p)['span'] + _ptc_spec(k, 1, p)['span']
+                    for d in dils)
+                for k, dils in zip(kernel_sizes, dilations))
+    return -(-worst // 64) * 64
+
+
+def _ptc_chain_geometry(kernel_sizes, dilations, p, tile, halo):
+    """Per block (row offset, rows left) after the fused chain."""
+    geo = []
+    for k, dils in zip(kernel_sizes, dilations):
+        off, cur_len = 0, tile + 2 * halo
+        for d in dils:
+            sp1, sp2 = _ptc_spec(k, d, p), _ptc_spec(k, 1, p)
+            off += -sp1['smin'] - sp2['smin']
+            cur_len -= sp1['span'] + sp2['span']
+        geo.append((off, cur_len))
+    return geo
+
+
+def ptc_post_feasible(kernel_sizes, dilations, p, post_k, tile):
+    """True when the chain halo leaves room for the conv_post window."""
+    halo = ptc_chain_halo(kernel_sizes, dilations, p)
+    sp = _ptc_spec(post_k, 1, p)
+    for off, cur_len in _ptc_chain_geometry(kernel_sizes, dilations, p,
+                                            tile, halo):
+        start = halo + sp['smin'] - off
+        if start < 0 or start + tile + sp['span'] > cur_len:
+            return False
+    return True
+
+
+def ptc_halo_in(halo, ups_shifts):
+    """Per-side halo in input rows of the upsample prologue, 64-aligned
+    (``_fused_mrf_ptc_jit``'s ``halo_in``)."""
+    return -(-max(halo - ups_shifts[0], halo + ups_shifts[-1]) // 64) * 64
+
+
+def ptc_tile(rows, tile=8192):
+    """The phase-tc tile: ``tile`` rows halved until it divides ``rows``
+    (``hifigan._pallas_mrf_ptc``); None when 64 rows do not."""
+    while rows % tile and tile > 64:
+        tile //= 2
+    return None if rows % tile else tile
+
+
+# ----------------------------------------------------------------------
+# int8-static weights in the port's sample domain
+# ----------------------------------------------------------------------
+
+@dataclass
+class MrfQ8Weights:
+    """One level's int8-static weights for :func:`fused_mrf_tc_q8` and
+    :func:`fused_mrf_ptc`, per tap in the sample domain:
+    ``chains[j][i]`` = (wq1 (k, C, C) int8, inv1 (C,), b1i (C,) int32, m1,
+    wq2 (k, C, C) int8, sw2, b2) of chain j, dilation i. For the phase-tc
+    kernel also ``ups`` = (wq (stride, ntaps, C_in, C) int8, sw (stride,
+    C), bias (C,), stride, padding, k) with its phase-tc ``ups_shifts``,
+    ``p`` / ``p_in`` (phases after / before the upsample) and, at the last
+    level, ``post`` = (w (k, C) float32 of ``post_dtype`` values, bias
+    (1,) float32, post_dtype). For weights on a CUDA device the ``*_dev``
+    fields hold the kernels' format (None on the CPU)."""
+    device: torch.device
+    kernel_sizes: tuple
+    dilations: tuple
+    chains: list
+    p: int = 1
+    p_in: int = 1
+    ups: Optional[tuple] = None
+    ups_shifts: tuple = ()
+    post: Optional[tuple] = None
+    chains_dev: Optional[list] = None
+    ups_dev: Optional[tuple] = None
+    post_dev: Optional[tuple] = None
+
+
+def pack_mma_s8(w_kio):
+    """(taps, C_in, C_out) int8 -> bytes in the m16n8k32 s8 B-fragment
+    order ``conv_gemm_s8`` reads: [tap][n-tile][k-tile][lane][8], the 8
+    bytes of a lane (group g, thread t) being W[32kt + 4t + e][8nt + g]
+    then W[32kt + 16 + 4t + e][8nt + g] for e < 4."""
+    taps, ci, co = w_kio.shape
+    w = w_kio.to(torch.int8).reshape(taps, ci // 32, 2, 4, 4, co // 8, 8)
+    return w.permute(0, 5, 1, 6, 3, 2, 4).contiguous().reshape(-1)
+
+
+def _q8_device(chains):
+    return [[(pack_mma_s8(wq1), inv1.contiguous(), b1i.contiguous(),
+              m1.contiguous(), pack_mma_s8(wq2), sw2.contiguous(),
+              b2.contiguous())
+             for wq1, inv1, b1i, m1, wq2, sw2, b2 in steps]
+            for steps in chains]
+
+
+def prepare_mrf_tc_q8(packed, kernel_sizes, dilations):
+    """:class:`MrfQ8Weights` of a wide level from
+    :func:`pack_mrf_tc_int8_weights` (or the JAX packer's arrays)."""
+    kernel_sizes = tuple(kernel_sizes)
+    dilations = tuple(tuple(d) for d in dilations)
+    chains = []
+    for j, dils in enumerate(dilations):
+        wq1, inv1, b1i, m1, wq2, sw2, b2 = packed[7 * j:7 * j + 7]
+        chains.append([(wq1[i], inv1[i, 0].float(), b1i[i, 0].int(),
+                        m1[i, 0].float(), wq2[i], sw2[i, 0].float(),
+                        b2[i, 0].float()) for i in range(len(dils))])
+    mrf = MrfQ8Weights(packed[0].device, kernel_sizes, dilations, chains)
+    if mrf.device.type == 'cuda':
+        mrf.chains_dev = _q8_device(chains)
+    return mrf
+
+
+def _ptc_taps(M, k, d, p, C_in, C_out):
+    """The (k, C_in, C_out) taps of output phase 0 in shift matrices M:
+    tap t of a conv with dilation d reads phase a of row offset s, with
+    p*s + a = d*(t - half). Every output phase holds the same taps."""
+    idx = {s_: i for i, s_ in enumerate(_ptc_spec(k, d, p)['shifts'])}
+    half = (k - 1) // 2
+    taps = []
+    for t in range(k):
+        s_, a = divmod(d * (t - half), p)
+        taps.append(M[idx[s_], a * C_in:(a + 1) * C_in, :C_out])
+    return torch.stack(taps)
+
+
+def prepare_mrf_ptc(packed, kernel_sizes, dilations, p, ups, post=None):
+    """:class:`MrfQ8Weights` of a narrow level from the phase-tc packers:
+    ``packed`` from :func:`pack_mrf_ptc_weights`; ``ups`` = (Uq, sw, bias,
+    shifts) from :func:`pack_ups_ptc_weights` followed by the
+    ConvTranspose1d's (k, stride, padding, p_in); ``post`` = (P, bias,
+    post_k) from :func:`pack_post_ptc_weights` at the last level."""
+    kernel_sizes = tuple(kernel_sizes)
+    dilations = tuple(tuple(d) for d in dilations)
+    C = packed[0].shape[2] // p
+    chains, n = [], 0
+    for k, dils in zip(kernel_sizes, dilations):
+        steps = []
+        for d in dils:
+            q1, inv1, b1i, m1, q2, sw2, b2 = packed[n:n + 7]
+            n += 7
+            steps.append((_ptc_taps(q1, k, d, p, C, C), inv1[0, :C].float(),
+                          b1i[0, :C].int(), m1[0, :C].float(),
+                          _ptc_taps(q2, k, 1, p, C, C), sw2[0, :C].float(),
+                          b2[0, :C].float()))
+        chains.append(steps)
+    Uq, sw_u, b_u, shifts, k_u, stride, padding, p_in = ups
+    if stride * p_in != p:
+        raise ValueError(f'upsample stride {stride} x input phases {p_in} '
+                         f'!= {p} phases')
+    C_in = Uq.shape[1] // p_in
+    entries, _, _ = _ups_phase_entries(k_u, stride, padding, p_in)
+    where = {(r, j): (a, d) for r, j, a, d in entries}
+    sidx = {s_: i for i, s_ in enumerate(shifts)}
+    _, _, _, _, taps = ups_geometry(k_u, stride, padding)
+    wq_u = torch.stack([torch.stack([
+        Uq[sidx[where[r, j][1]],
+           where[r, j][0] * C_in:(where[r, j][0] + 1) * C_in,
+           r * C:(r + 1) * C] for j in taps[r]]) for r in range(stride)])
+    sw = torch.stack([sw_u[0, r * C:(r + 1) * C].float()
+                      for r in range(stride)])
+    mrf = MrfQ8Weights(packed[0].device, kernel_sizes, dilations, chains,
+                       p=p, p_in=p_in, ups_shifts=tuple(shifts),
+                       ups=(wq_u, sw, b_u[0, :C].float(), stride, padding,
+                            k_u))
+    if post is not None:
+        P, b_p, post_k = post
+        w_p = _ptc_taps(P, post_k, 1, p, C, 1)[:, :, 0].float()   # (k, C)
+        mrf.post = (w_p, b_p[0, :1].float(), P.dtype)
+    if mrf.device.type == 'cuda':
+        mrf.chains_dev = _q8_device(chains)
+        mrf.ups_dev = (torch.cat([pack_mma_s8(wq_u[r])
+                                  for r in range(stride)]),
+                       sw.contiguous(), mrf.ups[2].contiguous())
+        if mrf.post is not None:
+            mrf.post_dev = (mrf.post[0].contiguous(),
+                            float(mrf.post[1][0]))
+    return mrf
+
+
+# ----------------------------------------------------------------------
+# int8-static plain versions
+# ----------------------------------------------------------------------
+
+def _int_conv(q, w, d, L_out):
+    """Valid dilated conv of int8 (B, L, C_in) by int8 taps (k, C_in,
+    C_out): the exact int32 sums, as the TPU kernel's per-tap s8 dots.
+    One float32 matmul per tap is exact (|partial sums| <= C_in * 127^2 <
+    2^24); the taps sum in int32."""
+    if w.shape[1] * 127 * 127 >= 1 << 24:
+        raise ValueError(f'C_in={w.shape[1]}: a tap sum may leave float32')
+    qf = q.float()
+    acc = None
+    for t in range(w.shape[0]):
+        c = torch.matmul(qf[:, t * d:t * d + L_out], w[t].float()).to(
+            torch.int32)
+        acc = c if acc is None else acc + c
+    return acc
+
+
+def _chain_q8(cur, steps, k, dils):
+    """One ResBlock1 chain in int8-static form by valid convs on float32
+    (B, L, C); returns (B, L - 2*chain_halo, C)."""
+    half = (k - 1) // 2
+    for (wq1, inv1, b1i, m1, wq2, sw2, b2), d in zip(steps, dils):
+        L1 = cur.shape[1] - 2 * d * half
+        acc = _int_conv(quantize_lrelu_static(cur, inv1), wq1, d, L1)
+        L2 = L1 - 2 * half
+        acc2 = _int_conv(requant_lrelu_s32(acc, b1i, m1), wq2, 1, L2)
+        sh = d * half + half
+        cur = cur[:, sh:sh + L2] + _fma(acc2, sw2, b2)
+    return cur
+
+
+def mrf_tc_q8_plain(x, mrf):
+    """The plain version of :func:`fused_mrf_tc_q8` (``fused_mrf_tc``,
+    ``q8=True``). x: (B, T, C); returns (B, T, C) in x's dtype."""
+    T = x.shape[1]
+    xp = F.pad(x.float(), (0, 0) + (max(
+        chain_halo(k, d) for k, d in zip(mrf.kernel_sizes,
+                                         mrf.dilations)),) * 2)
+    acc = None
+    with full_f32():
+        for j, (k, dils) in enumerate(zip(mrf.kernel_sizes, mrf.dilations)):
+            y = _chain_q8(xp, mrf.chains[j], k, dils)
+            extra = (y.shape[1] - T) // 2
+            y = y[:, extra:extra + T]
+            acc = y if acc is None else acc + y
+    return (acc * (1.0 / len(mrf.kernel_sizes))).to(x.dtype)
+
+
+def _ptc_geometry(mrf, rows, tile):
+    """(halo, halo_in, n_tiles, P) of a phase-tc call: chain halo and
+    upsample input halo in rows, tiles per utterance, conv_post reach."""
+    if rows % tile:
+        raise ValueError(f'rows={rows} not a multiple of tile={tile}')
+    halo = ptc_chain_halo(mrf.kernel_sizes, mrf.dilations, mrf.p)
+    P = 0
+    if mrf.post is not None:
+        post_k = mrf.post[0].shape[0]
+        if not ptc_post_feasible(mrf.kernel_sizes, mrf.dilations, mrf.p,
+                                 post_k, tile):
+            raise ValueError('chain halo too small for conv_post epilogue')
+        P = (post_k - 1) // 2
+    reach = max(chain_halo(k, d) for k, d in zip(mrf.kernel_sizes,
+                                                 mrf.dilations)) + P
+    if reach > halo * mrf.p:
+        raise ValueError(f'chain reach {reach} beyond the {halo}-row halo')
+    return halo, ptc_halo_in(halo, mrf.ups_shifts), rows // tile, P
+
+
+def ptc_amax(x, p_in, tile, halo_in):
+    """Per (utterance, tile) amax of lrelu(x) over the tile's upsample
+    input window, rows [t*tile - halo_in, (t+1)*tile + halo_in), zero
+    outside the utterance, clamped at 1e-30. x: (B, rows*p_in, C_in);
+    returns float32 (B * n_tiles,) and the lrelu'd windows."""
+    B, T_in, C_in = x.shape
+    W = (tile + 2 * halo_in) * p_in
+    xin = F.pad(x.float(), (0, 0, halo_in * p_in, halo_in * p_in))
+    win = _lrelu(xin.unfold(1, W, tile * p_in).transpose(2, 3)
+                 .reshape(-1, W, C_in))
+    return win.abs().amax(dim=(1, 2)).clamp(min=1e-30), win
+
+
+def mrf_ptc_plain(x, mrf, tile):
+    """The plain version of :func:`fused_mrf_ptc` (static mode, with the
+    upsample prologue and, when ``mrf.post`` is set, the conv_post
+    epilogue). x: (B, rows*p_in, C_in) sample-major, the phase-tc rows
+    (B, rows, p_in*C_in) reshaped. Each tile of ``tile`` rows is its own
+    function of x: the upsample quantises its input window with the
+    tile's own scale and the chains run on that tile's upsample output.
+    Returns (B, rows*p, C) in x's dtype, or with ``post`` the waveform
+    (B, 1, rows*p)."""
+    wq_u, sw_u, b_u, stride, padding, k_u = mrf.ups
+    B, T_in, _ = x.shape
+    p, p_in = mrf.p, mrf.p_in
+    halo, halo_in, n_t, P = _ptc_geometry(mrf, T_in // p_in, tile)
+    nt, amin, rows_r, _, _ = ups_geometry(k_u, stride, padding)
+    M = (tile + 2 * halo) * p_in            # input positions per segment
+    base = (halo_in - halo) * p_in + amin
+    with full_f32():
+        amax, win = ptc_amax(x, p_in, tile, halo_in)
+        q = torch.round(win * (torch.full_like(amax, 127.0) / amax)
+                        [:, None, None]).to(torch.int8)
+        sx = amax * (1.0 / 127.0)
+        x0 = win.new_empty((win.shape[0], M * stride, wq_u.shape[-1]))
+        for r in range(stride):
+            acc = _int_conv(q[:, base + rows_r[r]:], wq_u[r], 1, M)
+            x0[:, r::stride] = _fma(acc, (sw_u[r][None, :] * sx[:, None])
+                                    [:, None], b_u)
+        N = tile * p
+        acc = None
+        for j, (k, dils) in enumerate(zip(mrf.kernel_sizes, mrf.dilations)):
+            y = _chain_q8(x0, mrf.chains[j], k, dils)
+            lo = halo * p - chain_halo(k, dils) - P
+            y = y[:, lo:lo + N + 2 * P]
+            acc = y if acc is None else acc + y
+        mean = acc * (1.0 / len(mrf.kernel_sizes))
+        if mrf.post is None:
+            return mean.to(x.dtype).reshape(B, n_t * N, -1)
+        w_p, b_p, pdt = mrf.post
+        t = _lrelu(mean).to(pdt).float().transpose(1, 2)
+        y = F.conv1d(t, w_p.t()[None]) + b_p
+    return torch.tanh(y).to(x.dtype).reshape(B, 1, n_t * N)
+
+
+# ----------------------------------------------------------------------
+# int8-static CUDA launches
+# ----------------------------------------------------------------------
+
+Q8_TC_CHANNELS = (128, 256)
+Q8_PTC_UPS = ((128, 64), (64, 32))    # (C_in, C) of the fused upsample
+
+_Q8_STEP_ARGTYPES = ([_P, _I64, _I32, _I32, _I32, _I32, _P, _I64, _I32, _P,
+                      _I64, _I64, _I64, _I32, _I32, _F32] + [_P] * 7
+                     + [_I32] * 6 + [_P])
+_AMAX_ARGTYPES = [_P, _I64] + [_I32] * 6 + [_P, _I32, _P]
+_UPS_Q8_ARGTYPES = ([_P, _I64, _I32, _P, _P, _I64, _P, _P, _P]
+                    + [_I32] * 4 + [_P] + [_I32] * 7 + [_P])
+_PTC_POST_ARGTYPES = [_P, _I64, _I32, _I32, _F32, _P, _F32, _I32, _P, _I32,
+                      _I32, _P]
+
+
+def _launch_q8_step(fn, st, B, C):
+    fs = st.fin.stride() if st.fin is not None else (0, 0, 0)
+    err = fn(_build.ptr(st.src), st.src.stride(0), st.src_off, st.src_lo,
+             st.src_hi, int(st.src.dtype == torch.float32),
+             _build.ptr(st.dst), st.dst.stride(0), st.dst_off,
+             _build.ptr(st.fin) if st.fin is not None else None,
+             fs[0], fs[1], fs[2], st.mode, int(st.has_acc), st.scale,
+             *(_build.ptr(t) for t in st.weights),
+             C, st.k, st.d, st.n_lo, st.n_hi, B, _build.stream_ptr(st.dst))
+    _build.check(err, f'MRF q8 step (C={C}, k={st.k}, d={st.d})')
+
+
+def _check_q8_input(name, x, mrf, channels, c):
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f'{name}: the int8 kernels take bfloat16 '
+                         f'activations, not {x.dtype}')
+    if c not in channels:
+        raise ValueError(f'{name}: C={c} has no CUDA instantiation '
+                         f'(built for {channels})')
+    _check_kernel_sizes(name, mrf.kernel_sizes)
+    if x.device != mrf.device or mrf.chains_dev is None:
+        raise ValueError(f'{name}: x is on {x.device} but the weights were '
+                         f'prepared on {mrf.device}')
+
+
+def fused_mrf_tc_q8(x, mrf):
+    """Fused MRF group of a wide level, int8-static (``fused_mrf_tc`` with
+    ``q8=True``). x: (B, T, C) bfloat16; ``mrf`` from
+    :func:`prepare_mrf_tc_q8`. Returns (B, T, C) in x's dtype. On a CUDA
+    tensor this launches ``mrf_tc_q8.cu`` (or raises); on a CPU tensor it
+    runs :func:`mrf_tc_q8_plain`.
+
+    ``fused_mrf_tc_q8.launches`` counts CUDA launches (one per chain
+    step); ``fused_mrf_tc_q8.calls`` counts CUDA-route calls by x's
+    shape."""
+    if x.device.type == 'cpu':
+        return mrf_tc_q8_plain(x, mrf)
+    B, T, C = x.shape
+    _check_q8_input('fused_mrf_tc_q8', x, mrf, Q8_TC_CHANNELS, C)
+    x = x.contiguous()
+    steps, out = _tc_plan(x, mrf.chains_dev, mrf.kernel_sizes, mrf.dilations,
+                          _empty_on(x.device))
+    fn = _fn('mrf_tc_q8', 'mrf_tc_q8_step', _Q8_STEP_ARGTYPES)
+    for st in steps:
+        _launch_q8_step(fn, st, B, C)
+        fused_mrf_tc_q8.launches += 1
+    fused_mrf_tc_q8.calls[tuple(x.shape)] += 1
+    return out
+
+
+fused_mrf_tc_q8.launches = 0
+fused_mrf_tc_q8.calls = collections.Counter()
+
+
+@dataclass
+class PtcPrologue:
+    """The launches of the phase-tc upsample prologue, over S = B*n_tiles
+    segments (segment b*n_tiles + t is tile t of utterance b):
+    ``amax_kernel`` writes ``amax[seg]`` (float bits, from 0), the amax of
+    lrelu(x) over input samples [t*tile_in - halo_in, ... + win_len);
+    ``ups_q8_kernel`` writes ``x0[seg, stride*m + r]`` for m < m_len, the
+    upsample output at input position t*tile_in - halo_m + m."""
+    x: torch.Tensor
+    amax: torch.Tensor
+    x0: torch.Tensor
+    weights: tuple
+    n_tiles: int
+    tile_in: int
+    halo_in: int
+    win_len: int
+    halo_m: int
+    m_len: int
+    stride: int
+    ntaps: int
+    amin: int
+    rows: list
+    span: int
+
+
+def _ptc_plan(x, mrf, tile, prep, alloc):
+    """Launch plan of :func:`fused_mrf_ptc`: (prologue, steps, post or
+    None, out). Each tile is a segment of its own: the chain steps run on
+    the S segments as the batch, sample n of a segment (relative to its
+    tile) at x0[seg, n + halo*p], zero outside [-halo*p, N + halo*p)."""
+    B, T_in, _ = x.shape
+    p, p_in = mrf.p, mrf.p_in
+    halo, halo_in, n_t, P = _ptc_geometry(mrf, T_in // p_in, tile)
+    wq_u, _, _, stride, padding, k_u = mrf.ups
+    C = wq_u.shape[-1]
+    ntaps, amin, rows, span, _ = ups_geometry(k_u, stride, padding)
+    S = B * n_t
+    m_len = (tile + 2 * halo) * p_in
+    pro = PtcPrologue(x, alloc((S,), torch.float32),
+                      alloc((S, m_len * stride, C), torch.float32),
+                      mrf.ups_dev, n_t, tile * p_in, halo_in * p_in,
+                      (tile + 2 * halo_in) * p_in, halo * p_in, m_len, stride,
+                      ntaps, amin, rows, span)
+    N = tile * p
+    E = -(-(max(chain_halo(k, d) for k, d in zip(mrf.kernel_sizes,
+                                                 mrf.dilations)) + P)
+          // 8) * 8
+    bufs = alloc((3, S, N + 2 * E, C), torch.float32)
+    if mrf.post is None:
+        out = alloc((B, n_t * N, C), x.dtype)
+        fin = out.view(S, N, C)
+    else:
+        out = alloc((B, 1, n_t * N), x.dtype)
+        fin = None
+    steps = _chain_steps(pro.x0, halo * p, -halo * p, N + halo * p, prep,
+                         mrf.kernel_sizes, mrf.dilations, N, P, bufs, E, fin)
+    tail = None if mrf.post is None else Post(
+        bufs[2], E, 1.0 / len(mrf.kernel_sizes), mrf.post_dev,
+        mrf.post[0].shape[0], out)
+    return pro, steps, tail, out
+
+
+def fused_mrf_ptc(x, mrf, tile):
+    """Upsample + fused MRF group (+ conv_post) of a narrow level in the
+    int8-static serving form (``fused_mrf_ptc``, static mode, with the
+    upsample prologue). x: (B, rows*p_in, C_in) bfloat16 sample-major (the
+    phase-tc rows (B, rows, p_in*C_in) reshaped; the previous level's
+    output as it stands); ``mrf`` from :func:`prepare_mrf_ptc`; ``tile``
+    phase rows per tile (divides rows). Returns (B, rows*p, C), or with
+    ``mrf.post`` the waveform (B, 1, rows*p), in x's dtype. On a CUDA
+    tensor this launches ``mrf_ptc.cu`` (or raises); on a CPU tensor it
+    runs :func:`mrf_ptc_plain`.
+
+    ``fused_mrf_ptc.launches`` counts CUDA launches (amax, upsample, one
+    per chain step, conv_post); ``fused_mrf_ptc.calls`` counts CUDA-route
+    calls by x's shape."""
+    if mrf.ups is None:
+        raise ValueError('fused_mrf_ptc: the weights carry no upsample')
+    if x.device.type == 'cpu':
+        return mrf_ptc_plain(x, mrf, tile)
+    B, T_in, C_in = x.shape
+    C = mrf.ups[0].shape[-1]
+    _check_q8_input('fused_mrf_ptc', x, mrf, PHASE_CHANNELS, C)
+    if (C_in, C) not in Q8_PTC_UPS:
+        raise ValueError(f'fused_mrf_ptc: upsample {C_in}->{C} has no CUDA '
+                         f'instantiation (built for {Q8_PTC_UPS})')
+    x = x.contiguous()
+    pro, steps, tail, out = _ptc_plan(x, mrf, tile, mrf.chains_dev,
+                                      _empty_on(x.device))
+    S = pro.amax.shape[0]
+    if S > 65535:
+        raise ValueError(f'fused_mrf_ptc: {S} tiles in the batch exceed the '
+                         'launch grid (65535); split the batch')
+    stream = _build.stream_ptr(x)
+    pro.amax.zero_()
+    err = _fn('mrf_ptc', 'mrf_ptc_amax', _AMAX_ARGTYPES)(
+        _build.ptr(x), x.stride(0), T_in, C_in, pro.n_tiles, pro.tile_in,
+        pro.halo_in, pro.win_len, _build.ptr(pro.amax), S, stream)
+    _build.check(err, 'MRF ptc amax')
+    fused_mrf_ptc.launches += 1
+    w_u, sw_u, b_u = pro.weights
+    err = _fn('mrf_ptc', 'mrf_ptc_ups', _UPS_Q8_ARGTYPES)(
+        _build.ptr(x), x.stride(0), T_in, _build.ptr(pro.amax),
+        _build.ptr(pro.x0), pro.x0.stride(0), _build.ptr(w_u),
+        _build.ptr(sw_u), _build.ptr(b_u), pro.stride, pro.ntaps, pro.amin,
+        pro.span,
+        ctypes.cast((ctypes.c_int * pro.stride)(*pro.rows), ctypes.c_void_p),
+        pro.n_tiles, pro.tile_in, pro.halo_m, pro.m_len, C_in, C, S, stream)
+    _build.check(err, 'MRF ptc upsample')
+    fused_mrf_ptc.launches += 1
+    fn = _fn('mrf_ptc', 'mrf_ptc_step', _Q8_STEP_ARGTYPES)
+    for st in steps:
+        _launch_q8_step(fn, st, S, C)
+        fused_mrf_ptc.launches += 1
+    if tail is not None:
+        w_t, b_t = tail.weights
+        N = tile * mrf.p
+        err = _fn('mrf_ptc', 'mrf_ptc_post', _PTC_POST_ARGTYPES)(
+            _build.ptr(tail.src), tail.src.stride(0), tail.src_off, C,
+            tail.scale, _build.ptr(w_t), b_t, tail.k, _build.ptr(out), N, S,
+            stream)
+        _build.check(err, 'MRF ptc conv_post')
+        fused_mrf_ptc.launches += 1
+    fused_mrf_ptc.calls[tuple(x.shape)] += 1
+    return out
+
+
+fused_mrf_ptc.launches = 0
+fused_mrf_ptc.calls = collections.Counter()

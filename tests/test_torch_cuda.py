@@ -132,3 +132,90 @@ def test_attention_kernel_raises_for_other_head_dims():
     q = torch.zeros((1, 2, 16, 32), device='cuda')
     with pytest.raises(ValueError, match='head dim'):
         fused_attention(q, q, q, torch.full((1,), 16, device='cuda'))
+
+
+# ----------------------------------------------------------------------
+# int8-static tier. Band rel-L2 <= 2e-3 (NUMERICS_r05.json
+# ptc_vs_banded_int8): the s32 sums are exact and the f32 epilogues round
+# as the plain versions do, but conv_post sums in another order and an
+# ulp there, or in a library op of the plain version, can flip an int8
+# value downstream.
+# ----------------------------------------------------------------------
+
+def unit_params(rng, C, C_in=None, post=False):
+    """One level's params with unit-gain convs (std 1/sqrt(fan-in))."""
+    p = {f'resblock_1_{j}': {
+        f'{pre}_{i}': {'w': (rng.randn(C, C, k) * (C * k) ** -0.5
+                             ).astype(np.float32),
+                       'b': (rng.randn(C) * 0.05).astype(np.float32)}
+        for pre in ('convs1', 'convs2') for i in range(len(dils))}
+        for j, (k, dils) in enumerate(zip(KS, DILS))}
+    if C_in is not None:
+        p['ups_1'] = {'w': (rng.randn(C_in, C, 4) * (C_in * 2) ** -0.5
+                            ).astype(np.float32),
+                      'b': (rng.randn(C) * 0.05).astype(np.float32)}
+    if post:
+        p['conv_post'] = {'w': (rng.randn(1, C, 7) * (C * 7) ** -0.5
+                                ).astype(np.float32),
+                          'b': (rng.randn(1) * 0.05).astype(np.float32)}
+    return _cuda_tree(to_torch(p), torch.bfloat16)
+
+
+def q8_scales(rng, C):
+    return [tuple(torch.from_numpy((0.5 + rng.rand(len(d), C))
+                                   .astype(np.float32)).cuda()
+                  for _ in range(2)) for d in DILS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('C', [128, 256])
+def test_mrf_tc_q8_kernel_matches_plain(C):
+    need_cuda()
+    rng = np.random.RandomState(C)
+    tp = unit_params(rng, C)
+    mrf = vk.prepare_mrf_tc_q8(vk.pack_mrf_tc_int8_weights(
+        tp, 1, KS, DILS, q8_scales(rng, C)), KS, DILS)
+    x = torch.from_numpy((rng.randn(2, 1000, C) * 0.5).astype(np.float32)
+                         ).cuda().to(torch.bfloat16)
+    n, c = vk.fused_mrf_tc_q8.launches, vk.fused_mrf_tc_q8.calls[(2, 1000, C)]
+    out = vk.fused_mrf_tc_q8(x, mrf)
+    torch.cuda.synchronize()
+    assert vk.fused_mrf_tc_q8.launches == n + 9       # one per chain step
+    assert vk.fused_mrf_tc_q8.calls[(2, 1000, C)] == c + 1
+    ref = vk.mrf_tc_q8_plain(x, mrf)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    assert rel_l2(out.float().cpu(), ref.float().cpu()) <= 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('C_in,C,p_in,post', [(128, 64, 1, False),
+                                              (64, 32, 2, True)])
+def test_mrf_ptc_kernel_matches_plain(C_in, C, p_in, post):
+    """V1's L2 and L3 (with conv_post): four tiles of 256 rows, one of
+    them loud, so the tiles' upsample scales differ."""
+    need_cuda()
+    rng = np.random.RandomState(C)
+    p = 2 * p_in
+    tp = unit_params(rng, C, C_in, post)
+    ups = vk.pack_ups_ptc_weights(tp['ups_1']['w'], tp['ups_1']['b'], 2, 1,
+                                  p_in)
+    pst = vk.pack_post_ptc_weights(tp['conv_post']['w'],
+                                   tp['conv_post']['b'], p,
+                                   torch.bfloat16) if post else None
+    mrf = vk.prepare_mrf_ptc(
+        vk.pack_mrf_ptc_weights(tp, 1, KS, DILS, p, q8_scales(rng, C)), KS,
+        DILS, p, tuple(ups) + (4, 2, 1, p_in), pst)
+    rows, tile = 1024, 256
+    x = torch.from_numpy((rng.randn(2, rows * p_in, C_in) * 0.5)
+                         .astype(np.float32))
+    x[0, 256 * p_in:512 * p_in] *= 4.0
+    x = x.cuda().to(torch.bfloat16)
+    n = vk.fused_mrf_ptc.launches
+    out = vk.fused_mrf_ptc(x, mrf, tile)
+    torch.cuda.synchronize()
+    # amax, upsample, one per chain step, conv_post
+    assert vk.fused_mrf_ptc.launches == n + 11 + post
+    ref = vk.mrf_ptc_plain(x, mrf, tile)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    assert out.shape == ((2, 1, rows * p) if post else (2, rows * p, C))
+    assert rel_l2(out.float().cpu(), ref.float().cpu()) <= 2e-3

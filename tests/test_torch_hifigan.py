@@ -130,10 +130,20 @@ def test_bf16_vocoder_matches_jax_fast_wrapper():
     assert rel_l2(t_voc.infer(zero_floor)[:137 * 4], j_fast) > 2e-3
 
 
-def test_int8_tier_is_not_a_fallback():
-    _, tp, _ = _case(CFG_PHASE, seed=0)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        th.HiFiGanVocoder(tp, CFG_PHASE, fast='int8', device='cpu')
+@pytest.mark.parametrize('case', ['uncalibrated', 'batch_below_8'])
+def test_int8_tier_is_not_a_fallback(case):
+    """The int8 routes that are not ported raise, naming ROADMAP.md: the
+    int8-dynamic tier (no calibration mels) and, in the calibrated tier, a
+    narrow level below the phase-tc batch threshold of 8."""
+    _, tp, mel = _case(CFG_TC, seed=0, T=128, B=1)
+    if case == 'uncalibrated':
+        with pytest.raises(NotImplementedError, match='ROADMAP.md'):
+            th.HiFiGanVocoder(tp, CFG_TC, fast='int8', device='cpu')
+        return
+    voc = th.HiFiGanVocoder(tp, CFG_TC, fast='int8', device='cpu',
+                            int8_calibration_mels=mel)
+    with pytest.raises(NotImplementedError, match=r'batch 1 .*ROADMAP\.md'):
+        voc.infer(mel)
 
 
 def test_generator_bridge_is_a_copy_of_every_leaf():
