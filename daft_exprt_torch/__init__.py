@@ -1,9 +1,11 @@
 """daft_exprt_torch — the PyTorch/CUDA port of ``daft_exprt_tpu``.
 
 The port runs the synthesis path on an NVIDIA Hopper card (H100): the
-acoustic model's inference forward (``models/daft_exprt.py``) and the
-HiFi-GAN V1 generator (``models/hifigan.py``), with the Pallas kernels of
-the JAX package replaced by hand-written CUDA kernels (``ops/csrc``).
+serving entry point (``generate.py``), the acoustic model's inference
+forward (``models/daft_exprt.py``) and the HiFi-GAN V1 generator in its
+float32, bf16, int8-static and int8-dynamic tiers (``models/hifigan.py``),
+with the Pallas kernels of the JAX package replaced by hand-written CUDA
+kernels (``ops/csrc``).
 
 It imports ``torch`` and numpy only: never ``jax``, ``flax`` or anything of
 ``daft_exprt_tpu``. Every entry point takes ``device=`` and defaults to
@@ -14,9 +16,12 @@ Layout:
     text/      symbol table (copy of the JAX package's)
     hparams.py config system (copy of the JAX package's)
     bridge.py  JAX param pytrees (as numpy) -> torch state dicts
+    frontend/  duration quantization and WAV writing (copies)
+    utils/     chunker, plot_2d_data (copies)
     ops/       CUDA kernels (csrc/), their build step and PyTorch wrappers
     models/    acoustic model (inference) and HiFi-GAN generator
-    generate.py  bucketed synthesis entry point
+    generate.py  synthesis entry point: prosody transforms, bucketed
+               Synthesizer, generate_mel_specs
 """
 
 __version__ = '0.1.0'

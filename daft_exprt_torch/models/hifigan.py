@@ -13,35 +13,45 @@ Routes, as ``generator_forward`` in the JAX package:
   MRF groups (C >= 128) through ``fused_mrf_tc`` and the narrow levels'
   upsample + MRF group (+ conv_post at the last level) through
   ``fused_mrf_phase`` — the CUDA kernels on a CUDA tensor;
-- the int8-static tier (``use_fast=True`` with ``int8_act_scales`` from
-  :func:`calibrate_act_scales`): the wide levels through
-  ``fused_mrf_tc_q8`` and, at batch >= ``PTC_MIN_BATCH``, the narrow
-  levels (p phases x C channels = 128) through ``fused_mrf_ptc`` with its
-  upsample prologue and, at the last level, the conv_post epilogue. A
-  narrow level at a smaller batch needs the int8 ``fused_mrf_phase``,
-  which is not ported: it raises.
+- the int8 tiers (``use_fast=True`` with ``int8=True``; the static tier
+  with ``int8_act_scales`` from :func:`calibrate_act_scales`, the dynamic
+  one without): the wide levels through ``fused_mrf_tc_q8`` (static) or
+  ``fused_mrf_ct_q8`` (dynamic, per-tile scales at every conv), the
+  narrow levels (p phases x C channels = 128) with their upsample prologue
+  and, at the last level, the conv_post epilogue through ``fused_mrf_ptc``
+  (static, batch >= ``PTC_MIN_BATCH``) or ``fused_mrf_phase_q8`` (static
+  below that batch, dynamic at every batch). A level no ported kernel
+  serves raises ``NotImplementedError`` naming ROADMAP.md.
 """
 import math
 import warnings
-from dataclasses import replace
-from typing import Any, Dict
+from dataclasses import dataclass, replace
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from daft_exprt_torch.device import resolve_device
+from daft_exprt_torch.ops.mrf_int8 import (
+    ct_tile, fused_mrf_ct_q8, fused_mrf_phase_q8, mrf_ct_q8_plain,
+    mrf_phase_q8_plain, pack_mrf_phase_weights, pack_mrf_weights,
+    pack_post_phase_weights, pack_ups_phase_weights, phase_post_feasible,
+    prepare_mrf_ct_q8, prepare_mrf_phase_q8, quantize_mrf_ct_weights,
+    quantize_mrf_phase_weights, quantize_ups_phase_weights, ups_used_blocks,
+)
 from daft_exprt_torch.ops.vocoder_kernels import (
     full_f32, fused_mrf_phase, fused_mrf_ptc, fused_mrf_tc, fused_mrf_tc_q8,
-    mrf_ptc_plain, mrf_tc_q8_plain, pack_mrf_ptc_weights, pack_mrf_tc_int8_weights, pack_mrf_tc_weights,
+    mrf_ptc_plain, mrf_tc_q8_plain, pack_mrf_ptc_weights,
+    pack_mrf_tc_int8_weights, pack_mrf_tc_weights,
     pack_post_ptc_weights, pack_ups_ptc_weights, prepare_mrf,
     prepare_mrf_ptc, prepare_mrf_tc_q8, ptc_post_feasible, ptc_tile,
 )
 
 LRELU_SLOPE = 0.1
-# the int8 tier's narrow levels take the phase-tc kernel from this batch
-# size on (``DAFT_PTC_MIN_BATCH`` of the JAX package); below it they need
-# the int8 fused_mrf_phase (ROADMAP.md Queue 2 item 3)
+# the int8-static tier's narrow levels take the phase-tc kernel from this
+# batch size on (``DAFT_PTC_MIN_BATCH`` of the JAX package), the int8
+# fused_mrf_phase below it
 PTC_MIN_BATCH = 8
 
 DEFAULT_CONFIG = {
@@ -182,10 +192,11 @@ def _phase_for(c):
     return min(8, 128 // c)
 
 
-def _ptc_phases(cfg, params):
-    """{level: (p, p_in)} of the narrow levels the phase-tc kernel takes
-    (``want_ptc`` of the JAX generator less its batch and tile checks):
-    p phases after the upsample, p_in before, p*C == p_in*C_in == 128."""
+def _narrow_phases(cfg, params):
+    """{level: (p, p_in)} of the narrow levels the int8 phase kernels take
+    (``want_ptc`` of the JAX generator less its batch and tile checks, and
+    the phase chain's fused upsample): p phases after the upsample, p_in
+    before, p*C == p_in*C_in == 128."""
     out, cur_p = {}, 1
     for i, u in enumerate(cfg['upsample_rates']):
         if _fast_route(cfg, params, i) != 'phase':
@@ -200,19 +211,60 @@ def _ptc_phases(cfg, params):
     return out
 
 
-def pack_levels(params, config=None, act_scales=None):
-    """Per level, the weights its fused kernel takes. Without
-    ``act_scales``: :class:`MrfWeights` (the MRF group's weights, plus the
-    upsample at a narrow level and conv_post at the last level). With the
-    int8 tier's ``act_scales``: :class:`MrfQ8Weights` for
-    ``fused_mrf_tc_q8`` (wide levels) and ``fused_mrf_ptc`` (narrow
-    levels, built from the params' dtype as the JAX tier packs them).
-    Levels with no fused kernel are left out."""
+@dataclass
+class NarrowInt8:
+    """A narrow level's int8 weights: ``ptc`` for ``fused_mrf_ptc`` (static
+    tier only) and ``phase`` for ``fused_mrf_phase_q8`` (``q8f`` in the
+    static tier, dynamic in the dynamic one)."""
+    ptc: Optional[Any]
+    phase: Any
+
+
+def _phase_int8_weights(params, i, cfg, p, p_in, act_scales):
+    """The int8 phase kernel's weights of level i, packed as
+    ``_pallas_mrf_phase`` packs them (bands, compact gather, jitted
+    quantisation); ``act_scales`` (this level's calibration entry) selects
+    the ``q8f`` form, None the dynamic one."""
+    ks = tuple(cfg['resblock_kernel_sizes'])
+    dils = tuple(tuple(d) for d in cfg['resblock_dilation_sizes'])
+    u, k = cfg['upsample_rates'][i], cfg['upsample_kernel_sizes'][i]
+    pad = (k - u) // 2
+    ph_scales = None
+    if act_scales is not None:
+        ph_scales = [s[ii] for s1, s2 in act_scales
+                     for ii in range(s1.shape[0]) for s in (s1, s2)]
+    qw = quantize_mrf_phase_weights(
+        pack_mrf_phase_weights(params, i, ks, dils, p), ks, dils, p,
+        ph_scales)
+    w_u = params[f'ups_{i}']['w']
+    wb, bu, _, _ = pack_ups_phase_weights(w_u, params[f'ups_{i}']['b'], u,
+                                          pad, p_in)
+    ups = quantize_ups_phase_weights(wb, bu, ups_used_blocks(k, u, pad, p_in),
+                                     w_u.shape[0])
+    post = None
+    if i == len(cfg['upsample_rates']) - 1:
+        post = pack_post_phase_weights(params['conv_post']['w'],
+                                       params['conv_post']['b'], p)
+    return prepare_mrf_phase_q8(qw, ks, dils, p, tuple(ups) + (k, u, pad, p_in),
+                                post)
+
+
+def pack_levels(params, config=None, act_scales=None, int8=False):
+    """Per level, the weights its fused kernel takes. Without ``int8``:
+    :class:`MrfWeights` (the MRF group's weights, plus the upsample at a
+    narrow level and conv_post at the last level). With ``int8`` (the
+    static tier when the calibration's ``act_scales`` are given, else the
+    dynamic one; weights quantised from the params' dtype as the JAX tiers
+    quantise them): the wide levels' :class:`MrfQ8Weights` for
+    ``fused_mrf_tc_q8`` (static) or ``fused_mrf_ct_q8`` (dynamic) and the
+    narrow levels' :class:`NarrowInt8`. Levels with no fused kernel are
+    left out."""
     cfg = config or DEFAULT_CONFIG
+    int8 = int8 or act_scales is not None
     ks = tuple(cfg['resblock_kernel_sizes'])
     dils = tuple(tuple(d) for d in cfg['resblock_dilation_sizes'])
     n_ups = len(cfg['upsample_rates'])
-    ptc = _ptc_phases(cfg, params) if act_scales is not None else {}
+    narrow = _narrow_phases(cfg, params) if int8 else {}
     levels = {}
     for i in range(n_ups):
         route = _fast_route(cfg, params, i)
@@ -223,71 +275,97 @@ def pack_levels(params, config=None, act_scales=None):
                (k - u) // 2)
         post = (params['conv_post']['w'], params['conv_post']['b']) \
             if i == n_ups - 1 else None
-        if act_scales is None:
+        if not int8:
             levels[i] = prepare_mrf(
                 pack_mrf_tc_weights(params, i, ks, dils), ks, dils,
                 ups if route == 'phase' else None, post if route == 'phase'
                 else None)
-        elif route == 'tc':
+        elif route == 'tc' and act_scales is not None:
             levels[i] = prepare_mrf_tc_q8(pack_mrf_tc_int8_weights(
                 params, i, ks, dils, act_scales[i]), ks, dils)
-        elif i in ptc:
-            p, p_in = ptc[i]
-            u_ptc = pack_ups_ptc_weights(*ups, p_in)
-            if post is not None:
-                post = pack_post_ptc_weights(*post, p, dtype=post[0].dtype)
-            levels[i] = prepare_mrf_ptc(
-                pack_mrf_ptc_weights(params, i, ks, dils, p, act_scales[i]),
-                ks, dils, p, tuple(u_ptc) + (k, u, (k - u) // 2, p_in),
-                post)
+        elif route == 'tc':
+            levels[i] = prepare_mrf_ct_q8(quantize_mrf_ct_weights(
+                pack_mrf_weights(params, i, ks, dils)), ks, dils)
+        elif i in narrow:
+            p, p_in = narrow[i]
+            ptc = None
+            if act_scales is not None:
+                u_ptc = pack_ups_ptc_weights(*ups, p_in)
+                pst = None if post is None else pack_post_ptc_weights(
+                    *post, p, dtype=post[0].dtype)
+                ptc = prepare_mrf_ptc(
+                    pack_mrf_ptc_weights(params, i, ks, dils, p,
+                                         act_scales[i]),
+                    ks, dils, p, tuple(u_ptc) + (k, u, (k - u) // 2, p_in),
+                    pst)
+            levels[i] = NarrowInt8(ptc, _phase_int8_weights(
+                params, i, cfg, p, p_in,
+                None if act_scales is None else act_scales[i]))
     return levels
 
 
-def _ptc_level(x, mrf, ptc_min_batch, plain):
-    """One narrow level of the int8 tier: x (B, T, C_in) sample-major ->
+def _without_post(mrf, feasible):
+    return mrf if mrf.post is None or feasible else replace(
+        mrf, post=None, post_dev=None)
+
+
+def _narrow_int8_level(x, lvl, ptc_min_batch, plain):
+    """One narrow level of an int8 tier: x (B, T, C_in) sample-major ->
     (B, p*T/p_in, C), or the waveform (B, 1, ...) when conv_post fused.
-    Returns (y, whether conv_post fused)."""
-    B, rows = x.shape[0], x.shape[1] // mrf.p_in
-    tile = ptc_tile(rows)
-    if B < ptc_min_batch or tile is None:
+    The phase-tc kernel at batch >= ``ptc_min_batch`` (static tier), else
+    the int8 phase kernel, each with its tile rule (8192 phase rows or
+    columns, halved until it divides them). Returns (y, whether conv_post
+    fused)."""
+    mrf = lvl.ptc
+    if mrf is not None and x.shape[0] >= ptc_min_batch:
+        tile = ptc_tile(x.shape[1] // mrf.p_in)
+        if tile is not None:
+            mrf = _without_post(mrf, mrf.post is None or ptc_post_feasible(
+                mrf.kernel_sizes, mrf.dilations, mrf.p, mrf.post[0].shape[0],
+                tile))
+            return (mrf_ptc_plain if plain else fused_mrf_ptc)(x, mrf, tile), \
+                mrf.post is not None
+    mrf = lvl.phase
+    cols = x.shape[1] // mrf.p_in
+    tile = ptc_tile(cols)
+    if tile is None:
         raise NotImplementedError(
-            f'int8 tier: a narrow level at batch {B} (phase-tc takes batch '
-            f'>= {ptc_min_batch}) or with {rows} rows (no tile of >= 64 '
-            'rows divides them) needs the int8 fused_mrf_phase, which is not '
-            'ported yet (ROADMAP.md Queue 2 item 3)')
-    if mrf.post is not None and not ptc_post_feasible(
-            mrf.kernel_sizes, mrf.dilations, mrf.p, mrf.post[0].shape[0],
-            tile):
-        mrf = replace(mrf, post=None, post_dev=None)
-    return (mrf_ptc_plain if plain else fused_mrf_ptc)(x, mrf, tile), \
-        mrf.post is not None
+            f'int8 tier: a narrow level of {cols} phase columns (no tile of '
+            '>= 64 columns divides them) needs the banded fallback through '
+            'fused_mrf_ct, which is not ported (ROADMAP.md Queue 2)')
+    mrf = _without_post(mrf, mrf.post is None or phase_post_feasible(
+        mrf.kernel_sizes, mrf.dilations, mrf.p, mrf.post[0].shape[0], tile))
+    return (mrf_phase_q8_plain if plain else fused_mrf_phase_q8)(
+        x, mrf, tile), mrf.post is not None
 
 
 def generator_forward(params, mel, config=None, use_fast=False, packed=None,
-                      int8_act_scales=None, ptc_min_batch=PTC_MIN_BATCH,
-                      plain=False, _tap=None):
+                      int8=False, int8_act_scales=None,
+                      ptc_min_batch=PTC_MIN_BATCH, plain=False, _tap=None):
     """mel: (B, n_mels, T) -> wav (B, 1, T * prod(upsample_rates)), in the
     dtype of ``mel`` (cast params to it first for the bf16 route).
 
     ``use_fast`` selects the fused-kernel route (see the module note);
-    ``int8_act_scales`` (from :func:`calibrate_act_scales`) its int8-static
-    tier, whose narrow levels take the phase-tc kernel from batch
-    ``ptc_min_batch`` on; ``packed``: :func:`pack_levels` of the same
-    params (and scales), so the kernels' weight layouts are built once;
-    ``plain`` runs the int8 tier's kernels' plain versions on any device
-    (the card-side reference of ``chip_smoke.py``). ``_tap(level, x)`` is
-    called after each level with the level output in (B, C, T) layout, or
-    the waveform at a last level whose kernel fused conv_post."""
+    ``int8`` its int8 tiers: static with ``int8_act_scales`` (from
+    :func:`calibrate_act_scales`; they imply ``int8``), whose narrow levels
+    take the phase-tc kernel from batch ``ptc_min_batch`` on, dynamic
+    without; ``packed``: :func:`pack_levels` of the same params (and
+    tier), so the kernels' weight layouts are built once; ``plain`` runs
+    the int8 kernels' plain versions on any device (the card-side
+    reference of ``chip_smoke.py``). ``_tap(level, x)`` is called after
+    each level with the level output in (B, C, T) layout, or the waveform
+    at a last level whose kernel fused conv_post."""
     cfg = config or DEFAULT_CONFIG
     num_kernels = len(cfg['resblock_kernel_sizes'])
     resblock = _resblock1 if cfg['resblock'] == '1' else _resblock2
     fast = use_fast and cfg['resblock'] == '1'
-    int8 = int8_act_scales is not None
+    int8 = bool(int8) or int8_act_scales is not None
+    static = int8_act_scales is not None
     if int8 and not fast:
-        raise ValueError('the int8 tier runs in the fused kernels: it needs '
+        raise ValueError('the int8 tiers run in the fused kernels: they need '
                          'use_fast=True and ResBlock1')
     if fast and packed is None:
-        packed = pack_levels(params, cfg, int8_act_scales)
+        packed = pack_levels(params, cfg, int8_act_scales, int8)
 
     x = _conv1d(mel, params['conv_pre']['w'], params['conv_pre']['b'])
     tc = False                     # x in (B, T, C) layout
@@ -297,12 +375,20 @@ def generator_forward(params, mel, config=None, use_fast=False, packed=None,
         pad = (k - u) // 2
         route = _fast_route(cfg, params, i) if fast else None
         if route == 'tc':
-            # wide level: polyphase upsample emits (B, T, C); tc MRF kernel
+            # wide level: polyphase upsample emits (B, T, C); the MRF kernel
             x = _conv_transpose1d_poly(_lrelu(x), ups['w'], ups['b'], u, pad,
                                        in_tc=tc)
-            if int8:
+            if static:
                 x = (mrf_tc_q8_plain if plain else fused_mrf_tc_q8)(
                     x, packed[i])
+            elif int8:
+                if x.shape[2] % 32:
+                    raise NotImplementedError(
+                        f'int8-dynamic tier: level {i} (C={x.shape[2]}) needs '
+                        'the float fused_mrf_ct, which is not ported '
+                        '(ROADMAP.md Queue 2)')
+                x = (mrf_ct_q8_plain if plain else fused_mrf_ct_q8)(
+                    x, packed[i], ct_tile(x.shape[1], x.shape[2]))
             else:
                 x = fused_mrf_tc(x, packed[i])
             tc = True
@@ -312,11 +398,12 @@ def generator_forward(params, mel, config=None, use_fast=False, packed=None,
         if route == 'phase' and int8:
             if i not in packed or not tc:
                 raise NotImplementedError(
-                    f'int8 tier: level {i} is not a phase-tc level (p*C == '
-                    '128 after a tc level); it needs the int8 fused_mrf_phase '
-                    '(ROADMAP.md Queue 2 item 3)')
-            # narrow level: int8 upsample + MRF (+ conv_post), phase-tc
-            x, post_done = _ptc_level(x, packed[i], ptc_min_batch, plain)
+                    f'int8 tier: level {i} is not a narrow int8 level (p*C == '
+                    '128 after a wide level); it needs the banded int8 '
+                    'kernels, which are not ported (ROADMAP.md Queue 2)')
+            # narrow level: int8 upsample + MRF (+ conv_post)
+            x, post_done = _narrow_int8_level(x, packed[i], ptc_min_batch,
+                                              plain)
             if _tap is not None:
                 _tap(i, x if post_done else x.transpose(1, 2))
             if post_done:
@@ -409,36 +496,32 @@ class HiFiGanVocoder:
     - ``fast='int8'`` with ``int8_calibration_mels``: the int8-static tier
       (``bench.py``'s headline route). The act scales are calibrated once
       on those mels in float32 (:func:`calibrate_act_scales`), then the
-      bf16 params are packed to int8. Narrow levels need batch >=
-      ``PTC_MIN_BATCH``. Without calibration mels (the int8-dynamic tier)
-      it raises: that tier is not ported.
+      bf16 params are packed to int8.
+    - ``fast='int8'`` without them: the int8-dynamic tier (the JAX
+      wrapper's default int8 tier): every conv's activation scale is taken
+      per tile at run time.
     """
 
     def __init__(self, params, config=None, fast=False, device=None,
                  int8_calibration_mels=None):
         if fast not in (False, True, 'bf16', 'int8'):
             raise ValueError(f'unknown vocoder tier fast={fast!r}')
-        if fast == 'int8' and int8_calibration_mels is None:
-            raise NotImplementedError(
-                "HiFiGanVocoder(fast='int8') without int8_calibration_mels is "
-                'the int8-dynamic tier: it needs fused_mrf_ct and the int8 '
-                'fused_mrf_phase, which are not ported yet (ROADMAP.md Queue '
-                '2 items 2 and 3)')
         if int8_calibration_mels is not None and fast != 'int8':
             warnings.warn('int8_calibration_mels given but the serving tier '
                           f'is not int8 (fast={fast!r}): calibration ignored')
         self.config = config or DEFAULT_CONFIG
         self.device = resolve_device(device)
         self.fast = bool(fast)
+        self.int8 = fast == 'int8'
         self.dtype = torch.bfloat16 if self.fast else torch.float32
         self.act_scales = None
-        if fast == 'int8':
+        if self.int8 and int8_calibration_mels is not None:
             self.act_scales = calibrate_act_scales(
                 _to(params, torch.float32, self.device),
                 int8_calibration_mels, self.config)
         self.params = _to(params, self.dtype, self.device)
-        self.packed = pack_levels(self.params, self.config,
-                                  self.act_scales) if (
+        self.packed = pack_levels(self.params, self.config, self.act_scales,
+                                  self.int8) if (
             self.fast and self.config['resblock'] == '1') else None
 
     def infer(self, mel_spec):
@@ -460,6 +543,7 @@ class HiFiGanVocoder:
             if self.fast:
                 wav = generator_forward(self.params, mel, self.config,
                                         use_fast=True, packed=self.packed,
+                                        int8=self.int8,
                                         int8_act_scales=self.act_scales)
             else:
                 with full_f32():

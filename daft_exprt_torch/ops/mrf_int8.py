@@ -1,0 +1,934 @@
+"""int8 MRF kernels of the dynamic tier and of the static tier below the
+phase-tc batch: the CUDA kernels ``csrc/mrf_ct_q8.cu`` and
+``csrc/mrf_phase_q8.cu``, their plain PyTorch versions, packers and
+wrappers.
+
+- :func:`fused_mrf_ct_q8` replaces ``vocoder_kernels.py::fused_mrf_ct``
+  with ``int8_chain=True`` and no act scales (the ``q8`` branch of
+  ``_fused_mrf_ct_kernel``): the wide levels of the int8-dynamic tier.
+- :func:`fused_mrf_phase_q8` replaces ``fused_mrf_phase`` with
+  ``int8_chain=True``, its int8 upsample prologue and the bf16 conv_post
+  epilogue, in its ``q8`` (dynamic) and ``q8f`` (static, fused s32
+  boundary) modes: the narrow levels of the dynamic tier at any batch and
+  of the static tier below ``PTC_MIN_BATCH``.
+
+In dynamic mode every conv quantises its whole input window with one scale
+per (utterance, tile, chain, dilation, conv), ``amax(|lrelu(x)|)/127``
+over the window, so the TPU kernels' tile and halo are part of the
+function. The port keeps each tile as a segment of its own (the segments
+are the batch of every launch) and runs each conv over exactly the TPU
+kernel's window: a conv launch writes its float32 output and reduces the
+amax the next conv quantises with (``atomicMax`` on float bits). The
+phase layout (p samples per phase column) is a reshape of the port's
+sample-major tensors, so the windows are whole phase columns in samples.
+
+The packers mirror the JAX ones (held to them bit for bit by the tests);
+``prepare_*`` read the per-tap int8 weights back out of them for the
+sample-domain kernels.
+"""
+import collections
+import ctypes
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from daft_exprt_torch.ops import _build
+from daft_exprt_torch.ops.vocoder_kernels import (
+    ADD, FINAL, KERNEL_SIZES, PHASE_CHANNELS, Q8_PTC_UPS, TC_CHANNELS, WRITE,
+    MrfQ8Weights, Post, PtcPrologue, _AMAX_ARGTYPES, _F32, _I32, _I64, _P,
+    _PTC_POST_ARGTYPES, _Q8_STEP_ARGTYPES, _UPS_Q8_ARGTYPES, _chain_q8,
+    _chain_steps, _const, _empty_on, _fma, _fn, _int_conv, _launch_q8_step,
+    _lrelu, _q8_device, _ups_phase_entries, chain_halo, full_f32,
+    fuse_boundary_consts, pack_mma_s8, ptc_amax, ups_geometry,
+)
+
+
+# ----------------------------------------------------------------------
+# quantisation and geometry helpers (port of vocoder_kernels.py:54-139,
+# 761-943)
+# ----------------------------------------------------------------------
+
+def _quantize_segments(v):
+    """``_quantize_dynamic`` of lrelu(v), one scale per segment of float32
+    (S, L, C): q = rint(t * (127/amax)), no clip, amax >= 1e-30 over the
+    segment; returns (q int8, scale amax/127 (S,))."""
+    t = _lrelu(v)
+    amax = t.abs().amax(dim=(1, 2)).clamp(min=1e-30)
+    q = torch.round(t * (torch.full_like(amax, 127.0) / amax)[:, None, None])
+    return q.to(torch.int8), amax * (1.0 / 127.0)
+
+
+def resblock1_halo(kernel_size, dilations):
+    """Per-side receptive field of one chain, rounded up to 64 samples."""
+    return -(-chain_halo(kernel_size, dilations) // 64) * 64
+
+
+def ct_halo(kernel_sizes, dilations):
+    """``fused_mrf_ct``'s per-side halo: the widest chain's, 128-aligned."""
+    h = max(resblock1_halo(k, d) for k, d in zip(kernel_sizes, dilations))
+    return -(-h // 128) * 128
+
+
+def _phase_conv_spec(k, d, p):
+    """Geometry of one dilated conv in phase-p layout (``_phase_conv_spec``):
+    a conv output column q reads input columns q + dmin .. q + dmax."""
+    half = (k - 1) // 2
+    dmin = (-(d * half)) // p
+    dmax = (p - 1 + d * half) // p
+    j0 = -d * half - p * dmin
+    used = tuple(sorted({r + d * t for r in range(p) for t in range(k)}))
+    return dict(half=half, dmin=dmin, dmax=dmax, W=dmax - dmin + 1, j0=j0,
+                kcols=p + d * (k - 1), used=used,
+                runs=_stage_runs_of(used, j0, p))
+
+
+def _stage_runs_of(used, j0, p):
+    """``used`` blocks grouped into (slot, shift, phase row, length) runs."""
+    runs = []
+    i = 0
+    while i < len(used):
+        u, rp = divmod(j0 + used[i], p)
+        ln = 1
+        while (i + ln < len(used) and used[i + ln] == used[i] + ln
+               and rp + ln < p):
+            ln += 1
+        runs.append((i, u, rp, ln))
+        i += ln
+    return tuple(runs)
+
+
+def phase_chain_halo(kernel_sizes, dilations, p):
+    """Per-side halo in phase columns of the fused chain, 128-aligned."""
+    worst = 0
+    for k, dils in zip(kernel_sizes, dilations):
+        left = right = 0
+        for d in dils:
+            s1, s2 = _phase_conv_spec(k, d, p), _phase_conv_spec(k, 1, p)
+            left += -s1['dmin'] - s2['dmin']
+            right += s1['dmax'] + s2['dmax']
+        worst = max(worst, left, right)
+    return -(-worst // 128) * 128
+
+
+def _phase_chain_geometry(kernel_sizes, dilations, p, tile, halo):
+    """Per chain (column offset, columns left) after the fused chain."""
+    geo = []
+    for k, dils in zip(kernel_sizes, dilations):
+        off, cur_len = 0, tile + 2 * halo
+        for d in dils:
+            s1, s2 = _phase_conv_spec(k, d, p), _phase_conv_spec(k, 1, p)
+            off += -s1['dmin'] - s2['dmin']
+            cur_len -= (s1['W'] - 1) + (s2['W'] - 1)
+        geo.append((off, cur_len))
+    return geo
+
+
+def phase_post_feasible(kernel_sizes, dilations, p, post_k, tile):
+    """True when the chain halo leaves room for the conv_post epilogue."""
+    halo = phase_chain_halo(kernel_sizes, dilations, p)
+    sp = _phase_conv_spec(post_k, 1, p)
+    for off, cur_len in _phase_chain_geometry(kernel_sizes, dilations, p,
+                                              tile, halo):
+        start = halo + sp['dmin'] - off
+        if start < 0 or start + tile + sp['W'] - 1 > cur_len:
+            return False
+    return True
+
+
+def phase_halo_in(halo, ups_dmin, ups_dmax):
+    """Per-side halo in input columns of the upsample prologue, 128-aligned
+    (``_fused_mrf_phase_jit``'s ``halo_in``)."""
+    return -(-max(halo - ups_dmin, halo + ups_dmax) // 128) * 128
+
+
+def ct_tile(T, C, tile=8192):
+    """``fused_mrf_ct``'s time tile (``hifigan._pallas_mrf``): halved while
+    tile*C > 2^19 (down to 512), then until it divides T."""
+    eff = tile
+    while eff * C > (1 << 19) and eff > 512:
+        eff //= 2
+    if T % eff:
+        eff = min(eff, T)
+        while T % eff:
+            eff //= 2
+    return eff
+
+
+# ----------------------------------------------------------------------
+# packers (port of vocoder_kernels.py:121-131, 421-436, 468-495, 819-916,
+# 1316-1349, 1380-1390)
+# ----------------------------------------------------------------------
+#
+# The int8 weights of ``fused_mrf_ct`` and ``fused_mrf_phase`` are made
+# inside their jitted wrappers, where XLA folds a division by a constant
+# into a multiplication by its float32 reciprocal (and ``x * m / 127`` into
+# ``x * f32(m/127)``): their scales differ from the eagerly packed tc/ptc
+# ones by an ulp. The port's packers compute what the jitted code does.
+
+def quantize_rows_jit(w, row_axes=(0,)):
+    """:func:`quantize_rows` as XLA compiles it inside a jitted kernel
+    wrapper: scale = max(amax, 1e-30) * f32(1/127), q = rint(w / scale)."""
+    reduce = tuple(a for a in range(w.ndim) if a not in row_axes)
+    wf = w.float()
+    amax = wf.abs().amax(dim=reduce, keepdim=True)
+    s = amax.clamp(min=1e-30) * _const(wf, 1.0 / 127.0)
+    return torch.round(wf / s).to(torch.int8), s
+
+
+def pack_mrf_weights(params, level, kernel_sizes, dilations):
+    """One level's resblock weights for ``fused_mrf_ct``, per-tap form:
+    per chain [w1, b1, w2, b2] with w (n_dil, k, C_out, C_in) and b
+    (n_dil, C, 1)."""
+    out = []
+    for j, dils in enumerate(dilations):
+        rb = params[f'resblock_{level}_{j}']
+        for prefix in ('convs1', 'convs2'):
+            out.append(torch.stack([rb[f'{prefix}_{i}']['w'].permute(2, 0, 1)
+                                    for i in range(len(dils))]))
+            out.append(torch.stack([rb[f'{prefix}_{i}']['b'][:, None]
+                                    for i in range(len(dils))]))
+    return out
+
+
+def quantize_mrf_ct_weights(weights):
+    """``fused_mrf_ct``'s int8-dynamic weights from :func:`pack_mrf_weights`:
+    per chain [wq1, sw1, b1, wq2, sw2, b2], wq int8 quantised per
+    (dilation, output channel), sw (n_dil, C, 1), b float32."""
+    qw = []
+    for i in range(0, len(weights), 2):
+        w, b = weights[i], weights[i + 1]
+        n_dil, _, c_out, _ = w.shape
+        wq, sw = quantize_rows_jit(w, row_axes=(0, 2))
+        qw += [wq, sw.reshape(n_dil, c_out, 1), b.float()]
+    return qw
+
+
+def fold_act_scales_band(wd, s_in, C, p, margin=1.1):
+    """Fold per-channel act scales into a banded phase matrix (p*C_out,
+    kcols*C_in): column col reads channel col % C. Returns (folded float32,
+    inv_s (p*C, 1)), as jitted: s = max(s_in, 1e-30) * f32(margin/127)."""
+    s = s_in.float().clamp(min=1e-30) * _const(s_in, margin / 127.0)
+    kcols = wd.shape[1] // C
+    return wd.float() * s.repeat(kcols)[None, :], (1.0 / s).repeat(p)[:, None]
+
+
+def pack_mrf_phase_weights(params, level, kernel_sizes, dilations, p):
+    """One level's resblock weights as banded phase-p matrices: per (chain,
+    dilation) [Wd1, b1, Wd2, b2] with Wd (p*C, (p + d(k-1))*C) (row block r
+    = the phase-0 band shifted by r*C columns) and b (p*C, 1)."""
+    out = []
+    for j, dils in enumerate(dilations):
+        rb = params[f'resblock_{level}_{j}']
+        for i, d in enumerate(dils):
+            for prefix, dd in (('convs1', d), ('convs2', 1)):
+                w = rb[f'{prefix}_{i}']['w']
+                C_out, C_in, kk = w.shape
+                taps = w.permute(2, 0, 1)                      # (k, out, in)
+                if dd > 1:
+                    z = w.new_zeros((kk, dd - 1, C_out, C_in))
+                    taps = torch.cat([taps[:, None], z], dim=1).reshape(
+                        kk * dd, C_out, C_in)[:dd * (kk - 1) + 1]
+                band = taps.permute(1, 0, 2).reshape(C_out, -1)
+                out.append(torch.cat([F.pad(band, (r * C_in,
+                                                   (p - 1 - r) * C_in))
+                                      for r in range(p)]))
+                out.append(rb[f'{prefix}_{i}']['b'].repeat(p)[:, None])
+    return out
+
+
+def pack_post_phase_weights(w, b, p):
+    """conv_post (torch (C_out, C_in, k)) -> banded phase-p matrix
+    (p*C_out, k*C_in) and bias (p*C_out, 1)."""
+    C_out, C_in, k = w.shape
+    band = w.permute(0, 2, 1).reshape(C_out, k * C_in)
+    return (torch.cat([F.pad(band, (r * C_in, (p - 1 - r) * C_in))
+                       for r in range(p)]), b.repeat(p)[:, None])
+
+
+def ups_used_blocks(k, stride, padding, p_in):
+    """The C_in-column blocks of the upsample band that any entry writes."""
+    entries, dmin, _ = _ups_phase_entries(k, stride, padding, p_in)
+    return tuple(sorted({(d - dmin) * p_in + a for _, _, a, d in entries}))
+
+
+def pack_ups_phase_weights(w, b, stride, padding, p_in, dtype=None):
+    """ConvTranspose1d (torch (C_in, C_out, k)) -> the banded phase matrix
+    (po*C_out, W*p_in*C_in), bias (po*C_out, 1) float32, W and dmin."""
+    C_in, C_out, k = w.shape
+    entries, dmin, dmax = _ups_phase_entries(k, stride, padding, p_in)
+    W = dmax - dmin + 1
+    po = stride * p_in
+    dt = dtype or w.dtype
+    Wb = w.new_zeros((po * C_out, W * p_in * C_in), dtype=dt)
+    wt = w.transpose(0, 1).to(dt)                          # (C_out, C_in, k)
+    for r, j, a, d in entries:
+        blk = (d - dmin) * p_in + a
+        Wb[r * C_out:(r + 1) * C_out, blk * C_in:(blk + 1) * C_in] = \
+            wt[:, :, j]
+    return Wb, b.repeat(po)[:, None].float(), W, dmin
+
+
+def _gather(wd, spec, C):
+    """The compact column gather: the band's ``spec['used']`` C-blocks."""
+    return torch.cat([wd[:, jj * C:(jj + 1) * C] for jj in spec['used']],
+                     dim=1)
+
+
+def quantize_mrf_phase_weights(weights, kernel_sizes, dilations, p,
+                               act_scales=None):
+    """``_fused_mrf_phase_jit``'s int8 chain weights (compact form) from
+    :func:`pack_mrf_phase_weights`. Without ``act_scales`` the dynamic
+    (``q8``) form, per (chain, dilation) [wq1, sw1, b1, wq2, sw2, b2];
+    with them (per conv in pack order, (C,) calibrated amax) the fused
+    static (``q8f``) form [wq1, inv1, b1i, m1, wq2, sw2, b2]. wq are the
+    row-quantised bands with only their used column blocks."""
+    C = weights[0].shape[0] // p
+    kd = [(k, d) for k, ds in zip(kernel_sizes, dilations) for d in ds]
+
+    def spec(pair):
+        k, d = kd[pair // 2]
+        return _phase_conv_spec(k, d if pair % 2 == 0 else 1, p)
+
+    qw = []
+    for j in range(0, len(weights), 4):
+        wd1, b1, wd2, b2 = weights[j:j + 4]
+        if act_scales is None:
+            wq1, sw1 = quantize_rows_jit(wd1)
+            wq2, sw2 = quantize_rows_jit(wd2)
+            qw += [_gather(wq1, spec(j // 2), C), sw1, b1.float(),
+                   _gather(wq2, spec(j // 2 + 1), C), sw2, b2.float()]
+            continue
+        wd1f, inv1 = fold_act_scales_band(wd1, act_scales[j // 2], C, p)
+        wq1, sw1 = quantize_rows_jit(wd1f)
+        wd2f, inv2 = fold_act_scales_band(wd2, act_scales[j // 2 + 1], C, p)
+        wq2, sw2 = quantize_rows_jit(wd2f)
+        b1i, m1 = fuse_boundary_consts(sw1, b1, inv2)
+        qw += [_gather(wq1, spec(j // 2), C), inv1, b1i, m1,
+               _gather(wq2, spec(j // 2 + 1), C), sw2, b2.float()]
+    return qw
+
+
+def quantize_ups_phase_weights(wb, b, used, C_in):
+    """The int8 upsample prologue's weights: the band's used C_in blocks,
+    row-quantised (wq, sw (rows, 1)), and the bias in float32."""
+    wq, sw = quantize_rows_jit(torch.cat([wb[:, jj * C_in:(jj + 1) * C_in]
+                                      for jj in used], dim=1))
+    return wq, sw, b.float()
+
+
+# ----------------------------------------------------------------------
+# per-tap weights for the sample-domain kernels
+# ----------------------------------------------------------------------
+
+def _dyn_device(chains):
+    return [[(pack_mma_s8(wq1), sw1.contiguous(), b1.contiguous(),
+              pack_mma_s8(wq2), sw2.contiguous(), b2.contiguous())
+             for wq1, sw1, b1, wq2, sw2, b2 in steps] for steps in chains]
+
+
+def _device_chains(mrf):
+    return _dyn_device(mrf.chains) if mrf.dynamic else _q8_device(mrf.chains)
+
+
+def prepare_mrf_ct_q8(qw, kernel_sizes, dilations):
+    """Dynamic :class:`MrfQ8Weights` of a wide level from
+    :func:`quantize_mrf_ct_weights` (or the JAX packer's arrays): taps
+    (k, C_in, C_out) int8 and (C,) float32 vectors per step."""
+    kernel_sizes = tuple(kernel_sizes)
+    dilations = tuple(tuple(d) for d in dilations)
+    chains = []
+    for j, dils in enumerate(dilations):
+        wq1, sw1, b1, wq2, sw2, b2 = qw[6 * j:6 * j + 6]
+        chains.append([(wq1[i].transpose(1, 2), sw1[i, :, 0].float(),
+                        b1[i, :, 0].float(), wq2[i].transpose(1, 2),
+                        sw2[i, :, 0].float(), b2[i, :, 0].float())
+                       for i in range(len(dils))])
+    mrf = MrfQ8Weights(qw[0].device, kernel_sizes, dilations, chains,
+                       dynamic=True)
+    if mrf.device.type == 'cuda':
+        mrf.chains_dev = _device_chains(mrf)
+    return mrf
+
+
+def _band_taps(wq, k, d, p, C_out):
+    """(k, C_in, C_out) taps of row block 0 of a gathered band: tap t sits
+    at column block d*t of the full band."""
+    used = _phase_conv_spec(k, d, p)['used']
+    C_in = wq.shape[1] // len(used)
+    return torch.stack([
+        wq[:C_out, used.index(d * t) * C_in:(used.index(d * t) + 1) * C_in].t()
+        for t in range(k)])
+
+
+def prepare_mrf_phase_q8(qw, kernel_sizes, dilations, p, ups, post=None):
+    """:class:`MrfQ8Weights` of a narrow level from the phase packers:
+    ``qw`` from :func:`quantize_mrf_phase_weights` (dynamic when its steps
+    have six arrays, ``q8f`` when seven); ``ups`` = (wq, sw, bias) from
+    :func:`quantize_ups_phase_weights` followed by the ConvTranspose1d's
+    (k, stride, padding, p_in); ``post`` = (Wd, b) from
+    :func:`pack_post_phase_weights` at the last level (its dtype is the
+    epilogue's)."""
+    kernel_sizes = tuple(kernel_sizes)
+    dilations = tuple(tuple(d) for d in dilations)
+    n_steps = sum(len(d) for d in dilations)
+    per = len(qw) // n_steps
+    if per not in (6, 7) or per * n_steps != len(qw):
+        raise ValueError(f'{len(qw)} arrays for {n_steps} chain steps')
+    C = qw[0].shape[0] // p
+    chains, n = [], 0
+    for k, dils in zip(kernel_sizes, dilations):
+        steps = []
+        for d in dils:
+            st = qw[n:n + per]
+            n += per
+            t1 = _band_taps(st[0], k, d, p, C)
+            t2 = _band_taps(st[per - 3], k, 1, p, C)
+            vec = [v[:C, 0] for v in st]
+            if per == 6:
+                steps.append((t1, vec[1].float(), vec[2].float(), t2,
+                              vec[4].float(), vec[5].float()))
+            else:
+                steps.append((t1, vec[1].float(), vec[2].int(),
+                              vec[3].float(), t2, vec[5].float(),
+                              vec[6].float()))
+        chains.append(steps)
+    wq_b, sw_b, b_b, k_u, stride, padding, p_in = ups
+    if stride * p_in != p:
+        raise ValueError(f'upsample stride {stride} x input phases {p_in} '
+                         f'!= {p} phases')
+    entries, dmin, dmax = _ups_phase_entries(k_u, stride, padding, p_in)
+    used = ups_used_blocks(k_u, stride, padding, p_in)
+    C_in = wq_b.shape[1] // len(used)
+    where = {(r, j): (a, d) for r, j, a, d in entries}
+    _, _, _, _, taps = ups_geometry(k_u, stride, padding)
+
+    def tap(r, j):
+        a, d = where[r, j]
+        g = used.index((d - dmin) * p_in + a)
+        return wq_b[r * C:(r + 1) * C, g * C_in:(g + 1) * C_in].t()
+
+    wq_u = torch.stack([torch.stack([tap(r, j) for j in taps[r]])
+                        for r in range(stride)])
+    sw = torch.stack([sw_b[r * C:(r + 1) * C, 0].float()
+                      for r in range(stride)])
+    mrf = MrfQ8Weights(qw[0].device, kernel_sizes, dilations, chains,
+                       dynamic=per == 6, p=p, p_in=p_in,
+                       ups=(wq_u, sw, b_b[:C, 0].float(), stride, padding,
+                            k_u), ups_shifts=(dmin, dmax))
+    if post is not None:
+        Wd, b_p = post
+        post_k = Wd.shape[1] // C - (p - 1)                # kcols = p + k - 1
+        w_p = Wd[0, :post_k * C].reshape(post_k, C).float()  # (k, C)
+        mrf.post = (w_p, b_p[:1, 0].float(), Wd.dtype)
+    if mrf.device.type == 'cuda':
+        mrf.chains_dev = _device_chains(mrf)
+        mrf.ups_dev = (torch.cat([pack_mma_s8(wq_u[r])
+                                  for r in range(stride)]),
+                       sw.contiguous(), mrf.ups[2].contiguous())
+        if mrf.post is not None:
+            mrf.post_dev = (mrf.post[0].contiguous(), float(mrf.post[1][0]))
+    return mrf
+
+
+# ----------------------------------------------------------------------
+# plain PyTorch versions
+# ----------------------------------------------------------------------
+
+def _conv_dyn(v, w, sw, b, d, start, n):
+    """Samples [start, start + n) of the int8-dynamic conv of each segment
+    of float32 v (S, L, C): lrelu(v) quantised with its segment's scale
+    over all of v, tap t of output i reading v[start + i + t*d]; then
+    fma(acc, sw*s_x, b)."""
+    q, sx = _quantize_segments(v)
+    acc = _int_conv(q[:, start:start + n + (w.shape[0] - 1) * d], w, d, n)
+    return _fma(acc.float(), (sw[None, :] * sx[:, None])[:, None, :], b)
+
+
+def _windows(x, step, halo, length):
+    """Windows [t*step - halo, t*step - halo + length) of zero-padded x
+    (B, T, C) for every tile t, as float32 segments (B*n_tiles, length, C)."""
+    xin = F.pad(x.float(), (0, 0, halo, halo))
+    return xin.unfold(1, length, step).transpose(2, 3).reshape(
+        -1, length, x.shape[2])
+
+
+def mrf_ct_q8_plain(x, mrf, tile):
+    """The plain version of :func:`fused_mrf_ct_q8` (``fused_mrf_ct``,
+    ``int8_chain=True``, dynamic). x: (B, T, C) sample-major, T a multiple
+    of ``tile``. Each tile's chains run on the window [-halo, tile + halo)
+    of zero-padded x, every conv quantised over its whole window."""
+    B, T, C = x.shape
+    if T % tile:
+        raise ValueError(f'T={T} not a multiple of tile={tile}')
+    halo = ct_halo(mrf.kernel_sizes, mrf.dilations)
+    acc = None
+    with full_f32():
+        x0 = _windows(x, tile, halo, tile + 2 * halo)
+        for j, (k, dils) in enumerate(zip(mrf.kernel_sizes, mrf.dilations)):
+            half = (k - 1) // 2
+            cur = x0
+            for (wq1, sw1, b1, wq2, sw2, b2), d in zip(mrf.chains[j], dils):
+                L1 = cur.shape[1] - 2 * d * half
+                a1 = _conv_dyn(cur, wq1, sw1, b1, d, 0, L1)
+                L2 = L1 - 2 * half
+                a2 = _conv_dyn(a1, wq2, sw2, b2, 1, 0, L2)
+                sh = d * half + half
+                cur = cur[:, sh:sh + L2] + a2
+            extra = (cur.shape[1] - tile) // 2
+            y = cur[:, extra:extra + tile]
+            acc = y if acc is None else acc + y
+    out = acc * (1.0 / len(mrf.kernel_sizes))
+    return out.to(x.dtype).reshape(B, T, C)
+
+
+def _phase_geometry(mrf, cols, tile):
+    """(halo, halo_in, n_tiles, P) of a phase call in phase columns: chain
+    halo, upsample input halo, tiles per utterance, conv_post reach."""
+    if cols % tile:
+        raise ValueError(f'T/p={cols} not a multiple of tile={tile}')
+    halo = phase_chain_halo(mrf.kernel_sizes, mrf.dilations, mrf.p)
+    P = 0
+    if mrf.post is not None:
+        post_k = mrf.post[0].shape[0]
+        if not phase_post_feasible(mrf.kernel_sizes, mrf.dilations, mrf.p,
+                                   post_k, tile):
+            raise ValueError('chain halo too small for conv_post epilogue')
+        P = (post_k - 1) // 2
+    reach = max(chain_halo(k, d) for k, d in zip(mrf.kernel_sizes,
+                                                 mrf.dilations)) + P
+    if reach > halo * mrf.p:
+        raise ValueError(f'chain reach {reach} beyond the {halo}-column halo')
+    return (halo, phase_halo_in(halo, *mrf.ups_shifts), cols // tile, P)
+
+
+def _phase_prologue_plain(x, mrf, tile, halo, halo_in):
+    """The int8 upsample prologue per tile: float32 segments (S, (tile +
+    2*halo)*p, C), sample n of a tile at n + halo*p."""
+    wq_u, sw_u, b_u, stride, padding, k_u = mrf.ups
+    p_in = mrf.p_in
+    _, amin, rows_r, _, _ = ups_geometry(k_u, stride, padding)
+    M = (tile + 2 * halo) * p_in
+    base = (halo_in - halo) * p_in + amin
+    amax, win = ptc_amax(x, p_in, tile, halo_in)
+    q = torch.round(win * (torch.full_like(amax, 127.0) / amax)
+                    [:, None, None]).to(torch.int8)
+    sx = amax * (1.0 / 127.0)
+    x0 = win.new_empty((win.shape[0], M * stride, wq_u.shape[-1]))
+    for r in range(stride):
+        acc = _int_conv(q[:, base + rows_r[r]:], wq_u[r], 1, M)
+        x0[:, r::stride] = _fma(acc.float(), (sw_u[r][None, :] * sx[:, None])
+                                [:, None], b_u)
+    return x0
+
+
+def _phase_dyn_chain(x0, steps, k, dils, p, halo, N, P):
+    """One chain in the phase kernel's dynamic form on segments x0 (sample
+    n of a tile at n + halo*p): each conv over the phase columns the TPU
+    kernel computes, quantised over them. Returns the chain output at
+    samples [-P, tile*p + P)."""
+    cur, off = x0, 0
+    half = (k - 1) // 2
+    for (wq1, sw1, b1, wq2, sw2, b2), d in zip(steps, dils):
+        s1, s2 = _phase_conv_spec(k, d, p), _phase_conv_spec(k, 1, p)
+        L1 = cur.shape[1] // p - (s1['W'] - 1)
+        a1 = _conv_dyn(cur, wq1, sw1, b1, d, -p * s1['dmin'] - d * half,
+                       p * L1)
+        L2 = L1 - (s2['W'] - 1)
+        a2 = _conv_dyn(a1, wq2, sw2, b2, 1, -p * s2['dmin'] - half, p * L2)
+        shift = -s1['dmin'] - s2['dmin']
+        cur = cur[:, p * shift:p * (shift + L2)] + a2
+        off += shift
+    lo = p * (halo - off) - P                # sample -P
+    return cur[:, lo:lo + N + 2 * P]
+
+
+def mrf_phase_q8_plain(x, mrf, tile):
+    """The plain version of :func:`fused_mrf_phase_q8` (``fused_mrf_phase``
+    with ``int8_chain=True``, the upsample prologue and, when
+    ``mrf.post`` is set, the conv_post epilogue), dynamic or ``q8f`` as
+    ``mrf.dynamic`` says. x: (B, cols*p_in, C_in) sample-major (the phase
+    layout (B, p_in*C_in, cols) reshaped); ``tile`` phase columns per tile
+    (divides cols). Returns (B, cols*p, C), or with ``post`` the waveform
+    (B, 1, cols*p), in x's dtype."""
+    B, T_in, _ = x.shape
+    p = mrf.p
+    halo, halo_in, n_t, P = _phase_geometry(mrf, T_in // mrf.p_in, tile)
+    N = tile * p
+    with full_f32():
+        x0 = _phase_prologue_plain(x, mrf, tile, halo, halo_in)
+        acc = None
+        for j, (k, dils) in enumerate(zip(mrf.kernel_sizes, mrf.dilations)):
+            if mrf.dynamic:
+                y = _phase_dyn_chain(x0, mrf.chains[j], k, dils, p, halo, N,
+                                     P)
+            else:
+                y = _chain_q8(x0, mrf.chains[j], k, dils)
+                lo = halo * p - chain_halo(k, dils) - P
+                y = y[:, lo:lo + N + 2 * P]
+            acc = y if acc is None else acc + y
+        mean = acc * (1.0 / len(mrf.kernel_sizes))
+        if mrf.post is None:
+            return mean.to(x.dtype).reshape(B, n_t * N, -1)
+        w_p, b_p, pdt = mrf.post
+        t = _lrelu(mean).to(pdt).float().transpose(1, 2)
+        y = F.conv1d(t, w_p.t()[None]) + b_p
+    return torch.tanh(y).to(x.dtype).reshape(B, 1, n_t * N)
+
+
+# ----------------------------------------------------------------------
+# launch plans (shared by the CUDA routes and the CPU replay in the tests)
+# ----------------------------------------------------------------------
+
+@dataclass
+class SegView:
+    """Sample n of tile t of utterance b at ``t[b*bs + t*ts + (n + off)*C]``
+    (element offsets into the flat tensor), zero unless lo <= n + t*vstep
+    < hi. A buffer of segments has vstep 0; x itself has vstep = tile."""
+    t: torch.Tensor
+    bs: int
+    ts: int
+    off: int
+    lo: int
+    hi: int
+    vstep: int = 0
+
+
+@dataclass
+class DynConv:
+    """One launch of ``conv_dyn_kernel`` over every segment: samples
+    [n_lo, n_hi) of the int8-dynamic conv of ``src`` (scale from amax word
+    ``a_in``) plus, when given, the residual ``res``; written to ``dst``
+    (float32 segments, by ``mode``) or, in FINAL mode, scaled into ``fin``
+    = (tensor, bs, ts, ns, cs); ``a_out``: the amax word it reduces
+    max|lrelu(result)| into, or None."""
+    src: SegView
+    a_in: int
+    res: Optional[SegView]
+    dst: SegView
+    mode: int
+    has_acc: bool
+    scale: float
+    fin: Optional[tuple]
+    a_out: Optional[int]
+    weights: tuple        # (wq, sw, b) of this conv
+    k: int
+    d: int
+    n_lo: int
+    n_hi: int
+
+
+def _seg_buffer(buf, n_t, off, lo, hi):
+    L, C = buf.shape[1], buf.shape[2]
+    return SegView(buf, n_t * L * C, L * C, off, lo, hi)
+
+
+def _dyn_steps(src, a0, prep, kernel_sizes, dilations, p, lo, hi, bufs, n_t,
+               E, out_lo, out_hi, fin, words):
+    """The conv launches of one MRF group in dynamic form. ``src``: the
+    chains' shared input, its window [lo, hi) (samples of the tile), amax
+    word ``a0``; ``prep[j][i]``: weights of chain j, dilation i; ``bufs``:
+    four float32 segment buffers (two residual ping-pong buffers, the
+    chain sum, the conv1 output), sample n at n + E. p = 1: ``fused_mrf_ct``'s
+    windows (each conv shrinks its window by its reach per side); p > 1:
+    the phase kernel's (whole phase columns, ``_phase_conv_spec``). Each
+    chain's last conv2 covers [out_lo, out_hi). ``words``: the next free
+    amax word (an iterator)."""
+    steps = []
+    nb = len(kernel_sizes)
+    for j, (k, dils) in enumerate(zip(kernel_sizes, dilations)):
+        half = (k - 1) // 2
+        cur, a_cur, c_lo, c_hi = src, a0, lo, hi
+        for i, d in enumerate(dils):
+            w1, s1, b1, w2, s2, b2 = prep[j][i]
+            last = i == len(dils) - 1
+            if p == 1:
+                l1, h1 = c_lo + d * half, c_hi - d * half
+                l2, h2 = l1 + half, h1 - half
+            else:
+                sp1, sp2 = _phase_conv_spec(k, d, p), _phase_conv_spec(k, 1, p)
+                l1 = c_lo - p * sp1['dmin']
+                h1 = l1 + (c_hi - c_lo) - p * (sp1['W'] - 1)
+                l2 = l1 - p * sp2['dmin']
+                h2 = l2 + (h1 - l1) - p * (sp2['W'] - 1)
+            a1 = _seg_buffer(bufs[3], n_t, E, l1, h1)
+            mid = next(words)
+            steps.append(DynConv(cur, a_cur, None, a1, WRITE, False, 1.0, None,
+                                 mid, (w1, s1, b1), k, d, l1, h1))
+            a_out, fin_st, has_acc = None, None, False
+            if not last:
+                dst, mode = bufs[i % 2], WRITE
+                a_out = next(words)
+            else:
+                l2, h2 = out_lo, out_hi
+                if fin is not None and j == nb - 1:
+                    dst, mode, has_acc, fin_st = bufs[2], FINAL, j > 0, fin
+                else:
+                    dst, mode = bufs[2], (WRITE if j == 0 else ADD)
+            dview = _seg_buffer(dst, n_t, E, l2, h2)
+            steps.append(DynConv(a1, mid, cur, dview, mode, has_acc,
+                                 1.0 / nb, fin_st, a_out, (w2, s2, b2), k, 1,
+                                 l2, h2))
+            cur, a_cur, c_lo, c_hi = dview, a_out, l2, h2
+    return steps
+
+
+@dataclass
+class CtPlan:
+    """The launches of :func:`fused_mrf_ct_q8`: ``amax_kernel`` into word 0
+    of ``amax`` (the x windows), then the conv launches ``steps``."""
+    amax: torch.Tensor        # (words, S) float32, float bits, from 0
+    n_tiles: int
+    tile: int
+    halo: int
+    steps: list
+    out: torch.Tensor
+
+
+def _n_words(dilations):
+    return 2 + sum(2 * len(d) - 1 for d in dilations)
+
+
+def _ct_plan(x, prep, kernel_sizes, dilations, tile, alloc):
+    B, T, C = x.shape
+    if T % tile:
+        raise ValueError(f'T={T} not a multiple of tile={tile}')
+    halo = ct_halo(kernel_sizes, dilations)
+    n_t = T // tile
+    S = B * n_t
+    bufs = alloc((4, S, tile + 2 * halo, C), torch.float32)
+    amax = alloc((_n_words(dilations), S), torch.float32)
+    out = alloc((B, T, C), x.dtype)
+    xv = SegView(x, T * C, tile * C, 0, 0, T, tile)
+    steps = _dyn_steps(xv, 0, prep, kernel_sizes, dilations, 1, -halo,
+                       tile + halo, bufs, n_t, halo, 0, tile,
+                       (out, T * C, tile * C, C, 1), iter(range(1, 1 << 30)))
+    return CtPlan(amax, n_t, tile, halo, steps, out)
+
+
+@dataclass
+class PhasePlan:
+    """The launches of :func:`fused_mrf_phase_q8`: the prologue (amax of
+    the upsample input into word 0, the int8 upsample into ``pro.x0``, in
+    dynamic mode reducing x0's amax into word 1), the chain launches
+    (``DynConv`` or q8 ``Step``) and conv_post (``tail``)."""
+    pro: PtcPrologue
+    amax: torch.Tensor
+    steps: list
+    tail: Optional[Post]
+    out: torch.Tensor
+
+
+def _phase_plan(x, mrf, tile, prep, alloc):
+    B, T_in, _ = x.shape
+    p, p_in = mrf.p, mrf.p_in
+    halo, halo_in, n_t, P = _phase_geometry(mrf, T_in // p_in, tile)
+    wq_u, _, _, stride, padding, k_u = mrf.ups
+    C = wq_u.shape[-1]
+    ntaps, amin, rows, span, _ = ups_geometry(k_u, stride, padding)
+    S = B * n_t
+    m_len = (tile + 2 * halo) * p_in
+    E = halo * p
+    amax = alloc((_n_words(mrf.dilations), S), torch.float32)
+    pro = PtcPrologue(x, amax[0], alloc((S, m_len * stride, C), torch.float32),
+                      mrf.ups_dev, n_t, tile * p_in, halo_in * p_in,
+                      (tile + 2 * halo_in) * p_in, halo * p_in, m_len, stride,
+                      ntaps, amin, rows, span)
+    N = tile * p
+    bufs = alloc((4, S, N + 2 * E, C), torch.float32)
+    if mrf.post is None:
+        out = alloc((B, n_t * N, C), x.dtype)
+        fin_view = out.view(S, N, C)
+    else:
+        out = alloc((B, 1, n_t * N), x.dtype)
+        fin_view = None
+    if mrf.dynamic:
+        x0 = _seg_buffer(pro.x0, n_t, E, -E, N + E)
+        fin = None if fin_view is None else (out, n_t * N * C, N * C, C, 1)
+        steps = _dyn_steps(x0, 1, prep, mrf.kernel_sizes, mrf.dilations, p,
+                           -E, N + E, bufs, n_t, E, -P, N + P, fin,
+                           iter(range(2, 1 << 30)))
+    else:
+        steps = _chain_steps(pro.x0, E, -E, N + E, prep, mrf.kernel_sizes,
+                             mrf.dilations, N, P, bufs[:3], E, fin_view)
+    tail = None if mrf.post is None else Post(
+        bufs[2], E, 1.0 / len(mrf.kernel_sizes), mrf.post_dev,
+        mrf.post[0].shape[0], out)
+    return PhasePlan(pro, amax, steps, tail, out)
+
+
+# ----------------------------------------------------------------------
+# CUDA launches
+# ----------------------------------------------------------------------
+
+_VIEW = [_P, _I64, _I64] + [_I32] * 5
+_DYN_ARGTYPES = (_VIEW + [_P] + _VIEW + [_P, _I64, _I64, _I32]
+                 + [_P] + [_I64] * 4 + [_I32, _I32, _F32, _P] + [_P] * 3
+                 + [_I32] * 7 + [_P])
+_UPS_Q8_AMAX_ARGTYPES = _UPS_Q8_ARGTYPES[:-1] + [_P, _P]
+_MAX_SEGMENTS = 65535                 # the launch grid's y extent
+
+
+def _view_args(v):
+    if v is None:
+        return [None, 0, 0, 0, 0, 0, 0, 0]
+    return [_build.ptr(v.t), v.bs, v.ts, v.off, v.lo, v.hi, v.vstep,
+            int(v.t.dtype == torch.float32)]
+
+
+def _launch_dyn(fn, st, amax, C, n_tiles, S, stream):
+    fin, fbs, fts, fns, fcs = st.fin if st.fin is not None else \
+        (None, 0, 0, 0, 0)
+    w, sw, b = st.weights
+    err = fn(*_view_args(st.src), _build.ptr(amax[st.a_in]),
+             *_view_args(st.res), _build.ptr(st.dst.t), st.dst.bs,
+             st.dst.ts, st.dst.off,
+             _build.ptr(fin) if fin is not None else None, fbs, fts, fns,
+             fcs, st.mode, int(st.has_acc), st.scale,
+             _build.ptr(amax[st.a_out]) if st.a_out is not None else None,
+             _build.ptr(w), _build.ptr(sw), _build.ptr(b), C, st.k, st.d,
+             st.n_lo, st.n_hi, n_tiles, S, stream)
+    _build.check(err, f'MRF int8 conv (C={C}, k={st.k}, d={st.d})')
+
+
+def _check_input(name, x, mrf, channels, c, dynamic):
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f'{name}: the int8 kernels take bfloat16 '
+                         f'activations, not {x.dtype}')
+    if c not in channels:
+        raise ValueError(f'{name}: C={c} has no CUDA instantiation '
+                         f'(built for {channels})')
+    bad = [k for k in mrf.kernel_sizes if k not in KERNEL_SIZES]
+    if bad:
+        raise ValueError(f'{name}: kernel sizes {bad} have no CUDA '
+                         f'instantiation (built for {KERNEL_SIZES})')
+    if dynamic is not None and mrf.dynamic != dynamic:
+        raise ValueError(f'{name}: the weights are not the int8-dynamic form')
+    if x.device != mrf.device or mrf.chains_dev is None:
+        raise ValueError(f'{name}: x is on {x.device} but the weights were '
+                         f'prepared on {mrf.device}')
+
+
+def _check_segments(name, S):
+    if S > _MAX_SEGMENTS:
+        raise ValueError(f'{name}: {S} tiles in the batch exceed the launch '
+                         f'grid ({_MAX_SEGMENTS}); split the batch')
+
+
+def fused_mrf_ct_q8(x, mrf, tile):
+    """Fused MRF group of a wide level in the int8-dynamic form
+    (``fused_mrf_ct`` with ``int8_chain=True``, no act scales). x: (B, T, C)
+    bfloat16 sample-major; ``mrf`` from :func:`prepare_mrf_ct_q8`; ``tile``
+    samples per tile (divides T; :func:`ct_tile` gives the JAX package's
+    rule). Returns (B, T, C) bfloat16. On a CUDA tensor this launches
+    ``mrf_ct_q8.cu`` (or raises); on a CPU tensor it runs
+    :func:`mrf_ct_q8_plain`.
+
+    ``fused_mrf_ct_q8.launches`` counts CUDA launches (the window amax, two
+    per chain step); ``fused_mrf_ct_q8.calls`` counts CUDA-route calls by
+    x's shape."""
+    if x.device.type == 'cpu':
+        return mrf_ct_q8_plain(x, mrf, tile)
+    B, T, C = x.shape
+    _check_input('fused_mrf_ct_q8', x, mrf, TC_CHANNELS, C, True)
+    x = x.contiguous()
+    plan = _ct_plan(x, mrf.chains_dev, mrf.kernel_sizes, mrf.dilations,
+                    tile, _empty_on(x.device))
+    S = plan.amax.shape[1]
+    _check_segments('fused_mrf_ct_q8', S)
+    stream = _build.stream_ptr(x)
+    plan.amax.zero_()
+    err = _fn('mrf_ct_q8', 'mrf_ct_q8_amax', _AMAX_ARGTYPES)(
+        _build.ptr(x), x.stride(0), T, C, plan.n_tiles, tile, plan.halo,
+        tile + 2 * plan.halo, _build.ptr(plan.amax[0]), S, stream)
+    _build.check(err, 'MRF ct amax')
+    fused_mrf_ct_q8.launches += 1
+    fn = _fn('mrf_ct_q8', 'mrf_ct_q8_conv', _DYN_ARGTYPES)
+    for st in plan.steps:
+        _launch_dyn(fn, st, plan.amax, C, plan.n_tiles, S, stream)
+        fused_mrf_ct_q8.launches += 1
+    fused_mrf_ct_q8.calls[tuple(x.shape)] += 1
+    return plan.out
+
+
+fused_mrf_ct_q8.launches = 0
+fused_mrf_ct_q8.calls = collections.Counter()
+
+
+def fused_mrf_phase_q8(x, mrf, tile):
+    """Upsample + fused MRF group (+ conv_post) of a narrow level in the
+    int8 forms of ``fused_mrf_phase`` (``int8_chain=True``): dynamic, or
+    ``q8f`` (static, fused s32 boundary), as ``mrf.dynamic`` says; the
+    upsample's input scale is dynamic per tile in both. x: (B, cols*p_in,
+    C_in) bfloat16 sample-major (the previous level's output as it
+    stands); ``mrf`` from :func:`prepare_mrf_phase_q8` (or, static, from
+    ``vocoder_kernels.prepare_mrf_ptc``: the same per-tap weights);
+    ``tile`` phase columns per tile (divides cols). Returns (B, cols*p, C),
+    or with ``mrf.post`` the waveform (B, 1, cols*p), bfloat16. On a CUDA
+    tensor this launches ``mrf_phase_q8.cu`` (or raises); on a CPU tensor
+    it runs :func:`mrf_phase_q8_plain`.
+
+    ``fused_mrf_phase_q8.launches`` counts CUDA launches (amax, upsample,
+    two per chain step dynamic or one static, conv_post);
+    ``fused_mrf_phase_q8.calls`` counts CUDA-route calls by x's shape and
+    mode: (B, T_in, C_in, 'dynamic' or 'q8f')."""
+    if mrf.ups is None:
+        raise ValueError('fused_mrf_phase_q8: the weights carry no upsample')
+    if x.device.type == 'cpu':
+        return mrf_phase_q8_plain(x, mrf, tile)
+    B, T_in, C_in = x.shape
+    C = mrf.ups[0].shape[-1]
+    _check_input('fused_mrf_phase_q8', x, mrf, PHASE_CHANNELS, C, None)
+    if (C_in, C) not in Q8_PTC_UPS:
+        raise ValueError(f'fused_mrf_phase_q8: upsample {C_in}->{C} has no '
+                         f'CUDA instantiation (built for {Q8_PTC_UPS})')
+    x = x.contiguous()
+    plan = _phase_plan(x, mrf, tile, mrf.chains_dev, _empty_on(x.device))
+    pro = plan.pro
+    S = plan.amax.shape[1]
+    _check_segments('fused_mrf_phase_q8', S)
+    stream = _build.stream_ptr(x)
+    plan.amax.zero_()
+    err = _fn('mrf_phase_q8', 'mrf_phase_q8_amax', _AMAX_ARGTYPES)(
+        _build.ptr(x), x.stride(0), T_in, C_in, pro.n_tiles, pro.tile_in,
+        pro.halo_in, pro.win_len, _build.ptr(pro.amax), S, stream)
+    _build.check(err, 'MRF phase q8 amax')
+    fused_mrf_phase_q8.launches += 1
+    w_u, sw_u, b_u = pro.weights
+    err = _fn('mrf_phase_q8', 'mrf_phase_q8_ups', _UPS_Q8_AMAX_ARGTYPES)(
+        _build.ptr(x), x.stride(0), T_in, _build.ptr(pro.amax),
+        _build.ptr(pro.x0), pro.x0.stride(0), _build.ptr(w_u),
+        _build.ptr(sw_u), _build.ptr(b_u), pro.stride, pro.ntaps, pro.amin,
+        pro.span,
+        ctypes.cast((ctypes.c_int * pro.stride)(*pro.rows), ctypes.c_void_p),
+        pro.n_tiles, pro.tile_in, pro.halo_m, pro.m_len, C_in, C, S,
+        _build.ptr(plan.amax[1]) if mrf.dynamic else None, stream)
+    _build.check(err, 'MRF phase q8 upsample')
+    fused_mrf_phase_q8.launches += 1
+    if mrf.dynamic:
+        fn = _fn('mrf_phase_q8', 'mrf_phase_q8_conv', _DYN_ARGTYPES)
+        for st in plan.steps:
+            _launch_dyn(fn, st, plan.amax, C, pro.n_tiles, S, stream)
+            fused_mrf_phase_q8.launches += 1
+    else:
+        fn = _fn('mrf_phase_q8', 'mrf_phase_q8_step', _Q8_STEP_ARGTYPES)
+        for st in plan.steps:
+            _launch_q8_step(fn, st, S, C)
+            fused_mrf_phase_q8.launches += 1
+    tail = plan.tail
+    if tail is not None:
+        w_t, b_t = tail.weights
+        err = _fn('mrf_phase_q8', 'mrf_phase_q8_post', _PTC_POST_ARGTYPES)(
+            _build.ptr(tail.src), tail.src.stride(0), tail.src_off, C,
+            tail.scale, _build.ptr(w_t), b_t, tail.k, _build.ptr(plan.out),
+            tile * mrf.p, S, stream)
+        _build.check(err, 'MRF phase q8 conv_post')
+        fused_mrf_phase_q8.launches += 1
+    fused_mrf_phase_q8.calls[tuple(x.shape) + (
+        'dynamic' if mrf.dynamic else 'q8f',)] += 1
+    return plan.out
+
+
+fused_mrf_phase_q8.launches = 0
+fused_mrf_phase_q8.calls = collections.Counter()

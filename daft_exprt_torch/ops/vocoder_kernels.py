@@ -844,11 +844,16 @@ class MrfQ8Weights:
     ``p`` / ``p_in`` (phases after / before the upsample) and, at the last
     level, ``post`` = (w (k, C) float32 of ``post_dtype`` values, bias
     (1,) float32, post_dtype). For weights on a CUDA device the ``*_dev``
-    fields hold the kernels' format (None on the CPU)."""
+    fields hold the kernels' format (None on the CPU).
+
+    ``dynamic`` weights (the int8-dynamic tier, ``ops/mrf_int8.py``) hold
+    per step (wq1, sw1, b1, wq2, sw2, b2) with float32 (C,) vectors: the
+    activation scales are taken per tile at run time."""
     device: torch.device
     kernel_sizes: tuple
     dilations: tuple
     chains: list
+    dynamic: bool = False
     p: int = 1
     p_in: int = 1
     ups: Optional[tuple] = None
@@ -1124,6 +1129,8 @@ def _check_q8_input(name, x, mrf, channels, c):
         raise ValueError(f'{name}: C={c} has no CUDA instantiation '
                          f'(built for {channels})')
     _check_kernel_sizes(name, mrf.kernel_sizes)
+    if mrf.dynamic:
+        raise ValueError(f'{name}: the weights are the int8-dynamic form')
     if x.device != mrf.device or mrf.chains_dev is None:
         raise ValueError(f'{name}: x is on {x.device} but the weights were '
                          f'prepared on {mrf.device}')

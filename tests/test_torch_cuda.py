@@ -219,3 +219,75 @@ def test_mrf_ptc_kernel_matches_plain(C_in, C, p_in, post):
     assert out.dtype == torch.bfloat16 and out.shape == ref.shape
     assert out.shape == ((2, 1, rows * p) if post else (2, rows * p, C))
     assert rel_l2(out.float().cpu(), ref.float().cpu()) <= 2e-3
+
+
+# ----------------------------------------------------------------------
+# int8-dynamic tier and the int8 phase kernel (ops/mrf_int8.py). Same
+# band: the s32 sums are exact and the f32 epilogues round as the plain
+# versions do; a flip of one int8 value near a tile's amax can requantise
+# the tile.
+# ----------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('C,T,tile', [(128, 2048, 512), (256, 1536, 512)])
+def test_mrf_ct_q8_kernel_matches_plain(C, T, tile):
+    from daft_exprt_torch.ops import mrf_int8 as mi
+    need_cuda()
+    rng = np.random.RandomState(C)
+    tp = unit_params(rng, C)
+    mrf = mi.prepare_mrf_ct_q8(mi.quantize_mrf_ct_weights(
+        mi.pack_mrf_weights(tp, 1, KS, DILS)), KS, DILS)
+    x = torch.from_numpy((rng.randn(2, T, C) * 0.5).astype(np.float32))
+    x[0, :tile] *= 4.0
+    x = x.cuda().to(torch.bfloat16)
+    n, c = mi.fused_mrf_ct_q8.launches, mi.fused_mrf_ct_q8.calls[(2, T, C)]
+    out = mi.fused_mrf_ct_q8(x, mrf, tile)
+    torch.cuda.synchronize()
+    assert mi.fused_mrf_ct_q8.launches == n + 19     # amax, two per step
+    assert mi.fused_mrf_ct_q8.calls[(2, T, C)] == c + 1
+    ref = mi.mrf_ct_q8_plain(x, mrf, tile)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    assert rel_l2(out.float().cpu(), ref.float().cpu()) <= 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('static', [False, True])
+@pytest.mark.parametrize('C_in,C,p_in,post', [(128, 64, 1, False),
+                                              (64, 32, 2, True)])
+def test_mrf_phase_q8_kernel_matches_plain(C_in, C, p_in, post, static):
+    """V1's L2 and L3 (with conv_post), four tiles of 256 columns, one of
+    them loud; dynamic and q8f."""
+    from daft_exprt_torch.ops import mrf_int8 as mi
+    need_cuda()
+    rng = np.random.RandomState(C + static)
+    p = 2 * p_in
+    tp = unit_params(rng, C, C_in, post)
+    scales = None
+    if static:
+        scales = [s[i] for s1, s2 in q8_scales(rng, C)
+                  for i in range(s1.shape[0]) for s in (s1, s2)]
+    qw = mi.quantize_mrf_phase_weights(
+        mi.pack_mrf_phase_weights(tp, 1, KS, DILS, p), KS, DILS, p, scales)
+    wb, bu, _, _ = mi.pack_ups_phase_weights(tp['ups_1']['w'],
+                                             tp['ups_1']['b'], 2, 1, p_in)
+    ups = mi.quantize_ups_phase_weights(
+        wb, bu, mi.ups_used_blocks(4, 2, 1, p_in), C_in)
+    pst = mi.pack_post_phase_weights(tp['conv_post']['w'],
+                                     tp['conv_post']['b'], p) if post else None
+    mrf = mi.prepare_mrf_phase_q8(qw, KS, DILS, p,
+                                  tuple(ups) + (4, 2, 1, p_in), pst)
+    cols, tile = 1024, 256
+    x = torch.from_numpy((rng.randn(2, cols * p_in, C_in) * 0.5)
+                         .astype(np.float32))
+    x[0, 256 * p_in:512 * p_in] *= 4.0
+    x = x.cuda().to(torch.bfloat16)
+    n = mi.fused_mrf_phase_q8.launches
+    out = mi.fused_mrf_phase_q8(x, mrf, tile)
+    torch.cuda.synchronize()
+    # amax, upsample, the chain launches, conv_post
+    assert mi.fused_mrf_phase_q8.launches == n + 2 + (9 if static else 18) \
+        + post
+    ref = mi.mrf_phase_q8_plain(x, mrf, tile)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    assert out.shape == ((2, 1, cols * p) if post else (2, cols * p, C))
+    assert rel_l2(out.float().cpu(), ref.float().cpu()) <= 2e-3

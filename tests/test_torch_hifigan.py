@@ -132,18 +132,34 @@ def test_bf16_vocoder_matches_jax_fast_wrapper():
 
 @pytest.mark.parametrize('case', ['uncalibrated', 'batch_below_8'])
 def test_int8_tier_is_not_a_fallback(case):
-    """The int8 routes that are not ported raise, naming ROADMAP.md: the
-    int8-dynamic tier (no calibration mels) and, in the calibrated tier, a
-    narrow level below the phase-tc batch threshold of 8."""
-    _, tp, mel = _case(CFG_TC, seed=0, T=128, B=1)
-    if case == 'uncalibrated':
-        with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-            th.HiFiGanVocoder(tp, CFG_TC, fast='int8', device='cpu')
-        return
+    """The int8 routes below the phase-tc batch run their int8 kernels and
+    match the JAX int8 wrapper: the int8-dynamic tier (no calibration
+    mels: ``fused_mrf_ct`` q8 at the wide level, the dynamic int8
+    ``fused_mrf_phase`` at the narrow one) and, in the calibrated tier, a
+    narrow level below the batch threshold of 8 (the q8f int8
+    ``fused_mrf_phase``). Band rel-L2 <= 5e-2 (the JAX package's band
+    between two forms of the int8 generator: the JAX wrapper packs the
+    wide level's static weights under jit, an ulp apart in their scales).
+    A narrow level no int8 kernel serves still raises, naming ROADMAP.md."""
+    jp, tp, mel = _case(CFG_TC, seed=0, T=128, B=1)
+    cal = mel if case == 'batch_below_8' else None
     voc = th.HiFiGanVocoder(tp, CFG_TC, fast='int8', device='cpu',
-                            int8_calibration_mels=mel)
-    with pytest.raises(NotImplementedError, match=r'batch 1 .*ROADMAP\.md'):
-        voc.infer(mel)
+                            int8_calibration_mels=cal)
+    assert voc.int8 and (voc.act_scales is None) == (case == 'uncalibrated')
+    assert voc.packed[0].dynamic == (case == 'uncalibrated')
+    assert isinstance(voc.packed[1], th.NarrowInt8)
+    assert voc.packed[1].phase.dynamic == (case == 'uncalibrated')
+    got = voc.infer(mel[0])
+    want = jh.HiFiGanVocoder(params=jp, config=CFG_TC, fast='int8',
+                             int8_calibration_mels=cal).infer(mel[0])
+    assert got.shape == want.shape == (128 * 16,)
+    assert np.abs(want).max() > 0
+    assert rel_l2(got, want) <= 5e-2
+    cfg = dict(CFG_TC, upsample_initial_channel=192)    # C=96 at level 0
+    _, tp2, _ = _case(cfg, seed=0, T=128, B=1)
+    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
+        th.generator_forward(tp2, torch.from_numpy(mel), cfg, use_fast=True,
+                             int8=True)
 
 
 def test_generator_bridge_is_a_copy_of_every_leaf():

@@ -5,7 +5,9 @@ reference forwards) and the whole int8 generator against
 interpret=True)`` at V1's channel widths and upsample geometry with fewer
 kernel sizes and dilations, in bf16 (as the tier serves) and float32,
 at B=1 with the phase-tc batch threshold set to 1 on both sides (JAX's
-``DAFT_PTC_MIN_BATCH``, the port's ``ptc_min_batch``). Band rel-L2 <= 2e-3
+``DAFT_PTC_MIN_BATCH``, the port's ``ptc_min_batch``); at the default
+threshold the port's B=1 route (the int8 phase kernel) is held to the same
+output at the cross-form band. Band rel-L2 <= 2e-3
 (NUMERICS_r05.json ``ptc_vs_banded_int8``) for every level on the input
 JAX gave it; see the test for the end-to-end band. Unit-gain weights
 (std 1/sqrt(fan-in)) keep every level's branches in the output.
@@ -140,7 +142,8 @@ def test_int8_generator_matches_jax(dtype, monkeypatch):
                     8, 4, in_tc=i == 1)
                 y = vk.fused_mrf_tc_q8(x, packed[i])
             else:
-                y, post_done = th._ptc_level(x_in, packed[i], 1, False)
+                y, post_done = th._narrow_int8_level(x_in, packed[i], 1,
+                                                     False)
                 assert post_done == (i == 3)
             ref = np.asarray(taps[i].astype(jnp.float32))
             assert y.dtype == tdt and tuple(y.shape) == ref.shape
@@ -156,7 +159,13 @@ def test_int8_generator_matches_jax(dtype, monkeypatch):
     assert got.dtype == tdt and got.shape == want.shape
     assert np.abs(want).max() > 0.05
     assert rel_l2(got.float().numpy(), want) <= 5e-2
-    # the batch threshold holds the narrow levels to the phase-tc route
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        th.generator_forward(tp, torch.from_numpy(mel).to(tdt), CFG,
-                             use_fast=True, int8_act_scales=t_scales)
+    # below the batch threshold the narrow levels take the int8 phase
+    # kernel (q8f): another form of the same int8 generator, held to the
+    # phase-tc output at the JAX package's cross-form band
+    n = sum(vk.fused_mrf_ptc.calls.values())
+    with torch.no_grad():
+        below = th.generator_forward(tp, torch.from_numpy(mel).to(tdt), CFG,
+                                     use_fast=True, int8_act_scales=t_scales)
+    assert sum(vk.fused_mrf_ptc.calls.values()) == n
+    assert below.dtype == tdt and below.shape == got.shape
+    assert rel_l2(below.float().numpy(), want) <= 5e-2
