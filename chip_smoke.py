@@ -32,6 +32,21 @@
      synthesizer.vocoder.infer. It prints which.
    Each path checks its outputs' shape and finiteness and that every kernel
    of its path, and no other, was launched.
+   Then training, default HyperParams (4+4+4 FFT blocks, width 128, 2
+   heads of 64, conv 1024, dropout 0.1, bf16 compute, all five loss terms
+   with a seeded random PitchPredictor), seeded random weights:
+   - train-step: bench_train_step.py's shape, B=16 x L=128 x T=1024, five
+     steps of make_train_step (every loss and the grad norm finite;
+     attention forward 12 launches a step, backward 12 calls a step, no
+     vocoder kernel); then the first step again from the same parameters
+     and seed with the plain attention on the card (fused=False; the masks
+     are the same by construction): loss rel <= 1e-2, grad norm rel <=
+     5e-2 (bf16 rounds at other points in the two routes);
+   - train: the train() entry point on its own synthetic dataset under
+     build/smoke/train (two speakers, 40 utterances of 100-128 symbols and
+     800-1024 frames): batch 16, 4 iterations, a validation at 4, a
+     checkpoint; then a resume from it to iteration 6, checking the
+     iteration and the optimizer state.
 4. At every input shape a path called a kernel with: the kernel against
    its plain PyTorch version on the same inputs (unit-gain random weights):
    rel-L2 <= 1e-2 in bf16 (summation order only), <= 2e-3 for the int8
@@ -39,13 +54,19 @@
    its time, its plain version's and (attention) the library call's, with
    CUDA events, beside the least time the card could take (H100 SXM: 989
    TFLOP/s bf16, 1979 TOP/s int8, 3.35 TB/s). Each wrapper counts its CUDA
-   launches and its calls by input shape; the run fails unless, on every
-   path, the calls times the launches per call add up to the launch count.
-5. Prints the end-to-end audio-seconds per second of the three B=8 tiers.
+   launches and its calls by input shape (the attention wrappers by shape
+   and dropout rate); the run fails unless, on every path, the calls times
+   the launches per call add up to the launch count. The attention
+   backward is also checked at p = 0 at each training shape, and two of
+   its calls must be bit-identical.
+5. Prints the end-to-end audio-seconds per second of the three B=8 tiers
+   and the train-step path's steps/s and utterances/s (host clock,
+   synchronised after each step).
 
 ``--profile`` adds a torch.profiler pass over one synthesis call of each
-B=8 tier and one generate_mel_specs call of each batch-1 path: device
-time by kernel, the acoustic/vocoder split and the device's busy share.
+B=8 tier, one generate_mel_specs call of each batch-1 path and one train
+step: device time by kernel, the acoustic/vocoder (forward/backward/
+optimizer) split and the device's busy share.
 
 Any failure raises (exit code != 0). Without a CUDA device it exits 2 and
 prints no result. The line before the last is the kernels' JSON; the last
@@ -68,6 +89,8 @@ PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 B, L, T = 8, 128, 1024       # requests, symbols, frames
 UTT_FRAMES = (200, 640, 1024)   # the batch-1 entry point's utterances
 SEED = 1234
+TB, TL, TT = 16, 128, 1024   # bench_train_step.py's batch, symbols, frames
+TRAIN_STEPS = 5
 
 
 def log(*a):
@@ -90,6 +113,77 @@ def make_batch(hp, B, L, T, seed=0):
         input_lengths=np.full((B,), L, dtype=np.int64),
         spk_embs=rng.randn(B, hp.external_emb_dim).astype(np.float32),
     )
+
+
+def make_train_batch(hp, B, L, T, seed=0):
+    """Own numpy copy of the JAX repo's __graft_entry__._make_batch (all
+    training fields)."""
+    rng = np.random.RandomState(seed)
+    dur_int = np.full((B, L), T // L, dtype=np.int64)
+    dur_int[:, -1] += T - (T // L) * L
+    return dict(
+        symbols=rng.randint(1, hp.n_symbols, (B, L)),
+        durations_float=(dur_int * hp.hop_length / hp.sampling_rate
+                         ).astype(np.float32),
+        durations_int=dur_int,
+        symbols_energy=rng.randn(B, L).astype(np.float32),
+        symbols_pitch=rng.randn(B, L).astype(np.float32),
+        input_lengths=np.full((B,), L, dtype=np.int64),
+        frames_energy=rng.randn(B, T).astype(np.float32),
+        frames_pitch=rng.randn(B, T).astype(np.float32),
+        mel_specs=rng.randn(B, hp.n_mel_channels, T).astype(np.float32),
+        output_lengths=np.full((B,), T, dtype=np.int64),
+        speaker_ids=np.zeros((B,), dtype=np.int64),
+        spk_embs=rng.randn(B, hp.external_emb_dim).astype(np.float32),
+    )
+
+
+def write_train_dataset(root, symbols, n_per_speaker=20, seed=SEED):
+    """A synthetic feature dataset in the layout of the JAX repo's
+    tests/synth_data.py: two speakers, utterances of 100-128 symbols and
+    800-1024 frames; every tenth line goes to the validation list.
+    Returns (train list, validation list)."""
+    rng = np.random.RandomState(seed)
+    hop_s = 256 / 22050
+    lines = []
+    for spk in range(2):
+        spk_dir = os.path.join(root, 'features', f'speaker_{spk}')
+        os.makedirs(spk_dir, exist_ok=True)
+        for i in range(n_per_speaker):
+            name = f'utt_{i:03d}'
+            base = os.path.join(spk_dir, name)
+            L, T = rng.randint(100, 129), rng.randint(800, 1025)
+            dur = np.full(L, T // L, dtype=np.int64)
+            dur[rng.choice(L, T - dur.sum(), replace=False)] += 1
+            np.save(f'{base}.npy', (rng.randn(80, T) * 0.5 - 4.0).astype(
+                np.float32))
+            ids = rng.randint(7, len(symbols), size=L)
+            with open(f'{base}.markers', 'w') as f:
+                t = 0.0
+                for j in range(L):
+                    d = dur[j] * hop_s
+                    f.write(f'{t:.3f}\t{t + d:.3f}\t{dur[j]}\t'
+                            f'{symbols[ids[j]]}\tword\t{j}\n')
+                    t += d
+            tracks = {
+                'frames_nrg': np.abs(rng.randn(T)) * 5 + 8,
+                'frames_f0': np.where(rng.rand(T) < 0.8,
+                                      rng.randn(T) * 0.2 + 5.0, 0.0),
+                'symbols_nrg': np.abs(rng.randn(L)) * 5 + 8,
+                'symbols_f0': np.where(rng.rand(L) < 0.8,
+                                       rng.randn(L) * 0.2 + 5.0, 0.0)}
+            for ext, track in tracks.items():
+                with open(f'{base}.{ext}', 'w') as f:
+                    f.writelines(f'{v:.3f}\n' for v in track)
+            np.save(f'{base}.spk_emb.npy', rng.randn(192).astype(np.float32))
+            lines.append(f'{spk_dir}|{name}|{spk}\n')
+    train_list = os.path.join(root, 'train.txt')
+    val_list = os.path.join(root, 'val.txt')
+    with open(train_list, 'w') as f:
+        f.writelines(l for i, l in enumerate(lines) if i % 10 != 9)
+    with open(val_list, 'w') as f:
+        f.writelines(lines[9::10])
+    return train_list, val_list
 
 
 def entry_inputs(hp, seed):
@@ -201,7 +295,7 @@ class KernelCases:
 
     def __init__(self, torch, F, vk, mi, attn, dev, ks, dils):
         self.torch, self.F, self.vk, self.mi, self.attn = torch, F, vk, mi, \
-            attn
+            attn       # (fused_attention, attention_plain, the backward's)
         self.dev, self.ks, self.dils = dev, ks, dils
         self.gen = torch.Generator().manual_seed(SEED + 7)
         self.n_ops = 2 * sum(len(d) * 2 * k for k, d in zip(ks, dils))
@@ -227,21 +321,45 @@ class KernelCases:
     def case(self, name, key):
         return getattr(self, name)(key)
 
-    def fused_attention(self, key):
+    def _attention_inputs(self, key, n):
         torch = self.torch
-        Bx, H, t, D = key
-        q, k, v = (self.randn(Bx, H, t, D) for _ in range(3))
-        q = q * D ** -0.5
+        Bx, H, t, D, p = key
+        q, *rest = (self.randn(Bx, H, t, D) for _ in range(n))
         lengths = torch.tensor([t - 37 * i for i in range(Bx)],
                                dtype=torch.int32, device=self.dev).clamp(min=1)
         mask = (torch.arange(t, device=self.dev)[None, :] < lengths[:, None]
                 )[:, None, None, :]
-        return dict(desc=f'q,k,v ({Bx},{H},{t},{D}) bf16', band=1e-2,
-                    fn=lambda: self.attn[0](q, k, v, lengths),
-                    plain=lambda: self.attn[1](q, k, v, lengths),
+        seed = torch.tensor([SEED], dtype=torch.int64, device=self.dev)
+        return [q * D ** -0.5] + rest, lengths, mask, seed
+
+    def fused_attention(self, key):
+        Bx, H, t, D, p = key
+        (q, k, v), lengths, mask, seed = self._attention_inputs(key, 3)
+        return dict(desc=f'q,k,v ({Bx},{H},{t},{D}) bf16 p={p:g}', band=1e-2,
+                    fn=lambda: self.attn[0](q, k, v, lengths, seed, p),
+                    plain=lambda: self.attn[1](q, k, v, lengths, seed, p),
                     lib=lambda: self.F.scaled_dot_product_attention(
-                        q, k, v, attn_mask=mask, scale=1.0),
+                        q, k, v, attn_mask=mask, dropout_p=p, scale=1.0),
                     flops=4 * Bx * H * t * t * D, nbytes=4 * Bx * H * t * D * 2)
+
+    def fused_attention_bwd(self, key):
+        """(dq, dk, dv) for a random output gradient; the library call is
+        the autograd backward of scaled_dot_product_attention (one
+        forward, its graph kept)."""
+        torch = self.torch
+        Bx, H, t, D, p = key
+        (q, k, v, do), lengths, mask, seed = self._attention_inputs(key, 4)
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = self.F.scaled_dot_product_attention(
+            *leaves, attn_mask=mask, dropout_p=p, scale=1.0)
+        return dict(desc=f'q,k,v,do ({Bx},{H},{t},{D}) bf16 p={p:g}',
+                    band=1e-2, repeat_equal=True,
+                    fn=lambda: self.attn[2](q, k, v, do, lengths, seed, p),
+                    plain=lambda: self.attn[3](q, k, v, do, lengths, seed, p),
+                    lib=lambda: torch.autograd.grad(out, leaves, do,
+                                                    retain_graph=True),
+                    flops=10 * Bx * H * t * t * D,
+                    nbytes=7 * Bx * H * t * D * 2)
 
     def fused_mrf_tc(self, key):
         vk = self.vk
@@ -394,9 +512,10 @@ def _range(torch, name, on):
         contextlib.nullcontext()
 
 
-def profile_path(torch, synthesize, tier):
-    """Device time by kernel over one synthesis call, and the busy share
-    of the device over the call's wall time."""
+def profile_path(torch, synthesize, tier, ranges=('acoustic', 'vocoder')):
+    """Device time by kernel over one call of ``synthesize`` (a synthesis
+    call or a train step), the device spans of its named ``ranges``, and
+    the busy share of the device over the call's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     synthesize()
@@ -416,7 +535,6 @@ def profile_path(torch, synthesize, tier):
         return getattr(e, 'device_time_total', None) or \
             getattr(e, 'cuda_time_total', 0.0)
 
-    ranges = ('acoustic', 'vocoder')
     events = prof.key_averages()
     # device-side events only (host ops carry their kernels' time too); the
     # named ranges show up as device-side spans: not busy time
@@ -435,7 +553,8 @@ def profile_path(torch, synthesize, tier):
         g = next((p for p in ('mrf::step_kernel', 'mrf::ups_kernel',
                               'mrf::step_q8_kernel', 'mrf::conv_dyn_kernel',
                               'mrf::ups_q8_kernel', 'mrf::amax_kernel',
-                              'mrf::post_kernel', 'attn::', 'Memcpy')
+                              'mrf::post_kernel', 'attn::bwd',
+                              'attn::', 'Memcpy')
                   if p in e.key), 'other')
         groups[g] = groups.get(g, 0.0) + dev_us(e)
     log(f'profile {tier} groups: ' + ', '.join(
@@ -463,8 +582,18 @@ def main():
     from daft_exprt_torch.ops import mrf_int8 as mi
     from daft_exprt_torch.ops import vocoder_kernels as vk
     from daft_exprt_torch.ops.attention_kernels import (
-        attention_plain, fused_attention,
+        attention_bwd_plain, attention_plain, fused_attention,
+        fused_attention_bwd,
     )
+    from daft_exprt_torch import checkpoint as ckpt
+    from daft_exprt_torch.loss import loss_cfg_from_hparams
+    from daft_exprt_torch.models.modules import MultiHeadSelfAttention
+    from daft_exprt_torch.models.pitch_predictor import PitchPredictor
+    from daft_exprt_torch.parallel.train_step import (
+        make_optimizer, make_train_step, to_device,
+    )
+    from daft_exprt_torch.train import train
+    import shutil
     import torch.nn.functional as F
 
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
@@ -514,7 +643,7 @@ def main():
     batch['accent_emb'] = batch['spk_embs'][:, :model.hidden_dim]
     kernels = (fused_attention, vk.fused_mrf_tc, vk.fused_mrf_phase,
                vk.fused_mrf_tc_q8, vk.fused_mrf_ptc, mi.fused_mrf_ct_q8,
-               mi.fused_mrf_phase_q8)
+               mi.fused_mrf_phase_q8, fused_attention_bwd)
     paths = []          # (tier, launches by kernel, calls by kernel and key)
 
     def synthesizer(voc):
@@ -685,9 +814,134 @@ def main():
         log(f'path {tier}: RTF {again:.2f} on a second call '
             f'({time.perf_counter() - t0:.2f} s, host clock)')
 
+    # ---- 3b. training ------------------------------------------------------
+    attn_kernels = (fused_attention, fused_attention_bwd)
+    hp_t = HyperParams(verbose=False, training_files='unused',
+                       validation_files='unused',
+                       output_directory=os.path.join(ROOT, 'build', 'smoke'),
+                       language='english', speakers=['lj'])
+
+    def random_pitch_predictor(seed):
+        """Seeded random weights: convs with std 1/sqrt(fan-in), BatchNorm
+        scales 1 + N(0, 0.1), biases N(0, 0.02), statistics (0, 1)."""
+        pp = PitchPredictor(hp_t.n_mel_channels)
+        gen_pp = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            for name, prm in pp.named_parameters():
+                z = torch.randn(prm.shape, generator=gen_pp)
+                if prm.dim() > 1:
+                    prm.copy_(z / prm[0].numel() ** 0.5)
+                elif name.startswith('bn') and name.endswith('weight'):
+                    prm.copy_(1.0 + 0.1 * z)
+                else:
+                    prm.copy_(0.02 * z)
+        return pp
+
+    tmodel = DaftExprt.from_hparams(hp_t, seed=SEED).train()    # cuda
+    init_state = {k: v.clone() for k, v in tmodel.state_dict().items()}
+    pitch_pp = random_pitch_predictor(SEED + 1).to(dev).frozen()
+    loss_cfg = loss_cfg_from_hparams(hp_t)
+    tbatch = make_train_batch(hp_t, TB, TL, TT, seed=SEED)
+    dev_batch = to_device(tbatch, dev)
+    dev_raw = to_device({'frames_energy': tbatch['frames_energy'],
+                         'frames_pitch': tbatch['frames_pitch']}, dev)
+    log(f'train-step: loss terms {sorted(loss_cfg)}; pitch predictor '
+        f'random, weight {loss_cfg["pitch_consistency_weight"]}; energy '
+        f'{loss_cfg["energy_consistency_weight"]}; dropout '
+        f'{hp_t.phoneme_encoder["attn_dropout"]}; {hp_t.compute_dtype}')
+
+    def new_step():
+        opt = make_optimizer(tmodel, hp_t)
+        return make_train_step(tmodel, opt, loss_cfg, pitch_pp)
+
+    train_step = new_step()
+    step_s = []
+
+    def train_steps():
+        out = []
+        for i in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            m = train_step(dev_batch, dev_raw, float(i), SEED)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            out.append({k: float(v) for k, v in m.items()})
+        return out
+
+    step_metrics = run_path('train-step', train_steps, attn_kernels)
+    for i, m in enumerate(step_metrics):
+        log(f'path train-step: step {i}: ' + ' '.join(
+            f'{k}={v:.6g}' for k, v in m.items()))
+        assert all(math.isfinite(v) for v in m.values()), m
+    n_fwd = paths[-1][1]['fused_attention']
+    n_bwd = paths[-1][1]['fused_attention_bwd']
+    assert n_fwd == 12 * TRAIN_STEPS, n_fwd
+    assert n_bwd == 2 * 12 * TRAIN_STEPS, n_bwd
+    per_step = float(np.median(step_s[1:]))
+    log(f'path train-step: host s/step {[round(x, 4) for x in step_s]}')
+
+    # the first step again with the plain attention (autograd) on the card
+    tmodel.load_state_dict(init_state)
+    for m in tmodel.modules():
+        if isinstance(m, MultiHeadSelfAttention):
+            m.fused = False
+    train_step = new_step()
+    plain_first = {k: float(v) for k, v in train_step(
+        dev_batch, dev_raw, 0.0, SEED).items()}
+    torch.cuda.synchronize()
+    r_loss = abs(plain_first['loss'] - step_metrics[0]['loss']) / abs(
+        plain_first['loss'])
+    r_norm = abs(plain_first['grad_norm'] - step_metrics[0]['grad_norm']) \
+        / abs(plain_first['grad_norm'])
+    log(f'path train-step: first step with the plain attention: loss '
+        f'{plain_first["loss"]:.6g} (rel {r_loss:.3e}, band 1e-2), grad norm '
+        f'{plain_first["grad_norm"]:.6g} (rel {r_norm:.3e}, band 5e-2)')
+    assert r_loss <= 1e-2 and r_norm <= 5e-2, (r_loss, r_norm)
+    del tmodel, init_state, train_step, dev_batch, dev_raw
+    torch.cuda.empty_cache()
+
+    # the train() entry point, then a resume from its checkpoint
+    root = os.path.join(ROOT, 'build', 'smoke', 'train')
+    shutil.rmtree(root, ignore_errors=True)
+    train_list, val_list = write_train_dataset(root, hp_t.symbols)
+    pp_path = os.path.join(root, 'pitch_predictor.pt')
+    torch.save(random_pitch_predictor(SEED + 2).state_dict(), pp_path)
+    train_kw = dict(verbose=False, training_files=train_list,
+                    validation_files=val_list,
+                    output_directory=os.path.join(root, 'out'),
+                    language='english', speakers=['speaker_0', 'speaker_1'],
+                    batch_size=TB, iters_check_for_model_improvement=4,
+                    pitch_predictor_path=pp_path)
+    ck_dir = os.path.join(root, 'out', 'checkpoints')
+
+    def train_and_resume():
+        _, m4 = train(HyperParams(**train_kw), num_iterations=4)
+        ck4 = os.path.join(ck_dir, 'DaftExprt_4')
+        payload4, meta4 = ckpt.load_checkpoint(ck4)
+        _, m6 = train(HyperParams(**train_kw, checkpoint=ck4),
+                      num_iterations=6)
+        return m4, payload4, meta4, m6
+
+    m4, payload4, meta4, m6 = run_path('train', train_and_resume,
+                                       attn_kernels)
+    payload6, meta6 = ckpt.load_checkpoint(os.path.join(ck_dir,
+                                                        'DaftExprt_6'))
+    log(f'path train: iteration 4 loss {m4["loss"]:.6g}, best validation '
+        f'loss {meta4["best_val_loss"]:.6g}; resumed to iteration '
+        f'{meta6["iteration"]}, loss {m6["loss"]:.6g}; checkpoints '
+        f'{sorted(os.listdir(ck_dir))}')
+    assert math.isfinite(m4['loss']) and math.isfinite(m6['loss'])
+    assert meta4['iteration'] == 4 and math.isfinite(meta4['best_val_loss'])
+    assert os.path.isfile(os.path.join(ck_dir, 'best_model'))
+    assert payload4['optimizer']['updates'] == 4
+    assert meta6['iteration'] == 6 and payload6['optimizer']['updates'] == 6
+    for i, st in payload4['optimizer']['state'].items():
+        assert int(payload6['optimizer']['state'][i]['step']) == \
+            int(st['step']) + 2
+
     # ---- 4. each kernel at each shape a path called it with ----------------
-    cases = KernelCases(torch, F, vk, mi, (fused_attention, attention_plain),
-                        dev, ks, dils)
+    cases = KernelCases(torch, F, vk, mi, (
+        fused_attention, attention_plain, fused_attention_bwd,
+        attention_bwd_plain), dev, ks, dils)
     by_name = {kern.__name__: kern for kern in kernels}
     measured = {}
 
@@ -697,6 +951,13 @@ def main():
         out = c['fn']()
         per_launch = by_name[name].launches - n0     # launches per call
         ref = c['plain']()
+        if isinstance(out, tuple):                   # (dq, dk, dv)
+            if c.get('repeat_equal'):
+                again = c['fn']()
+                assert all(torch.equal(a, b) for a, b in zip(out, again)), \
+                    f'{name} {key}: two calls differ'
+                del again
+            out, ref = torch.stack(out), torch.stack(ref)
         torch.cuda.synchronize()
         assert out.shape == ref.shape, (name, key, out.shape, ref.shape)
         assert torch.isfinite(out.float()).all(), (name, key)
@@ -743,7 +1004,14 @@ def main():
                 bound_by=max(rows, key=lambda r: r['bound_ms'] * r['per_call']
                              )['bound_by'], rows=rows)
 
+    # the backward at p = 0 too, at each training shape (not on a path)
+    for key in sorted({k[:4] for _, _, calls in paths
+                       for k in calls.get('fused_attention_bwd', {})}):
+        measure('fused_attention_bwd', key + (0.0,))
+
     sources = {'fused_attention': 'daft_exprt_torch/ops/csrc/attention_fwd.cu',
+               'fused_attention_bwd':
+               'daft_exprt_torch/ops/csrc/attention_bwd.cu',
                'fused_mrf_tc': 'daft_exprt_torch/ops/csrc/mrf_tc.cu',
                'fused_mrf_phase': 'daft_exprt_torch/ops/csrc/mrf_phase.cu',
                'fused_mrf_tc_q8': 'daft_exprt_torch/ops/csrc/mrf_tc_q8.cu',
@@ -753,13 +1021,14 @@ def main():
                'daft_exprt_torch/ops/csrc/mrf_phase_q8.cu'}
     replaces = {
         'fused_attention': 'daft_exprt_tpu/ops/attention_kernels.py:170',
+        'fused_attention_bwd': 'daft_exprt_tpu/ops/attention_kernels.py:195',
         'fused_mrf_tc': 'daft_exprt_tpu/ops/vocoder_kernels.py:657',
         'fused_mrf_phase': 'daft_exprt_tpu/ops/vocoder_kernels.py:1431',
         'fused_mrf_tc_q8': 'daft_exprt_tpu/ops/vocoder_kernels.py:657',
         'fused_mrf_ptc': 'daft_exprt_tpu/ops/vocoder_kernels.py:1999',
         'fused_mrf_ct_q8': 'daft_exprt_tpu/ops/vocoder_kernels.py:450',
         'fused_mrf_phase_q8': 'daft_exprt_tpu/ops/vocoder_kernels.py:1431'}
-    # each kernel's main path: the first B=8 path that runs it
+    # each kernel's main path: the first path that runs it
     table = []
     for kern in kernels:
         name = kern.__name__
@@ -788,6 +1057,10 @@ def main():
         log(f'end to end {tier}: {e2e:.3f} s for {audio_s:.2f} audio-s at '
             f'B={B}: {audio_s / e2e:.1f} audio-s/s (host clock, '
             'synchronized)')
+    log(f'end to end train-step: {per_step:.4f} s/step (median of steps '
+        f'2-{TRAIN_STEPS}) at B={TB}, L={TL}, T={TT}: {1 / per_step:.3f} '
+        f'steps/s, {TB / per_step:.2f} utterances/s (host clock, '
+        'synchronized)')
 
     if '--profile' in sys.argv:
         profile_path(torch, synthesize, 'bf16')
@@ -795,6 +1068,16 @@ def main():
         profile_path(torch, synthesize_dyn, 'int8-dynamic')
         for tier, fn in entry_fns.items():
             profile_path(torch, fn, tier)
+        tmodel = DaftExprt.from_hparams(hp_t, seed=SEED).train()
+        step = make_train_step(tmodel, make_optimizer(tmodel, hp_t), loss_cfg,
+                               pitch_pp)
+        b_dev = to_device(tbatch, dev)
+        r_dev = to_device({'frames_energy': tbatch['frames_energy'],
+                           'frames_pitch': tbatch['frames_pitch']}, dev)
+        profile_path(torch, lambda ranges=False: step(b_dev, r_dev, 0.0,
+                                                      SEED),
+                     'train-step', ranges=('forward', 'backward',
+                                           'optimizer'))
 
     log(json.dumps({'kernels': table}))
     log(json.dumps({'ok': True, 'device': {

@@ -1,11 +1,11 @@
 """daft_exprt_torch — the PyTorch/CUDA port of ``daft_exprt_tpu``.
 
-The port runs the synthesis path on an NVIDIA Hopper card (H100): the
-serving entry point (``generate.py``), the acoustic model's inference
-forward (``models/daft_exprt.py``) and the HiFi-GAN V1 generator in its
-float32, bf16, int8-static and int8-dynamic tiers (``models/hifigan.py``),
-with the Pallas kernels of the JAX package replaced by hand-written CUDA
-kernels (``ops/csrc``).
+The port runs on an NVIDIA Hopper card (H100): the serving entry point
+(``generate.py``), the acoustic model's inference and training forward
+(``models/daft_exprt.py``), its training (``train.py``: one process on
+one card) and the HiFi-GAN V1 generator in its float32, bf16, int8-static
+and int8-dynamic tiers (``models/hifigan.py``), with the Pallas kernels of
+the JAX package replaced by hand-written CUDA kernels (``ops/csrc``).
 
 It imports ``torch`` and numpy only: never ``jax``, ``flax`` or anything of
 ``daft_exprt_tpu``. Every entry point takes ``device=`` and defaults to
@@ -17,9 +17,15 @@ Layout:
     hparams.py config system (copy of the JAX package's)
     bridge.py  JAX param pytrees (as numpy) -> torch state dicts
     frontend/  duration quantization and WAV writing (copies)
-    utils/     chunker, plot_2d_data (copies)
-    ops/       CUDA kernels (csrc/), their build step and PyTorch wrappers
-    models/    acoustic model (inference) and HiFi-GAN generator
+    data/      dataset, collation, iterators, dynamic speaker stats (copies)
+    utils/     chunker, plot_2d_data (copies), TensorBoard logger
+    ops/       CUDA kernels (csrc/), their build step and PyTorch wrappers;
+               gradient reversal
+    models/    acoustic model, frozen pitch predictor, HiFi-GAN generator
+    loss.py    the five-term training loss
+    parallel/  train and eval steps (one device), LR schedule, optimizer
+    checkpoint.py  torch-native checkpoints (weights_only loads)
+    train.py   training driver: train, validate, resume
     generate.py  synthesis entry point: prosody transforms, bucketed
                Synthesizer, generate_mel_specs
 """

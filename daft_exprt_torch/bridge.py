@@ -14,6 +14,10 @@ out torch's way:
 
 Any other leaf raises: nothing is left unmapped silently.
 
+``pitch_predictor_from_jax`` maps the frozen pitch predictor's params the
+same way and its flax BatchNorm statistics (``batch_stats``: ``mean``,
+``var``) onto ``running_mean`` / ``running_var``.
+
 ``generator_from_jax`` is a copy: the JAX vocoder keeps its kernels in
 torch layout already ((out, in, k), and (in, out, k) for the transposed
 convs).
@@ -56,6 +60,21 @@ def acoustic_state_from_jax(np_params):
         if key in state:
             raise KeyError(f'two leaves map to {key}')
         state[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    return state
+
+
+def pitch_predictor_from_jax(params, batch_stats):
+    """Flax PitchPredictor variables -> the port's ``PitchPredictor`` state
+    dict (load it with ``load_state_dict(..., strict=True)``)."""
+    state = acoustic_state_from_jax(params)
+    names = {'mean': 'running_mean', 'var': 'running_var'}
+    for path, value in _flatten(batch_stats):
+        if path[-1] not in names:
+            raise KeyError(f'bridge has no mapping for batch stat '
+                           f'{"/".join(path)}')
+        key = '.'.join(path[:-1] + (names[path[-1]],))
+        state[key] = torch.from_numpy(np.array(value, dtype=np.float32,
+                                               copy=True))
     return state
 
 

@@ -1,13 +1,13 @@
-"""DaftExprt acoustic model, inference forward (PyTorch port of
-``daft_exprt_tpu/models/daft_exprt.py``).
+"""DaftExprt acoustic model (PyTorch port of
+``daft_exprt_tpu/models/daft_exprt.py``): ``PhonemeEncoder``,
+``AccentEncoder``, ``SpeakerClassifier`` behind gradient reversal,
+``StyleAdapter``, ``GaussianUpsampling`` (with the factored backward of
+``_normalize_weights``), ``FrameDecoder``, and ``DaftExprt`` with its
+training forward, ``encode_accent`` and ``inference``.
 
-Ported: ``PhonemeEncoder``, ``StyleAdapter``, ``GaussianUpsampling`` (the
-forward of ``_normalize_weights``), ``FrameDecoder`` and
-``DaftExprt.from_hparams`` / ``_speaker_embedding`` / ``inference``.
-``inference`` takes the accent embedding from outside, so
-``AccentEncoder``, ``SpeakerClassifier`` and the training forward wait for
-the training slice; their parameters in a bridged JAX tree are accepted
-and set aside by :meth:`DaftExprt.load_bridged`.
+In training mode (``model.train()``) the forward applies the JAX package's
+dropouts, with masks drawn from the ``generator`` it is given (see
+``modules.py``); ``inference`` runs in eval mode and draws nothing.
 """
 import numpy as np
 import torch
@@ -15,18 +15,35 @@ import torch.nn as nn
 
 from daft_exprt_torch.device import resolve_device
 from daft_exprt_torch.models.modules import (
-    ConvNorm1D, FFTBlock, LinearNorm, PositionTable, sequence_mask,
+    ConvNorm1D, FFTBlock, LayerNorm, LinearNorm, PositionTable, dropout,
+    sequence_mask,
 )
+from daft_exprt_torch.ops.grl import gradient_reversal
 
 _LOG_2PI = float(np.log(2.0 * np.pi))
-# parameters of the modules this slice does not port (training slice)
-UNPORTED_PREFIXES = ('accent_encoder.', 'speaker_classifier.')
+
+
+class _NormalizeWeights(torch.autograd.Function):
+    """probs / (sum_L probs + 1e-20) with the JAX package's factored
+    backward ``inv * (g - sum_L g * y)``: autograd of the division forms
+    1 / (S + 1e-20)**2, which overflows float32 at frames where no gaussian
+    has mass (S = 0) and turns every upstream gradient into NaN."""
+
+    @staticmethod
+    def forward(ctx, probs):
+        denom = torch.sum(probs, dim=1, keepdim=True) + 1e-20
+        y = probs / denom
+        ctx.save_for_backward(y, 1.0 / denom)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, inv = ctx.saved_tensors
+        return inv * (g - torch.sum(g * y, dim=1, keepdim=True))
 
 
 def _normalize_weights(probs):
-    """probs / (sum_L probs + 1e-20), the forward of the JAX custom-VJP
-    function (its backward comes with the training slice)."""
-    return probs / (torch.sum(probs, dim=1, keepdim=True) + 1e-20)
+    return _NormalizeWeights.apply(probs)
 
 
 class _Blocks(nn.Module):
@@ -39,12 +56,14 @@ class _Blocks(nn.Module):
             self.add_module(f'block_{i}', FFTBlock(
                 embed_dim, cfg['attn_nb_heads'], cfg['conv_channels'],
                 cfg['conv_kernel'], strict_masking=strict, dtype=dtype,
-                fused_attention=cfg.get('fused_attention', False)))
+                fused_attention=cfg.get('fused_attention', False),
+                attn_dropout=cfg.get('attn_dropout', 0.0),
+                conv_dropout=cfg.get('conv_dropout', 0.0)))
 
-    def run_blocks(self, x, film_params, mask):
+    def run_blocks(self, x, film_params, mask, generator=None):
         for i in range(self.n_blocks):
             fp = film_params[:, i, :] if film_params is not None else None
-            x = getattr(self, f'block_{i}')(x, fp, mask)
+            x = getattr(self, f'block_{i}')(x, fp, mask, generator)
         return x
 
 
@@ -58,13 +77,73 @@ class PhonemeEncoder(_Blocks):
         self.symbols_embedding = nn.Embedding(n_symbols, d)
         self.positions = PositionTable(d, max_len)
 
-    def forward(self, symbols, film_params, input_lengths):
+    def forward(self, symbols, film_params, input_lengths, generator=None):
         L = symbols.shape[1]
         x = self.symbols_embedding(symbols)
         mask = sequence_mask(input_lengths, L)
         x = torch.where(mask[..., None], x + self.positions(L)[None],
                         torch.zeros_like(x))
-        return self.run_blocks(x, film_params, mask)
+        return self.run_blocks(x, film_params, mask, generator)
+
+
+class AccentEncoder(_Blocks):
+    """Reference mel + frame prosody -> global accent embedding: energy
+    and pitch conv embeddings (float32), a conv stack over the mel
+    (``conv_{i}``, ReLU, ``ln_{i}``, dropout), FFT blocks without FiLM and a
+    length-normalised float32 mean pool over the valid frames."""
+
+    def __init__(self, n_mel_channels, cfg, strict_masking=True,
+                 dtype=torch.float32, max_len=5000):
+        d = cfg['hidden_embed_dim']
+        super().__init__(cfg, d, strict_masking, dtype)
+        cc, k = cfg['conv_channels'], cfg['conv_kernel']
+        self.strict_masking, self.dtype = strict_masking, dtype
+        self.conv_dropout = cfg.get('conv_dropout', 0.0)
+        self.positions = PositionTable(d, max_len)
+        self.energy_embedding = ConvNorm1D(1, d, k)
+        self.pitch_embedding = ConvNorm1D(1, d, k)
+        for i, (c_in, c_out) in enumerate(((n_mel_channels, cc), (cc, cc),
+                                           (cc, d))):
+            self.add_module(f'conv_{i}', ConvNorm1D(c_in, c_out, k,
+                                                    dtype=dtype))
+            self.add_module(f'ln_{i}', LayerNorm(c_out))
+
+    def forward(self, frames_energy, frames_pitch, mel_specs, output_lengths,
+                generator=None):
+        T = mel_specs.shape[-1]
+        energy = self.energy_embedding(frames_energy[..., None])
+        pitch = self.pitch_embedding(frames_pitch[..., None])
+        mask = sequence_mask(output_lengths, T)
+        x = mel_specs.transpose(1, 2)                       # (B, T, n_mels)
+        for i in range(3):
+            if self.strict_masking and i > 0:
+                x = torch.where(mask[..., None], x, torch.zeros_like(x))
+            x = torch.relu(getattr(self, f'conv_{i}')(x))
+            x = getattr(self, f'ln_{i}')(x).to(self.dtype)
+            if self.training and self.conv_dropout > 0:
+                x = dropout(x, self.conv_dropout, generator)
+        x = x + energy + pitch + self.positions(T)[None]
+        x = torch.where(mask[..., None], x, torch.zeros_like(x)).to(self.dtype)
+        x = self.run_blocks(x, None, mask, generator)
+        return torch.sum(x.float(), dim=1) / output_lengths[:, None].float()
+
+
+class SpeakerClassifier(nn.Module):
+    """Three dense layers behind gradient reversal (adversarial
+    disentanglement of the accent embedding from the speaker)."""
+
+    def __init__(self, input_dim, n_speakers, embed_dim, lambda_reversal=1.0):
+        super().__init__()
+        self.lambda_reversal = lambda_reversal
+        self.fc1 = LinearNorm(input_dim, embed_dim)
+        self.fc2 = LinearNorm(embed_dim, embed_dim)
+        self.fc3 = LinearNorm(embed_dim, n_speakers)
+
+    def forward(self, x):
+        x = gradient_reversal(x, self.lambda_reversal)
+        x = torch.relu(self.fc1(x))
+        x = torch.relu(self.fc2(x))
+        return self.fc3(x)
 
 
 class StyleAdapter(nn.Module):
@@ -160,36 +239,41 @@ class FrameDecoder(_Blocks):
         self.positions = PositionTable(embed_dim, max_len)
         self.projection = LinearNorm(embed_dim, n_mel_channels)
 
-    def forward(self, x, film_params, output_lengths):
+    def forward(self, x, film_params, output_lengths, generator=None):
         T = x.shape[1]
         mask = sequence_mask(output_lengths, T)
         x = torch.where(mask[..., None], x + self.positions(T)[None],
                         torch.zeros_like(x)).to(self.dtype)
-        x = self.run_blocks(x, film_params, mask)
+        x = self.run_blocks(x, film_params, mask, generator)
         mel = self.projection(x.float())
         mel = torch.where(mask[..., None], mel, torch.zeros_like(mel))
         return mel.transpose(1, 2)                      # (B, n_mels, T)
 
 
 class DaftExprt(nn.Module):
-    """Acoustic model for synthesis. Build with
+    """The acoustic model. Build with
     ``DaftExprt.from_hparams(hp, device=...)``."""
 
-    def __init__(self, n_symbols, n_mel_channels, phoneme_encoder_cfg,
-                 frame_decoder_cfg, gum_conv_kernel=3,
-                 gum_use_concatenation=False, external_emb_dim=192,
-                 post_mult_weight=1e-3,
-                 frame_decoder_input_dim=None, strict_masking=True,
-                 compute_dtype='float32'):
+    def __init__(self, n_symbols, n_speakers, n_mel_channels,
+                 phoneme_encoder_cfg, accent_encoder_cfg, frame_decoder_cfg,
+                 gum_conv_kernel=3, gum_use_concatenation=False,
+                 external_emb_dim=192, lambda_reversal=1.0,
+                 post_mult_weight=1e-3, frame_decoder_input_dim=None,
+                 strict_masking=True, compute_dtype='float32'):
         super().__init__()
         dtype = torch.bfloat16 if compute_dtype == 'bfloat16' \
             else torch.float32
         d = phoneme_encoder_cfg['hidden_embed_dim']
+        acc_dim = accent_encoder_cfg['hidden_embed_dim']
         dec_dim = frame_decoder_input_dim or d
         self.hidden_dim = d
+        self.accent_encoder = AccentEncoder(n_mel_channels, accent_encoder_cfg,
+                                            strict_masking, dtype)
+        self.speaker_classifier = SpeakerClassifier(acc_dim, n_speakers, d,
+                                                    lambda_reversal)
         self.style_adapter = StyleAdapter(
-            d, {'phoneme_encoder': (phoneme_encoder_cfg['nb_blocks'], d),
-                'frame_decoder': (frame_decoder_cfg['nb_blocks'], d)},
+            acc_dim, {'phoneme_encoder': (phoneme_encoder_cfg['nb_blocks'], d),
+                      'frame_decoder': (frame_decoder_cfg['nb_blocks'], d)},
             post_mult_weight)
         self.phoneme_encoder = PhonemeEncoder(
             n_symbols, phoneme_encoder_cfg, strict_masking, dtype)
@@ -210,17 +294,22 @@ class DaftExprt(nn.Module):
         if fused == 'auto':
             fused = dev.type == 'cuda'
         gum = dict(hp.gaussian_upsampling_module)
-        enc_cfg, dec_cfg = dict(hp.phoneme_encoder), dict(hp.frame_decoder)
-        for cfg in (enc_cfg, dec_cfg):
+        enc_cfg, acc_cfg, dec_cfg = (dict(hp.phoneme_encoder),
+                                     dict(hp.accent_encoder),
+                                     dict(hp.frame_decoder))
+        for cfg in (enc_cfg, acc_cfg, dec_cfg):
             cfg['fused_attention'] = bool(fused)
         model = cls(
             n_symbols=hp.n_symbols,
+            n_speakers=hp.n_speakers,
             n_mel_channels=hp.n_mel_channels,
             phoneme_encoder_cfg=enc_cfg,
+            accent_encoder_cfg=acc_cfg,
             frame_decoder_cfg=dec_cfg,
             gum_conv_kernel=gum.get('conv_kernel', 3),
             gum_use_concatenation=gum.get('use_concatenation', False),
             external_emb_dim=getattr(hp, 'external_emb_dim', 192),
+            lambda_reversal=getattr(hp, 'lambda_reversal', 1.0),
             post_mult_weight=getattr(hp, 'post_mult_weight', 1e-3),
             frame_decoder_input_dim=getattr(hp, 'frame_decoder_input_dim',
                                             None),
@@ -233,12 +322,19 @@ class DaftExprt(nn.Module):
     @torch.no_grad()
     def init_random_(self, seed):
         """Seeded random parameters (CPU ``torch.Generator``): normal with
-        std 1/sqrt(fan_in) for weights and embeddings, N(0, 0.02) biases,
-        LayerNorm scale 1 and bias 0, post-multipliers N(0, 0.1)."""
+        std 1/sqrt(fan_in) for weights, N(0, 1) symbol embeddings, N(0,
+        0.02) biases, LayerNorm scale 1 and bias 0, post-multipliers N(0,
+        0.1)."""
         gen = torch.Generator().manual_seed(int(seed))
+
+        def kind(m):
+            return 'norm' if isinstance(m, LayerNorm) else \
+                'embed' if isinstance(m, nn.Embedding) else None
+        kinds = {f'{m}.{leaf}': kind(mod) for m, mod in self.named_modules()
+                 for leaf, _ in mod.named_parameters(recurse=False)}
         for name, p in self.named_parameters():
             leaf = name.rsplit('.', 1)[-1]
-            if '.layer_norm.' in f'.{name}':
+            if kinds[name] == 'norm':
                 val = torch.ones(p.shape) if leaf == 'weight' \
                     else torch.zeros(p.shape)
             elif leaf == 'bias':
@@ -246,18 +342,16 @@ class DaftExprt(nn.Module):
             elif leaf == 'post_multipliers':
                 val = 0.1 * torch.randn(p.shape, generator=gen)
             else:
-                fan_in = 1 if 'embedding' in name else p[0].numel()
+                fan_in = 1 if kinds[name] == 'embed' else p[0].numel()
                 val = torch.randn(p.shape, generator=gen) / fan_in ** 0.5
             p.copy_(val.to(p.device))
         return self
 
     def load_bridged(self, state_dict):
-        """Load a state dict from ``bridge.acoustic_state_from_jax``. Keys of
-        the modules this slice does not port (``UNPORTED_PREFIXES``) are
-        set aside; any other missing or unexpected key raises."""
-        ours = {k: v for k, v in state_dict.items()
-                if not k.startswith(UNPORTED_PREFIXES)}
-        missing, unexpected = self.load_state_dict(ours, strict=False)
+        """Load a state dict from ``bridge.acoustic_state_from_jax``: every
+        parameter must be there, and nothing else; a missing or unexpected
+        key raises ``KeyError``."""
+        missing, unexpected = self.load_state_dict(state_dict, strict=False)
         if missing or unexpected:
             raise KeyError(f'state dict mismatch: missing {missing}, '
                            f'unexpected {unexpected}')
@@ -266,6 +360,45 @@ class DaftExprt(nn.Module):
     def _speaker_embedding(self, spk_embs):
         norm = torch.linalg.norm(spk_embs, dim=-1, keepdim=True)
         return self.spk_projection(spk_embs / torch.clamp(norm, min=1e-12))
+
+    def encode_accent(self, frames_energy, frames_pitch, mel_specs,
+                      output_lengths, generator=None):
+        """The accent embedding of a reference mel, (B, accent dim) float32."""
+        return self.accent_encoder(frames_energy, frames_pitch, mel_specs,
+                                   output_lengths, generator)
+
+    def forward(self, symbols, durations_float, durations_int,
+                symbols_energy, symbols_pitch, input_lengths, frames_energy,
+                frames_pitch, mel_specs, output_lengths, speaker_ids,
+                spk_embs, external_accent_emb=None, external_spk_emb=None,
+                generator=None):
+        """The training forward (the counterpart of the JAX ``__call__``).
+        In training mode, dropout masks come from ``generator``. Returns
+        {'speaker_preds', 'post_multipliers', 'film_frame_decoder',
+        'mel_preds' (B, n_mels, T), 'alignments' (B, L, T), 'accent_emb'}."""
+        if external_spk_emb is not None:
+            spk_emb = external_spk_emb
+        else:
+            spk_emb = self._speaker_embedding(spk_embs)
+        if external_accent_emb is not None:
+            accent_emb = external_accent_emb
+        else:
+            accent_emb = self.accent_encoder(frames_energy, frames_pitch,
+                                             mel_specs, output_lengths,
+                                             generator)
+        speaker_preds = self.speaker_classifier(accent_emb)
+        film, post = self.style_adapter(accent_emb + spk_emb)
+        enc = self.phoneme_encoder(symbols, film['phoneme_encoder'],
+                                   input_lengths, generator)
+        x, weights = self.gaussian_upsampling(
+            enc, durations_float, durations_int, symbols_energy,
+            symbols_pitch, input_lengths, mel_specs.shape[-1])
+        mel = self.frame_decoder(x, film['frame_decoder'], output_lengths,
+                                 generator)
+        return {'speaker_preds': speaker_preds, 'post_multipliers': post,
+                'film_frame_decoder': film['frame_decoder'],
+                'mel_preds': mel, 'alignments': weights,
+                'accent_emb': accent_emb}
 
     @torch.no_grad()
     def inference(self, symbols, duration_preds, durations_int, energy_preds,

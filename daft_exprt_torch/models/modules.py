@@ -7,6 +7,13 @@ onto a state dict mechanically (see ``bridge.py``). Parameters are float32;
 each layer takes the compute dtype like flax's ``dtype=``: inputs and
 parameters are cast to it, while LayerNorm statistics, FiLM and the
 Gaussian upsampling stay float32, as in the JAX package.
+
+Training mode (``module.train()``) applies dropout where the JAX package
+does: on the attention weights (inside the attention kernel), after the
+attention's output projection (``resid_drop``) and after the feed-forward's
+second conv (``drop``). Masks come from the explicit ``torch.Generator``
+passed down the forward; each attention call draws its 32-bit dropout seed
+from it first. In eval mode (``inference``) nothing is drawn.
 """
 import numpy as np
 import torch
@@ -16,6 +23,20 @@ import torch.nn.functional as F
 from daft_exprt_torch.ops.attention_kernels import (
     attention_plain, fused_attention,
 )
+
+
+def _need_generator(generator):
+    if generator is None:
+        raise ValueError('training-mode dropout needs an explicit '
+                         'torch.Generator (generator=...)')
+
+
+def dropout(x, p, generator):
+    """flax ``nn.Dropout``: keep with probability 1 - p (mask drawn from
+    ``generator``), kept values divided by 1 - p in x's dtype."""
+    _need_generator(generator)
+    keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
+    return torch.where(keep.bool(), x / (1.0 - p), torch.zeros_like(x))
 
 
 def sequence_mask(lengths, max_len):
@@ -142,21 +163,22 @@ class ConvNorm1D(nn.Module):
 
 
 class MultiHeadSelfAttention(nn.Module):
-    """Self-attention + residual + LayerNorm (inference: dropout off).
+    """Self-attention + dropout + residual + LayerNorm.
 
     ``fused`` routes the attention core through ``fused_attention``
-    (the CUDA kernel on a CUDA tensor); otherwise the plain branch."""
+    (the CUDA kernels on a CUDA tensor); otherwise the plain branch,
+    differentiated by autograd. Both apply the same Philox weight mask."""
 
     def __init__(self, embed_dim, num_heads, dtype=torch.float32,
-                 fused=False):
+                 fused=False, dropout=0.0):
         super().__init__()
         self.embed_dim, self.num_heads = embed_dim, num_heads
-        self.dtype, self.fused = dtype, fused
+        self.dtype, self.fused, self.dropout = dtype, fused, dropout
         self.in_proj = Dense(embed_dim, 3 * embed_dim)
         self.out_proj = Dense(embed_dim, embed_dim)
         self.layer_norm = LayerNorm(embed_dim)
 
-    def forward(self, x, valid_mask):
+    def forward(self, x, valid_mask, generator=None):
         d, h = self.embed_dim, self.num_heads
         hd = d // h
         qkv = self.in_proj(x, self.dtype)
@@ -169,10 +191,20 @@ class MultiHeadSelfAttention(nn.Module):
         q = split_heads(q) * hd ** -0.5
         k, v = split_heads(k), split_heads(v)
         lengths = valid_mask.sum(dim=1, dtype=torch.int32)
+        drop = self.training and self.dropout > 0
+        seed, p = 0, 0.0
+        if drop:
+            _need_generator(generator)
+            seed = torch.randint(0, 2 ** 32, (1,), generator=generator,
+                                 device=generator.device)
+            p = float(self.dropout)
         attend = fused_attention if self.fused else attention_plain
-        out = attend(q.contiguous(), k.contiguous(), v.contiguous(), lengths)
+        out = attend(q.contiguous(), k.contiguous(), v.contiguous(), lengths,
+                     seed, p)
         out = out.permute(0, 2, 1, 3).reshape(b, l, d)
         out = self.out_proj(out, self.dtype)
+        if drop:
+            out = dropout(out, self.dropout, generator)
         return self.layer_norm(out + x).to(self.dtype)
 
 
@@ -182,21 +214,24 @@ class PositionWiseConvFF(nn.Module):
     reproduces the reference's ragged-batch leak."""
 
     def __init__(self, embed_dim, conv_channels, kernel_size,
-                 strict_masking=True, dtype=torch.float32):
+                 strict_masking=True, dtype=torch.float32, dropout=0.0):
         super().__init__()
         self.embed_dim, self.strict_masking, self.dtype = \
             embed_dim, strict_masking, dtype
+        self.dropout = dropout
         self.conv1 = ConvNorm1D(embed_dim, conv_channels, kernel_size,
                                 dtype=dtype)
         self.conv2 = ConvNorm1D(conv_channels, embed_dim, kernel_size,
                                 dtype=dtype)
         self.layer_norm = LayerNorm(embed_dim)
 
-    def forward(self, x, film_params, valid_mask=None):
+    def forward(self, x, film_params, valid_mask=None, generator=None):
         y = torch.relu(self.conv1(x))
         if self.strict_masking and valid_mask is not None:
             y = torch.where(valid_mask[..., None], y, torch.zeros_like(y))
         y = self.conv2(y)
+        if self.training and self.dropout > 0:
+            y = dropout(y, self.dropout, generator)
         y = self.layer_norm(y + x)
         if film_params is not None:
             gammas = film_params[:, None, :self.embed_dim]
@@ -210,15 +245,16 @@ class FFTBlock(nn.Module):
 
     def __init__(self, embed_dim, num_heads, conv_channels, conv_kernel,
                  strict_masking=True, dtype=torch.float32,
-                 fused_attention=False):
+                 fused_attention=False, attn_dropout=0.0, conv_dropout=0.0):
         super().__init__()
         self.attention = MultiHeadSelfAttention(embed_dim, num_heads, dtype,
-                                                fused_attention)
+                                                fused_attention, attn_dropout)
         self.feed_forward = PositionWiseConvFF(
-            embed_dim, conv_channels, conv_kernel, strict_masking, dtype)
+            embed_dim, conv_channels, conv_kernel, strict_masking, dtype,
+            conv_dropout)
 
-    def forward(self, x, film_params, valid_mask):
-        y = self.attention(x, valid_mask)
+    def forward(self, x, film_params, valid_mask, generator=None):
+        y = self.attention(x, valid_mask, generator)
         y = torch.where(valid_mask[..., None], y, torch.zeros_like(y))
-        y = self.feed_forward(y, film_params, valid_mask)
+        y = self.feed_forward(y, film_params, valid_mask, generator)
         return torch.where(valid_mask[..., None], y, torch.zeros_like(y))

@@ -1,11 +1,13 @@
 // Masked self-attention forward for the FFT blocks, for Hopper.
 //
 // Replaces daft_exprt_tpu/ops/attention_kernels.py::fused_attention forward
-// (Pallas body _fwd_kernel), dropout off. For each (b, h) and query row:
+// (Pallas body _fwd_kernel). For each (b, h) and query row:
 //   s = q . k^T (q pre-scaled by D^-1/2), float32;
 //   s[key >= lengths[b]] = -1e9;
-//   p = exp(s - max s) / sum exp(s - max s), float32, then rounded to v's type;
-//   o = p . v with float32 accumulation, written in q's type.
+//   p = exp(s - max s) / sum exp(s - max s), float32;
+//   with dropout (thr > 0): p = keep ? p * scale : 0, the mask from
+//   attention_common.cuh's Philox bits (the backward regenerates it);
+//   p rounded to v's type; o = p . v with float32 accumulation, in q's type.
 // Like the TPU kernel it holds whole rows: a block owns BQ query rows of one
 // (b, h) and keeps their (BQ, T) float32 logits in shared memory (T <= 2048),
 // so the softmax is normalised before the cast exactly as on the TPU, with
@@ -15,30 +17,13 @@
 // against 4*T*D elements moved (q, k, v in, o out): at D = 64 in bf16 that
 // is T/2 FLOPs per byte, so T = 128 is bound by bytes and T = 1024 by
 // operations. This first version runs FMAs, not the tensor cores.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "attention_common.cuh"
 
 namespace attn {
 
-using bf16 = __nv_bfloat16;
 constexpr int BQ = 16;       // query rows per block
 constexpr int BK = 64;       // keys per staged chunk
 constexpr int kThreads = 128;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16_rn(x); }
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 inline size_t smem_bytes(int T, int D) {
   return sizeof(float) * ((size_t)BQ * D + (size_t)D * (BK + 1) + (size_t)BQ * T);
@@ -50,7 +35,9 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(const T* __restrict_
                                                             const T* __restrict__ k,
                                                             const T* __restrict__ v,
                                                             const int* __restrict__ lengths,
-                                                            T* __restrict__ o, int H, int T_len) {
+                                                            const long long* __restrict__ seed,
+                                                            T* __restrict__ o, int H, int T_len,
+                                                            unsigned thr, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* s_q = smem;                    // (BQ, D)
   float* s_kv = s_q + BQ * D;           // K chunk (D, BK + 1) or V chunk (BK, D)
@@ -61,6 +48,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(const T* __restrict_
   const int q0 = blockIdx.x * BQ;
   const long long base = (long long)bh * T_len * D;
   const int len = lengths[b];
+  const Dropout drop = make_dropout(seed, bh, thr, scale);
 
   for (int i = tid; i < BQ * D; i += kThreads) {
     const int r = i / D, d = i - r * D;
@@ -111,7 +99,16 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(const T* __restrict_
       sum += e;
     }
     sum = warp_sum(sum);
-    for (int c = lane; c < T_len; c += 32) pr[c] = to_f32(from_f32<T>(pr[c] / sum));
+    if (!drop.on()) {
+      for (int c = lane; c < T_len; c += 32) pr[c] = round_to<T>(pr[c] / sum);
+      continue;
+    }
+    // lane owns groups of 4 keys: one Philox call gives their 4 words
+    const int qi = q0 + warp * (BQ / (kThreads / 32)) + rr;
+    for (int c0 = 4 * lane; c0 < T_len; c0 += 128) {
+      const uint4 w = drop.bits(qi, c0);
+      for (int c = c0; c < min(c0 + 4, T_len); ++c) pr[c] = round_to<T>(drop.apply(w, c, pr[c] / sum));
+    }
   }
 
   // o = p . v: thread owns column d and rows rg2, rg2 + step, ...
@@ -146,34 +143,40 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(const T* __restrict_
 }
 
 template <typename T, int D>
-cudaError_t launch_t(const void* q, const void* k, const void* v, const int* lengths, void* o,
-                     int B, int H, int T_len, cudaStream_t stream) {
+cudaError_t launch_t(const void* q, const void* k, const void* v, const int* lengths,
+                     const long long* seed, void* o, int B, int H, int T_len, unsigned thr, float scale,
+                     cudaStream_t stream) {
   const size_t smem = smem_bytes(T_len, D);
   const void* kern = reinterpret_cast<const void*>(&attn_fwd_kernel<T, D>);
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid((T_len + BQ - 1) / BQ, B * H);
-  void* args[] = {&q, &k, &v, &lengths, &o, &H, &T_len};
+  void* args[] = {&q, &k, &v, &lengths, &seed, &o, &H, &T_len, &thr, &scale};
   e = cudaLaunchKernel(kern, grid, dim3(kThreads), args, smem, stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_d(const void* q, const void* k, const void* v, const int* lengths, void* o,
-                     int B, int H, int T_len, int D, cudaStream_t s) {
+cudaError_t launch_d(const void* q, const void* k, const void* v, const int* lengths,
+                     const long long* seed, void* o, int B, int H, int T_len, int D, unsigned thr,
+                     float scale, cudaStream_t s) {
   // D = 64: the FFT blocks' head width (2 heads of a 128-wide model)
   if (D != 64) return cudaErrorInvalidValue;
-  return launch_t<T, 64>(q, k, v, lengths, o, B, H, T_len, s);
+  return launch_t<T, 64>(q, k, v, lengths, seed, o, B, H, T_len, thr, scale, s);
 }
 
 }  // namespace attn
 
-// dtype: 1 = bf16, 0 = float32. Returns cudaGetLastError() after the launch.
+// dtype: 1 = bf16, 0 = float32. thr: the dropout threshold (0: off; seed,
+// an int64 on the card, is then not read). Returns cudaGetLastError() after
+// the launch.
 extern "C" int attention_fwd(const void* q, const void* k, const void* v, const void* lengths,
-                             void* o, int B, int H, int T_len, int D, int dtype, void* stream) {
+                             const void* seed, void* o, int B, int H, int T_len, int D, int dtype,
+                             unsigned thr, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
-  if (dtype == 1) return (int)attn::launch_d<attn::bf16>(q, k, v, len, o, B, H, T_len, D, s);
-  return (int)attn::launch_d<float>(q, k, v, len, o, B, H, T_len, D, s);
+  const long long* sd = static_cast<const long long*>(seed);
+  if (dtype == 1) return (int)attn::launch_d<attn::bf16>(q, k, v, len, sd, o, B, H, T_len, D, thr, scale, s);
+  return (int)attn::launch_d<float>(q, k, v, len, sd, o, B, H, T_len, D, thr, scale, s);
 }

@@ -20,7 +20,7 @@ from daft_exprt_tpu.models.daft_exprt import DaftExprt as JaxDaftExprt
 from daft_exprt_torch.bridge import acoustic_state_from_jax
 from daft_exprt_torch.generate import Synthesizer
 from daft_exprt_torch.hparams import HyperParams
-from daft_exprt_torch.models.daft_exprt import DaftExprt, UNPORTED_PREFIXES
+from daft_exprt_torch.models.daft_exprt import DaftExprt
 
 from tests.torch_port_utils import max_abs, rel_l2
 
@@ -117,13 +117,19 @@ def test_synthesizer_matches_jax():
 
 
 def test_bridge_maps_every_leaf_once():
+    """Every leaf of a full JAX DaftExprt tree (accent encoder and speaker
+    classifier included) maps to one parameter of the port and loads; a
+    missing or an unknown key raises."""
     _, _, params = _jax_model('float32', True)
     leaves = jax.tree_util.tree_leaves_with_path(params)
     state = acoustic_state_from_jax(params)
     assert len(state) == len(leaves)
+    assert any(k.startswith('accent_encoder.ln_2.') for k in state)
+    assert any(k.startswith('speaker_classifier.fc3.') for k in state)
     _, model = _port_model('float32', True, params)
-    ours = {k for k in state if not k.startswith(UNPORTED_PREFIXES)}
-    assert ours == set(dict(model.named_parameters()))
+    assert set(state) == set(dict(model.named_parameters()))
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, state[k]), k
     # Dense kernels arrive transposed, conv kernels as (out, in, k)
     k = np.asarray(params['spk_projection']['linear_layer']['kernel'])
     assert np.array_equal(state['spk_projection.linear_layer.weight'], k.T)
@@ -134,6 +140,10 @@ def test_bridge_maps_every_leaf_once():
         c.transpose(2, 1, 0))
     with pytest.raises(KeyError, match='no mapping'):
         acoustic_state_from_jax({'x': {'running_mean': np.zeros(3)}})
-    with pytest.raises(KeyError):
-        model.load_bridged({k: v for k, v in state.items()
-                            if k != 'spk_projection.linear_layer.bias'})
+    for key in ('spk_projection.linear_layer.bias',
+                'accent_encoder.conv_0.conv.weight',
+                'speaker_classifier.fc1.linear_layer.weight'):
+        with pytest.raises(KeyError, match='missing'):
+            model.load_bridged({k: v for k, v in state.items() if k != key})
+    with pytest.raises(KeyError, match='unexpected'):
+        model.load_bridged(dict(state, **{'extra.weight': torch.zeros(1)}))

@@ -16,7 +16,7 @@ import torch
 
 from daft_exprt_torch.ops import vocoder_kernels as vk
 from daft_exprt_torch.ops.attention_kernels import (
-    attention_plain, fused_attention,
+    attention_bwd_plain, attention_plain, fused_attention, fused_attention_bwd,
 )
 
 
@@ -69,13 +69,80 @@ def test_attention_kernel_matches_plain(T, dtype):
                .cuda().to(dtype) for _ in range(3))
     q = q * D ** -0.5
     lengths = torch.tensor([T, T // 3, 1], dtype=torch.int32).cuda()
-    n, c = fused_attention.launches, fused_attention.calls[(B, H, T, D)]
+    n, c = fused_attention.launches, fused_attention.calls[(B, H, T, D, 0.0)]
     out = fused_attention(q, k, v, lengths)
     torch.cuda.synchronize()
     assert fused_attention.launches == n + 1
-    assert fused_attention.calls[(B, H, T, D)] == c + 1
+    assert fused_attention.calls[(B, H, T, D, 0.0)] == c + 1
     ref = attention_plain(q, k, v, lengths)
     assert rel_l2(out.float().cpu(), ref.float().cpu()) < _band(dtype)
+
+
+def _attention_inputs(T, dtype, seed, B=3, H=2, D=64):
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (torch.from_numpy(rng.randn(B, H, T, D).astype(np.float32))
+                   .cuda().to(dtype) for _ in range(4))
+    lengths = torch.tensor([T, T // 3, 1][:B], dtype=torch.int32).cuda()
+    return q * D ** -0.5, k, v, do, lengths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('T', [128, 1024])
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_attention_dropout_kernel_matches_plain(T, dtype):
+    """The forward at p = 0.1: the kernel and the plain version draw the
+    same Philox mask, so they agree as at p = 0."""
+    need_cuda()
+    q, k, v, _, lengths = _attention_inputs(T, dtype, T + 1)
+    seed = torch.tensor([987654321], dtype=torch.int64, device='cuda')
+    n = fused_attention.launches
+    out = fused_attention(q, k, v, lengths, seed, 0.1)
+    torch.cuda.synchronize()
+    assert fused_attention.launches == n + 1
+    ref = attention_plain(q, k, v, lengths, seed, 0.1)
+    assert rel_l2(out.float().cpu(), ref.float().cpu()) < _band(dtype)
+    # dropout changes the output: the mask is applied
+    assert rel_l2(attention_plain(q, k, v, lengths).float().cpu(),
+                  ref.float().cpu()) > 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('p', [0.0, 0.1])
+@pytest.mark.parametrize('T', [128, 1024, 2048])
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_attention_bwd_kernel_matches_plain(p, T, dtype):
+    """dq, dk, dv of the backward kernel against attention_bwd_plain, and
+    two calls bit-identical (dk and dv are summed in a fixed order)."""
+    need_cuda()
+    q, k, v, do, lengths = _attention_inputs(T, dtype, T + int(p * 10), B=2)
+    seed = torch.tensor([2 ** 32 - 5], dtype=torch.int64, device='cuda')
+    n = fused_attention_bwd.launches
+    c = fused_attention_bwd.calls[tuple(q.shape) + (p,)]
+    got = fused_attention_bwd(q, k, v, do, lengths, seed, p)
+    again = fused_attention_bwd(q, k, v, do, lengths, seed, p)
+    torch.cuda.synchronize()
+    assert fused_attention_bwd.launches == n + 4          # two per call
+    assert fused_attention_bwd.calls[tuple(q.shape) + (p,)] == c + 2
+    ref = attention_bwd_plain(q, k, v, do, lengths, seed, p)
+    for a, b, r in zip(got, again, ref):
+        assert a.dtype == dtype and a.shape == q.shape
+        assert torch.equal(a, b)
+        assert rel_l2(a.float().cpu(), r.float().cpu()) < _band(dtype)
+
+
+@pytest.mark.cuda
+def test_attention_kernel_gradient_through_autograd():
+    """fused_attention's autograd gradient is the backward kernel's."""
+    need_cuda()
+    q, k, v, do, lengths = _attention_inputs(256, torch.float32, 5)
+    seed = torch.tensor([11], dtype=torch.int64, device='cuda')
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    n = fused_attention_bwd.launches
+    fused_attention(qq, kk, vv, lengths, seed, 0.1).backward(do)
+    assert fused_attention_bwd.launches == n + 2
+    ref = attention_bwd_plain(q, k, v, do, lengths, seed, 0.1)
+    for t, r in zip((qq, kk, vv), ref):
+        assert rel_l2(t.grad.cpu(), r.cpu()) < 1e-5
 
 
 @pytest.mark.cuda

@@ -52,6 +52,11 @@ def test_port_imports_with_jax_blocked():
         'import daft_exprt_torch.models.daft_exprt\n'
         'import daft_exprt_torch.models.hifigan\n'
         'import daft_exprt_torch.hparams\n'
+        'import daft_exprt_torch.train, daft_exprt_torch.loss\n'
+        'import daft_exprt_torch.data, daft_exprt_torch.checkpoint\n'
+        'import daft_exprt_torch.parallel.train_step\n'
+        'import daft_exprt_torch.models.pitch_predictor\n'
+        'import daft_exprt_torch.utils.logger, daft_exprt_torch.ops.grl\n'
         'assert not any(m.split(".")[0] in %r for m in sys.modules)\n'
         'print("ok")\n' % (FORBIDDEN,))
     res = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
@@ -69,12 +74,14 @@ def test_entry_points_default_to_cuda():
     from daft_exprt_torch.models.hifigan import (
         HiFiGanVocoder, init_generator_params,
     )
+    from daft_exprt_torch.train import train
     hp = HyperParams(verbose=False, training_files='x', validation_files='x',
                      output_directory='/nonexistent', language='english',
                      speakers=['a'])
     for call in (lambda: resolve_device(),
                  lambda: resolve_device('cuda'),
                  lambda: DaftExprt.from_hparams(hp),
+                 lambda: train(hp),
                  lambda: init_generator_params(0),
                  lambda: HiFiGanVocoder({}, fast='bf16')):
         with pytest.raises(RuntimeError, match='device="cpu"'):
