@@ -21,6 +21,17 @@
    - int8-dynamic, B=8: HiFiGanVocoder(fast='int8') without calibration
      mels (fused_mrf_ct q8 at L0/L1, the dynamic int8 fused_mrf_phase at
      L2/L3), the same two bands;
+   - HiFi-GAN V2 (jik876/hifi-gan config_v2.json: V1 at 128 initial
+     channels, levels of C = 64/32/16/8) behind the same Synthesizer at
+     B=8 x 1024 frames, each tier: bf16 (fused_mrf_ct at L0,
+     fused_mrf_phase without prologue at L1-L3), int8-static (mel[:4]
+     calibration: fused_mrf_ct q8f at L0, the int8 fused_mrf_phase q8f
+     without prologue at L1, bf16 at L2/L3) and int8-dynamic (the same in
+     q8); each waveform against the float32 plain route (bf16, 5e-2) or
+     the plain int8 route and the V2 bf16 tier (1e-2, 0.25);
+   - v2-ct-fallback: generator_forward at 12 frames (no phase tile divides
+     L1 and L2, which take fused_mrf_ct) in each V2 tier, against the
+     kernels' plain versions (rel-L2 <= 1e-2);
    - the serving entry point at batch 1: generate_mel_specs(batch_size=1)
      over three utterances of about 200, 640 and 1024 frames (so the ct
      tile changes) with the int8-static vocoder (its narrow levels below
@@ -68,6 +79,9 @@ B=8 tier, one generate_mel_specs call of each batch-1 path and one train
 step: device time by kernel, the acoustic/vocoder (forward/backward/
 optimizer) split and the device's busy share.
 
+The float32 calls of fused_mrf_ct at V2's L0 and L3 shapes are held to
+their plain version at rel-L2 <= 1e-5 before the paths run.
+
 Any failure raises (exit code != 0). Without a CUDA device it exits 2 and
 prints no result. The line before the last is the kernels' JSON; the last
 is {"ok": true, "device": {...}}.
@@ -89,6 +103,9 @@ PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 B, L, T = 8, 128, 1024       # requests, symbols, frames
 UTT_FRAMES = (200, 640, 1024)   # the batch-1 entry point's utterances
 SEED = 1234
+# HiFi-GAN V2 (jik876/hifi-gan config_v2.json): V1 at 128 initial channels
+V2_CHANNELS = 128
+V2_FALLBACK_FRAMES = 12      # no phase tile divides L1 and L2: fused_mrf_ct
 TB, TL, TT = 16, 128, 1024   # bench_train_step.py's batch, symbols, frames
 TRAIN_STEPS = 5
 
@@ -293,9 +310,9 @@ class KernelCases:
     random, made from the seed; the int8-static kernels' act scales are
     calibrated on a slice of the level input."""
 
-    def __init__(self, torch, F, vk, mi, attn, dev, ks, dils):
-        self.torch, self.F, self.vk, self.mi, self.attn = torch, F, vk, mi, \
-            attn       # (fused_attention, attention_plain, the backward's)
+    def __init__(self, torch, F, vk, mi, mc, attn, dev, ks, dils):
+        self.torch, self.F, self.vk, self.mi, self.mc = torch, F, vk, mi, mc
+        self.attn = attn   # (fused_attention, attention_plain, the backward's)
         self.dev, self.ks, self.dils = dev, ks, dils
         self.gen = torch.Generator().manual_seed(SEED + 7)
         self.n_ops = 2 * sum(len(d) * 2 * k for k, d in zip(ks, dils))
@@ -397,6 +414,69 @@ class KernelCases:
                     flops=252 * Bx * N * C * C + 2 * Bx * N * C_in * C * 2
                     + (2 * Bx * N * C * 7 if post else 0),
                     nbytes=Bx * C_in * T_in * 2 + Bx * c_out * N * 2 + wbytes)
+
+    def _ct_float(self, key, fn, plain):
+        vk = self.vk
+        Bx, Tx, C = key
+        wb = [t.to(self.torch.bfloat16) for t in vk.pack_mrf_tc_weights(
+            self.params(2 * C, C), 0, self.ks, self.dils)]
+        mrf = vk.prepare_mrf(wb, self.ks, self.dils)
+        x = self.randn(Bx, Tx, C)
+        wbytes = sum(t.numel() * t.element_size() for t in wb)
+        return dict(desc=f'x ({Bx},{Tx},{C}) bf16', band=1e-2,
+                    fn=lambda: fn(x, mrf), plain=lambda: plain(x, mrf),
+                    flops=252 * Bx * Tx * C * C,
+                    nbytes=2 * Bx * Tx * C * 2 + wbytes)
+
+    def fused_mrf_ct(self, key):
+        return self._ct_float(key, self.mc.fused_mrf_ct, self.mc.mrf_ct_plain)
+
+    def fused_mrf_phase_noups(self, key):
+        return self._ct_float(key, self.mc.fused_mrf_phase_noups,
+                              self.mc.mrf_phase_noups_plain)
+
+    def _ct_int8(self, key, static):
+        """(x, weights) of a V2 int8 level, per-tap ct-packed weights: q8f
+        (act scales calibrated on a slice of x) or dynamic."""
+        mi = self.mi
+        Bx, Tx, C = key[:3]
+        p = self.params(2 * C, C)
+        x = self.randn(Bx, Tx, C)
+        w = mi.pack_mrf_weights(self.bf16(p), 0, self.ks, self.dils)
+        if static:
+            scales = level_scales(self.torch, self.F, p, x[:1, :8192].float()
+                                  .transpose(1, 2), self.ks, self.dils)
+            return x, mi.prepare_mrf_ct_q8f(mi.quantize_mrf_ct_q8f_weights(
+                w, [s for s1, s2 in scales for s in (s1, s2)]), self.ks,
+                self.dils)
+        return x, mi.prepare_mrf_ct_q8(mi.quantize_mrf_ct_weights(w),
+                                       self.ks, self.dils)
+
+    def _int8_work(self, key, mrf):
+        Bx, Tx, C = key[:3]
+        return dict(flops=0, int8_ops=self.n_ops * Bx * Tx * C * C,
+                    nbytes=2 * Bx * Tx * C * 2 + self.q8_wbytes(mrf, C))
+
+    def fused_mrf_ct_q8f(self, key):
+        mi = self.mi
+        x, mrf = self._ct_int8(key, True)
+        return dict(desc='x ({},{},{}) bf16'.format(*key), band=2e-3,
+                    fn=lambda: mi.fused_mrf_ct_q8f(x, mrf),
+                    plain=lambda: mi.mrf_ct_q8f_plain(x, mrf),
+                    **self._int8_work(key, mrf))
+
+    def fused_mrf_phase_q8_noups(self, key):
+        mi = self.mi
+        Bx, Tx, C, mode = key
+        x, mrf = self._ct_int8(key, mode == 'q8f')
+        p = 128 // C
+        tile = mi.phase_tile(Tx, p)
+        return dict(desc=f'{mode} x ({Bx},{Tx},{C}) bf16 p {p} tile {tile}',
+                    band=2e-3,
+                    fn=lambda: mi.fused_mrf_phase_q8_noups(x, mrf, p, tile),
+                    plain=lambda: mi.mrf_phase_q8_noups_plain(x, mrf, p,
+                                                              tile),
+                    **self._int8_work(key, mrf))
 
     def fused_mrf_tc_q8(self, key):
         vk = self.vk
@@ -579,6 +659,7 @@ def main():
         init_generator_params,
     )
     from daft_exprt_torch.ops import _build
+    from daft_exprt_torch.ops import mrf_ct as mc
     from daft_exprt_torch.ops import mrf_int8 as mi
     from daft_exprt_torch.ops import vocoder_kernels as vk
     from daft_exprt_torch.ops.attention_kernels import (
@@ -629,6 +710,20 @@ def main():
         '(band 1e-05)')
     assert r32 <= 1e-5, r32
     del w32, x32, out32, ref32
+    # the float32 route of the ct kernel at V2's L0 and L3 shapes
+    for C, n in ((64, 8192), (8, 262144)):
+        w32 = vk.pack_mrf_tc_weights(level_params(torch, gen, 2 * C, C, ks,
+                                                  dils, dev), 0, ks, dils)
+        x32 = torch.randn((B, n, C), generator=gen).to(dev)
+        out32 = mc.fused_mrf_ct(x32, vk.prepare_mrf(w32, ks, dils))
+        ref32 = mc.mrf_ct_plain(x32, vk.prepare_mrf(w32, ks, dils))
+        torch.cuda.synchronize()
+        r32 = rel_l2(out32.float(), ref32.float())
+        log(f'check fused_mrf_ct ({B},{n},{C}) float32: max_abs='
+            f'{max_abs(out32.float(), ref32.float()):.3e} rel_l2={r32:.3e} '
+            '(band 1e-05)')
+        assert r32 <= 1e-5, r32
+        del w32, x32, out32, ref32
 
     # ---- 3. the paths ------------------------------------------------------
     hp = HyperParams(verbose=False, training_files='unused',
@@ -643,7 +738,9 @@ def main():
     batch['accent_emb'] = batch['spk_embs'][:, :model.hidden_dim]
     kernels = (fused_attention, vk.fused_mrf_tc, vk.fused_mrf_phase,
                vk.fused_mrf_tc_q8, vk.fused_mrf_ptc, mi.fused_mrf_ct_q8,
-               mi.fused_mrf_phase_q8, fused_attention_bwd)
+               mi.fused_mrf_phase_q8, fused_attention_bwd, mc.fused_mrf_ct,
+               mc.fused_mrf_phase_noups, mi.fused_mrf_ct_q8f,
+               mi.fused_mrf_phase_q8_noups)
     paths = []          # (tier, launches by kernel, calls by kernel and key)
 
     def synthesizer(voc):
@@ -693,7 +790,7 @@ def main():
         T0 = m.shape[-1]
         m = F.pad(m, (0, -(-T0 // 128) * 128 - T0), value=math.log(1e-5))
         with torch.no_grad():
-            w = generator_forward(voc.params, m.to(dev, bf16), DEFAULT_CONFIG,
+            w = generator_forward(voc.params, m.to(dev, bf16), voc.config,
                                   use_fast=True, packed=voc.packed,
                                   int8=voc.int8,
                                   int8_act_scales=voc.act_scales, plain=True)
@@ -708,12 +805,12 @@ def main():
         f'(band 5e-2), |wav| max {np.abs(exact).max():.3e}')
     assert r <= 5e-2, r
 
-    def int8_path(tier, voc, path_kernels):
+    def int8_path(tier, voc, path_kernels, bf16_voc=vocoder):
         fn = synthesizer(voc)
         mel_q, wav_q = run_path(tier, fn, path_kernels)
         check_b8(tier, mel_q, wav_q)
         r_plain = rel(wav_q, plain_int8(voc, mel_q))
-        r_bf16 = rel(wav_q, vocoder.infer(mel_q))
+        r_bf16 = rel(wav_q, bf16_voc.infer(mel_q))
         log(f'path {tier}: waveform vs the plain int8 route rel_l2='
             f'{r_plain:.3e} (band 1e-2), vs the bf16 tier rel_l2='
             f'{r_bf16:.3e} (band 0.25), |wav| max {np.abs(wav_q).max():.3e}')
@@ -735,6 +832,63 @@ def main():
     log(f'path int8-dynamic: int8 packing {time.perf_counter() - t0:.2f} s')
     synthesize_dyn = int8_path('int8-dynamic', vocoder_dyn, (
         fused_attention, mi.fused_mrf_ct_q8, mi.fused_mrf_phase_q8))
+
+    # HiFi-GAN V2 behind the same acoustic model, each tier
+    v2 = dict(DEFAULT_CONFIG, upsample_initial_channel=V2_CHANNELS)
+    v2_params = init_generator_params(SEED + 3, v2)        # device: cuda
+    vocoder_v2 = HiFiGanVocoder(v2_params, v2, fast='bf16')
+    synthesize_v2 = synthesizer(vocoder_v2)
+    mel, wav = run_path('v2-bf16', synthesize_v2, (
+        fused_attention, mc.fused_mrf_ct, mc.fused_mrf_phase_noups))
+    check_b8('v2-bf16', mel, wav)
+    exact = HiFiGanVocoder(v2_params, v2, fast=False).infer(mel)
+    r = rel(wav, exact)
+    log(f'path v2-bf16: waveform vs float32 plain route rel_l2={r:.3e} '
+        f'(band 5e-2), |wav| max {np.abs(exact).max():.3e}')
+    assert r <= 5e-2, r
+    t0 = time.perf_counter()
+    vocoder_v2_q8 = HiFiGanVocoder(v2_params, v2, fast='int8',
+                                   int8_calibration_mels=mel[:4])
+    log(f'path v2-int8: calibration and int8 packing '
+        f'{time.perf_counter() - t0:.2f} s')
+    synthesize_v2_q8 = int8_path('v2-int8', vocoder_v2_q8, (
+        fused_attention, mi.fused_mrf_ct_q8f, mi.fused_mrf_phase_q8_noups,
+        mc.fused_mrf_phase_noups), vocoder_v2)
+    vocoder_v2_dyn = HiFiGanVocoder(v2_params, v2, fast='int8')
+    synthesize_v2_dyn = int8_path('v2-int8-dynamic', vocoder_v2_dyn, (
+        fused_attention, mi.fused_mrf_ct_q8, mi.fused_mrf_phase_q8_noups,
+        mc.fused_mrf_phase_noups), vocoder_v2)
+
+    def v2_fallback():
+        """generator_forward at 12 frames in each V2 tier, and its plain
+        route on the card."""
+        m = torch.as_tensor(mel[:, :, :V2_FALLBACK_FRAMES]).to(dev, bf16)
+        out = []
+        with torch.no_grad():
+            for voc in (vocoder_v2, vocoder_v2_q8, vocoder_v2_dyn):
+                kw = dict(use_fast=True, packed=voc.packed, int8=voc.int8,
+                          int8_act_scales=voc.act_scales)
+                out.append((generator_forward(voc.params, m, v2, **kw),
+                            voc))
+        return out
+
+    for w, voc in run_path('v2-ct-fallback', v2_fallback, (
+            mc.fused_mrf_ct, mc.fused_mrf_phase_noups, mi.fused_mrf_ct_q8f,
+            mi.fused_mrf_ct_q8)):
+        m = torch.as_tensor(mel[:, :, :V2_FALLBACK_FRAMES]).to(dev, bf16)
+        with torch.no_grad():
+            ref = generator_forward(voc.params, m, v2, use_fast=True,
+                                    packed=voc.packed, int8=voc.int8,
+                                    int8_act_scales=voc.act_scales,
+                                    plain=True)
+        assert w.shape == (B, 1, V2_FALLBACK_FRAMES * 256)
+        assert torch.isfinite(w.float()).all()
+        r = rel_l2(w.float(), ref.float())
+        tier = 'bf16' if not voc.int8 else (
+            'int8' if voc.act_scales is not None else 'int8-dynamic')
+        log(f'path v2-ct-fallback {tier}: waveform vs the plain route '
+            f'rel_l2={r:.3e} (band 1e-2)')
+        assert r <= 1e-2, r
 
     # the serving entry point at batch 1, each tier
     sentences, prosody, stats = entry_inputs(hp, SEED)
@@ -939,7 +1093,7 @@ def main():
             int(st['step']) + 2
 
     # ---- 4. each kernel at each shape a path called it with ----------------
-    cases = KernelCases(torch, F, vk, mi, (
+    cases = KernelCases(torch, F, vk, mi, mc, (
         fused_attention, attention_plain, fused_attention_bwd,
         attention_bwd_plain), dev, ks, dils)
     by_name = {kern.__name__: kern for kern in kernels}
@@ -1018,6 +1172,11 @@ def main():
                'fused_mrf_ptc': 'daft_exprt_torch/ops/csrc/mrf_ptc.cu',
                'fused_mrf_ct_q8': 'daft_exprt_torch/ops/csrc/mrf_ct_q8.cu',
                'fused_mrf_phase_q8':
+               'daft_exprt_torch/ops/csrc/mrf_phase_q8.cu',
+               'fused_mrf_ct': 'daft_exprt_torch/ops/csrc/mrf_ct.cu',
+               'fused_mrf_phase_noups': 'daft_exprt_torch/ops/csrc/mrf_ct.cu',
+               'fused_mrf_ct_q8f': 'daft_exprt_torch/ops/csrc/mrf_ct_q8.cu',
+               'fused_mrf_phase_q8_noups':
                'daft_exprt_torch/ops/csrc/mrf_phase_q8.cu'}
     replaces = {
         'fused_attention': 'daft_exprt_tpu/ops/attention_kernels.py:170',
@@ -1027,7 +1186,12 @@ def main():
         'fused_mrf_tc_q8': 'daft_exprt_tpu/ops/vocoder_kernels.py:657',
         'fused_mrf_ptc': 'daft_exprt_tpu/ops/vocoder_kernels.py:1999',
         'fused_mrf_ct_q8': 'daft_exprt_tpu/ops/vocoder_kernels.py:450',
-        'fused_mrf_phase_q8': 'daft_exprt_tpu/ops/vocoder_kernels.py:1431'}
+        'fused_mrf_phase_q8': 'daft_exprt_tpu/ops/vocoder_kernels.py:1431',
+        'fused_mrf_ct': 'daft_exprt_tpu/ops/vocoder_kernels.py:450',
+        'fused_mrf_phase_noups': 'daft_exprt_tpu/ops/vocoder_kernels.py:1431',
+        'fused_mrf_ct_q8f': 'daft_exprt_tpu/ops/vocoder_kernels.py:450',
+        'fused_mrf_phase_q8_noups':
+        'daft_exprt_tpu/ops/vocoder_kernels.py:1431'}
     # each kernel's main path: the first path that runs it
     table = []
     for kern in kernels:
@@ -1048,7 +1212,10 @@ def main():
     # ---- 5. end to end ----------------------------------------------------
     audio_s = B * T * 256 / DEFAULT_CONFIG['sampling_rate']
     for tier, synth_fn in (('bf16', synthesize), ('int8', synthesize_q8),
-                           ('int8-dynamic', synthesize_dyn)):
+                           ('int8-dynamic', synthesize_dyn),
+                           ('v2-bf16', synthesize_v2),
+                           ('v2-int8', synthesize_v2_q8),
+                           ('v2-int8-dynamic', synthesize_v2_dyn)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         synth_fn()
@@ -1066,6 +1233,9 @@ def main():
         profile_path(torch, synthesize, 'bf16')
         profile_path(torch, synthesize_q8, 'int8')
         profile_path(torch, synthesize_dyn, 'int8-dynamic')
+        profile_path(torch, synthesize_v2, 'v2-bf16')
+        profile_path(torch, synthesize_v2_q8, 'v2-int8')
+        profile_path(torch, synthesize_v2_dyn, 'v2-int8-dynamic')
         for tier, fn in entry_fns.items():
             profile_path(torch, fn, tier)
         tmodel = DaftExprt.from_hparams(hp_t, seed=SEED).train()

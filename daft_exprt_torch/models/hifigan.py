@@ -1,27 +1,34 @@
-"""HiFi-GAN V1 generator (PyTorch port of
-``daft_exprt_tpu/models/hifigan.py``): conv_pre -> [lrelu -> transposed-conv
-upsample -> multi-receptive-field resblock group] x 4 -> lrelu -> conv_post
--> tanh, on params kept as nested dicts in torch layout (the JAX package's
-own layout, so the bridge is a copy).
+"""HiFi-GAN generator (PyTorch port of ``daft_exprt_tpu/models/hifigan.py``;
+V1 by default, any ResBlock1/2 config such as V2): conv_pre -> [lrelu ->
+transposed-conv upsample -> multi-receptive-field resblock group] x n ->
+lrelu -> conv_post -> tanh, on params kept as nested dicts in torch layout
+(the JAX package's own layout, so the bridge is a copy).
 
 Routes, as ``generator_forward`` in the JAX package:
 
 - the float32 plain route (``use_fast=False``): one PyTorch op per conv,
   the semantics of the JAX XLA branch (per-conv SAME padding);
-- the fast route (``use_fast=True``, bf16 in serving): conv_pre and the
-  wide levels' polyphase upsamples as plain PyTorch ops, the wide levels'
-  MRF groups (C >= 128) through ``fused_mrf_tc`` and the narrow levels'
-  upsample + MRF group (+ conv_post at the last level) through
-  ``fused_mrf_phase`` — the CUDA kernels on a CUDA tensor;
+- the fast route (``use_fast=True``, bf16 in serving; ResBlock1): each
+  level on the kernel :func:`level_routes` picks, the JAX generator's
+  decision: a wide level (C >= 128) takes the polyphase upsample and
+  ``fused_mrf_tc``; a narrow level whose phases chain (want_p = u * p_in,
+  V1's L2 and L3) its upsample + MRF (+ conv_post at the last level)
+  through ``fused_mrf_phase``; any other level (HiFi-GAN V2's four) the
+  upsample, then ``fused_mrf_phase`` without prologue at p = 128/C >= 4
+  phases, else ``fused_mrf_ct``. The CUDA kernels run on a CUDA tensor.
 - the int8 tiers (``use_fast=True`` with ``int8=True``; the static tier
   with ``int8_act_scales`` from :func:`calibrate_act_scales`, the dynamic
-  one without): the wide levels through ``fused_mrf_tc_q8`` (static) or
-  ``fused_mrf_ct_q8`` (dynamic, per-tile scales at every conv), the
-  narrow levels (p phases x C channels = 128) with their upsample prologue
-  and, at the last level, the conv_post epilogue through ``fused_mrf_ptc``
-  (static, batch >= ``PTC_MIN_BATCH``) or ``fused_mrf_phase_q8`` (static
-  below that batch, dynamic at every batch). A level no ported kernel
-  serves raises ``NotImplementedError`` naming ROADMAP.md.
+  one without): the same levels in int8 where C % 32 == 0 (bf16 where
+  not): a wide level through ``fused_mrf_tc_q8`` (static) or
+  ``fused_mrf_ct_q8`` (dynamic), a chained narrow level through
+  ``fused_mrf_ptc`` (static, batch >= ``PTC_MIN_BATCH``) or
+  ``fused_mrf_phase_q8`` (static below that batch, dynamic at every
+  batch), any other level through ``fused_mrf_ct_q8f`` / ``fused_mrf_ct_q8``
+  or ``fused_mrf_phase_q8_noups``. A mode that is not ported raises
+  ``NotImplementedError`` naming ROADMAP.md.
+
+Reference checkpoints (weight-normed ``HiFiGANGenerator`` state dicts) load
+through :func:`load_torch_generator`.
 """
 import math
 import warnings
@@ -32,20 +39,28 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from daft_exprt_torch.checkpoint import torch_load_guarded
 from daft_exprt_torch.device import resolve_device
+from daft_exprt_torch.ops.mrf_ct import (
+    fused_mrf_ct, fused_mrf_phase_noups, mrf_ct_plain, mrf_phase_noups_plain,
+    pack_mrf_weights,
+)
 from daft_exprt_torch.ops.mrf_int8 import (
-    ct_tile, fused_mrf_ct_q8, fused_mrf_phase_q8, mrf_ct_q8_plain,
-    mrf_phase_q8_plain, pack_mrf_phase_weights, pack_mrf_weights,
+    ct_tile, fused_mrf_ct_q8, fused_mrf_ct_q8f, fused_mrf_phase_q8,
+    fused_mrf_phase_q8_noups, mrf_ct_q8_plain, mrf_ct_q8f_plain,
+    mrf_phase_q8_noups_plain, mrf_phase_q8_plain, pack_mrf_phase_weights,
     pack_post_phase_weights, pack_ups_phase_weights, phase_post_feasible,
-    prepare_mrf_ct_q8, prepare_mrf_phase_q8, quantize_mrf_ct_weights,
+    phase_tile, prepare_mrf_ct_q8, prepare_mrf_ct_q8f, prepare_mrf_phase_q8,
+    quantize_mrf_ct_q8f_weights, quantize_mrf_ct_weights,
     quantize_mrf_phase_weights, quantize_ups_phase_weights, ups_used_blocks,
 )
 from daft_exprt_torch.ops.vocoder_kernels import (
-    full_f32, fused_mrf_phase, fused_mrf_ptc, fused_mrf_tc, fused_mrf_tc_q8,
-    mrf_ptc_plain, mrf_tc_q8_plain, pack_mrf_ptc_weights,
-    pack_mrf_tc_int8_weights, pack_mrf_tc_weights,
-    pack_post_ptc_weights, pack_ups_ptc_weights, prepare_mrf,
-    prepare_mrf_ptc, prepare_mrf_tc_q8, ptc_post_feasible, ptc_tile,
+    MrfQ8Weights, MrfWeights, full_f32, fused_mrf_phase, fused_mrf_ptc,
+    fused_mrf_tc, fused_mrf_tc_q8, mrf_phase_plain, mrf_ptc_plain,
+    mrf_tc_plain, mrf_tc_q8_plain, pack_mrf_ptc_weights,
+    pack_mrf_tc_int8_weights, pack_mrf_tc_weights, pack_post_ptc_weights,
+    pack_ups_ptc_weights, prepare_mrf, prepare_mrf_ptc, prepare_mrf_tc_q8,
+    ptc_post_feasible, ptc_tile,
 )
 
 LRELU_SLOPE = 0.1
@@ -173,17 +188,6 @@ def init_generator_params(seed=0, config=None, std=0.01, device=None):
     return params
 
 
-def _fast_route(cfg, params, i):
-    """The fast route's kernel for level i: 'tc' (wide level, C >= 128),
-    'phase' (narrow level) or None (no fused kernel is ported for it)."""
-    u, k = cfg['upsample_rates'][i], cfg['upsample_kernel_sizes'][i]
-    pad = (k - u) // 2
-    if cfg['resblock'] != '1' or not (k - 2 * pad == u and u > 1
-                                      and k % u == 0):
-        return None
-    return 'tc' if params[f'ups_{i}']['w'].shape[1] >= 128 else 'phase'
-
-
 def _phase_for(c):
     """Phases that fill 128 lanes at channel width c (the JAX package's
     ``_phase_for``)."""
@@ -192,23 +196,106 @@ def _phase_for(c):
     return min(8, 128 // c)
 
 
-def _narrow_phases(cfg, params):
-    """{level: (p, p_in)} of the narrow levels the int8 phase kernels take
-    (``want_ptc`` of the JAX generator less its batch and tile checks, and
-    the phase chain's fused upsample): p phases after the upsample, p_in
-    before, p*C == p_in*C_in == 128."""
-    out, cur_p = {}, 1
-    for i, u in enumerate(cfg['upsample_rates']):
-        if _fast_route(cfg, params, i) != 'phase':
+@dataclass(frozen=True)
+class Route:
+    """One level's kernel on the fast route, as the JAX generator picks it.
+
+    ``kind``: 'tc' (a wide level: polyphase upsample, then
+    ``fused_mrf_tc``), 'ptc' (``fused_mrf_ptc``: upsample prologue, MRF and
+    conv_post epilogue), 'chain' (``fused_mrf_phase`` with its upsample
+    prologue), 'phase' (the upsample, then ``fused_mrf_phase`` without it)
+    or 'ct' (the upsample, then ``fused_mrf_ct``). ``mode``: '' (float),
+    'q8' (int8-dynamic) or 'q8f' (int8-static, fused s32 boundary). ``p``:
+    phases; ``tile``: phase-tc rows ('ptc'), phase columns ('chain',
+    'phase') or samples ('ct'); ``merge``: ``fused_mrf_ct``'s merged
+    taps."""
+    kind: str
+    mode: str = ''
+    p: int = 1
+    tile: int = 0
+    merge: bool = False
+
+
+def _mrf_route(C, T, int8, static):
+    """``_pallas_mrf``'s kernel for a level input (B, C, T) after the
+    upsample: the phase kernel without prologue when p = 128/C >= 4 phases
+    and a tile of >= 128 columns divides T, else ``fused_mrf_ct``
+    (merged taps at C <= 64 unless int8). int8 needs C % 32 == 0."""
+    q8 = int8 and C % 32 == 0
+    mode = ('q8f' if static else 'q8') if q8 else ''
+    p = 128 // C if C > 0 and 128 % C == 0 else 1
+    if p >= 4:
+        p = min(p, 8)
+        tile = phase_tile(T, p)
+        if tile is not None:
+            return Route('phase', mode, p, tile)
+    return Route('ct', mode, 1, ct_tile(T, C), merge=C <= 64 and not q8)
+
+
+def level_routes(params, config=None, batch=1, frames=128, int8=False,
+                 act_scales=None, ptc_min_batch=PTC_MIN_BATCH):
+    """The fast route's :class:`Route` per level for a (batch, n_mels,
+    frames) mel: the JAX ``generator_forward``'s decision (``use_pallas=
+    True``, default switches), condition for condition:
+
+    - ``want_tc``: C >= 128, no phases yet, k - 2*pad == u > 1, and under
+      int8 the level's static scales with C % 32 == 0;
+    - ``want_ptc`` (int8 after a tc level, batch >= ``ptc_min_batch``, p*C
+      == p_in*C_in == 128, C % 32 == 0) when a tile of >= 64 rows divides
+      the level; its dynamic mode raises (not ported);
+    - the phase chain when want_p = _phase_for(C) >= 2 equals u * p_in
+      (``_pallas_mrf_phase``; its upsample fuses when p*C == p_in*C_in)
+      and a tile of >= 64 columns divides the level;
+    - else the upsample, then ``_pallas_mrf``'s kernel (:func:`_mrf_route`).
+
+    ``act_scales`` ({level: calibration entry}) makes a level int8-static
+    (and implies ``int8``); without its entry a level is int8-dynamic."""
+    cfg = config or DEFAULT_CONFIG
+    if cfg['resblock'] != '1':
+        raise ValueError('the fused kernels serve ResBlock1 generators')
+    int8 = int8 or act_scales is not None
+    routes, cur_p, cur_tc, T = [], 1, False, frames
+    for i, (u, k) in enumerate(zip(cfg['upsample_rates'],
+                                   cfg['upsample_kernel_sizes'])):
+        c_in, c_out = params[f'ups_{i}']['w'].shape[:2]
+        static = int8 and (act_scales or {}).get(i) is not None
+        want_p = _phase_for(c_out)
+        poly = k - 2 * ((k - u) // 2) == u
+        if (c_out >= 128 and cur_p == 1 and poly and u > 1
+                and (not int8 or static and c_out % 32 == 0)):
+            routes.append(Route('tc', 'q8f' if int8 else ''))
+            cur_tc, T = True, T * u
             continue
-        c_in, c = params[f'ups_{i}']['w'].shape[:2]
-        p = _phase_for(c)
-        if not (p >= 2 and p == u * cur_p and p * c == 128
-                and cur_p * c_in == 128 and c % 32 == 0):
-            break
-        out[i] = (p, cur_p)
-        cur_p = p
-    return out
+        chain = want_p >= 2 and want_p == u * cur_p and poly
+        if (int8 and cur_tc and chain and batch >= ptc_min_batch
+                and want_p * c_out == 128 and cur_p * c_in == 128
+                and c_out % 32 == 0):
+            if not static:
+                raise NotImplementedError(
+                    f'level {i}: fused_mrf_ptc in its dyn mode is not ported '
+                    '(ROADMAP.md Queue 2)')
+            tile = ptc_tile(T // cur_p)
+            if tile is not None:
+                routes.append(Route('ptc', 'q8f', want_p, tile))
+                cur_p, T = want_p, T * u
+                continue
+        cur_tc = False
+        if chain:
+            if want_p * c_out != cur_p * c_in:
+                raise NotImplementedError(
+                    f'level {i}: a phase chain whose upsample cannot fuse '
+                    f'(p*C={want_p * c_out} != p_in*C_in={cur_p * c_in}) '
+                    'is not ported (ROADMAP.md Queue 2)')
+            tile = ptc_tile(T // cur_p, 8192 if int8 else 4096)
+            if tile is not None:
+                mode = ('q8f' if static else 'q8') \
+                    if int8 and c_out % 32 == 0 else ''
+                routes.append(Route('chain', mode, want_p, tile))
+                cur_p, T = want_p, T * u
+                continue
+        cur_p, T = 1, T * u
+        routes.append(_mrf_route(c_out, T, int8, static))
+    return routes
 
 
 @dataclass
@@ -249,59 +336,83 @@ def _phase_int8_weights(params, i, cfg, p, p_in, act_scales):
                                 post)
 
 
-def pack_levels(params, config=None, act_scales=None, int8=False):
-    """Per level, the weights its fused kernel takes. Without ``int8``:
-    :class:`MrfWeights` (the MRF group's weights, plus the upsample at a
-    narrow level and conv_post at the last level). With ``int8`` (the
-    static tier when the calibration's ``act_scales`` are given, else the
-    dynamic one; weights quantised from the params' dtype as the JAX tiers
-    quantise them): the wide levels' :class:`MrfQ8Weights` for
-    ``fused_mrf_tc_q8`` (static) or ``fused_mrf_ct_q8`` (dynamic) and the
-    narrow levels' :class:`NarrowInt8`. Levels with no fused kernel are
-    left out."""
-    cfg = config or DEFAULT_CONFIG
-    int8 = int8 or act_scales is not None
+def _pack_level(params, cfg, i, route, act_scales):
+    """Level i's weights for ``route``, in the kernels' forms. Every form
+    holds the per-tap chain weights that ``fused_mrf_ct`` and
+    ``fused_mrf_phase`` without prologue read (:func:`_chain_weights`)."""
     ks = tuple(cfg['resblock_kernel_sizes'])
     dils = tuple(tuple(d) for d in cfg['resblock_dilation_sizes'])
-    n_ups = len(cfg['upsample_rates'])
-    narrow = _narrow_phases(cfg, params) if int8 else {}
-    levels = {}
-    for i in range(n_ups):
-        route = _fast_route(cfg, params, i)
-        if route is None:
-            continue
-        u, k = cfg['upsample_rates'][i], cfg['upsample_kernel_sizes'][i]
-        ups = (params[f'ups_{i}']['w'], params[f'ups_{i}']['b'], u,
-               (k - u) // 2)
+    u, k = cfg['upsample_rates'][i], cfg['upsample_kernel_sizes'][i]
+    pad = (k - u) // 2
+    scales = (act_scales or {}).get(i)
+    if route.kind in ('ptc', 'chain'):
+        ups = (params[f'ups_{i}']['w'], params[f'ups_{i}']['b'], u, pad)
         post = (params['conv_post']['w'], params['conv_post']['b']) \
-            if i == n_ups - 1 else None
-        if not int8:
-            levels[i] = prepare_mrf(
-                pack_mrf_tc_weights(params, i, ks, dils), ks, dils,
-                ups if route == 'phase' else None, post if route == 'phase'
-                else None)
-        elif route == 'tc' and act_scales is not None:
-            levels[i] = prepare_mrf_tc_q8(pack_mrf_tc_int8_weights(
-                params, i, ks, dils, act_scales[i]), ks, dils)
-        elif route == 'tc':
-            levels[i] = prepare_mrf_ct_q8(quantize_mrf_ct_weights(
-                pack_mrf_weights(params, i, ks, dils)), ks, dils)
-        elif i in narrow:
-            p, p_in = narrow[i]
-            ptc = None
-            if act_scales is not None:
-                u_ptc = pack_ups_ptc_weights(*ups, p_in)
-                pst = None if post is None else pack_post_ptc_weights(
-                    *post, p, dtype=post[0].dtype)
-                ptc = prepare_mrf_ptc(
-                    pack_mrf_ptc_weights(params, i, ks, dils, p,
-                                         act_scales[i]),
-                    ks, dils, p, tuple(u_ptc) + (k, u, (k - u) // 2, p_in),
-                    pst)
-            levels[i] = NarrowInt8(ptc, _phase_int8_weights(
-                params, i, cfg, p, p_in,
-                None if act_scales is None else act_scales[i]))
-    return levels
+            if i == len(cfg['upsample_rates']) - 1 else None
+        if not route.mode:
+            return prepare_mrf(pack_mrf_tc_weights(params, i, ks, dils), ks,
+                               dils, ups, post)
+        p, p_in = route.p, route.p // u
+        ptc = None
+        if route.kind == 'ptc':
+            pst = None if post is None else pack_post_ptc_weights(
+                *post, p, dtype=post[0].dtype)
+            ptc = prepare_mrf_ptc(
+                pack_mrf_ptc_weights(params, i, ks, dils, p, scales), ks,
+                dils, p, tuple(pack_ups_ptc_weights(*ups, p_in))
+                + (k, u, pad, p_in), pst)
+        return NarrowInt8(ptc, _phase_int8_weights(
+            params, i, cfg, p, p_in, scales if route.mode == 'q8f' else None))
+    if route.mode == 'q8f' and route.kind == 'tc':
+        return prepare_mrf_tc_q8(pack_mrf_tc_int8_weights(
+            params, i, ks, dils, scales), ks, dils)
+    if route.mode == 'q8f':
+        return prepare_mrf_ct_q8f(quantize_mrf_ct_q8f_weights(
+            pack_mrf_weights(params, i, ks, dils),
+            [s for s1, s2 in scales for s in (s1, s2)]), ks, dils)
+    if route.mode == 'q8':
+        return prepare_mrf_ct_q8(quantize_mrf_ct_weights(
+            pack_mrf_weights(params, i, ks, dils)), ks, dils)
+    return prepare_mrf(pack_mrf_tc_weights(params, i, ks, dils), ks, dils)
+
+
+def _chain_weights(w):
+    """The per-tap chain weights of any level form (a narrow int8 level's
+    are its phase kernel's)."""
+    return w.phase if isinstance(w, NarrowInt8) else w
+
+
+def _serves(w, route):
+    """Whether level weights ``w`` carry what ``route`` launches."""
+    if route.kind in ('ptc', 'chain'):
+        if route.mode:
+            return isinstance(w, NarrowInt8) and (
+                route.kind == 'chain' or w.ptc is not None)
+        return isinstance(w, MrfWeights) and w.ups is not None
+    w = _chain_weights(w)
+    if not route.mode:
+        return isinstance(w, MrfWeights)
+    return isinstance(w, MrfQ8Weights) and w.dynamic == (route.mode == 'q8')
+
+
+def pack_levels(params, config=None, act_scales=None, int8=False):
+    """Per level, the weights its fused kernel takes, made once (the
+    serving wrapper packs at construction): the weights of the route
+    :func:`level_routes` picks for a batch of at least ``PTC_MIN_BATCH``
+    mels of 128 frames (the wrapper pads every mel to a multiple of 128).
+    Without ``int8``: :class:`MrfWeights` (with the upsample at a chain
+    level and conv_post at the last one). With ``int8`` (the static tier
+    when the calibration's ``act_scales`` are given, else the dynamic one;
+    weights quantised from the params' dtype as the JAX tiers quantise
+    them): :class:`MrfQ8Weights` at a tc, ct or phase level, a chain
+    level's :class:`NarrowInt8`, and float :class:`MrfWeights` where C %
+    32 != 0. They serve every input length: a chain level's weights also
+    hold the per-tap ones its fallback to ``fused_mrf_ct`` reads, and the
+    ct and phase-without-prologue kernels read the same per-tap weights."""
+    cfg = config or DEFAULT_CONFIG
+    routes = level_routes(params, cfg, PTC_MIN_BATCH, 128, int8, act_scales)
+    return {i: _pack_level(params, cfg, i, r, act_scales)
+            for i, r in enumerate(routes)}
 
 
 def _without_post(mrf, feasible):
@@ -309,34 +420,53 @@ def _without_post(mrf, feasible):
         mrf, post=None, post_dev=None)
 
 
-def _narrow_int8_level(x, lvl, ptc_min_batch, plain):
-    """One narrow level of an int8 tier: x (B, T, C_in) sample-major ->
-    (B, p*T/p_in, C), or the waveform (B, 1, ...) when conv_post fused.
-    The phase-tc kernel at batch >= ``ptc_min_batch`` (static tier), else
-    the int8 phase kernel, each with its tile rule (8192 phase rows or
-    columns, halved until it divides them). Returns (y, whether conv_post
-    fused)."""
-    mrf = lvl.ptc
-    if mrf is not None and x.shape[0] >= ptc_min_batch:
-        tile = ptc_tile(x.shape[1] // mrf.p_in)
-        if tile is not None:
-            mrf = _without_post(mrf, mrf.post is None or ptc_post_feasible(
-                mrf.kernel_sizes, mrf.dilations, mrf.p, mrf.post[0].shape[0],
-                tile))
-            return (mrf_ptc_plain if plain else fused_mrf_ptc)(x, mrf, tile), \
-                mrf.post is not None
+def _narrow_int8_level(x, lvl, route, plain):
+    """One narrow level of an int8 tier on ``route`` ('ptc' or 'chain'): x
+    (B, T, C_in) sample-major -> (B, p*T/p_in, C), or the waveform (B, 1,
+    ...) when conv_post fused (where the tile leaves its halo room).
+    Returns (y, whether conv_post fused)."""
+    if route.kind == 'ptc':
+        mrf = lvl.ptc
+        mrf = _without_post(mrf, mrf.post is None or ptc_post_feasible(
+            mrf.kernel_sizes, mrf.dilations, mrf.p, mrf.post[0].shape[0],
+            route.tile))
+        return (mrf_ptc_plain if plain else fused_mrf_ptc)(
+            x, mrf, route.tile), mrf.post is not None
     mrf = lvl.phase
-    cols = x.shape[1] // mrf.p_in
-    tile = ptc_tile(cols)
-    if tile is None:
-        raise NotImplementedError(
-            f'int8 tier: a narrow level of {cols} phase columns (no tile of '
-            '>= 64 columns divides them) needs the banded fallback through '
-            'fused_mrf_ct, which is not ported (ROADMAP.md Queue 2)')
     mrf = _without_post(mrf, mrf.post is None or phase_post_feasible(
-        mrf.kernel_sizes, mrf.dilations, mrf.p, mrf.post[0].shape[0], tile))
+        mrf.kernel_sizes, mrf.dilations, mrf.p, mrf.post[0].shape[0],
+        route.tile))
     return (mrf_phase_q8_plain if plain else fused_mrf_phase_q8)(
-        x, mrf, tile), mrf.post is not None
+        x, mrf, route.tile), mrf.post is not None
+
+
+def _mrf_level(x, w, route, plain):
+    """The MRF group of a level on a 'ct' or 'phase' route: x (B, T, C)
+    sample-major (the upsample's output) -> (B, T, C)."""
+    w = _chain_weights(w)
+    if route.kind == 'ct':
+        if route.mode == 'q8f':
+            return (mrf_ct_q8f_plain if plain else fused_mrf_ct_q8f)(x, w)
+        if route.mode == 'q8':
+            return (mrf_ct_q8_plain if plain else fused_mrf_ct_q8)(
+                x, w, route.tile)
+        return (mrf_ct_plain if plain else fused_mrf_ct)(x, w)
+    if route.mode:
+        return (mrf_phase_q8_noups_plain if plain else
+                fused_mrf_phase_q8_noups)(x, w, route.p, route.tile)
+    return (mrf_phase_noups_plain if plain else fused_mrf_phase_noups)(x, w)
+
+
+def _upsample_tc(x, ups, u, k, in_tc):
+    """lrelu, then the level's ConvTranspose1d (polyphase when k - 2p == u,
+    as the JAX ``_conv_transpose1d``), returned sample-major (B, T, C)."""
+    pad = (k - u) // 2
+    if k - 2 * pad == u and u > 1:
+        return _conv_transpose1d_poly(_lrelu(x), ups['w'], ups['b'], u, pad,
+                                      in_tc=in_tc)
+    x = x.transpose(1, 2) if in_tc else x
+    return _conv_transpose1d(_lrelu(x), ups['w'], ups['b'], u,
+                             pad).transpose(1, 2)
 
 
 def generator_forward(params, mel, config=None, use_fast=False, packed=None,
@@ -345,25 +475,27 @@ def generator_forward(params, mel, config=None, use_fast=False, packed=None,
     """mel: (B, n_mels, T) -> wav (B, 1, T * prod(upsample_rates)), in the
     dtype of ``mel`` (cast params to it first for the bf16 route).
 
-    ``use_fast`` selects the fused-kernel route (see the module note);
-    ``int8`` its int8 tiers: static with ``int8_act_scales`` (from
-    :func:`calibrate_act_scales`; they imply ``int8``), whose narrow levels
-    take the phase-tc kernel from batch ``ptc_min_batch`` on, dynamic
-    without; ``packed``: :func:`pack_levels` of the same params (and
-    tier), so the kernels' weight layouts are built once; ``plain`` runs
-    the int8 kernels' plain versions on any device (the card-side
-    reference of ``chip_smoke.py``). ``_tap(level, x)`` is called after
-    each level with the level output in (B, C, T) layout, or the waveform
-    at a last level whose kernel fused conv_post."""
+    ``use_fast`` selects the fused-kernel route (see the module note), each
+    level on its :func:`level_routes` kernel; ``int8`` its int8 tiers:
+    static with ``int8_act_scales`` (from :func:`calibrate_act_scales`; they
+    imply ``int8``), whose narrow levels take the phase-tc kernel from
+    batch ``ptc_min_batch`` on, dynamic without; ``packed``:
+    :func:`pack_levels` of the same params (and tier), so the kernels'
+    weight layouts are built once; ``plain`` runs the kernels' plain
+    versions on any device (the card-side reference of ``chip_smoke.py``).
+    ``_tap(level, x)`` is called after each level with the level output in
+    (B, C, T) layout, or the waveform at a last level whose kernel fused
+    conv_post."""
     cfg = config or DEFAULT_CONFIG
     num_kernels = len(cfg['resblock_kernel_sizes'])
     resblock = _resblock1 if cfg['resblock'] == '1' else _resblock2
     fast = use_fast and cfg['resblock'] == '1'
     int8 = bool(int8) or int8_act_scales is not None
-    static = int8_act_scales is not None
     if int8 and not fast:
         raise ValueError('the int8 tiers run in the fused kernels: they need '
                          'use_fast=True and ResBlock1')
+    routes = level_routes(params, cfg, mel.shape[0], mel.shape[2], int8,
+                          int8_act_scales, ptc_min_batch) if fast else None
     if fast and packed is None:
         packed = pack_levels(params, cfg, int8_act_scales, int8)
 
@@ -373,55 +505,48 @@ def generator_forward(params, mel, config=None, use_fast=False, packed=None,
                                    cfg['upsample_kernel_sizes'])):
         ups = params[f'ups_{i}']
         pad = (k - u) // 2
-        route = _fast_route(cfg, params, i) if fast else None
-        if route == 'tc':
-            # wide level: polyphase upsample emits (B, T, C); the MRF kernel
-            x = _conv_transpose1d_poly(_lrelu(x), ups['w'], ups['b'], u, pad,
-                                       in_tc=tc)
-            if static:
-                x = (mrf_tc_q8_plain if plain else fused_mrf_tc_q8)(
-                    x, packed[i])
-            elif int8:
-                if x.shape[2] % 32:
-                    raise NotImplementedError(
-                        f'int8-dynamic tier: level {i} (C={x.shape[2]}) needs '
-                        'the float fused_mrf_ct, which is not ported '
-                        '(ROADMAP.md Queue 2)')
-                x = (mrf_ct_q8_plain if plain else fused_mrf_ct_q8)(
-                    x, packed[i], ct_tile(x.shape[1], x.shape[2]))
-            else:
-                x = fused_mrf_tc(x, packed[i])
-            tc = True
-            if _tap is not None:
-                _tap(i, x.transpose(1, 2))
-            continue
-        if route == 'phase' and int8:
-            if i not in packed or not tc:
-                raise NotImplementedError(
-                    f'int8 tier: level {i} is not a narrow int8 level (p*C == '
-                    '128 after a wide level); it needs the banded int8 '
-                    'kernels, which are not ported (ROADMAP.md Queue 2)')
+        route = routes[i] if fast else None
+        w = packed.get(i) if fast else None
+        if fast and not _serves(w, route):
+            raise ValueError(f'level {i}: the packed weights do not serve '
+                             f'its route {route}; pack_levels the same '
+                             'params for this tier')
+        if route is not None and route.kind in ('ptc', 'chain') \
+                and route.mode:
             # narrow level: int8 upsample + MRF (+ conv_post)
-            x, post_done = _narrow_int8_level(x, packed[i], ptc_min_batch,
-                                              plain)
+            if not tc:
+                x = x.transpose(1, 2)
+            x, post_done = _narrow_int8_level(x, w, route, plain)
+            tc = not post_done
             if _tap is not None:
                 _tap(i, x if post_done else x.transpose(1, 2))
             if post_done:
                 return x
             continue
-        if route == 'phase':
+        if route is not None and route.kind == 'chain':
             # narrow level: upsample + MRF (+ conv_post) in one kernel route
-            x = fused_mrf_phase(x.transpose(1, 2) if tc else x, packed[i])
+            x = (_phase_plain if plain else fused_mrf_phase)(
+                x.transpose(1, 2) if tc else x, w)
             tc = False
             if _tap is not None:
                 _tap(i, x)
-            if packed[i].post is not None:
+            if w.post is not None:
                 return x
             continue
-        if fast:
-            raise NotImplementedError(
-                f'level {i} (k={k}, s={u}, C={ups["w"].shape[1]}) needs '
-                'fused_mrf_ct, which is not ported yet (ROADMAP Queue 2)')
+        if route is not None:
+            # polyphase (or dilated) upsample to (B, T, C), then the MRF
+            # kernel: the wide levels' tc, or ct / phase without prologue
+            x = _upsample_tc(x, ups, u, k, tc)
+            if route.kind == 'tc' and route.mode:
+                x = (mrf_tc_q8_plain if plain else fused_mrf_tc_q8)(x, w)
+            elif route.kind == 'tc':
+                x = (_tc_plain if plain else fused_mrf_tc)(x, w)
+            else:
+                x = _mrf_level(x, w, route, plain)
+            tc = True
+            if _tap is not None:
+                _tap(i, x.transpose(1, 2))
+            continue
         if tc:
             x = x.transpose(1, 2)
             tc = False
@@ -437,6 +562,17 @@ def generator_forward(params, mel, config=None, use_fast=False, packed=None,
         x = x.transpose(1, 2)
     x = _conv1d(_lrelu(x), params['conv_post']['w'], params['conv_post']['b'])
     return torch.tanh(x)
+
+
+def _tc_plain(x, mrf):
+    """:func:`vocoder_kernels.mrf_tc_plain` on prepared weights."""
+    return mrf_tc_plain(x, mrf.packed, mrf.kernel_sizes, mrf.dilations)
+
+
+def _phase_plain(x, mrf):
+    """:func:`vocoder_kernels.mrf_phase_plain` on prepared weights."""
+    return mrf_phase_plain(x, mrf.packed, mrf.kernel_sizes, mrf.dilations,
+                           mrf.ups, mrf.post)
 
 
 def calibrate_act_scales(params, mels, config=None):
@@ -481,6 +617,52 @@ def calibrate_act_scales(params, mels, config=None):
     return scales
 
 
+def _fold_wn(sd, prefix):
+    """One conv of a reference state dict as {'w', 'b'} float32: weight
+    norm (dim 0) folded, w = g * v / max(|v|, 1e-12) over all but the first
+    axis, or a plain ``.weight`` where weight norm was removed."""
+    if f'{prefix}.weight_v' in sd:
+        v = torch.as_tensor(sd[f'{prefix}.weight_v']).float()
+        g = torch.as_tensor(sd[f'{prefix}.weight_g']).float()
+        norm = v.pow(2).sum(dim=tuple(range(1, v.ndim)), keepdim=True).sqrt()
+        w = g * v / norm.clamp(min=1e-12)
+    else:
+        w = torch.as_tensor(sd[f'{prefix}.weight']).float()
+    return {'w': w, 'b': torch.as_tensor(sd[f'{prefix}.bias']).float()}
+
+
+def convert_torch_generator(state_dict, config=None):
+    """A reference ``HiFiGANGenerator`` state dict (``conv_pre``, ``ups.{i}``,
+    ``resblocks.{i*n_kernels + j}.convs1|convs2|convs.{l}``, ``conv_post``)
+    -> the port's params, float32 tensors on the CPU."""
+    cfg = config or DEFAULT_CONFIG
+    sd = {k: v.detach().cpu() if torch.is_tensor(v) else torch.as_tensor(v)
+          for k, v in state_dict.items()}
+    params: Dict[str, Any] = {'conv_pre': _fold_wn(sd, 'conv_pre'),
+                              'conv_post': _fold_wn(sd, 'conv_post')}
+    num_kernels = len(cfg['resblock_kernel_sizes'])
+    names = ('convs1', 'convs2') if cfg['resblock'] == '1' else ('convs',)
+    for i in range(len(cfg['upsample_rates'])):
+        params[f'ups_{i}'] = _fold_wn(sd, f'ups.{i}')
+        for j, dils in enumerate(cfg['resblock_dilation_sizes']):
+            n = i * num_kernels + j
+            params[f'resblock_{i}_{j}'] = {
+                f'{pre}_{l}': _fold_wn(sd, f'resblocks.{n}.{pre}.{l}')
+                for l in range(len(dils)) for pre in names}
+    return params
+
+
+def load_torch_generator(path, config=None):
+    """Load a reference HiFi-GAN generator checkpoint (its state dict, or a
+    dict holding it under 'generator' or 'state_dict') through
+    ``checkpoint.torch_load_guarded`` (``weights_only=True``: a file that
+    needs unpickling is refused) and convert it."""
+    ckpt = torch_load_guarded(path)
+    sd = ckpt.get('generator', ckpt.get('state_dict', ckpt)) \
+        if isinstance(ckpt, dict) else ckpt
+    return convert_torch_generator(sd, config)
+
+
 def _to(params, dtype, device):
     return {k: (_to(v, dtype, device) if isinstance(v, dict)
                 else v.to(device=device, dtype=dtype))
@@ -500,12 +682,23 @@ class HiFiGanVocoder:
     - ``fast='int8'`` without them: the int8-dynamic tier (the JAX
       wrapper's default int8 tier): every conv's activation scale is taken
       per tile at run time.
+
+    ``params`` (the port's generator params) or ``checkpoint_path`` (a
+    reference generator checkpoint, :func:`load_torch_generator`) give the
+    weights; ``config`` the generator (V1 by default). Nothing is
+    downloaded: with neither, it raises.
     """
 
-    def __init__(self, params, config=None, fast=False, device=None,
-                 int8_calibration_mels=None):
+    def __init__(self, params=None, config=None, fast=False, device=None,
+                 int8_calibration_mels=None, checkpoint_path=None):
         if fast not in (False, True, 'bf16', 'int8'):
             raise ValueError(f'unknown vocoder tier fast={fast!r}')
+        if params is None:
+            if checkpoint_path is None:
+                raise ValueError('HiFiGanVocoder needs params or a '
+                                 'checkpoint_path (no checkpoint is '
+                                 'downloaded)')
+            params = load_torch_generator(checkpoint_path, config)
         if int8_calibration_mels is not None and fast != 'int8':
             warnings.warn('int8_calibration_mels given but the serving tier '
                           f'is not int8 (fast={fast!r}): calibration ignored')
@@ -552,3 +745,12 @@ class HiFiGanVocoder:
         if squeeze:
             audio = audio[0]
         return np.clip(audio, -1.0, 1.0)
+
+
+def load_hifigan_vocoder(checkpoint_path=None, params=None, config=None,
+                         fast=False, int8_calibration_mels=None, device=None):
+    """:class:`HiFiGanVocoder` from a reference checkpoint or params."""
+    return HiFiGanVocoder(params=params, config=config, fast=fast,
+                          device=device,
+                          int8_calibration_mels=int8_calibration_mels,
+                          checkpoint_path=checkpoint_path)

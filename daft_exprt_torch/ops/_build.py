@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build'
 SOURCES = ('attention_fwd', 'attention_bwd', 'mrf_tc', 'mrf_phase',
-           'mrf_tc_q8', 'mrf_ptc', 'mrf_ct_q8', 'mrf_phase_q8')
+           'mrf_tc_q8', 'mrf_ptc', 'mrf_ct_q8', 'mrf_phase_q8', 'mrf_ct')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC')
 

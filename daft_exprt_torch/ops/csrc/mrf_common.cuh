@@ -174,6 +174,14 @@ template <int C, typename CT> __host__ __device__ constexpr int block_m() {
   return sizeof(CT) == 2 ? (C >= 128 ? 64 : (C == 64 ? 128 : 256)) : (C >= 256 ? 32 : 64);
 }
 
+// Channels the GEMMs reduce over: the bf16 mma takes 16 input channels at a
+// time, so a C = 8 level stages its activations as 16 channels whose lanes
+// 8..15 are zero (its packed weights carry zero rows there); the zero lanes
+// add exact zeros to every sum and are never written out.
+template <int C, typename CT> __host__ __device__ constexpr int gemm_cin() {
+  return (sizeof(CT) == 2 && C < 16) ? 16 : C;
+}
+
 template <int C, int K, typename CT>
 __host__ __device__ inline void step_geometry(int dil, int& m1, int& rows1) {
   m1 = round_up(block_m<C, CT>() + (K - 1), Tile<CT>::mround);
@@ -184,14 +192,15 @@ template <int C, int K, typename CT>
 inline size_t step_smem(int dil) {
   int m1, rows1;
   step_geometry<C, K, CT>(dil, m1, rows1);
-  return (size_t)(rows1 + m1) * (C + Tile<CT>::pad) * sizeof(CT);
+  return (size_t)(rows1 + m1) * (gemm_cin<C, CT>() + Tile<CT>::pad) * sizeof(CT);
 }
 
 template <int C, int K, typename CT, typename TIn>
 __global__ void __launch_bounds__(kThreads) step_kernel(const StepParams p) {
   constexpr int H = (K - 1) / 2;
   constexpr int BM = block_m<C, CT>();
-  constexpr int LDA = C + Tile<CT>::pad;
+  constexpr int CP = gemm_cin<C, CT>();
+  constexpr int LDA = CP + Tile<CT>::pad;
   int m1, rows1;
   step_geometry<C, K, CT>(p.dil, m1, rows1);
   extern __shared__ __align__(16) unsigned char smem[];
@@ -203,18 +212,24 @@ __global__ void __launch_bounds__(kThreads) step_kernel(const StepParams p) {
 
   // conv1 input: samples [n0 - H - dil*H, ...), lrelu then the compute type
   const int s0 = n0 - H - p.dil * H;
-  for (int idx = threadIdx.x; idx < rows1 * C; idx += kThreads) {
-    const int i = idx / C, c = idx - i * C;
+  for (int idx = threadIdx.x; idx < rows1 * CP; idx += kThreads) {
+    const int i = idx / CP, c = idx - i * CP;
     const int s = s0 + i;
     float v = 0.f;
-    if (s >= p.in_lo && s < p.in_hi) v = to_f32(in[(long long)(s + p.in_off) * C + c]);
+    if (c < C && s >= p.in_lo && s < p.in_hi) v = to_f32(in[(long long)(s + p.in_off) * C + c]);
     a1[i * LDA + c] = from_f32<CT>(lrelu(v));
+  }
+  if constexpr (CP > C) {  // conv2's input lanes C..CP-1: zero
+    for (int idx = threadIdx.x; idx < m1 * (CP - C); idx += kThreads) {
+      const int i = idx / (CP - C);
+      a2[i * LDA + C + idx - i * (CP - C)] = from_f32<CT>(0.f);
+    }
   }
   __syncthreads();
 
   // conv1 (dilated) over samples [n0 - H, n0 + BM + H): +bias, lrelu
   const float* b1 = p.b1;
-  conv_gemm<C, C>(a1, LDA, m1, p.dil, K, p.w1, [&](int m, int n, float acc) {
+  conv_gemm<CP, C>(a1, LDA, m1, p.dil, K, p.w1, [&](int m, int n, float acc) {
     a2[m * LDA + n] = from_f32<CT>(lrelu(acc + b1[n]));
   });
   __syncthreads();
@@ -222,7 +237,7 @@ __global__ void __launch_bounds__(kThreads) step_kernel(const StepParams p) {
   // conv2 over the block's BM samples: +bias, + residual, then the mode
   const float* b2 = p.b2;
   float* out = p.out + b * p.out_bs;
-  conv_gemm<C, C>(a2, LDA, BM, 1, K, p.w2, [&](int m, int n, float acc) {
+  conv_gemm<CP, C>(a2, LDA, BM, 1, K, p.w2, [&](int m, int n, float acc) {
     const int s = n0 + m;
     if (s >= p.n_hi) return;
     const float res = (s >= p.in_lo && s < p.in_hi)

@@ -1,27 +1,37 @@
-// MRF group of one wide HiFi-GAN level in the int8-dynamic serving form,
+// MRF group of one HiFi-GAN level in the int8 serving forms of fused_mrf_ct,
 // for Hopper.
 //
 // Replaces daft_exprt_tpu/ops/vocoder_kernels.py::fused_mrf_ct with
-// int8_chain=True and no act scales (Pallas body _fused_mrf_ct_kernel, q8
-// branch). The function is one of the tile: for each tile of `tile`
-// samples, the chains run on the window [-halo, tile + halo) of the
-// zero-padded input (halo = the widest chain's reach rounded to 64, then
-// to 128), each conv shrinking it by its reach per side, and each conv
-// quantises its whole input window with one scale. The output is the
-// tile's samples of the chain mean, bf16.
+// int8_chain=True (Pallas body _fused_mrf_ct_kernel) in two modes:
 //
-// Design: the tiles are segments; amax_kernel (mrf_q8.cuh) takes the first
-// scale over each window of x, then two launches of conv_dyn_kernel
-// (mrf_dyn.cuh) per (chain, dilation) step, 1 + 18 for the V1 group: conv1
-// writes its float32 window and reduces conv2's scale, conv2 adds the
-// residual, writes the next window and reduces the next conv1's scale (or,
-// at a chain's last step, writes the tile into the chain sum / the bf16
-// output).
+// q8 (int8-dynamic, no act scales): V1's L0/L1 (C=256, 128) and V2's L0
+// (C=64) in the dynamic tier, C=32 where no phase tile divides the level.
+// The function is one of the tile: for each tile of `tile` samples, the
+// chains run on the window [-halo, tile + halo) of the zero-padded input
+// (halo = the widest chain's reach rounded to 64, then to 128), each conv
+// shrinking it by its reach per side, and each conv quantises its whole
+// input window with one scale. The output is the tile's samples of the
+// chain mean, bf16. Design: the tiles are segments; amax_kernel
+// (mrf_q8.cuh) takes the first scale over each window of x, then two
+// launches of conv_dyn_kernel (mrf_dyn.cuh) per (chain, dilation) step,
+// 1 + 18 for the V1/V2 group: conv1 writes its float32 window and reduces
+// conv2's scale, conv2 adds the residual, writes the next window and
+// reduces the next conv1's scale (or, at a chain's last step, writes the
+// tile into the chain sum / the bf16 output).
 //
-// Bound on the card: operations. 252*B*T*C^2 int8 operations per level
-// (V1) at 1979 TOP/s, plus the halos' recomputation (2*halo/tile: 6-12%);
-// the design moves ~20 float32 passes over the segments through device
-// memory, which takes longer than the operations at these widths.
+// q8f (int8-static, act scales folded into the weights, the conv1 -> conv2
+// boundary requantised in s32): V2's L0 (C=64) in the static tier, C=32
+// where no phase tile divides the level. Static scales make the function
+// the zero-padded valid chains of mrf_tc_q8.cu, whatever the tile; only the
+// weights' packing (jitted, per-tap, vocoder_kernels.py:403-420) differs.
+// Design: one launch of step_q8_kernel (mrf_q8.cuh) per (chain, dilation)
+// step on the tc kernels' launch plan.
+//
+// Bound on the card: operations at C=256/128 (252*B*T*C^2 int8 operations
+// per level at 1979 TOP/s, plus the dynamic halos' recomputation,
+// 2*halo/tile), device memory at C=64/32; the design moves ~9 (static) or
+// ~20 (dynamic) float32 passes over the level through device memory,
+// which takes longer than the operations at every width.
 #include "mrf_dyn.cuh"
 
 extern "C" int mrf_ct_q8_amax(const void* x, long long x_bs, int t_in, int c_in, int n_tiles,
@@ -35,8 +45,20 @@ extern "C" int mrf_ct_q8_conv(MRF_DYN_ARGS) {
   MRF_DYN_PARAMS(q);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
+    case 32: return (int)mrf::launch_conv_dyn_c<32>(q, K, S, s);
+    case 64: return (int)mrf::launch_conv_dyn_c<64>(q, K, S, s);
     case 128: return (int)mrf::launch_conv_dyn_c<128>(q, K, S, s);
     case 256: return (int)mrf::launch_conv_dyn_c<256>(q, K, S, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int mrf_ct_q8_step(MRF_Q8_STEP_ARGS) {
+  MRF_Q8_PARAMS(q);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 32: return (int)mrf::launch_step_q8_c<32>(q, K, B, s);
+    case 64: return (int)mrf::launch_step_q8_c<64>(q, K, B, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

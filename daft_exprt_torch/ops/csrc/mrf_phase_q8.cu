@@ -19,6 +19,13 @@
 //      static chain being a fixed function of the segment;
 //   4. the chain mean to bf16, or post_kernel (mrf_common.cuh): conv_post
 //      on lrelu(mean) rounded to bf16, tanh, bf16.
+// Without the prologue (in_phase=False: x in (B, C, T), HiFi-GAN V2's L1 at
+// C=32, p=4) the tile's window is the zero-padded x itself, columns
+// [-halo, tile + halo): step 1 takes the first conv's scale over that
+// window of x (amax_kernel with the window in samples), step 2 drops out,
+// and the first conv of each chain reads x through its zero-padded view.
+// q8f needs no scale there: the static chains are the zero-padded valid
+// chains of mrf_tc_q8.cu, whatever the tile.
 //
 // Bound on the card: operations at C=64 (252*B*T*C^2 int8 operations and
 // the upsample's), device memory at C=32, where ~20 float32 passes over

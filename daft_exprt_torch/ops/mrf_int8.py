@@ -5,12 +5,16 @@ wrappers.
 
 - :func:`fused_mrf_ct_q8` replaces ``vocoder_kernels.py::fused_mrf_ct``
   with ``int8_chain=True`` and no act scales (the ``q8`` branch of
-  ``_fused_mrf_ct_kernel``): the wide levels of the int8-dynamic tier.
+  ``_fused_mrf_ct_kernel``): V1's wide levels and V2's L0 in the
+  int8-dynamic tier. :func:`fused_mrf_ct_q8f` replaces it with act scales
+  and the fused s32 boundary (``q8f``): V2's L0 in the int8-static tier.
 - :func:`fused_mrf_phase_q8` replaces ``fused_mrf_phase`` with
   ``int8_chain=True``, its int8 upsample prologue and the bf16 conv_post
   epilogue, in its ``q8`` (dynamic) and ``q8f`` (static, fused s32
-  boundary) modes: the narrow levels of the dynamic tier at any batch and
-  of the static tier below ``PTC_MIN_BATCH``.
+  boundary) modes: V1's narrow levels in the dynamic tier at any batch and
+  in the static tier below ``PTC_MIN_BATCH``.
+  :func:`fused_mrf_phase_q8_noups` replaces it without the prologue
+  (``in_phase=False``), both modes: V2's L1.
 
 In dynamic mode every conv quantises its whole input window with one scale
 per (utterance, tile, chain, dilation, conv), ``amax(|lrelu(x)|)/127``
@@ -35,14 +39,19 @@ import torch
 import torch.nn.functional as F
 
 from daft_exprt_torch.ops import _build
+from daft_exprt_torch.ops.mrf_ct import pack_mrf_weights  # noqa: F401
 from daft_exprt_torch.ops.vocoder_kernels import (
-    ADD, FINAL, KERNEL_SIZES, PHASE_CHANNELS, Q8_PTC_UPS, TC_CHANNELS, WRITE,
+    ADD, FINAL, KERNEL_SIZES, PHASE_CHANNELS, Q8_PTC_UPS, WRITE,
     MrfQ8Weights, Post, PtcPrologue, _AMAX_ARGTYPES, _F32, _I32, _I64, _P,
     _PTC_POST_ARGTYPES, _Q8_STEP_ARGTYPES, _UPS_Q8_ARGTYPES, _chain_q8,
     _chain_steps, _const, _empty_on, _fma, _fn, _int_conv, _launch_q8_step,
-    _lrelu, _q8_device, _ups_phase_entries, chain_halo, full_f32,
-    fuse_boundary_consts, pack_mma_s8, ptc_amax, ups_geometry,
+    _lrelu, _q8_device, _tc_plan, _ups_phase_entries, chain_halo, full_f32,
+    fuse_boundary_consts, mrf_tc_q8_plain, pack_mma_s8, ptc_amax,
+    ups_geometry,
 )
+
+CT_Q8_CHANNELS = (32, 64, 128, 256)     # fused_mrf_ct_q8 (dynamic)
+CT_Q8F_CHANNELS = (32, 64)               # fused_mrf_ct_q8f (static)
 
 
 # ----------------------------------------------------------------------
@@ -143,6 +152,15 @@ def phase_halo_in(halo, ups_dmin, ups_dmax):
     return -(-max(halo - ups_dmin, halo + ups_dmax) // 128) * 128
 
 
+def phase_tile(T, p, tile=4096):
+    """The phase kernel's tile in columns for a (B, C, T) level input
+    (``hifigan._pallas_mrf``): halved (down to 128) until p*tile divides
+    T; None when none does (the level then takes ``fused_mrf_ct``)."""
+    while T % (p * tile) and tile > 128:
+        tile //= 2
+    return None if T % (p * tile) else tile
+
+
 def ct_tile(T, C, tile=8192):
     """``fused_mrf_ct``'s time tile (``hifigan._pallas_mrf``): halved while
     tile*C > 2^19 (down to 512), then until it divides T."""
@@ -177,21 +195,6 @@ def quantize_rows_jit(w, row_axes=(0,)):
     return torch.round(wf / s).to(torch.int8), s
 
 
-def pack_mrf_weights(params, level, kernel_sizes, dilations):
-    """One level's resblock weights for ``fused_mrf_ct``, per-tap form:
-    per chain [w1, b1, w2, b2] with w (n_dil, k, C_out, C_in) and b
-    (n_dil, C, 1)."""
-    out = []
-    for j, dils in enumerate(dilations):
-        rb = params[f'resblock_{level}_{j}']
-        for prefix in ('convs1', 'convs2'):
-            out.append(torch.stack([rb[f'{prefix}_{i}']['w'].permute(2, 0, 1)
-                                    for i in range(len(dils))]))
-            out.append(torch.stack([rb[f'{prefix}_{i}']['b'][:, None]
-                                    for i in range(len(dils))]))
-    return out
-
-
 def quantize_mrf_ct_weights(weights):
     """``fused_mrf_ct``'s int8-dynamic weights from :func:`pack_mrf_weights`:
     per chain [wq1, sw1, b1, wq2, sw2, b2], wq int8 quantised per
@@ -202,6 +205,37 @@ def quantize_mrf_ct_weights(weights):
         n_dil, _, c_out, _ = w.shape
         wq, sw = quantize_rows_jit(w, row_axes=(0, 2))
         qw += [wq, sw.reshape(n_dil, c_out, 1), b.float()]
+    return qw
+
+
+def fold_act_scales_taps(w, s_in, margin=1.1):
+    """Fold per-channel act scales into per-tap weights (n_dil, k, C_out,
+    C_in): returns (folded float32, inv_s (n_dil, C_in, 1)), as jitted:
+    s = max(s_in, 1e-30) * f32(margin/127)."""
+    s = s_in.float().clamp(min=1e-30) * _const(s_in, margin / 127.0)
+    return w.float() * s[:, None, None, :], (1.0 / s)[:, :, None]
+
+
+def quantize_mrf_ct_q8f_weights(weights, act_scales):
+    """``fused_mrf_ct``'s int8-static weights with the fused s32 boundary
+    (``q8f``, its jitted wrapper's packing, vocoder_kernels.py:403-420)
+    from :func:`pack_mrf_weights`: per chain [wq1, inv1, b1i, m1, wq2, sw2,
+    b2], wq int8 (n_dil, k, C_out, C_in) quantised per (dilation, output
+    channel) after the act scales fold into the input channels, the rest
+    (n_dil, C, 1). ``act_scales``: per conv in pack order (conv1, conv2 of
+    each chain) the calibrated amax, (n_dil, C)."""
+    qw = []
+    for j in range(0, len(weights), 4):
+        w1, b1, w2, b2 = weights[j:j + 4]
+        n_dil, _, c_out, _ = w1.shape
+        w1f, inv1 = fold_act_scales_taps(w1, act_scales[j // 2])
+        wq1, sw1 = quantize_rows_jit(w1f, row_axes=(0, 2))
+        sw1 = sw1.reshape(n_dil, c_out, 1)
+        w2f, inv2 = fold_act_scales_taps(w2, act_scales[j // 2 + 1])
+        wq2, sw2 = quantize_rows_jit(w2f, row_axes=(0, 2))
+        b1i, m1 = fuse_boundary_consts(sw1, b1, inv2)
+        qw += [wq1, inv1, b1i, m1, wq2, sw2.reshape(n_dil, c_out, 1),
+               b2.float()]
     return qw
 
 
@@ -347,6 +381,26 @@ def prepare_mrf_ct_q8(qw, kernel_sizes, dilations):
                        for i in range(len(dils))])
     mrf = MrfQ8Weights(qw[0].device, kernel_sizes, dilations, chains,
                        dynamic=True)
+    if mrf.device.type == 'cuda':
+        mrf.chains_dev = _device_chains(mrf)
+    return mrf
+
+
+def prepare_mrf_ct_q8f(qw, kernel_sizes, dilations):
+    """Static (``q8f``) :class:`MrfQ8Weights` from
+    :func:`quantize_mrf_ct_q8f_weights` (or the JAX packer's arrays): taps
+    (k, C_in, C_out) int8 and (C,) vectors per step, the form of
+    ``vocoder_kernels.prepare_mrf_tc_q8``."""
+    kernel_sizes = tuple(kernel_sizes)
+    dilations = tuple(tuple(d) for d in dilations)
+    chains = []
+    for j, dils in enumerate(dilations):
+        wq1, inv1, b1i, m1, wq2, sw2, b2 = qw[7 * j:7 * j + 7]
+        chains.append([(wq1[i].transpose(1, 2), inv1[i, :, 0].float(),
+                        b1i[i, :, 0].int(), m1[i, :, 0].float(),
+                        wq2[i].transpose(1, 2), sw2[i, :, 0].float(),
+                        b2[i, :, 0].float()) for i in range(len(dils))])
+    mrf = MrfQ8Weights(qw[0].device, kernel_sizes, dilations, chains)
     if mrf.device.type == 'cuda':
         mrf.chains_dev = _device_chains(mrf)
     return mrf
@@ -577,6 +631,39 @@ def mrf_phase_q8_plain(x, mrf, tile):
     return torch.tanh(y).to(x.dtype).reshape(B, 1, n_t * N)
 
 
+# The plain version of :func:`fused_mrf_ct_q8f` (``fused_mrf_ct``,
+# ``int8_chain=True`` with act scales, fused boundary), x (B, T, C): static
+# scales make each sample a fixed function of zero-padded x, the one
+# ``vocoder_kernels.mrf_tc_q8_plain`` computes.
+mrf_ct_q8f_plain = mrf_tc_q8_plain
+
+
+def mrf_phase_q8_noups_plain(x, mrf, p, tile):
+    """The plain version of :func:`fused_mrf_phase_q8_noups`
+    (``fused_mrf_phase``, ``int8_chain=True``, ``in_phase=False``, no
+    upsample prologue), dynamic or ``q8f`` as ``mrf.dynamic`` says. x: (B,
+    T, C) sample-major, T a multiple of ``tile*p``. q8f: the zero-padded
+    static chains (:func:`mrf_ct_q8f_plain`'s function). Dynamic: each tile
+    of ``tile`` phase columns runs the chains on the window [-halo, tile +
+    halo) columns of zero-padded x, every conv over the TPU kernel's phase
+    columns, quantised over them."""
+    if not mrf.dynamic:
+        return mrf_tc_q8_plain(x, mrf)
+    B, T, C = x.shape
+    halo = phase_chain_halo(mrf.kernel_sizes, mrf.dilations, p)
+    N, E = tile * p, halo * p
+    if T % N:
+        raise ValueError(f'T={T} not a multiple of tile*p={N}')
+    acc = None
+    with full_f32():
+        x0 = _windows(x, N, E, N + 2 * E)
+        for j, (k, dils) in enumerate(zip(mrf.kernel_sizes, mrf.dilations)):
+            y = _phase_dyn_chain(x0, mrf.chains[j], k, dils, p, halo, N, 0)
+            acc = y if acc is None else acc + y
+    out = acc * (1.0 / len(mrf.kernel_sizes))
+    return out.to(x.dtype).reshape(B, T, C)
+
+
 # ----------------------------------------------------------------------
 # launch plans (shared by the CUDA routes and the CPU replay in the tests)
 # ----------------------------------------------------------------------
@@ -707,6 +794,27 @@ def _ct_plan(x, prep, kernel_sizes, dilations, tile, alloc):
     return CtPlan(amax, n_t, tile, halo, steps, out)
 
 
+def _phase_noups_plan(x, prep, kernel_sizes, dilations, p, tile, alloc):
+    """Launch plan of the dynamic :func:`fused_mrf_phase_q8_noups`: the
+    ct plan's form (word 0 the amax of x over each window) on the phase
+    kernel's windows, tile*p samples a tile with a halo of halo*p."""
+    B, T, C = x.shape
+    halo = phase_chain_halo(kernel_sizes, dilations, p)
+    N, E = tile * p, halo * p
+    if T % N:
+        raise ValueError(f'T={T} not a multiple of tile*p={N}')
+    n_t = T // N
+    S = B * n_t
+    bufs = alloc((4, S, N + 2 * E, C), torch.float32)
+    amax = alloc((_n_words(dilations), S), torch.float32)
+    out = alloc((B, T, C), x.dtype)
+    xv = SegView(x, T * C, N * C, 0, 0, T, N)
+    steps = _dyn_steps(xv, 0, prep, kernel_sizes, dilations, p, -E, N + E,
+                       bufs, n_t, E, 0, N, (out, T * C, N * C, C, 1),
+                       iter(range(1, 1 << 30)))
+    return CtPlan(amax, n_t, N, E, steps, out)
+
+
 @dataclass
 class PhasePlan:
     """The launches of :func:`fused_mrf_phase_q8`: the prologue (amax of
@@ -817,9 +925,10 @@ def _check_segments(name, S):
 
 
 def fused_mrf_ct_q8(x, mrf, tile):
-    """Fused MRF group of a wide level in the int8-dynamic form
-    (``fused_mrf_ct`` with ``int8_chain=True``, no act scales). x: (B, T, C)
-    bfloat16 sample-major; ``mrf`` from :func:`prepare_mrf_ct_q8`; ``tile``
+    """Fused MRF group of a level in the int8-dynamic form (``fused_mrf_ct``
+    with ``int8_chain=True``, no act scales). x: (B, T, C) bfloat16
+    sample-major, C in :data:`CT_Q8_CHANNELS`; ``mrf`` from
+    :func:`prepare_mrf_ct_q8`; ``tile``
     samples per tile (divides T; :func:`ct_tile` gives the JAX package's
     rule). Returns (B, T, C) bfloat16. On a CUDA tensor this launches
     ``mrf_ct_q8.cu`` (or raises); on a CPU tensor it runs
@@ -831,23 +940,12 @@ def fused_mrf_ct_q8(x, mrf, tile):
     if x.device.type == 'cpu':
         return mrf_ct_q8_plain(x, mrf, tile)
     B, T, C = x.shape
-    _check_input('fused_mrf_ct_q8', x, mrf, TC_CHANNELS, C, True)
+    _check_input('fused_mrf_ct_q8', x, mrf, CT_Q8_CHANNELS, C, True)
     x = x.contiguous()
     plan = _ct_plan(x, mrf.chains_dev, mrf.kernel_sizes, mrf.dilations,
                     tile, _empty_on(x.device))
-    S = plan.amax.shape[1]
-    _check_segments('fused_mrf_ct_q8', S)
-    stream = _build.stream_ptr(x)
-    plan.amax.zero_()
-    err = _fn('mrf_ct_q8', 'mrf_ct_q8_amax', _AMAX_ARGTYPES)(
-        _build.ptr(x), x.stride(0), T, C, plan.n_tiles, tile, plan.halo,
-        tile + 2 * plan.halo, _build.ptr(plan.amax[0]), S, stream)
-    _build.check(err, 'MRF ct amax')
-    fused_mrf_ct_q8.launches += 1
-    fn = _fn('mrf_ct_q8', 'mrf_ct_q8_conv', _DYN_ARGTYPES)
-    for st in plan.steps:
-        _launch_dyn(fn, st, plan.amax, C, plan.n_tiles, S, stream)
-        fused_mrf_ct_q8.launches += 1
+    _launch_ct_dyn(fused_mrf_ct_q8, 'mrf_ct_q8', x, plan,
+                   _build.stream_ptr(x))
     fused_mrf_ct_q8.calls[tuple(x.shape)] += 1
     return plan.out
 
@@ -932,3 +1030,96 @@ def fused_mrf_phase_q8(x, mrf, tile):
 
 fused_mrf_phase_q8.launches = 0
 fused_mrf_phase_q8.calls = collections.Counter()
+
+
+def _launch_ct_dyn(wrapper, lib, x, plan, stream):
+    """The window amax, then the conv launches, of a :class:`CtPlan`."""
+    _, T, C = x.shape
+    S = plan.amax.shape[1]
+    _check_segments(wrapper.__name__, S)
+    plan.amax.zero_()
+    err = _fn(lib, f'{lib}_amax', _AMAX_ARGTYPES)(
+        _build.ptr(x), x.stride(0), T, C, plan.n_tiles, plan.tile, plan.halo,
+        plan.tile + 2 * plan.halo, _build.ptr(plan.amax[0]), S, stream)
+    _build.check(err, f'{wrapper.__name__} amax')
+    wrapper.launches += 1
+    fn = _fn(lib, f'{lib}_conv', _DYN_ARGTYPES)
+    for st in plan.steps:
+        _launch_dyn(fn, st, plan.amax, C, plan.n_tiles, S, stream)
+        wrapper.launches += 1
+
+
+def _launch_static(wrapper, lib, x, mrf):
+    """The q8 step launches of the static chains on the tc plan."""
+    B, T, C = x.shape
+    steps, out = _tc_plan(x, mrf.chains_dev, mrf.kernel_sizes, mrf.dilations,
+                          _empty_on(x.device))
+    fn = _fn(lib, f'{lib}_step', _Q8_STEP_ARGTYPES)
+    for st in steps:
+        _launch_q8_step(fn, st, B, C)
+        wrapper.launches += 1
+    return out
+
+
+def fused_mrf_ct_q8f(x, mrf):
+    """Fused MRF group of a level in ``fused_mrf_ct``'s int8-static form
+    with the fused s32 boundary (``q8f``). x: (B, T, C) bfloat16
+    sample-major, C in :data:`CT_Q8F_CHANNELS`; ``mrf`` from
+    :func:`prepare_mrf_ct_q8f`. Returns (B, T, C) bfloat16. On a CUDA tensor
+    this launches ``mrf_ct_q8.cu`` (or raises); on a CPU tensor it runs
+    :func:`mrf_ct_q8f_plain`.
+
+    ``fused_mrf_ct_q8f.launches`` counts CUDA launches (one per chain
+    step); ``fused_mrf_ct_q8f.calls`` counts CUDA-route calls by x's
+    shape."""
+    if x.device.type == 'cpu':
+        return mrf_ct_q8f_plain(x, mrf)
+    _check_input('fused_mrf_ct_q8f', x, mrf, CT_Q8F_CHANNELS, x.shape[2],
+                 False)
+    x = x.contiguous()
+    out = _launch_static(fused_mrf_ct_q8f, 'mrf_ct_q8', x, mrf)
+    fused_mrf_ct_q8f.calls[tuple(x.shape)] += 1
+    return out
+
+
+fused_mrf_ct_q8f.launches = 0
+fused_mrf_ct_q8f.calls = collections.Counter()
+
+
+def fused_mrf_phase_q8_noups(x, mrf, p, tile):
+    """Fused MRF group of a narrow level in ``fused_mrf_phase``'s int8 forms
+    without the upsample prologue (``in_phase=False``): dynamic, or ``q8f``
+    (static, fused s32 boundary), as ``mrf.dynamic`` says. x: (B, T, C)
+    bfloat16 sample-major, C in ``PHASE_CHANNELS``; ``mrf`` from
+    :func:`prepare_mrf_ct_q8` or :func:`prepare_mrf_ct_q8f` (the phase
+    packers' per-tap weights are the same); ``p`` phases and ``tile``
+    phase columns per tile (:func:`phase_tile`; they shape the dynamic
+    form only). Returns (B, T, C) bfloat16. On a CUDA tensor this launches
+    ``mrf_phase_q8.cu`` (or raises); on a CPU tensor it runs
+    :func:`mrf_phase_q8_noups_plain`.
+
+    ``fused_mrf_phase_q8_noups.launches`` counts CUDA launches (dynamic:
+    the window amax and two per chain step; q8f: one per chain step);
+    ``fused_mrf_phase_q8_noups.calls`` counts CUDA-route calls by x's
+    shape and mode: (B, T, C, 'dynamic' or 'q8f')."""
+    if x.device.type == 'cpu':
+        return mrf_phase_q8_noups_plain(x, mrf, p, tile)
+    name = 'fused_mrf_phase_q8_noups'
+    _check_input(name, x, mrf, PHASE_CHANNELS, x.shape[2], None)
+    x = x.contiguous()
+    if mrf.dynamic:
+        plan = _phase_noups_plan(x, mrf.chains_dev, mrf.kernel_sizes,
+                                 mrf.dilations, p, tile, _empty_on(x.device))
+        _launch_ct_dyn(fused_mrf_phase_q8_noups, 'mrf_phase_q8', x, plan,
+                       _build.stream_ptr(x))
+        out = plan.out
+    else:
+        out = _launch_static(fused_mrf_phase_q8_noups, 'mrf_phase_q8', x,
+                             mrf)
+    fused_mrf_phase_q8_noups.calls[tuple(x.shape) + (
+        'dynamic' if mrf.dynamic else 'q8f',)] += 1
+    return out
+
+
+fused_mrf_phase_q8_noups.launches = 0
+fused_mrf_phase_q8_noups.calls = collections.Counter()

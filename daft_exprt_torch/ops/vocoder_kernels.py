@@ -261,7 +261,11 @@ def ups_geometry(kernel_size, stride, padding):
 
 def pack_mma(w_kio):
     """(taps, C_in, C_out) -> bfloat16 words in the m16n8k16 B-fragment
-    order ``conv_gemm`` reads: [tap][n-tile][k-tile][lane][4]."""
+    order ``conv_gemm`` reads: [tap][n-tile][k-tile][lane][4]. C_in = 8 is
+    padded with zero rows to the 16 channels the MMA reduces over
+    (``mrf_common.cuh`` ``gemm_cin``)."""
+    if w_kio.shape[1] < 16:
+        w_kio = F.pad(w_kio, (0, 0, 0, 16 - w_kio.shape[1]))
     taps, ci, co = w_kio.shape
     w = w_kio.to(torch.bfloat16).reshape(taps, ci // 16, 2, 4, 2, co // 8, 8)
     return w.permute(0, 5, 1, 6, 3, 2, 4).contiguous().reshape(-1)

@@ -358,3 +358,105 @@ def test_mrf_phase_q8_kernel_matches_plain(C_in, C, p_in, post, static):
     assert out.dtype == torch.bfloat16 and out.shape == ref.shape
     assert out.shape == ((2, 1, cols * p) if post else (2, cols * p, C))
     assert rel_l2(out.float().cpu(), ref.float().cpu()) <= 2e-3
+
+
+# ----------------------------------------------------------------------
+# HiFi-GAN V2's levels: the float ct / phase-without-prologue kernel
+# (ops/mrf_ct.py, one CUDA kernel behind two wrappers) at C = 64..8, the
+# int8 ct kernel in its q8f and dynamic modes at C = 64 and 32, and the int8
+# phase kernel without prologue at C = 32, p = 4 (ops/mrf_int8.py). Shapes:
+# V2's levels at batch 1 ((1, 8192, 64), (1, 65536, 32), (1, 131072, 16),
+# (1, 262144, 8): 32 frames) and the ct fallback at 12 frames.
+# ----------------------------------------------------------------------
+
+V2_SHAPES = [(1, 8192, 64), (1, 65536, 32), (1, 131072, 16),
+             (1, 262144, 8), (2, 768, 32), (2, 1536, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', V2_SHAPES)
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_mrf_ct_kernel_matches_plain(shape, dtype):
+    """Both wrappers of mrf_ct.cu; C = 8 runs the bf16 MMA on 16 staged
+    channels whose lanes 8..15 are zero."""
+    from daft_exprt_torch.ops import mrf_ct as mc
+    need_cuda()
+    B, T, C = shape
+    rng = np.random.RandomState(C)
+    tp = _cuda_tree(to_torch(mrf_params(rng, 0, C, KS, DILS,
+                                        w_scale=(C * 7) ** -0.5)), dtype)
+    mrf = vk.prepare_mrf(vk.pack_mrf_tc_weights(tp, 0, KS, DILS), KS, DILS)
+    x = torch.from_numpy((rng.randn(B, T, C) * 0.5).astype(np.float32)
+                         ).cuda().to(dtype)
+    ref = mc.mrf_ct_plain(x, mrf)
+    for fn in (mc.fused_mrf_ct, mc.fused_mrf_phase_noups):
+        n, c = fn.launches, fn.calls[shape]
+        out = fn(x, mrf)
+        torch.cuda.synchronize()
+        assert fn.launches == n + 9 and fn.calls[shape] == c + 1
+        assert out.dtype == dtype and out.shape == ref.shape
+        assert rel_l2(out.float().cpu(), ref.float().cpu()) <= _band(dtype)
+
+
+def _v2_int8_level(rng, C, static):
+    from daft_exprt_torch.ops import mrf_int8 as mi
+    tp = unit_params(rng, C)
+    w = mi.pack_mrf_weights(tp, 1, KS, DILS)
+    if static:
+        return mi.prepare_mrf_ct_q8f(mi.quantize_mrf_ct_q8f_weights(
+            w, [s for s1, s2 in q8_scales(rng, C) for s in (s1, s2)]), KS,
+            DILS)
+    return mi.prepare_mrf_ct_q8(mi.quantize_mrf_ct_weights(w), KS, DILS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(1, 8192, 64), (2, 768, 32),
+                                   (2, 2048, 64), (1, 65536, 32)])
+@pytest.mark.parametrize('static', [False, True])
+def test_mrf_ct_int8_kernel_matches_plain(shape, static):
+    """fused_mrf_ct_q8f (one launch per step) and fused_mrf_ct_q8 at the
+    narrow widths (the window amax and two launches per step), tiles by
+    ct_tile; one loud tile."""
+    from daft_exprt_torch.ops import mrf_int8 as mi
+    need_cuda()
+    B, T, C = shape
+    rng = np.random.RandomState(T + static)
+    mrf = _v2_int8_level(rng, C, static)
+    tile = mi.ct_tile(T, C)
+    x = torch.from_numpy((rng.randn(B, T, C) * 0.5).astype(np.float32))
+    x[0, :min(T, 512)] *= 4.0
+    x = x.cuda().to(torch.bfloat16)
+    fn = mi.fused_mrf_ct_q8f if static else mi.fused_mrf_ct_q8
+    n = fn.launches
+    out = fn(x, mrf) if static else fn(x, mrf, tile)
+    torch.cuda.synchronize()
+    assert fn.launches == n + (9 if static else 19)
+    ref = mi.mrf_ct_q8f_plain(x, mrf) if static else \
+        mi.mrf_ct_q8_plain(x, mrf, tile)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    assert rel_l2(out.float().cpu(), ref.float().cpu()) <= 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('T,tile', [(65536, 4096), (3 * 512, 128)])
+@pytest.mark.parametrize('static', [False, True])
+def test_mrf_phase_q8_noups_kernel_matches_plain(T, tile, static):
+    """V2's L1 (C = 32, p = 4) at 32 frames and three tiles of 128
+    columns; one loud tile."""
+    from daft_exprt_torch.ops import mrf_int8 as mi
+    need_cuda()
+    rng = np.random.RandomState(T + static)
+    mrf = _v2_int8_level(rng, 32, static)
+    x = torch.from_numpy((rng.randn(2, T, 32) * 0.5).astype(np.float32))
+    x[1, 512:1024] *= 4.0
+    x = x.cuda().to(torch.bfloat16)
+    fn = mi.fused_mrf_phase_q8_noups
+    n, key = fn.launches, (2, T, 32, 'q8f' if static else 'dynamic')
+    c = fn.calls[key]
+    out = fn(x, mrf, 4, tile)
+    torch.cuda.synchronize()
+    assert fn.launches == n + (9 if static else 19)
+    assert fn.calls[key] == c + 1
+    ref = mi.mrf_phase_q8_noups_plain(x, mrf, 4, tile)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    assert rel_l2(out.float().cpu(), ref.float().cpu()) <= 2e-3

@@ -140,7 +140,9 @@ def test_int8_tier_is_not_a_fallback(case):
     ``fused_mrf_phase``). Band rel-L2 <= 5e-2 (the JAX package's band
     between two forms of the int8 generator: the JAX wrapper packs the
     wide level's static weights under jit, an ulp apart in their scales).
-    A narrow level no int8 kernel serves still raises, naming ROADMAP.md."""
+    A level outside V1's widths (C=96, then 48) takes the JAX generator's
+    route too, ``fused_mrf_ct`` q8 at C=96 and the float merged-tap form
+    at C=48 (int8 needs C % 32 == 0), and matches it at the same band."""
     jp, tp, mel = _case(CFG_TC, seed=0, T=128, B=1)
     cal = mel if case == 'batch_below_8' else None
     voc = th.HiFiGanVocoder(tp, CFG_TC, fast='int8', device='cpu',
@@ -156,10 +158,23 @@ def test_int8_tier_is_not_a_fallback(case):
     assert np.abs(want).max() > 0
     assert rel_l2(got, want) <= 5e-2
     cfg = dict(CFG_TC, upsample_initial_channel=192)    # C=96 at level 0
-    _, tp2, _ = _case(cfg, seed=0, T=128, B=1)
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        th.generator_forward(tp2, torch.from_numpy(mel), cfg, use_fast=True,
-                             int8=True)
+    jp2, tp2, _ = _case(cfg, seed=0, T=128, B=1)
+    m = mel[:, :, :32]
+    assert th.level_routes(tp2, cfg, 1, 32, int8=True) == [
+        th.Route('ct', 'q8', 1, 256), th.Route('ct', '', 1, 512, True)]
+    with torch.no_grad():
+        got = th.generator_forward(
+            {k: {kk: (vv.bfloat16() if torch.is_tensor(vv) else
+                      {a: t.bfloat16() for a, t in vv.items()})
+                 for kk, vv in v.items()} for k, v in tp2.items()},
+            torch.from_numpy(m).bfloat16(), cfg, use_fast=True, int8=True)
+    want = jh.generator_forward(
+        jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16), jp2),
+        jnp.asarray(m, jnp.bfloat16), cfg, use_pallas=True, int8=True,
+        interpret=True)
+    want = np.asarray(want.astype(jnp.float32))
+    assert got.shape == want.shape and np.abs(want).max() > 0
+    assert rel_l2(got.float().numpy(), want) <= 5e-2
 
 
 def test_generator_bridge_is_a_copy_of_every_leaf():

@@ -112,8 +112,10 @@ def test_int8_generator_below_ptc_batch_matches_jax(tier, B):
                 x_prev = taps[i]
             else:
                 x_in = _tensor(taps[i - 1])
-                y, post_done = th._narrow_int8_level(x_in, packed[i],
-                                                     th.PTC_MIN_BATCH, False)
+                y, post_done = th._narrow_int8_level(
+                    x_in, packed[i], th.level_routes(
+                        tp, CFG, B, 24, int8=True, act_scales=t_scales)[i],
+                    False)
                 assert post_done == (i == 3)
                 ref = np.asarray(taps[i].astype(jnp.float32))
             assert y.dtype == torch.bfloat16 and tuple(y.shape) == ref.shape

@@ -142,8 +142,10 @@ def test_int8_generator_matches_jax(dtype, monkeypatch):
                     8, 4, in_tc=i == 1)
                 y = vk.fused_mrf_tc_q8(x, packed[i])
             else:
-                y, post_done = th._narrow_int8_level(x_in, packed[i], 1,
-                                                     False)
+                y, post_done = th._narrow_int8_level(
+                    x_in, packed[i], th.level_routes(
+                        tp, CFG, 1, 24, act_scales=t_scales,
+                        ptc_min_batch=1)[i], False)
                 assert post_done == (i == 3)
             ref = np.asarray(taps[i].astype(jnp.float32))
             assert y.dtype == tdt and tuple(y.shape) == ref.shape
