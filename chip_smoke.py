@@ -21,6 +21,15 @@
    - int8-dynamic, B=8: HiFiGanVocoder(fast='int8') without calibration
      mels (fused_mrf_ct q8 at L0/L1, the dynamic int8 fused_mrf_phase at
      L2/L3), the same two bands;
+   - int8-partial, B=8: generator_forward on the bf16 path's mel with the
+     int8-static calibration restricted to L0 and L1 (and pack_levels
+     with the same dict): fused_mrf_tc q8 at L0/L1, fused_mrf_ptc in its
+     dyn mode at L2/L3; the same two bands;
+   - bf16-ptc, B=8: HiFiGanVocoder(fast='bf16', ptc_bf16=True) (the JAX
+     package's DAFT_MRF_PTC_BF16=1) behind the Synthesizer: fused_mrf_tc
+     at L0/L1, fused_mrf_ptc's fdot mode at L2/L3; the waveform against
+     the float32 plain route (rel-L2 <= 5e-2) and the banded bf16 tier
+     (<= 3e-2, NUMERICS_r05.json ptc_bf16_vs_banded_bf16);
    - HiFi-GAN V2 (jik876/hifi-gan config_v2.json: V1 at 128 initial
      channels, levels of C = 64/32/16/8) behind the same Synthesizer at
      B=8 x 1024 frames, each tier: bf16 (fused_mrf_ct at L0,
@@ -28,7 +37,10 @@
      calibration: fused_mrf_ct q8f at L0, the int8 fused_mrf_phase q8f
      without prologue at L1, bf16 at L2/L3) and int8-dynamic (the same in
      q8); each waveform against the float32 plain route (bf16, 5e-2) or
-     the plain int8 route and the V2 bf16 tier (1e-2, 0.25);
+     the plain int8 route and the V2 bf16 tier (1e-2, 0.25); then
+     v2-int8-unfused, the int8-static tier with int8_fused=False (the JAX
+     package's DAFT_INT8_FUSED_EPI=0): fused_mrf_ct q8s at L0, the int8
+     fused_mrf_phase q8s without prologue at L1, the same bands;
    - v2-ct-fallback: generator_forward at 12 frames (no phase tile divides
      L1 and L2, which take fused_mrf_ct) in each V2 tier, against the
      kernels' plain versions (rel-L2 <= 1e-2);
@@ -37,10 +49,15 @@
      tile changes) with the int8-static vocoder (its narrow levels below
      the phase-tc batch: the q8f int8 fused_mrf_phase), then with the
      int8-dynamic one; each utterance's waveform against the plain int8
-     route, rel-L2 <= 1e-2; prints the RTF. With matplotlib the entry
+     route, rel-L2 <= 1e-2; prints the RTF; then entry-int8-unfused, the
+     same with the int8-static vocoder at int8_fused=False (the q8s int8
+     fused_mrf_phase with its prologue at L2/L3). With matplotlib the entry
      point saves its outputs (npz, png, wav); without it, it runs with
      save_outputs=False and the path vocodes each mel itself through
      synthesizer.vocoder.infer. It prints which.
+   - resblock1: fused_resblock1 (one ResBlock1 chain; no path of the JAX
+     package calls it) through its wrapper at (8, 8192, 256) and (8,
+     65536, 128), k in {3, 7, 11}, dilations (1, 3, 5), bf16 and float32.
    Each path checks its outputs' shape and finiteness and that every kernel
    of its path, and no other, was launched.
    Then training, default HyperParams (4+4+4 FFT blocks, width 128, 2
@@ -60,18 +77,21 @@
      iteration and the optimizer state.
 4. At every input shape a path called a kernel with: the kernel against
    its plain PyTorch version on the same inputs (unit-gain random weights):
-   rel-L2 <= 1e-2 in bf16 (summation order only), <= 2e-3 for the int8
-   kernels (NUMERICS_r05.json ptc_vs_banded_int8); its launches per call;
-   its time, its plain version's and (attention) the library call's, with
-   CUDA events, beside the least time the card could take (H100 SXM: 989
-   TFLOP/s bf16, 1979 TOP/s int8, 3.35 TB/s). Each wrapper counts its CUDA
-   launches and its calls by input shape (the attention wrappers by shape
-   and dropout rate); the run fails unless, on every path, the calls times
-   the launches per call add up to the launch count. The attention
-   backward is also checked at p = 0 at each training shape, and two of
-   its calls must be bit-identical.
-5. Prints the end-to-end audio-seconds per second of the three B=8 tiers
-   and the train-step path's steps/s and utterances/s (host clock,
+   rel-L2 <= 1e-2 in bf16 (summation order only), <= 1e-5 in float32,
+   <= 2e-3 for the int8 kernels (NUMERICS_r05.json ptc_vs_banded_int8);
+   its launches per call; its time (median of 10 calls), its plain
+   version's (median of 3) and (attention) the library call's, with CUDA
+   events, beside the least time the card could take (H100 SXM: 989
+   TFLOP/s bf16, 67 TFLOP/s float32 outside the tensor cores, 1979 TOP/s
+   int8, 3.35 TB/s). Each wrapper counts its CUDA launches and its calls
+   by input shape (the attention wrappers by shape and dropout rate, the
+   multi-mode MRF wrappers by shape and mode); the run fails unless, on
+   every path, the calls times the launches per call add up to the launch
+   count. The attention backward is also checked at p = 0 at each training
+   shape, and two of its calls must be bit-identical. The kernels' JSON
+   has one entry per kernel and mode ("name[mode]").
+5. Prints the end-to-end audio-seconds per second of the B=8 synthesis
+   paths and the train-step path's steps/s and utterances/s (host clock,
    synchronised after each step).
 
 ``--profile`` adds a torch.profiler pass over one synthesis call of each
@@ -98,6 +118,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_FLOPS = 989e12          # H100 SXM dense bf16 tensor-core rate
+PEAK_F32 = 67e12             # H100 SXM float32 outside the tensor cores
 PEAK_INT8 = 1979e12          # H100 SXM dense int8 tensor-core rate
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 B, L, T = 8, 128, 1024       # requests, symbols, frames
@@ -256,10 +277,11 @@ def time_ms(torch, fn, warmup=2, iters=10):
     return float(np.median(times))
 
 
-def bound(flops, nbytes, int8_ops=0):
-    """Least time in ms: the bf16 flops and int8 operations at their peak
-    rates against the bytes at the memory rate."""
-    t_op = (flops / PEAK_FLOPS + int8_ops / PEAK_INT8) * 1e3
+def bound(flops, nbytes, int8_ops=0, f32_flops=0):
+    """Least time in ms: the bf16 flops, float32 flops and int8 operations
+    at their peak rates against the bytes at the memory rate."""
+    t_op = (flops / PEAK_FLOPS + f32_flops / PEAK_F32
+            + int8_ops / PEAK_INT8) * 1e3
     t_by = nbytes / PEAK_BYTES * 1e3
     return (t_op, 'operations') if t_op >= t_by else (t_by, 'bytes')
 
@@ -392,28 +414,79 @@ class KernelCases:
                     flops=252 * Bx * Tx * C * C,
                     nbytes=2 * Bx * Tx * C * 2 + wbytes)
 
-    def fused_mrf_phase(self, key):
-        vk = self.vk
-        Bx, C_in, T_in = key
-        C, post = C_in // 2, C_in == 64
-        p = self.bf16(self.params(C_in, C, post=post))
-        w = vk.pack_mrf_tc_weights(p, 0, self.ks, self.dils)
-        ups = (p['ups_0']['w'], p['ups_0']['b'], 2, 1)
-        pst = (p['conv_post']['w'], p['conv_post']['b']) if post else None
-        # the path hands a narrow level a transposed (B, T, C) tensor
+    def _phase_float(self, key, mrf, fn, plain):
+        """A float narrow level's case: x a transposed (B, T, C) tensor, as
+        the path hands it over."""
+        Bx, C_in, T_in = key[:3]
+        C, post = C_in // 2, mrf.post is not None
         x = self.randn(Bx, T_in, C_in).transpose(1, 2)
-        mrf = vk.prepare_mrf(w, self.ks, self.dils, ups, pst)
         N = 2 * T_in
         c_out = 1 if post else C
-        wbytes = sum(t.numel() * t.element_size() for t in w) + \
-            ups[0].numel() * 2
+        wbytes = sum(t.numel() * t.element_size() for t in mrf.packed) + \
+            mrf.ups[0].numel() * 2
         return dict(desc=f'x ({Bx},{C_in},{T_in}) -> ({Bx},{c_out},{N}) bf16',
-                    band=1e-2, fn=lambda: vk.fused_mrf_phase(x, mrf),
-                    plain=lambda: vk.mrf_phase_plain(x, w, self.ks, self.dils,
-                                                     ups, pst),
+                    band=1e-2, fn=lambda: fn(x, mrf), plain=lambda: plain(x, mrf),
                     flops=252 * Bx * N * C * C + 2 * Bx * N * C_in * C * 2
                     + (2 * Bx * N * C * 7 if post else 0),
                     nbytes=Bx * C_in * T_in * 2 + Bx * c_out * N * 2 + wbytes)
+
+    def fused_mrf_phase(self, key):
+        vk = self.vk
+        C_in = key[1]
+        C, post = C_in // 2, C_in == 64
+        p = self.bf16(self.params(C_in, C, post=post))
+        mrf = vk.prepare_mrf(
+            vk.pack_mrf_tc_weights(p, 0, self.ks, self.dils), self.ks,
+            self.dils, (p['ups_0']['w'], p['ups_0']['b'], 2, 1),
+            (p['conv_post']['w'], p['conv_post']['b']) if post else None)
+        return self._phase_float(key, mrf, vk.fused_mrf_phase,
+                                 lambda x, m: vk.mrf_phase_plain(
+                                     x, m.packed, m.kernel_sizes, m.dilations,
+                                     m.ups, m.post))
+
+    def fused_mrf_ptc_f(self, key):
+        """fused_mrf_ptc's fdot mode (key: x's shape and 'fdot')."""
+        vk = self.vk
+        C_in, T_in = key[1:3]
+        C, post = C_in // 2, C_in == 64
+        p_in = 1 if C_in == 128 else 2
+        p16 = self.bf16(self.params(C_in, C, post=post))
+        mrf = vk.prepare_mrf_ptc_f(
+            vk.pack_mrf_ptc_f_weights(p16, 0, self.ks, self.dils, 2 * p_in),
+            self.ks, self.dils, 2 * p_in, tuple(vk.pack_ups_ptc_f_weights(
+                p16['ups_0']['w'], p16['ups_0']['b'], 2, 1, p_in))
+            + (4, 2, 1, p_in), vk.pack_post_ptc_weights(
+                p16['conv_post']['w'], p16['conv_post']['b'], 2 * p_in,
+                self.torch.bfloat16) if post else None)
+        tile = vk.ptc_tile(T_in // p_in, 4096)
+        c = self._phase_float(key, mrf,
+                              lambda x, m: vk.fused_mrf_ptc_f(x, m, tile),
+                              lambda x, m: vk.mrf_ptc_f_plain(x, m, tile))
+        c['desc'] = f'fdot {c["desc"]} tile {tile}'
+        return c
+
+    def fused_resblock1(self, key):
+        """One ResBlock1 chain (key: x's shape, k, dilations, dtype)."""
+        torch, vk = self.torch, self.vk
+        Bx, Tx, C, k, dils, dname = key
+        dt = getattr(torch, dname)
+        rb = {f'{pre}_{i}': {'w': ((C * k) ** -0.5 * torch.randn(
+            (C, C, k), generator=self.gen)).to(self.dev),
+            'b': (0.05 * torch.randn(C, generator=self.gen)).to(self.dev)}
+            for pre in ('convs1', 'convs2') for i in range(len(dils))}
+        w = [t.to(dt) for t in vk.pack_resblock_weights(rb, len(dils))]
+        x = torch.randn((Bx, Tx, C), generator=self.gen).to(self.dev, dt)
+        tile = min(4096, Tx)
+        f32 = dt == torch.float32
+        flops = 4 * len(dils) * k * Bx * Tx * C * C
+        esz = x.element_size()
+        return dict(desc=f'x ({Bx},{Tx},{C}) {dname} k={k} d={dils}',
+                    band=1e-5 if f32 else 1e-2,
+                    fn=lambda: vk.fused_resblock1(x, *w, k, dils, tile),
+                    plain=lambda: vk.resblock1_plain(x, *w, k, dils, tile),
+                    flops=0 if f32 else flops, f32_flops=flops if f32 else 0,
+                    nbytes=2 * Bx * Tx * C * esz
+                    + sum(t.numel() * esz for t in w))
 
     def _ct_float(self, key, fn, plain):
         vk = self.vk
@@ -435,22 +508,25 @@ class KernelCases:
         return self._ct_float(key, self.mc.fused_mrf_phase_noups,
                               self.mc.mrf_phase_noups_plain)
 
-    def _ct_int8(self, key, static):
+    def _ct_int8(self, key, mode):
         """(x, weights) of a V2 int8 level, per-tap ct-packed weights: q8f
-        (act scales calibrated on a slice of x) or dynamic."""
+        or q8s (act scales calibrated on a slice of x) or dynamic."""
         mi = self.mi
         Bx, Tx, C = key[:3]
         p = self.params(2 * C, C)
         x = self.randn(Bx, Tx, C)
         w = mi.pack_mrf_weights(self.bf16(p), 0, self.ks, self.dils)
-        if static:
-            scales = level_scales(self.torch, self.F, p, x[:1, :8192].float()
-                                  .transpose(1, 2), self.ks, self.dils)
-            return x, mi.prepare_mrf_ct_q8f(mi.quantize_mrf_ct_q8f_weights(
-                w, [s for s1, s2 in scales for s in (s1, s2)]), self.ks,
-                self.dils)
-        return x, mi.prepare_mrf_ct_q8(mi.quantize_mrf_ct_weights(w),
-                                       self.ks, self.dils)
+        if mode == 'dynamic':
+            return x, mi.prepare_mrf_ct_q8(mi.quantize_mrf_ct_weights(w),
+                                           self.ks, self.dils)
+        scales = level_scales(self.torch, self.F, p, x[:1, :8192].float()
+                              .transpose(1, 2), self.ks, self.dils)
+        scales = [s for s1, s2 in scales for s in (s1, s2)]
+        if mode == 'q8s':
+            return x, mi.prepare_mrf_ct_q8s(mi.quantize_mrf_ct_q8s_weights(
+                w, scales), self.ks, self.dils)
+        return x, mi.prepare_mrf_ct_q8f(mi.quantize_mrf_ct_q8f_weights(
+            w, scales), self.ks, self.dils)
 
     def _int8_work(self, key, mrf):
         Bx, Tx, C = key[:3]
@@ -459,16 +535,24 @@ class KernelCases:
 
     def fused_mrf_ct_q8f(self, key):
         mi = self.mi
-        x, mrf = self._ct_int8(key, True)
+        x, mrf = self._ct_int8(key, 'q8f')
         return dict(desc='x ({},{},{}) bf16'.format(*key), band=2e-3,
                     fn=lambda: mi.fused_mrf_ct_q8f(x, mrf),
                     plain=lambda: mi.mrf_ct_q8f_plain(x, mrf),
                     **self._int8_work(key, mrf))
 
+    def fused_mrf_ct_q8s(self, key):
+        mi = self.mi
+        x, mrf = self._ct_int8(key, 'q8s')
+        return dict(desc='q8s x ({},{},{}) bf16'.format(*key), band=2e-3,
+                    fn=lambda: mi.fused_mrf_ct_q8s(x, mrf),
+                    plain=lambda: mi.mrf_ct_q8s_plain(x, mrf),
+                    **self._int8_work(key, mrf))
+
     def fused_mrf_phase_q8_noups(self, key):
         mi = self.mi
         Bx, Tx, C, mode = key
-        x, mrf = self._ct_int8(key, mode == 'q8f')
+        x, mrf = self._ct_int8(key, mode)
         p = 128 // C
         tile = mi.phase_tile(Tx, p)
         return dict(desc=f'{mode} x ({Bx},{Tx},{C}) bf16 p {p} tile {tile}',
@@ -520,23 +604,26 @@ class KernelCases:
                     + 2 * Bx * N * C_in * C * 2)
 
     def fused_mrf_ptc(self, key):
-        vk = self.vk
+        """Static (q8f) or dyn mode, as the key's mode says."""
+        vk, mi = self.vk, self.mi
         x, p16, p_in, post, scales = self._narrow(key)
+        Bx, T_in, C_in, mode = key
         u = vk.pack_ups_ptc_weights(p16['ups_0']['w'], p16['ups_0']['b'], 2,
                                     1, p_in)
         pst = vk.pack_post_ptc_weights(
             p16['conv_post']['w'], p16['conv_post']['b'], 2 * p_in,
             self.torch.bfloat16) if post else None
         mrf = vk.prepare_mrf_ptc(vk.pack_mrf_ptc_weights(
-            p16, 0, self.ks, self.dils, 2 * p_in, scales), self.ks,
+            p16, 0, self.ks, self.dils, 2 * p_in,
+            None if mode == 'dynamic' else scales), self.ks,
             self.dils, 2 * p_in, tuple(u) + (4, 2, 1, p_in), pst)
         tile = vk.ptc_tile(x.shape[1] // p_in)
-        Bx, T_in, C_in = key
         out = f'({Bx},1,{2 * T_in})' if post else \
             f'({Bx},{2 * T_in},{C_in // 2})'
-        return dict(desc=f'x ({Bx},{T_in},{C_in}) -> {out} bf16 tile {tile}',
-                    band=2e-3, fn=lambda: vk.fused_mrf_ptc(x, mrf, tile),
-                    plain=lambda: vk.mrf_ptc_plain(x, mrf, tile),
+        return dict(desc=f'{mode} x ({Bx},{T_in},{C_in}) -> {out} bf16 '
+                    f'tile {tile}', band=2e-3,
+                    fn=lambda: mi.fused_mrf_ptc(x, mrf, tile),
+                    plain=lambda: mi.mrf_ptc_plain(x, mrf, tile),
                     **self._narrow_work(key, mrf, post))
 
     def fused_mrf_ct_q8(self, key):
@@ -564,7 +651,7 @@ class KernelCases:
             for s in (s1, s2)]
         qw = mi.quantize_mrf_phase_weights(
             mi.pack_mrf_phase_weights(p16, 0, self.ks, self.dils, p), self.ks,
-            self.dils, p, ph)
+            self.dils, p, ph, fused=mode != 'q8s')
         C_in = key[2]
         wb, bu, _, _ = mi.pack_ups_phase_weights(
             p16['ups_0']['w'], p16['ups_0']['b'], 2, 1, p_in)
@@ -656,7 +743,7 @@ def main():
     from daft_exprt_torch.models.daft_exprt import DaftExprt
     from daft_exprt_torch.models.hifigan import (
         DEFAULT_CONFIG, HiFiGanVocoder, generator_forward,
-        init_generator_params,
+        init_generator_params, pack_levels,
     )
     from daft_exprt_torch.ops import _build
     from daft_exprt_torch.ops import mrf_ct as mc
@@ -695,7 +782,6 @@ def main():
     gen = torch.Generator().manual_seed(SEED)
     ks = tuple(DEFAULT_CONFIG['resblock_kernel_sizes'])
     dils = tuple(tuple(d) for d in DEFAULT_CONFIG['resblock_dilation_sizes'])
-    errs = {}
 
     # the float32 route of the tc kernel (not on a serving path)
     w32 = vk.pack_mrf_tc_weights(level_params(torch, gen, 512, 256, ks, dils,
@@ -737,10 +823,14 @@ def main():
     batch = make_batch(hp, B, L, T, seed=SEED)
     batch['accent_emb'] = batch['spk_embs'][:, :model.hidden_dim]
     kernels = (fused_attention, vk.fused_mrf_tc, vk.fused_mrf_phase,
-               vk.fused_mrf_tc_q8, vk.fused_mrf_ptc, mi.fused_mrf_ct_q8,
+               vk.fused_mrf_tc_q8, mi.fused_mrf_ptc, mi.fused_mrf_ct_q8,
                mi.fused_mrf_phase_q8, fused_attention_bwd, mc.fused_mrf_ct,
                mc.fused_mrf_phase_noups, mi.fused_mrf_ct_q8f,
-               mi.fused_mrf_phase_q8_noups)
+               mi.fused_mrf_phase_q8_noups, vk.fused_mrf_ptc_f,
+               mi.fused_mrf_ct_q8s, vk.fused_resblock1)
+    cases = KernelCases(torch, F, vk, mi, mc, (
+        fused_attention, attention_plain, fused_attention_bwd,
+        attention_bwd_plain), dev, ks, dils)
     paths = []          # (tier, launches by kernel, calls by kernel and key)
 
     def synthesizer(voc):
@@ -793,7 +883,8 @@ def main():
             w = generator_forward(voc.params, m.to(dev, bf16), voc.config,
                                   use_fast=True, packed=voc.packed,
                                   int8=voc.int8,
-                                  int8_act_scales=voc.act_scales, plain=True)
+                                  int8_act_scales=voc.act_scales, plain=True,
+                                  **voc.switches)
         return np.clip(w.float().cpu().numpy()[:, 0, :T0 * 256], -1.0, 1.0)
 
     synthesize = synthesizer(vocoder)
@@ -804,6 +895,19 @@ def main():
     log(f'path bf16: waveform vs float32 plain route rel_l2={r:.3e} '
         f'(band 5e-2), |wav| max {np.abs(exact).max():.3e}')
     assert r <= 5e-2, r
+    mel_v1 = mel
+
+    # the bf16 tier's phase-tc form (the JAX package's DAFT_MRF_PTC_BF16=1)
+    vocoder_ptc = HiFiGanVocoder(voc_params, fast='bf16', ptc_bf16=True)
+    synthesize_ptc = synthesizer(vocoder_ptc)
+    mel_f, wav_f = run_path('bf16-ptc', synthesize_ptc, (
+        fused_attention, vk.fused_mrf_tc, vk.fused_mrf_ptc_f))
+    check_b8('bf16-ptc', mel_f, wav_f)
+    r, r_banded = rel(wav_f, exact), rel(wav_f, wav)
+    log(f'path bf16-ptc: waveform vs float32 plain route rel_l2={r:.3e} '
+        f'(band 5e-2), vs the banded bf16 tier rel_l2={r_banded:.3e} (band '
+        '3e-2)')
+    assert r <= 5e-2 and r_banded <= 3e-2, (r, r_banded)
 
     def int8_path(tier, voc, path_kernels, bf16_voc=vocoder):
         fn = synthesizer(voc)
@@ -826,12 +930,43 @@ def main():
     log(f'path int8: calibration and int8 packing '
         f'{time.perf_counter() - t0:.2f} s')
     synthesize_q8 = int8_path('int8', vocoder_q8, (
-        fused_attention, vk.fused_mrf_tc_q8, vk.fused_mrf_ptc))
+        fused_attention, vk.fused_mrf_tc_q8, mi.fused_mrf_ptc))
     t0 = time.perf_counter()
     vocoder_dyn = HiFiGanVocoder(voc_params, fast='int8')
     log(f'path int8-dynamic: int8 packing {time.perf_counter() - t0:.2f} s')
     synthesize_dyn = int8_path('int8-dynamic', vocoder_dyn, (
         fused_attention, mi.fused_mrf_ct_q8, mi.fused_mrf_phase_q8))
+    # the static tier's round-3 boundary (DAFT_INT8_FUSED_EPI=0), for the
+    # batch-1 entry point below
+    vocoder_q8_uf = HiFiGanVocoder(voc_params, fast='int8',
+                                   int8_calibration_mels=mel_v1[:4],
+                                   int8_fused=False)
+
+    # calibration entries for L0 and L1 only: L2 and L3 take fused_mrf_ptc's
+    # dyn mode (the JAX generator's route for a partial act-scale dict)
+    partial = {i: vocoder_q8.act_scales[i] for i in (0, 1)}
+    packed_partial = pack_levels(vocoder_q8.params, DEFAULT_CONFIG, partial,
+                                 int8=True)
+    mel_dev = torch.as_tensor(mel_v1).to(dev, bf16)
+
+    def partial_forward(plain=False):
+        with torch.no_grad():
+            return generator_forward(vocoder_q8.params, mel_dev,
+                                     DEFAULT_CONFIG, use_fast=True,
+                                     packed=packed_partial,
+                                     int8_act_scales=partial, plain=plain)
+
+    wav_p = run_path('int8-partial', partial_forward,
+                     (vk.fused_mrf_tc_q8, mi.fused_mrf_ptc))
+    assert wav_p.shape == (B, 1, T * 256) and torch.isfinite(
+        wav_p.float()).all()
+    r_plain = rel_l2(wav_p.float(), partial_forward(plain=True).float())
+    r_bf16 = rel(np.clip(wav_p.float().cpu().numpy()[:, 0], -1.0, 1.0), wav)
+    log(f'path int8-partial: waveform vs the plain int8 route rel_l2='
+        f'{r_plain:.3e} (band 1e-2), vs the bf16 tier rel_l2={r_bf16:.3e} '
+        '(band 0.25)')
+    assert r_plain <= 1e-2 and r_bf16 <= 0.25, (r_plain, r_bf16)
+    del wav_p, packed_partial
 
     # HiFi-GAN V2 behind the same acoustic model, each tier
     v2 = dict(DEFAULT_CONFIG, upsample_initial_channel=V2_CHANNELS)
@@ -857,6 +992,12 @@ def main():
     vocoder_v2_dyn = HiFiGanVocoder(v2_params, v2, fast='int8')
     synthesize_v2_dyn = int8_path('v2-int8-dynamic', vocoder_v2_dyn, (
         fused_attention, mi.fused_mrf_ct_q8, mi.fused_mrf_phase_q8_noups,
+        mc.fused_mrf_phase_noups), vocoder_v2)
+    vocoder_v2_uf = HiFiGanVocoder(v2_params, v2, fast='int8',
+                                   int8_calibration_mels=mel[:4],
+                                   int8_fused=False)
+    synthesize_v2_uf = int8_path('v2-int8-unfused', vocoder_v2_uf, (
+        fused_attention, mi.fused_mrf_ct_q8s, mi.fused_mrf_phase_q8_noups,
         mc.fused_mrf_phase_noups), vocoder_v2)
 
     def v2_fallback():
@@ -927,7 +1068,9 @@ def main():
             ('entry-int8-static', vocoder_q8, (
                 fused_attention, vk.fused_mrf_tc_q8, mi.fused_mrf_phase_q8)),
             ('entry-int8-dynamic', vocoder_dyn, (
-                fused_attention, mi.fused_mrf_ct_q8, mi.fused_mrf_phase_q8))):
+                fused_attention, mi.fused_mrf_ct_q8, mi.fused_mrf_phase_q8)),
+            ('entry-int8-unfused', vocoder_q8_uf, (
+                fused_attention, vk.fused_mrf_tc_q8, mi.fused_mrf_phase_q8))):
         out_dir = os.path.join(ROOT, 'build', 'smoke', tier)
 
         def entry(ranges=False, out_dir=out_dir, voc=voc):
@@ -967,6 +1110,16 @@ def main():
         again = entry()[0]['__rtf__']
         log(f'path {tier}: RTF {again:.2f} on a second call '
             f'({time.perf_counter() - t0:.2f} s, host clock)')
+
+    # fused_resblock1, through its wrapper (no JAX path calls it)
+    def resblock1_checks():
+        for key in ((B, n, C, k, (1, 3, 5), dn) for n, C in ((8192, 256),
+                                                          (65536, 128))
+                    for k in ks for dn in ('bfloat16', 'float32')):
+            y = cases.case('fused_resblock1', key)['fn']()
+            assert y.shape == key[:3] and torch.isfinite(y.float()).all()
+
+    run_path('resblock1', resblock1_checks, (vk.fused_resblock1,))
 
     # ---- 3b. training ------------------------------------------------------
     attn_kernels = (fused_attention, fused_attention_bwd)
@@ -1093,9 +1246,6 @@ def main():
             int(st['step']) + 2
 
     # ---- 4. each kernel at each shape a path called it with ----------------
-    cases = KernelCases(torch, F, vk, mi, mc, (
-        fused_attention, attention_plain, fused_attention_bwd,
-        attention_bwd_plain), dev, ks, dils)
     by_name = {kern.__name__: kern for kern in kernels}
     measured = {}
 
@@ -1121,11 +1271,11 @@ def main():
         log(f'check {name} {c["desc"]}: max_abs={m:.3e} rel_l2={r:.3e} '
             f'(band {c["band"]:g})')
         assert r <= c['band'], f'{name} {key}: rel-L2 {r} above {c["band"]}'
-        errs.setdefault(name, []).append(m)
         ms = time_ms(torch, c['fn'])
-        plain_ms = time_ms(torch, c['plain'])
+        plain_ms = time_ms(torch, c['plain'], warmup=1, iters=3)
         lib_ms = time_ms(torch, c['lib']) if 'lib' in c else None
-        b_ms, b_by = bound(c['flops'], c['nbytes'], c.get('int8_ops', 0))
+        b_ms, b_by = bound(c['flops'], c['nbytes'], c.get('int8_ops', 0),
+                           c.get('f32_flops', 0))
         log(f'time {name} {c["desc"]}: ms={ms:.4f} plain_ms={plain_ms:.4f} '
             f'library_ms={lib_ms if lib_ms is None else round(lib_ms, 4)} '
             f'bound_ms={b_ms:.4f} ({b_by}), {per_launch} launches per call')
@@ -1133,7 +1283,23 @@ def main():
                     plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                     bound_by=b_by, max_abs=m, rel_l2=r)
 
-    per_path = {}
+    def mode_of(key):
+        """The mode a multi-mode wrapper keys its calls by ('' if none)."""
+        return key[-1] if isinstance(key[-1], str) else ''
+
+    def total(rows):
+        """A path's numbers over its calls (``rows``: one per shape)."""
+        def tot(k):
+            return sum(r[k] * r['per_call'] for r in rows)
+        return dict(
+            launches=tot('launches_per_call'), ms=tot('ms'),
+            plain_ms=tot('plain_ms'), bound_ms=tot('bound_ms'),
+            library_ms=None if any(r['library_ms'] is None for r in rows)
+            else tot('library_ms'),
+            bound_by=max(rows, key=lambda r: r['bound_ms'] * r['per_call']
+                         )['bound_by'])
+
+    per_path = {}         # (name, mode) -> {tier: rows}
     for tier, launches, calls in paths:
         for name, by_key in calls.items():
             rows = []
@@ -1141,22 +1307,13 @@ def main():
                 if (name, key) not in measured:
                     measured[name, key] = measure(name, key)
                 rows.append(dict(measured[name, key], path=tier,
-                                 per_call=n))
-            counted = sum(r['per_call'] * r['launches_per_call']
-                          for r in rows)
+                                 per_call=n, mode=mode_of(key)))
+                per_path.setdefault((name, mode_of(key)), {}).setdefault(
+                    tier, []).append(rows[-1])
+            counted = total(rows)['launches']
             assert counted == launches[name], (
                 f'{tier} {name}: {launches[name]} launches on the path, '
                 f'{counted} from its calls by shape times launches per call')
-
-            def total(k, rows=rows):
-                return sum(r[k] * r['per_call'] for r in rows)
-            per_path.setdefault(name, {})[tier] = dict(
-                launches=launches[name], ms=total('ms'),
-                plain_ms=total('plain_ms'), bound_ms=total('bound_ms'),
-                library_ms=None if any(r['library_ms'] is None for r in rows)
-                else total('library_ms'),
-                bound_by=max(rows, key=lambda r: r['bound_ms'] * r['per_call']
-                             )['bound_by'], rows=rows)
 
     # the backward at p = 0 too, at each training shape (not on a path)
     for key in sorted({k[:4] for _, _, calls in paths
@@ -1177,7 +1334,10 @@ def main():
                'fused_mrf_phase_noups': 'daft_exprt_torch/ops/csrc/mrf_ct.cu',
                'fused_mrf_ct_q8f': 'daft_exprt_torch/ops/csrc/mrf_ct_q8.cu',
                'fused_mrf_phase_q8_noups':
-               'daft_exprt_torch/ops/csrc/mrf_phase_q8.cu'}
+               'daft_exprt_torch/ops/csrc/mrf_phase_q8.cu',
+               'fused_mrf_ptc_f': 'daft_exprt_torch/ops/csrc/mrf_phase.cu',
+               'fused_mrf_ct_q8s': 'daft_exprt_torch/ops/csrc/mrf_ct_q8.cu',
+               'fused_resblock1': 'daft_exprt_torch/ops/csrc/mrf_tc.cu'}
     replaces = {
         'fused_attention': 'daft_exprt_tpu/ops/attention_kernels.py:170',
         'fused_attention_bwd': 'daft_exprt_tpu/ops/attention_kernels.py:195',
@@ -1191,31 +1351,39 @@ def main():
         'fused_mrf_phase_noups': 'daft_exprt_tpu/ops/vocoder_kernels.py:1431',
         'fused_mrf_ct_q8f': 'daft_exprt_tpu/ops/vocoder_kernels.py:450',
         'fused_mrf_phase_q8_noups':
-        'daft_exprt_tpu/ops/vocoder_kernels.py:1431'}
-    # each kernel's main path: the first path that runs it
+        'daft_exprt_tpu/ops/vocoder_kernels.py:1431',
+        'fused_mrf_ptc_f': 'daft_exprt_tpu/ops/vocoder_kernels.py:1999',
+        'fused_mrf_ct_q8s': 'daft_exprt_tpu/ops/vocoder_kernels.py:450',
+        'fused_resblock1': 'daft_exprt_tpu/ops/vocoder_kernels.py:209'}
+    # one entry per kernel and mode; its main path: the first path that
+    # runs it in that mode
     table = []
-    for kern in kernels:
-        name = kern.__name__
-        main_tier = next(t for t, _, c in paths if name in c)
-        m = per_path[name][main_tier]
+    for (name, mode), by_tier in sorted(per_path.items(), key=lambda kv: (
+            [k.__name__ for k in kernels].index(kv[0][0]), kv[0][1])):
+        main_tier = next(t for t, _, _ in paths if t in by_tier)
+        m = total(by_tier[main_tier])
         table.append(dict(
-            name=name, route='cuda', source=sources[name],
-            replaces=replaces[name], launches=m['launches'],
-            max_abs_err=max(errs[name]), ms=m['ms'], plain_ms=m['plain_ms'],
-            bound_ms=m['bound_ms'], bound_by=m['bound_by'],
-            library_ms=m['library_ms'], main_path=main_tier,
-            paths={t: {k: v for k, v in d.items() if k != 'rows'}
-                   for t, d in per_path[name].items()},
-            per_shape=[r for d in per_path[name].values()
-                       for r in d['rows']]))
+            name=f'{name}[{mode}]' if mode else name, route='cuda',
+            source=sources[name], replaces=replaces[name],
+            launches=m['launches'],
+            max_abs_err=max(r['max_abs'] for rows in by_tier.values()
+                            for r in rows),
+            ms=m['ms'], plain_ms=m['plain_ms'], bound_ms=m['bound_ms'],
+            bound_by=m['bound_by'], library_ms=m['library_ms'],
+            main_path=main_tier,
+            paths={t: total(rows) for t, rows in by_tier.items()},
+            per_shape=[r for rows in by_tier.values() for r in rows]))
+    assert {e['name'].split('[')[0] for e in table} == set(by_name)
 
     # ---- 5. end to end ----------------------------------------------------
     audio_s = B * T * 256 / DEFAULT_CONFIG['sampling_rate']
     for tier, synth_fn in (('bf16', synthesize), ('int8', synthesize_q8),
                            ('int8-dynamic', synthesize_dyn),
+                           ('bf16-ptc', synthesize_ptc),
                            ('v2-bf16', synthesize_v2),
                            ('v2-int8', synthesize_v2_q8),
-                           ('v2-int8-dynamic', synthesize_v2_dyn)):
+                           ('v2-int8-dynamic', synthesize_v2_dyn),
+                           ('v2-int8-unfused', synthesize_v2_uf)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         synth_fn()
@@ -1233,9 +1401,11 @@ def main():
         profile_path(torch, synthesize, 'bf16')
         profile_path(torch, synthesize_q8, 'int8')
         profile_path(torch, synthesize_dyn, 'int8-dynamic')
+        profile_path(torch, synthesize_ptc, 'bf16-ptc')
         profile_path(torch, synthesize_v2, 'v2-bf16')
         profile_path(torch, synthesize_v2_q8, 'v2-int8')
         profile_path(torch, synthesize_v2_dyn, 'v2-int8-dynamic')
+        profile_path(torch, synthesize_v2_uf, 'v2-int8-unfused')
         for tier, fn in entry_fns.items():
             profile_path(torch, fn, tier)
         tmodel = DaftExprt.from_hparams(hp_t, seed=SEED).train()

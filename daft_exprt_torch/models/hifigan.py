@@ -21,11 +21,22 @@ Routes, as ``generator_forward`` in the JAX package:
   one without): the same levels in int8 where C % 32 == 0 (bf16 where
   not): a wide level through ``fused_mrf_tc_q8`` (static) or
   ``fused_mrf_ct_q8`` (dynamic), a chained narrow level through
-  ``fused_mrf_ptc`` (static, batch >= ``PTC_MIN_BATCH``) or
-  ``fused_mrf_phase_q8`` (static below that batch, dynamic at every
-  batch), any other level through ``fused_mrf_ct_q8f`` / ``fused_mrf_ct_q8``
-  or ``fused_mrf_phase_q8_noups``. A mode that is not ported raises
-  ``NotImplementedError`` naming ROADMAP.md.
+  ``fused_mrf_ptc`` (after a static wide level, batch >=
+  ``PTC_MIN_BATCH``: static mode, or ``dyn`` when ``int8_act_scales`` has
+  no entry for the level) or ``fused_mrf_phase_q8`` (static below that
+  batch, dynamic at every batch), any other level through
+  ``fused_mrf_ct_q8f`` / ``fused_mrf_ct_q8`` or
+  ``fused_mrf_phase_q8_noups``.
+
+Two keywords stand for the JAX package's environment switches, with their
+defaults: ``int8_fused=False`` (``DAFT_INT8_FUSED_EPI=0``) moves the static
+ct, phase and chain levels to the ``q8s`` form (the float32 conv1 -> conv2
+boundary: ``fused_mrf_ct_q8s`` and the q8s modes of the int8 phase
+kernels); ``ptc_bf16=True`` (``DAFT_MRF_PTC_BF16=1``) takes the bf16
+tier's chained narrow levels after a wide level, from ``PTC_MIN_BATCH``,
+through ``fused_mrf_ptc_f`` (``fused_mrf_ptc``'s fdot mode). A chain level
+whose upsample cannot fuse raises ``NotImplementedError`` naming
+ROADMAP.md.
 
 Reference checkpoints (weight-normed ``HiFiGANGenerator`` state dicts) load
 through :func:`load_torch_generator`.
@@ -46,20 +57,23 @@ from daft_exprt_torch.ops.mrf_ct import (
     pack_mrf_weights,
 )
 from daft_exprt_torch.ops.mrf_int8 import (
-    ct_tile, fused_mrf_ct_q8, fused_mrf_ct_q8f, fused_mrf_phase_q8,
-    fused_mrf_phase_q8_noups, mrf_ct_q8_plain, mrf_ct_q8f_plain,
-    mrf_phase_q8_noups_plain, mrf_phase_q8_plain, pack_mrf_phase_weights,
-    pack_post_phase_weights, pack_ups_phase_weights, phase_post_feasible,
-    phase_tile, prepare_mrf_ct_q8, prepare_mrf_ct_q8f, prepare_mrf_phase_q8,
-    quantize_mrf_ct_q8f_weights, quantize_mrf_ct_weights,
+    ct_tile, fused_mrf_ct_q8, fused_mrf_ct_q8f, fused_mrf_ct_q8s,
+    fused_mrf_phase_q8, fused_mrf_phase_q8_noups, fused_mrf_ptc,
+    mrf_ct_q8_plain, mrf_ct_q8f_plain, mrf_ct_q8s_plain,
+    mrf_phase_q8_noups_plain, mrf_phase_q8_plain, mrf_ptc_plain,
+    pack_mrf_phase_weights, pack_post_phase_weights, pack_ups_phase_weights,
+    phase_post_feasible, phase_tile, prepare_mrf_ct_q8, prepare_mrf_ct_q8f,
+    prepare_mrf_ct_q8s, prepare_mrf_phase_q8, quantize_mrf_ct_q8f_weights,
+    quantize_mrf_ct_q8s_weights, quantize_mrf_ct_weights,
     quantize_mrf_phase_weights, quantize_ups_phase_weights, ups_used_blocks,
 )
 from daft_exprt_torch.ops.vocoder_kernels import (
-    MrfQ8Weights, MrfWeights, full_f32, fused_mrf_phase, fused_mrf_ptc,
-    fused_mrf_tc, fused_mrf_tc_q8, mrf_phase_plain, mrf_ptc_plain,
-    mrf_tc_plain, mrf_tc_q8_plain, pack_mrf_ptc_weights,
-    pack_mrf_tc_int8_weights, pack_mrf_tc_weights, pack_post_ptc_weights,
-    pack_ups_ptc_weights, prepare_mrf, prepare_mrf_ptc, prepare_mrf_tc_q8,
+    MrfQ8Weights, MrfWeights, full_f32, fused_mrf_phase, fused_mrf_ptc_f,
+    fused_mrf_tc, fused_mrf_tc_q8, mrf_phase_plain, mrf_ptc_f_plain,
+    mrf_tc_plain, mrf_tc_q8_plain, pack_mrf_ptc_f_weights,
+    pack_mrf_ptc_weights, pack_mrf_tc_int8_weights, pack_mrf_tc_weights,
+    pack_post_ptc_weights, pack_ups_ptc_f_weights, pack_ups_ptc_weights,
+    prepare_mrf, prepare_mrf_ptc, prepare_mrf_ptc_f, prepare_mrf_tc_q8,
     ptc_post_feasible, ptc_tile,
 )
 
@@ -204,8 +218,10 @@ class Route:
     ``fused_mrf_tc``), 'ptc' (``fused_mrf_ptc``: upsample prologue, MRF and
     conv_post epilogue), 'chain' (``fused_mrf_phase`` with its upsample
     prologue), 'phase' (the upsample, then ``fused_mrf_phase`` without it)
-    or 'ct' (the upsample, then ``fused_mrf_ct``). ``mode``: '' (float),
-    'q8' (int8-dynamic) or 'q8f' (int8-static, fused s32 boundary). ``p``:
+    or 'ct' (the upsample, then ``fused_mrf_ct``). ``mode``: '' (float;
+    'ptc': the fdot mode), 'q8' (int8-dynamic; 'ptc': the dyn mode), 'q8f'
+    (int8-static, fused s32 boundary) or 'q8s' (int8-static, float32
+    boundary). ``p``:
     phases; ``tile``: phase-tc rows ('ptc'), phase columns ('chain',
     'phase') or samples ('ct'); ``merge``: ``fused_mrf_ct``'s merged
     taps."""
@@ -216,13 +232,13 @@ class Route:
     merge: bool = False
 
 
-def _mrf_route(C, T, int8, static):
+def _mrf_route(C, T, int8, static, int8_fused=True):
     """``_pallas_mrf``'s kernel for a level input (B, C, T) after the
     upsample: the phase kernel without prologue when p = 128/C >= 4 phases
     and a tile of >= 128 columns divides T, else ``fused_mrf_ct``
     (merged taps at C <= 64 unless int8). int8 needs C % 32 == 0."""
     q8 = int8 and C % 32 == 0
-    mode = ('q8f' if static else 'q8') if q8 else ''
+    mode = _int8_mode(static, int8_fused) if q8 else ''
     p = 128 // C if C > 0 and 128 % C == 0 else 1
     if p >= 4:
         p = min(p, 8)
@@ -232,24 +248,34 @@ def _mrf_route(C, T, int8, static):
     return Route('ct', mode, 1, ct_tile(T, C), merge=C <= 64 and not q8)
 
 
+def _int8_mode(static, int8_fused):
+    """A level's int8 route mode: 'q8' (dynamic), else 'q8f' or 'q8s'."""
+    return ('q8f' if int8_fused else 'q8s') if static else 'q8'
+
+
 def level_routes(params, config=None, batch=1, frames=128, int8=False,
-                 act_scales=None, ptc_min_batch=PTC_MIN_BATCH):
+                 act_scales=None, ptc_min_batch=PTC_MIN_BATCH,
+                 int8_fused=True, ptc_bf16=False):
     """The fast route's :class:`Route` per level for a (batch, n_mels,
     frames) mel: the JAX ``generator_forward``'s decision (``use_pallas=
-    True``, default switches), condition for condition:
+    True``), condition for condition:
 
     - ``want_tc``: C >= 128, no phases yet, k - 2*pad == u > 1, and under
       int8 the level's static scales with C % 32 == 0;
-    - ``want_ptc`` (int8 after a tc level, batch >= ``ptc_min_batch``, p*C
-      == p_in*C_in == 128, C % 32 == 0) when a tile of >= 64 rows divides
-      the level; its dynamic mode raises (not ported);
+    - ``want_ptc`` (after a tc level, batch >= ``ptc_min_batch``, p*C ==
+      p_in*C_in == 128, C % 32 == 0; int8, or bf16 with ``ptc_bf16``) when
+      a tile of >= 64 rows divides the level (from 8192 rows under int8,
+      4096 in fdot): static with the level's scales, ``dyn`` without;
     - the phase chain when want_p = _phase_for(C) >= 2 equals u * p_in
       (``_pallas_mrf_phase``; its upsample fuses when p*C == p_in*C_in)
       and a tile of >= 64 columns divides the level;
     - else the upsample, then ``_pallas_mrf``'s kernel (:func:`_mrf_route`).
 
     ``act_scales`` ({level: calibration entry}) makes a level int8-static
-    (and implies ``int8``); without its entry a level is int8-dynamic."""
+    (and implies ``int8``); without its entry a level is int8-dynamic.
+    ``int8_fused`` and ``ptc_bf16`` are JAX's ``DAFT_INT8_FUSED_EPI`` and
+    ``DAFT_MRF_PTC_BF16`` (module note); the 'tc' and 'ptc' static routes
+    have one form only, as their TPU kernels."""
     cfg = config or DEFAULT_CONFIG
     if cfg['resblock'] != '1':
         raise ValueError('the fused kernels serve ResBlock1 generators')
@@ -267,16 +293,13 @@ def level_routes(params, config=None, batch=1, frames=128, int8=False,
             cur_tc, T = True, T * u
             continue
         chain = want_p >= 2 and want_p == u * cur_p and poly
-        if (int8 and cur_tc and chain and batch >= ptc_min_batch
-                and want_p * c_out == 128 and cur_p * c_in == 128
-                and c_out % 32 == 0):
-            if not static:
-                raise NotImplementedError(
-                    f'level {i}: fused_mrf_ptc in its dyn mode is not ported '
-                    '(ROADMAP.md Queue 2)')
-            tile = ptc_tile(T // cur_p)
+        if ((int8 or ptc_bf16) and cur_tc and chain
+                and batch >= ptc_min_batch and want_p * c_out == 128
+                and cur_p * c_in == 128 and c_out % 32 == 0):
+            tile = ptc_tile(T // cur_p, 8192 if int8 else 4096)
             if tile is not None:
-                routes.append(Route('ptc', 'q8f', want_p, tile))
+                mode = ('q8f' if static else 'q8') if int8 else ''
+                routes.append(Route('ptc', mode, want_p, tile))
                 cur_p, T = want_p, T * u
                 continue
         cur_tc = False
@@ -285,33 +308,36 @@ def level_routes(params, config=None, batch=1, frames=128, int8=False,
                 raise NotImplementedError(
                     f'level {i}: a phase chain whose upsample cannot fuse '
                     f'(p*C={want_p * c_out} != p_in*C_in={cur_p * c_in}) '
-                    'is not ported (ROADMAP.md Queue 2)')
+                    'is not ported (ROADMAP.md Queue 3)')
             tile = ptc_tile(T // cur_p, 8192 if int8 else 4096)
             if tile is not None:
-                mode = ('q8f' if static else 'q8') \
+                mode = _int8_mode(static, int8_fused) \
                     if int8 and c_out % 32 == 0 else ''
                 routes.append(Route('chain', mode, want_p, tile))
                 cur_p, T = want_p, T * u
                 continue
         cur_p, T = 1, T * u
-        routes.append(_mrf_route(c_out, T, int8, static))
+        routes.append(_mrf_route(c_out, T, int8, static, int8_fused))
     return routes
 
 
 @dataclass
-class NarrowInt8:
-    """A narrow level's int8 weights: ``ptc`` for ``fused_mrf_ptc`` (static
-    tier only) and ``phase`` for ``fused_mrf_phase_q8`` (``q8f`` in the
-    static tier, dynamic in the dynamic one)."""
+class NarrowLevel:
+    """A chained narrow level's weights when it takes the phase-tc kernel
+    from ``PTC_MIN_BATCH`` on: ``ptc`` for ``fused_mrf_ptc`` (int8, static
+    or dyn) or ``fused_mrf_ptc_f`` (fdot), ``phase`` for the banded phase
+    kernel the level takes below that batch (and, per tap, for its
+    ``fused_mrf_ct`` fallback). A level without the phase-tc route packs
+    ``ptc`` None."""
     ptc: Optional[Any]
     phase: Any
 
 
-def _phase_int8_weights(params, i, cfg, p, p_in, act_scales):
+def _phase_int8_weights(params, i, cfg, p, p_in, act_scales, fused=True):
     """The int8 phase kernel's weights of level i, packed as
     ``_pallas_mrf_phase`` packs them (bands, compact gather, jitted
     quantisation); ``act_scales`` (this level's calibration entry) selects
-    the ``q8f`` form, None the dynamic one."""
+    the ``q8f`` form (``q8s`` when not ``fused``), None the dynamic one."""
     ks = tuple(cfg['resblock_kernel_sizes'])
     dils = tuple(tuple(d) for d in cfg['resblock_dilation_sizes'])
     u, k = cfg['upsample_rates'][i], cfg['upsample_kernel_sizes'][i]
@@ -322,7 +348,7 @@ def _phase_int8_weights(params, i, cfg, p, p_in, act_scales):
                      for ii in range(s1.shape[0]) for s in (s1, s2)]
     qw = quantize_mrf_phase_weights(
         pack_mrf_phase_weights(params, i, ks, dils, p), ks, dils, p,
-        ph_scales)
+        ph_scales, fused)
     w_u = params[f'ups_{i}']['w']
     wb, bu, _, _ = pack_ups_phase_weights(w_u, params[f'ups_{i}']['b'], u,
                                           pad, p_in)
@@ -336,7 +362,7 @@ def _phase_int8_weights(params, i, cfg, p, p_in, act_scales):
                                 post)
 
 
-def _pack_level(params, cfg, i, route, act_scales):
+def _pack_level(params, cfg, i, route, act_scales, int8_fused):
     """Level i's weights for ``route``, in the kernels' forms. Every form
     holds the per-tap chain weights that ``fused_mrf_ct`` and
     ``fused_mrf_phase`` without prologue read (:func:`_chain_weights`)."""
@@ -349,69 +375,93 @@ def _pack_level(params, cfg, i, route, act_scales):
         ups = (params[f'ups_{i}']['w'], params[f'ups_{i}']['b'], u, pad)
         post = (params['conv_post']['w'], params['conv_post']['b']) \
             if i == len(cfg['upsample_rates']) - 1 else None
-        if not route.mode:
-            return prepare_mrf(pack_mrf_tc_weights(params, i, ks, dils), ks,
-                               dils, ups, post)
         p, p_in = route.p, route.p // u
+        pst = None if post is None or route.kind == 'chain' else \
+            pack_post_ptc_weights(*post, p, dtype=post[0].dtype)
+        if not route.mode:
+            phase = prepare_mrf(pack_mrf_tc_weights(params, i, ks, dils), ks,
+                                dils, ups, post)
+            if route.kind == 'chain':
+                return phase
+            # fdot: bf16 dots whatever the params' dtype (_pallas_mrf_ptc)
+            return NarrowLevel(prepare_mrf_ptc_f(
+                pack_mrf_ptc_f_weights(params, i, ks, dils, p), ks, dils, p,
+                tuple(pack_ups_ptc_f_weights(*ups, p_in))
+                + (k, u, pad, p_in), pst), phase)
+        lvl_scales = None if route.mode == 'q8' else scales
         ptc = None
         if route.kind == 'ptc':
-            pst = None if post is None else pack_post_ptc_weights(
-                *post, p, dtype=post[0].dtype)
             ptc = prepare_mrf_ptc(
-                pack_mrf_ptc_weights(params, i, ks, dils, p, scales), ks,
+                pack_mrf_ptc_weights(params, i, ks, dils, p, lvl_scales), ks,
                 dils, p, tuple(pack_ups_ptc_weights(*ups, p_in))
                 + (k, u, pad, p_in), pst)
-        return NarrowInt8(ptc, _phase_int8_weights(
-            params, i, cfg, p, p_in, scales if route.mode == 'q8f' else None))
+        return NarrowLevel(ptc, _phase_int8_weights(
+            params, i, cfg, p, p_in, lvl_scales, int8_fused))
     if route.mode == 'q8f' and route.kind == 'tc':
         return prepare_mrf_tc_q8(pack_mrf_tc_int8_weights(
             params, i, ks, dils, scales), ks, dils)
-    if route.mode == 'q8f':
-        return prepare_mrf_ct_q8f(quantize_mrf_ct_q8f_weights(
-            pack_mrf_weights(params, i, ks, dils),
-            [s for s1, s2 in scales for s in (s1, s2)]), ks, dils)
+    if not route.mode:
+        return prepare_mrf(pack_mrf_tc_weights(params, i, ks, dils), ks,
+                           dils)
+    w = pack_mrf_weights(params, i, ks, dils)
     if route.mode == 'q8':
-        return prepare_mrf_ct_q8(quantize_mrf_ct_weights(
-            pack_mrf_weights(params, i, ks, dils)), ks, dils)
-    return prepare_mrf(pack_mrf_tc_weights(params, i, ks, dils), ks, dils)
+        return prepare_mrf_ct_q8(quantize_mrf_ct_weights(w), ks, dils)
+    ct_scales = [s for s1, s2 in scales for s in (s1, s2)]
+    if route.mode == 'q8s':
+        return prepare_mrf_ct_q8s(quantize_mrf_ct_q8s_weights(w, ct_scales),
+                                  ks, dils)
+    return prepare_mrf_ct_q8f(quantize_mrf_ct_q8f_weights(w, ct_scales), ks,
+                              dils)
 
 
 def _chain_weights(w):
-    """The per-tap chain weights of any level form (a narrow int8 level's
-    are its phase kernel's)."""
-    return w.phase if isinstance(w, NarrowInt8) else w
+    """The per-tap chain weights of any level form (a narrow level's are
+    its phase kernel's)."""
+    return w.phase if isinstance(w, NarrowLevel) else w
+
+
+def _form(w):
+    """The route mode weights ``w`` serve: '' (float), 'q8', 'q8f' or
+    'q8s'."""
+    if isinstance(w, MrfWeights):
+        return ''
+    return 'q8' if w.dynamic else 'q8s' if w.q8s else 'q8f'
 
 
 def _serves(w, route):
     """Whether level weights ``w`` carry what ``route`` launches."""
-    if route.kind in ('ptc', 'chain'):
-        if route.mode:
-            return isinstance(w, NarrowInt8) and (
-                route.kind == 'chain' or w.ptc is not None)
-        return isinstance(w, MrfWeights) and w.ups is not None
+    if route.kind == 'ptc':
+        return isinstance(w, NarrowLevel) and w.ptc is not None and \
+            _form(w.ptc) == route.mode
     w = _chain_weights(w)
-    if not route.mode:
-        return isinstance(w, MrfWeights)
-    return isinstance(w, MrfQ8Weights) and w.dynamic == (route.mode == 'q8')
+    if not isinstance(w, (MrfWeights, MrfQ8Weights)):
+        return False
+    return _form(w) == route.mode and (route.kind != 'chain'
+                                       or w.ups is not None)
 
 
-def pack_levels(params, config=None, act_scales=None, int8=False):
+def pack_levels(params, config=None, act_scales=None, int8=False,
+                int8_fused=True, ptc_bf16=False):
     """Per level, the weights its fused kernel takes, made once (the
     serving wrapper packs at construction): the weights of the route
     :func:`level_routes` picks for a batch of at least ``PTC_MIN_BATCH``
     mels of 128 frames (the wrapper pads every mel to a multiple of 128).
     Without ``int8``: :class:`MrfWeights` (with the upsample at a chain
-    level and conv_post at the last one). With ``int8`` (the static tier
+    level and conv_post at the last one; a phase-tc level under
+    ``ptc_bf16`` its :class:`NarrowLevel`). With ``int8`` (the static tier
     when the calibration's ``act_scales`` are given, else the dynamic one;
     weights quantised from the params' dtype as the JAX tiers quantise
     them): :class:`MrfQ8Weights` at a tc, ct or phase level, a chain
-    level's :class:`NarrowInt8`, and float :class:`MrfWeights` where C %
-    32 != 0. They serve every input length: a chain level's weights also
-    hold the per-tap ones its fallback to ``fused_mrf_ct`` reads, and the
-    ct and phase-without-prologue kernels read the same per-tap weights."""
+    level's :class:`NarrowLevel`, and float :class:`MrfWeights` where C %
+    32 != 0. ``int8_fused`` and ``ptc_bf16`` as in :func:`level_routes`:
+    pack with the values the generator runs with. They serve every input
+    length: a chain level's weights also hold the per-tap ones its
+    fallback to ``fused_mrf_ct`` reads, and the ct and
+    phase-without-prologue kernels read the same per-tap weights."""
     cfg = config or DEFAULT_CONFIG
-    routes = level_routes(params, cfg, PTC_MIN_BATCH, 128, int8, act_scales)
-    return {i: _pack_level(params, cfg, i, r, act_scales)
+    routes = level_routes(params, cfg, PTC_MIN_BATCH, 128, int8, act_scales,
+                          int8_fused=int8_fused, ptc_bf16=ptc_bf16)
+    return {i: _pack_level(params, cfg, i, r, act_scales, int8_fused)
             for i, r in enumerate(routes)}
 
 
@@ -432,7 +482,7 @@ def _narrow_int8_level(x, lvl, route, plain):
             route.tile))
         return (mrf_ptc_plain if plain else fused_mrf_ptc)(
             x, mrf, route.tile), mrf.post is not None
-    mrf = lvl.phase
+    mrf = _chain_weights(lvl)
     mrf = _without_post(mrf, mrf.post is None or phase_post_feasible(
         mrf.kernel_sizes, mrf.dilations, mrf.p, mrf.post[0].shape[0],
         route.tile))
@@ -447,6 +497,8 @@ def _mrf_level(x, w, route, plain):
     if route.kind == 'ct':
         if route.mode == 'q8f':
             return (mrf_ct_q8f_plain if plain else fused_mrf_ct_q8f)(x, w)
+        if route.mode == 'q8s':
+            return (mrf_ct_q8s_plain if plain else fused_mrf_ct_q8s)(x, w)
         if route.mode == 'q8':
             return (mrf_ct_q8_plain if plain else fused_mrf_ct_q8)(
                 x, w, route.tile)
@@ -471,7 +523,8 @@ def _upsample_tc(x, ups, u, k, in_tc):
 
 def generator_forward(params, mel, config=None, use_fast=False, packed=None,
                       int8=False, int8_act_scales=None,
-                      ptc_min_batch=PTC_MIN_BATCH, plain=False, _tap=None):
+                      ptc_min_batch=PTC_MIN_BATCH, plain=False,
+                      int8_fused=True, ptc_bf16=False, _tap=None):
     """mel: (B, n_mels, T) -> wav (B, 1, T * prod(upsample_rates)), in the
     dtype of ``mel`` (cast params to it first for the bf16 route).
 
@@ -479,10 +532,13 @@ def generator_forward(params, mel, config=None, use_fast=False, packed=None,
     level on its :func:`level_routes` kernel; ``int8`` its int8 tiers:
     static with ``int8_act_scales`` (from :func:`calibrate_act_scales`; they
     imply ``int8``), whose narrow levels take the phase-tc kernel from
-    batch ``ptc_min_batch`` on, dynamic without; ``packed``:
-    :func:`pack_levels` of the same params (and tier), so the kernels'
-    weight layouts are built once; ``plain`` runs the kernels' plain
-    versions on any device (the card-side reference of ``chip_smoke.py``).
+    batch ``ptc_min_batch`` on, dynamic without; ``int8_fused`` and
+    ``ptc_bf16``: the JAX package's ``DAFT_INT8_FUSED_EPI`` and
+    ``DAFT_MRF_PTC_BF16`` switches (module note); ``packed``:
+    :func:`pack_levels` of the same params (and tier and switches), so the
+    kernels' weight layouts are built once; ``plain`` runs the kernels'
+    plain versions on any device (the card-side reference of
+    ``chip_smoke.py``).
     ``_tap(level, x)`` is called after each level with the level output in
     (B, C, T) layout, or the waveform at a last level whose kernel fused
     conv_post."""
@@ -495,9 +551,11 @@ def generator_forward(params, mel, config=None, use_fast=False, packed=None,
         raise ValueError('the int8 tiers run in the fused kernels: they need '
                          'use_fast=True and ResBlock1')
     routes = level_routes(params, cfg, mel.shape[0], mel.shape[2], int8,
-                          int8_act_scales, ptc_min_batch) if fast else None
+                          int8_act_scales, ptc_min_batch, int8_fused,
+                          ptc_bf16) if fast else None
     if fast and packed is None:
-        packed = pack_levels(params, cfg, int8_act_scales, int8)
+        packed = pack_levels(params, cfg, int8_act_scales, int8, int8_fused,
+                             ptc_bf16)
 
     x = _conv1d(mel, params['conv_pre']['w'], params['conv_pre']['b'])
     tc = False                     # x in (B, T, C) layout
@@ -523,14 +581,23 @@ def generator_forward(params, mel, config=None, use_fast=False, packed=None,
             if post_done:
                 return x
             continue
-        if route is not None and route.kind == 'chain':
+        if route is not None and route.kind in ('ptc', 'chain'):
             # narrow level: upsample + MRF (+ conv_post) in one kernel route
-            x = (_phase_plain if plain else fused_mrf_phase)(
-                x.transpose(1, 2) if tc else x, w)
+            x_in = x.transpose(1, 2) if tc else x
+            if route.kind == 'ptc':          # fused_mrf_ptc's fdot mode
+                mrf = w.ptc
+                mrf = _without_post(mrf, mrf.post is None or ptc_post_feasible(
+                    mrf.kernel_sizes, mrf.dilations, mrf.p,
+                    mrf.post[0].shape[-1], route.tile))
+                x = (mrf_ptc_f_plain if plain else fused_mrf_ptc_f)(
+                    x_in, mrf, route.tile)
+            else:
+                mrf = _chain_weights(w)
+                x = (_phase_plain if plain else fused_mrf_phase)(x_in, mrf)
             tc = False
             if _tap is not None:
                 _tap(i, x)
-            if w.post is not None:
+            if mrf.post is not None:
                 return x
             continue
         if route is not None:
@@ -686,11 +753,14 @@ class HiFiGanVocoder:
     ``params`` (the port's generator params) or ``checkpoint_path`` (a
     reference generator checkpoint, :func:`load_torch_generator`) give the
     weights; ``config`` the generator (V1 by default). Nothing is
-    downloaded: with neither, it raises.
+    downloaded: with neither, it raises. ``int8_fused=False`` and
+    ``ptc_bf16=True`` are the JAX package's ``DAFT_INT8_FUSED_EPI=0`` and
+    ``DAFT_MRF_PTC_BF16=1`` (module note).
     """
 
     def __init__(self, params=None, config=None, fast=False, device=None,
-                 int8_calibration_mels=None, checkpoint_path=None):
+                 int8_calibration_mels=None, checkpoint_path=None,
+                 int8_fused=True, ptc_bf16=False):
         if fast not in (False, True, 'bf16', 'int8'):
             raise ValueError(f'unknown vocoder tier fast={fast!r}')
         if params is None:
@@ -713,8 +783,9 @@ class HiFiGanVocoder:
                 _to(params, torch.float32, self.device),
                 int8_calibration_mels, self.config)
         self.params = _to(params, self.dtype, self.device)
+        self.switches = dict(int8_fused=int8_fused, ptc_bf16=ptc_bf16)
         self.packed = pack_levels(self.params, self.config, self.act_scales,
-                                  self.int8) if (
+                                  self.int8, **self.switches) if (
             self.fast and self.config['resblock'] == '1') else None
 
     def infer(self, mel_spec):
@@ -737,7 +808,8 @@ class HiFiGanVocoder:
                 wav = generator_forward(self.params, mel, self.config,
                                         use_fast=True, packed=self.packed,
                                         int8=self.int8,
-                                        int8_act_scales=self.act_scales)
+                                        int8_act_scales=self.act_scales,
+                                        **self.switches)
             else:
                 with full_f32():
                     wav = generator_forward(self.params, mel, self.config)
@@ -748,9 +820,11 @@ class HiFiGanVocoder:
 
 
 def load_hifigan_vocoder(checkpoint_path=None, params=None, config=None,
-                         fast=False, int8_calibration_mels=None, device=None):
+                         fast=False, int8_calibration_mels=None, device=None,
+                         int8_fused=True, ptc_bf16=False):
     """:class:`HiFiGanVocoder` from a reference checkpoint or params."""
     return HiFiGanVocoder(params=params, config=config, fast=fast,
                           device=device,
                           int8_calibration_mels=int8_calibration_mels,
-                          checkpoint_path=checkpoint_path)
+                          checkpoint_path=checkpoint_path,
+                          int8_fused=int8_fused, ptc_bf16=ptc_bf16)

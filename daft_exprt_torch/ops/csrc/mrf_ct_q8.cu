@@ -27,6 +27,12 @@
 // Design: one launch of step_q8_kernel (mrf_q8.cuh) per (chain, dilation)
 // step on the tc kernels' launch plan.
 //
+// q8s (int8-static with the round-3 boundary: dequantise, lrelu and
+// requantise conv1's output in float32; JAX's DAFT_INT8_FUSED_EPI=0): the
+// same function class as q8f, weights packed per conv as [wq, sw, inv, b]
+// (vocoder_kernels.py:421-436). Design: step_q8_kernel<C, K, true>, one
+// launch per (chain, dilation) step on the same plan.
+//
 // Bound on the card: operations at C=256/128 (252*B*T*C^2 int8 operations
 // per level at 1979 TOP/s, plus the dynamic halos' recomputation,
 // 2*halo/tile), device memory at C=64/32; the design moves ~9 (static) or
@@ -59,6 +65,16 @@ extern "C" int mrf_ct_q8_step(MRF_Q8_STEP_ARGS) {
   switch (C) {
     case 32: return (int)mrf::launch_step_q8_c<32>(q, K, B, s);
     case 64: return (int)mrf::launch_step_q8_c<64>(q, K, B, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int mrf_ct_q8_step_s(MRF_Q8S_STEP_ARGS) {
+  MRF_Q8S_PARAMS(q);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 32: return (int)mrf::launch_step_q8_c<32, true>(q, K, B, s);
+    case 64: return (int)mrf::launch_step_q8_c<64, true>(q, K, B, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -17,6 +17,12 @@
 // every sample, edges included, matches the TPU kernel's tile-independent
 // result.
 //
+// The same launches replace fused_mrf_ptc's fdot mode (the bf16 tier's
+// phase-tc form: unquantised bf16 dots on the shift matrices of
+// pack_mrf_ptc_f_weights), which computes this function but for one
+// rounding: its upsample output x0 = acc + b stays float32 (step 1 writes
+// float32, `out_f32`) where the banded phase kernel rounds it to bf16.
+//
 // Bound on the card: operations. The MRF group's 252*B*T*C^2 FLOPs at
 // C=64/32 dominate; the upsample adds 2*B*T_out*C_in*C_out*k/s.
 #include "mrf_common.cuh"
@@ -40,7 +46,7 @@ struct UpsParams {
 
 constexpr int kUpsRows = 128;
 
-template <int CIN, int COUT, typename CT>
+template <int CIN, int COUT, typename CT, typename TOut>
 __global__ void __launch_bounds__(kThreads) ups_kernel(const UpsParams p) {
   constexpr int LDA = CIN + Tile<CT>::pad;
   const int rows = kUpsRows + p.span;
@@ -68,7 +74,7 @@ __global__ void __launch_bounds__(kThreads) ups_kernel(const UpsParams p) {
     }
   }
   __syncthreads();
-  CT* out = static_cast<CT*>(p.out) + b * p.out_bs;
+  TOut* out = static_cast<TOut*>(p.out) + b * p.out_bs;
   const float* bias = p.bias;
   const size_t phase_elems = (size_t)p.ntaps * CIN * COUT;
   for (int r = 0; r < p.stride; ++r) {
@@ -79,15 +85,15 @@ __global__ void __launch_bounds__(kThreads) ups_kernel(const UpsParams p) {
                            if (mm >= p.m_hi) return;
                            const int s = p.stride * mm + r;
                            if (s < p.n_lo || s >= p.n_hi) return;
-                           out[(long long)(s + p.out_off) * COUT + n] = from_f32<CT>(acc + bias[n]);
+                           out[(long long)(s + p.out_off) * COUT + n] = from_f32<TOut>(acc + bias[n]);
                          });
   }
 }
 
-template <int CIN, int COUT, typename CT>
+template <int CIN, int COUT, typename CT, typename TOut>
 cudaError_t launch_ups_t(const UpsParams& p, int B, cudaStream_t stream) {
   const size_t smem = (size_t)(kUpsRows + p.span) * (CIN + Tile<CT>::pad) * sizeof(CT);
-  const void* kern = reinterpret_cast<const void*>(&ups_kernel<CIN, COUT, CT>);
+  const void* kern = reinterpret_cast<const void*>(&ups_kernel<CIN, COUT, CT, TOut>);
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const int n = p.m_hi - p.m_lo;
@@ -98,6 +104,14 @@ cudaError_t launch_ups_t(const UpsParams& p, int B, cudaStream_t stream) {
   e = cudaLaunchKernel(kern, grid, dim3(kThreads), args, smem, stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+// cdt: 1 = bf16 compute, 0 = float32; out_f32: bf16 compute writing float32
+template <int CIN, int COUT>
+cudaError_t launch_ups_c(const UpsParams& p, int B, int cdt, int out_f32, cudaStream_t s) {
+  if (cdt != 1) return launch_ups_t<CIN, COUT, float, float>(p, B, s);
+  return out_f32 ? launch_ups_t<CIN, COUT, bf16, float>(p, B, s)
+                 : launch_ups_t<CIN, COUT, bf16, bf16>(p, B, s);
 }
 
 }  // namespace mrf
@@ -116,7 +130,7 @@ extern "C" int mrf_phase_ups(const void* x, long long x_bs, long long x_cs, long
                              void* out, long long out_bs, int out_off, const void* w,
                              const void* bias, int stride, int ntaps, int amin, int span,
                              const int* delta, int m_lo, int m_hi, int n_lo, int n_hi, int c_in,
-                             int c_out, int B, int cdt, void* stream) {
+                             int c_out, int B, int cdt, int out_f32, void* stream) {
   if (stride < 1 || stride > 8) return (int)cudaErrorInvalidValue;
   mrf::UpsParams p;
   p.x = x;
@@ -139,12 +153,8 @@ extern "C" int mrf_phase_ups(const void* x, long long x_bs, long long x_cs, long
   p.n_hi = n_hi;
   for (int r = 0; r < 8; ++r) p.delta[r] = r < stride ? delta[r] : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c_in == 128 && c_out == 64)
-    return (int)(cdt == 1 ? mrf::launch_ups_t<128, 64, mrf::bf16>(p, B, s)
-                          : mrf::launch_ups_t<128, 64, float>(p, B, s));
-  if (c_in == 64 && c_out == 32)
-    return (int)(cdt == 1 ? mrf::launch_ups_t<64, 32, mrf::bf16>(p, B, s)
-                          : mrf::launch_ups_t<64, 32, float>(p, B, s));
+  if (c_in == 128 && c_out == 64) return (int)mrf::launch_ups_c<128, 64>(p, B, cdt, out_f32, s);
+  if (c_in == 64 && c_out == 32) return (int)mrf::launch_ups_c<64, 32>(p, B, cdt, out_f32, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -2,8 +2,9 @@
 // int8 forms of fused_mrf_phase, for Hopper.
 //
 // Replaces daft_exprt_tpu/ops/vocoder_kernels.py::fused_mrf_phase with
-// int8_chain=True (Pallas body _fused_mrf_phase_kernel) in its q8 (dynamic)
-// and q8f (static, fused s32 boundary) modes, with the int8 upsample
+// int8_chain=True (Pallas body _fused_mrf_phase_kernel) in its q8 (dynamic),
+// q8f (static, fused s32 boundary) and q8s (static, float32 boundary:
+// JAX's DAFT_INT8_FUSED_EPI=0) modes, with the int8 upsample
 // prologue and the bf16 conv_post epilogue. The TPU kernel's phase layout (p
 // samples per phase column, p*C rows) is a reshape of the sample-major
 // tensors the port keeps; its windows are whole phase columns. For each
@@ -14,8 +15,8 @@
 //      of tile + 2*halo columns (dynamic mode: also its amax);
 //   3. dynamic: two conv_dyn_kernel launches (mrf_dyn.cuh) per (chain,
 //      dilation), each conv over the TPU kernel's column window (each conv
-//      shrinks it by W-1 columns and moves it by -dmin-dmin2); q8f: one
-//      step_q8_kernel launch (mrf_q8.cuh) per (chain, dilation), the
+//      shrinks it by W-1 columns and moves it by -dmin-dmin2); q8f / q8s:
+//      one step_q8_kernel launch (mrf_q8.cuh) per (chain, dilation), the
 //      static chain being a fixed function of the segment;
 //   4. the chain mean to bf16, or post_kernel (mrf_common.cuh): conv_post
 //      on lrelu(mean) rounded to bf16, tanh, bf16.
@@ -24,8 +25,8 @@
 // [-halo, tile + halo): step 1 takes the first conv's scale over that
 // window of x (amax_kernel with the window in samples), step 2 drops out,
 // and the first conv of each chain reads x through its zero-padded view.
-// q8f needs no scale there: the static chains are the zero-padded valid
-// chains of mrf_tc_q8.cu, whatever the tile.
+// q8f and q8s need no scale there: the static chains are the zero-padded
+// valid chains of mrf_tc_q8.cu, whatever the tile.
 //
 // Bound on the card: operations at C=64 (252*B*T*C^2 int8 operations and
 // the upsample's), device memory at C=32, where ~20 float32 passes over
@@ -65,6 +66,16 @@ extern "C" int mrf_phase_q8_step(MRF_Q8_STEP_ARGS) {
   switch (C) {
     case 32: return (int)mrf::launch_step_q8_c<32>(q, K, B, s);
     case 64: return (int)mrf::launch_step_q8_c<64>(q, K, B, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int mrf_phase_q8_step_s(MRF_Q8S_STEP_ARGS) {
+  MRF_Q8S_PARAMS(q);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 32: return (int)mrf::launch_step_q8_c<32, true>(q, K, B, s);
+    case 64: return (int)mrf::launch_step_q8_c<64, true>(q, K, B, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

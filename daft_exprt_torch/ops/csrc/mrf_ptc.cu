@@ -1,12 +1,12 @@
 // Upsample + MRF group (+ conv_post) of one narrow HiFi-GAN level in the
-// int8-static serving form, for Hopper.
+// int8 forms of fused_mrf_ptc, for Hopper.
 //
-// Replaces daft_exprt_tpu/ops/vocoder_kernels.py::fused_mrf_ptc, static
-// mode (Pallas body _fused_mrf_ptc_kernel) with its upsample prologue and
-// conv_post epilogue. The TPU kernel's phase-tc layout (p phases x C
-// channels in 128 lanes) is a reshape of the sample-major (B, T, C) tensors
-// the port keeps, so this file computes the same function per sample. It
-// is a function of the tile: for each tile of `tile` phase rows,
+// Replaces daft_exprt_tpu/ops/vocoder_kernels.py::fused_mrf_ptc (Pallas body
+// _fused_mrf_ptc_kernel) in its static and dyn modes, with its upsample
+// prologue and conv_post epilogue. The TPU kernel's phase-tc layout (p phases
+// x C channels in 128 lanes) is a reshape of the sample-major (B, T, C)
+// tensors the port keeps, so this file computes the same function per
+// sample. It is a function of the tile: for each tile of `tile` phase rows,
 //   1. amax_kernel (mrf_q8.cuh): one dynamic scale per (utterance, tile), the amax of
 //      lrelu(x) over the tile's input window [t*tile - halo_in,
 //      (t+1)*tile + halo_in) rows, zero outside the utterance;
@@ -15,8 +15,15 @@
 //      with per-(phase, channel) weight scales, dequantised with
 //      fma(acc, sw*sx, b) into a float32 segment of tile + 2*halo rows;
 //      neighbouring tiles' segments overlap and differ;
-//   3. mrf::step_q8_kernel (mrf_q8.cuh): the int8-static chains on each
-//      segment, one launch per (chain, dilation), segments as the batch;
+//   3. static: mrf::step_q8_kernel (mrf_q8.cuh), the int8-static chains on
+//      each segment, one launch per (chain, dilation), segments as the
+//      batch; dyn: two conv_dyn_kernel launches (mrf_dyn.cuh) per (chain,
+//      dilation), each conv quantising its whole window with one scale.
+//      The TPU kernel's window of a conv is all p phases of the rows it
+//      reads: it shrinks by the conv's row span (_ptc_spec's smin..smax,
+//      p*span samples), not by the sample reach d*(k-1)/2 of the
+//      sample-major chain; the launch plan (mrf_int8._narrow_plan) sets
+//      each launch's samples so, and the upsample reduces x0's amax;
 //   4. without conv_post: the chain mean cast to bf16 by the last step;
 //      with conv_post: mrf::post_kernel (mrf_common.cuh), lrelu of the f32
 //      mean rounded to bf16, conv_post (C -> 1) on bf16 weights, tanh, bf16.
@@ -25,7 +32,7 @@
 // operations at C=64/32 and the upsample's 2*B*T_out*C_in*C_out*k/s; the
 // design moves ~9 float32 passes over the segments (tiles plus halos)
 // through device memory, which at C=32 takes longer than the operations.
-#include "mrf_q8.cuh"
+#include "mrf_dyn.cuh"
 
 extern "C" int mrf_ptc_amax(const void* x, long long x_bs, int t_in, int c_in, int n_tiles,
                             int tile_in, int halo_in, int win_len, void* amax_bits, int S,
@@ -38,10 +45,20 @@ extern "C" int mrf_ptc_ups(const void* x, long long x_bs, int t_in, const void* 
                            long long out_bs, const void* w, const void* sw, const void* bias,
                            int stride, int ntaps, int amin, int span, const int* delta,
                            int n_tiles, int tile_in, int halo_m, int m_len, int c_in, int c_out,
-                           int S, void* stream) {
+                           int S, void* amax_out, void* stream) {
   return (int)mrf::launch_ups_q8(x, x_bs, t_in, amax, out, out_bs, w, sw, bias, stride, ntaps,
                                  amin, span, delta, n_tiles, tile_in, halo_m, m_len, c_in, c_out,
-                                 S, nullptr, static_cast<cudaStream_t>(stream));
+                                 S, amax_out, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int mrf_ptc_conv(MRF_DYN_ARGS) {
+  MRF_DYN_PARAMS(q);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 32: return (int)mrf::launch_conv_dyn_c<32>(q, K, S, s);
+    case 64: return (int)mrf::launch_conv_dyn_c<64>(q, K, S, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int mrf_ptc_step(MRF_Q8_STEP_ARGS) {

@@ -1,6 +1,6 @@
 // int8 pieces of the HiFi-GAN MRF kernels (mrf_tc_q8.cu, mrf_ptc.cu, mrf_ct_q8.cu,
-// mrf_phase_q8.cu): the int8-static chain step, the per-tile amax and the int8
-// upsample prologue.
+// mrf_phase_q8.cu): the int8-static chain step (q8f and q8s), the per-tile amax
+// and the int8 upsample prologue.
 //
 // One chain step of a ResBlock1 chain in the int8-static serving form
 // (daft_exprt_tpu/ops/vocoder_kernels.py::_fused_mrf_tc_kernel, q8 branch;
@@ -10,7 +10,14 @@
 //     q2  = requant_lrelu_s32(acc, b1i, m1)              s8
 //     acc2 = sum_tap q2[n + tap] . wq2[tap]              s32
 //     out = in + fma(acc2, sw2, b2)                      f32
-// is one launch of `step_q8_kernel`, shaped like mrf_common.cuh's
+// is one launch of `step_q8_kernel<C, K, false>`. The q8s form (the TPU
+// kernels' round-3 boundary, _fused_mrf_ct_kernel / _fused_mrf_phase_kernel
+// q8s branches: the boundary in float32, not s32) is `step_q8_kernel<C, K, true>`:
+//     q   = clip(rint(lrelu(in) * inv1))                 s8 (lrelu rounded first)
+//     a1  = fma(acc, sw1, b1)                            f32
+//     q2  = clip(rint(lrelu(a1) * inv2))                 s8
+//     out = in + fma(acc2, sw2, b2)                      f32
+// Each launch is shaped like mrf_common.cuh's
 // step_kernel: a block owns BM output samples of one utterance (or tile
 // segment), stages the quantised conv1 input window as s8 in shared memory,
 // runs conv1 with mma.sync m16n8k32 s8 (s32 accumulate), requantises into a
@@ -37,6 +44,12 @@ __device__ __forceinline__ int8_t sat_s8(float r) {
 __device__ __forceinline__ int8_t q_lrelu(float x, float inv) {
   const float m = x >= 0.f ? inv : __fmul_rn(kSlope, inv);
   return sat_s8(rintf(__fmul_rn(x, m)));
+}
+
+// q8s (quantize_static(lrelu(x), inv)): l = x >= 0 ? x : 0.1*x; clip(rint(l*inv))
+__device__ __forceinline__ int8_t q_static(float x, float inv) {
+  const float l = x >= 0.f ? x : __fmul_rn(kSlope, x);
+  return sat_s8(rintf(__fmul_rn(l, inv)));
 }
 
 // requant_lrelu_s32: a = acc + b; m = a >= 0 ? mult : 0.1*mult; clip(rint(a*m))
@@ -126,8 +139,11 @@ __device__ __forceinline__ void conv_gemm_s8(const int8_t* A, int lda, int M, in
 struct Q8Params {
   StepParams s;      // ranges, buffers, modes; s.w1 / s.w2 the packed s8 taps
   const float* inv1; // (C,) conv1 input multiplier
-  const int* b1i;    // (C,) conv1 bias in s32 accumulator counts
-  const float* m1;   // (C,) conv1 dequant x conv2 input multiplier
+  const int* b1i;    // (C,) q8f: conv1 bias in s32 accumulator counts
+  const float* m1;   // (C,) q8f: conv1 dequant x conv2 input multiplier
+  const float* sw1;  // (C,) q8s: conv1 dequant
+  const float* b1;   // (C,) q8s: conv1 bias
+  const float* inv2; // (C,) q8s: conv2 input multiplier
   const float* sw2;  // (C,) conv2 dequant
   int in_f32;        // the step input is float32 (else bf16)
 };
@@ -154,7 +170,7 @@ __device__ __forceinline__ float load_in(const void* in, int f32, long long i) {
              : __bfloat162float(static_cast<const bf16*>(in)[i]);
 }
 
-template <int C, int K>
+template <int C, int K, bool S>
 __global__ void __launch_bounds__(kThreads) step_q8_kernel(const Q8Params q) {
   constexpr int H = (K - 1) / 2;
   constexpr int BM = block_m_q8<C>();
@@ -177,13 +193,15 @@ __global__ void __launch_bounds__(kThreads) step_q8_kernel(const Q8Params q) {
     const int s = s0 + i;
     float v = 0.f;
     if (s >= p.in_lo && s < p.in_hi) v = load_in(in, q.in_f32, (long long)(s + p.in_off) * C + c);
-    a1[i * LDA + c] = q_lrelu(v, q.inv1[c]);
+    a1[i * LDA + c] = S ? q_static(v, q.inv1[c]) : q_lrelu(v, q.inv1[c]);
   }
   __syncthreads();
 
-  // conv1 (dilated) over samples [n0 - H, n0 + BM + H): s32 requant to s8
+  // conv1 (dilated) over samples [n0 - H, n0 + BM + H): requant to s8, in
+  // s32 (q8f) or through the float32 dequant (q8s)
   conv_gemm_s8<C, C>(a1, LDA, m1, p.dil, K, p.w1, [&](int m, int n, int acc) {
-    a2[m * LDA + n] = requant(acc, q.b1i[n], q.m1[n]);
+    a2[m * LDA + n] = S ? q_static(__fmaf_rn(__int2float_rn(acc), q.sw1[n], q.b1[n]), q.inv2[n])
+                        : requant(acc, q.b1i[n], q.m1[n]);
   });
   __syncthreads();
 
@@ -208,11 +226,11 @@ __global__ void __launch_bounds__(kThreads) step_q8_kernel(const Q8Params q) {
   });
 }
 
-template <int C, int K>
+template <int C, int K, bool S>
 cudaError_t launch_step_q8_t(const Q8Params& q, int B, cudaStream_t stream) {
   constexpr int BM = block_m_q8<C>();
   const size_t smem = step_q8_smem<C, K>(q.s.dil);
-  const void* kern = reinterpret_cast<const void*>(&step_q8_kernel<C, K>);
+  const void* kern = reinterpret_cast<const void*>(&step_q8_kernel<C, K, S>);
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const int n = q.s.n_hi - q.s.n_lo;
@@ -225,12 +243,12 @@ cudaError_t launch_step_q8_t(const Q8Params& q, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int C>
+template <int C, bool S = false>
 cudaError_t launch_step_q8_c(const Q8Params& q, int K, int B, cudaStream_t s) {
   switch (K) {
-    case 3: return launch_step_q8_t<C, 3>(q, B, s);
-    case 7: return launch_step_q8_t<C, 7>(q, B, s);
-    case 11: return launch_step_q8_t<C, 11>(q, B, s);
+    case 3: return launch_step_q8_t<C, 3, S>(q, B, s);
+    case 7: return launch_step_q8_t<C, 7, S>(q, B, s);
+    case 11: return launch_step_q8_t<C, 11, S>(q, B, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -422,12 +440,34 @@ inline cudaError_t launch_ups_q8(const void* x, long long x_bs, int t_in, const 
       const void *inv1, const void *b1i, const void *m1, const void *wq2, const void *sw2,   \
       const void *b2, int C, int K, int dil, int n_lo, int n_hi, int B, void *stream
 #define MRF_Q8_PARAMS(q)                                                                     \
-  mrf::Q8Params q;                                                                           \
+  mrf::Q8Params q = {};                                                                      \
   q.s = mrf::make_step_params(in, in_bs, in_off, in_lo, in_hi, out, out_bs, out_off, fin,    \
                               fin_bs, fin_ns, fin_cs, mode, has_acc, scale, wq1, nullptr,    \
                               wq2, b2, dil, n_lo, n_hi);                                     \
   q.inv1 = static_cast<const float*>(inv1);                                                  \
   q.b1i = static_cast<const int*>(b1i);                                                      \
   q.m1 = static_cast<const float*>(m1);                                                      \
+  q.sw2 = static_cast<const float*>(sw2);                                                    \
+  q.in_f32 = in_f32
+
+// The q8s step launchers' C entry point (mrf_ct_q8.cu, mrf_phase_q8.cu): the
+// weights per conv in the JAX packing order [wq, sw, inv, b]; the argument
+// order is the one vocoder_kernels._launch_q8_step passes for q8s steps.
+#define MRF_Q8S_STEP_ARGS                                                                    \
+  const void *in, long long in_bs, int in_off, int in_lo, int in_hi, int in_f32, void *out,  \
+      long long out_bs, int out_off, void *fin, long long fin_bs, long long fin_ns,          \
+      long long fin_cs, int mode, int has_acc, float scale, const void *wq1,                 \
+      const void *sw1, const void *inv1, const void *b1, const void *wq2, const void *sw2,   \
+      const void *inv2, const void *b2, int C, int K, int dil, int n_lo, int n_hi, int B,    \
+      void *stream
+#define MRF_Q8S_PARAMS(q)                                                                    \
+  mrf::Q8Params q = {};                                                                      \
+  q.s = mrf::make_step_params(in, in_bs, in_off, in_lo, in_hi, out, out_bs, out_off, fin,    \
+                              fin_bs, fin_ns, fin_cs, mode, has_acc, scale, wq1, nullptr,    \
+                              wq2, b2, dil, n_lo, n_hi);                                     \
+  q.inv1 = static_cast<const float*>(inv1);                                                  \
+  q.sw1 = static_cast<const float*>(sw1);                                                    \
+  q.b1 = static_cast<const float*>(b1);                                                      \
+  q.inv2 = static_cast<const float*>(inv2);                                                  \
   q.sw2 = static_cast<const float*>(sw2);                                                    \
   q.in_f32 = in_f32

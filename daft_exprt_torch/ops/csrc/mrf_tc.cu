@@ -14,6 +14,11 @@
 // chain adds into a float32 chain sum and the last chain's last step writes
 // the mean in x's dtype.
 //
+// The same step launches replace fused_resblock1 (Pallas body
+// _fused_resblock_kernel): one chain (one k, its dilations), zero padding
+// once, valid convs, no mean; vocoder_kernels.fused_resblock1 plans it as
+// a group of one chain.
+//
 // Bound on the card: operations. 252*B*T*C^2 FLOPs per level (V1) against
 // HBM traffic of ~9 float32 read+write passes over (B, T, C); at C=128 the
 // FLOPs take ~5x the bytes' time at peak rates.

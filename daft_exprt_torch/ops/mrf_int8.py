@@ -1,20 +1,28 @@
-"""int8 MRF kernels of the dynamic tier and of the static tier below the
-phase-tc batch: the CUDA kernels ``csrc/mrf_ct_q8.cu`` and
-``csrc/mrf_phase_q8.cu``, their plain PyTorch versions, packers and
-wrappers.
+"""int8 MRF kernels of the narrow levels and of the ct form: the CUDA
+kernels ``csrc/mrf_ct_q8.cu``, ``csrc/mrf_phase_q8.cu`` and
+``csrc/mrf_ptc.cu``, their plain PyTorch versions, packers and wrappers.
 
 - :func:`fused_mrf_ct_q8` replaces ``vocoder_kernels.py::fused_mrf_ct``
   with ``int8_chain=True`` and no act scales (the ``q8`` branch of
   ``_fused_mrf_ct_kernel``): V1's wide levels and V2's L0 in the
   int8-dynamic tier. :func:`fused_mrf_ct_q8f` replaces it with act scales
-  and the fused s32 boundary (``q8f``): V2's L0 in the int8-static tier.
+  and the fused s32 boundary (``q8f``): V2's L0 in the int8-static tier;
+  :func:`fused_mrf_ct_q8s` with act scales and the float32 boundary
+  (``q8s``, JAX's ``DAFT_INT8_FUSED_EPI=0``).
 - :func:`fused_mrf_phase_q8` replaces ``fused_mrf_phase`` with
   ``int8_chain=True``, its int8 upsample prologue and the bf16 conv_post
-  epilogue, in its ``q8`` (dynamic) and ``q8f`` (static, fused s32
-  boundary) modes: V1's narrow levels in the dynamic tier at any batch and
-  in the static tier below ``PTC_MIN_BATCH``.
+  epilogue, in its ``q8`` (dynamic), ``q8f`` (static, fused s32 boundary)
+  and ``q8s`` modes: V1's narrow levels in the dynamic tier at any batch
+  and in the static tier below ``PTC_MIN_BATCH``.
   :func:`fused_mrf_phase_q8_noups` replaces it without the prologue
-  (``in_phase=False``), both modes: V2's L1.
+  (``in_phase=False``), every mode: V2's L1.
+- :func:`fused_mrf_ptc` replaces ``fused_mrf_ptc`` (upsample prologue,
+  optional conv_post epilogue) in its static mode (V1's narrow levels in
+  the int8-static tier from ``PTC_MIN_BATCH``) and its ``dyn`` mode (a
+  narrow level without a calibration entry after a static tc level). It
+  is the phase kernel's launch plan on the phase-tc geometry (halo and
+  tile in rows, 64-aligned): the windows of a dynamic conv are all p
+  phases of the rows it reads, which is the phase layout's column window.
 
 In dynamic mode every conv quantises its whole input window with one scale
 per (utterance, tile, chain, dilation, conv), ``amax(|lrelu(x)|)/127``
@@ -41,17 +49,17 @@ import torch.nn.functional as F
 from daft_exprt_torch.ops import _build
 from daft_exprt_torch.ops.mrf_ct import pack_mrf_weights  # noqa: F401
 from daft_exprt_torch.ops.vocoder_kernels import (
-    ADD, FINAL, KERNEL_SIZES, PHASE_CHANNELS, Q8_PTC_UPS, WRITE,
-    MrfQ8Weights, Post, PtcPrologue, _AMAX_ARGTYPES, _F32, _I32, _I64, _P,
-    _PTC_POST_ARGTYPES, _Q8_STEP_ARGTYPES, _UPS_Q8_ARGTYPES, _chain_q8,
-    _chain_steps, _const, _empty_on, _fma, _fn, _int_conv, _launch_q8_step,
-    _lrelu, _q8_device, _tc_plan, _ups_phase_entries, chain_halo, full_f32,
-    fuse_boundary_consts, mrf_tc_q8_plain, pack_mma_s8, ptc_amax,
-    ups_geometry,
+    ADD, FINAL, PHASE_CHANNELS, Q8_PTC_UPS, WRITE, MrfQ8Weights, Post,
+    PtcPrologue, _AMAX_ARGTYPES, _F32, _I32, _I64, _P, _PTC_POST_ARGTYPES,
+    _UPS_Q8_ARGTYPES, _chain_q8, _chain_steps, _const, _empty_on, _fma, _fn,
+    _int_conv, _launch_q8_step, _lrelu, _tc_plan, _ups_phase_entries,
+    chain_halo, check_q8_input, device_chains, full_f32, fuse_boundary_consts,
+    mrf_tc_q8_plain, pack_mma_s8, ptc_amax, ptc_chain_halo, ptc_halo_in,
+    ptc_post_feasible, q8_step_fn, ups_geometry,
 )
 
 CT_Q8_CHANNELS = (32, 64, 128, 256)     # fused_mrf_ct_q8 (dynamic)
-CT_Q8F_CHANNELS = (32, 64)               # fused_mrf_ct_q8f (static)
+CT_Q8F_CHANNELS = (32, 64)               # fused_mrf_ct_q8f / _q8s (static)
 
 
 # ----------------------------------------------------------------------
@@ -239,6 +247,24 @@ def quantize_mrf_ct_q8f_weights(weights, act_scales):
     return qw
 
 
+def quantize_mrf_ct_q8s_weights(weights, act_scales):
+    """``fused_mrf_ct``'s int8-static weights with the float32 boundary
+    (``q8s``, its jitted wrapper's packing, vocoder_kernels.py:421-436)
+    from :func:`pack_mrf_weights`: per conv [wq, sw, inv, b], i.e. per
+    chain [wq1, sw1, inv1, b1, wq2, sw2, inv2, b2], wq int8 (n_dil, k,
+    C_out, C_in) with the act scales folded into the input channels, sw
+    (n_dil, C_out, 1), inv (n_dil, C_in, 1), b float32. ``act_scales``: per
+    conv in pack order the calibrated amax, (n_dil, C)."""
+    qw = []
+    for i in range(0, len(weights), 2):
+        w, b = weights[i], weights[i + 1]
+        n_dil, _, c_out, _ = w.shape
+        wf, inv = fold_act_scales_taps(w, act_scales[i // 2])
+        wq, sw = quantize_rows_jit(wf, row_axes=(0, 2))
+        qw += [wq, sw.reshape(n_dil, c_out, 1), inv, b.float()]
+    return qw
+
+
 def fold_act_scales_band(wd, s_in, C, p, margin=1.1):
     """Fold per-channel act scales into a banded phase matrix (p*C_out,
     kcols*C_in): column col reads channel col % C. Returns (folded float32,
@@ -311,13 +337,15 @@ def _gather(wd, spec, C):
 
 
 def quantize_mrf_phase_weights(weights, kernel_sizes, dilations, p,
-                               act_scales=None):
+                               act_scales=None, fused=True):
     """``_fused_mrf_phase_jit``'s int8 chain weights (compact form) from
     :func:`pack_mrf_phase_weights`. Without ``act_scales`` the dynamic
     (``q8``) form, per (chain, dilation) [wq1, sw1, b1, wq2, sw2, b2];
     with them (per conv in pack order, (C,) calibrated amax) the fused
-    static (``q8f``) form [wq1, inv1, b1i, m1, wq2, sw2, b2]. wq are the
-    row-quantised bands with only their used column blocks."""
+    static (``q8f``) form [wq1, inv1, b1i, m1, wq2, sw2, b2], or with
+    ``fused=False`` the ``q8s`` form [wq1, sw1, inv1, b1, wq2, sw2, inv2,
+    b2]. wq are the row-quantised bands with only their used column
+    blocks."""
     C = weights[0].shape[0] // p
     kd = [(k, d) for k, ds in zip(kernel_sizes, dilations) for d in ds]
 
@@ -338,6 +366,10 @@ def quantize_mrf_phase_weights(weights, kernel_sizes, dilations, p,
         wq1, sw1 = quantize_rows_jit(wd1f)
         wd2f, inv2 = fold_act_scales_band(wd2, act_scales[j // 2 + 1], C, p)
         wq2, sw2 = quantize_rows_jit(wd2f)
+        if not fused:
+            qw += [_gather(wq1, spec(j // 2), C), sw1, inv1, b1.float(),
+                   _gather(wq2, spec(j // 2 + 1), C), sw2, inv2, b2.float()]
+            continue
         b1i, m1 = fuse_boundary_consts(sw1, b1, inv2)
         qw += [_gather(wq1, spec(j // 2), C), inv1, b1i, m1,
                _gather(wq2, spec(j // 2 + 1), C), sw2, b2.float()]
@@ -356,54 +388,47 @@ def quantize_ups_phase_weights(wb, b, used, C_in):
 # per-tap weights for the sample-domain kernels
 # ----------------------------------------------------------------------
 
-def _dyn_device(chains):
-    return [[(pack_mma_s8(wq1), sw1.contiguous(), b1.contiguous(),
-              pack_mma_s8(wq2), sw2.contiguous(), b2.contiguous())
-             for wq1, sw1, b1, wq2, sw2, b2 in steps] for steps in chains]
+_CT_FORMS = {'q8': 6, 'q8f': 7, 'q8s': 8}       # arrays per chain
 
 
-def _device_chains(mrf):
-    return _dyn_device(mrf.chains) if mrf.dynamic else _q8_device(mrf.chains)
+def _prepare_ct(qw, kernel_sizes, dilations, mode):
+    """:class:`MrfQ8Weights` of a ct-packed level in form ``mode``: per
+    step the taps (k, C_in, C_out) int8 and the (C,) vectors of each
+    chain's ``_CT_FORMS[mode]`` arrays (int32 kept, the rest float32)."""
+    kernel_sizes = tuple(kernel_sizes)
+    dilations = tuple(tuple(d) for d in dilations)
+    per = _CT_FORMS[mode]
+    chains = []
+    for j, dils in enumerate(dilations):
+        arrs = qw[per * j:per * j + per]
+        chains.append([tuple(
+            a[i].transpose(1, 2) if a.dtype == torch.int8
+            else a[i, :, 0].int() if a.dtype == torch.int32
+            else a[i, :, 0].float() for a in arrs) for i in range(len(dils))])
+    mrf = MrfQ8Weights(qw[0].device, kernel_sizes, dilations, chains,
+                       dynamic=mode == 'q8', q8s=mode == 'q8s')
+    if mrf.device.type == 'cuda':
+        mrf.chains_dev = device_chains(chains)
+    return mrf
 
 
 def prepare_mrf_ct_q8(qw, kernel_sizes, dilations):
     """Dynamic :class:`MrfQ8Weights` of a wide level from
-    :func:`quantize_mrf_ct_weights` (or the JAX packer's arrays): taps
-    (k, C_in, C_out) int8 and (C,) float32 vectors per step."""
-    kernel_sizes = tuple(kernel_sizes)
-    dilations = tuple(tuple(d) for d in dilations)
-    chains = []
-    for j, dils in enumerate(dilations):
-        wq1, sw1, b1, wq2, sw2, b2 = qw[6 * j:6 * j + 6]
-        chains.append([(wq1[i].transpose(1, 2), sw1[i, :, 0].float(),
-                        b1[i, :, 0].float(), wq2[i].transpose(1, 2),
-                        sw2[i, :, 0].float(), b2[i, :, 0].float())
-                       for i in range(len(dils))])
-    mrf = MrfQ8Weights(qw[0].device, kernel_sizes, dilations, chains,
-                       dynamic=True)
-    if mrf.device.type == 'cuda':
-        mrf.chains_dev = _device_chains(mrf)
-    return mrf
+    :func:`quantize_mrf_ct_weights` (or the JAX packer's arrays)."""
+    return _prepare_ct(qw, kernel_sizes, dilations, 'q8')
 
 
 def prepare_mrf_ct_q8f(qw, kernel_sizes, dilations):
     """Static (``q8f``) :class:`MrfQ8Weights` from
-    :func:`quantize_mrf_ct_q8f_weights` (or the JAX packer's arrays): taps
-    (k, C_in, C_out) int8 and (C,) vectors per step, the form of
-    ``vocoder_kernels.prepare_mrf_tc_q8``."""
-    kernel_sizes = tuple(kernel_sizes)
-    dilations = tuple(tuple(d) for d in dilations)
-    chains = []
-    for j, dils in enumerate(dilations):
-        wq1, inv1, b1i, m1, wq2, sw2, b2 = qw[7 * j:7 * j + 7]
-        chains.append([(wq1[i].transpose(1, 2), inv1[i, :, 0].float(),
-                        b1i[i, :, 0].int(), m1[i, :, 0].float(),
-                        wq2[i].transpose(1, 2), sw2[i, :, 0].float(),
-                        b2[i, :, 0].float()) for i in range(len(dils))])
-    mrf = MrfQ8Weights(qw[0].device, kernel_sizes, dilations, chains)
-    if mrf.device.type == 'cuda':
-        mrf.chains_dev = _device_chains(mrf)
-    return mrf
+    :func:`quantize_mrf_ct_q8f_weights` (or the JAX packer's arrays), the
+    form of ``vocoder_kernels.prepare_mrf_tc_q8``."""
+    return _prepare_ct(qw, kernel_sizes, dilations, 'q8f')
+
+
+def prepare_mrf_ct_q8s(qw, kernel_sizes, dilations):
+    """Static ``q8s`` :class:`MrfQ8Weights` from
+    :func:`quantize_mrf_ct_q8s_weights` (or the JAX packer's arrays)."""
+    return _prepare_ct(qw, kernel_sizes, dilations, 'q8s')
 
 
 def _band_taps(wq, k, d, p, C_out):
@@ -419,7 +444,8 @@ def _band_taps(wq, k, d, p, C_out):
 def prepare_mrf_phase_q8(qw, kernel_sizes, dilations, p, ups, post=None):
     """:class:`MrfQ8Weights` of a narrow level from the phase packers:
     ``qw`` from :func:`quantize_mrf_phase_weights` (dynamic when its steps
-    have six arrays, ``q8f`` when seven); ``ups`` = (wq, sw, bias) from
+    have six arrays, ``q8f`` when seven, ``q8s`` when eight); ``ups`` =
+    (wq, sw, bias) from
     :func:`quantize_ups_phase_weights` followed by the ConvTranspose1d's
     (k, stride, padding, p_in); ``post`` = (Wd, b) from
     :func:`pack_post_phase_weights` at the last level (its dtype is the
@@ -428,7 +454,7 @@ def prepare_mrf_phase_q8(qw, kernel_sizes, dilations, p, ups, post=None):
     dilations = tuple(tuple(d) for d in dilations)
     n_steps = sum(len(d) for d in dilations)
     per = len(qw) // n_steps
-    if per not in (6, 7) or per * n_steps != len(qw):
+    if per not in (6, 7, 8) or per * n_steps != len(qw):
         raise ValueError(f'{len(qw)} arrays for {n_steps} chain steps')
     C = qw[0].shape[0] // p
     chains, n = [], 0
@@ -437,16 +463,11 @@ def prepare_mrf_phase_q8(qw, kernel_sizes, dilations, p, ups, post=None):
         for d in dils:
             st = qw[n:n + per]
             n += per
-            t1 = _band_taps(st[0], k, d, p, C)
-            t2 = _band_taps(st[per - 3], k, 1, p, C)
-            vec = [v[:C, 0] for v in st]
-            if per == 6:
-                steps.append((t1, vec[1].float(), vec[2].float(), t2,
-                              vec[4].float(), vec[5].float()))
-            else:
-                steps.append((t1, vec[1].float(), vec[2].int(),
-                              vec[3].float(), t2, vec[5].float(),
-                              vec[6].float()))
+            t2 = 4 if per == 8 else per - 3       # the conv2 band's place
+            steps.append(tuple(
+                _band_taps(a, k, d if m == 0 else 1, p, C) if m in (0, t2)
+                else a[:C, 0].int() if a.dtype == torch.int32
+                else a[:C, 0].float() for m, a in enumerate(st)))
         chains.append(steps)
     wq_b, sw_b, b_b, k_u, stride, padding, p_in = ups
     if stride * p_in != p:
@@ -468,7 +489,7 @@ def prepare_mrf_phase_q8(qw, kernel_sizes, dilations, p, ups, post=None):
     sw = torch.stack([sw_b[r * C:(r + 1) * C, 0].float()
                       for r in range(stride)])
     mrf = MrfQ8Weights(qw[0].device, kernel_sizes, dilations, chains,
-                       dynamic=per == 6, p=p, p_in=p_in,
+                       dynamic=per == 6, q8s=per == 8, p=p, p_in=p_in,
                        ups=(wq_u, sw, b_b[:C, 0].float(), stride, padding,
                             k_u), ups_shifts=(dmin, dmax))
     if post is not None:
@@ -477,7 +498,7 @@ def prepare_mrf_phase_q8(qw, kernel_sizes, dilations, p, ups, post=None):
         w_p = Wd[0, :post_k * C].reshape(post_k, C).float()  # (k, C)
         mrf.post = (w_p, b_p[:1, 0].float(), Wd.dtype)
     if mrf.device.type == 'cuda':
-        mrf.chains_dev = _device_chains(mrf)
+        mrf.chains_dev = device_chains(chains)
         mrf.ups_dev = (torch.cat([pack_mma_s8(wq_u[r])
                                   for r in range(stride)]),
                        sw.contiguous(), mrf.ups[2].contiguous())
@@ -557,6 +578,26 @@ def _phase_geometry(mrf, cols, tile):
     return (halo, phase_halo_in(halo, *mrf.ups_shifts), cols // tile, P)
 
 
+def _ptc_geometry(mrf, rows, tile):
+    """(halo, halo_in, n_tiles, P) of a phase-tc call: chain halo and
+    upsample input halo in rows, tiles per utterance, conv_post reach."""
+    if rows % tile:
+        raise ValueError(f'rows={rows} not a multiple of tile={tile}')
+    halo = ptc_chain_halo(mrf.kernel_sizes, mrf.dilations, mrf.p)
+    P = 0
+    if mrf.post is not None:
+        post_k = mrf.post[0].shape[0]
+        if not ptc_post_feasible(mrf.kernel_sizes, mrf.dilations, mrf.p,
+                                 post_k, tile):
+            raise ValueError('chain halo too small for conv_post epilogue')
+        P = (post_k - 1) // 2
+    reach = max(chain_halo(k, d) for k, d in zip(mrf.kernel_sizes,
+                                                 mrf.dilations)) + P
+    if reach > halo * mrf.p:
+        raise ValueError(f'chain reach {reach} beyond the {halo}-row halo')
+    return halo, ptc_halo_in(halo, mrf.ups_shifts), rows // tile, P
+
+
 def _phase_prologue_plain(x, mrf, tile, halo, halo_in):
     """The int8 upsample prologue per tile: float32 segments (S, (tile +
     2*halo)*p, C), sample n of a tile at n + halo*p."""
@@ -601,14 +642,34 @@ def _phase_dyn_chain(x0, steps, k, dils, p, halo, N, P):
 def mrf_phase_q8_plain(x, mrf, tile):
     """The plain version of :func:`fused_mrf_phase_q8` (``fused_mrf_phase``
     with ``int8_chain=True``, the upsample prologue and, when
-    ``mrf.post`` is set, the conv_post epilogue), dynamic or ``q8f`` as
-    ``mrf.dynamic`` says. x: (B, cols*p_in, C_in) sample-major (the phase
-    layout (B, p_in*C_in, cols) reshaped); ``tile`` phase columns per tile
-    (divides cols). Returns (B, cols*p, C), or with ``post`` the waveform
-    (B, 1, cols*p), in x's dtype."""
+    ``mrf.post`` is set, the conv_post epilogue), in ``mrf.mode``. x: (B,
+    cols*p_in, C_in) sample-major (the phase layout (B, p_in*C_in, cols)
+    reshaped); ``tile`` phase columns per tile (divides cols). Returns (B,
+    cols*p, C), or with ``post`` the waveform (B, 1, cols*p), in x's
+    dtype."""
+    return _narrow_plain(x, mrf, tile, _phase_geometry)
+
+
+def mrf_ptc_plain(x, mrf, tile):
+    """The plain version of :func:`fused_mrf_ptc` (static or ``dyn`` mode
+    as ``mrf.mode`` says, with the upsample prologue and, when
+    ``mrf.post`` is set, the conv_post epilogue). x: (B, rows*p_in, C_in)
+    sample-major, the phase-tc rows (B, rows, p_in*C_in) reshaped. Each
+    tile of ``tile`` rows is its own function of x: the upsample quantises
+    its input window with the tile's own scale and the chains run on that
+    tile's upsample output (dyn: each conv over the TPU kernel's rows, all
+    p phases, quantised over them). Returns (B, rows*p, C) in x's dtype,
+    or with ``post`` the waveform (B, 1, rows*p)."""
+    return _narrow_plain(x, mrf, tile, _ptc_geometry)
+
+
+def _narrow_plain(x, mrf, tile, geometry):
+    """The int8 upsample prologue, chains and conv_post of a narrow level
+    on the tiles and halos ``geometry`` (:func:`_phase_geometry` or
+    :func:`_ptc_geometry`) gives."""
     B, T_in, _ = x.shape
     p = mrf.p
-    halo, halo_in, n_t, P = _phase_geometry(mrf, T_in // mrf.p_in, tile)
+    halo, halo_in, n_t, P = geometry(mrf, T_in // mrf.p_in, tile)
     N = tile * p
     with full_f32():
         x0 = _phase_prologue_plain(x, mrf, tile, halo, halo_in)
@@ -638,12 +699,17 @@ def mrf_phase_q8_plain(x, mrf, tile):
 mrf_ct_q8f_plain = mrf_tc_q8_plain
 
 
+# The plain version of :func:`fused_mrf_ct_q8s` (``q8s``): the same
+# function class as q8f, the float32 boundary in each step.
+mrf_ct_q8s_plain = mrf_tc_q8_plain
+
+
 def mrf_phase_q8_noups_plain(x, mrf, p, tile):
     """The plain version of :func:`fused_mrf_phase_q8_noups`
     (``fused_mrf_phase``, ``int8_chain=True``, ``in_phase=False``, no
-    upsample prologue), dynamic or ``q8f`` as ``mrf.dynamic`` says. x: (B,
-    T, C) sample-major, T a multiple of ``tile*p``. q8f: the zero-padded
-    static chains (:func:`mrf_ct_q8f_plain`'s function). Dynamic: each tile
+    upsample prologue), in ``mrf.mode``. x: (B, T, C) sample-major, T a
+    multiple of ``tile*p``. q8f / q8s: the zero-padded static chains
+    (:func:`mrf_ct_q8f_plain`'s function). Dynamic: each tile
     of ``tile`` phase columns runs the chains on the window [-halo, tile +
     halo) columns of zero-padded x, every conv over the TPU kernel's phase
     columns, quantised over them."""
@@ -817,10 +883,12 @@ def _phase_noups_plan(x, prep, kernel_sizes, dilations, p, tile, alloc):
 
 @dataclass
 class PhasePlan:
-    """The launches of :func:`fused_mrf_phase_q8`: the prologue (amax of
-    the upsample input into word 0, the int8 upsample into ``pro.x0``, in
-    dynamic mode reducing x0's amax into word 1), the chain launches
-    (``DynConv`` or q8 ``Step``) and conv_post (``tail``)."""
+    """The launches of :func:`fused_mrf_phase_q8` and :func:`fused_mrf_ptc`:
+    the prologue (amax of the upsample input into word 0, the int8 upsample
+    into ``pro.x0``, in dynamic mode reducing x0's amax into word 1), the
+    chain launches (``DynConv`` or static ``Step``) and conv_post
+    (``tail``). Sample n of a tile lives at n + halo*p in x0 and in the
+    chain buffers."""
     pro: PtcPrologue
     amax: torch.Tensor
     steps: list
@@ -829,9 +897,17 @@ class PhasePlan:
 
 
 def _phase_plan(x, mrf, tile, prep, alloc):
+    return _narrow_plan(x, mrf, tile, prep, alloc, _phase_geometry)
+
+
+def _ptc_plan(x, mrf, tile, prep, alloc):
+    return _narrow_plan(x, mrf, tile, prep, alloc, _ptc_geometry)
+
+
+def _narrow_plan(x, mrf, tile, prep, alloc, geometry):
     B, T_in, _ = x.shape
     p, p_in = mrf.p, mrf.p_in
-    halo, halo_in, n_t, P = _phase_geometry(mrf, T_in // p_in, tile)
+    halo, halo_in, n_t, P = geometry(mrf, T_in // p_in, tile)
     wq_u, _, _, stride, padding, k_u = mrf.ups
     C = wq_u.shape[-1]
     ntaps, amin, rows, span, _ = ups_geometry(k_u, stride, padding)
@@ -844,7 +920,7 @@ def _phase_plan(x, mrf, tile, prep, alloc):
                       (tile + 2 * halo_in) * p_in, halo * p_in, m_len, stride,
                       ntaps, amin, rows, span)
     N = tile * p
-    bufs = alloc((4, S, N + 2 * E, C), torch.float32)
+    bufs = alloc((4 if mrf.dynamic else 3, S, N + 2 * E, C), torch.float32)
     if mrf.post is None:
         out = alloc((B, n_t * N, C), x.dtype)
         fin_view = out.view(S, N, C)
@@ -859,7 +935,7 @@ def _phase_plan(x, mrf, tile, prep, alloc):
                            iter(range(2, 1 << 30)))
     else:
         steps = _chain_steps(pro.x0, E, -E, N + E, prep, mrf.kernel_sizes,
-                             mrf.dilations, N, P, bufs[:3], E, fin_view)
+                             mrf.dilations, N, P, bufs, E, fin_view)
     tail = None if mrf.post is None else Post(
         bufs[2], E, 1.0 / len(mrf.kernel_sizes), mrf.post_dev,
         mrf.post[0].shape[0], out)
@@ -900,24 +976,6 @@ def _launch_dyn(fn, st, amax, C, n_tiles, S, stream):
     _build.check(err, f'MRF int8 conv (C={C}, k={st.k}, d={st.d})')
 
 
-def _check_input(name, x, mrf, channels, c, dynamic):
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f'{name}: the int8 kernels take bfloat16 '
-                         f'activations, not {x.dtype}')
-    if c not in channels:
-        raise ValueError(f'{name}: C={c} has no CUDA instantiation '
-                         f'(built for {channels})')
-    bad = [k for k in mrf.kernel_sizes if k not in KERNEL_SIZES]
-    if bad:
-        raise ValueError(f'{name}: kernel sizes {bad} have no CUDA '
-                         f'instantiation (built for {KERNEL_SIZES})')
-    if dynamic is not None and mrf.dynamic != dynamic:
-        raise ValueError(f'{name}: the weights are not the int8-dynamic form')
-    if x.device != mrf.device or mrf.chains_dev is None:
-        raise ValueError(f'{name}: x is on {x.device} but the weights were '
-                         f'prepared on {mrf.device}')
-
-
 def _check_segments(name, S):
     if S > _MAX_SEGMENTS:
         raise ValueError(f'{name}: {S} tiles in the batch exceed the launch '
@@ -940,7 +998,7 @@ def fused_mrf_ct_q8(x, mrf, tile):
     if x.device.type == 'cpu':
         return mrf_ct_q8_plain(x, mrf, tile)
     B, T, C = x.shape
-    _check_input('fused_mrf_ct_q8', x, mrf, CT_Q8_CHANNELS, C, True)
+    check_q8_input('fused_mrf_ct_q8', x, mrf, CT_Q8_CHANNELS, C, 'dynamic')
     x = x.contiguous()
     plan = _ct_plan(x, mrf.chains_dev, mrf.kernel_sizes, mrf.dilations,
                     tile, _empty_on(x.device))
@@ -956,11 +1014,12 @@ fused_mrf_ct_q8.calls = collections.Counter()
 
 def fused_mrf_phase_q8(x, mrf, tile):
     """Upsample + fused MRF group (+ conv_post) of a narrow level in the
-    int8 forms of ``fused_mrf_phase`` (``int8_chain=True``): dynamic, or
-    ``q8f`` (static, fused s32 boundary), as ``mrf.dynamic`` says; the
-    upsample's input scale is dynamic per tile in both. x: (B, cols*p_in,
-    C_in) bfloat16 sample-major (the previous level's output as it
-    stands); ``mrf`` from :func:`prepare_mrf_phase_q8` (or, static, from
+    int8 forms of ``fused_mrf_phase`` (``int8_chain=True``): dynamic,
+    ``q8f`` (static, fused s32 boundary) or ``q8s`` (static, float32
+    boundary), as ``mrf.mode`` says; the upsample's input scale is dynamic
+    per tile in every mode. x: (B, cols*p_in, C_in) bfloat16 sample-major
+    (the previous level's output as it stands); ``mrf`` from
+    :func:`prepare_mrf_phase_q8` (or, q8f, from
     ``vocoder_kernels.prepare_mrf_ptc``: the same per-tap weights);
     ``tile`` phase columns per tile (divides cols). Returns (B, cols*p, C),
     or with ``mrf.post`` the waveform (B, 1, cols*p), bfloat16. On a CUDA
@@ -970,31 +1029,74 @@ def fused_mrf_phase_q8(x, mrf, tile):
     ``fused_mrf_phase_q8.launches`` counts CUDA launches (amax, upsample,
     two per chain step dynamic or one static, conv_post);
     ``fused_mrf_phase_q8.calls`` counts CUDA-route calls by x's shape and
-    mode: (B, T_in, C_in, 'dynamic' or 'q8f')."""
+    mode: (B, T_in, C_in, ``mrf.mode``)."""
     if mrf.ups is None:
         raise ValueError('fused_mrf_phase_q8: the weights carry no upsample')
     if x.device.type == 'cpu':
         return mrf_phase_q8_plain(x, mrf, tile)
+    return _launch_narrow(fused_mrf_phase_q8, 'mrf_phase_q8', x, mrf, tile,
+                          _phase_plan)
+
+
+fused_mrf_phase_q8.launches = 0
+fused_mrf_phase_q8.calls = collections.Counter()
+
+
+def fused_mrf_ptc(x, mrf, tile):
+    """Upsample + fused MRF group (+ conv_post) of a narrow level in the
+    int8 forms of ``fused_mrf_ptc``: static (the serving tier's, q8f
+    arithmetic) or ``dyn`` (every conv's scale taken per tile), as
+    ``mrf.mode`` says. x: (B, rows*p_in, C_in) bfloat16 sample-major (the
+    phase-tc rows (B, rows, p_in*C_in) reshaped; the previous level's
+    output as it stands); ``mrf`` from
+    ``vocoder_kernels.prepare_mrf_ptc``; ``tile`` phase rows per tile
+    (divides rows). Returns (B, rows*p, C), or with ``mrf.post`` the
+    waveform (B, 1, rows*p), bfloat16. On a CUDA tensor this launches
+    ``mrf_ptc.cu`` (or raises); on a CPU tensor it runs
+    :func:`mrf_ptc_plain`.
+
+    ``fused_mrf_ptc.launches`` counts CUDA launches (amax, upsample, one
+    per chain step static or two dyn, conv_post); ``fused_mrf_ptc.calls``
+    counts CUDA-route calls by x's shape and mode: (B, T_in, C_in,
+    'q8f' or 'dynamic')."""
+    if mrf.ups is None:
+        raise ValueError('fused_mrf_ptc: the weights carry no upsample')
+    if x.device.type == 'cpu':
+        return mrf_ptc_plain(x, mrf, tile)
+    if mrf.q8s:
+        raise ValueError('fused_mrf_ptc has no q8s mode')
+    return _launch_narrow(fused_mrf_ptc, 'mrf_ptc', x, mrf, tile, _ptc_plan)
+
+
+fused_mrf_ptc.launches = 0
+fused_mrf_ptc.calls = collections.Counter()
+
+
+def _launch_narrow(wrapper, lib, x, mrf, tile, plan_fn):
+    """The launches of a narrow int8 level (the :class:`PhasePlan` of
+    ``plan_fn``, :func:`_phase_plan` or :func:`_ptc_plan`) through
+    ``lib``'s entry points, counted on ``wrapper``."""
+    name = wrapper.__name__
     B, T_in, C_in = x.shape
     C = mrf.ups[0].shape[-1]
-    _check_input('fused_mrf_phase_q8', x, mrf, PHASE_CHANNELS, C, None)
+    check_q8_input(name, x, mrf, PHASE_CHANNELS, C)
     if (C_in, C) not in Q8_PTC_UPS:
-        raise ValueError(f'fused_mrf_phase_q8: upsample {C_in}->{C} has no '
-                         f'CUDA instantiation (built for {Q8_PTC_UPS})')
+        raise ValueError(f'{name}: upsample {C_in}->{C} has no CUDA '
+                         f'instantiation (built for {Q8_PTC_UPS})')
     x = x.contiguous()
-    plan = _phase_plan(x, mrf, tile, mrf.chains_dev, _empty_on(x.device))
+    plan = plan_fn(x, mrf, tile, mrf.chains_dev, _empty_on(x.device))
     pro = plan.pro
     S = plan.amax.shape[1]
-    _check_segments('fused_mrf_phase_q8', S)
+    _check_segments(name, S)
     stream = _build.stream_ptr(x)
     plan.amax.zero_()
-    err = _fn('mrf_phase_q8', 'mrf_phase_q8_amax', _AMAX_ARGTYPES)(
+    err = _fn(lib, f'{lib}_amax', _AMAX_ARGTYPES)(
         _build.ptr(x), x.stride(0), T_in, C_in, pro.n_tiles, pro.tile_in,
         pro.halo_in, pro.win_len, _build.ptr(pro.amax), S, stream)
-    _build.check(err, 'MRF phase q8 amax')
-    fused_mrf_phase_q8.launches += 1
+    _build.check(err, f'{name} amax')
+    wrapper.launches += 1
     w_u, sw_u, b_u = pro.weights
-    err = _fn('mrf_phase_q8', 'mrf_phase_q8_ups', _UPS_Q8_AMAX_ARGTYPES)(
+    err = _fn(lib, f'{lib}_ups', _UPS_Q8_AMAX_ARGTYPES)(
         _build.ptr(x), x.stride(0), T_in, _build.ptr(pro.amax),
         _build.ptr(pro.x0), pro.x0.stride(0), _build.ptr(w_u),
         _build.ptr(sw_u), _build.ptr(b_u), pro.stride, pro.ntaps, pro.amin,
@@ -1002,34 +1104,29 @@ def fused_mrf_phase_q8(x, mrf, tile):
         ctypes.cast((ctypes.c_int * pro.stride)(*pro.rows), ctypes.c_void_p),
         pro.n_tiles, pro.tile_in, pro.halo_m, pro.m_len, C_in, C, S,
         _build.ptr(plan.amax[1]) if mrf.dynamic else None, stream)
-    _build.check(err, 'MRF phase q8 upsample')
-    fused_mrf_phase_q8.launches += 1
+    _build.check(err, f'{name} upsample')
+    wrapper.launches += 1
     if mrf.dynamic:
-        fn = _fn('mrf_phase_q8', 'mrf_phase_q8_conv', _DYN_ARGTYPES)
+        fn = _fn(lib, f'{lib}_conv', _DYN_ARGTYPES)
         for st in plan.steps:
             _launch_dyn(fn, st, plan.amax, C, pro.n_tiles, S, stream)
-            fused_mrf_phase_q8.launches += 1
+            wrapper.launches += 1
     else:
-        fn = _fn('mrf_phase_q8', 'mrf_phase_q8_step', _Q8_STEP_ARGTYPES)
+        fn = q8_step_fn(lib, mrf)
         for st in plan.steps:
             _launch_q8_step(fn, st, S, C)
-            fused_mrf_phase_q8.launches += 1
+            wrapper.launches += 1
     tail = plan.tail
     if tail is not None:
         w_t, b_t = tail.weights
-        err = _fn('mrf_phase_q8', 'mrf_phase_q8_post', _PTC_POST_ARGTYPES)(
+        err = _fn(lib, f'{lib}_post', _PTC_POST_ARGTYPES)(
             _build.ptr(tail.src), tail.src.stride(0), tail.src_off, C,
             tail.scale, _build.ptr(w_t), b_t, tail.k, _build.ptr(plan.out),
             tile * mrf.p, S, stream)
-        _build.check(err, 'MRF phase q8 conv_post')
-        fused_mrf_phase_q8.launches += 1
-    fused_mrf_phase_q8.calls[tuple(x.shape) + (
-        'dynamic' if mrf.dynamic else 'q8f',)] += 1
+        _build.check(err, f'{name} conv_post')
+        wrapper.launches += 1
+    wrapper.calls[tuple(x.shape) + (mrf.mode,)] += 1
     return plan.out
-
-
-fused_mrf_phase_q8.launches = 0
-fused_mrf_phase_q8.calls = collections.Counter()
 
 
 def _launch_ct_dyn(wrapper, lib, x, plan, stream):
@@ -1054,7 +1151,7 @@ def _launch_static(wrapper, lib, x, mrf):
     B, T, C = x.shape
     steps, out = _tc_plan(x, mrf.chains_dev, mrf.kernel_sizes, mrf.dilations,
                           _empty_on(x.device))
-    fn = _fn(lib, f'{lib}_step', _Q8_STEP_ARGTYPES)
+    fn = q8_step_fn(lib, mrf)
     for st in steps:
         _launch_q8_step(fn, st, B, C)
         wrapper.launches += 1
@@ -1074,8 +1171,8 @@ def fused_mrf_ct_q8f(x, mrf):
     shape."""
     if x.device.type == 'cpu':
         return mrf_ct_q8f_plain(x, mrf)
-    _check_input('fused_mrf_ct_q8f', x, mrf, CT_Q8F_CHANNELS, x.shape[2],
-                 False)
+    check_q8_input('fused_mrf_ct_q8f', x, mrf, CT_Q8F_CHANNELS, x.shape[2],
+                   'q8f')
     x = x.contiguous()
     out = _launch_static(fused_mrf_ct_q8f, 'mrf_ct_q8', x, mrf)
     fused_mrf_ct_q8f.calls[tuple(x.shape)] += 1
@@ -1086,26 +1183,52 @@ fused_mrf_ct_q8f.launches = 0
 fused_mrf_ct_q8f.calls = collections.Counter()
 
 
+def fused_mrf_ct_q8s(x, mrf):
+    """Fused MRF group of a level in ``fused_mrf_ct``'s int8-static form
+    with the float32 boundary (``q8s``: JAX's ``DAFT_INT8_FUSED_EPI=0``).
+    x: (B, T, C) bfloat16 sample-major, C in :data:`CT_Q8F_CHANNELS`;
+    ``mrf`` from :func:`prepare_mrf_ct_q8s`. Returns (B, T, C) bfloat16. On
+    a CUDA tensor this launches ``mrf_ct_q8.cu`` (or raises); on a CPU
+    tensor it runs :func:`mrf_ct_q8s_plain`.
+
+    ``fused_mrf_ct_q8s.launches`` counts CUDA launches (one per chain
+    step); ``fused_mrf_ct_q8s.calls`` counts CUDA-route calls by x's
+    shape."""
+    if x.device.type == 'cpu':
+        return mrf_ct_q8s_plain(x, mrf)
+    check_q8_input('fused_mrf_ct_q8s', x, mrf, CT_Q8F_CHANNELS, x.shape[2],
+                   'q8s')
+    x = x.contiguous()
+    out = _launch_static(fused_mrf_ct_q8s, 'mrf_ct_q8', x, mrf)
+    fused_mrf_ct_q8s.calls[tuple(x.shape)] += 1
+    return out
+
+
+fused_mrf_ct_q8s.launches = 0
+fused_mrf_ct_q8s.calls = collections.Counter()
+
+
 def fused_mrf_phase_q8_noups(x, mrf, p, tile):
     """Fused MRF group of a narrow level in ``fused_mrf_phase``'s int8 forms
-    without the upsample prologue (``in_phase=False``): dynamic, or ``q8f``
-    (static, fused s32 boundary), as ``mrf.dynamic`` says. x: (B, T, C)
-    bfloat16 sample-major, C in ``PHASE_CHANNELS``; ``mrf`` from
-    :func:`prepare_mrf_ct_q8` or :func:`prepare_mrf_ct_q8f` (the phase
-    packers' per-tap weights are the same); ``p`` phases and ``tile``
+    without the upsample prologue (``in_phase=False``): dynamic, ``q8f``
+    (static, fused s32 boundary) or ``q8s`` (static, float32 boundary), as
+    ``mrf.mode`` says. x: (B, T, C) bfloat16 sample-major, C in
+    ``PHASE_CHANNELS``; ``mrf`` from :func:`prepare_mrf_ct_q8`, ``_q8f`` or
+    ``_q8s`` (the phase packers' per-tap weights are the same); ``p``
+    phases and ``tile``
     phase columns per tile (:func:`phase_tile`; they shape the dynamic
     form only). Returns (B, T, C) bfloat16. On a CUDA tensor this launches
     ``mrf_phase_q8.cu`` (or raises); on a CPU tensor it runs
     :func:`mrf_phase_q8_noups_plain`.
 
     ``fused_mrf_phase_q8_noups.launches`` counts CUDA launches (dynamic:
-    the window amax and two per chain step; q8f: one per chain step);
+    the window amax and two per chain step; static: one per chain step);
     ``fused_mrf_phase_q8_noups.calls`` counts CUDA-route calls by x's
-    shape and mode: (B, T, C, 'dynamic' or 'q8f')."""
+    shape and mode: (B, T, C, ``mrf.mode``)."""
     if x.device.type == 'cpu':
         return mrf_phase_q8_noups_plain(x, mrf, p, tile)
     name = 'fused_mrf_phase_q8_noups'
-    _check_input(name, x, mrf, PHASE_CHANNELS, x.shape[2], None)
+    check_q8_input(name, x, mrf, PHASE_CHANNELS, x.shape[2])
     x = x.contiguous()
     if mrf.dynamic:
         plan = _phase_noups_plan(x, mrf.chains_dev, mrf.kernel_sizes,
@@ -1116,8 +1239,7 @@ def fused_mrf_phase_q8_noups(x, mrf, p, tile):
     else:
         out = _launch_static(fused_mrf_phase_q8_noups, 'mrf_phase_q8', x,
                              mrf)
-    fused_mrf_phase_q8_noups.calls[tuple(x.shape) + (
-        'dynamic' if mrf.dynamic else 'q8f',)] += 1
+    fused_mrf_phase_q8_noups.calls[tuple(x.shape) + (mrf.mode,)] += 1
     return out
 
 

@@ -1,6 +1,7 @@
 """HiFi-GAN MRF kernels: the CUDA kernels ``csrc/mrf_tc.cu``,
-``csrc/mrf_phase.cu``, ``csrc/mrf_tc_q8.cu`` and ``csrc/mrf_ptc.cu``,
-their plain PyTorch versions and their wrappers.
+``csrc/mrf_phase.cu`` and ``csrc/mrf_tc_q8.cu``, their plain PyTorch
+versions and their wrappers, and the int8 helpers, packers and weight
+forms that ``ops/mrf_int8.py`` shares.
 
 An MRF group is one upsample level's ResBlock1 chains averaged:
 ``mean_j chain_j(x)`` with ``chain(x): x += conv_k(lrelu(conv_{k,d}(lrelu(x))))``
@@ -14,10 +15,15 @@ the same function the port's kernels and plain versions compute.
 - :func:`fused_mrf_phase` replaces ``vocoder_kernels.py::fused_mrf_phase``
   (float mode, fused upsample prologue, optional conv_post epilogue), for
   the narrow levels, in the standard (B, C, T) layout.
-- :func:`fused_mrf_tc_q8` replaces ``fused_mrf_tc`` with ``q8=True`` and
-  :func:`fused_mrf_ptc` replaces ``fused_mrf_ptc`` (static mode, upsample
-  prologue, optional conv_post epilogue): the int8-static serving tier,
-  with their quantisation helpers and packers (second half of the file).
+- :func:`fused_mrf_ptc_f` replaces ``fused_mrf_ptc`` in its ``fdot`` mode
+  (the bf16 tier's phase-tc form, opt-in): the float phase kernel's
+  function with its upsample output kept in float32.
+- :func:`fused_resblock1` replaces ``fused_resblock1``: one ResBlock1
+  chain, the tc kernel's steps.
+- :func:`fused_mrf_tc_q8` replaces ``fused_mrf_tc`` with ``q8=True``: the
+  int8-static serving tier, with the quantisation helpers and the int8
+  packers (second half of the file; ``fused_mrf_ptc`` itself lives in
+  ``ops/mrf_int8.py``).
 
 The float wrappers take one level's weights as :class:`MrfWeights`, made
 once by :func:`prepare_mrf` (the plain layout and the kernels' layout side
@@ -129,10 +135,11 @@ def mrf_tc_plain(x, weights, kernel_sizes, dilations):
     return out.to(cdt).transpose(1, 2).contiguous()
 
 
-def _ups_extended(x, w, b, stride, padding, ext, cdt):
-    """lrelu(x) zero-extended -> ConvTranspose1d, evaluated at samples
-    [-ext, stride*T + ext) (bias beyond the transposed conv's support),
-    rounded to ``cdt``; returned as float32 (B, C_out, N + 2*ext)."""
+def _ups_extended(x, w, b, stride, padding, ext, cdt, round_out=True):
+    """lrelu(x) zero-extended (its input rounded to ``cdt``) ->
+    ConvTranspose1d, evaluated at samples [-ext, stride*T + ext) (bias
+    beyond the transposed conv's support), rounded to ``cdt`` when
+    ``round_out``; returned as float32 (B, C_out, N + 2*ext)."""
     B, _, T_in = x.shape
     N = stride * T_in
     xin = _lrelu(x.float()).to(cdt).float()
@@ -142,7 +149,8 @@ def _ups_extended(x, w, b, stride, padding, ext, cdt):
         raise ValueError('upsample extension smaller than its padding')
     x0 = y.new_zeros(B, w.shape[1], N + 2 * ext)
     x0[:, :, lo:lo + y.shape[2]] = y
-    return (x0 + b.float()[:, None]).to(cdt).float()
+    x0 = x0 + b.float()[:, None]
+    return x0.to(cdt).float() if round_out else x0
 
 
 def _phase_ext(kernel_sizes, dilations, post_k):
@@ -150,9 +158,13 @@ def _phase_ext(kernel_sizes, dilations, post_k):
             + (post_k - 1) // 2)
 
 
-def mrf_phase_plain(x, weights, kernel_sizes, dilations, ups, post=None):
-    """The plain version of :func:`fused_mrf_phase`."""
-    cdt = x.dtype
+def mrf_phase_plain(x, weights, kernel_sizes, dilations, ups, post=None,
+                    fdot=False):
+    """The plain version of :func:`fused_mrf_phase`. ``fdot``: that of
+    ``fused_mrf_ptc``'s fdot mode (:func:`mrf_ptc_f_plain`): the conv
+    inputs in the weights' dtype and the upsample output kept in float32.
+    The output and conv_post's input are in x's dtype either way."""
+    cdt = weights[0].dtype if fdot else x.dtype
     w_u, b_u, stride, padding = ups
     post_k = post[0].shape[-1] if post is not None else 1
     P = (post_k - 1) // 2
@@ -160,7 +172,8 @@ def mrf_phase_plain(x, weights, kernel_sizes, dilations, ups, post=None):
     N = stride * x.shape[2]
     acc = None
     with full_f32():
-        x0 = _ups_extended(x, w_u, b_u, stride, padding, E, cdt)
+        x0 = _ups_extended(x, w_u, b_u, stride, padding, E, cdt,
+                           round_out=not fdot)
         for j, (k, dils) in enumerate(zip(kernel_sizes, dilations)):
             w1, b1, w2, b2 = weights[4 * j:4 * j + 4]
             h = chain_halo(k, dils)
@@ -169,10 +182,11 @@ def mrf_phase_plain(x, weights, kernel_sizes, dilations, ups, post=None):
             acc = y if acc is None else acc + y
         mean = acc * (1.0 / len(kernel_sizes))       # samples [-P, N + P)
         if post is None:
-            return mean.to(cdt)
-        t = _lrelu(mean).to(cdt).float()
-        y = F.conv1d(t, post[0].to(cdt).float()) + post[1].float()[:, None]
-    return torch.tanh(y).to(cdt)
+            return mean.to(x.dtype)
+        t = _lrelu(mean).to(x.dtype).float()
+        y = F.conv1d(t, post[0].to(x.dtype).float()) + \
+            post[1].float()[:, None]
+    return torch.tanh(y).to(x.dtype)
 
 
 # ----------------------------------------------------------------------
@@ -296,6 +310,7 @@ class MrfWeights:
     ups_dev: Optional[tuple] = None
     post: Optional[tuple] = None      # (w (1, C, k), b (1,))
     post_dev: Optional[tuple] = None
+    p: int = 0                        # phases (fused_mrf_ptc_f's weights)
 
 
 def prepare_mrf(packed, kernel_sizes, dilations, ups=None, post=None):
@@ -464,9 +479,10 @@ class Post:
 
 
 def _phase_plan(x, prep, ups_prep, kernel_sizes, dilations, ups, post,
-                post_prep, alloc):
-    """Launch plan of :func:`fused_mrf_phase`: (upsample, steps, post or
-    None, out)."""
+                post_prep, alloc, x0_dtype=None):
+    """Launch plan of :func:`fused_mrf_phase` (and :func:`fused_mrf_ptc_f`,
+    whose upsample output ``x0_dtype`` is float32): (upsample, steps, post
+    or None, out)."""
     w_u, _, stride, padding = ups
     B, _, T_in = x.shape
     C = w_u.shape[1]
@@ -477,7 +493,7 @@ def _phase_plan(x, prep, ups_prep, kernel_sizes, dilations, ups, post,
         raise ValueError(f'fused_mrf_phase: stride {stride} must divide '
                          f'the extension {E}')
     N = stride * T_in
-    x0 = alloc((B, N + 2 * E, C), x.dtype)
+    x0 = alloc((B, N + 2 * E, C), x0_dtype or x.dtype)
     upsample = Upsample(x, x0, E, ups_prep, stride, ntaps, amin, rows, span,
                         -(E // stride), T_in + E // stride, -E, N + E)
     bufs = alloc((3, B, N + 2 * E, C), torch.float32)
@@ -495,7 +511,7 @@ def _phase_plan(x, prep, ups_prep, kernel_sizes, dilations, ups, post,
 
 
 _UPS_ARGTYPES = ([_P, _I64, _I64, _I64, _I32, _P, _I64, _I32, _P, _P]
-                 + [_I32] * 4 + [_P] + [_I32] * 8 + [_P])
+                 + [_I32] * 4 + [_P] + [_I32] * 9 + [_P])
 _POST_ARGTYPES = [_P, _I64, _I32, _I32, _F32, _P, _F32, _I32, _P, _I32,
                   _I32, _I32, _P]
 
@@ -520,19 +536,34 @@ def fused_mrf_phase(x, mrf):
     if x.device.type == 'cpu':
         return mrf_phase_plain(x, mrf.packed, mrf.kernel_sizes,
                                mrf.dilations, mrf.ups, mrf.post)
+    out = _launch_phase(fused_mrf_phase, x, mrf, False)
+    fused_mrf_phase.calls[tuple(x.shape)] += 1
+    return out
+
+
+fused_mrf_phase.launches = 0
+fused_mrf_phase.calls = collections.Counter()
+
+
+def _launch_phase(wrapper, x, mrf, x0_f32):
+    """The launches of ``mrf_phase.cu`` for :func:`fused_mrf_phase` and
+    :func:`fused_mrf_ptc_f` (``x0_f32``: the upsample writes float32),
+    counted on ``wrapper``."""
+    name = wrapper.__name__
     w_u, _, stride, _ = mrf.ups
     B, C_in, T_in = x.shape
     C = w_u.shape[1]
     cdt = x.dtype
-    _check_cuda_input(x, 'fused_mrf_phase', PHASE_CHANNELS, C)
-    _check_kernel_sizes('fused_mrf_phase', mrf.kernel_sizes)
-    _check_weights('fused_mrf_phase', x, mrf)
+    _check_cuda_input(x, name, PHASE_CHANNELS, C)
+    _check_kernel_sizes(name, mrf.kernel_sizes)
+    _check_weights(name, x, mrf)
     if (C_in, C) not in PHASE_UPS:
-        raise ValueError(f'fused_mrf_phase: upsample {C_in}->{C} has no '
-                         f'CUDA instantiation (built for {PHASE_UPS})')
+        raise ValueError(f'{name}: upsample {C_in}->{C} has no CUDA '
+                         f'instantiation (built for {PHASE_UPS})')
     up, steps, tail, out = _phase_plan(
         x, mrf.chains, mrf.ups_dev, mrf.kernel_sizes, mrf.dilations, mrf.ups,
-        mrf.post, mrf.post_dev, _empty_on(x.device))
+        mrf.post, mrf.post_dev, _empty_on(x.device),
+        torch.float32 if x0_f32 else cdt)
     stream = _build.stream_ptr(x)
     bf = int(cdt == torch.bfloat16)
     w_p, b_p = up.weights
@@ -541,13 +572,14 @@ def fused_mrf_phase(x, mrf):
         _build.ptr(up.out), up.out.stride(0), up.out_off, _build.ptr(w_p),
         _build.ptr(b_p), stride, up.ntaps, up.amin, up.span,
         ctypes.cast((ctypes.c_int * stride)(*up.rows), ctypes.c_void_p),
-        up.m_lo, up.m_hi, up.n_lo, up.n_hi, C_in, C, B, bf, stream)
+        up.m_lo, up.m_hi, up.n_lo, up.n_hi, C_in, C, B, bf, int(x0_f32),
+        stream)
     _build.check(err, 'MRF upsample')
-    fused_mrf_phase.launches += 1
+    wrapper.launches += 1
     fn = _fn('mrf_phase', 'mrf_phase_step', _STEP_ARGTYPES)
     for st in steps:
         _launch_step(fn, st, B, C, cdt)
-        fused_mrf_phase.launches += 1
+        wrapper.launches += 1
     if tail is not None:
         w_t, b_t = tail.weights
         err = _fn('mrf_phase', 'mrf_phase_post', _POST_ARGTYPES)(
@@ -555,13 +587,76 @@ def fused_mrf_phase(x, mrf):
             tail.scale, _build.ptr(w_t), b_t, tail.k, _build.ptr(out),
             stride * T_in, B, bf, stream)
         _build.check(err, 'MRF conv_post')
-        fused_mrf_phase.launches += 1
-    fused_mrf_phase.calls[tuple(x.shape)] += 1
+        wrapper.launches += 1
     return out
 
 
-fused_mrf_phase.launches = 0
-fused_mrf_phase.calls = collections.Counter()
+# ----------------------------------------------------------------------
+# one ResBlock1 chain (port of vocoder_kernels.py:134-235, 1542-1559)
+# ----------------------------------------------------------------------
+
+def pack_resblock_weights(rb_params, n_dil):
+    """Port of ``pack_resblock_weights``: one ResBlock1's params (torch
+    (out, in, k) convs) -> (w1, b1, w2, b2), w (n_dil, k, C_in, C_out) and
+    b (n_dil, C)."""
+    def stack(prefix):
+        convs = [rb_params[f'{prefix}_{i}'] for i in range(n_dil)]
+        return (torch.stack([c['w'].permute(2, 1, 0) for c in convs]),
+                torch.stack([c['b'] for c in convs]))
+    return stack('convs1') + stack('convs2')
+
+
+def resblock1_plain(x, w1, b1, w2, b2, kernel_size, dilations, tile=4096):
+    """The plain version of :func:`fused_resblock1`: x zero-padded once by
+    the chain's receptive field, then valid convs (conv inputs lrelu'd and
+    rounded to x's dtype, float32 sums), in x's dtype."""
+    if x.shape[1] % tile:
+        raise ValueError(f'T={x.shape[1]} not a multiple of tile={tile}')
+    return mrf_tc_plain(x, [w1, b1, w2, b2], (kernel_size,),
+                        (tuple(dilations),))
+
+
+def fused_resblock1(x, w1, b1, w2, b2, kernel_size, dilations, tile=4096):
+    """One ResBlock1 chain (``fused_resblock1``, the TPU kernel with zero
+    SAME padding at the edges collapsed to one padding of the input). x:
+    (B, T, C) bfloat16 or float32, T a multiple of ``tile`` (the TPU
+    kernel's time tile; the result does not depend on it); w1/w2 (n_dil,
+    k, C_in, C_out) and b1/b2 (n_dil, C) from
+    :func:`pack_resblock_weights`, in x's dtype on the card. Returns (B, T,
+    C) in x's dtype. On a CUDA tensor this launches ``mrf_tc.cu``'s step
+    kernel, one launch per dilation (C in :data:`TC_CHANNELS`, or raises);
+    on a CPU tensor it runs :func:`resblock1_plain`.
+
+    ``fused_resblock1.launches`` counts CUDA launches;
+    ``fused_resblock1.calls`` counts CUDA-route calls by (B, T, C, k,
+    dilations, dtype name)."""
+    B, T, C = x.shape
+    if x.device.type == 'cpu':
+        return resblock1_plain(x, w1, b1, w2, b2, kernel_size, dilations,
+                               tile)
+    if T % tile:
+        raise ValueError(f'T={T} not a multiple of tile={tile}')
+    _check_cuda_input(x, 'fused_resblock1', TC_CHANNELS, C)
+    _check_kernel_sizes('fused_resblock1', (kernel_size,))
+    if w1.dtype != x.dtype or w2.dtype != x.dtype:
+        raise ValueError(f'fused_resblock1: weights {w1.dtype} for x '
+                         f'{x.dtype}; the kernel takes them in x\'s dtype')
+    ks, dils = (kernel_size,), (tuple(dilations),)
+    mrf = prepare_mrf([w1, b1, w2, b2], ks, dils)
+    _check_weights('fused_resblock1', x, mrf)
+    x = x.contiguous()
+    steps, out = _tc_plan(x, mrf.chains, ks, dils, _empty_on(x.device))
+    fn = _fn('mrf_tc', 'mrf_tc_step', _STEP_ARGTYPES)
+    for st in steps:
+        _launch_step(fn, st, B, C, x.dtype)
+        fused_resblock1.launches += 1
+    fused_resblock1.calls[tuple(x.shape) + (kernel_size, dils[0],
+                                            str(x.dtype)[6:])] += 1
+    return out
+
+
+fused_resblock1.launches = 0
+fused_resblock1.calls = collections.Counter()
 
 
 # ----------------------------------------------------------------------
@@ -596,6 +691,12 @@ def quantize_rows(w, row_axes=(0,)):
     amax = wf.abs().amax(dim=reduce, keepdim=True)
     s = amax.clamp(min=1e-30) / _const(wf, 127.0)
     return torch.round(wf / s).to(torch.int8), s
+
+
+def quantize_static(x, inv_s):
+    """int8 of x with a static per-channel multiplier: rint(x * inv_s),
+    saturated at +-127 (``_quantize_static``)."""
+    return torch.round(x * inv_s).clamp(-127.0, 127.0).to(torch.int8)
 
 
 def quantize_lrelu_static(x, inv_s):
@@ -685,13 +786,15 @@ def _ptc_spec(k, d, p):
                 span=shifts[-1] - shifts[0], entries=ent)
 
 
-def _ptc_band(w, d, p, s_cal, margin=1.1):
+def _ptc_band(w, d, p, s_cal=None, margin=1.1):
     """torch (C_out, C_in, k) -> (S, p*C_in, p*C_out) float32 shift
-    matrices with the static act scales folded into the input rows, the
-    kernel-side activation multiplier (1, p*C_in) and the shift table."""
+    matrices with the static act scales folded into the input rows (none
+    when ``s_cal`` is None: the dynamic and float forms), the kernel-side
+    activation multiplier (1, p*C_in) and the shift table."""
     C_out, C_in, k = w.shape
     spec = _ptc_spec(k, d, p)
-    s = _act_scale(s_cal, margin, w)
+    s = (torch.ones(C_in, device=w.device) if s_cal is None
+         else _act_scale(s_cal, margin, w))
     wf = w.permute(1, 0, 2).float() * s[:, None, None]        # (ci, co, k)
     M = wf.new_zeros((len(spec['shifts']), p * C_in, p * C_out))
     for si, s_ in enumerate(spec['shifts']):
@@ -710,14 +813,16 @@ def _ptc_quant(M):
 
 
 def pack_mrf_ptc_weights(params, level, kernel_sizes, dilations, p,
-                         act_scales, margin=1.1):
-    """Port of ``pack_mrf_ptc_weights``, static form: per (block,
-    dilation) [W1 (S1, p*C, p*C) int8, inv1, b1i, m1, W2 (S2, ...) int8,
-    sw2, b2] with (1, p*C) row vectors."""
+                         act_scales=None, margin=1.1):
+    """Port of ``pack_mrf_ptc_weights``. With ``act_scales`` the static
+    form: per (block, dilation) [W1 (S1, p*C, p*C) int8, inv1, b1i, m1, W2
+    (S2, ...) int8, sw2, b2] with (1, p*C) row vectors. Without, the
+    dynamic (``dyn``) form: [W1, sw1, b1, W2, sw2, b2]."""
     out = []
     for j, dils in enumerate(dilations):
         rb = params[f'resblock_{level}_{j}']
-        s1_cal, s2_cal = act_scales[j]
+        s1_cal, s2_cal = act_scales[j] if act_scales is not None \
+            else ((None,) * len(dils),) * 2
         for i, d in enumerate(dils):
             b1t = rb[f'convs1_{i}']['b'].float().repeat(p)[None, :]
             b2t = rb[f'convs2_{i}']['b'].float().repeat(p)[None, :]
@@ -727,8 +832,27 @@ def pack_mrf_ptc_weights(params, level, kernel_sizes, dilations, p,
                                     margin)
             q1, sw1 = _ptc_quant(M1)
             q2, sw2 = _ptc_quant(M2)
+            if act_scales is None:
+                out += [q1, sw1, b1t, q2, sw2, b2t]
+                continue
             b1i, m1 = fuse_boundary_consts(sw1, b1t, inv2)
             out += [q1, inv1, b1i, m1, q2, sw2, b2t]
+    return out
+
+
+def pack_mrf_ptc_f_weights(params, level, kernel_sizes, dilations, p,
+                           dtype=torch.bfloat16):
+    """Port of ``pack_mrf_ptc_f_weights`` (``fused_mrf_ptc``'s fdot form):
+    per (block, dilation) [W1 (S1, p*C, p*C) in ``dtype``, b1 (1, p*C)
+    float32, W2, b2], the int8 packer's shift matrices unquantised."""
+    out = []
+    for j, dils in enumerate(dilations):
+        rb = params[f'resblock_{level}_{j}']
+        for i, d in enumerate(dils):
+            for prefix, dd in (('convs1', d), ('convs2', 1)):
+                M, _, _ = _ptc_band(rb[f'{prefix}_{i}']['w'], dd, p)
+                out += [M.to(dtype),
+                        rb[f'{prefix}_{i}']['b'].float().repeat(p)[None, :]]
     return out
 
 
@@ -751,24 +875,39 @@ def _ups_phase_entries(k, stride, padding, p_in):
             max(d for *_, d in entries))
 
 
-def pack_ups_ptc_weights(w, b, stride, padding, p_in):
-    """ConvTranspose1d (torch (C_in, C_out, k)) -> the phase-tc upsample
-    weights (Uq (S, p_in*C_in, po*C_out) int8, sw (1, po*C_out), bias
-    (1, po*C_out), shifts): one weight scale per (output phase, channel);
-    the activation scale is dynamic, one per tile."""
+def _ups_ptc_band(w, stride, padding, p_in):
+    """ConvTranspose1d (torch (C_in, C_out, k)) -> the phase-tc upsample's
+    float32 shift matrices (S, p_in*C_in, stride*p_in*C_out) and shifts."""
     C_in, C_out, k = w.shape
     entries, _, _ = _ups_phase_entries(k, stride, padding, p_in)
-    po = stride * p_in
     shifts = tuple(sorted({d for *_, d in entries}))
     sidx = {s_: i for i, s_ in enumerate(shifts)}
-    U = w.new_zeros((len(shifts), p_in * C_in, po * C_out),
+    U = w.new_zeros((len(shifts), p_in * C_in, stride * p_in * C_out),
                     dtype=torch.float32)
     wf = w.float()
     for r, j, a, d in entries:
         U[sidx[d], a * C_in:(a + 1) * C_in, r * C_out:(r + 1) * C_out] += \
             wf[:, :, j]
+    return U, shifts
+
+
+def pack_ups_ptc_weights(w, b, stride, padding, p_in):
+    """ConvTranspose1d (torch (C_in, C_out, k)) -> the phase-tc upsample
+    weights (Uq (S, p_in*C_in, po*C_out) int8, sw (1, po*C_out), bias
+    (1, po*C_out), shifts): one weight scale per (output phase, channel);
+    the activation scale is dynamic, one per tile."""
+    U, shifts = _ups_ptc_band(w, stride, padding, p_in)
     Uq, sw = _ptc_quant(U)
-    return Uq, sw, b.float().repeat(po)[None, :], shifts
+    return Uq, sw, b.float().repeat(stride * p_in)[None, :], shifts
+
+
+def pack_ups_ptc_f_weights(w, b, stride, padding, p_in,
+                           dtype=torch.bfloat16):
+    """Port of ``pack_ups_ptc_f_weights``: the fdot form of
+    :func:`pack_ups_ptc_weights`, (U in ``dtype``, bias (1, po*C_out)
+    float32, shifts)."""
+    U, shifts = _ups_ptc_band(w, stride, padding, p_in)
+    return U.to(dtype), b.float().repeat(stride * p_in)[None, :], shifts
 
 
 def pack_post_ptc_weights(w, b, p, dtype=torch.float32):
@@ -834,6 +973,113 @@ def ptc_tile(rows, tile=8192):
 
 
 # ----------------------------------------------------------------------
+# fused_mrf_ptc, fdot mode: the bf16 tier's phase-tc form
+# ----------------------------------------------------------------------
+#
+# Unquantised bf16 dots on the shift matrices: the float phase kernel's
+# function (upsample prologue, chains, conv_post epilogue; every tile's
+# window covers its receptive field, so the tile does not matter) but for
+# the prologue's output x0 = acc + b_u, which the TPU kernel keeps in
+# float32 (vocoder_kernels.py:1835) where the banded phase kernel rounds it
+# to the compute dtype (:1121). The dots are bf16 whatever x's dtype
+# (``hifigan._pallas_mrf_ptc`` packs bf16 weights), conv_post's weights are
+# in x's dtype.
+
+def prepare_mrf_ptc_f(packed, kernel_sizes, dilations, p, ups, post=None):
+    """:class:`MrfWeights` of a narrow level for :func:`fused_mrf_ptc_f`,
+    the per-tap weights read back out of the fdot packers: ``packed`` from
+    :func:`pack_mrf_ptc_f_weights`; ``ups`` = (U, bias, shifts) from
+    :func:`pack_ups_ptc_f_weights` followed by the ConvTranspose1d's (k,
+    stride, padding, p_in); ``post`` = (P, bias, post_k) from
+    :func:`pack_post_ptc_weights` at the last level."""
+    kernel_sizes = tuple(kernel_sizes)
+    dilations = tuple(tuple(d) for d in dilations)
+    C = packed[0].shape[2] // p
+    taps, n = [], 0
+    for k, dils in zip(kernel_sizes, dilations):
+        w1, b1, w2, b2 = [], [], [], []
+        for d in dils:
+            M1, c1, M2, c2 = packed[n:n + 4]
+            n += 4
+            w1.append(_ptc_taps(M1, k, d, p, C, C))
+            w2.append(_ptc_taps(M2, k, 1, p, C, C))
+            b1.append(c1[0, :C])
+            b2.append(c2[0, :C])
+        taps += [torch.stack(w1), torch.stack(b1), torch.stack(w2),
+                 torch.stack(b2)]
+    U, b_u, shifts, k_u, stride, padding, p_in = ups
+    if stride * p_in != p:
+        raise ValueError(f'upsample stride {stride} x input phases {p_in} '
+                         f'!= {p} phases')
+    C_in = U.shape[1] // p_in
+    sidx = {s_: i for i, s_ in enumerate(shifts)}
+    cols = {}
+    for r, j, a, d in _ups_phase_entries(k_u, stride, padding, p_in)[0]:
+        cols.setdefault(j, U[sidx[d], a * C_in:(a + 1) * C_in,
+                             r * C:(r + 1) * C])
+    w_u = torch.stack([cols[j] for j in range(k_u)], dim=2)   # (C_in, C, k)
+    pst = None
+    if post is not None:
+        P, b_p, post_k = post
+        pst = (_ptc_taps(P, post_k, 1, p, C, 1).permute(2, 1, 0),
+               b_p[0, :1])
+    mrf = prepare_mrf(taps, kernel_sizes, dilations,
+                      (w_u, b_u[0, :C], stride, padding), pst)
+    mrf.p = p
+    return mrf
+
+
+def _check_ptc_f(mrf, T_in, tile):
+    rows = T_in // (mrf.p // mrf.ups[2])
+    if rows % tile:
+        raise ValueError(f'rows={rows} not a multiple of tile={tile}')
+    if mrf.post is not None and not ptc_post_feasible(
+            mrf.kernel_sizes, mrf.dilations, mrf.p, mrf.post[0].shape[-1],
+            tile):
+        raise ValueError('chain halo too small for conv_post epilogue')
+
+
+def mrf_ptc_f_plain(x, mrf, tile):
+    """The plain version of :func:`fused_mrf_ptc_f`."""
+    _check_ptc_f(mrf, x.shape[2], tile)
+    return mrf_phase_plain(x, mrf.packed, mrf.kernel_sizes, mrf.dilations,
+                           mrf.ups, mrf.post, fdot=True)
+
+
+def fused_mrf_ptc_f(x, mrf, tile):
+    """Upsample + fused MRF group (+ conv_post) of a narrow level in
+    ``fused_mrf_ptc``'s fdot mode. x: (B, C_in, T_in), the level's
+    PRE-upsample activation (any strides: the phase-tc rows (B, rows,
+    p_in*C_in) are the transposed (B, T_in, C_in) tensor); ``mrf`` from
+    :func:`prepare_mrf_ptc_f`; ``tile`` the TPU kernel's phase-tc rows per
+    tile (divides rows; conv_post must fit its halo). Returns (B, C, N), or
+    with ``mrf.post`` the waveform (B, 1, N), N = p*rows, in x's dtype. On
+    a CUDA tensor (bfloat16) this launches ``mrf_phase.cu`` with a float32
+    upsample output (or raises); on a CPU tensor it runs
+    :func:`mrf_ptc_f_plain`.
+
+    ``fused_mrf_ptc_f.launches`` counts CUDA launches (the upsample, one
+    per chain step, conv_post); ``fused_mrf_ptc_f.calls`` counts
+    CUDA-route calls by x's shape and mode 'fdot'."""
+    if mrf.ups is None or not mrf.p:
+        raise ValueError('fused_mrf_ptc_f: the weights are not '
+                         'prepare_mrf_ptc_f\'s')
+    if x.device.type == 'cpu':
+        return mrf_ptc_f_plain(x, mrf, tile)
+    _check_ptc_f(mrf, x.shape[2], tile)
+    if x.dtype != torch.bfloat16:
+        raise ValueError('fused_mrf_ptc_f: the CUDA route takes bfloat16 '
+                         f'activations, not {x.dtype}')
+    out = _launch_phase(fused_mrf_ptc_f, x, mrf, True)
+    fused_mrf_ptc_f.calls[tuple(x.shape) + ('fdot',)] += 1
+    return out
+
+
+fused_mrf_ptc_f.launches = 0
+fused_mrf_ptc_f.calls = collections.Counter()
+
+
+# ----------------------------------------------------------------------
 # int8-static weights in the port's sample domain
 # ----------------------------------------------------------------------
 
@@ -852,12 +1098,15 @@ class MrfQ8Weights:
 
     ``dynamic`` weights (the int8-dynamic tier, ``ops/mrf_int8.py``) hold
     per step (wq1, sw1, b1, wq2, sw2, b2) with float32 (C,) vectors: the
-    activation scales are taken per tile at run time."""
+    activation scales are taken per tile at run time. ``q8s`` weights (the
+    static tier with the float32 conv1 -> conv2 boundary) hold (wq1, sw1,
+    inv1, b1, wq2, sw2, inv2, b2)."""
     device: torch.device
     kernel_sizes: tuple
     dilations: tuple
     chains: list
     dynamic: bool = False
+    q8s: bool = False
     p: int = 1
     p_in: int = 1
     ups: Optional[tuple] = None
@@ -866,6 +1115,11 @@ class MrfQ8Weights:
     chains_dev: Optional[list] = None
     ups_dev: Optional[tuple] = None
     post_dev: Optional[tuple] = None
+
+    @property
+    def mode(self):
+        """The chain weights' form: 'dynamic', 'q8f' or 'q8s'."""
+        return 'dynamic' if self.dynamic else 'q8s' if self.q8s else 'q8f'
 
 
 def pack_mma_s8(w_kio):
@@ -878,12 +1132,11 @@ def pack_mma_s8(w_kio):
     return w.permute(0, 5, 1, 6, 3, 2, 4).contiguous().reshape(-1)
 
 
-def _q8_device(chains):
-    return [[(pack_mma_s8(wq1), inv1.contiguous(), b1i.contiguous(),
-              m1.contiguous(), pack_mma_s8(wq2), sw2.contiguous(),
-              b2.contiguous())
-             for wq1, inv1, b1i, m1, wq2, sw2, b2 in steps]
-            for steps in chains]
+def device_chains(chains):
+    """The kernels' format of per-step int8 weights of any form: taps
+    packed by :func:`pack_mma_s8`, vectors contiguous."""
+    return [[tuple(pack_mma_s8(a) if a.dtype == torch.int8 else a.contiguous()
+                   for a in st) for st in steps] for steps in chains]
 
 
 def prepare_mrf_tc_q8(packed, kernel_sizes, dilations):
@@ -899,7 +1152,7 @@ def prepare_mrf_tc_q8(packed, kernel_sizes, dilations):
                         b2[i, 0].float()) for i in range(len(dils))])
     mrf = MrfQ8Weights(packed[0].device, kernel_sizes, dilations, chains)
     if mrf.device.type == 'cuda':
-        mrf.chains_dev = _q8_device(chains)
+        mrf.chains_dev = device_chains(chains)
     return mrf
 
 
@@ -916,25 +1169,37 @@ def _ptc_taps(M, k, d, p, C_in, C_out):
     return torch.stack(taps)
 
 
+def _vec(v, C):
+    """The first C entries of a packed row or column vector, as the
+    per-step vectors hold them (int32 kept, the rest float32)."""
+    v = v.reshape(-1)[:C]
+    return v.int() if v.dtype == torch.int32 else v.float()
+
+
 def prepare_mrf_ptc(packed, kernel_sizes, dilations, p, ups, post=None):
     """:class:`MrfQ8Weights` of a narrow level from the phase-tc packers:
-    ``packed`` from :func:`pack_mrf_ptc_weights`; ``ups`` = (Uq, sw, bias,
-    shifts) from :func:`pack_ups_ptc_weights` followed by the
-    ConvTranspose1d's (k, stride, padding, p_in); ``post`` = (P, bias,
-    post_k) from :func:`pack_post_ptc_weights` at the last level."""
+    ``packed`` from :func:`pack_mrf_ptc_weights` (static when its steps
+    have seven arrays, dynamic when six); ``ups`` = (Uq, sw, bias, shifts)
+    from :func:`pack_ups_ptc_weights` followed by the ConvTranspose1d's (k,
+    stride, padding, p_in); ``post`` = (P, bias, post_k) from
+    :func:`pack_post_ptc_weights` at the last level."""
     kernel_sizes = tuple(kernel_sizes)
     dilations = tuple(tuple(d) for d in dilations)
     C = packed[0].shape[2] // p
+    n_steps = sum(len(d) for d in dilations)
+    per = len(packed) // n_steps
+    if per not in (6, 7) or per * n_steps != len(packed):
+        raise ValueError(f'{len(packed)} arrays for {n_steps} chain steps')
     chains, n = [], 0
     for k, dils in zip(kernel_sizes, dilations):
         steps = []
         for d in dils:
-            q1, inv1, b1i, m1, q2, sw2, b2 = packed[n:n + 7]
-            n += 7
-            steps.append((_ptc_taps(q1, k, d, p, C, C), inv1[0, :C].float(),
-                          b1i[0, :C].int(), m1[0, :C].float(),
-                          _ptc_taps(q2, k, 1, p, C, C), sw2[0, :C].float(),
-                          b2[0, :C].float()))
+            st = packed[n:n + per]
+            n += per
+            t2 = per - 3                      # W2's place in the step
+            steps.append(tuple(
+                _ptc_taps(a, k, d if m == 0 else 1, p, C, C) if m in (0, t2)
+                else _vec(a, C) for m, a in enumerate(st)))
         chains.append(steps)
     Uq, sw_u, b_u, shifts, k_u, stride, padding, p_in = ups
     if stride * p_in != p:
@@ -952,7 +1217,8 @@ def prepare_mrf_ptc(packed, kernel_sizes, dilations, p, ups, post=None):
     sw = torch.stack([sw_u[0, r * C:(r + 1) * C].float()
                       for r in range(stride)])
     mrf = MrfQ8Weights(packed[0].device, kernel_sizes, dilations, chains,
-                       p=p, p_in=p_in, ups_shifts=tuple(shifts),
+                       dynamic=per == 6, p=p, p_in=p_in,
+                       ups_shifts=tuple(shifts),
                        ups=(wq_u, sw, b_u[0, :C].float(), stride, padding,
                             k_u))
     if post is not None:
@@ -960,7 +1226,7 @@ def prepare_mrf_ptc(packed, kernel_sizes, dilations, p, ups, post=None):
         w_p = _ptc_taps(P, post_k, 1, p, C, 1)[:, :, 0].float()   # (k, C)
         mrf.post = (w_p, b_p[0, :1].float(), P.dtype)
     if mrf.device.type == 'cuda':
-        mrf.chains_dev = _q8_device(chains)
+        mrf.chains_dev = device_chains(chains)
         mrf.ups_dev = (torch.cat([pack_mma_s8(wq_u[r])
                                   for r in range(stride)]),
                        sw.contiguous(), mrf.ups[2].contiguous())
@@ -991,14 +1257,23 @@ def _int_conv(q, w, d, L_out):
 
 
 def _chain_q8(cur, steps, k, dils):
-    """One ResBlock1 chain in int8-static form by valid convs on float32
-    (B, L, C); returns (B, L - 2*chain_halo, C)."""
+    """One ResBlock1 chain in an int8-static form by valid convs on float32
+    (B, L, C): q8f, or q8s when its steps hold eight arrays (the conv1 ->
+    conv2 boundary dequantised, lrelu'd and requantised in float32).
+    Returns (B, L - 2*chain_halo, C)."""
     half = (k - 1) // 2
-    for (wq1, inv1, b1i, m1, wq2, sw2, b2), d in zip(steps, dils):
+    for st, d in zip(steps, dils):
         L1 = cur.shape[1] - 2 * d * half
-        acc = _int_conv(quantize_lrelu_static(cur, inv1), wq1, d, L1)
         L2 = L1 - 2 * half
-        acc2 = _int_conv(requant_lrelu_s32(acc, b1i, m1), wq2, 1, L2)
+        if len(st) == 8:
+            wq1, sw1, inv1, b1, wq2, sw2, inv2, b2 = st
+            acc = _int_conv(quantize_static(_lrelu(cur), inv1), wq1, d, L1)
+            q2 = quantize_static(_lrelu(_fma(acc, sw1, b1)), inv2)
+        else:
+            wq1, inv1, b1i, m1, wq2, sw2, b2 = st
+            acc = _int_conv(quantize_lrelu_static(cur, inv1), wq1, d, L1)
+            q2 = requant_lrelu_s32(acc, b1i, m1)
+        acc2 = _int_conv(q2, wq2, 1, L2)
         sh = d * half + half
         cur = cur[:, sh:sh + L2] + _fma(acc2, sw2, b2)
     return cur
@@ -1006,7 +1281,8 @@ def _chain_q8(cur, steps, k, dils):
 
 def mrf_tc_q8_plain(x, mrf):
     """The plain version of :func:`fused_mrf_tc_q8` (``fused_mrf_tc``,
-    ``q8=True``). x: (B, T, C); returns (B, T, C) in x's dtype."""
+    ``q8=True``), and of every int8-static chain whose tile does not
+    matter (q8f or q8s). x: (B, T, C); returns (B, T, C) in x's dtype."""
     T = x.shape[1]
     xp = F.pad(x.float(), (0, 0) + (max(
         chain_halo(k, d) for k, d in zip(mrf.kernel_sizes,
@@ -1019,26 +1295,6 @@ def mrf_tc_q8_plain(x, mrf):
             y = y[:, extra:extra + T]
             acc = y if acc is None else acc + y
     return (acc * (1.0 / len(mrf.kernel_sizes))).to(x.dtype)
-
-
-def _ptc_geometry(mrf, rows, tile):
-    """(halo, halo_in, n_tiles, P) of a phase-tc call: chain halo and
-    upsample input halo in rows, tiles per utterance, conv_post reach."""
-    if rows % tile:
-        raise ValueError(f'rows={rows} not a multiple of tile={tile}')
-    halo = ptc_chain_halo(mrf.kernel_sizes, mrf.dilations, mrf.p)
-    P = 0
-    if mrf.post is not None:
-        post_k = mrf.post[0].shape[0]
-        if not ptc_post_feasible(mrf.kernel_sizes, mrf.dilations, mrf.p,
-                                 post_k, tile):
-            raise ValueError('chain halo too small for conv_post epilogue')
-        P = (post_k - 1) // 2
-    reach = max(chain_halo(k, d) for k, d in zip(mrf.kernel_sizes,
-                                                 mrf.dilations)) + P
-    if reach > halo * mrf.p:
-        raise ValueError(f'chain reach {reach} beyond the {halo}-row halo')
-    return halo, ptc_halo_in(halo, mrf.ups_shifts), rows // tile, P
 
 
 def ptc_amax(x, p_in, tile, halo_in):
@@ -1054,48 +1310,6 @@ def ptc_amax(x, p_in, tile, halo_in):
     return win.abs().amax(dim=(1, 2)).clamp(min=1e-30), win
 
 
-def mrf_ptc_plain(x, mrf, tile):
-    """The plain version of :func:`fused_mrf_ptc` (static mode, with the
-    upsample prologue and, when ``mrf.post`` is set, the conv_post
-    epilogue). x: (B, rows*p_in, C_in) sample-major, the phase-tc rows
-    (B, rows, p_in*C_in) reshaped. Each tile of ``tile`` rows is its own
-    function of x: the upsample quantises its input window with the
-    tile's own scale and the chains run on that tile's upsample output.
-    Returns (B, rows*p, C) in x's dtype, or with ``post`` the waveform
-    (B, 1, rows*p)."""
-    wq_u, sw_u, b_u, stride, padding, k_u = mrf.ups
-    B, T_in, _ = x.shape
-    p, p_in = mrf.p, mrf.p_in
-    halo, halo_in, n_t, P = _ptc_geometry(mrf, T_in // p_in, tile)
-    nt, amin, rows_r, _, _ = ups_geometry(k_u, stride, padding)
-    M = (tile + 2 * halo) * p_in            # input positions per segment
-    base = (halo_in - halo) * p_in + amin
-    with full_f32():
-        amax, win = ptc_amax(x, p_in, tile, halo_in)
-        q = torch.round(win * (torch.full_like(amax, 127.0) / amax)
-                        [:, None, None]).to(torch.int8)
-        sx = amax * (1.0 / 127.0)
-        x0 = win.new_empty((win.shape[0], M * stride, wq_u.shape[-1]))
-        for r in range(stride):
-            acc = _int_conv(q[:, base + rows_r[r]:], wq_u[r], 1, M)
-            x0[:, r::stride] = _fma(acc, (sw_u[r][None, :] * sx[:, None])
-                                    [:, None], b_u)
-        N = tile * p
-        acc = None
-        for j, (k, dils) in enumerate(zip(mrf.kernel_sizes, mrf.dilations)):
-            y = _chain_q8(x0, mrf.chains[j], k, dils)
-            lo = halo * p - chain_halo(k, dils) - P
-            y = y[:, lo:lo + N + 2 * P]
-            acc = y if acc is None else acc + y
-        mean = acc * (1.0 / len(mrf.kernel_sizes))
-        if mrf.post is None:
-            return mean.to(x.dtype).reshape(B, n_t * N, -1)
-        w_p, b_p, pdt = mrf.post
-        t = _lrelu(mean).to(pdt).float().transpose(1, 2)
-        y = F.conv1d(t, w_p.t()[None]) + b_p
-    return torch.tanh(y).to(x.dtype).reshape(B, 1, n_t * N)
-
-
 # ----------------------------------------------------------------------
 # int8-static CUDA launches
 # ----------------------------------------------------------------------
@@ -1106,6 +1320,7 @@ Q8_PTC_UPS = ((128, 64), (64, 32))    # (C_in, C) of the fused upsample
 _Q8_STEP_ARGTYPES = ([_P, _I64, _I32, _I32, _I32, _I32, _P, _I64, _I32, _P,
                       _I64, _I64, _I64, _I32, _I32, _F32] + [_P] * 7
                      + [_I32] * 6 + [_P])
+_Q8S_STEP_ARGTYPES = _Q8_STEP_ARGTYPES[:16] + [_P] * 8 + _Q8_STEP_ARGTYPES[23:]
 _AMAX_ARGTYPES = [_P, _I64] + [_I32] * 6 + [_P, _I32, _P]
 _UPS_Q8_ARGTYPES = ([_P, _I64, _I32, _P, _P, _I64, _P, _P, _P]
                     + [_I32] * 4 + [_P] + [_I32] * 7 + [_P])
@@ -1125,7 +1340,17 @@ def _launch_q8_step(fn, st, B, C):
     _build.check(err, f'MRF q8 step (C={C}, k={st.k}, d={st.d})')
 
 
-def _check_q8_input(name, x, mrf, channels, c):
+def q8_step_fn(lib, mrf):
+    """The static step entry point of ``lib`` for ``mrf``'s form: q8f's
+    ``<lib>_step`` or q8s's ``<lib>_step_s``."""
+    if mrf.q8s:
+        return _fn(lib, f'{lib}_step_s', _Q8S_STEP_ARGTYPES)
+    return _fn(lib, f'{lib}_step', _Q8_STEP_ARGTYPES)
+
+
+def check_q8_input(name, x, mrf, channels, c, mode=None):
+    """Raise unless x (bfloat16, C = ``c`` in ``channels``) and the int8
+    weights ``mrf`` (of form ``mode``, any when None) can launch."""
     if x.dtype != torch.bfloat16:
         raise ValueError(f'{name}: the int8 kernels take bfloat16 '
                          f'activations, not {x.dtype}')
@@ -1133,8 +1358,9 @@ def _check_q8_input(name, x, mrf, channels, c):
         raise ValueError(f'{name}: C={c} has no CUDA instantiation '
                          f'(built for {channels})')
     _check_kernel_sizes(name, mrf.kernel_sizes)
-    if mrf.dynamic:
-        raise ValueError(f'{name}: the weights are the int8-dynamic form')
+    if mode is not None and mrf.mode != mode:
+        raise ValueError(f'{name}: the weights are the {mrf.mode} form, not '
+                         f'{mode}')
     if x.device != mrf.device or mrf.chains_dev is None:
         raise ValueError(f'{name}: x is on {x.device} but the weights were '
                          f'prepared on {mrf.device}')
@@ -1153,7 +1379,7 @@ def fused_mrf_tc_q8(x, mrf):
     if x.device.type == 'cpu':
         return mrf_tc_q8_plain(x, mrf)
     B, T, C = x.shape
-    _check_q8_input('fused_mrf_tc_q8', x, mrf, Q8_TC_CHANNELS, C)
+    check_q8_input('fused_mrf_tc_q8', x, mrf, Q8_TC_CHANNELS, C, 'q8f')
     x = x.contiguous()
     steps, out = _tc_plan(x, mrf.chains_dev, mrf.kernel_sizes, mrf.dilations,
                           _empty_on(x.device))
@@ -1192,109 +1418,3 @@ class PtcPrologue:
     amin: int
     rows: list
     span: int
-
-
-def _ptc_plan(x, mrf, tile, prep, alloc):
-    """Launch plan of :func:`fused_mrf_ptc`: (prologue, steps, post or
-    None, out). Each tile is a segment of its own: the chain steps run on
-    the S segments as the batch, sample n of a segment (relative to its
-    tile) at x0[seg, n + halo*p], zero outside [-halo*p, N + halo*p)."""
-    B, T_in, _ = x.shape
-    p, p_in = mrf.p, mrf.p_in
-    halo, halo_in, n_t, P = _ptc_geometry(mrf, T_in // p_in, tile)
-    wq_u, _, _, stride, padding, k_u = mrf.ups
-    C = wq_u.shape[-1]
-    ntaps, amin, rows, span, _ = ups_geometry(k_u, stride, padding)
-    S = B * n_t
-    m_len = (tile + 2 * halo) * p_in
-    pro = PtcPrologue(x, alloc((S,), torch.float32),
-                      alloc((S, m_len * stride, C), torch.float32),
-                      mrf.ups_dev, n_t, tile * p_in, halo_in * p_in,
-                      (tile + 2 * halo_in) * p_in, halo * p_in, m_len, stride,
-                      ntaps, amin, rows, span)
-    N = tile * p
-    E = -(-(max(chain_halo(k, d) for k, d in zip(mrf.kernel_sizes,
-                                                 mrf.dilations)) + P)
-          // 8) * 8
-    bufs = alloc((3, S, N + 2 * E, C), torch.float32)
-    if mrf.post is None:
-        out = alloc((B, n_t * N, C), x.dtype)
-        fin = out.view(S, N, C)
-    else:
-        out = alloc((B, 1, n_t * N), x.dtype)
-        fin = None
-    steps = _chain_steps(pro.x0, halo * p, -halo * p, N + halo * p, prep,
-                         mrf.kernel_sizes, mrf.dilations, N, P, bufs, E, fin)
-    tail = None if mrf.post is None else Post(
-        bufs[2], E, 1.0 / len(mrf.kernel_sizes), mrf.post_dev,
-        mrf.post[0].shape[0], out)
-    return pro, steps, tail, out
-
-
-def fused_mrf_ptc(x, mrf, tile):
-    """Upsample + fused MRF group (+ conv_post) of a narrow level in the
-    int8-static serving form (``fused_mrf_ptc``, static mode, with the
-    upsample prologue). x: (B, rows*p_in, C_in) bfloat16 sample-major (the
-    phase-tc rows (B, rows, p_in*C_in) reshaped; the previous level's
-    output as it stands); ``mrf`` from :func:`prepare_mrf_ptc`; ``tile``
-    phase rows per tile (divides rows). Returns (B, rows*p, C), or with
-    ``mrf.post`` the waveform (B, 1, rows*p), in x's dtype. On a CUDA
-    tensor this launches ``mrf_ptc.cu`` (or raises); on a CPU tensor it
-    runs :func:`mrf_ptc_plain`.
-
-    ``fused_mrf_ptc.launches`` counts CUDA launches (amax, upsample, one
-    per chain step, conv_post); ``fused_mrf_ptc.calls`` counts CUDA-route
-    calls by x's shape."""
-    if mrf.ups is None:
-        raise ValueError('fused_mrf_ptc: the weights carry no upsample')
-    if x.device.type == 'cpu':
-        return mrf_ptc_plain(x, mrf, tile)
-    B, T_in, C_in = x.shape
-    C = mrf.ups[0].shape[-1]
-    _check_q8_input('fused_mrf_ptc', x, mrf, PHASE_CHANNELS, C)
-    if (C_in, C) not in Q8_PTC_UPS:
-        raise ValueError(f'fused_mrf_ptc: upsample {C_in}->{C} has no CUDA '
-                         f'instantiation (built for {Q8_PTC_UPS})')
-    x = x.contiguous()
-    pro, steps, tail, out = _ptc_plan(x, mrf, tile, mrf.chains_dev,
-                                      _empty_on(x.device))
-    S = pro.amax.shape[0]
-    if S > 65535:
-        raise ValueError(f'fused_mrf_ptc: {S} tiles in the batch exceed the '
-                         'launch grid (65535); split the batch')
-    stream = _build.stream_ptr(x)
-    pro.amax.zero_()
-    err = _fn('mrf_ptc', 'mrf_ptc_amax', _AMAX_ARGTYPES)(
-        _build.ptr(x), x.stride(0), T_in, C_in, pro.n_tiles, pro.tile_in,
-        pro.halo_in, pro.win_len, _build.ptr(pro.amax), S, stream)
-    _build.check(err, 'MRF ptc amax')
-    fused_mrf_ptc.launches += 1
-    w_u, sw_u, b_u = pro.weights
-    err = _fn('mrf_ptc', 'mrf_ptc_ups', _UPS_Q8_ARGTYPES)(
-        _build.ptr(x), x.stride(0), T_in, _build.ptr(pro.amax),
-        _build.ptr(pro.x0), pro.x0.stride(0), _build.ptr(w_u),
-        _build.ptr(sw_u), _build.ptr(b_u), pro.stride, pro.ntaps, pro.amin,
-        pro.span,
-        ctypes.cast((ctypes.c_int * pro.stride)(*pro.rows), ctypes.c_void_p),
-        pro.n_tiles, pro.tile_in, pro.halo_m, pro.m_len, C_in, C, S, stream)
-    _build.check(err, 'MRF ptc upsample')
-    fused_mrf_ptc.launches += 1
-    fn = _fn('mrf_ptc', 'mrf_ptc_step', _Q8_STEP_ARGTYPES)
-    for st in steps:
-        _launch_q8_step(fn, st, S, C)
-        fused_mrf_ptc.launches += 1
-    if tail is not None:
-        w_t, b_t = tail.weights
-        N = tile * mrf.p
-        err = _fn('mrf_ptc', 'mrf_ptc_post', _PTC_POST_ARGTYPES)(
-            _build.ptr(tail.src), tail.src.stride(0), tail.src_off, C,
-            tail.scale, _build.ptr(w_t), b_t, tail.k, _build.ptr(out), N, S,
-            stream)
-        _build.check(err, 'MRF ptc conv_post')
-        fused_mrf_ptc.launches += 1
-    fused_mrf_ptc.calls[tuple(x.shape)] += 1
-    return out
-
-
-fused_mrf_ptc.launches = 0
-fused_mrf_ptc.calls = collections.Counter()

@@ -277,12 +277,13 @@ def test_mrf_ptc_kernel_matches_plain(C_in, C, p_in, post):
                          .astype(np.float32))
     x[0, 256 * p_in:512 * p_in] *= 4.0
     x = x.cuda().to(torch.bfloat16)
-    n = vk.fused_mrf_ptc.launches
-    out = vk.fused_mrf_ptc(x, mrf, tile)
+    from daft_exprt_torch.ops import mrf_int8 as mi
+    n = mi.fused_mrf_ptc.launches
+    out = mi.fused_mrf_ptc(x, mrf, tile)
     torch.cuda.synchronize()
     # amax, upsample, one per chain step, conv_post
-    assert vk.fused_mrf_ptc.launches == n + 11 + post
-    ref = vk.mrf_ptc_plain(x, mrf, tile)
+    assert mi.fused_mrf_ptc.launches == n + 11 + post
+    ref = mi.mrf_ptc_plain(x, mrf, tile)
     assert out.dtype == torch.bfloat16 and out.shape == ref.shape
     assert out.shape == ((2, 1, rows * p) if post else (2, rows * p, C))
     assert rel_l2(out.float().cpu(), ref.float().cpu()) <= 2e-3
@@ -460,3 +461,170 @@ def test_mrf_phase_q8_noups_kernel_matches_plain(T, tile, static):
     ref = mi.mrf_phase_q8_noups_plain(x, mrf, 4, tile)
     assert out.dtype == torch.bfloat16 and out.shape == ref.shape
     assert rel_l2(out.float().cpu(), ref.float().cpu()) <= 2e-3
+
+
+# ----------------------------------------------------------------------
+# The last TPU kernel modes: the q8s boundary of the int8-static ct and
+# phase kernels, fused_mrf_ptc's dyn and fdot modes, fused_resblock1.
+# ----------------------------------------------------------------------
+
+def _ph_scales(rng, C):
+    return [s[i] for s1, s2 in q8_scales(rng, C) for i in range(s1.shape[0])
+            for s in (s1, s2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(1, 8192, 64), (2, 768, 32)])
+def test_mrf_ct_q8s_kernel_matches_plain(shape):
+    """fused_mrf_ct_q8s (one launch per step, step_q8_kernel<C, K, true>)
+    and the q8s phase kernel without prologue at C = 32, p = 4."""
+    from daft_exprt_torch.ops import mrf_int8 as mi
+    need_cuda()
+    B, T, C = shape
+    rng = np.random.RandomState(T)
+    tp = unit_params(rng, C)
+    mrf = mi.prepare_mrf_ct_q8s(mi.quantize_mrf_ct_q8s_weights(
+        mi.pack_mrf_weights(tp, 1, KS, DILS),
+        [s for s1, s2 in q8_scales(rng, C) for s in (s1, s2)]), KS, DILS)
+    x = torch.from_numpy((rng.randn(B, T, C) * 0.5).astype(np.float32))
+    x[0, :min(T, 512)] *= 4.0
+    x = x.cuda().to(torch.bfloat16)
+    ref = mi.mrf_ct_q8s_plain(x, mrf)
+    runs = [(mi.fused_mrf_ct_q8s, (x, mrf))]
+    if C == 32:
+        runs.append((mi.fused_mrf_phase_q8_noups, (x, mrf, 4, 64)))
+    for fn, args in runs:
+        n = fn.launches
+        out = fn(*args)
+        torch.cuda.synchronize()
+        assert fn.launches == n + 9
+        assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+        assert rel_l2(out.float().cpu(), ref.float().cpu()) <= 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('C_in,C,p_in,post', [(128, 64, 1, False),
+                                              (64, 32, 2, True)])
+def test_mrf_phase_q8s_kernel_matches_plain(C_in, C, p_in, post):
+    """The int8 phase kernel with its upsample prologue in q8s mode."""
+    from daft_exprt_torch.ops import mrf_int8 as mi
+    need_cuda()
+    rng = np.random.RandomState(C + 2)
+    p = 2 * p_in
+    tp = unit_params(rng, C, C_in, post)
+    qw = mi.quantize_mrf_phase_weights(
+        mi.pack_mrf_phase_weights(tp, 1, KS, DILS, p), KS, DILS, p,
+        _ph_scales(rng, C), fused=False)
+    wb, bu, _, _ = mi.pack_ups_phase_weights(tp['ups_1']['w'],
+                                             tp['ups_1']['b'], 2, 1, p_in)
+    ups = mi.quantize_ups_phase_weights(
+        wb, bu, mi.ups_used_blocks(4, 2, 1, p_in), C_in)
+    pst = mi.pack_post_phase_weights(tp['conv_post']['w'],
+                                     tp['conv_post']['b'], p) if post else None
+    mrf = mi.prepare_mrf_phase_q8(qw, KS, DILS, p,
+                                  tuple(ups) + (4, 2, 1, p_in), pst)
+    assert mrf.mode == 'q8s'
+    cols, tile = 1024, 256
+    x = torch.from_numpy((rng.randn(2, cols * p_in, C_in) * 0.5)
+                         .astype(np.float32))
+    x[0, 256 * p_in:512 * p_in] *= 4.0
+    x = x.cuda().to(torch.bfloat16)
+    fn = mi.fused_mrf_phase_q8
+    n, key = fn.launches, tuple(x.shape) + ('q8s',)
+    c = fn.calls[key]
+    out = fn(x, mrf, tile)
+    torch.cuda.synchronize()
+    assert fn.launches == n + 2 + 9 + post and fn.calls[key] == c + 1
+    ref = mi.mrf_phase_q8_plain(x, mrf, tile)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    assert rel_l2(out.float().cpu(), ref.float().cpu()) <= 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('C_in,C,p_in,post', [(128, 64, 1, False),
+                                              (64, 32, 2, True)])
+def test_mrf_ptc_dyn_kernel_matches_plain(C_in, C, p_in, post):
+    """fused_mrf_ptc's dyn mode at V1's L2 and L3: four tiles of 256 rows,
+    one loud; amax, upsample (with x0's amax), two launches per chain
+    step, conv_post."""
+    from daft_exprt_torch.ops import mrf_int8 as mi
+    need_cuda()
+    rng = np.random.RandomState(C + 3)
+    p = 2 * p_in
+    tp = unit_params(rng, C, C_in, post)
+    pst = vk.pack_post_ptc_weights(tp['conv_post']['w'],
+                                   tp['conv_post']['b'], p,
+                                   torch.bfloat16) if post else None
+    mrf = vk.prepare_mrf_ptc(
+        vk.pack_mrf_ptc_weights(tp, 1, KS, DILS, p), KS, DILS, p,
+        tuple(vk.pack_ups_ptc_weights(tp['ups_1']['w'], tp['ups_1']['b'], 2,
+                                      1, p_in)) + (4, 2, 1, p_in), pst)
+    assert mrf.dynamic
+    rows, tile = 1024, 256
+    x = torch.from_numpy((rng.randn(2, rows * p_in, C_in) * 0.5)
+                         .astype(np.float32))
+    x[0, 256 * p_in:512 * p_in] *= 4.0
+    x = x.cuda().to(torch.bfloat16)
+    n, key = mi.fused_mrf_ptc.launches, tuple(x.shape) + ('dynamic',)
+    c = mi.fused_mrf_ptc.calls[key]
+    out = mi.fused_mrf_ptc(x, mrf, tile)
+    torch.cuda.synchronize()
+    assert mi.fused_mrf_ptc.launches == n + 2 + 18 + post
+    assert mi.fused_mrf_ptc.calls[key] == c + 1
+    ref = mi.mrf_ptc_plain(x, mrf, tile)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    assert rel_l2(out.float().cpu(), ref.float().cpu()) <= 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('C_in,C,p_in,post', [(128, 64, 1, False),
+                                              (64, 32, 2, True)])
+def test_mrf_ptc_fdot_kernel_matches_plain(C_in, C, p_in, post):
+    """fused_mrf_ptc_f (mrf_phase.cu with a float32 upsample output) on a
+    transposed (B, T, C) input, as the generator hands it over."""
+    need_cuda()
+    rng = np.random.RandomState(C + 4)
+    p = 2 * p_in
+    tp = unit_params(rng, C, C_in, post)
+    pst = vk.pack_post_ptc_weights(tp['conv_post']['w'],
+                                   tp['conv_post']['b'], p,
+                                   torch.bfloat16) if post else None
+    mrf = vk.prepare_mrf_ptc_f(
+        vk.pack_mrf_ptc_f_weights(tp, 1, KS, DILS, p), KS, DILS, p,
+        tuple(vk.pack_ups_ptc_f_weights(tp['ups_1']['w'], tp['ups_1']['b'],
+                                        2, 1, p_in)) + (4, 2, 1, p_in), pst)
+    rows, tile = 1024, 256
+    x = torch.from_numpy((rng.randn(2, rows * p_in, C_in) * 0.5)
+                         .astype(np.float32)).cuda().to(torch.bfloat16)
+    x = x.transpose(1, 2)
+    n = vk.fused_mrf_ptc_f.launches
+    out = vk.fused_mrf_ptc_f(x, mrf, tile)
+    torch.cuda.synchronize()
+    assert vk.fused_mrf_ptc_f.launches == n + 10 + post
+    ref = vk.mrf_ptc_f_plain(x, mrf, tile)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    assert rel_l2(out.float().cpu(), ref.float().cpu()) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('k', [3, 11])
+@pytest.mark.parametrize('C', [128, 256])
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_resblock1_kernel_matches_plain(k, C, dtype):
+    need_cuda()
+    rng = np.random.RandomState(C + k)
+    rb = {f'{pre}_{i}': {'w': (rng.randn(C, C, k) * (C * k) ** -0.5
+                               ).astype(np.float32),
+                         'b': (rng.randn(C) * 0.05).astype(np.float32)}
+          for pre in ('convs1', 'convs2') for i in range(3)}
+    w = [t.cuda().to(dtype) for t in vk.pack_resblock_weights(
+        to_torch(rb), 3)]
+    x = torch.from_numpy((rng.randn(2, 1024, C) * 0.5).astype(np.float32)
+                         ).cuda().to(dtype)
+    n = vk.fused_resblock1.launches
+    out = vk.fused_resblock1(x, *w, k, (1, 3, 5), tile=512)
+    torch.cuda.synchronize()
+    assert vk.fused_resblock1.launches == n + 3
+    ref = vk.resblock1_plain(x, *w, k, (1, 3, 5), 512)
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert rel_l2(out.float().cpu(), ref.float().cpu()) < _band(dtype)

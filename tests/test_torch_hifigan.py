@@ -149,7 +149,7 @@ def test_int8_tier_is_not_a_fallback(case):
                             int8_calibration_mels=cal)
     assert voc.int8 and (voc.act_scales is None) == (case == 'uncalibrated')
     assert voc.packed[0].dynamic == (case == 'uncalibrated')
-    assert isinstance(voc.packed[1], th.NarrowInt8)
+    assert isinstance(voc.packed[1], th.NarrowLevel)
     assert voc.packed[1].phase.dynamic == (case == 'uncalibrated')
     got = voc.infer(mel[0])
     want = jh.HiFiGanVocoder(params=jp, config=CFG_TC, fast='int8',

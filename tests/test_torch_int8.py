@@ -3,7 +3,7 @@ against the JAX package's Pallas kernels, run in interpret mode on the CPU.
 
 - Plain versions against the Pallas kernels on the SAME packed int8 weights
   (the JAX packers' arrays handed to the port as numpy): ``mrf_tc_q8_plain``
-  vs ``fused_mrf_tc(q8=True)`` and ``mrf_ptc_plain`` vs ``fused_mrf_ptc``
+  vs ``fused_mrf_tc(q8=True)`` and ``mrf_int8.mrf_ptc_plain`` vs ``fused_mrf_ptc``
   (static mode, upsample prologue, conv_post epilogue) at the same tile.
   Band rel-L2 <= 1e-4 (tests/test_vocoder_kernels.py's ptc band): the s32
   sums are exact integers on both sides and the f32 epilogues keep JAX's
@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 
 from daft_exprt_tpu.ops import vocoder_kernels as jvk
+from daft_exprt_torch.ops import mrf_int8 as mi
 from daft_exprt_torch.ops import vocoder_kernels as vk
 
 from tests.torch_port_utils import rel_l2, to_torch
@@ -138,7 +139,7 @@ def test_mrf_ptc_plain_matches_jax(C_in, C, p_in, post, dtype):
     ref, jw, ups, pst = _jax_ptc(params, scales, x, p, p_in, tile, post,
                                  dtype)
     mrf = _port_ptc_weights(jw, ups, pst, p, p_in)
-    out = vk.mrf_ptc_plain(torch.from_numpy(x).to(getattr(torch, dtype)),
+    out = mi.mrf_ptc_plain(torch.from_numpy(x).to(getattr(torch, dtype)),
                            mrf, tile)
     assert out.dtype == getattr(torch, dtype) and out.shape == ref.shape
     assert rel_l2(out.float().numpy(), ref) <= 1e-4

@@ -84,7 +84,7 @@ def test_int8_generator_below_ptc_batch_matches_jax(tier, B):
     tp = _bf16(generator_from_jax(params))
     t_scales = _jax_scales_to_torch(scales) if scales is not None else None
     packed = th.pack_levels(tp, CFG, t_scales, int8=True)
-    assert isinstance(packed[2], th.NarrowInt8)
+    assert isinstance(packed[2], th.NarrowLevel)
     assert packed[2].phase.dynamic == (tier == 'dynamic')
     assert packed[0].dynamic == (tier == 'dynamic')
 

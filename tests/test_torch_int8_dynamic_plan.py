@@ -181,7 +181,7 @@ def test_pack_levels_routes_v1_int8(tier):
         assert len(levels[i].chains[0][0]) == (6 if tier == 'dynamic' else 7)
     for i, (p, p_in) in ((2, (2, 1)), (3, (4, 2))):
         lvl = levels[i]
-        assert isinstance(lvl, th.NarrowInt8)
+        assert isinstance(lvl, th.NarrowLevel)
         assert (lvl.phase.p, lvl.phase.p_in) == (p, p_in)
         assert lvl.phase.dynamic == (tier == 'dynamic')
         assert (lvl.phase.post is None) == (i == 2)

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 from daft_exprt_tpu.models import hifigan as jh
 from daft_exprt_torch.bridge import generator_from_jax
 from daft_exprt_torch.models import hifigan as th
+from daft_exprt_torch.ops import mrf_int8 as mi
 from daft_exprt_torch.ops import vocoder_kernels as vk
 
 from tests.torch_port_utils import rel_l2
@@ -164,10 +165,10 @@ def test_int8_generator_matches_jax(dtype, monkeypatch):
     # below the batch threshold the narrow levels take the int8 phase
     # kernel (q8f): another form of the same int8 generator, held to the
     # phase-tc output at the JAX package's cross-form band
-    n = sum(vk.fused_mrf_ptc.calls.values())
+    n = sum(mi.fused_mrf_ptc.calls.values())
     with torch.no_grad():
         below = th.generator_forward(tp, torch.from_numpy(mel).to(tdt), CFG,
                                      use_fast=True, int8_act_scales=t_scales)
-    assert sum(vk.fused_mrf_ptc.calls.values()) == n
+    assert sum(mi.fused_mrf_ptc.calls.values()) == n
     assert below.dtype == tdt and below.shape == got.shape
     assert rel_l2(below.float().numpy(), want) <= 5e-2

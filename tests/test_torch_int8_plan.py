@@ -1,6 +1,6 @@
 """CPU replay of the int8-static CUDA routes' launch plans
 (daft_exprt_torch/ops/vocoder_kernels.py ``_tc_plan`` with q8 steps and
-``_ptc_plan``): each launch of ``step_q8_kernel``, ``amax_kernel``,
+mrf_int8.py ``_ptc_plan``): each launch of ``step_q8_kernel``, ``amax_kernel``,
 ``ups_q8_kernel`` and ``post_kernel`` is emulated with the arithmetic its
 source states, on NaN-filled buffers, and the result must equal the plain
 versions. Also the s8 B-fragment packing against the kernel's indexing.
@@ -11,6 +11,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from daft_exprt_torch.ops import mrf_int8 as mi
 from daft_exprt_torch.ops import vocoder_kernels as vk
 
 from tests.test_torch_int8 import KS, DILS, act_scales, unit_level
@@ -31,16 +32,24 @@ def _read(buf, off, lo, hi, n0, n1):
 
 
 def _emulate_q8_step(st):
-    """What one ``step_q8_kernel`` launch computes."""
-    wq1, inv1, b1i, m1, wq2, sw2, b2 = st.weights
+    """What one ``step_q8_kernel`` launch computes (q8f, or q8s when the
+    step holds eight weight arrays)."""
     h = (st.k - 1) // 2
     r = st.d * h
     n = st.n_hi - st.n_lo
     win = _read(st.src, st.src_off, st.src_lo, st.src_hi, st.n_lo - h - r,
                 st.n_hi + h + r)
-    acc = vk._int_conv(vk.quantize_lrelu_static(win, inv1), wq1, st.d,
-                       n + 2 * h)
-    acc2 = vk._int_conv(vk.requant_lrelu_s32(acc, b1i, m1), wq2, 1, n)
+    if len(st.weights) == 8:
+        wq1, sw1, inv1, b1, wq2, sw2, inv2, b2 = st.weights
+        acc = vk._int_conv(vk.quantize_static(vk._lrelu(win), inv1), wq1,
+                           st.d, n + 2 * h)
+        q2 = vk.quantize_static(vk._lrelu(vk._fma(acc, sw1, b1)), inv2)
+    else:
+        wq1, inv1, b1i, m1, wq2, sw2, b2 = st.weights
+        acc = vk._int_conv(vk.quantize_lrelu_static(win, inv1), wq1, st.d,
+                           n + 2 * h)
+        q2 = vk.requant_lrelu_s32(acc, b1i, m1)
+    acc2 = vk._int_conv(q2, wq2, 1, n)
     v = _read(st.src, st.src_off, st.src_lo, st.src_hi, st.n_lo, st.n_hi) \
         + vk._fma(acc2, sw2, b2)
     sl = slice(st.n_lo + st.dst_off, st.n_hi + st.dst_off)
@@ -134,15 +143,15 @@ def test_ptc_launch_plan_replays_plain(C_in, C, p_in, post):
     x = torch.from_numpy((rng.randn(2, rows * p_in, C_in) * 0.5)
                          .astype(np.float32)).to(dtype)
     x[1, :64 * p_in] *= 5.0
-    pro, steps, tail, out = vk._ptc_plan(x, mrf, tile, mrf.chains,
-                                         _nan_alloc)
-    assert len(steps) == 9 and (tail is None) == (not post)
-    _emulate_prologue(pro, mrf)
-    for st in steps:
+    plan = mi._ptc_plan(x, mrf, tile, mrf.chains, _nan_alloc)
+    assert len(plan.steps) == 9 and (plan.tail is None) == (not post)
+    _emulate_prologue(plan.pro, mrf)
+    for st in plan.steps:
         _emulate_q8_step(st)
     if post:
-        _emulate_post(tail, mrf, tile * mrf.p)
-    ref = vk.mrf_ptc_plain(x, mrf, tile)
+        _emulate_post(plan.tail, mrf, tile * mrf.p)
+    ref = mi.mrf_ptc_plain(x, mrf, tile)
+    out = plan.out
     assert out.shape == ref.shape
     assert torch.isfinite(out.float()).all()
     if post:       # conv_post sums in another order
@@ -208,13 +217,13 @@ def test_q8_wrappers_run_plain_versions_on_cpu():
     rng, mrf = _ptc_level(7, 32, 16, 2, True, torch.float32)
     assert mrf.chains_dev is None and mrf.ups_dev is None
     x = torch.from_numpy((rng.randn(1, 128, 32) * 0.5).astype(np.float32))
-    n, calls = vk.fused_mrf_ptc.launches, sum(vk.fused_mrf_ptc.calls.values())
-    assert torch.equal(vk.fused_mrf_ptc(x, mrf, 64),
-                       vk.mrf_ptc_plain(x, mrf, 64))
-    assert vk.fused_mrf_ptc.launches == n
-    assert sum(vk.fused_mrf_ptc.calls.values()) == calls
+    n, calls = mi.fused_mrf_ptc.launches, sum(mi.fused_mrf_ptc.calls.values())
+    assert torch.equal(mi.fused_mrf_ptc(x, mrf, 64),
+                       mi.mrf_ptc_plain(x, mrf, 64))
+    assert mi.fused_mrf_ptc.launches == n
+    assert sum(mi.fused_mrf_ptc.calls.values()) == calls
     with pytest.raises(ValueError, match='multiple of tile'):
-        vk.fused_mrf_ptc(x, mrf, 48)
+        mi.fused_mrf_ptc(x, mrf, 48)
     tp = to_torch(unit_level(rng, 0, 32))
     scales = [tuple(torch.from_numpy(s) for s in e)
               for e in act_scales(rng, 32)]

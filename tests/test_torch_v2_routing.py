@@ -6,7 +6,11 @@
   ``jax.eval_shape`` traces the generator), for V1 and V2, in the bf16,
   int8-dynamic and int8-static tiers, at B=8 and B=1, at 128 frames and at
   12 (where no phase tile divides V2's L1 and L2, which fall back to
-  ``fused_mrf_ct``).
+  ``fused_mrf_ct``); and under the JAX package's switches, set with
+  ``monkeypatch.setenv`` on the JAX side and passed as the port's
+  keywords: ``DAFT_INT8_FUSED_EPI=0`` (``int8_fused=False``: q8s),
+  ``DAFT_MRF_PTC_BF16=1`` (``ptc_bf16=True``: fdot), and partial act-scale
+  dicts ({0, 1}, {0, 1, 2}: ptc's dyn mode).
 - V1's routes are the kernels the port ran before the router followed the
   JAX decision: tc, tc, phase chain, phase chain (bf16); ct q8, ct q8,
   int8 phase chain x2 (dynamic); tc q8, tc q8, then ptc from batch 8 or
@@ -36,8 +40,10 @@ def _mode(int8_chain, act_scales, int8_fused=True):
     return 'q8f' if int8_fused else 'q8s'
 
 
-def _jax_routes(monkeypatch, cfg, B, frames, tier):
-    """The JAX generator's kernel calls, as (kind, mode, p, tile, merge)."""
+def _jax_routes(monkeypatch, cfg, B, frames, tier, levels=None):
+    """The JAX generator's kernel calls, as (kind, mode, p, tile, merge);
+    ``levels``: the levels the static tier's act-scale dict covers (all
+    when None)."""
     seen = []
 
     def tc(x, w, ks, dils, tile=4096, q8=False, **kw):
@@ -79,7 +85,8 @@ def _jax_routes(monkeypatch, cfg, B, frames, tier):
         scales = {i: [tuple(np.ones((len(d), params[f'ups_{i}']['w'].shape[1]),
                                     np.float32) for _ in range(2))
                       for d in cfg['resblock_dilation_sizes']]
-                  for i in range(len(cfg['upsample_rates']))}
+                  for i in range(len(cfg['upsample_rates']))
+                  if levels is None or i in levels}
     jax.eval_shape(lambda m: jh.generator_forward(
         params, m, cfg, use_pallas=True, int8=tier != 'bf16',
         int8_act_scales=scales, interpret=True),
@@ -87,9 +94,10 @@ def _jax_routes(monkeypatch, cfg, B, frames, tier):
     return seen, scales
 
 
-def _port_routes(cfg, B, frames, tier, scales):
+def _port_routes(cfg, B, frames, tier, scales, **switches):
     params = th.init_generator_params(0, cfg, device='cpu')
-    routes = th.level_routes(params, cfg, B, frames, tier != 'bf16', scales)
+    routes = th.level_routes(params, cfg, B, frames, tier != 'bf16', scales,
+                             **switches)
     return [(r.kind, r.mode) if r.kind == 'tc' else
             (r.kind, r.mode, r.p, r.tile, r.merge) for r in routes]
 
@@ -102,6 +110,50 @@ def test_level_routes_match_jax(monkeypatch, name):
             want, scales = _jax_routes(monkeypatch, cfg, B, frames, tier)
             got = _port_routes(cfg, B, frames, tier, scales)
             assert got == want, (name, B, frames, tier)
+
+
+SWITCHES = [      # (JAX environment, the port's keywords, tier, levels)
+    ({'DAFT_INT8_FUSED_EPI': '0'}, dict(int8_fused=False), 'static', None),
+    ({'DAFT_MRF_PTC_BF16': '1'}, dict(ptc_bf16=True), 'bf16', None),
+    ({}, {}, 'static', (0, 1)),
+    ({}, {}, 'static', (0, 1, 2)),
+]
+
+
+@pytest.mark.parametrize('name', ['V1', 'V2'])
+def test_level_routes_match_jax_under_switches(monkeypatch, name):
+    cfg = CONFIGS[name]
+    for B, frames in ((8, 128), (1, 12)):
+        for env, switches, tier, levels in SWITCHES:
+            with monkeypatch.context() as m:
+                for key, value in env.items():
+                    m.setenv(key, value)
+                want, scales = _jax_routes(m, cfg, B, frames, tier, levels)
+            got = _port_routes(cfg, B, frames, tier, scales, **switches)
+            assert got == want, (name, B, frames, env, levels)
+
+
+def test_v1_routes_under_switches():
+    """V1 at B=8 x 1024 frames: every new kernel mode has a route."""
+    params = th.init_generator_params(0, th.DEFAULT_CONFIG, device='cpu')
+
+    def kinds(B, **kw):
+        return [(r.kind, r.mode) for r in th.level_routes(
+            params, th.DEFAULT_CONFIG, B, 1024, **kw)]
+    scales = {i: [(1, 1)] for i in range(4)}
+    partial = {i: scales[i] for i in (0, 1)}
+    assert kinds(8, act_scales=partial) == [
+        ('tc', 'q8f'), ('tc', 'q8f'), ('ptc', 'q8'), ('ptc', 'q8')]
+    assert kinds(8, act_scales={**partial, 2: scales[2]}) == [
+        ('tc', 'q8f'), ('tc', 'q8f'), ('ptc', 'q8f'), ('ptc', 'q8')]
+    assert kinds(1, act_scales=partial) == [
+        ('tc', 'q8f'), ('tc', 'q8f'), ('chain', 'q8'), ('chain', 'q8')]
+    assert kinds(8, ptc_bf16=True) == [('tc', ''), ('tc', ''), ('ptc', ''),
+                                       ('ptc', '')]
+    assert kinds(1, act_scales=scales, int8_fused=False) == [
+        ('tc', 'q8f'), ('tc', 'q8f'), ('chain', 'q8s'), ('chain', 'q8s')]
+    assert kinds(8, act_scales=scales, int8_fused=False) == [
+        ('tc', 'q8f'), ('tc', 'q8f'), ('ptc', 'q8f'), ('ptc', 'q8f')]
 
 
 def test_v1_router_keeps_the_former_kernels():
@@ -127,3 +179,11 @@ def test_packed_weights_of_another_tier_are_refused():
     with pytest.raises(ValueError, match='do not serve'):
         th.generator_forward(params, mel, V2, use_fast=True, int8=True,
                              packed=th.pack_levels(params, V2))
+    # weights packed for the other position of a switch are refused too
+    scales = {i: [tuple(torch.ones(len(d), params[f'ups_{i}']['w'].shape[1])
+                        for _ in range(2))
+                  for d in V2['resblock_dilation_sizes']] for i in range(4)}
+    with pytest.raises(ValueError, match='do not serve'):
+        th.generator_forward(params, mel, V2, use_fast=True,
+                             int8_act_scales=scales, int8_fused=False,
+                             packed=th.pack_levels(params, V2, scales))
