@@ -87,9 +87,11 @@
    by input shape (the attention wrappers by shape and dropout rate, the
    multi-mode MRF wrappers by shape and mode); the run fails unless, on
    every path, the calls times the launches per call add up to the launch
-   count. The attention backward is also checked at p = 0 at each training
-   shape, and two of its calls must be bit-identical. The kernels' JSON
-   has one entry per kernel and mode ("name[mode]").
+   count. The attention forward and backward are also checked and timed at
+   p = 0 at each training shape, and in float32 (the FMA kernels, band
+   1e-5) at the longest (their "off_path" rows in the JSON, beside SDPA's
+   time); two calls of the backward must be bit-identical. The kernels'
+   JSON has one entry per kernel and mode ("name[mode]").
 5. Prints the end-to-end audio-seconds per second of the B=8 synthesis
    paths and the train-step path's steps/s and utterances/s (host clock,
    synchronised after each step).
@@ -97,7 +99,8 @@
 ``--profile`` adds a torch.profiler pass over one synthesis call of each
 B=8 tier, one generate_mel_specs call of each batch-1 path and one train
 step: device time by kernel, the acoustic/vocoder (forward/backward/
-optimizer) split and the device's busy share.
+optimizer) split, the device's busy share and the attention kernels' share
+of the busy time.
 
 The float32 calls of fused_mrf_ct at V2's L0 and L3 shapes are held to
 their plain version at rel-L2 <= 1e-5 before the paths run.
@@ -361,9 +364,13 @@ class KernelCases:
         return getattr(self, name)(key)
 
     def _attention_inputs(self, key, n):
+        """Inputs of an attention key (B, H, T, D, p[, 'float32']): bf16
+        unless the key names float32."""
         torch = self.torch
-        Bx, H, t, D, p = key
-        q, *rest = (self.randn(Bx, H, t, D) for _ in range(n))
+        Bx, H, t, D, p = key[:5]
+        dt = torch.float32 if key[5:] == ('float32',) else torch.bfloat16
+        q, *rest = (torch.randn((Bx, H, t, D), generator=self.gen).to(
+            self.dev, dt) for _ in range(n))
         lengths = torch.tensor([t - 37 * i for i in range(Bx)],
                                dtype=torch.int32, device=self.dev).clamp(min=1)
         mask = (torch.arange(t, device=self.dev)[None, :] < lengths[:, None]
@@ -371,34 +378,46 @@ class KernelCases:
         seed = torch.tensor([SEED], dtype=torch.int64, device=self.dev)
         return [q * D ** -0.5] + rest, lengths, mask, seed
 
+    @staticmethod
+    def _attention_work(key, products, tensors):
+        """desc suffix, band and bound keywords of an attention key: bf16 on
+        the tensor cores, or float32 on the FMA kernels (67 TFLOP/s)."""
+        Bx, H, t, D, p = key[:5]
+        f32 = key[5:] == ('float32',)
+        flops = 2 * products * Bx * H * t * t * D
+        return (f'({Bx},{H},{t},{D}) {"float32" if f32 else "bf16"} p={p:g}',
+                1e-5 if f32 else 1e-2,
+                dict(flops=0, f32_flops=flops) if f32 else dict(flops=flops),
+                tensors * Bx * H * t * D * (4 if f32 else 2))
+
     def fused_attention(self, key):
-        Bx, H, t, D, p = key
+        p = key[4]
         (q, k, v), lengths, mask, seed = self._attention_inputs(key, 3)
-        return dict(desc=f'q,k,v ({Bx},{H},{t},{D}) bf16 p={p:g}', band=1e-2,
+        desc, band, work, nbytes = self._attention_work(key, 2, 4)
+        return dict(desc=f'q,k,v {desc}', band=band,
                     fn=lambda: self.attn[0](q, k, v, lengths, seed, p),
                     plain=lambda: self.attn[1](q, k, v, lengths, seed, p),
                     lib=lambda: self.F.scaled_dot_product_attention(
                         q, k, v, attn_mask=mask, dropout_p=p, scale=1.0),
-                    flops=4 * Bx * H * t * t * D, nbytes=4 * Bx * H * t * D * 2)
+                    nbytes=nbytes, **work)
 
     def fused_attention_bwd(self, key):
         """(dq, dk, dv) for a random output gradient; the library call is
         the autograd backward of scaled_dot_product_attention (one
         forward, its graph kept)."""
         torch = self.torch
-        Bx, H, t, D, p = key
+        p = key[4]
         (q, k, v, do), lengths, mask, seed = self._attention_inputs(key, 4)
         leaves = [x.detach().requires_grad_() for x in (q, k, v)]
         out = self.F.scaled_dot_product_attention(
             *leaves, attn_mask=mask, dropout_p=p, scale=1.0)
-        return dict(desc=f'q,k,v,do ({Bx},{H},{t},{D}) bf16 p={p:g}',
-                    band=1e-2, repeat_equal=True,
+        desc, band, work, nbytes = self._attention_work(key, 5, 7)
+        return dict(desc=f'q,k,v,do {desc}', band=band, repeat_equal=True,
                     fn=lambda: self.attn[2](q, k, v, do, lengths, seed, p),
                     plain=lambda: self.attn[3](q, k, v, do, lengths, seed, p),
                     lib=lambda: torch.autograd.grad(out, leaves, do,
                                                     retain_graph=True),
-                    flops=10 * Bx * H * t * t * D,
-                    nbytes=7 * Bx * H * t * D * 2)
+                    nbytes=nbytes, **work)
 
     def fused_mrf_tc(self, key):
         vk = self.vk
@@ -727,6 +746,10 @@ def profile_path(torch, synthesize, tier, ranges=('acoustic', 'vocoder')):
     log(f'profile {tier} groups: ' + ', '.join(
         f'{g} {us / 1e3:.3f} ms' for g, us in sorted(
             groups.items(), key=lambda kv: -kv[1])))
+    attn = sum(us for g, us in groups.items() if g.startswith('attn::'))
+    log(f'profile {tier}: attention kernels {attn / 1e3:.3f} ms of '
+        f'{busy / 1e3:.3f} ms busy ({100 * attn / max(busy, 1e-9):.1f}%); '
+        f'device idle {100 - 100 * busy / wall_us:.1f}% of the wall time')
     for e in sorted(kernels, key=dev_us, reverse=True)[:25]:
         log(f'profile {tier} kernel {dev_us(e) / 1e3:9.3f} ms '
             f'x{e.count:<4d} {e.key[:100]}')
@@ -1315,10 +1338,17 @@ def main():
                 f'{tier} {name}: {launches[name]} launches on the path, '
                 f'{counted} from its calls by shape times launches per call')
 
-    # the backward at p = 0 too, at each training shape (not on a path)
-    for key in sorted({k[:4] for _, _, calls in paths
-                       for k in calls.get('fused_attention_bwd', {})}):
-        measure('fused_attention_bwd', key + (0.0,))
+    # the forward and the backward at p = 0 too, at each training shape,
+    # and in float32 (the FMA kernels) at the longest one (not on a path)
+    off_path = {'fused_attention': [], 'fused_attention_bwd': []}
+    train_keys = sorted({k[:4] for _, _, calls in paths
+                         for k in calls.get('fused_attention_bwd', {})})
+    for key in [k + (0.0,) for k in train_keys] + [
+            max(train_keys, key=lambda k: k[2]) + (0.1, 'float32')]:
+        for name, rows in off_path.items():
+            if (name, key) not in measured:
+                measured[name, key] = measure(name, key)
+                rows.append(measured[name, key])
 
     sources = {'fused_attention': 'daft_exprt_torch/ops/csrc/attention_fwd.cu',
                'fused_attention_bwd':
@@ -1373,6 +1403,8 @@ def main():
             main_path=main_tier,
             paths={t: total(rows) for t, rows in by_tier.items()},
             per_shape=[r for rows in by_tier.values() for r in rows]))
+        if name in off_path:
+            table[-1]['off_path'] = off_path[name]
     assert {e['name'].split('[')[0] for e in table} == set(by_name)
 
     # ---- 5. end to end ----------------------------------------------------

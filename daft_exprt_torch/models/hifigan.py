@@ -35,8 +35,10 @@ boundary: ``fused_mrf_ct_q8s`` and the q8s modes of the int8 phase
 kernels); ``ptc_bf16=True`` (``DAFT_MRF_PTC_BF16=1``) takes the bf16
 tier's chained narrow levels after a wide level, from ``PTC_MIN_BATCH``,
 through ``fused_mrf_ptc_f`` (``fused_mrf_ptc``'s fdot mode). A chain level
-whose upsample cannot fuse raises ``NotImplementedError`` naming
-ROADMAP.md.
+whose upsample cannot fuse (p*C != p_in*C_in) runs lrelu and
+:func:`conv_transpose1d_phase` in the phase layout, then the phase kernel
+without prologue, as the JAX generator does; conv_post then runs in the
+tail.
 
 Reference checkpoints (weight-normed ``HiFiGANGenerator`` state dicts) load
 through :func:`load_torch_generator`.
@@ -57,15 +59,17 @@ from daft_exprt_torch.ops.mrf_ct import (
     pack_mrf_weights,
 )
 from daft_exprt_torch.ops.mrf_int8 import (
-    ct_tile, fused_mrf_ct_q8, fused_mrf_ct_q8f, fused_mrf_ct_q8s,
-    fused_mrf_phase_q8, fused_mrf_phase_q8_noups, fused_mrf_ptc,
-    mrf_ct_q8_plain, mrf_ct_q8f_plain, mrf_ct_q8s_plain,
+    conv_transpose1d_phase, ct_tile, fused_mrf_ct_q8, fused_mrf_ct_q8f,
+    fused_mrf_ct_q8s, fused_mrf_phase_q8, fused_mrf_phase_q8_noups,
+    fused_mrf_ptc, mrf_ct_q8_plain, mrf_ct_q8f_plain, mrf_ct_q8s_plain,
     mrf_phase_q8_noups_plain, mrf_phase_q8_plain, mrf_ptc_plain,
-    pack_mrf_phase_weights, pack_post_phase_weights, pack_ups_phase_weights,
-    phase_post_feasible, phase_tile, prepare_mrf_ct_q8, prepare_mrf_ct_q8f,
-    prepare_mrf_ct_q8s, prepare_mrf_phase_q8, quantize_mrf_ct_q8f_weights,
+    pack_mrf_phase_weights, pack_post_phase_weights,
+    pack_ups_phase_weights, phase_post_feasible, phase_tile,
+    prepare_mrf_ct_q8, prepare_mrf_ct_q8f, prepare_mrf_ct_q8s,
+    prepare_mrf_phase_q8, quantize_mrf_ct_q8f_weights,
     quantize_mrf_ct_q8s_weights, quantize_mrf_ct_weights,
-    quantize_mrf_phase_weights, quantize_ups_phase_weights, ups_used_blocks,
+    quantize_mrf_phase_weights, quantize_ups_phase_weights,
+    ups_used_blocks,
 )
 from daft_exprt_torch.ops.vocoder_kernels import (
     MrfQ8Weights, MrfWeights, full_f32, fused_mrf_phase, fused_mrf_ptc_f,
@@ -224,12 +228,15 @@ class Route:
     boundary). ``p``:
     phases; ``tile``: phase-tc rows ('ptc'), phase columns ('chain',
     'phase') or samples ('ct'); ``merge``: ``fused_mrf_ct``'s merged
-    taps."""
+    taps; ``ups_p_in``: the input's phases when a 'phase' level's upsample
+    is :func:`conv_transpose1d_phase` (a chain level whose upsample cannot
+    fuse), 0 for the sample-major upsample."""
     kind: str
     mode: str = ''
     p: int = 1
     tile: int = 0
     merge: bool = False
+    ups_p_in: int = 0
 
 
 def _mrf_route(C, T, int8, static, int8_fused=True):
@@ -267,8 +274,9 @@ def level_routes(params, config=None, batch=1, frames=128, int8=False,
       a tile of >= 64 rows divides the level (from 8192 rows under int8,
       4096 in fdot): static with the level's scales, ``dyn`` without;
     - the phase chain when want_p = _phase_for(C) >= 2 equals u * p_in
-      (``_pallas_mrf_phase``; its upsample fuses when p*C == p_in*C_in)
-      and a tile of >= 64 columns divides the level;
+      and a tile of >= 64 columns divides the level (``_pallas_mrf_phase``):
+      its upsample fuses when p*C == p_in*C_in, else it runs before the
+      phase kernel without prologue (a 'phase' route with ``ups_p_in``);
     - else the upsample, then ``_pallas_mrf``'s kernel (:func:`_mrf_route`).
 
     ``act_scales`` ({level: calibration entry}) makes a level int8-static
@@ -304,16 +312,14 @@ def level_routes(params, config=None, batch=1, frames=128, int8=False,
                 continue
         cur_tc = False
         if chain:
-            if want_p * c_out != cur_p * c_in:
-                raise NotImplementedError(
-                    f'level {i}: a phase chain whose upsample cannot fuse '
-                    f'(p*C={want_p * c_out} != p_in*C_in={cur_p * c_in}) '
-                    'is not ported (ROADMAP.md Queue 3)')
             tile = ptc_tile(T // cur_p, 8192 if int8 else 4096)
             if tile is not None:
                 mode = _int8_mode(static, int8_fused) \
                     if int8 and c_out % 32 == 0 else ''
-                routes.append(Route('chain', mode, want_p, tile))
+                routes.append(Route('chain', mode, want_p, tile)
+                              if want_p * c_out == cur_p * c_in else
+                              Route('phase', mode, want_p, tile,
+                                    ups_p_in=cur_p))
                 cur_p, T = want_p, T * u
                 continue
         cur_p, T = 1, T * u
@@ -521,6 +527,22 @@ def _upsample_tc(x, ups, u, k, in_tc):
                              pad).transpose(1, 2)
 
 
+def _upsample_phase(x, ups, u, k, p_in, in_tc):
+    """lrelu, then the level's ConvTranspose1d in the phase layout
+    (:func:`conv_transpose1d_phase` on phase-``p_in`` input, as the JAX
+    generator upsamples a chain level whose upsample cannot fuse), returned
+    sample-major (B, T, C)."""
+    x = x if in_tc else x.transpose(1, 2)                # (B, T, C_in)
+    B, T, C = x.shape
+    x_p = x.reshape(B, T // p_in, p_in, C).permute(0, 2, 3, 1).reshape(
+        B, p_in * C, T // p_in)
+    y = conv_transpose1d_phase(_lrelu(x_p), ups['w'], ups['b'], u,
+                               (k - u) // 2, p_in)
+    po = u * p_in
+    return y.reshape(B, po, -1, T // p_in).permute(0, 3, 1, 2).reshape(
+        B, T * u, -1)
+
+
 def generator_forward(params, mel, config=None, use_fast=False, packed=None,
                       int8=False, int8_act_scales=None,
                       ptc_min_batch=PTC_MIN_BATCH, plain=False,
@@ -601,9 +623,11 @@ def generator_forward(params, mel, config=None, use_fast=False, packed=None,
                 return x
             continue
         if route is not None:
-            # polyphase (or dilated) upsample to (B, T, C), then the MRF
-            # kernel: the wide levels' tc, or ct / phase without prologue
-            x = _upsample_tc(x, ups, u, k, tc)
+            # polyphase (or dilated, or phase-layout) upsample to (B, T,
+            # C), then the MRF kernel: the wide levels' tc, or ct / phase
+            # without prologue
+            x = _upsample_phase(x, ups, u, k, route.ups_p_in, tc) \
+                if route.ups_p_in else _upsample_tc(x, ups, u, k, tc)
             if route.kind == 'tc' and route.mode:
                 x = (mrf_tc_q8_plain if plain else fused_mrf_tc_q8)(x, w)
             elif route.kind == 'tc':

@@ -8,8 +8,9 @@ Numerics follow the TPU kernels: float32 logits of the pre-scaled q
 against k, keys at or past ``lengths[b]`` set to -1e9, float32 softmax,
 dropout on the normalised float32 weights, weights cast to v's dtype,
 float32 accumulation of every product, outputs in the inputs' dtype. The
-backward recomputes p and the mask; dk and dv are summed over all query
-rows in float32 and cast last.
+backward recomputes p and the mask (the bf16 kernels draw the mask once,
+in the first of their two launches, into a bit scratch the second reads);
+dk and dv are summed over all query rows in float32 and cast last.
 
 The dropout mask is the port's own (TPU PRNG bits cannot be reproduced on
 a GPU): ``bits >= thr`` with ``thr = round(p * 2**32)`` and kept weights
@@ -21,7 +22,10 @@ of ``(seed, b, h, i, j)``: the kernels and the plain versions compute the
 same bits, and the backward regenerates the forward's mask.
 
 Bound on the card: bytes at T=128, operations at T=1024 (see the notes in
-the .cu files).
+the .cu files). bf16 calls run on the tensor cores (mma.sync over 64-row
+bf16 tiles streamed through shared memory) and take any T; float32 calls
+keep the first FMA kernels, which hold (16, T) float32 rows in shared
+memory, so T <= 2048 there.
 """
 import collections
 import ctypes
@@ -34,8 +38,9 @@ from daft_exprt_torch.ops import _build
 __all__ = ['fused_attention', 'fused_attention_bwd', 'attention_plain',
            'attention_bwd_plain', 'dropout_bits', 'dropout_threshold']
 
-MAX_T = 2048          # (16, T) float32 logit rows in shared memory
+MAX_T = 2048          # float32 only: (16, T) float32 rows in shared memory
 HEAD_DIM = 64         # the only instantiation: the FFT blocks' head width
+TILE = 64             # rows per tile of the bf16 kernels (the stats' padding)
 _U32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
@@ -141,11 +146,19 @@ def attention_bwd_plain(q, k, v, do, lengths, seed=0, dropout_p=0.0):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+_fns = {}
+
+
 def _fn(name, n_ptr):
-    fn = getattr(_build.library(name), name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [
-        ctypes.c_uint, ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    """The C entry point of ``csrc/<name>.cu`` (``n_ptr`` pointers, then B,
+    H, T, D, dtype, thr, scale, stream), bound once."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(_build.library(name), name)
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [
+            ctypes.c_uint, ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
     return fn
 
 
@@ -157,9 +170,17 @@ def _check_inputs(what, q, k, v, *more):
             torch.bfloat16, torch.float32):
         raise ValueError(f'{what}: q, k, v (and do) must share bfloat16 '
                          f'or float32 (got {q.dtype})')
-    if D != HEAD_DIM or T > MAX_T:
+    if D != HEAD_DIM or (q.dtype == torch.float32 and T > MAX_T):
         raise ValueError(f'{what}: head dim {D} / length {T} not '
-                         f'supported (D = {HEAD_DIM}, T <= {MAX_T})')
+                         f'supported (D = {HEAD_DIM}; T <= {MAX_T} in '
+                         'float32)')
+
+
+def _aligned(t):
+    """``t`` contiguous at a 16-byte aligned address (the kernels copy
+    16-byte chunks)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _seed_ptr(seed, thr, device):
@@ -175,7 +196,7 @@ def _launch_fwd(q, k, v, lengths, seed, dropout_p):
     """``attention_fwd.cu`` on CUDA tensors (one launch)."""
     _check_inputs('fused_attention', q, k, v)
     B, H, T, D = q.shape
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_aligned(t) for t in (q, k, v))
     lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     thr, scale = dropout_threshold(dropout_p)
     s, sp = _seed_ptr(seed, thr, q.device)
@@ -206,17 +227,25 @@ def fused_attention_bwd(q, k, v, do, lengths, seed=0, dropout_p=0.0):
                          f'{q.device}')
     _check_inputs('fused_attention_bwd', q, k, v, do)
     B, H, T, D = q.shape
-    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    q, k, v, do = (_aligned(t) for t in (q, k, v, do))
     lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     thr, scale = dropout_threshold(dropout_p)
     s, sp = _seed_ptr(seed, thr, q.device)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    stats = torch.empty((3, B, H, T), device=q.device, dtype=torch.float32)
-    err = _fn('attention_bwd', 10)(
+    # each row's statistics (bf16: max * log2(e), 1 / sum, sum dp * p, 0;
+    # float32: max, sum, sum dp * p in three planes); rows padded to tiles
+    Tp = -(-T // TILE) * TILE
+    stats = torch.empty((B * H, Tp, 4), device=q.device, dtype=torch.float32)
+    bf16 = q.dtype == torch.bfloat16
+    # bf16 with dropout: the mask bits, drawn once by the first launch
+    keep = torch.empty((B * H, Tp * Tp // 32), device=q.device,
+                       dtype=torch.int32) if thr and bf16 else None
+    err = _fn('attention_bwd', 11)(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(do),
         _build.ptr(lens), sp, _build.ptr(dq), _build.ptr(dk), _build.ptr(dv),
-        _build.ptr(stats), B, H, T, D, 1 if q.dtype == torch.bfloat16 else 0,
-        thr, scale, _build.stream_ptr(q))
+        _build.ptr(stats), ctypes.c_void_p(0) if keep is None
+        else _build.ptr(keep), B, H, T, D, 1 if bf16 else 0, thr, scale,
+        _build.stream_ptr(q))
     _build.check(err, 'attention_bwd')
     fused_attention_bwd.launches += 2
     fused_attention_bwd.calls[tuple(q.shape) + (float(dropout_p),)] += 1

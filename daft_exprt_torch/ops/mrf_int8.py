@@ -330,6 +330,32 @@ def pack_ups_phase_weights(w, b, stride, padding, p_in, dtype=None):
     return Wb, b.repeat(po)[:, None].float(), W, dmin
 
 
+def conv_transpose1d_phase(x_p, w, b, stride, padding, p_in):
+    """torch's ConvTranspose1d on a phase-``p_in`` input, emitting phase
+    ``stride * p_in`` output (port of the JAX package's
+    ``conv_transpose1d_phase``, which it leaves to XLA): one matmul of
+    :func:`pack_ups_phase_weights`' band per shifted slice, summed in x_p's
+    dtype, then the bias.
+
+    x_p: (B, p_in*C_in, U) with x_p[:, a*C_in + c, u] = x[:, c, p_in*u + a];
+    w: (C_in, C_out, k). Returns (B, stride*p_in*C_out, U) in the same
+    layout."""
+    B, PC, U = x_p.shape
+    C_in = w.shape[0]
+    if PC != p_in * C_in:
+        raise ValueError(f'conv_transpose1d_phase: {PC} rows, not p_in * '
+                         f'C_in = {p_in * C_in}')
+    Wb, bias, W, dmin = pack_ups_phase_weights(w, b, stride, padding, p_in,
+                                               dtype=x_p.dtype)
+    xpad = F.pad(x_p, (-dmin, dmin + W - 1))
+    pic = p_in * C_in
+    y = None
+    for u in range(W):
+        part = torch.matmul(Wb[:, u * pic:(u + 1) * pic], xpad[:, :, u:u + U])
+        y = part if y is None else y + part
+    return y + bias[None].to(y.dtype)
+
+
 def _gather(wd, spec, C):
     """The compact column gather: the band's ``spec['used']`` C-blocks."""
     return torch.cat([wd[:, jj * C:(jj + 1) * C] for jj in spec['used']],

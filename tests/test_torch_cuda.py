@@ -58,17 +58,30 @@ def _cuda_tree(tree, dtype):
     return tree.cuda().to(dtype)
 
 
+# T: one tile, a ragged last tile (1000), whole tiles, the float32
+# kernels' limit and, in bf16 only, past it (the tensor-core kernels stream
+# any T); lengths at the 64-key tile edges
+ATTN_T = [(T, dt) for T in (128, 1000, 1024, 2048) for dt in DTYPES] + [
+    (2500, torch.bfloat16)]
+
+
+def _edge_lengths(T, B):
+    """B key lengths: T, T // 3 and the tile edges 1, 63, 64, 65."""
+    lens = [T, T // 3, 1, 63, 64, 65][:B]
+    return torch.tensor([min(max(n, 1), T) for n in lens],
+                        dtype=torch.int32).cuda()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('T', [128, 1000])
-@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('T,dtype', ATTN_T)
 def test_attention_kernel_matches_plain(T, dtype):
     need_cuda()
     rng = np.random.RandomState(T)
-    B, H, D = 3, 2, 64
+    B, H, D = 6, 2, 64
     q, k, v = (torch.from_numpy(rng.randn(B, H, T, D).astype(np.float32))
                .cuda().to(dtype) for _ in range(3))
     q = q * D ** -0.5
-    lengths = torch.tensor([T, T // 3, 1], dtype=torch.int32).cuda()
+    lengths = _edge_lengths(T, B)
     n, c = fused_attention.launches, fused_attention.calls[(B, H, T, D, 0.0)]
     out = fused_attention(q, k, v, lengths)
     torch.cuda.synchronize()
@@ -82,18 +95,16 @@ def _attention_inputs(T, dtype, seed, B=3, H=2, D=64):
     rng = np.random.RandomState(seed)
     q, k, v, do = (torch.from_numpy(rng.randn(B, H, T, D).astype(np.float32))
                    .cuda().to(dtype) for _ in range(4))
-    lengths = torch.tensor([T, T // 3, 1][:B], dtype=torch.int32).cuda()
-    return q * D ** -0.5, k, v, do, lengths
+    return q * D ** -0.5, k, v, do, _edge_lengths(T, B)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('T', [128, 1024])
-@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('T,dtype', ATTN_T)
 def test_attention_dropout_kernel_matches_plain(T, dtype):
     """The forward at p = 0.1: the kernel and the plain version draw the
     same Philox mask, so they agree as at p = 0."""
     need_cuda()
-    q, k, v, _, lengths = _attention_inputs(T, dtype, T + 1)
+    q, k, v, _, lengths = _attention_inputs(T, dtype, T + 1, B=6)
     seed = torch.tensor([987654321], dtype=torch.int64, device='cuda')
     n = fused_attention.launches
     out = fused_attention(q, k, v, lengths, seed, 0.1)
@@ -108,13 +119,12 @@ def test_attention_dropout_kernel_matches_plain(T, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('p', [0.0, 0.1])
-@pytest.mark.parametrize('T', [128, 1024, 2048])
-@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('T,dtype', ATTN_T)
 def test_attention_bwd_kernel_matches_plain(p, T, dtype):
     """dq, dk, dv of the backward kernel against attention_bwd_plain, and
     two calls bit-identical (dk and dv are summed in a fixed order)."""
     need_cuda()
-    q, k, v, do, lengths = _attention_inputs(T, dtype, T + int(p * 10), B=2)
+    q, k, v, do, lengths = _attention_inputs(T, dtype, T + int(p * 10), B=6)
     seed = torch.tensor([2 ** 32 - 5], dtype=torch.int64, device='cuda')
     n = fused_attention_bwd.launches
     c = fused_attention_bwd.calls[tuple(q.shape) + (p,)]
@@ -131,10 +141,11 @@ def test_attention_bwd_kernel_matches_plain(p, T, dtype):
 
 
 @pytest.mark.cuda
-def test_attention_kernel_gradient_through_autograd():
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_attention_kernel_gradient_through_autograd(dtype):
     """fused_attention's autograd gradient is the backward kernel's."""
     need_cuda()
-    q, k, v, do, lengths = _attention_inputs(256, torch.float32, 5)
+    q, k, v, do, lengths = _attention_inputs(256, dtype, 5)
     seed = torch.tensor([11], dtype=torch.int64, device='cuda')
     qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
     n = fused_attention_bwd.launches
@@ -142,7 +153,23 @@ def test_attention_kernel_gradient_through_autograd():
     assert fused_attention_bwd.launches == n + 2
     ref = attention_bwd_plain(q, k, v, do, lengths, seed, 0.1)
     for t, r in zip((qq, kk, vv), ref):
-        assert rel_l2(t.grad.cpu(), r.cpu()) < 1e-5
+        assert t.grad.dtype == dtype
+        assert rel_l2(t.grad.float().cpu(), r.float().cpu()) < _band(dtype)
+
+
+@pytest.mark.cuda
+def test_attention_float32_length_limit():
+    """float32 calls keep the FMA kernels and their T <= 2048; bf16 calls
+    take longer rows."""
+    need_cuda()
+    q = torch.zeros((1, 2, 2049, 64), device='cuda')
+    lengths = torch.full((1,), 2049, dtype=torch.int32, device='cuda')
+    with pytest.raises(ValueError, match='length 2049'):
+        fused_attention(q, q, q, lengths)
+    with pytest.raises(ValueError, match='length 2049'):
+        fused_attention_bwd(q, q, q, q, lengths)
+    out = fused_attention(*(q.to(torch.bfloat16),) * 3, lengths)
+    assert out.shape == q.shape and torch.isfinite(out.float()).all()
 
 
 @pytest.mark.cuda
