@@ -736,7 +736,9 @@ def profile_path(torch, synthesize, tier, ranges=('acoustic', 'vocoder')):
                 f'{e.cpu_time_total / 1e3:.3f} ms')
     groups = {}
     for e in kernels:
-        g = next((p for p in ('mrf::step_kernel', 'mrf::ups_kernel',
+        g = next((p for p in ('mrf::blk::tc_chain_q8_kernel',
+                              'mrf::blk::ptc_fused_q8_kernel',
+                              'mrf::step_kernel', 'mrf::ups_kernel',
                               'mrf::step_q8_kernel', 'mrf::conv_dyn_kernel',
                               'mrf::ups_q8_kernel', 'mrf::amax_kernel',
                               'mrf::post_kernel', 'attn::bwd',

@@ -19,10 +19,13 @@ kernels ``csrc/mrf_ct_q8.cu``, ``csrc/mrf_phase_q8.cu`` and
 - :func:`fused_mrf_ptc` replaces ``fused_mrf_ptc`` (upsample prologue,
   optional conv_post epilogue) in its static mode (V1's narrow levels in
   the int8-static tier from ``PTC_MIN_BATCH``) and its ``dyn`` mode (a
-  narrow level without a calibration entry after a static tc level). It
-  is the phase kernel's launch plan on the phase-tc geometry (halo and
-  tile in rows, 64-aligned): the windows of a dynamic conv are all p
-  phases of the rows it reads, which is the phase layout's column window.
+  narrow level without a calibration entry after a static tc level).
+  Static: the tile amax, then one block-resident kernel that runs the
+  upsample, the chains and conv_post per block of output samples
+  (:func:`_ptc_fused_plan`). Dyn: the phase kernel's launch plan on the
+  phase-tc geometry (halo and tile in rows, 64-aligned): the windows of a
+  dynamic conv are all p phases of the rows it reads, which is the phase
+  layout's column window.
 
 In dynamic mode every conv quantises its whole input window with one scale
 per (utterance, tile, chain, dilation, conv), ``amax(|lrelu(x)|)/127``
@@ -49,13 +52,14 @@ import torch.nn.functional as F
 from daft_exprt_torch.ops import _build
 from daft_exprt_torch.ops.mrf_ct import pack_mrf_weights  # noqa: F401
 from daft_exprt_torch.ops.vocoder_kernels import (
-    ADD, FINAL, PHASE_CHANNELS, Q8_PTC_UPS, WRITE, MrfQ8Weights, Post,
-    PtcPrologue, _AMAX_ARGTYPES, _F32, _I32, _I64, _P, _PTC_POST_ARGTYPES,
-    _UPS_Q8_ARGTYPES, _chain_q8, _chain_steps, _const, _empty_on, _fma, _fn,
-    _int_conv, _launch_q8_step, _lrelu, _tc_plan, _ups_phase_entries,
-    chain_halo, check_q8_input, device_chains, full_f32, fuse_boundary_consts,
-    mrf_tc_q8_plain, pack_mma_s8, ptc_amax, ptc_chain_halo, ptc_halo_in,
-    ptc_post_feasible, q8_step_fn, ups_geometry,
+    ADD, FINAL, PHASE_CHANNELS, PTC_Q8_CFG, Q8_PTC_UPS, WRITE, MrfQ8Weights,
+    Post, PtcPrologue, _AMAX_ARGTYPES, _F32, _I32, _I64, _P,
+    _PTC_POST_ARGTYPES, _UPS_Q8_ARGTYPES, _chain_q8, _chain_steps, _const,
+    _empty_on, _fma, _fn, _int_conv, _launch_q8_step, _lrelu, _tc_plan,
+    _ups_phase_entries, aligned, chain_halo, check_q8_input, device_chains,
+    full_f32, fuse_boundary_consts, mrf_tc_q8_plain, pack_mma_s8, ptc_amax,
+    ptc_chain_halo, ptc_halo_in, ptc_post_feasible, q8_step_fn, sm_count,
+    ups_geometry,
 )
 
 CT_Q8_CHANNELS = (32, 64, 128, 256)     # fused_mrf_ct_q8 (dynamic)
@@ -930,6 +934,95 @@ def _ptc_plan(x, mrf, tile, prep, alloc):
     return _narrow_plan(x, mrf, tile, prep, alloc, _ptc_geometry)
 
 
+@dataclass
+class PtcFusedPlan:
+    """The two launches of :func:`fused_mrf_ptc`'s static mode over S =
+    B*n_tiles segments (segment b*n_tiles + t is tile t of utterance b).
+    ``amax_kernel`` writes ``amax[seg]`` (float bits, from 0), the amax of
+    lrelu(x) over input samples [t*tile_in - halo_in, ... + win_len).
+    ``ptc_fused_q8_kernel``'s block i of a segment owns the tile's output
+    samples n in [i*block_m, (i+1)*block_m) (N per tile): it quantises
+    lrelu(x) with the tile's scale over its own input rows, runs the
+    upsample (output sample stride*m + r from input m + amin + rows[r] +
+    tap, tap < ntaps) and each chain on the tile samples [i*block_m - hx,
+    (i+1)*block_m + hx), and writes the chain mean times ``scale`` at its
+    samples, or with conv_post (kpost taps, reach P) the waveform."""
+    x: torch.Tensor
+    amax: torch.Tensor
+    n_tiles: int
+    tile_in: int
+    halo_in: int
+    win_len: int
+    stride: int
+    ntaps: int
+    amin: int
+    rows: list
+    span: int
+    N: int
+    hx: int
+    P: int
+    kpost: int
+    block_m: int
+    blocks_per_tile: int
+    scale: float
+    out: torch.Tensor
+
+
+def _ptc_fused_plan(x, mrf, tile, alloc, block_m=None):
+    """Launch plan of :func:`fused_mrf_ptc`'s static mode; ``block_m``
+    defaults to the kernel's for the level's (C_in, C)."""
+    B, T_in, C_in = x.shape
+    p, p_in = mrf.p, mrf.p_in
+    halo, halo_in, n_t, P = _ptc_geometry(mrf, T_in // p_in, tile)
+    wq_u, _, _, stride, padding, k_u = mrf.ups
+    C = wq_u.shape[-1]
+    ntaps, amin, rows, span, _ = ups_geometry(k_u, stride, padding)
+    N = tile * p
+    reach = max(chain_halo(k, d) for k, d in zip(mrf.kernel_sizes,
+                                                 mrf.dilations)) + P
+    hx = -(-reach // stride) * stride
+    if hx > halo * p:
+        raise ValueError(f'fused_mrf_ptc: block window {hx} beyond the '
+                         f'{halo * p}-sample segment halo')
+    bm = block_m or PTC_Q8_CFG[(C_in, C)][0]
+    if bm % stride:
+        raise ValueError(f'fused_mrf_ptc: stride {stride} must divide the '
+                         f'block {bm}')
+    S = B * n_t
+    out = alloc((B, n_t * N, C) if mrf.post is None else (B, 1, n_t * N),
+                x.dtype)
+    kpost = 0 if mrf.post is None else mrf.post[0].shape[0]
+    return PtcFusedPlan(x, alloc((S,), torch.float32), n_t, tile * p_in,
+                        halo_in * p_in, (tile + 2 * halo_in) * p_in, stride,
+                        ntaps, amin, rows, span, N, hx, P, kpost, bm,
+                        -(-N // bm), 1.0 / len(mrf.kernel_sizes), out)
+
+
+_PTC_FUSED_ARGTYPES = ([_P, _I64, _I32, _P, _P, _I64, _P, _P, _F32, _F32]
+                       + [_I32] * 4 + [_P])
+
+
+def _ptc_fused_args(plan, mrf):
+    """The pointer and int arrays of ``mrf_ptc_fused`` (their order is the
+    C entry point's)."""
+    C_in, C = plan.x.shape[2], mrf.ups[0].shape[-1]
+    _, tps, kch, utps, ukch = PTC_Q8_CFG[(C_in, C)]
+    wu, swu, bu = mrf.ups_dev
+    ptrs = [wu.data_ptr(), swu.data_ptr(), bu.data_ptr(),
+            mrf.post_dev[0].data_ptr() if plan.kpost else 0]
+    ptrs += [t.data_ptr() for steps in mrf.chains_dev for st in steps
+             for t in st]
+    rows = list(plan.rows) + [0] * (8 - len(plan.rows))
+    ints = [plan.stride, plan.ntaps, plan.amin, plan.span] + rows + [
+        plan.n_tiles, plan.tile_in, plan.N, plan.hx, plan.P, plan.kpost,
+        plan.block_m, tps, kch, utps, ukch, wu.numel() // plan.stride,
+        len(mrf.kernel_sizes)]
+    for k, dils in zip(mrf.kernel_sizes, mrf.dilations):
+        ints += [k, len(dils)] + list(dils) + [0] * (4 - len(dils))
+    return ((ctypes.c_int64 * len(ptrs))(*ptrs),
+            (ctypes.c_int * len(ints))(*ints))
+
+
 def _narrow_plan(x, mrf, tile, prep, alloc, geometry):
     B, T_in, _ = x.shape
     p, p_in = mrf.p, mrf.p_in
@@ -1081,21 +1174,63 @@ def fused_mrf_ptc(x, mrf, tile):
     ``mrf_ptc.cu`` (or raises); on a CPU tensor it runs
     :func:`mrf_ptc_plain`.
 
-    ``fused_mrf_ptc.launches`` counts CUDA launches (amax, upsample, one
-    per chain step static or two dyn, conv_post); ``fused_mrf_ptc.calls``
-    counts CUDA-route calls by x's shape and mode: (B, T_in, C_in,
-    'q8f' or 'dynamic')."""
+    ``fused_mrf_ptc.launches`` counts CUDA launches (static: amax, the
+    fused kernel; dyn: amax, upsample, two per chain step, conv_post);
+    ``fused_mrf_ptc.calls`` counts CUDA-route calls by x's shape and mode:
+    (B, T_in, C_in, 'q8f' or 'dynamic')."""
     if mrf.ups is None:
         raise ValueError('fused_mrf_ptc: the weights carry no upsample')
     if x.device.type == 'cpu':
         return mrf_ptc_plain(x, mrf, tile)
     if mrf.q8s:
         raise ValueError('fused_mrf_ptc has no q8s mode')
-    return _launch_narrow(fused_mrf_ptc, 'mrf_ptc', x, mrf, tile, _ptc_plan)
+    if mrf.dynamic:
+        return _launch_narrow(fused_mrf_ptc, 'mrf_ptc', x, mrf, tile,
+                              _ptc_plan)
+    return _launch_ptc_fused(x, mrf, tile)
 
 
 fused_mrf_ptc.launches = 0
 fused_mrf_ptc.calls = collections.Counter()
+
+
+def _launch_amax(lib, x, pro, S, stream):
+    """``amax_kernel`` over the segments of a prologue (``PtcPrologue`` or
+    :class:`PtcFusedPlan`), into ``pro.amax``."""
+    B, T_in, C_in = x.shape
+    err = _fn(lib, f'{lib}_amax', _AMAX_ARGTYPES)(
+        _build.ptr(x), x.stride(0), T_in, C_in, pro.n_tiles, pro.tile_in,
+        pro.halo_in, pro.win_len, _build.ptr(pro.amax), S, stream)
+    _build.check(err, f'{lib} amax')
+
+
+def _launch_ptc_fused(x, mrf, tile):
+    """The static mode's launches (:class:`PtcFusedPlan`)."""
+    B, T_in, C_in = x.shape
+    C = mrf.ups[0].shape[-1]
+    check_q8_input('fused_mrf_ptc', x, mrf, PHASE_CHANNELS, C)
+    if (C_in, C) not in PTC_Q8_CFG:
+        raise ValueError(f'fused_mrf_ptc: upsample {C_in}->{C} has no CUDA '
+                         f'instantiation (built for {tuple(PTC_Q8_CFG)})')
+    x = aligned(x)
+    plan = _ptc_fused_plan(x, mrf, tile, _empty_on(x.device))
+    S = plan.amax.shape[0]
+    _check_segments('fused_mrf_ptc', S)
+    stream = _build.stream_ptr(x)
+    plan.amax.zero_()
+    _launch_amax('mrf_ptc', x, plan, S, stream)
+    fused_mrf_ptc.launches += 1
+    ptrs, ints = _ptc_fused_args(plan, mrf)
+    err = _fn('mrf_ptc', 'mrf_ptc_fused', _PTC_FUSED_ARGTYPES)(
+        _build.ptr(x), x.stride(0), T_in, _build.ptr(plan.amax),
+        _build.ptr(plan.out), plan.out.stride(0),
+        ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(ints, ctypes.c_void_p),
+        plan.scale, mrf.post_dev[1] if plan.kpost else 0.0, C_in, C, S,
+        sm_count(x.device), stream)
+    _build.check(err, f'fused_mrf_ptc (C_in={C_in}, C={C})')
+    fused_mrf_ptc.launches += 1
+    fused_mrf_ptc.calls[tuple(x.shape) + (mrf.mode,)] += 1
+    return plan.out
 
 
 def _launch_narrow(wrapper, lib, x, mrf, tile, plan_fn):
@@ -1116,10 +1251,7 @@ def _launch_narrow(wrapper, lib, x, mrf, tile, plan_fn):
     _check_segments(name, S)
     stream = _build.stream_ptr(x)
     plan.amax.zero_()
-    err = _fn(lib, f'{lib}_amax', _AMAX_ARGTYPES)(
-        _build.ptr(x), x.stride(0), T_in, C_in, pro.n_tiles, pro.tile_in,
-        pro.halo_in, pro.win_len, _build.ptr(pro.amax), S, stream)
-    _build.check(err, f'{name} amax')
+    _launch_amax(lib, x, pro, S, stream)
     wrapper.launches += 1
     w_u, sw_u, b_u = pro.weights
     err = _fn(lib, f'{lib}_ups', _UPS_Q8_AMAX_ARGTYPES)(

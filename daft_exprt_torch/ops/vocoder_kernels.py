@@ -28,13 +28,15 @@ the same function the port's kernels and plain versions compute.
 The float wrappers take one level's weights as :class:`MrfWeights`, made
 once by :func:`prepare_mrf` (the plain layout and the kernels' layout side
 by side); the int8 ones :class:`MrfQ8Weights` from
-:func:`prepare_mrf_tc_q8` / :func:`prepare_mrf_ptc`. Every CUDA route runs
-one launch per (chain, dilation) step (``mrf_common.cuh::step_kernel``,
-``mrf_q8.cuh::step_q8_kernel``); the sample ranges of every launch are
-planned here (:func:`_chain_steps`) so the CPU tests can replay the plan.
-HBM traffic per group on the card: each step reads its float32 input and
-writes its float32 output over the (B, T + 2E, C) buffers, ~9 float32
-read+write passes for V1, against 252*B*T*C^2 FLOPs.
+:func:`prepare_mrf_tc_q8` / :func:`prepare_mrf_ptc`. The float CUDA routes
+run one launch per (chain, dilation) step (``mrf_common.cuh::step_kernel``;
+each step reads its float32 input and writes its float32 output over the
+(B, T + 2E, C) buffers, ~9 float32 read+write passes for V1);
+:func:`fused_mrf_tc_q8` one launch per chain, each block keeping the
+chain's residual window on chip (``mrf_chain_q8.cuh``, weights packed by
+:func:`pack_stage_s8`). The sample ranges of every launch and block are
+planned here (:func:`_chain_steps`, :func:`_tc_q8_plan`) so the CPU tests
+can replay the plan.
 """
 import collections
 import contextlib
@@ -1139,6 +1141,35 @@ def device_chains(chains):
                    for a in st) for st in steps] for steps in chains]
 
 
+def swizzle_key(rows, row_bytes):
+    """The 16-byte-chunk XOR key of each row of an s8 tile with
+    ``row_bytes`` bytes per row (``mrf_chain_q8.cuh`` ``swz_key``): chunk c
+    of row r is stored at chunk c ^ key[r]."""
+    r = torch.arange(rows)
+    if row_bytes >= 128:
+        return r & 7
+    return (r // (128 // row_bytes)) & (row_bytes // 16 - 1)
+
+
+def pack_stage_s8(w_kio, tps, kch):
+    """(taps, C_in, C_out) int8 -> bytes in the staged order the
+    block-resident kernels copy into shared memory (``mrf_chain_q8.cuh``
+    ``Conv``): stage s = g*(C_in/kch) + kc holds taps [g*tps, (g+1)*tps)
+    (zeros past the last) x input channels [kc*kch, (kc+1)*kch), as
+    [tap][output channel n][kch bytes], the 16-byte chunks of row n
+    swizzled by :func:`swizzle_key`."""
+    taps, ci, co = w_kio.shape
+    G = -(-taps // tps)
+    w = F.pad(w_kio.to(torch.int8), (0, 0, 0, 0, 0, G * tps - taps))
+    # [g][kc][tp][n][byte]
+    w = w.reshape(G, tps, ci // kch, kch, co).permute(0, 2, 1, 4, 3)
+    key = swizzle_key(co, kch).to(w.device)
+    pos = torch.arange(kch, device=w.device)
+    src = (((pos[None, :] >> 4) ^ key[:, None]) << 4) | (pos[None, :] & 15)
+    w = torch.gather(w, 4, src.expand(w.shape).contiguous())
+    return w.contiguous().reshape(-1)
+
+
 def prepare_mrf_tc_q8(packed, kernel_sizes, dilations):
     """:class:`MrfQ8Weights` of a wide level from
     :func:`pack_mrf_tc_int8_weights` (or the JAX packer's arrays)."""
@@ -1151,9 +1182,18 @@ def prepare_mrf_tc_q8(packed, kernel_sizes, dilations):
                         m1[i, 0].float(), wq2[i], sw2[i, 0].float(),
                         b2[i, 0].float()) for i in range(len(dils))])
     mrf = MrfQ8Weights(packed[0].device, kernel_sizes, dilations, chains)
-    if mrf.device.type == 'cuda':
-        mrf.chains_dev = device_chains(chains)
+    C = chains[0][0][0].shape[-1]
+    if mrf.device.type == 'cuda' and C in TC_Q8_CFG:
+        mrf.chains_dev = staged_chains(chains, *TC_Q8_CFG[C][1:])
     return mrf
+
+
+def staged_chains(chains, tps, kch):
+    """The block-resident kernels' format of q8f per-step weights: taps by
+    :func:`pack_stage_s8`, vectors contiguous."""
+    return [[tuple(pack_stage_s8(a, tps, kch) if a.dtype == torch.int8
+                   else a.contiguous().clone() for a in st) for st in steps]
+            for steps in chains]
 
 
 def _ptc_taps(M, k, d, p, C_in, C_out):
@@ -1226,10 +1266,19 @@ def prepare_mrf_ptc(packed, kernel_sizes, dilations, p, ups, post=None):
         w_p = _ptc_taps(P, post_k, 1, p, C, 1)[:, :, 0].float()   # (k, C)
         mrf.post = (w_p, b_p[0, :1].float(), P.dtype)
     if mrf.device.type == 'cuda':
-        mrf.chains_dev = device_chains(chains)
-        mrf.ups_dev = (torch.cat([pack_mma_s8(wq_u[r])
-                                  for r in range(stride)]),
-                       sw.contiguous(), mrf.ups[2].contiguous())
+        cfg = None if mrf.dynamic else PTC_Q8_CFG.get((C_in, C))
+        if cfg is None:           # dyn: the phase kernel's launches
+            mrf.chains_dev = device_chains(chains)
+            mrf.ups_dev = (torch.cat([pack_mma_s8(wq_u[r])
+                                      for r in range(stride)]),
+                           sw.contiguous(), mrf.ups[2].contiguous())
+        else:                     # static: ptc_fused_q8_kernel
+            _, tps, kch, utps, ukch = cfg
+            mrf.chains_dev = staged_chains(chains, tps, kch)
+            mrf.ups_dev = (torch.cat([pack_stage_s8(wq_u[r], utps, ukch)
+                                      for r in range(stride)]),
+                           sw.contiguous().clone(),
+                           mrf.ups[2].contiguous().clone())
         if mrf.post is not None:
             mrf.post_dev = (mrf.post[0].contiguous(),
                             float(mrf.post[1][0]))
@@ -1366,6 +1415,70 @@ def check_q8_input(name, x, mrf, channels, c, mode=None):
                          f'prepared on {mrf.device}')
 
 
+# tc_chain_q8_kernel's geometry per C (mrf_tc_q8.cu TcCfg): output samples
+# per block, taps and input channels per staged weight stage
+TC_Q8_CFG = {128: (128, 1, 128), 256: (128, 1, 128)}
+# ptc_fused_q8_kernel's per (C_in, C) (mrf_ptc.cu PtcCfg): output samples
+# per block, the chain convs' taps and input channels per stage, the
+# upsample's
+PTC_Q8_CFG = {(128, 64): (128, 4, 64, 2, 128), (64, 32): (256, 8, 32, 2, 64)}
+_TC_Q8_ARGTYPES = ([_P, _I64, _I32, _P, _I64, _P, _I64, _I32, _I32, _F32,
+                    _P, _P] + [_I32] * 7 + [_P, _I64, _I32, _P])
+
+
+@dataclass
+class TcChainLaunch:
+    """One launch of ``tc_chain_q8_kernel``: chain ``weights`` (per step)
+    of an MRF group over blocks of ``block_m`` output samples. Block i of
+    utterance b reads x samples [i*block_m - halo, (i+1)*block_m + halo)
+    (zero outside [0, T)), runs the chain's steps with valid convs on that
+    window and, for samples n in [i*block_m, min((i+1)*block_m, T)), writes
+    the chain into ``sum`` (WRITE), adds it there (ADD) or writes
+    ((sum + chain) if has_acc else chain) * scale into ``out`` (FINAL)."""
+    x: torch.Tensor
+    sum: Optional[torch.Tensor]
+    out: torch.Tensor
+    mode: int
+    has_acc: bool
+    scale: float
+    weights: list
+    k: int
+    dils: tuple
+    halo: int
+    block_m: int
+    n_blocks: int
+
+
+def _tc_q8_plan(x, chains, kernel_sizes, dilations, alloc, block_m=None):
+    """Launch plan of :func:`fused_mrf_tc_q8`: (launches, out), one launch
+    per chain; ``block_m`` defaults to the kernel's for x's C."""
+    B, T, C = x.shape
+    bm = block_m or TC_Q8_CFG[C][0]
+    nb = len(kernel_sizes)
+    acc = alloc((B, T, C), torch.float32) if nb > 1 else None
+    out = alloc((B, T, C), x.dtype)
+    launches = []
+    for j, (k, dils) in enumerate(zip(kernel_sizes, dilations)):
+        mode = FINAL if j == nb - 1 else (WRITE if j == 0 else ADD)
+        launches.append(TcChainLaunch(x, acc, out, mode, j > 0, 1.0 / nb,
+                                      chains[j], k, tuple(dils),
+                                      chain_halo(k, dils), bm, -(-T // bm)))
+    return launches, out
+
+
+def sm_count(device):
+    """Streaming multiprocessors of ``device``: the persistent kernels' grid
+    (one block per SM)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def aligned(x):
+    """x, copied if its data is not 16-byte aligned (the kernels read rows
+    with 16-byte loads)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def fused_mrf_tc_q8(x, mrf):
     """Fused MRF group of a wide level, int8-static (``fused_mrf_tc`` with
     ``q8=True``). x: (B, T, C) bfloat16; ``mrf`` from
@@ -1373,19 +1486,37 @@ def fused_mrf_tc_q8(x, mrf):
     tensor this launches ``mrf_tc_q8.cu`` (or raises); on a CPU tensor it
     runs :func:`mrf_tc_q8_plain`.
 
-    ``fused_mrf_tc_q8.launches`` counts CUDA launches (one per chain
-    step); ``fused_mrf_tc_q8.calls`` counts CUDA-route calls by x's
-    shape."""
+    ``fused_mrf_tc_q8.launches`` counts CUDA launches (one per chain);
+    ``fused_mrf_tc_q8.calls`` counts CUDA-route calls by x's shape."""
     if x.device.type == 'cpu':
         return mrf_tc_q8_plain(x, mrf)
     B, T, C = x.shape
     check_q8_input('fused_mrf_tc_q8', x, mrf, Q8_TC_CHANNELS, C, 'q8f')
-    x = x.contiguous()
-    steps, out = _tc_plan(x, mrf.chains_dev, mrf.kernel_sizes, mrf.dilations,
-                          _empty_on(x.device))
-    fn = _fn('mrf_tc_q8', 'mrf_tc_q8_step', _Q8_STEP_ARGTYPES)
-    for st in steps:
-        _launch_q8_step(fn, st, B, C)
+    x = aligned(x)
+    launches, out = _tc_q8_plan(x, mrf.chains_dev, mrf.kernel_sizes,
+                                mrf.dilations, _empty_on(x.device))
+    bm, tps, kch = TC_Q8_CFG[C]
+    slots = sm_count(x.device)
+    # C = 256 keeps each block's residual window in a global scratch slice
+    per = 0 if C <= 128 else (bm + 2 * max(st.halo for st in launches)) \
+        * (C + 8)
+    scratch = torch.empty(max(per * slots, 1), dtype=torch.float32,
+                          device=x.device)
+    fn = _fn('mrf_tc_q8', 'mrf_tc_q8_chain', _TC_Q8_ARGTYPES)
+    stream = _build.stream_ptr(x)
+    for st in launches:
+        wp = (ctypes.c_int64 * (7 * len(st.dils)))(
+            *(t.data_ptr() for w in st.weights for t in w))
+        dl = (ctypes.c_int * len(st.dils))(*st.dils)
+        acc = st.sum if st.sum is not None else st.out
+        err = fn(_build.ptr(x), x.stride(0), T, _build.ptr(acc),
+                 acc.stride(0), _build.ptr(st.out), st.out.stride(0),
+                 st.mode, int(st.has_acc), st.scale,
+                 ctypes.cast(wp, ctypes.c_void_p),
+                 ctypes.cast(dl, ctypes.c_void_p), len(st.dils), st.k, C, B,
+                 bm, tps, kch, _build.ptr(scratch), scratch.numel(), slots,
+                 stream)
+        _build.check(err, f'MRF q8 chain (C={C}, k={st.k})')
         fused_mrf_tc_q8.launches += 1
     fused_mrf_tc_q8.calls[tuple(x.shape)] += 1
     return out
