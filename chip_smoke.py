@@ -20,7 +20,8 @@
      tier, rel-L2 <= 0.25 (NUMERICS_r05.json vocoder_int8_vs_bf16);
    - int8-dynamic, B=8: HiFiGanVocoder(fast='int8') without calibration
      mels (fused_mrf_ct q8 at L0/L1, the dynamic int8 fused_mrf_phase at
-     L2/L3), the same two bands;
+     L2/L3, all four on the segment-synchronised engine of
+     ops/csrc/mrf_dyn_blk.cuh), the same two bands;
    - int8-partial, B=8: generator_forward on the bf16 path's mel with the
      int8-static calibration restricted to L0 and L1 (and pack_levels
      with the same dict): fused_mrf_tc q8 at L0/L1, fused_mrf_ptc in its
@@ -78,7 +79,10 @@
 4. At every input shape a path called a kernel with: the kernel against
    its plain PyTorch version on the same inputs (unit-gain random weights):
    rel-L2 <= 1e-2 in bf16 (summation order only), <= 1e-5 in float32,
-   <= 2e-3 for the int8 kernels (NUMERICS_r05.json ptc_vs_banded_int8);
+   <= 2e-3 for the int8 kernels (NUMERICS_r05.json ptc_vs_banded_int8),
+   and max-abs 0 for the dynamic engine (fused_mrf_ct q8 at C = 256/128,
+   fused_mrf_phase q8 at V1's L2/L3) and fused_mrf_phase's q8f calls on
+   ptc_fused_q8_kernel (a conv_post waveform: within one bf16 ulp);
    its launches per call; its time (median of 10 calls), its plain
    version's (median of 3) and (attention) the library call's, with CUDA
    events, beside the least time the card could take (H100 SXM: 989
@@ -655,8 +659,10 @@ class KernelCases:
         x = self.randn(Bx, Tx, C)
         tile = mi.ct_tile(Tx, C)
         return dict(desc=f'x ({Bx},{Tx},{C}) bf16 tile {tile}', band=2e-3,
+                    exact=0.0 if (C, C) in mi.DYN_BLK_CFG else None,
                     fn=lambda: mi.fused_mrf_ct_q8(x, mrf, tile),
                     plain=lambda: mi.mrf_ct_q8_plain(x, mrf, tile), flops=0,
+                    args=(x, mrf, tile),
                     nbytes=2 * Bx * Tx * C * 2 + self.q8_wbytes(mrf, C),
                     int8_ops=self.n_ops * Bx * Tx * C * C)
 
@@ -685,10 +691,13 @@ class KernelCases:
         Bx, T_in = key[:2]
         out = f'({Bx},1,{2 * T_in})' if post else \
             f'({Bx},{2 * T_in},{C_in // 2})'
+        blk = mode != 'q8s' and (C_in, C_in // 2) in mi.DYN_BLK_CFG
         return dict(desc=f'{mode} x ({Bx},{T_in},{C_in}) -> {out} bf16 '
                     f'tile {tile}', band=2e-3,
+                    exact=(2.0 ** -8 if post else 0.0) if blk else None,
                     fn=lambda: mi.fused_mrf_phase_q8(x, mrf, tile),
                     plain=lambda: mi.mrf_phase_q8_plain(x, mrf, tile),
+                    args=(x, mrf, tile),
                     **self._narrow_work(key, mrf, post))
 
 
@@ -738,6 +747,7 @@ def profile_path(torch, synthesize, tier, ranges=('acoustic', 'vocoder')):
     for e in kernels:
         g = next((p for p in ('mrf::blk::tc_chain_q8_kernel',
                               'mrf::blk::ptc_fused_q8_kernel',
+                              'mrf::blk::dyn_blk_kernel',
                               'mrf::step_kernel', 'mrf::ups_kernel',
                               'mrf::step_q8_kernel', 'mrf::conv_dyn_kernel',
                               'mrf::ups_q8_kernel', 'mrf::amax_kernel',
@@ -1296,6 +1306,10 @@ def main():
         log(f'check {name} {c["desc"]}: max_abs={m:.3e} rel_l2={r:.3e} '
             f'(band {c["band"]:g})')
         assert r <= c['band'], f'{name} {key}: rel-L2 {r} above {c["band"]}'
+        # the block-resident int8 kernels: every sample bit-identical, a
+        # conv_post waveform within one bf16 ulp (its sum order)
+        assert c.get('exact') is None or m <= c['exact'], \
+            f'{name} {key}: max-abs {m} above {c["exact"]}'
         ms = time_ms(torch, c['fn'])
         plain_ms = time_ms(torch, c['plain'], warmup=1, iters=3)
         lib_ms = time_ms(torch, c['lib']) if 'lib' in c else None

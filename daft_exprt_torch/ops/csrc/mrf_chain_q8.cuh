@@ -226,82 +226,103 @@ struct Conv {
     return n;
   }
 
-  template <class P, class Col, class Epi>
-  static __device__ __forceinline__ void run(P& pipe, const int8_t* A, int a0, int M, int dil,
-                                             int ntaps, int arows, Col&& col, Epi&& epi) {
+  // The MMAs of one pass, output rows [m0, m0 + ROWS) of M, into acc; the
+  // pass takes the conv's stages from the pipe whether or not a warpgroup
+  // has rows in it (every block consumes the same schedule).
+  template <class P>
+  static __device__ __forceinline__ void mma(P& pipe, int (&acc)[MB][WN / 2], const int8_t* A,
+                                             int a0, int m0, int M, int dil, int ntaps,
+                                             int arows) {
     static_assert(STAGE <= P::slot, "pipe slot");
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int wq = warp & 3, wg = warp >> 2;
     const int rg = wg / CG, cg = wg - rg * CG;
     const int n_st = conv_stages(ntaps);
     const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_byte = (lane >> 4) * 16;
-    for (int m0 = 0; m0 < M; m0 += ROWS) {
-      const int wb = m0 + rg * 64 * MB;   // the warpgroup's first row
-      const bool active = wb < M;         // the same for its 4 warps
-      int acc[MB][WN / 2];
+    const int wb = m0 + rg * 64 * MB;   // the warpgroup's first row
+    const bool active = wb < M;         // the same for its 4 warps
 #pragma unroll
-      for (int b = 0; b < MB; ++b)
+    for (int b = 0; b < MB; ++b)
 #pragma unroll
-        for (int e = 0; e < WN / 2; ++e) acc[b][e] = 0;
-      uint32_t a[2][MB][KS][4];
-      for (int s = 0; s < n_st; ++s) {
-        const int8_t* Ws = pipe.acquire();
+      for (int e = 0; e < WN / 2; ++e) acc[b][e] = 0;
+    uint32_t a[2][MB][KS][4];
+    for (int s = 0; s < n_st; ++s) {
+      const int8_t* Ws = pipe.acquire();
 #ifndef MRF_ABL_NOMMA
-        if (active) {
-          const int g = s / KC, kc = s - g * KC;
-          // with a lagging pipe the previous stage's MMAs ran on across the
-          // barrier; they are done before this stage loads A
-          if (P::lag) wg_wait<0>();
-#pragma unroll
-          for (int tp = 0; tp < TPS; ++tp) {
-            const int tap = g * TPS + tp;
-            if (tap >= ntaps) break;
-            // the MMAs that read A set tp & 1 (two groups back) are done
-            if (tp >= 2) wg_wait<1>();
-#pragma unroll
-            for (int b = 0; b < MB; ++b) {
-              const int row = min(a0 + wb + 64 * b + 16 * wq + tap * dil + a_row, arows - 1);
-#pragma unroll
-              for (int ks = 0; ks < KS; ++ks)
-                ldsm4(a[tp & 1][b][ks], A + swz<CIN>(row, kc * KCH + ks * 32 + a_byte));
-            }
-            wg_fence();
-            const int8_t* Wt = Ws + tp * COUT * KCH + cg * WN * KCH;
-#pragma unroll
-            for (int ks = 0; ks < KS; ++ks) {
-              const uint64_t desc = b_desc<KCH>(Wt + ks * 32);
-#pragma unroll
-              for (int b = 0; b < MB; ++b) wgmma_rs<WN>(acc[b], a[tp & 1][b][ks], desc);
-            }
-            wg_commit();
-          }
-          // before the block frees this stage's slot (a lagging pipe frees
-          // it one stage later)
-          if (!P::lag) wg_wait<0>();
-        }
-#endif
-      }
-      if (active) wg_wait<0>();
-#pragma unroll
-      for (int b = 0; b < MB; ++b)
-#pragma unroll
-        for (int e = 0; e < WN / 2; ++e) wg_hold(acc[b][e]);
-#ifndef MRF_ABL_NOEPI
       if (active) {
-        const int g = lane >> 2, t = lane & 3;
+        const int g = s / KC, kc = s - g * KC;
+        // with a lagging pipe the previous stage's MMAs ran on across the
+        // barrier; they are done before this stage loads A
+        if (P::lag) wg_wait<0>();
 #pragma unroll
-        for (int i = 0; i < WN / 8; ++i) {
-          const int c = cg * WN + i * 8 + 2 * t;
-          const auto cc = col(c);
+        for (int tp = 0; tp < TPS; ++tp) {
+          const int tap = g * TPS + tp;
+          if (tap >= ntaps) break;
+          // the MMAs that read A set tp & 1 (two groups back) are done
+          if (tp >= 2) wg_wait<1>();
 #pragma unroll
           for (int b = 0; b < MB; ++b) {
-            const int r = wb + 64 * b + 16 * wq + g;
-            if (r < M) epi(r, c, acc[b][4 * i], acc[b][4 * i + 1], cc);
-            if (r + 8 < M) epi(r + 8, c, acc[b][4 * i + 2], acc[b][4 * i + 3], cc);
+            const int row = min(a0 + wb + 64 * b + 16 * wq + tap * dil + a_row, arows - 1);
+#pragma unroll
+            for (int ks = 0; ks < KS; ++ks)
+              ldsm4(a[tp & 1][b][ks], A + swz<CIN>(row, kc * KCH + ks * 32 + a_byte));
           }
+          wg_fence();
+          const int8_t* Wt = Ws + tp * COUT * KCH + cg * WN * KCH;
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks) {
+            const uint64_t desc = b_desc<KCH>(Wt + ks * 32);
+#pragma unroll
+            for (int b = 0; b < MB; ++b) wgmma_rs<WN>(acc[b], a[tp & 1][b][ks], desc);
+          }
+          wg_commit();
         }
+        // before the block frees this stage's slot (a lagging pipe frees
+        // it one stage later)
+        if (!P::lag) wg_wait<0>();
       }
 #endif
+    }
+    if (active) wg_wait<0>();
+#pragma unroll
+    for (int b = 0; b < MB; ++b)
+#pragma unroll
+      for (int e = 0; e < WN / 2; ++e) wg_hold(acc[b][e]);
+  }
+
+  // The epilogue of one pass's sums: per column pair cc = col(n) once, then
+  // epi(m, n, acc[n], acc[n + 1], cc) for each row m < M of the warp's tile.
+  template <class Col, class Epi>
+  static __device__ __forceinline__ void each(const int (&acc)[MB][WN / 2], int m0, int M,
+                                              Col&& col, Epi&& epi) {
+#ifndef MRF_ABL_NOEPI
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int wq = warp & 3, wg = warp >> 2;
+    const int rg = wg / CG, cg = wg - rg * CG;
+    const int wb = m0 + rg * 64 * MB;
+    if (wb >= M) return;
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int i = 0; i < WN / 8; ++i) {
+      const int c = cg * WN + i * 8 + 2 * t;
+      const auto cc = col(c);
+#pragma unroll
+      for (int b = 0; b < MB; ++b) {
+        const int r = wb + 64 * b + 16 * wq + g;
+        if (r < M) epi(r, c, acc[b][4 * i], acc[b][4 * i + 1], cc);
+        if (r + 8 < M) epi(r + 8, c, acc[b][4 * i + 2], acc[b][4 * i + 3], cc);
+      }
+    }
+#endif
+  }
+
+  template <class P, class Col, class Epi>
+  static __device__ __forceinline__ void run(P& pipe, const int8_t* A, int a0, int M, int dil,
+                                             int ntaps, int arows, Col&& col, Epi&& epi) {
+    for (int m0 = 0; m0 < M; m0 += ROWS) {
+      int acc[MB][WN / 2];
+      mma(pipe, acc, A, a0, m0, M, dil, ntaps, arows);
+      each(acc, m0, M, col, epi);
     }
     __syncthreads();
   }

@@ -11,8 +11,10 @@
 // (halo = the widest chain's reach rounded to 64, then to 128), each conv
 // shrinking it by its reach per side, and each conv quantises its whole
 // input window with one scale. The output is the tile's samples of the
-// chain mean, bf16. Design: the tiles are segments; amax_kernel
-// (mrf_q8.cuh) takes the first scale over each window of x, then two
+// chain mean, bf16. The tiles are segments; amax_kernel (mrf_q8.cuh)
+// takes the first scale over each window of x. Design at C = 256 and 128
+// (mrf_ct_q8_blk): the segment-synchronised engine of mrf_dyn_blk.cuh,
+// one launch per chain (1 + 3 for the V1 group). At C = 64 and 32: two
 // launches of conv_dyn_kernel (mrf_dyn.cuh) per (chain, dilation) step,
 // 1 + 18 for the V1/V2 group: conv1 writes its float32 window and reduces
 // conv2's scale, conv2 adds the residual, writes the next window and
@@ -36,9 +38,25 @@
 // Bound on the card: operations at C=256/128 (252*B*T*C^2 int8 operations
 // per level at 1979 TOP/s, plus the dynamic halos' recomputation,
 // 2*halo/tile), device memory at C=64/32; the design moves ~9 (static) or
-// ~20 (dynamic) float32 passes over the level through device memory,
-// which takes longer than the operations at every width.
+// ~20 (dynamic, conv_dyn_kernel) float32 passes over the level through
+// device memory, which takes longer than the operations at every width;
+// the engine keeps them on chip (mrf_dyn_blk.cuh).
 #include "mrf_dyn.cuh"
+#include "mrf_dyn_blk.cuh"
+
+extern "C" int mrf_ct_q8_blk(MRF_DYN_BLK_ARGS) {
+  mrf::blk::DynBlkParams p;
+  if (c_in != C || !mrf::blk::dyn_blk_params(p, x, x_bs, t_in, amax0, sync, sum, sum_bs, out,
+                                              out_bs, ptrs, ints, scale, post_bias, scratch,
+                                              scratch_n))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 128: return mrf::blk::dyn_blk_entry<128, 128>(p, ints, slots, s);
+    case 256: return mrf::blk::dyn_blk_entry<256, 256>(p, ints, slots, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 extern "C" int mrf_ct_q8_amax(const void* x, long long x_bs, int t_in, int c_in, int n_tiles,
                               int tile_in, int halo_in, int win_len, void* amax_bits, int S,
@@ -53,8 +71,6 @@ extern "C" int mrf_ct_q8_conv(MRF_DYN_ARGS) {
   switch (C) {
     case 32: return (int)mrf::launch_conv_dyn_c<32>(q, K, S, s);
     case 64: return (int)mrf::launch_conv_dyn_c<64>(q, K, S, s);
-    case 128: return (int)mrf::launch_conv_dyn_c<128>(q, K, S, s);
-    case 256: return (int)mrf::launch_conv_dyn_c<256>(q, K, S, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

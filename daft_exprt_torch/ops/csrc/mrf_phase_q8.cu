@@ -13,13 +13,20 @@
 //      2*halo_in input columns;
 //   2. ups_q8_kernel (mrf_q8.cuh): the int8 upsample into a float32 segment
 //      of tile + 2*halo columns (dynamic mode: also its amax);
-//   3. dynamic: two conv_dyn_kernel launches (mrf_dyn.cuh) per (chain,
-//      dilation), each conv over the TPU kernel's column window (each conv
-//      shrinks it by W-1 columns and moves it by -dmin-dmin2); q8f / q8s:
-//      one step_q8_kernel launch (mrf_q8.cuh) per (chain, dilation), the
-//      static chain being a fixed function of the segment;
+//   3. q8s: one step_q8_kernel launch (mrf_q8.cuh) per (chain, dilation),
+//      the static chain being a fixed function of the segment;
 //   4. the chain mean to bf16, or post_kernel (mrf_common.cuh): conv_post
 //      on lrelu(mean) rounded to bf16, tanh, bf16.
+// The dynamic mode at (C_in, C) = (128, 64) and (64, 32) (V1's L2/L3):
+// amax_kernel, then one launch of the segment-synchronised engine
+// (mrf_dyn_blk.cuh, mrf_phase_q8_blk) that runs steps 2-4 per block with
+// a segment barrier per conv, each conv over the TPU kernel's column
+// window (each conv shrinks it by W-1 columns and moves it by
+// -dmin-dmin2). The q8f mode there: amax_kernel and fused_mrf_ptc's
+// ptc_fused_q8_kernel (mrf_ptc_fused.cuh, mrf_phase_q8_fused) on the phase
+// tiles: the static
+// chains do not depend on the tile, only the upsample's input scale does,
+// and amax_kernel takes it over the phase tile's window.
 // Without the prologue (in_phase=False: x in (B, C, T), HiFi-GAN V2's L1 at
 // C=32, p=4) the tile's window is the zero-padded x itself, columns
 // [-halo, tile + halo): step 1 takes the first conv's scale over that
@@ -29,9 +36,31 @@
 // valid chains of mrf_tc_q8.cu, whatever the tile.
 //
 // Bound on the card: operations at C=64 (252*B*T*C^2 int8 operations and
-// the upsample's), device memory at C=32, where ~20 float32 passes over
-// the segments outweigh them.
+// the upsample's), device memory at C=32 for the one-launch-per-step
+// forms, where ~20 float32 passes over the segments outweigh them.
 #include "mrf_dyn.cuh"
+#include "mrf_dyn_blk.cuh"
+#include "mrf_ptc_fused.cuh"
+
+extern "C" int mrf_phase_q8_blk(MRF_DYN_BLK_ARGS) {
+  mrf::blk::DynBlkParams p;
+  if (!mrf::blk::dyn_blk_params(p, x, x_bs, t_in, amax0, sync, sum, sum_bs, out, out_bs, ptrs,
+                                ints, scale, post_bias, scratch, scratch_n))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (c_in == 128 && C == 64) return mrf::blk::dyn_blk_entry<128, 64>(p, ints, slots, s);
+  if (c_in == 64 && C == 32) return mrf::blk::dyn_blk_entry<64, 32>(p, ints, slots, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// fused_mrf_phase_q8's q8f mode: ptc_fused_q8_kernel with the phase tiles
+extern "C" int mrf_phase_q8_fused(const void* x, long long x_bs, int t_in, const void* amax,
+                                  void* out, long long out_bs, const long long* ptrs,
+                                  const int* ints, float scale, float post_bias, int c_in, int C,
+                                  int S, int slots, void* stream) {
+  return mrf::blk::ptc_fused_entry(x, x_bs, t_in, amax, out, out_bs, ptrs, ints, scale, post_bias,
+                                   c_in, C, S, slots, stream);
+}
 
 extern "C" int mrf_phase_q8_amax(const void* x, long long x_bs, int t_in, int c_in, int n_tiles,
                                  int tile_in, int halo_in, int win_len, void* amax_bits, int S,

@@ -113,9 +113,17 @@ __device__ __forceinline__ void conv_gemm_s8(const int8_t* A, int lda, int M, in
         }
 #pragma unroll
         for (int ni = 0; ni < NG; ++ni) {
+#ifdef MRF_ABL_NOW
+          const uint2 bw = make_uint2(lane + ni, kt);
+#else
           const uint2 bw = __ldg(w_base + ((size_t)ni * KT + kt) * 32);
+#endif
+#ifndef MRF_ABL_NOMMA
           mma_s8(acc[0][ni], a[0], bw.x, bw.y);
           mma_s8(acc[1][ni], a[1], bw.x, bw.y);
+#else
+          acc[0][ni][0] += (int)(bw.x ^ a[0][0]);
+#endif
         }
       }
     }

@@ -30,10 +30,16 @@ kernels ``csrc/mrf_ct_q8.cu``, ``csrc/mrf_phase_q8.cu`` and
 In dynamic mode every conv quantises its whole input window with one scale
 per (utterance, tile, chain, dilation, conv), ``amax(|lrelu(x)|)/127``
 over the window, so the TPU kernels' tile and halo are part of the
-function. The port keeps each tile as a segment of its own (the segments
-are the batch of every launch) and runs each conv over exactly the TPU
-kernel's window: a conv launch writes its float32 output and reduces the
-amax the next conv quantises with (``atomicMax`` on float bits). The
+function. The port keeps each tile as a segment of its own and runs each
+conv over exactly the TPU kernel's window (:func:`_dyn_windows`). At V1's
+widths (``fused_mrf_ct_q8`` at C = 256/128, ``fused_mrf_phase_q8`` at
+(128, 64) / (64, 32)) the segment-synchronised engine
+(``csrc/mrf_dyn_blk.cuh``, :func:`_dyn_blk_plan`) splits each segment
+among resident blocks that keep their rows on chip and meet at a segment
+barrier per conv, where their partial amaxes give the next scale.
+Elsewhere (ct at C <= 64, the phase kernel without prologue, ptc dyn) a
+conv launch of ``conv_dyn_kernel`` writes its float32 output and reduces
+the amax the next conv quantises with (``atomicMax`` on float bits). The
 phase layout (p samples per phase column) is a reshape of the port's
 sample-major tensors, so the windows are whole phase columns in samples.
 
@@ -44,7 +50,7 @@ sample-domain kernels.
 import collections
 import ctypes
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -57,13 +63,32 @@ from daft_exprt_torch.ops.vocoder_kernels import (
     _PTC_POST_ARGTYPES, _UPS_Q8_ARGTYPES, _chain_q8, _chain_steps, _const,
     _empty_on, _fma, _fn, _int_conv, _launch_q8_step, _lrelu, _tc_plan,
     _ups_phase_entries, aligned, chain_halo, check_q8_input, device_chains,
-    full_f32, fuse_boundary_consts, mrf_tc_q8_plain, pack_mma_s8, ptc_amax,
-    ptc_chain_halo, ptc_halo_in, ptc_post_feasible, q8_step_fn, sm_count,
-    ups_geometry,
+    full_f32, fuse_boundary_consts, mrf_tc_q8_plain, pack_mma_s8,
+    pack_stage_s8, ptc_amax, ptc_chain_halo, ptc_halo_in, ptc_post_feasible,
+    q8_step_fn, sm_count, staged_chains, ups_geometry,
 )
 
 CT_Q8_CHANNELS = (32, 64, 128, 256)     # fused_mrf_ct_q8 (dynamic)
 CT_Q8F_CHANNELS = (32, 64)               # fused_mrf_ct_q8f / _q8s (static)
+
+
+class DynBlkCfg(NamedTuple):
+    """The segment-synchronised dynamic engine's geometry for one (C_in, C)
+    (csrc/mrf_dyn_blk.cuh ``DynCfg``; a test holds the two together)."""
+    wrows: int          # the most rows a block holds (owned plus halos)
+    rows_pass: int      # rows of one MMA pass (``Conv::ROWS``)
+    tps: int            # chain convs: taps per staged weight stage
+    kch: int            # chain convs: input channels per stage
+    utps: int           # the upsample's taps per stage
+    ukch: int           # the upsample's input channels per stage
+    r_smem: bool        # R in shared memory, else in a global scratch slice
+
+
+# per (C_in, C); C_in == C the ct route
+DYN_BLK_CFG = {(256, 256): DynBlkCfg(256, 128, 1, 128, 1, 128, False),
+               (128, 128): DynBlkCfg(248, 256, 1, 128, 1, 128, True),
+               (128, 64): DynBlkCfg(256, 256, 4, 64, 2, 128, True),
+               (64, 32): DynBlkCfg(512, 512, 8, 32, 2, 64, True)}
 
 
 # ----------------------------------------------------------------------
@@ -438,7 +463,12 @@ def _prepare_ct(qw, kernel_sizes, dilations, mode):
     mrf = MrfQ8Weights(qw[0].device, kernel_sizes, dilations, chains,
                        dynamic=mode == 'q8', q8s=mode == 'q8s')
     if mrf.device.type == 'cuda':
-        mrf.chains_dev = device_chains(chains)
+        C = chains[0][0][0].shape[-1]
+        cfg = DYN_BLK_CFG.get((C, C)) if mode == 'q8' else None
+        if cfg is None:           # conv_dyn_kernel / step_q8_kernel
+            mrf.chains_dev = device_chains(chains)
+        else:                     # the dynamic engine
+            mrf.blk_dev = staged_chains(chains, cfg.tps, cfg.kch)
     return mrf
 
 
@@ -528,10 +558,20 @@ def prepare_mrf_phase_q8(qw, kernel_sizes, dilations, p, ups, post=None):
         w_p = Wd[0, :post_k * C].reshape(post_k, C).float()  # (k, C)
         mrf.post = (w_p, b_p[:1, 0].float(), Wd.dtype)
     if mrf.device.type == 'cuda':
-        mrf.chains_dev = device_chains(chains)
-        mrf.ups_dev = (torch.cat([pack_mma_s8(wq_u[r])
-                                  for r in range(stride)]),
-                       sw.contiguous(), mrf.ups[2].contiguous())
+        cfg = None if mrf.q8s else DYN_BLK_CFG.get((C_in, C))
+        if cfg is None:           # q8s: step_q8_kernel
+            mrf.chains_dev = device_chains(chains)
+            mrf.ups_dev = (torch.cat([pack_mma_s8(wq_u[r])
+                                      for r in range(stride)]),
+                           sw.contiguous(), mrf.ups[2].contiguous())
+        else:
+            # the block-resident kernels' staged form (the dynamic engine
+            # and, q8f, ptc_fused_q8_kernel: the same stage shapes)
+            mrf.blk_dev = staged_chains(chains, cfg.tps, cfg.kch)
+            mrf.blk_ups_dev = (torch.cat([
+                pack_stage_s8(wq_u[r], cfg.utps, cfg.ukch)
+                for r in range(stride)]), sw.contiguous(),
+                mrf.ups[2].contiguous())
         if mrf.post is not None:
             mrf.post_dev = (mrf.post[0].contiguous(), float(mrf.post[1][0]))
     return mrf
@@ -821,20 +861,12 @@ def _dyn_steps(src, a0, prep, kernel_sizes, dilations, p, lo, hi, bufs, n_t,
     steps = []
     nb = len(kernel_sizes)
     for j, (k, dils) in enumerate(zip(kernel_sizes, dilations)):
-        half = (k - 1) // 2
-        cur, a_cur, c_lo, c_hi = src, a0, lo, hi
+        cur, a_cur = src, a0
+        wins = _dyn_windows(k, dils, p, lo, hi, out_lo, out_hi)
         for i, d in enumerate(dils):
             w1, s1, b1, w2, s2, b2 = prep[j][i]
             last = i == len(dils) - 1
-            if p == 1:
-                l1, h1 = c_lo + d * half, c_hi - d * half
-                l2, h2 = l1 + half, h1 - half
-            else:
-                sp1, sp2 = _phase_conv_spec(k, d, p), _phase_conv_spec(k, 1, p)
-                l1 = c_lo - p * sp1['dmin']
-                h1 = l1 + (c_hi - c_lo) - p * (sp1['W'] - 1)
-                l2 = l1 - p * sp2['dmin']
-                h2 = l2 + (h1 - l1) - p * (sp2['W'] - 1)
+            (l1, h1), (l2, h2) = wins[2 * i:2 * i + 2]
             a1 = _seg_buffer(bufs[3], n_t, E, l1, h1)
             mid = next(words)
             steps.append(DynConv(cur, a_cur, None, a1, WRITE, False, 1.0, None,
@@ -844,7 +876,6 @@ def _dyn_steps(src, a0, prep, kernel_sizes, dilations, p, lo, hi, bufs, n_t,
                 dst, mode = bufs[i % 2], WRITE
                 a_out = next(words)
             else:
-                l2, h2 = out_lo, out_hi
                 if fin is not None and j == nb - 1:
                     dst, mode, has_acc, fin_st = bufs[2], FINAL, j > 0, fin
                 else:
@@ -853,8 +884,35 @@ def _dyn_steps(src, a0, prep, kernel_sizes, dilations, p, lo, hi, bufs, n_t,
             steps.append(DynConv(a1, mid, cur, dview, mode, has_acc,
                                  1.0 / nb, fin_st, a_out, (w2, s2, b2), k, 1,
                                  l2, h2))
-            cur, a_cur, c_lo, c_hi = dview, a_out, l2, h2
+            cur, a_cur = dview, a_out
     return steps
+
+
+def _dyn_windows(k, dils, p, lo, hi, out_lo, out_hi):
+    """Each conv's output window [l, h) (tile samples) of one chain in
+    dynamic form on the input window [lo, hi), conv1 then conv2 per
+    dilation. p = 1: ``fused_mrf_ct``'s (each conv shrinks by its reach per
+    side); p > 1: the phase kernel's (whole phase columns,
+    ``_phase_conv_spec``). The chain's last conv2 is cut to [out_lo,
+    out_hi)."""
+    half = (k - 1) // 2
+    wins = []
+    c_lo, c_hi = lo, hi
+    for i, d in enumerate(dils):
+        if p == 1:
+            l1, h1 = c_lo + d * half, c_hi - d * half
+            l2, h2 = l1 + half, h1 - half
+        else:
+            sp1, sp2 = _phase_conv_spec(k, d, p), _phase_conv_spec(k, 1, p)
+            l1 = c_lo - p * sp1['dmin']
+            h1 = l1 + (c_hi - c_lo) - p * (sp1['W'] - 1)
+            l2 = l1 - p * sp2['dmin']
+            h2 = l2 + (h1 - l1) - p * (sp2['W'] - 1)
+        if i == len(dils) - 1:
+            l2, h2 = out_lo, out_hi
+        wins += [(l1, h1), (l2, h2)]
+        c_lo, c_hi = l2, h2
+    return wins
 
 
 @dataclass
@@ -968,12 +1026,15 @@ class PtcFusedPlan:
     out: torch.Tensor
 
 
-def _ptc_fused_plan(x, mrf, tile, alloc, block_m=None):
-    """Launch plan of :func:`fused_mrf_ptc`'s static mode; ``block_m``
-    defaults to the kernel's for the level's (C_in, C)."""
+def _ptc_fused_plan(x, mrf, tile, alloc, block_m=None,
+                    geometry=_ptc_geometry):
+    """Launch plan of :func:`fused_mrf_ptc`'s static mode (and, with
+    :func:`_phase_geometry`, of :func:`fused_mrf_phase_q8`'s q8f mode, the
+    same function on the phase kernel's tiles); ``block_m`` defaults to the
+    kernel's for the level's (C_in, C)."""
     B, T_in, C_in = x.shape
     p, p_in = mrf.p, mrf.p_in
-    halo, halo_in, n_t, P = _ptc_geometry(mrf, T_in // p_in, tile)
+    halo, halo_in, n_t, P = geometry(mrf, T_in // p_in, tile)
     wq_u, _, _, stride, padding, k_u = mrf.ups
     C = wq_u.shape[-1]
     ntaps, amin, rows, span, _ = ups_geometry(k_u, stride, padding)
@@ -1002,16 +1063,15 @@ _PTC_FUSED_ARGTYPES = ([_P, _I64, _I32, _P, _P, _I64, _P, _P, _F32, _F32]
                        + [_I32] * 4 + [_P])
 
 
-def _ptc_fused_args(plan, mrf):
+def _ptc_fused_args(plan, mrf, chains, ups):
     """The pointer and int arrays of ``mrf_ptc_fused`` (their order is the
-    C entry point's)."""
+    C entry point's) for staged ``chains`` and upsample ``ups``."""
     C_in, C = plan.x.shape[2], mrf.ups[0].shape[-1]
     _, tps, kch, utps, ukch = PTC_Q8_CFG[(C_in, C)]
-    wu, swu, bu = mrf.ups_dev
+    wu, swu, bu = ups
     ptrs = [wu.data_ptr(), swu.data_ptr(), bu.data_ptr(),
             mrf.post_dev[0].data_ptr() if plan.kpost else 0]
-    ptrs += [t.data_ptr() for steps in mrf.chains_dev for st in steps
-             for t in st]
+    ptrs += [t.data_ptr() for steps in chains for st in steps for t in st]
     rows = list(plan.rows) + [0] * (8 - len(plan.rows))
     ints = [plan.stride, plan.ntaps, plan.amin, plan.span] + rows + [
         plan.n_tiles, plan.tile_in, plan.N, plan.hx, plan.P, plan.kpost,
@@ -1061,10 +1121,183 @@ def _narrow_plan(x, mrf, tile, prep, alloc, geometry):
     return PhasePlan(pro, amax, steps, tail, out)
 
 
+@dataclass
+class DynChain:
+    """One chain of the dynamic engine's plan: its convs' output windows
+    ``wins`` (tile samples, conv1 then conv2 per dilation) and ``rem``,
+    the reach a block still needs per side around its owned samples: rem[0]
+    for x0, rem[c + 1] after conv c (the later convs' reaches plus the
+    conv_post reach P)."""
+    k: int
+    dils: tuple
+    wins: list
+    rem: list
+    weights: Optional[list]   # per step (w1, sw1, b1, w2, sw2, b2), staged
+
+
+@dataclass
+class DynBlkLaunch:
+    """One launch of ``dyn_blk_kernel``: its chains (ct: one, its output
+    by ``mode`` into the chain sum or, FINAL, ``out``; phase: all, the
+    level's output); each segment's G blocks own ``block_m`` samples of X
+    each (block i from x_lo + i*block_m), R row 0 at a block's first owned
+    sample - ``hx``; the grid holds ``slots`` blocks and walks the segments
+    in ``n_waves`` waves of ``spw`` whole segments (grid block g of wave w
+    serves block g % G of segment w*spw + g // G); ``n_bar`` segment
+    barriers per item, whose scale words and arrival counts are ``sync``
+    (2, n_bar, S), zero at launch."""
+    chains: list
+    hx: int
+    block_m: int
+    G: int
+    spw: int
+    n_waves: int
+    n_bar: int
+    sync: torch.Tensor
+    mode: int
+    has_acc: bool
+
+
+@dataclass
+class DynBlkPlan:
+    """The segment-synchronised engine's plan of a ``fused_mrf_ct_q8``
+    (C = 256/128) or dynamic ``fused_mrf_phase_q8`` call: ``amax_kernel``
+    into ``amax0`` (ct: x's amax over each window, the first conv's scale;
+    phase: the upsample input's), then ``launches``. Segment seg = b*n_tiles
+    + t owns the window X = [x_lo, x_hi) of x0 (tile samples), which each
+    launch splits among its blocks (:class:`DynBlkLaunch`). Each chain's
+    output leaves over [out_lo, out_hi) (phase: the chain mean there, then
+    conv_post with reach P)."""
+    x_lo: int
+    x_hi: int
+    out_lo: int
+    out_hi: int
+    P: int
+    S: int
+    n_tiles: int
+    tile_in: int
+    N: int
+    launches: list
+    sync: torch.Tensor
+    amax0: torch.Tensor
+    sum: Optional[torch.Tensor]
+    out: torch.Tensor
+    scale: float
+
+
+def dyn_block_range(plan, launch, i, rem, win):
+    """Samples [lo, hi) that block i of a segment computes of a window
+    ``win`` with ``rem`` samples of reach still needed: its owned samples
+    grown by rem per side, cut to the window (empty when lo >= hi)."""
+    o_lo = plan.x_lo + i * launch.block_m
+    o_hi = min(o_lo + launch.block_m, plan.x_hi)
+    return max(o_lo - rem, win[0]), min(o_hi + rem, win[1])
+
+
+def _dyn_blocks(X, hx, S, slots, cfg, stride, block_m=None):
+    """(block_m, G, spw, n_waves) of one launch over segments of X samples
+    with block halo ``hx``: the block size (a multiple of ``stride``) and
+    blocks a segment that minimise the waves times a block's work (its MMA
+    passes at full rows plus its rows: the MMAs of a pass cost the same
+    whatever rows it holds), a block holding at most cfg[0] rows;
+    ``block_m`` fixes the block size."""
+    wrows_max, rows_pass = cfg.wrows, cfg.rows_pass
+    if block_m is not None:
+        cands = [block_m]
+    else:
+        bm_max = (wrows_max - 2 * hx) // stride * stride
+        if bm_max < stride:
+            raise ValueError(f'the dynamic engine: block halo {hx} leaves no '
+                             f'room in {wrows_max} rows')
+        # the even split of X into G blocks, for every G the card holds
+        # (none when the smallest G does not fit: bm_max raises below)
+        cands = sorted({-(-(-(-X // G)) // stride) * stride
+                        for G in range(-(-X // bm_max), slots + 1)},
+                       reverse=True) or [bm_max]
+    best = None
+    for bm in cands:
+        G = -(-X // bm)
+        if G > slots:
+            raise ValueError(f'the dynamic engine: a segment of {X} samples '
+                             f'takes {G} blocks of {bm}, but one launch '
+                             f'holds {slots} resident blocks')
+        spw = slots // G
+        waves = -(-S // spw)
+        wrows = bm + 2 * hx
+        cost = waves * (rows_pass * -(-wrows // rows_pass) + wrows)
+        if best is None or cost < best[0]:
+            best = (cost, bm, G, spw, waves)
+    return best[1:]
+
+
+def _dyn_blk_plan(x, mrf, tile, weights, alloc, slots, block_m=None):
+    """Plan of the dynamic engine for x and dynamic ``mrf`` (a ct level
+    when ``mrf.ups`` is None, else a phase level); ``weights`` per chain
+    (staged), ``slots`` the blocks one launch holds."""
+    B, T_in, C_in = x.shape
+    p = mrf.p
+    if mrf.ups is None:
+        C = C_in
+        if T_in % tile:
+            raise ValueError(f'T={T_in} not a multiple of tile={tile}')
+        halo = ct_halo(mrf.kernel_sizes, mrf.dilations)
+        n_t, N, tile_in, P = T_in // tile, tile, tile, 0
+        x_lo, x_hi, out_lo, out_hi = -halo, tile + halo, 0, tile
+        stride = 1
+    else:
+        C = mrf.ups[0].shape[-1]
+        halo, _, n_t, P = _phase_geometry(mrf, T_in // mrf.p_in, tile)
+        N, tile_in, E = tile * p, tile * mrf.p_in, halo * p
+        x_lo, x_hi, out_lo, out_hi = -E, N + E, -P, N + P
+        stride = mrf.ups[3]
+    cfg = DYN_BLK_CFG[C_in, C]
+    S = B * n_t
+    chains = []
+    for j, (k, dils) in enumerate(zip(mrf.kernel_sizes, mrf.dilations)):
+        half = (k - 1) // 2
+        reach = [r for d in dils for r in (d * half, half)]
+        chains.append(DynChain(
+            k, tuple(dils), _dyn_windows(k, dils, p, x_lo, x_hi, out_lo,
+                                         out_hi),
+            [P + sum(reach[c:]) for c in range(len(reach) + 1)],
+            None if weights is None else weights[j]))
+    nb = len(chains)
+    if mrf.ups is None:      # one launch per chain, the sum in float32
+        groups = [([ch], ch.rem[0], 2 * len(ch.dils) - 1,
+                   FINAL if j == nb - 1 else (WRITE if j == 0 else ADD),
+                   j > 0) for j, ch in enumerate(chains)]
+    else:                    # one launch per level, the sum on chip
+        hx = max(ch.rem[0] for ch in chains)
+        groups = [(chains, -(-hx // stride) * stride,
+                   1 + sum(2 * len(ch.dils) - 1 for ch in chains), FINAL,
+                   False)]
+    sync = alloc((sum(2 * g[2] * S for g in groups),), torch.int32)
+    launches, at = [], 0
+    for chs, hx, n_bar, mode, has_acc in groups:
+        launches.append(DynBlkLaunch(
+            chs, hx, *_dyn_blocks(x_hi - x_lo, hx, S, slots, cfg, stride,
+                                  block_m), n_bar,
+            sync[at:at + 2 * n_bar * S].view(2, n_bar, S), mode, has_acc))
+        at += 2 * n_bar * S
+    if mrf.ups is None:
+        out = alloc((B, T_in, C), x.dtype)
+    elif mrf.post is None:
+        out = alloc((B, n_t * N, C), x.dtype)
+    else:
+        out = alloc((B, 1, n_t * N), x.dtype)
+    return DynBlkPlan(x_lo, x_hi, out_lo, out_hi, P, S, n_t, tile_in, N,
+                      launches, sync,
+                      alloc((S,), torch.float32),
+                      alloc((B, T_in, C), torch.float32)
+                      if mrf.ups is None and nb > 1 else None, out, 1.0 / nb)
+
+
 # ----------------------------------------------------------------------
 # CUDA launches
 # ----------------------------------------------------------------------
 
+_DYN_BLK_ARGTYPES = ([_P, _I64, _I32, _P, _P, _P, _I64, _P, _I64, _P, _P,
+                      _F32, _F32, _P, _I64, _I32, _I32, _I32, _P])
 _VIEW = [_P, _I64, _I64] + [_I32] * 5
 _DYN_ARGTYPES = (_VIEW + [_P] + _VIEW + [_P, _I64, _I64, _I32]
                  + [_P] + [_I64] * 4 + [_I32, _I32, _F32, _P] + [_P] * 3
@@ -1111,20 +1344,26 @@ def fused_mrf_ct_q8(x, mrf, tile):
     ``mrf_ct_q8.cu`` (or raises); on a CPU tensor it runs
     :func:`mrf_ct_q8_plain`.
 
-    ``fused_mrf_ct_q8.launches`` counts CUDA launches (the window amax, two
-    per chain step); ``fused_mrf_ct_q8.calls`` counts CUDA-route calls by
-    x's shape."""
+    ``fused_mrf_ct_q8.launches`` counts CUDA launches (the window amax,
+    then at C = 256/128 one engine launch per chain, at C <= 64 two per
+    chain step); ``fused_mrf_ct_q8.calls`` counts CUDA-route calls by x's
+    shape."""
     if x.device.type == 'cpu':
         return mrf_ct_q8_plain(x, mrf, tile)
     B, T, C = x.shape
     check_q8_input('fused_mrf_ct_q8', x, mrf, CT_Q8_CHANNELS, C, 'dynamic')
-    x = x.contiguous()
-    plan = _ct_plan(x, mrf.chains_dev, mrf.kernel_sizes, mrf.dilations,
-                    tile, _empty_on(x.device))
-    _launch_ct_dyn(fused_mrf_ct_q8, 'mrf_ct_q8', x, plan,
-                   _build.stream_ptr(x))
+    if (C, C) in DYN_BLK_CFG:
+        out = _launch_dyn_blk(fused_mrf_ct_q8, 'mrf_ct_q8', aligned(x), mrf,
+                              tile)
+    else:
+        x = x.contiguous()
+        plan = _ct_plan(x, mrf.chains_dev, mrf.kernel_sizes, mrf.dilations,
+                        tile, _empty_on(x.device))
+        _launch_ct_dyn(fused_mrf_ct_q8, 'mrf_ct_q8', x, plan,
+                       _build.stream_ptr(x))
+        out = plan.out
     fused_mrf_ct_q8.calls[tuple(x.shape)] += 1
-    return plan.out
+    return out
 
 
 fused_mrf_ct_q8.launches = 0
@@ -1138,21 +1377,33 @@ def fused_mrf_phase_q8(x, mrf, tile):
     boundary), as ``mrf.mode`` says; the upsample's input scale is dynamic
     per tile in every mode. x: (B, cols*p_in, C_in) bfloat16 sample-major
     (the previous level's output as it stands); ``mrf`` from
-    :func:`prepare_mrf_phase_q8` (or, q8f, from
+    :func:`prepare_mrf_phase_q8` (on a CPU tensor, q8f, also from
     ``vocoder_kernels.prepare_mrf_ptc``: the same per-tap weights);
     ``tile`` phase columns per tile (divides cols). Returns (B, cols*p, C),
     or with ``mrf.post`` the waveform (B, 1, cols*p), bfloat16. On a CUDA
     tensor this launches ``mrf_phase_q8.cu`` (or raises); on a CPU tensor
     it runs :func:`mrf_phase_q8_plain`.
 
-    ``fused_mrf_phase_q8.launches`` counts CUDA launches (amax, upsample,
-    two per chain step dynamic or one static, conv_post);
+    ``fused_mrf_phase_q8.launches`` counts CUDA launches (dynamic and q8f
+    at (C_in, C) = (128, 64) / (64, 32): the amax and one fused launch;
+    q8s: amax, upsample, one per chain step, conv_post);
     ``fused_mrf_phase_q8.calls`` counts CUDA-route calls by x's shape and
     mode: (B, T_in, C_in, ``mrf.mode``)."""
     if mrf.ups is None:
         raise ValueError('fused_mrf_phase_q8: the weights carry no upsample')
     if x.device.type == 'cpu':
         return mrf_phase_q8_plain(x, mrf, tile)
+    C_in, C = x.shape[2], mrf.ups[0].shape[-1]
+    if mrf.dynamic and (C_in, C) in DYN_BLK_CFG:
+        check_q8_input('fused_mrf_phase_q8', x, mrf, PHASE_CHANNELS, C)
+        out = _launch_dyn_blk(fused_mrf_phase_q8, 'mrf_phase_q8', aligned(x),
+                              mrf, tile)
+        fused_mrf_phase_q8.calls[tuple(x.shape) + (mrf.mode,)] += 1
+        return out
+    if mrf.mode == 'q8f' and (C_in, C) in PTC_Q8_CFG:
+        return _launch_ptc_fused(fused_mrf_phase_q8, 'mrf_phase_q8', x, mrf,
+                                 tile, _phase_geometry, mrf.blk_dev,
+                                 mrf.blk_ups_dev)
     return _launch_narrow(fused_mrf_phase_q8, 'mrf_phase_q8', x, mrf, tile,
                           _phase_plan)
 
@@ -1187,7 +1438,8 @@ def fused_mrf_ptc(x, mrf, tile):
     if mrf.dynamic:
         return _launch_narrow(fused_mrf_ptc, 'mrf_ptc', x, mrf, tile,
                               _ptc_plan)
-    return _launch_ptc_fused(x, mrf, tile)
+    return _launch_ptc_fused(fused_mrf_ptc, 'mrf_ptc', x, mrf, tile,
+                             _ptc_geometry, mrf.chains_dev, mrf.ups_dev)
 
 
 fused_mrf_ptc.launches = 0
@@ -1204,32 +1456,124 @@ def _launch_amax(lib, x, pro, S, stream):
     _build.check(err, f'{lib} amax')
 
 
-def _launch_ptc_fused(x, mrf, tile):
-    """The static mode's launches (:class:`PtcFusedPlan`)."""
+def _launch_ptc_fused(wrapper, lib, x, mrf, tile, geometry, chains, ups):
+    """The launches of a :class:`PtcFusedPlan` on ``geometry``'s tiles
+    (``fused_mrf_ptc`` static, ``fused_mrf_phase_q8`` q8f) with the staged
+    weights ``chains`` and ``ups`` through ``lib``'s entry points, counted
+    on ``wrapper``."""
+    name = wrapper.__name__
     B, T_in, C_in = x.shape
     C = mrf.ups[0].shape[-1]
-    check_q8_input('fused_mrf_ptc', x, mrf, PHASE_CHANNELS, C)
+    check_q8_input(name, x, mrf, PHASE_CHANNELS, C)
     if (C_in, C) not in PTC_Q8_CFG:
-        raise ValueError(f'fused_mrf_ptc: upsample {C_in}->{C} has no CUDA '
+        raise ValueError(f'{name}: upsample {C_in}->{C} has no CUDA '
                          f'instantiation (built for {tuple(PTC_Q8_CFG)})')
     x = aligned(x)
-    plan = _ptc_fused_plan(x, mrf, tile, _empty_on(x.device))
+    plan = _ptc_fused_plan(x, mrf, tile, _empty_on(x.device),
+                           geometry=geometry)
     S = plan.amax.shape[0]
-    _check_segments('fused_mrf_ptc', S)
+    _check_segments(name, S)
     stream = _build.stream_ptr(x)
     plan.amax.zero_()
-    _launch_amax('mrf_ptc', x, plan, S, stream)
-    fused_mrf_ptc.launches += 1
-    ptrs, ints = _ptc_fused_args(plan, mrf)
-    err = _fn('mrf_ptc', 'mrf_ptc_fused', _PTC_FUSED_ARGTYPES)(
+    _launch_amax(lib, x, plan, S, stream)
+    wrapper.launches += 1
+    ptrs, ints = _ptc_fused_args(plan, mrf, chains, ups)
+    err = _fn(lib, f'{lib}_fused', _PTC_FUSED_ARGTYPES)(
         _build.ptr(x), x.stride(0), T_in, _build.ptr(plan.amax),
         _build.ptr(plan.out), plan.out.stride(0),
         ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(ints, ctypes.c_void_p),
         plan.scale, mrf.post_dev[1] if plan.kpost else 0.0, C_in, C, S,
         sm_count(x.device), stream)
-    _build.check(err, f'fused_mrf_ptc (C_in={C_in}, C={C})')
-    fused_mrf_ptc.launches += 1
-    fused_mrf_ptc.calls[tuple(x.shape) + (mrf.mode,)] += 1
+    _build.check(err, f'{name} (C_in={C_in}, C={C})')
+    wrapper.launches += 1
+    wrapper.calls[tuple(x.shape) + (mrf.mode,)] += 1
+    return plan.out
+
+
+def _dyn_blk_args(plan, launch, mrf, x):
+    """The pointer and int arrays of ``<lib>_blk`` for one launch (their
+    order is the C entry point's, mrf_dyn_blk.cuh)."""
+    C_in = x.shape[2]
+    C = C_in if mrf.ups is None else mrf.ups[0].shape[-1]
+    cfg = DYN_BLK_CFG[C_in, C]
+    if mrf.ups is None:
+        ptrs, ups_ints, wu_phase = [0] * 4, [1, 0, 0, 0] + [0] * 8, 0
+        kpost = 0
+    else:
+        wu, swu, bu = mrf.blk_ups_dev
+        kpost = 0 if mrf.post is None else mrf.post[0].shape[0]
+        ptrs = [wu.data_ptr(), swu.data_ptr(), bu.data_ptr(),
+                mrf.post_dev[0].data_ptr() if kpost else 0]
+        _, _, _, stride, padding, k_u = mrf.ups
+        ntaps, amin, rows, span, _ = ups_geometry(k_u, stride, padding)
+        ups_ints = [mrf.ups[3], ntaps, amin, span] + list(rows) + [0] * (
+            8 - len(rows))
+        wu_phase = wu.numel() // mrf.ups[3]
+    ptrs += [t.data_ptr() for ch in launch.chains for st in ch.weights
+             for t in st]
+    ints = ups_ints + [kpost, plan.P, plan.n_tiles, plan.tile_in, plan.N,
+                       plan.x_lo, plan.x_hi, launch.hx, launch.G,
+                       launch.spw, launch.n_waves, plan.S, launch.n_bar,
+                       launch.mode, int(launch.has_acc), launch.block_m,
+                       cfg.tps, cfg.kch, cfg.utps, cfg.ukch, wu_phase,
+                       len(launch.chains)]
+    for ch in launch.chains:
+        wins = list(ch.wins) + [(0, 0)] * (8 - len(ch.wins))
+        ints += [ch.k, len(ch.dils)] + list(ch.dils) + [0] * (
+            4 - len(ch.dils))
+        ints += [v for w in wins for v in w]
+        ints += list(ch.rem) + [0] * (9 - len(ch.rem))
+    return ((ctypes.c_int64 * len(ptrs))(*ptrs),
+            (ctypes.c_int * len(ints))(*ints))
+
+
+def _launch_dyn_blk(wrapper, lib, x, mrf, tile):
+    """The launches of a :class:`DynBlkPlan` (``amax_kernel``, then
+    ``dyn_blk_kernel`` per chain (ct) or per level (phase)) through
+    ``lib``'s entry points, counted on ``wrapper``."""
+    name = wrapper.__name__
+    B, T_in, C_in = x.shape
+    slots = sm_count(x.device)
+    plan = _dyn_blk_plan(x, mrf, tile, mrf.blk_dev, _empty_on(x.device),
+                         slots)
+    C = C_in if mrf.ups is None else mrf.ups[0].shape[-1]
+    stream = _build.stream_ptr(x)
+    plan.sync.zero_()
+    plan.amax0.zero_()
+    if mrf.ups is None:
+        win_in, halo_in = plan.x_hi - plan.x_lo, -plan.x_lo
+    else:
+        _, halo_in, _, _ = _phase_geometry(mrf, T_in // mrf.p_in, tile)
+        halo_in *= mrf.p_in
+        win_in = plan.tile_in + 2 * halo_in
+    err = _fn(lib, f'{lib}_amax', _AMAX_ARGTYPES)(
+        _build.ptr(x), x.stride(0), T_in, C_in, plan.n_tiles, plan.tile_in,
+        halo_in, win_in, _build.ptr(plan.amax0), plan.S, stream)
+    _build.check(err, f'{name} amax')
+    wrapper.launches += 1
+    # without R in shared memory each block keeps its residual window and
+    # conv1's first pass (one MMA pass of rows) in a global scratch slice
+    # of rows C + 8 floats wide; the kernel checks the size it is given
+    cfg = DYN_BLK_CFG[C_in, C]
+    per = 0 if cfg.r_smem else (max(ln.block_m + 2 * ln.hx
+                                    for ln in plan.launches)
+                                + cfg.rows_pass) * (C + 8)
+    scratch = torch.empty(max(per * slots, 1), dtype=torch.float32,
+                          device=x.device)
+    fn = _fn(lib, f'{lib}_blk', _DYN_BLK_ARGTYPES)
+    for ln in plan.launches:
+        ptrs, ints = _dyn_blk_args(plan, ln, mrf, x)
+        acc = plan.sum if plan.sum is not None else plan.out
+        err = fn(_build.ptr(x), x.stride(0), T_in, _build.ptr(plan.amax0),
+                 _build.ptr(ln.sync), _build.ptr(acc), acc.stride(0),
+                 _build.ptr(plan.out), plan.out.stride(0),
+                 ctypes.cast(ptrs, ctypes.c_void_p),
+                 ctypes.cast(ints, ctypes.c_void_p), plan.scale,
+                 mrf.post_dev[1] if mrf.post is not None else 0.0,
+                 _build.ptr(scratch), scratch.numel(), C_in, C, slots,
+                 stream)
+        _build.check(err, f'{name} dynamic engine (C_in={C_in}, C={C})')
+        wrapper.launches += 1
     return plan.out
 
 

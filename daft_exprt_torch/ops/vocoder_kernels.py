@@ -1096,7 +1096,10 @@ class MrfQ8Weights:
     ``p`` / ``p_in`` (phases after / before the upsample) and, at the last
     level, ``post`` = (w (k, C) float32 of ``post_dtype`` values, bias
     (1,) float32, post_dtype). For weights on a CUDA device the ``*_dev``
-    fields hold the kernels' format (None on the CPU).
+    fields hold the kernels' format (None on the CPU); in
+    ``ops/mrf_int8.py``'s ct and phase forms ``blk_dev`` / ``blk_ups_dev``
+    hold, in their place, the staged form where the route runs on a
+    block-resident kernel.
 
     ``dynamic`` weights (the int8-dynamic tier, ``ops/mrf_int8.py``) hold
     per step (wq1, sw1, b1, wq2, sw2, b2) with float32 (C,) vectors: the
@@ -1117,6 +1120,8 @@ class MrfQ8Weights:
     chains_dev: Optional[list] = None
     ups_dev: Optional[tuple] = None
     post_dev: Optional[tuple] = None
+    blk_dev: Optional[list] = None
+    blk_ups_dev: Optional[tuple] = None
 
     @property
     def mode(self):
@@ -1410,7 +1415,8 @@ def check_q8_input(name, x, mrf, channels, c, mode=None):
     if mode is not None and mrf.mode != mode:
         raise ValueError(f'{name}: the weights are the {mrf.mode} form, not '
                          f'{mode}')
-    if x.device != mrf.device or mrf.chains_dev is None:
+    if x.device != mrf.device or (mrf.chains_dev is None
+                                  and mrf.blk_dev is None):
         raise ValueError(f'{name}: x is on {x.device} but the weights were '
                          f'prepared on {mrf.device}')
 

@@ -1,21 +1,35 @@
 #!/usr/bin/env python3
-"""Where the time of the port's block-resident int8 MRF kernels goes
-(daft_exprt_torch/ops/csrc/mrf_tc_q8.cu and mrf_ptc.cu), on one CUDA card.
+"""Where the time of the port's int8 MRF kernels goes, on one CUDA card.
 
-    python3 scripts/torch_mrf_q8_ablation.py [--iters N]
+    python3 scripts/torch_mrf_q8_ablation.py [--iters N] [--sections a,b]
 
-Builds the two sources as they are and with ablations that remove a part
-of the work (the results are then wrong and not checked):
-MRF_ABL_NOW (no weight copies: the convs read whatever the ring holds),
-MRF_ABL_NOMMA (no ldmatrix/wgmma: the epilogues see zero sums),
-MRF_ABL_NOEPI (no conv epilogues), MRF_ABL_NOSYNC (no __syncthreads per
-weight stage; only beside the first two, where nothing is shared between
-the warps). Runs fused_mrf_tc_q8 and fused_mrf_ptc (static) at the V1
-int8-static shapes of a B=8 x 1024-frame call (chip_smoke.py's
-KernelCases, seeded unit-gain weights); the unablated build must match the
-plain version (bit for bit; the conv_post waveform within one bf16 ulp).
-Prints the card (nvidia-smi name and power limit), then per build and
-shape the median of CUDA-event timings, and one JSON line.
+Builds the kernels' sources as they are and with ablations that remove a
+part of the work (the results are then wrong and not checked), and times
+each build at the V1 shapes of a B=8 x 1024-frame synthesis call
+(chip_smoke.py's KernelCases, seeded unit-gain weights); the unablated
+build must match the plain version (bit for bit; a conv_post waveform
+within one bf16 ulp). Sections:
+
+- ``static``: the block-resident int8-static kernels (mrf_tc_q8.cu,
+  mrf_ptc.cu: fused_mrf_tc_q8, fused_mrf_ptc static), ablated by
+  MRF_ABL_NOW (no weight copies: the convs read whatever the ring holds),
+  MRF_ABL_NOMMA (no ldmatrix/wgmma: the epilogues see zero sums),
+  MRF_ABL_NOEPI (no conv epilogues), MRF_ABL_NOSYNC (no __syncthreads per
+  weight stage; only beside the first two).
+- ``conv_dyn``: the one-launch-per-conv int8-dynamic kernel
+  (conv_dyn_kernel, mrf_dyn.cuh) where it still runs at V1's shapes:
+  fused_mrf_ptc dyn at L2/L3 (mrf_ptc.cu), ablated by MRF_ABL_NOW (no
+  weight loads), MRF_ABL_NOMMA (no mma.sync), MRF_ABL_NOF32 (no float32
+  input, residual and output traffic), MRF_ABL_NOQ (no rint/conversion in
+  the prologue quantisation).
+- ``dyn_blk``: the segment-synchronised int8-dynamic engine
+  (mrf_dyn_blk.cuh: fused_mrf_ct_q8 at C = 256/128, fused_mrf_phase_q8
+  dynamic at C = 64/32), ablated by MRF_ABL_NOW, MRF_ABL_NOMMA,
+  MRF_ABL_NOEPI and MRF_ABL_NOBAR (no segment barrier: every block reads
+  the scale word without waiting).
+
+Prints the card (nvidia-smi name and power limit), then per section,
+build and shape the median of CUDA-event timings, and one JSON line.
 """
 import ctypes
 import json
@@ -27,38 +41,74 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SKELETON = ['-DMRF_ABL_NOW', '-DMRF_ABL_NOMMA']
-BUILDS = {
-    'kernel': [],
-    'no_weights': ['-DMRF_ABL_NOW'],
-    'no_mma': ['-DMRF_ABL_NOMMA'],
-    'no_weights_no_mma': SKELETON,
-    'skeleton_no_epilogue': SKELETON + ['-DMRF_ABL_NOEPI'],
-    'skeleton_no_stage_sync': SKELETON + ['-DMRF_ABL_NOSYNC'],
+SECTIONS = {
+    'static': dict(
+        sources=('mrf_tc_q8', 'mrf_ptc'),
+        builds={
+            'kernel': [],
+            'no_weights': ['-DMRF_ABL_NOW'],
+            'no_mma': ['-DMRF_ABL_NOMMA'],
+            'no_weights_no_mma': SKELETON,
+            'skeleton_no_epilogue': SKELETON + ['-DMRF_ABL_NOEPI'],
+            'skeleton_no_stage_sync': SKELETON + ['-DMRF_ABL_NOSYNC'],
+        },
+        shapes=(('fused_mrf_tc_q8', (8, 8192, 256)),
+                ('fused_mrf_tc_q8', (8, 65536, 128)),
+                ('fused_mrf_ptc', (8, 65536, 128, 'q8f')),
+                ('fused_mrf_ptc', (8, 131072, 64, 'q8f')))),
+    'conv_dyn': dict(
+        sources=('mrf_ptc',),
+        builds={
+            'kernel': [],
+            'no_weights': ['-DMRF_ABL_NOW'],
+            'no_mma': ['-DMRF_ABL_NOMMA'],
+            'no_f32': ['-DMRF_ABL_NOF32'],
+            'no_quant': ['-DMRF_ABL_NOQ'],
+            'no_weights_no_mma': SKELETON,
+            'skeleton_no_f32_no_quant': SKELETON + ['-DMRF_ABL_NOF32',
+                                                    '-DMRF_ABL_NOQ'],
+        },
+        shapes=(('fused_mrf_ptc', (8, 65536, 128, 'dynamic')),
+                ('fused_mrf_ptc', (8, 131072, 64, 'dynamic')))),
+    'dyn_blk': dict(
+        sources=('mrf_ct_q8', 'mrf_phase_q8'),
+        builds={
+            'kernel': [],
+            'no_weights': ['-DMRF_ABL_NOW'],
+            'no_mma': ['-DMRF_ABL_NOMMA'],
+            'no_barrier': ['-DMRF_ABL_NOBAR'],
+            'no_weights_no_mma': SKELETON,
+            'skeleton_no_epilogue': SKELETON + ['-DMRF_ABL_NOEPI'],
+            'skeleton_no_epilogue_no_barrier': SKELETON + [
+                '-DMRF_ABL_NOEPI', '-DMRF_ABL_NOBAR'],
+        },
+        shapes=(('fused_mrf_ct_q8', (8, 8192, 256)),
+                ('fused_mrf_ct_q8', (8, 65536, 128)),
+                ('fused_mrf_phase_q8', (8, 65536, 128, 'dynamic')),
+                ('fused_mrf_phase_q8', (8, 131072, 64, 'dynamic')))),
 }
-ABLATIONS = tuple(v for v in BUILDS if v != 'kernel')
-SHAPES = (('fused_mrf_tc_q8', (8, 8192, 256)), ('fused_mrf_tc_q8', (8, 65536, 128)),
-          ('fused_mrf_ptc', (8, 65536, 128, 'q8f')),
-          ('fused_mrf_ptc', (8, 131072, 64, 'q8f')))
 
 
-def build(_build, out_dir):
-    """Every build of both sources, one nvcc each, all at once."""
+def build(_build, out_dir, sections):
+    """Every build of every section's sources, one nvcc each, all at once."""
     os.makedirs(out_dir, exist_ok=True)
-    procs = []
-    for v, flags in BUILDS.items():
-        for src in ('mrf_tc_q8', 'mrf_ptc'):
-            out = os.path.join(out_dir, f'lib{src}-{v}.so')
-            cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, *flags, '-o', out,
-                   str(_build.CSRC / f'{src}.cu')]
-            procs.append((v, src, out, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    libs = {}
+    procs, libs = [], {}
+    for sec in sections:
+        for v, flags in SECTIONS[sec]['builds'].items():
+            for src in SECTIONS[sec]['sources']:
+                out = os.path.join(out_dir, f'lib{src}-{sec}-{v}.so')
+                if (src, v, tuple(flags)) in libs:
+                    continue
+                cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, *flags, '-o', out,
+                       str(_build.CSRC / f'{src}.cu')]
+                libs[src, v, tuple(flags)] = out
+                procs.append((v, src, out, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     for v, src, out, p in procs:
         log, _ = p.communicate()
         if p.returncode:
             raise RuntimeError(f'nvcc {src} [{v}] failed:\n{log}')
-        libs[v, src] = out
-    return libs
+    return {(src, v): path for (src, v, _), path in libs.items()}
 
 
 def main():
@@ -67,6 +117,8 @@ def main():
         print('torch_mrf_q8_ablation: no CUDA device', file=sys.stderr)
         sys.exit(2)
     iters = int(sys.argv[sys.argv.index('--iters') + 1]) if '--iters' in sys.argv else 10
+    sections = (sys.argv[sys.argv.index('--sections') + 1].split(',')
+                if '--sections' in sys.argv else list(SECTIONS))
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
     import torch.nn.functional as F
@@ -80,38 +132,47 @@ def main():
                           '--format=csv,noheader'], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0], flush=True)
     t0 = time.perf_counter()
-    libs = build(_build, os.path.join(ROOT, 'build', 'ablation'))
+    libs = build(_build, os.path.join(ROOT, 'build', 'ablation'), sections)
     print(f'build: {time.perf_counter() - t0:.1f} s', flush=True)
     ks = tuple(DEFAULT_CONFIG['resblock_kernel_sizes'])
     dils = tuple(tuple(d) for d in DEFAULT_CONFIG['resblock_dilation_sizes'])
     dev = torch.device('cuda')
-    wrappers = {'fused_mrf_tc_q8': vk.fused_mrf_tc_q8, 'fused_mrf_ptc': mi.fused_mrf_ptc}
-    results, ref = {}, {}
-    for v in BUILDS:
-        _build._libs['mrf_tc_q8'] = ctypes.CDLL(libs[v, 'mrf_tc_q8'])
-        _build._libs['mrf_ptc'] = ctypes.CDLL(libs[v, 'mrf_ptc'])
-        cases = cs.KernelCases(torch, F, vk, mi, mc, None, dev, ks, dils)
-        for name, key in SHAPES:
-            c = cases.case(name, key)
-            n0 = wrappers[name].launches
-            out = c['fn']()
-            torch.cuda.synchronize()
-            launches = wrappers[name].launches - n0
-            if v not in ABLATIONS:
-                if (name, key) not in ref:
-                    ref[name, key] = c['plain']()
-                err = cs.max_abs(out.float(), ref[name, key].float())
-                assert err <= (4e-3 if key[2] == 64 else 0.0), (v, name, key, err)
-            else:
+    wrappers = {'fused_mrf_tc_q8': vk.fused_mrf_tc_q8,
+                'fused_mrf_ptc': mi.fused_mrf_ptc,
+                'fused_mrf_ct_q8': mi.fused_mrf_ct_q8,
+                'fused_mrf_phase_q8': mi.fused_mrf_phase_q8}
+    results = {}
+    for sec in sections:
+        spec = SECTIONS[sec]
+        ref = {}
+        for v in spec['builds']:
+            for src in spec['sources']:
+                _build._libs[src] = ctypes.CDLL(libs[src, v])
+            cases = cs.KernelCases(torch, F, vk, mi, mc, None, dev, ks, dils)
+            for name, key in spec['shapes']:
+                c = cases.case(name, key)
+                fn, wrapper = c['fn'], wrappers[name]
+                n0 = wrapper.launches
+                out = fn()
+                torch.cuda.synchronize()
+                launches = wrapper.launches - n0
                 err = None
-            ms = cs.time_ms(torch, c['fn'], warmup=2, iters=iters)
-            results.setdefault(v, []).append(dict(kernel=name, shape=c['desc'], ms=ms,
-                                                  launches=launches, max_abs=err))
-            print(f'{v:18s} {name} {c["desc"]}: {ms:.4f} ms, {launches} launches, '
-                  f'max_abs vs plain {err}', flush=True)
-            del out, c
-        torch.cuda.empty_cache()
-    print(json.dumps({'builds': results, 'flags': BUILDS,
+                if v == 'kernel':
+                    if (name, key) not in ref:
+                        ref[name, key] = c['plain']()
+                    err = cs.max_abs(out.float(), ref[name, key].float())
+                    post = key[2] == 64
+                    assert err <= (4e-3 if post else 0.0), (sec, v, name, key, err)
+                ms = cs.time_ms(torch, fn, warmup=2, iters=iters)
+                results.setdefault(sec, {}).setdefault(v, []).append(dict(
+                    kernel=name, shape=c['desc'], ms=ms, launches=launches,
+                    max_abs=err))
+                print(f'{sec:8s} {v:28s} {name} {c["desc"]}: {ms:.4f} ms, '
+                      f'{launches} launches, max_abs vs plain {err}', flush=True)
+                del out, c
+            torch.cuda.empty_cache()
+    print(json.dumps({'sections': results,
+                      'flags': {s_: SECTIONS[s_]['builds'] for s_ in sections},
                       'device': torch.cuda.get_device_name(0)}))
 
 

@@ -352,11 +352,12 @@ def test_mrf_ct_q8_kernel_matches_plain(C, T, tile):
     n, c = mi.fused_mrf_ct_q8.launches, mi.fused_mrf_ct_q8.calls[(2, T, C)]
     out = mi.fused_mrf_ct_q8(x, mrf, tile)
     torch.cuda.synchronize()
-    assert mi.fused_mrf_ct_q8.launches == n + 19     # amax, two per step
+    assert mi.fused_mrf_ct_q8.launches == n + 4      # amax, one per chain
     assert mi.fused_mrf_ct_q8.calls[(2, T, C)] == c + 1
     ref = mi.mrf_ct_q8_plain(x, mrf, tile)
     assert out.dtype == torch.bfloat16 and out.shape == ref.shape
     assert rel_l2(out.float().cpu(), ref.float().cpu()) <= 2e-3
+    assert torch.equal(out.cpu(), ref.cpu())         # the engine: exact
 
 
 @pytest.mark.cuda
@@ -393,13 +394,116 @@ def test_mrf_phase_q8_kernel_matches_plain(C_in, C, p_in, post, static):
     n = mi.fused_mrf_phase_q8.launches
     out = mi.fused_mrf_phase_q8(x, mrf, tile)
     torch.cuda.synchronize()
-    # amax, upsample, the chain launches, conv_post
-    assert mi.fused_mrf_phase_q8.launches == n + 2 + (9 if static else 18) \
-        + post
+    # amax, then the dynamic engine or (q8f) ptc_fused_q8_kernel
+    assert mi.fused_mrf_phase_q8.launches == n + 2
     ref = mi.mrf_phase_q8_plain(x, mrf, tile)
     assert out.dtype == torch.bfloat16 and out.shape == ref.shape
     assert out.shape == ((2, 1, cols * p) if post else (2, cols * p, C))
     assert rel_l2(out.float().cpu(), ref.float().cpu()) <= 2e-3
+    assert_exact(out, ref, post)
+
+
+def assert_exact(out, ref, post=False):
+    """Every sample equal; a conv_post waveform within one bf16 ulp at its
+    full scale, 2^-8 (conv_post sums 7 x C float32 terms in another order
+    than the plain version's library conv, as the one-launch-per-conv
+    kernels did)."""
+    o, r = out.float().cpu(), ref.float().cpu()
+    err = float((o - r).abs().max())
+    assert (err <= 2.0 ** -8) if post else torch.equal(o, r), err
+
+
+# The segment-synchronised dynamic engine (csrc/mrf_dyn_blk.cuh) at V1's
+# widths: exact against the plain versions; B in {1, 2, 3}; segments of
+# 18 (C = 256, tile 2048), 34 (C = 128, tile 4096) and 132 blocks (phase,
+# tile 8192) so that a call takes more than one wave of segments, the last
+# one ragged; smaller tiles; each level called twice in a row on one
+# stream (a stale barrier counter or scale word would show).
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('C,B,T,tile', [
+    (256, 1, 4096, 2048), (256, 3, 6144, 2048), (256, 2, 1536, 512),
+    (128, 1, 4096, 4096), (128, 2, 8192, 4096), (128, 3, 3072, 1024)])
+def test_dyn_engine_ct_matches_plain(C, B, T, tile):
+    from daft_exprt_torch.ops import mrf_int8 as mi
+    need_cuda()
+    rng = np.random.RandomState(C + T + B)
+    tp = unit_params(rng, C)
+    mrf = mi.prepare_mrf_ct_q8(mi.quantize_mrf_ct_weights(
+        mi.pack_mrf_weights(tp, 1, KS, DILS)), KS, DILS)
+    x = torch.from_numpy((rng.randn(B, T, C) * 0.5).astype(np.float32))
+    x[-1, :tile] *= 4.0
+    x = x.cuda().to(torch.bfloat16)
+    n = mi.fused_mrf_ct_q8.launches
+    outs = [mi.fused_mrf_ct_q8(x, mrf, tile) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert mi.fused_mrf_ct_q8.launches == n + 8
+    ref = mi.mrf_ct_q8_plain(x, mrf, tile)
+    for out in outs:
+        _report(f'dyn engine ct ({B},{T},{C}) tile {tile}', out, ref)
+        assert_exact(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('C_in,C,p_in,post', [(128, 64, 1, False),
+                                              (64, 32, 2, True)])
+@pytest.mark.parametrize('B,cols,tile', [(1, 8192, 8192), (2, 16384, 8192),
+                                         (3, 1024, 256)])
+def test_dyn_engine_phase_matches_plain(C_in, C, p_in, post, B, cols, tile):
+    from daft_exprt_torch.ops import mrf_int8 as mi
+    need_cuda()
+    rng = np.random.RandomState(C + cols + B)
+    p = 2 * p_in
+    tp = unit_params(rng, C, C_in, post)
+    qw = mi.quantize_mrf_phase_weights(
+        mi.pack_mrf_phase_weights(tp, 1, KS, DILS, p), KS, DILS, p)
+    wb, bu, _, _ = mi.pack_ups_phase_weights(tp['ups_1']['w'],
+                                             tp['ups_1']['b'], 2, 1, p_in)
+    ups = mi.quantize_ups_phase_weights(
+        wb, bu, mi.ups_used_blocks(4, 2, 1, p_in), C_in)
+    pst = mi.pack_post_phase_weights(tp['conv_post']['w'],
+                                     tp['conv_post']['b'], p) if post else None
+    mrf = mi.prepare_mrf_phase_q8(qw, KS, DILS, p,
+                                  tuple(ups) + (4, 2, 1, p_in), pst)
+    x = torch.from_numpy((rng.randn(B, cols * p_in, C_in) * 0.5)
+                         .astype(np.float32))
+    x[-1, :tile * p_in] *= 4.0
+    x = x.cuda().to(torch.bfloat16)
+    n = mi.fused_mrf_phase_q8.launches
+    outs = [mi.fused_mrf_phase_q8(x, mrf, tile) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert mi.fused_mrf_phase_q8.launches == n + 4
+    ref = mi.mrf_phase_q8_plain(x, mrf, tile)
+    for out in outs:
+        assert out.shape == ref.shape
+        _report(f'dyn engine phase ({B},{cols * p_in},{C_in}) tile {tile}',
+                out, ref)
+        assert_exact(out, ref, post)
+    if post:       # the chain mean before conv_post: exact
+        from dataclasses import replace
+        bare = replace(mrf, post=None, post_dev=None)
+        assert_exact(mi.fused_mrf_phase_q8(x, bare, tile),
+                     mi.mrf_phase_q8_plain(x, bare, tile))
+
+
+@pytest.mark.cuda
+def test_dyn_engine_refuses_short_scratch(monkeypatch):
+    """At C = 256 each block's R and conv1's first pass live in a global
+    scratch slice; a table that says R fits in shared memory gives the
+    kernel a scratch too small for its DynCfg, and the launch raises
+    instead of writing past it."""
+    from daft_exprt_torch.ops import mrf_int8 as mi
+    need_cuda()
+    rng = np.random.RandomState(5)
+    mrf = mi.prepare_mrf_ct_q8(mi.quantize_mrf_ct_weights(
+        mi.pack_mrf_weights(unit_params(rng, 256), 1, KS, DILS)), KS, DILS)
+    x = torch.from_numpy((rng.randn(1, 2048, 256) * 0.5).astype(np.float32)
+                         ).cuda().to(torch.bfloat16)
+    monkeypatch.setitem(mi.DYN_BLK_CFG, (256, 256),
+                        mi.DYN_BLK_CFG[256, 256]._replace(r_smem=True))
+    with pytest.raises(RuntimeError, match='dynamic engine'):
+        mi.fused_mrf_ct_q8(x, mrf, 2048)
+    torch.cuda.synchronize()
 
 
 # ----------------------------------------------------------------------
