@@ -11,8 +11,10 @@
    random weights, each path with every launch counter set to 0 just
    before it and read just after:
    - bf16, B=8 requests x L=128 symbols x T=1024 frames: Synthesizer.infer
-     + HiFiGanVocoder(fast='bf16').infer; the waveform against the float32
-     plain route, rel-L2 <= 5e-2;
+     + HiFiGanVocoder(fast='bf16').infer (fused_mrf_tc at L0/L1, one
+     launch per chain, and fused_mrf_phase at L2/L3, one launch a level,
+     both on the block-resident bf16 engine of ops/csrc/mrf_chain_bf16.cuh);
+     the waveform against the float32 plain route, rel-L2 <= 5e-2;
    - int8-static, B=8 (bench.py's headline route): HiFiGanVocoder(
      fast='int8', int8_calibration_mels=mel[:4]), calibrated as bench.py
      does; the waveform against the port's plain int8 route (the kernels'

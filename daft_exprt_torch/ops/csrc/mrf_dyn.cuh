@@ -16,7 +16,7 @@
 // into the segment's amax word for the next conv (atomicMax on float bits).
 // Roundings follow the JAX order as in mrf_q8.cuh.
 //
-// Ablation builds (scripts/torch_mrf_q8_ablation.py; results wrong, not
+// Ablation builds (scripts/torch_mrf_ablation.py; results wrong, not
 // checked): MRF_ABL_NOF32 drops the float32 reads of the input and the
 // residual and the float32 stores (kWrite, kAdd), MRF_ABL_NOQ the
 // prologue's rint and conversion (the byte is the float's low bits);

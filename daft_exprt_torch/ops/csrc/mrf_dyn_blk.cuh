@@ -56,7 +56,7 @@
 //
 // Bound on the card: operations, 252*B*T*C^2 int8 operations per level at
 // the dense int8 rate (plus the upsample's at C = 64/32). What holds the
-// engine back is in PERF.md (scripts/torch_mrf_q8_ablation.py, dyn_blk).
+// engine back is in PERF.md (scripts/torch_mrf_ablation.py, dyn_blk).
 #pragma once
 
 #include "mrf_chain_q8.cuh"

@@ -7,25 +7,38 @@
 //   1. lrelu(x) of the pre-upsample input, zero-extended, then the
 //      ConvTranspose1d upsample (k - 2p == s) evaluated over an extended
 //      sample range (bias plus edge leakage beyond the utterance), rounded
-//      to the compute type  -> ups_kernel;
-//   2. the MRF chains by valid convs on a float32 residual stream
-//      -> mrf::step_kernel, one launch per (chain, dilation) step;
-//   3. without conv_post: the chain mean in the compute type, written in
-//      (B, C, T) layout by the last step; with conv_post: lrelu of the
-//      unrounded float32 mean -> conv_post (C -> 1) -> tanh -> post_kernel.
+//      to the compute type;
+//   2. the MRF chains by valid convs on a float32 residual stream;
+//   3. without conv_post: the chain mean in the compute type, in (B, C, T)
+//      layout; with conv_post: lrelu of the unrounded float32 mean ->
+//      conv_post (C -> 1) -> tanh.
 // The extension covers the chains' and conv_post's receptive fields, so
 // every sample, edges included, matches the TPU kernel's tile-independent
 // result.
 //
-// The same launches replace fused_mrf_ptc's fdot mode (the bf16 tier's
+// bf16 compute: one launch of phase_bf_kernel (mrf_chain_bf16.cuh) per
+// level (vocoder_kernels._phase_bf_plan). A persistent block takes items of
+// bm output samples of one utterance and works on chip throughout: it
+// loads its x window (lrelu, bf16), runs the polyphase upsample on wgmma
+// into a bf16 tile X0 over the window [n0 - hx, n0 + bm + hx) (hx: the
+// widest chain's halo + conv_post's reach), then per chain copies the
+// chain's own window of X0 into the float32 residual window and its lrelu
+// into the bf16 conv tile, runs the chain's three steps and adds the chain
+// into a float32 sum; then writes the mean in bf16 through a transposed
+// tile into (B, C, N), or runs conv_post and tanh per sample into (B, 1,
+// N). Only x is read and only the level's output written.
+//
+// float32 compute keeps one launch per stage: ups_kernel, one
+// mrf::step_kernel per (chain, dilation) step and post_kernel. They also
+// replace fused_mrf_ptc's fdot mode (the bf16 tier's
 // phase-tc form: unquantised bf16 dots on the shift matrices of
 // pack_mrf_ptc_f_weights), which computes this function but for one
-// rounding: its upsample output x0 = acc + b stays float32 (step 1 writes
-// float32, `out_f32`) where the banded phase kernel rounds it to bf16.
+// rounding: its upsample output x0 = acc + b stays float32 (ups_kernel
+// writes float32 in both modes) where phase_bf_kernel rounds it to bf16.
 //
 // Bound on the card: operations. The MRF group's 252*B*T*C^2 FLOPs at
 // C=64/32 dominate; the upsample adds 2*B*T_out*C_in*C_out*k/s.
-#include "mrf_common.cuh"
+#include "mrf_chain_bf16.cuh"
 
 namespace mrf {
 
@@ -106,12 +119,11 @@ cudaError_t launch_ups_t(const UpsParams& p, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// cdt: 1 = bf16 compute, 0 = float32; out_f32: bf16 compute writing float32
+// cdt: 1 = bf16 compute (fdot), 0 = float32; x0 is float32 in both
 template <int CIN, int COUT>
-cudaError_t launch_ups_c(const UpsParams& p, int B, int cdt, int out_f32, cudaStream_t s) {
+cudaError_t launch_ups_c(const UpsParams& p, int B, int cdt, cudaStream_t s) {
   if (cdt != 1) return launch_ups_t<CIN, COUT, float, float>(p, B, s);
-  return out_f32 ? launch_ups_t<CIN, COUT, bf16, float>(p, B, s)
-                 : launch_ups_t<CIN, COUT, bf16, bf16>(p, B, s);
+  return launch_ups_t<CIN, COUT, bf16, float>(p, B, s);
 }
 
 }  // namespace mrf
@@ -130,7 +142,7 @@ extern "C" int mrf_phase_ups(const void* x, long long x_bs, long long x_cs, long
                              void* out, long long out_bs, int out_off, const void* w,
                              const void* bias, int stride, int ntaps, int amin, int span,
                              const int* delta, int m_lo, int m_hi, int n_lo, int n_hi, int c_in,
-                             int c_out, int B, int cdt, int out_f32, void* stream) {
+                             int c_out, int B, int cdt, void* stream) {
   if (stride < 1 || stride > 8) return (int)cudaErrorInvalidValue;
   mrf::UpsParams p;
   p.x = x;
@@ -153,8 +165,8 @@ extern "C" int mrf_phase_ups(const void* x, long long x_bs, long long x_cs, long
   p.n_hi = n_hi;
   for (int r = 0; r < 8; ++r) p.delta[r] = r < stride ? delta[r] : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c_in == 128 && c_out == 64) return (int)mrf::launch_ups_c<128, 64>(p, B, cdt, out_f32, s);
-  if (c_in == 64 && c_out == 32) return (int)mrf::launch_ups_c<64, 32>(p, B, cdt, out_f32, s);
+  if (c_in == 128 && c_out == 64) return (int)mrf::launch_ups_c<128, 64>(p, B, cdt, s);
+  if (c_in == 64 && c_out == 32) return (int)mrf::launch_ups_c<64, 32>(p, B, cdt, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -169,4 +181,64 @@ extern "C" int mrf_phase_post(const void* R, long long r_bs, int r_off, int C, f
                                    static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// The bf16 level in one launch. ptrs: wu, bu, wp (null without conv_post),
+// then 4 per step of each chain (w1, b1, w2, b2). ints: stride, ntaps,
+// amin, span, rows_r[8], N, hx, P, kpost, block_m, tps, kch, utps, ukch,
+// r_smem, wu_phase, n_chains, then per chain k, n_steps, dils[4]
+// (vocoder_kernels._phase_bf_args); tps .. r_smem must be the kernel's.
+extern "C" int mrf_phase_bf(const void* x, long long x_bs, long long x_cs, long long x_ts, int t_in,
+                            void* out, long long out_bs, const long long* ptrs, const int* ints,
+                            float scale, float post_bias, int c_in, int C, int B, void* scratch,
+                            long long scratch_floats, int slots, void* stream) {
+  using namespace mrf::bfe;
+  PhaseBfParams p = {};
+  p.x = static_cast<const mrf::bf16*>(x);
+  p.x_bs = x_bs;
+  p.x_cs = x_cs;
+  p.x_ts = x_ts;
+  p.t_in = t_in;
+  p.out = static_cast<mrf::bf16*>(out);
+  p.out_bs = out_bs;
+  p.wu = reinterpret_cast<const int8_t*>(ptrs[0]);
+  p.bu = reinterpret_cast<const float*>(ptrs[1]);
+  p.wp = reinterpret_cast<const float*>(ptrs[2]);
+  p.stride = ints[0];
+  p.ntaps = ints[1];
+  p.amin = ints[2];
+  p.span = ints[3];
+  for (int r = 0; r < 8; ++r) p.rows_r[r] = ints[4 + r];
+  p.N = ints[12];
+  p.hx = ints[13];
+  p.P = ints[14];
+  p.kpost = ints[15];
+  p.bm = ints[16];
+  p.wu_phase = ints[22];
+  p.n_chains = ints[23];
+  p.bp = post_bias;
+  p.scale = scale;
+  p.scratch = static_cast<float*>(scratch);
+  if (p.stride < 1 || p.stride > 8 || p.n_chains < 1 || p.n_chains > kMaxChains ||
+      (p.kpost > 0) != (p.wp != nullptr) || (p.kpost > 0 && p.P != (p.kpost - 1) / 2) ||
+      (p.kpost == 0 && p.P != 0))
+    return (int)cudaErrorInvalidValue;
+  const long long* w = ptrs + 3;
+  for (int j = 0; j < p.n_chains; ++j) {
+    const int* cj = ints + 24 + 6 * j;
+    p.k[j] = cj[0];
+    p.n_steps[j] = cj[1];
+    if (p.n_steps[j] < 1 || p.n_steps[j] > kMaxSteps || p.k[j] < 1 || p.k[j] % 2 == 0)
+      return (int)cudaErrorInvalidValue;
+    for (int i = 0; i < p.n_steps[j]; ++i, w += 4)
+      p.steps[j][i] = StepBf{reinterpret_cast<const int8_t*>(w[0]), reinterpret_cast<const float*>(w[1]),
+                             reinterpret_cast<const int8_t*>(w[2]), reinterpret_cast<const float*>(w[3]),
+                             cj[2 + i]};
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (c_in == 128 && C == 64)
+    return (int)launch_phase_bf<128, 64>(p, B, ints + 17, scratch_floats, slots, s);
+  if (c_in == 64 && C == 32)
+    return (int)launch_phase_bf<64, 32>(p, B, ints + 17, scratch_floats, slots, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -28,19 +28,25 @@ the same function the port's kernels and plain versions compute.
 The float wrappers take one level's weights as :class:`MrfWeights`, made
 once by :func:`prepare_mrf` (the plain layout and the kernels' layout side
 by side); the int8 ones :class:`MrfQ8Weights` from
-:func:`prepare_mrf_tc_q8` / :func:`prepare_mrf_ptc`. The float CUDA routes
-run one launch per (chain, dilation) step (``mrf_common.cuh::step_kernel``;
-each step reads its float32 input and writes its float32 output over the
-(B, T + 2E, C) buffers, ~9 float32 read+write passes for V1);
-:func:`fused_mrf_tc_q8` one launch per chain, each block keeping the
-chain's residual window on chip (``mrf_chain_q8.cuh``, weights packed by
-:func:`pack_stage_s8`). The sample ranges of every launch and block are
-planned here (:func:`_chain_steps`, :func:`_tc_q8_plan`) so the CPU tests
-can replay the plan.
+:func:`prepare_mrf_tc_q8` / :func:`prepare_mrf_ptc`. In bf16,
+:func:`fused_mrf_tc` and :func:`fused_mrf_phase` run on the block-resident
+bf16 engine (``mrf_chain_bf16.cuh``: one launch per chain, or per level
+with the upsample and conv_post; weights packed by
+:func:`pack_stage_bf16`), :func:`fused_mrf_tc_q8` on the int8 one
+(``mrf_chain_q8.cuh``, :func:`pack_stage_s8`): each block keeps a chain's
+residual window on chip. The other float routes (float32, fdot,
+:func:`fused_resblock1`) run one launch per (chain, dilation) step
+(``mrf_common.cuh::step_kernel``; each step reads its float32 input and
+writes its float32 output over the (B, T + 2E, C) buffers, ~9 float32
+read+write passes for V1). The sample ranges of every launch and block
+are planned here (:func:`_chain_steps`, :func:`_tc_bf_plan`,
+:func:`_phase_bf_plan`, :func:`_tc_q8_plan`) so the CPU tests can replay
+the plan.
 """
 import collections
 import contextlib
 import ctypes
+import math
 from dataclasses import dataclass
 from typing import Optional
 
@@ -313,13 +319,26 @@ class MrfWeights:
     post: Optional[tuple] = None      # (w (1, C, k), b (1,))
     post_dev: Optional[tuple] = None
     p: int = 0                        # phases (fused_mrf_ptc_f's weights)
+    blk: Optional[list] = None        # the bf16 engine's staged chains
+    blk_ups: Optional[tuple] = None   # its staged upsample
 
 
-def prepare_mrf(packed, kernel_sizes, dilations, ups=None, post=None):
+def prepare_mrf(packed, kernel_sizes, dilations, ups=None, post=None,
+                engine=True):
     """:class:`MrfWeights` of one level, in the dtype and on the device of
     ``packed``. ``ups`` = (w, b, stride, padding) of the level's
     ConvTranspose1d and ``post`` = (w, b) of conv_post, for
-    :func:`fused_mrf_phase`."""
+    :func:`fused_mrf_phase`.
+
+    On the card, bf16 weights of a level the block-resident engine serves
+    (``engine``; a wide level of :data:`TC_BF_CFG`, a narrow one with its
+    upsample in :data:`PHASE_BF_CFG`) are staged for it (``blk``: per chain
+    and step (w1, b1, w2, b2), the taps by :func:`pack_stage_bf16`;
+    ``blk_ups``: per phase the upsample's taps staged, the bias, the bytes
+    of a phase). Every other form keeps the step kernels' ``chains`` (a
+    narrow level's too: its fallback to ``fused_mrf_ct`` reads them);
+    ``engine=False`` (``fused_mrf_ptc_f``'s and ``fused_resblock1``'s
+    weights) stages only those."""
     cdt, device = packed[0].dtype, packed[0].device
     kernel_sizes = tuple(kernel_sizes)
     dilations = tuple(tuple(d) for d in dilations)
@@ -327,20 +346,40 @@ def prepare_mrf(packed, kernel_sizes, dilations, ups=None, post=None):
                      ups=ups, post=post)
     if device.type != 'cuda':
         return mrf
-    mrf.chains = []
-    for j, dils in enumerate(dilations):
-        w1, b1, w2, b2 = packed[4 * j:4 * j + 4]
-        mrf.chains.append([(_device_taps(w1[i], cdt),
-                            b1[i].float().contiguous(),
-                            _device_taps(w2[i], cdt),
-                            b2[i].float().contiguous())
-                           for i in range(len(dils))])
+    C = packed[0].shape[-1]
+    cfg = None
+    if engine and cdt == torch.bfloat16:
+        cfg = TC_BF_CFG.get(C) if ups is None else \
+            PHASE_BF_CFG.get((ups[0].shape[0], C))
+    if cfg is not None:
+        mrf.blk = []
+        for j, dils in enumerate(dilations):
+            w1, b1, w2, b2 = packed[4 * j:4 * j + 4]
+            mrf.blk.append([(pack_stage_bf16(w1[i], cfg.tps, cfg.kch),
+                             b1[i].float().contiguous(),
+                             pack_stage_bf16(w2[i], cfg.tps, cfg.kch),
+                             b2[i].float().contiguous())
+                            for i in range(len(dils))])
+    if cfg is None or ups is not None:
+        mrf.chains = []
+        for j, dils in enumerate(dilations):
+            w1, b1, w2, b2 = packed[4 * j:4 * j + 4]
+            mrf.chains.append([(_device_taps(w1[i], cdt),
+                                b1[i].float().contiguous(),
+                                _device_taps(w2[i], cdt),
+                                b2[i].float().contiguous())
+                               for i in range(len(dils))])
     if ups is not None:
         w, b, stride, padding = ups
         _, _, _, _, taps = ups_geometry(w.shape[-1], stride, padding)
-        mrf.ups_dev = (torch.cat([_device_taps(torch.stack(
-            [w[:, :, j] for j in tp]), cdt) for tp in taps]),
-            b.float().contiguous())
+        phases = [torch.stack([w[:, :, j] for j in tp]) for tp in taps]
+        if cfg is not None:
+            staged = [pack_stage_bf16(t, cfg.utps, cfg.ukch) for t in phases]
+            mrf.blk_ups = (torch.cat(staged), b.float().contiguous(),
+                           2 * staged[0].numel())
+        else:
+            mrf.ups_dev = (torch.cat([_device_taps(t, cdt) for t in phases]),
+                           b.float().contiguous())
     if post is not None:
         w, b = post
         mrf.post_dev = (w.to(cdt).float()[0].transpose(0, 1).contiguous(),
@@ -418,25 +457,39 @@ def _check_weights(name, x, mrf):
 def fused_mrf_tc(x, mrf):
     """Fused MRF group of a wide level. x: (B, T, C) in bfloat16 or float32;
     ``mrf`` from :func:`prepare_mrf` in x's dtype. Returns (B, T, C) in x's
-    dtype. On a CUDA tensor this launches ``mrf_tc.cu`` (or raises); on a
-    CPU tensor it runs :func:`mrf_tc_plain`.
+    dtype. On a CUDA tensor this launches ``mrf_tc.cu`` (or raises): in
+    bf16 the block-resident engine, one ``tc_bf_kernel`` launch per chain;
+    in float32 one ``step_kernel`` launch per chain step. On a CPU tensor
+    it runs :func:`mrf_tc_plain`.
 
-    ``fused_mrf_tc.launches`` counts CUDA launches (one per chain step);
+    ``fused_mrf_tc.launches`` counts CUDA launches;
     ``fused_mrf_tc.calls`` counts CUDA-route calls by x's shape."""
     if x.device.type == 'cpu':
         return mrf_tc_plain(x, mrf.packed, mrf.kernel_sizes, mrf.dilations)
-    B, T, C = x.shape
+    C = x.shape[2]
     _check_cuda_input(x, 'fused_mrf_tc', TC_CHANNELS, C)
     _check_kernel_sizes('fused_mrf_tc', mrf.kernel_sizes)
     _check_weights('fused_mrf_tc', x, mrf)
+    if x.dtype == torch.bfloat16:
+        out = _launch_tc_bf(fused_mrf_tc, x, mrf)
+    else:
+        out = _launch_tc_steps(fused_mrf_tc, x, mrf.chains, mrf.kernel_sizes,
+                               mrf.dilations)
+    fused_mrf_tc.calls[tuple(x.shape)] += 1
+    return out
+
+
+def _launch_tc_steps(wrapper, x, chains, kernel_sizes, dilations):
+    """The step-kernel launches of ``mrf_tc.cu`` (float32, and
+    :func:`fused_resblock1`), counted on ``wrapper``."""
+    B, _, C = x.shape
     x = x.contiguous()
-    steps, out = _tc_plan(x, mrf.chains, mrf.kernel_sizes, mrf.dilations,
+    steps, out = _tc_plan(x, chains, kernel_sizes, dilations,
                           _empty_on(x.device))
     fn = _fn('mrf_tc', 'mrf_tc_step', _STEP_ARGTYPES)
     for st in steps:
         _launch_step(fn, st, B, C, x.dtype)
-        fused_mrf_tc.launches += 1
-    fused_mrf_tc.calls[tuple(x.shape)] += 1
+        wrapper.launches += 1
     return out
 
 
@@ -513,7 +566,7 @@ def _phase_plan(x, prep, ups_prep, kernel_sizes, dilations, ups, post,
 
 
 _UPS_ARGTYPES = ([_P, _I64, _I64, _I64, _I32, _P, _I64, _I32, _P, _P]
-                 + [_I32] * 4 + [_P] + [_I32] * 9 + [_P])
+                 + [_I32] * 4 + [_P] + [_I32] * 8 + [_P])
 _POST_ARGTYPES = [_P, _I64, _I32, _I32, _F32, _P, _F32, _I32, _P, _I32,
                   _I32, _I32, _P]
 
@@ -530,15 +583,19 @@ def fused_mrf_phase(x, mrf):
     a CUDA tensor this launches ``mrf_phase.cu`` (or raises); on a CPU
     tensor it runs :func:`mrf_phase_plain`.
 
-    ``fused_mrf_phase.launches`` counts CUDA launches (the upsample, one
-    per chain step, conv_post); ``fused_mrf_phase.calls`` counts
-    CUDA-route calls by x's shape."""
+    In bf16 the CUDA route is one launch of the block-resident
+    ``phase_bf_kernel``; in float32 the upsample, one launch per chain step
+    and conv_post. ``fused_mrf_phase.launches`` counts CUDA launches;
+    ``fused_mrf_phase.calls`` counts CUDA-route calls by x's shape."""
     if mrf.ups is None:
         raise ValueError('fused_mrf_phase: the weights carry no upsample')
     if x.device.type == 'cpu':
         return mrf_phase_plain(x, mrf.packed, mrf.kernel_sizes,
                                mrf.dilations, mrf.ups, mrf.post)
-    out = _launch_phase(fused_mrf_phase, x, mrf, False)
+    if x.dtype == torch.bfloat16:
+        out = _launch_phase_bf(fused_mrf_phase, x, mrf)
+    else:
+        out = _launch_phase(fused_mrf_phase, x, mrf)
     fused_mrf_phase.calls[tuple(x.shape)] += 1
     return out
 
@@ -547,10 +604,10 @@ fused_mrf_phase.launches = 0
 fused_mrf_phase.calls = collections.Counter()
 
 
-def _launch_phase(wrapper, x, mrf, x0_f32):
-    """The launches of ``mrf_phase.cu`` for :func:`fused_mrf_phase` and
-    :func:`fused_mrf_ptc_f` (``x0_f32``: the upsample writes float32),
-    counted on ``wrapper``."""
+def _launch_phase(wrapper, x, mrf):
+    """The step-kernel launches of ``mrf_phase.cu`` for float32
+    :func:`fused_mrf_phase` and :func:`fused_mrf_ptc_f` (the upsample
+    writes float32 in both), counted on ``wrapper``."""
     name = wrapper.__name__
     w_u, _, stride, _ = mrf.ups
     B, C_in, T_in = x.shape
@@ -564,8 +621,7 @@ def _launch_phase(wrapper, x, mrf, x0_f32):
                          f'instantiation (built for {PHASE_UPS})')
     up, steps, tail, out = _phase_plan(
         x, mrf.chains, mrf.ups_dev, mrf.kernel_sizes, mrf.dilations, mrf.ups,
-        mrf.post, mrf.post_dev, _empty_on(x.device),
-        torch.float32 if x0_f32 else cdt)
+        mrf.post, mrf.post_dev, _empty_on(x.device), torch.float32)
     stream = _build.stream_ptr(x)
     bf = int(cdt == torch.bfloat16)
     w_p, b_p = up.weights
@@ -574,8 +630,7 @@ def _launch_phase(wrapper, x, mrf, x0_f32):
         _build.ptr(up.out), up.out.stride(0), up.out_off, _build.ptr(w_p),
         _build.ptr(b_p), stride, up.ntaps, up.amin, up.span,
         ctypes.cast((ctypes.c_int * stride)(*up.rows), ctypes.c_void_p),
-        up.m_lo, up.m_hi, up.n_lo, up.n_hi, C_in, C, B, bf, int(x0_f32),
-        stream)
+        up.m_lo, up.m_hi, up.n_lo, up.n_hi, C_in, C, B, bf, stream)
     _build.check(err, 'MRF upsample')
     wrapper.launches += 1
     fn = _fn('mrf_phase', 'mrf_phase_step', _STEP_ARGTYPES)
@@ -590,6 +645,399 @@ def _launch_phase(wrapper, x, mrf, x0_f32):
             stride * T_in, B, bf, stream)
         _build.check(err, 'MRF conv_post')
         wrapper.launches += 1
+    return out
+
+
+# ----------------------------------------------------------------------
+# the bf16 block-resident engine (csrc/mrf_chain_bf16.cuh)
+# ----------------------------------------------------------------------
+#
+# A block owns block_m output samples of one utterance and runs a chain's
+# steps on its window, block_m + 2*halo rows, on chip. The launch plans
+# below fix every block's window (the CPU tests replay them); block_m is
+# the largest whose window fits the shared memory the kernel's layout needs
+# (mirrored here from the .cuh).
+
+SMEM_MAX = 232448             # dynamic shared memory of one H100 block
+
+
+@dataclass(frozen=True)
+class BfCfg:
+    """A bf16 engine kernel's geometry (``mrf_chain_bf16.cuh`` TcBfCfg /
+    PhaseBfCfg: warps, taps and input channels per weight stage of the
+    chain convs and of the upsample, ring slots, and where its float32
+    windows live: ``r_smem``, shared memory, else a per-block slice of a
+    global scratch, which stays in L2). The kernel checks the stages and
+    ``r_smem``."""
+    nw: int
+    tps: int
+    kch: int
+    nbuf: int
+    r_smem: bool
+    utps: int = 0
+    ukch: int = 0
+
+
+TC_BF_CFG = {128: BfCfg(16, 1, 64, 3, True), 256: BfCfg(16, 1, 32, 4, False)}
+PHASE_BF_CFG = {(128, 64): BfCfg(16, 2, 64, 3, True, 2, 64),
+                (64, 32): BfCfg(16, 3, 32, 3, True, 2, 64)}
+
+
+def stage_taps(taps, tps):
+    """The taps of each stage group of the bf16 engine: groups of ``tps``
+    from tap 0; the last group, when ``tps`` does not divide ``taps``, is
+    the last ``tps`` taps (its taps an earlier group holds get zero
+    weights), so every group issues the same MMAs and reads only rows of
+    the conv's window. Returns [(first tap, taps it adds)] per group."""
+    if taps < tps:
+        raise ValueError(f'{taps} taps in groups of {tps}')
+    G = -(-taps // tps)
+    return [(min(g * tps, taps - tps), min(tps, taps - g * tps))
+            for g in range(G)]
+
+
+def pack_stage_bf16(w_kio, tps, kch):
+    """(taps, C_in, C_out) -> bfloat16 in the staged order the bf16 engine
+    copies into shared memory (``mrf_chain_bf16.cuh``): stage s =
+    g*(C_in/kch) + kc holds group g's taps (:func:`stage_taps`) x input
+    channels [kc*kch, (kc+1)*kch), as [tap][output channel n][kch], the
+    16-byte chunks (8 values) of row n swizzled by :func:`swizzle_key` for
+    rows of 2*kch bytes."""
+    taps, ci, co = w_kio.shape
+    w = w_kio.to(torch.bfloat16).view(torch.int16)
+    groups = []
+    for t0, n in stage_taps(taps, tps):
+        g = w[t0:t0 + tps].clone()
+        g[:tps - n] = 0                 # taps an earlier group holds
+        groups.append(g)
+    w = torch.stack(groups)             # [g][tp][ci][co]
+    # [g][kc][tp][n][k]
+    w = w.reshape(len(groups), tps, ci // kch, kch, co).permute(0, 2, 1, 4, 3)
+    key = swizzle_key(co, 2 * kch).to(w.device)
+    pos = torch.arange(kch, device=w.device)
+    src = (((pos[None, :] >> 3) ^ key[:, None]) << 3) | (pos[None, :] & 7)
+    w = torch.gather(w, 4, src.expand(w.shape).contiguous())
+    return w.contiguous().reshape(-1).view(torch.bfloat16)
+
+
+def _pass_rows(C, nw):
+    """Output rows of one pass of a conv (``Conv::ROWS``): the warpgroups
+    over C's column groups of 128, 64 rows each."""
+    return (nw // 4) // (C // min(C, 128)) * 64
+
+
+def _conv_passes(M, rows):
+    return -(-M // rows)
+
+
+def _chain_convs(k, dils, wrows):
+    """The output rows of a chain's convs on a window of ``wrows`` rows, in
+    order (conv1, conv2 of each step)."""
+    half = (k - 1) // 2
+    rows, cur = [], wrows
+    for d in dils:
+        rows += [cur - 2 * d * half, cur - 2 * d * half - 2 * half]
+        cur = rows[-1]
+    return rows
+
+
+def _round64(m):
+    return -(-m // 64) * 64
+
+
+def tile_rows(k, dils, wrows):
+    """Rows a chain's conv tile holds on a window of ``wrows`` rows
+    (``mrf_chain_bf16.cuh`` tile_rows): a warpgroup's MMAs read 64 rows
+    from its first, so a conv over M rows reads rows up to round64(M) - 1 +
+    (k - 1)*d."""
+    half = (k - 1) // 2
+    rt, cur = wrows, wrows
+    for d in dils:
+        m1 = cur - 2 * d * half
+        m2 = m1 - 2 * half
+        rt = max(rt, _round64(m1) + 2 * d * half, _round64(m2) + 2 * half)
+        cur = m2
+    return rt
+
+
+def _tc_bf_smem(C, cfg, k, dils, bm):
+    """Shared memory of a ``tc_bf_kernel`` block (``TcBfLayout``)."""
+    wrows = bm + 2 * chain_halo(k, dils)
+    rows = _pass_rows(C, cfg.nw)
+    n_sched = sum(_conv_passes(M, rows) for M in _chain_convs(k, dils, wrows))
+    return (cfg.nbuf * cfg.tps * C * 2 * cfg.kch
+            + tile_rows(k, dils, wrows) * 2 * C
+            + (wrows * (C + 8) * 4 if cfg.r_smem else 0) + 16 * n_sched)
+
+
+def _largest_block(n_per_utt, step, fits):
+    """The largest block_m (a multiple of ``step``, at most the utterance
+    rounded up) whose window fits the shared memory: the larger the block,
+    the less halo it recomputes and the fewer times the weights stream.
+    (On the card a cost model of waves, 64-row granules and weight passes
+    picked no faster blocks, within the run-to-run spread: PERF.md, PR
+    10.)"""
+    best = None
+    for bm in range(step, -(-n_per_utt // step) * step + 1, step):
+        if not fits(bm):
+            break
+        best = bm
+    if best is None:
+        raise ValueError('no block size fits the shared memory')
+    return best
+
+
+def tc_bf_block(C, k, dils, T):
+    """``tc_bf_kernel``'s block_m for one chain of a (B, T, C) group."""
+    cfg = TC_BF_CFG[C]
+    return _largest_block(
+        T, 8, lambda bm: _tc_bf_smem(C, cfg, k, dils, bm) <= SMEM_MAX)
+
+
+@dataclass
+class TcBfLaunch:
+    """One launch of ``tc_bf_kernel``: chain ``weights`` (per step: staged
+    w1, b1, staged w2, b2) of an MRF group over blocks of ``block_m``
+    output samples. Block i of utterance b reads x samples [i*block_m -
+    halo, (i+1)*block_m + halo) (zero outside [0, T)), runs the chain's
+    steps with valid convs on that window and, for samples n in
+    [i*block_m, min((i+1)*block_m, T)), writes the chain into ``sum`` (a
+    (B, T, C) float32 buffer of its own; WRITE) or (FINAL) writes ((the
+    earlier chains' buffers ``sum[:n_acc]`` summed in order) + chain) *
+    scale into ``out``. ``r_smem``: the float32 window in shared memory,
+    else a scratch slice of (block_m + 2*halo) x (C + 8) floats per
+    resident block."""
+    x: torch.Tensor
+    sum: Optional[torch.Tensor]
+    out: torch.Tensor
+    mode: int
+    n_acc: int
+    scale: float
+    weights: list
+    k: int
+    dils: tuple
+    halo: int
+    block_m: int
+    n_blocks: int
+    r_smem: bool
+
+
+def _tc_bf_plan(x, chains, kernel_sizes, dilations, alloc, slots):
+    """Launch plan of the bf16 :func:`fused_mrf_tc`: (launches, out), one
+    launch per chain, and the scratch floats the launches need (0 when
+    every window is in shared memory); ``slots``: resident blocks (SMs)."""
+    B, T, C = x.shape
+    cfg = TC_BF_CFG[C]
+    nb = len(kernel_sizes)
+    sums = alloc((nb - 1, B, T, C), torch.float32) if nb > 1 else None
+    out = alloc((B, T, C), x.dtype)
+    launches, scratch = [], 0
+    for j, (k, dils) in enumerate(zip(kernel_sizes, dilations)):
+        final = j == nb - 1
+        bm = tc_bf_block(C, k, tuple(dils), T)
+        h = chain_halo(k, dils)
+        n_blocks = -(-T // bm)
+        launches.append(TcBfLaunch(
+            x, sums if final else sums[j], out, FINAL if final else WRITE,
+            j if final else 0, 1.0 / nb, chains[j], k, tuple(dils), h, bm,
+            n_blocks, cfg.r_smem))
+        if not cfg.r_smem:
+            scratch = max(scratch, (bm + 2 * h) * (C + 8)
+                          * min(B * n_blocks, slots))
+    return launches, out, scratch
+
+
+_TC_BF_ARGTYPES = ([_P, _I64, _I32, _P, _I64, _I64, _P, _I64, _I32, _I32,
+                    _F32, _P, _P] + [_I32] * 8 + [_P, _I64, _I32, _P])
+
+
+def _scratch(n, device):
+    return torch.empty(max(n, 1), dtype=torch.float32, device=device)
+
+
+def _launch_tc_bf(wrapper, x, mrf):
+    """The ``tc_bf_kernel`` launches of a bf16 :func:`fused_mrf_tc` call,
+    counted on ``wrapper``."""
+    B, T, C = x.shape
+    if mrf.blk is None:
+        raise ValueError('fused_mrf_tc: the weights carry no bf16 engine form '
+                         '(prepare_mrf(..., engine=True) on the card)')
+    x = aligned(x)
+    slots = sm_count(x.device)
+    launches, out, n_scratch = _tc_bf_plan(
+        x, mrf.blk, mrf.kernel_sizes, mrf.dilations, _empty_on(x.device),
+        slots)
+    cfg = TC_BF_CFG[C]
+    scratch = _scratch(n_scratch, x.device)
+    fn = _fn('mrf_tc', 'mrf_tc_bf_chain', _TC_BF_ARGTYPES)
+    stream = _build.stream_ptr(x)
+    for st in launches:
+        wp = (ctypes.c_int64 * (4 * len(st.dils)))(
+            *(t.data_ptr() for w in st.weights for t in w))
+        dl = (ctypes.c_int * len(st.dils))(*st.dils)
+        acc = st.sum if st.sum is not None else st.out
+        b_dim = 1 if st.mode == FINAL else 0
+        err = fn(_build.ptr(x), x.stride(0), T, _build.ptr(acc),
+                 acc.stride(b_dim), acc.stride(0) if b_dim else 0,
+                 _build.ptr(st.out), st.out.stride(0), st.mode, st.n_acc,
+                 st.scale, ctypes.cast(wp, ctypes.c_void_p),
+                 ctypes.cast(dl, ctypes.c_void_p), len(st.dils), st.k, C, B,
+                 st.block_m, int(st.r_smem), cfg.tps, cfg.kch,
+                 _build.ptr(scratch), scratch.numel(), slots, stream)
+        _build.check(err, f'MRF bf16 chain (C={C}, k={st.k}, '
+                     f'block_m={st.block_m})')
+        wrapper.launches += 1
+    return out
+
+
+def _phase_bf_smem(C_in, C, cfg, ks, dils, stride, span, P, hx, bm):
+    """Shared memory of a ``phase_bf_kernel`` block (``PhaseBfLayout``), or
+    None where the launch would refuse it: past :data:`SMEM_MAX`, or where
+    conv_post's sums or the transposed tile would not fit in X0 and A."""
+    wrows = bm + 2 * hx
+    prows = _pass_rows(C, cfg.nw)
+    chain_rows = [(k, d, bm + 2 * chain_halo(k, d) + 2 * P)
+                  for k, d in zip(ks, dils)]
+    n_sched = stride * _conv_passes(wrows // stride, prows) + sum(
+        _conv_passes(M, prows) for k, d, w in chain_rows
+        for M in _chain_convs(k, d, w))
+    rt = max([wrows] + [tile_rows(k, d, w) for k, d, w in chain_rows])
+    x0 = wrows * 2 * C
+    a = rt * 2 * C
+    orows = bm + 2 * P
+    if orows * (C + 1) * 4 > x0 + a or C * (bm + 8) * 2 > x0 + a:
+        return None
+    ring = cfg.nbuf * max(cfg.tps * C * 2 * cfg.kch,
+                          cfg.utps * C * 2 * cfg.ukch)
+    r = wrows * (C + 8) * 4 if cfg.r_smem else 0
+    xq = max(wrows // stride, _round64(wrows // stride)) * 2 * C_in + \
+        span * 2 * C_in
+    o = orows * (C + 8) * 4 if cfg.r_smem else 0
+    total = ring + x0 + a + max(r, xq) + o + 16 * n_sched
+    return total if total <= SMEM_MAX else None
+
+
+@dataclass
+class PhaseBfLaunch:
+    """The launch of ``phase_bf_kernel`` for a narrow level. Block i of
+    utterance b owns output samples [n0, n0 + block_m), n0 = i*block_m; its
+    window is samples [n0 - hx, n0 + block_m + hx). It reads lrelu(x) at
+    input samples (n0 - hx)/stride + amin + q for q < window/stride + span
+    (zero outside [0, T_in)), runs the upsample into the window (output
+    sample stride*m + r: taps t < ntaps of input row m + rows[r] + t), each
+    chain on its own window [n0 - halo - P, n0 + block_m + halo + P), sums
+    the chains over [n0 - P, n0 + block_m + P) and writes the mean (B, C,
+    N) or conv_post's waveform (B, 1, N). ``r_smem``: the float32 windows
+    in shared memory, else a scratch slice of (window + block_m + 2P) x (C
+    + 8) floats per resident block."""
+    x: torch.Tensor
+    out: torch.Tensor
+    chains: list
+    ups: tuple
+    post: Optional[tuple]
+    kernel_sizes: tuple
+    dilations: tuple
+    stride: int
+    ntaps: int
+    amin: int
+    rows: list
+    span: int
+    N: int
+    hx: int
+    P: int
+    block_m: int
+    n_blocks: int
+    r_smem: bool
+    scratch: int
+
+
+def _phase_bf_plan(x, mrf, alloc, slots):
+    """Launch plan of the bf16 :func:`fused_mrf_phase`: a
+    :class:`PhaseBfLaunch`."""
+    w_u, _, stride, padding = mrf.ups
+    B, C_in, T_in = x.shape
+    C = w_u.shape[1]
+    cfg = PHASE_BF_CFG[C_in, C]
+    ks, dils = mrf.kernel_sizes, mrf.dilations
+    ntaps, amin, rows, span, _ = ups_geometry(w_u.shape[-1], stride, padding)
+    post_w = mrf.post
+    post_k = post_w[0].shape[-1] if post_w is not None else 1
+    P = (post_k - 1) // 2
+    hmax = max(chain_halo(k, d) for k, d in zip(ks, dils))
+    hx = -(-(hmax + P) // stride) * stride
+    N = stride * T_in
+    step = 8 * stride // math.gcd(8, stride)
+    bm = _largest_block(N, step, lambda bm: _phase_bf_smem(
+        C_in, C, cfg, ks, dils, stride, span, P, hx, bm) is not None)
+    n_blocks = -(-N // bm)
+    out = alloc((B, 1 if post_w is not None else C, N), x.dtype)
+    scratch = 0 if cfg.r_smem else \
+        (2 * bm + 2 * hx + 2 * P) * (C + 8) * min(B * n_blocks, slots)
+    return PhaseBfLaunch(x, out, mrf.blk, mrf.blk_ups, post_w, ks, dils,
+                         stride, ntaps, amin, rows, span, N, hx, P, bm,
+                         n_blocks, cfg.r_smem, scratch)
+
+
+_PHASE_BF_ARGTYPES = ([_P, _I64, _I64, _I64, _I32, _P, _I64, _P, _P, _F32,
+                       _F32, _I32, _I32, _I32, _P, _I64, _I32, _P])
+
+
+def _phase_bf_args(pl, cfg, post_dev):
+    """The C entry's pointer and int arrays (``mrf_phase_bf``)."""
+    wu, bu, wu_phase = pl.ups
+    ptrs = [wu.data_ptr(), bu.data_ptr(),
+            post_dev[0].data_ptr() if pl.post is not None else 0]
+    ints = [pl.stride, pl.ntaps, pl.amin, pl.span]
+    ints += list(pl.rows) + [0] * (8 - pl.stride)
+    ints += [pl.N, pl.hx, pl.P, pl.post[0].shape[-1] if pl.post is not None
+             else 0, pl.block_m, cfg.tps, cfg.kch, cfg.utps, cfg.ukch,
+             int(pl.r_smem), wu_phase, len(pl.chains)]
+    for k, dils, steps in zip(pl.kernel_sizes, pl.dilations, pl.chains):
+        ints += [k, len(dils)] + list(dils) + [0] * (4 - len(dils))
+        ptrs += [t.data_ptr() for st in steps for t in st]
+    return ptrs, ints
+
+
+def _launch_phase_bf(wrapper, x, mrf):
+    """The ``phase_bf_kernel`` launch of a bf16 :func:`fused_mrf_phase`
+    call, counted on ``wrapper``."""
+    name = wrapper.__name__
+    w_u = mrf.ups[0]
+    B, C_in, T_in = x.shape
+    C = w_u.shape[1]
+    _check_cuda_input(x, name, PHASE_CHANNELS, C)
+    _check_kernel_sizes(name, mrf.kernel_sizes)
+    _check_weights(name, x, mrf)
+    if (C_in, C) not in PHASE_BF_CFG:
+        raise ValueError(f'{name}: upsample {C_in}->{C} has no CUDA '
+                         f'instantiation (built for {tuple(PHASE_BF_CFG)})')
+    if mrf.blk is None or mrf.blk_ups is None:
+        raise ValueError(f'{name}: the weights carry no bf16 engine form '
+                         '(prepare_mrf(..., engine=True) on the card)')
+    # channel-last rows of 16-byte-aligned channels, or channel-major
+    if x.stride(1) == 1:
+        if x.stride(2) % 8 or x.stride(0) % 8 or x.data_ptr() % 16:
+            x = x.transpose(1, 2).contiguous().transpose(1, 2)
+    elif x.stride(2) != 1:
+        x = x.contiguous()
+    slots = sm_count(x.device)
+    pl = _phase_bf_plan(x, mrf, _empty_on(x.device), slots)
+    cfg = PHASE_BF_CFG[C_in, C]
+    scratch = _scratch(pl.scratch, x.device)
+    ptrs, ints = _phase_bf_args(pl, cfg, mrf.post_dev)
+    pa = (ctypes.c_int64 * len(ptrs))(*ptrs)
+    ia = (ctypes.c_int * len(ints))(*ints)
+    out = pl.out
+    err = _fn('mrf_phase', 'mrf_phase_bf', _PHASE_BF_ARGTYPES)(
+        _build.ptr(x), x.stride(0), x.stride(1), x.stride(2), T_in,
+        _build.ptr(out), out.stride(0), ctypes.cast(pa, ctypes.c_void_p),
+        ctypes.cast(ia, ctypes.c_void_p),
+        1.0 / len(mrf.kernel_sizes),
+        mrf.post_dev[1] if pl.post is not None else 0.0, C_in, C, B,
+        _build.ptr(scratch), scratch.numel(), slots, _build.stream_ptr(x))
+    _build.check(err, f'MRF bf16 phase level ({C_in}->{C}, '
+                 f'block_m={pl.block_m})')
+    wrapper.launches += 1
     return out
 
 
@@ -644,14 +1092,9 @@ def fused_resblock1(x, w1, b1, w2, b2, kernel_size, dilations, tile=4096):
         raise ValueError(f'fused_resblock1: weights {w1.dtype} for x '
                          f'{x.dtype}; the kernel takes them in x\'s dtype')
     ks, dils = (kernel_size,), (tuple(dilations),)
-    mrf = prepare_mrf([w1, b1, w2, b2], ks, dils)
+    mrf = prepare_mrf([w1, b1, w2, b2], ks, dils, engine=False)
     _check_weights('fused_resblock1', x, mrf)
-    x = x.contiguous()
-    steps, out = _tc_plan(x, mrf.chains, ks, dils, _empty_on(x.device))
-    fn = _fn('mrf_tc', 'mrf_tc_step', _STEP_ARGTYPES)
-    for st in steps:
-        _launch_step(fn, st, B, C, x.dtype)
-        fused_resblock1.launches += 1
+    out = _launch_tc_steps(fused_resblock1, x, mrf.chains, ks, dils)
     fused_resblock1.calls[tuple(x.shape) + (kernel_size, dils[0],
                                             str(x.dtype)[6:])] += 1
     return out
@@ -1026,7 +1469,7 @@ def prepare_mrf_ptc_f(packed, kernel_sizes, dilations, p, ups, post=None):
         pst = (_ptc_taps(P, post_k, 1, p, C, 1).permute(2, 1, 0),
                b_p[0, :1])
     mrf = prepare_mrf(taps, kernel_sizes, dilations,
-                      (w_u, b_u[0, :C], stride, padding), pst)
+                      (w_u, b_u[0, :C], stride, padding), pst, engine=False)
     mrf.p = p
     return mrf
 
@@ -1072,7 +1515,7 @@ def fused_mrf_ptc_f(x, mrf, tile):
     if x.dtype != torch.bfloat16:
         raise ValueError('fused_mrf_ptc_f: the CUDA route takes bfloat16 '
                          f'activations, not {x.dtype}')
-    out = _launch_phase(fused_mrf_ptc_f, x, mrf, True)
+    out = _launch_phase(fused_mrf_ptc_f, x, mrf)
     fused_mrf_ptc_f.calls[tuple(x.shape) + ('fdot',)] += 1
     return out
 

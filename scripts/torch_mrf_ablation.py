@@ -1,15 +1,30 @@
 #!/usr/bin/env python3
-"""Where the time of the port's int8 MRF kernels goes, on one CUDA card.
+"""Where the time of the port's MRF kernels goes, on one CUDA card.
 
-    python3 scripts/torch_mrf_q8_ablation.py [--iters N] [--sections a,b]
+    python3 scripts/torch_mrf_ablation.py [--iters N] [--sections a,b]
+                                          [--builds kernel,no_mma,...]
 
 Builds the kernels' sources as they are and with ablations that remove a
 part of the work (the results are then wrong and not checked), and times
 each build at the V1 shapes of a B=8 x 1024-frame synthesis call
 (chip_smoke.py's KernelCases, seeded unit-gain weights); the unablated
-build must match the plain version (bit for bit; a conv_post waveform
-within one bf16 ulp). Sections:
+build must match the plain version (the int8 sections bit for bit, a
+conv_post waveform within one bf16 ulp; the bf16 sections within rel-L2
+1e-2). Sections:
 
+- ``bf16``: the bf16 tier's block-resident engine (mrf_chain_bf16.cuh:
+  tc_bf_kernel, phase_bf_kernel; fused_mrf_tc and fused_mrf_phase in
+  bf16), ablated by MRF_ABL_NOW (no weight copies), MRF_ABL_NOMMA (no
+  wgmma), MRF_ABL_NOEPI (no conv epilogues: the residual and conv-input
+  writes, the chains' outputs) and the three together (the skeleton:
+  loads, the per-block prologue and tail, launches).
+- ``bf16_steps``: the bf16 kernels still on the one-launch-per-step route
+  (mrf_tc.cu, mrf_phase.cu: step_kernel, ups_kernel, post_kernel of
+  mrf_common.cuh): fused_resblock1 in bf16 at V1's wide levels and
+  fused_mrf_ptc's fdot mode at the narrow ones, ablated by
+  MRF_ABL_STEP_NOW (no weight loads), MRF_ABL_STEP_NOMMA (no mma.sync),
+  MRF_ABL_STEP_NOF32 (no float32 residual and chain-sum traffic) and all
+  three (the skeleton of launches and tails).
 - ``static``: the block-resident int8-static kernels (mrf_tc_q8.cu,
   mrf_ptc.cu: fused_mrf_tc_q8, fused_mrf_ptc static), ablated by
   MRF_ABL_NOW (no weight copies: the convs read whatever the ring holds),
@@ -41,7 +56,42 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SKELETON = ['-DMRF_ABL_NOW', '-DMRF_ABL_NOMMA']
+STEP_SKELETON = ['-DMRF_ABL_STEP_NOW', '-DMRF_ABL_STEP_NOMMA',
+                 '-DMRF_ABL_STEP_NOF32']
+BF16_SHAPES = (('fused_mrf_tc', (8, 8192, 256)),
+               ('fused_mrf_tc', (8, 65536, 128)),
+               ('fused_mrf_phase', (8, 128, 65536)),
+               ('fused_mrf_phase', (8, 64, 131072)))
+ENGINE_SKELETON = SKELETON + ['-DMRF_ABL_NOEPI']
+# chip_smoke.py's resblock1 path (bf16 half) and bf16-ptc path (fdot)
+STEP_SHAPES = tuple(('fused_resblock1', (8, n, C, k, (1, 3, 5), 'bfloat16'))
+                    for n, C in ((8192, 256), (65536, 128))
+                    for k in (3, 7, 11)) + (
+    ('fused_mrf_ptc_f', (8, 128, 65536, 'fdot')),
+    ('fused_mrf_ptc_f', (8, 64, 131072, 'fdot')))
+
+
 SECTIONS = {
+    'bf16': dict(
+        sources=('mrf_tc', 'mrf_phase'), band=1e-2,
+        builds={
+            'kernel': [],
+            'no_weights': ['-DMRF_ABL_NOW'],
+            'no_mma': ['-DMRF_ABL_NOMMA'],
+            'no_epilogue': ['-DMRF_ABL_NOEPI'],
+            'skeleton': ENGINE_SKELETON,
+        },
+        shapes=BF16_SHAPES),
+    'bf16_steps': dict(
+        sources=('mrf_tc', 'mrf_phase'), band=1e-2,
+        builds={
+            'kernel': [],
+            'no_weights': ['-DMRF_ABL_STEP_NOW'],
+            'no_mma': ['-DMRF_ABL_STEP_NOMMA'],
+            'no_f32': ['-DMRF_ABL_STEP_NOF32'],
+            'skeleton': STEP_SKELETON,
+        },
+        shapes=STEP_SHAPES),
     'static': dict(
         sources=('mrf_tc_q8', 'mrf_ptc'),
         builds={
@@ -92,33 +142,41 @@ SECTIONS = {
 def build(_build, out_dir, sections):
     """Every build of every section's sources, one nvcc each, all at once."""
     os.makedirs(out_dir, exist_ok=True)
-    procs, libs = [], {}
+    procs, by_flags, libs = [], {}, {}
     for sec in sections:
         for v, flags in SECTIONS[sec]['builds'].items():
             for src in SECTIONS[sec]['sources']:
-                out = os.path.join(out_dir, f'lib{src}-{sec}-{v}.so')
-                if (src, v, tuple(flags)) in libs:
-                    continue
-                cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, *flags, '-o', out,
-                       str(_build.CSRC / f'{src}.cu')]
-                libs[src, v, tuple(flags)] = out
-                procs.append((v, src, out, subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    for v, src, out, p in procs:
+                out = by_flags.get((src, tuple(flags)))
+                if out is None:
+                    out = os.path.join(out_dir, f'lib{src}-{sec}-{v}.so')
+                    by_flags[src, tuple(flags)] = out
+                    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, *flags, '-o',
+                           out, str(_build.CSRC / f'{src}.cu')]
+                    procs.append((v, src, subprocess.Popen(
+                        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                        text=True)))
+                libs[sec, src, v] = out
+    for v, src, p in procs:
         log, _ = p.communicate()
         if p.returncode:
             raise RuntimeError(f'nvcc {src} [{v}] failed:\n{log}')
-    return {(src, v): path for (src, v, _), path in libs.items()}
+    return libs
 
 
 def main():
     import torch
     if not torch.cuda.is_available():
-        print('torch_mrf_q8_ablation: no CUDA device', file=sys.stderr)
+        print('torch_mrf_ablation: no CUDA device', file=sys.stderr)
         sys.exit(2)
     iters = int(sys.argv[sys.argv.index('--iters') + 1]) if '--iters' in sys.argv else 10
     sections = (sys.argv[sys.argv.index('--sections') + 1].split(',')
                 if '--sections' in sys.argv else list(SECTIONS))
+    if '--builds' in sys.argv:      # only these builds of each section
+        keep = sys.argv[sys.argv.index('--builds') + 1].split(',')
+        for sec in sections:
+            SECTIONS[sec]['builds'] = {v: f for v, f in
+                                       SECTIONS[sec]['builds'].items()
+                                       if v in keep}
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
     import torch.nn.functional as F
@@ -137,7 +195,11 @@ def main():
     ks = tuple(DEFAULT_CONFIG['resblock_kernel_sizes'])
     dils = tuple(tuple(d) for d in DEFAULT_CONFIG['resblock_dilation_sizes'])
     dev = torch.device('cuda')
-    wrappers = {'fused_mrf_tc_q8': vk.fused_mrf_tc_q8,
+    wrappers = {'fused_mrf_tc': vk.fused_mrf_tc,
+                'fused_mrf_phase': vk.fused_mrf_phase,
+                'fused_resblock1': vk.fused_resblock1,
+                'fused_mrf_ptc_f': vk.fused_mrf_ptc_f,
+                'fused_mrf_tc_q8': vk.fused_mrf_tc_q8,
                 'fused_mrf_ptc': mi.fused_mrf_ptc,
                 'fused_mrf_ct_q8': mi.fused_mrf_ct_q8,
                 'fused_mrf_phase_q8': mi.fused_mrf_phase_q8}
@@ -147,7 +209,7 @@ def main():
         ref = {}
         for v in spec['builds']:
             for src in spec['sources']:
-                _build._libs[src] = ctypes.CDLL(libs[src, v])
+                _build._libs[src] = ctypes.CDLL(libs[sec, src, v])
             cases = cs.KernelCases(torch, F, vk, mi, mc, None, dev, ks, dils)
             for name, key in spec['shapes']:
                 c = cases.case(name, key)
@@ -160,15 +222,19 @@ def main():
                 if v == 'kernel':
                     if (name, key) not in ref:
                         ref[name, key] = c['plain']()
-                    err = cs.max_abs(out.float(), ref[name, key].float())
-                    post = key[2] == 64
-                    assert err <= (4e-3 if post else 0.0), (sec, v, name, key, err)
+                    if 'band' in spec:
+                        err = cs.rel_l2(out.float(), ref[name, key].float())
+                        assert err <= spec['band'], (sec, v, name, key, err)
+                    else:
+                        err = cs.max_abs(out.float(), ref[name, key].float())
+                        post = key[2] == 64
+                        assert err <= (4e-3 if post else 0.0), (sec, v, name, key, err)
                 ms = cs.time_ms(torch, fn, warmup=2, iters=iters)
                 results.setdefault(sec, {}).setdefault(v, []).append(dict(
                     kernel=name, shape=c['desc'], ms=ms, launches=launches,
-                    max_abs=err))
+                    err_vs_plain=err))
                 print(f'{sec:8s} {v:28s} {name} {c["desc"]}: {ms:.4f} ms, '
-                      f'{launches} launches, max_abs vs plain {err}', flush=True)
+                      f'{launches} launches, vs plain {err}', flush=True)
                 del out, c
             torch.cuda.empty_cache()
     print(json.dumps({'sections': results,

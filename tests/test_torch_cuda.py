@@ -185,7 +185,9 @@ def test_mrf_tc_kernel_matches_plain(C, dtype):
     n = vk.fused_mrf_tc.launches
     out = vk.fused_mrf_tc(x, vk.prepare_mrf(w, KS, DILS))
     torch.cuda.synchronize()
-    assert vk.fused_mrf_tc.launches == n + 9         # one per chain step
+    # bf16: one engine launch per chain; float32: one per chain step
+    assert vk.fused_mrf_tc.launches == n + (3 if dtype == torch.bfloat16
+                                            else 9)
     ref = vk.mrf_tc_plain(x, w, KS, DILS)
     assert rel_l2(out.float().cpu(), ref.float().cpu()) < _band(dtype)
 
@@ -213,11 +215,119 @@ def test_mrf_phase_kernel_matches_plain(C_in, C, post, dtype):
         n = vk.fused_mrf_phase.launches
         out = vk.fused_mrf_phase(xin, mrf)
         torch.cuda.synchronize()
-        # the upsample, one per chain step, conv_post
-        assert vk.fused_mrf_phase.launches == n + 10 + post
+        # bf16: one engine launch; float32: the upsample, one per chain
+        # step, conv_post
+        assert vk.fused_mrf_phase.launches == n + (
+            1 if dtype == torch.bfloat16 else 10 + post)
         ref = vk.mrf_phase_plain(xin, w, KS, DILS, ups, pst)
         assert out.shape == ref.shape
         assert rel_l2(out.float().cpu(), ref.float().cpu()) < _band(dtype)
+
+
+def _tc_bf_case(C, B, T, seed):
+    rng = np.random.RandomState(seed)
+    tp = to_torch(mrf_params(rng, 0, C, KS, DILS, w_scale=(C * 7) ** -0.5))
+    w = [t.cuda().to(torch.bfloat16)
+         for t in vk.pack_mrf_tc_weights(tp, 0, KS, DILS)]
+    x = torch.randn((B, T, C), generator=torch.Generator().manual_seed(seed)
+                    ).cuda().to(torch.bfloat16)
+    return w, x
+
+
+# the bf16 path's shapes (B = 8 x 1024 frames) at B = 1 and 3, and an odd T
+TC_BF_SHAPES = [(C, B, T) for C, T0 in ((256, 8192), (128, 65536))
+                for B, T in ((1, T0), (3, T0), (1, T0 - 1))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('C,B,T', TC_BF_SHAPES)
+def test_mrf_tc_bf16_engine_at_path_shapes(C, B, T):
+    """tc_bf_kernel (3 launches, never the step kernel) against the plain
+    version; the same call twice is bit-identical."""
+    need_cuda()
+    w, x = _tc_bf_case(C, B, T, C + B + T)
+    mrf = vk.prepare_mrf(w, KS, DILS)
+    assert mrf.blk is not None and mrf.chains is None
+    n = vk.fused_mrf_tc.launches
+    out = vk.fused_mrf_tc(x, mrf)
+    again = vk.fused_mrf_tc(x, mrf)
+    torch.cuda.synchronize()
+    assert vk.fused_mrf_tc.launches == n + 6
+    assert torch.equal(out, again)
+    ref = vk.mrf_tc_plain(x, w, KS, DILS)
+    assert out.shape == ref.shape and torch.isfinite(out.float()).all()
+    assert rel_l2(out.float(), ref.float()) < 1e-2
+
+
+def _phase_bf_case(C_in, C, B, T_in, post, seed):
+    rng = np.random.RandomState(seed)
+    tp = mrf_params(rng, 0, C, KS, DILS, w_scale=(C * 7) ** -0.5)
+    tp['ups_0'] = {'w': (rng.randn(C_in, C, 4) * (2 * C_in) ** -0.5
+                         ).astype(np.float32),
+                   'b': (rng.randn(C) * 0.05).astype(np.float32)}
+    tp['conv_post'] = {'w': (rng.randn(1, C, 7) * (7 * C) ** -0.5
+                             ).astype(np.float32),
+                       'b': (rng.randn(1) * 0.05).astype(np.float32)}
+    tp = _cuda_tree(to_torch(tp), torch.bfloat16)
+    w = vk.pack_mrf_tc_weights(tp, 0, KS, DILS)
+    ups = (tp['ups_0']['w'], tp['ups_0']['b'], 2, 1)
+    pst = (tp['conv_post']['w'], tp['conv_post']['b']) if post else None
+    # a transposed (B, T, C) input, as the generator hands over
+    x = torch.randn((B, T_in, C_in), generator=torch.Generator().manual_seed(
+        seed)).cuda().to(torch.bfloat16).transpose(1, 2)
+    return w, ups, pst, x
+
+
+PHASE_BF_SHAPES = [(C_in, C, B, T_in) for C_in, C, T0 in (
+    (128, 64, 65536), (64, 32, 131072))
+    for B, T_in in ((1, T0), (3, T0), (1, T0 - 1))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('C_in,C,B,T_in', PHASE_BF_SHAPES)
+def test_mrf_phase_bf16_engine_at_path_shapes(C_in, C, B, T_in):
+    """phase_bf_kernel (1 launch, with conv_post at C = 32 as on the path)
+    against the plain version, from a channel-last and a channel-major
+    input; the same call twice is bit-identical."""
+    need_cuda()
+    post = C == 32
+    w, ups, pst, x = _phase_bf_case(C_in, C, B, T_in, post, C + B + T_in)
+    mrf = vk.prepare_mrf(w, KS, DILS, ups, pst)
+    assert mrf.blk is not None and mrf.blk_ups is not None
+    ref = vk.mrf_phase_plain(x, w, KS, DILS, ups, pst)
+    for xin in (x, x.contiguous()):
+        n = vk.fused_mrf_phase.launches
+        out = vk.fused_mrf_phase(xin, mrf)
+        again = vk.fused_mrf_phase(xin, mrf)
+        torch.cuda.synchronize()
+        assert vk.fused_mrf_phase.launches == n + 2
+        assert torch.equal(out, again)
+        assert out.shape == ref.shape and torch.isfinite(out.float()).all()
+        assert out.is_contiguous()
+        assert rel_l2(out.float(), ref.float()) < 1e-2
+
+
+@pytest.mark.cuda
+def test_mrf_bf16_engine_refuses_what_it_does_not_take():
+    """No bf16 call falls back to the step kernel: a width the engine has
+    no instantiation for, and bf16 weights without the engine's form,
+    raise."""
+    need_cuda()
+    w, x = _tc_bf_case(64, 1, 256, 1)
+    with pytest.raises(ValueError, match='no CUDA instantiation'):
+        vk.fused_mrf_tc(x, vk.prepare_mrf(w, KS, DILS))
+    w, x = _tc_bf_case(128, 1, 256, 2)
+    n = vk.fused_mrf_tc.launches
+    with pytest.raises(ValueError, match='no bf16 engine form'):
+        vk.fused_mrf_tc(x, vk.prepare_mrf(w, KS, DILS, engine=False))
+    w, ups, pst, x = _phase_bf_case(128, 64, 1, 256, False, 3)
+    with pytest.raises(ValueError, match='no bf16 engine form'):
+        vk.fused_mrf_phase(x, vk.prepare_mrf(w, KS, DILS, ups, pst,
+                                             engine=False))
+    w, ups, pst, x = _phase_bf_case(32, 16, 1, 256, False, 4)
+    with pytest.raises(ValueError, match='no CUDA instantiation'):
+        vk.fused_mrf_phase(x, vk.prepare_mrf(w, KS, DILS, ups, pst))
+    assert vk.fused_mrf_tc.launches == n
 
 
 @pytest.mark.cuda
