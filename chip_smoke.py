@@ -73,6 +73,14 @@
      and seed with the plain attention on the card (fused=False; the masks
      are the same by construction): loss rel <= 1e-2, grad norm rel <=
      5e-2 (bf16 rounds at other points in the two routes);
+   - train-step-f32: the same with compute_dtype='float32', three steps:
+     every FFT block's attention on the float32 kernels (3xTF32 on the
+     tensor cores; 12 forward launches and 12 backward calls a step, every
+     call float32, no vocoder kernel); the first step again with the plain
+     attention: loss rel <= 1e-3, grad norm rel <= 5e-3 (10x tighter than
+     bf16: the kernels agree with the plain attention to about 1e-6, and
+     the rest of the step is the same float32 code, cuDNN TF32 in the convs
+     on both sides);
    - train: the train() entry point on its own synthetic dataset under
      build/smoke/train (two speakers, 40 utterances of 100-128 symbols and
      800-1024 frames): batch 16, 4 iterations, a validation at 4, a
@@ -88,25 +96,30 @@
    its launches per call; its time (median of 10 calls), its plain
    version's (median of 3) and (attention) the library call's, with CUDA
    events, beside the least time the card could take (H100 SXM: 989
-   TFLOP/s bf16, 67 TFLOP/s float32 outside the tensor cores, 1979 TOP/s
-   int8, 3.35 TB/s). Each wrapper counts its CUDA launches and its calls
-   by input shape (the attention wrappers by shape and dropout rate, the
-   multi-mode MRF wrappers by shape and mode); the run fails unless, on
+   TFLOP/s bf16, 494.7/3 TFLOP/s for float32 on the tensor cores in
+   3xTF32 (the float32 attention), 67 TFLOP/s float32 outside the tensor
+   cores, 1979 TOP/s int8, 3.35 TB/s) and, for the attention, the names of
+   the kernels the library call launched (its backend). Each wrapper
+   counts its CUDA launches and its calls by input shape (the attention
+   wrappers by shape, dropout rate and type, the multi-mode MRF wrappers
+   by shape and mode); the run fails unless, on
    every path, the calls times the launches per call add up to the launch
    count. The attention forward and backward are also checked and timed at
-   p = 0 at each training shape, and in float32 (the FMA kernels, band
-   1e-5) at the longest (their "off_path" rows in the JSON, beside SDPA's
-   time); two calls of the backward must be bit-identical. The kernels'
-   JSON has one entry per kernel and mode ("name[mode]").
+   p = 0 at each training shape, in bf16 and in float32, and in float32 at
+   T = 2500, past the old limit of 2048 (their "off_path" rows in the JSON,
+   beside SDPA's time); two calls of the backward must be bit-identical.
+   The kernels' JSON has one entry per kernel and mode ("name[mode]"; the
+   attention's float32 calls are its "float32" mode, main path
+   train-step-f32).
 5. Prints the end-to-end audio-seconds per second of the B=8 synthesis
    paths and the train-step path's steps/s and utterances/s (host clock,
    synchronised after each step).
 
 ``--profile`` adds a torch.profiler pass over one synthesis call of each
 B=8 tier, one generate_mel_specs call of each batch-1 path and one train
-step: device time by kernel, the acoustic/vocoder (forward/backward/
-optimizer) split, the device's busy share and the attention kernels' share
-of the busy time.
+step in bf16 and one in float32: device time by kernel, the acoustic/
+vocoder (forward/backward/optimizer) split, the device's busy share and
+the attention kernels' share of the busy time.
 
 The float32 calls of fused_mrf_ct at V2's L0 and L3 shapes are held to
 their plain version at rel-L2 <= 1e-5 before the paths run.
@@ -128,6 +141,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_FLOPS = 989e12          # H100 SXM dense bf16 tensor-core rate
 PEAK_F32 = 67e12             # H100 SXM float32 outside the tensor cores
+PEAK_TF32 = 494.7e12         # H100 SXM dense TF32 tensor-core rate
 PEAK_INT8 = 1979e12          # H100 SXM dense int8 tensor-core rate
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 B, L, T = 8, 128, 1024       # requests, symbols, frames
@@ -138,6 +152,8 @@ V2_CHANNELS = 128
 V2_FALLBACK_FRAMES = 12      # no phase tile divides L1 and L2: fused_mrf_ct
 TB, TL, TT = 16, 128, 1024   # bench_train_step.py's batch, symbols, frames
 TRAIN_STEPS = 5
+TRAIN_STEPS_F32 = 3          # train-step-f32: compute_dtype='float32'
+ATTN_LONG_F32 = (4, 2, 2500, 64, 0.1, 'float32')   # past the old T <= 2048
 
 
 def log(*a):
@@ -286,13 +302,27 @@ def time_ms(torch, fn, warmup=2, iters=10):
     return float(np.median(times))
 
 
-def bound(flops, nbytes, int8_ops=0, f32_flops=0):
-    """Least time in ms: the bf16 flops, float32 flops and int8 operations
-    at their peak rates against the bytes at the memory rate."""
+def bound(flops, nbytes, int8_ops=0, f32_flops=0, tf32x3_flops=0):
+    """Least time in ms: the bf16 flops, float32 flops (outside the tensor
+    cores), float32-accurate flops on the tensor cores (3xTF32: a third of
+    the TF32 rate) and int8 operations at their peak rates against the
+    bytes at the memory rate."""
     t_op = (flops / PEAK_FLOPS + f32_flops / PEAK_F32
-            + int8_ops / PEAK_INT8) * 1e3
+            + tf32x3_flops / (PEAK_TF32 / 3) + int8_ops / PEAK_INT8) * 1e3
     t_by = nbytes / PEAK_BYTES * 1e3
     return (t_op, 'operations') if t_op >= t_by else (t_by, 'bytes')
+
+
+def library_kernels(torch, fn):
+    """The CUDA kernels one call of ``fn`` launches (torch.profiler): the
+    backend of a library call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key[:80] for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA})
 
 
 def level_params(torch, gen, C_in, C, ks, dils, dev, post=False):
@@ -387,13 +417,15 @@ class KernelCases:
     @staticmethod
     def _attention_work(key, products, tensors):
         """desc suffix, band and bound keywords of an attention key: bf16 on
-        the tensor cores, or float32 on the FMA kernels (67 TFLOP/s)."""
+        the tensor cores at the bf16 rate, or float32 on the tensor cores in
+        3xTF32 (three TF32 products per product: 494.7/3 TFLOP/s)."""
         Bx, H, t, D, p = key[:5]
         f32 = key[5:] == ('float32',)
         flops = 2 * products * Bx * H * t * t * D
         return (f'({Bx},{H},{t},{D}) {"float32" if f32 else "bf16"} p={p:g}',
                 1e-5 if f32 else 1e-2,
-                dict(flops=0, f32_flops=flops) if f32 else dict(flops=flops),
+                dict(flops=0, tf32x3_flops=flops) if f32
+                else dict(flops=flops),
                 tensors * Bx * H * t * D * (4 if f32 else 2))
 
     def fused_attention(self, key):
@@ -1181,8 +1213,6 @@ def main():
                     prm.copy_(0.02 * z)
         return pp
 
-    tmodel = DaftExprt.from_hparams(hp_t, seed=SEED).train()    # cuda
-    init_state = {k: v.clone() for k, v in tmodel.state_dict().items()}
     pitch_pp = random_pitch_predictor(SEED + 1).to(dev).frozen()
     loss_cfg = loss_cfg_from_hparams(hp_t)
     tbatch = make_train_batch(hp_t, TB, TL, TT, seed=SEED)
@@ -1194,54 +1224,78 @@ def main():
         f'{loss_cfg["energy_consistency_weight"]}; dropout '
         f'{hp_t.phoneme_encoder["attn_dropout"]}; {hp_t.compute_dtype}')
 
-    def new_step():
-        opt = make_optimizer(tmodel, hp_t)
-        return make_train_step(tmodel, opt, loss_cfg, pitch_pp)
+    def train_step_path(tier, hp_x, n_steps, bands):
+        """``n_steps`` steps of make_train_step on a seeded model of
+        ``hp_x`` as a path (12 attention forward launches and 12 backward
+        calls a step), then its first step again from the same parameters
+        and seed with the plain attention on the card (the masks are the
+        same by construction): loss and grad norm within ``bands``.
+        Returns the steps' metrics and host seconds."""
+        xmodel = DaftExprt.from_hparams(hp_x, seed=SEED).train()   # cuda
+        x_init = {k: v.clone() for k, v in xmodel.state_dict().items()}
 
-    train_step = new_step()
-    step_s = []
+        def new_step():
+            return make_train_step(xmodel, make_optimizer(xmodel, hp_x),
+                                   loss_cfg, pitch_pp)
 
-    def train_steps():
-        out = []
-        for i in range(TRAIN_STEPS):
-            t0 = time.perf_counter()
-            m = train_step(dev_batch, dev_raw, float(i), SEED)
-            torch.cuda.synchronize()
-            step_s.append(time.perf_counter() - t0)
-            out.append({k: float(v) for k, v in m.items()})
-        return out
+        step, step_s = new_step(), []
 
-    step_metrics = run_path('train-step', train_steps, attn_kernels)
-    for i, m in enumerate(step_metrics):
-        log(f'path train-step: step {i}: ' + ' '.join(
-            f'{k}={v:.6g}' for k, v in m.items()))
-        assert all(math.isfinite(v) for v in m.values()), m
-    n_fwd = paths[-1][1]['fused_attention']
-    n_bwd = paths[-1][1]['fused_attention_bwd']
-    assert n_fwd == 12 * TRAIN_STEPS, n_fwd
-    assert n_bwd == 2 * 12 * TRAIN_STEPS, n_bwd
+        def steps():
+            out = []
+            for i in range(n_steps):
+                t0 = time.perf_counter()
+                m = step(dev_batch, dev_raw, float(i), SEED)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                out.append({k: float(v) for k, v in m.items()})
+            return out
+
+        metrics = run_path(tier, steps, attn_kernels)
+        for i, m in enumerate(metrics):
+            log(f'path {tier}: step {i}: ' + ' '.join(
+                f'{k}={v:.6g}' for k, v in m.items()))
+            assert all(math.isfinite(v) for v in m.values()), m
+        n_fwd = paths[-1][1]['fused_attention']
+        n_bwd = paths[-1][1]['fused_attention_bwd']
+        assert n_fwd == 12 * n_steps, n_fwd
+        assert n_bwd == 2 * 12 * n_steps, n_bwd
+        log(f'path {tier}: host s/step {[round(x, 4) for x in step_s]}')
+        xmodel.load_state_dict(x_init)
+        for m in xmodel.modules():
+            if isinstance(m, MultiHeadSelfAttention):
+                m.fused = False
+        plain = {k: float(v) for k, v in new_step()(
+            dev_batch, dev_raw, 0.0, SEED).items()}
+        torch.cuda.synchronize()
+        r_loss = abs(plain['loss'] - metrics[0]['loss']) / abs(plain['loss'])
+        r_norm = abs(plain['grad_norm'] - metrics[0]['grad_norm']) / abs(
+            plain['grad_norm'])
+        log(f'path {tier}: first step with the plain attention: loss '
+            f'{plain["loss"]:.8g} (rel {r_loss:.3e}, band {bands[0]:g}), '
+            f'grad norm {plain["grad_norm"]:.8g} (rel {r_norm:.3e}, band '
+            f'{bands[1]:g})')
+        assert r_loss <= bands[0] and r_norm <= bands[1], (r_loss, r_norm)
+        del xmodel, x_init, step
+        torch.cuda.empty_cache()
+        return metrics, step_s
+
+    # bf16 rounds at other points in the two routes
+    _, step_s = train_step_path('train-step', hp_t, TRAIN_STEPS, (1e-2, 5e-2))
     per_step = float(np.median(step_s[1:]))
-    log(f'path train-step: host s/step {[round(x, 4) for x in step_s]}')
-
-    # the first step again with the plain attention (autograd) on the card
-    tmodel.load_state_dict(init_state)
-    for m in tmodel.modules():
-        if isinstance(m, MultiHeadSelfAttention):
-            m.fused = False
-    train_step = new_step()
-    plain_first = {k: float(v) for k, v in train_step(
-        dev_batch, dev_raw, 0.0, SEED).items()}
-    torch.cuda.synchronize()
-    r_loss = abs(plain_first['loss'] - step_metrics[0]['loss']) / abs(
-        plain_first['loss'])
-    r_norm = abs(plain_first['grad_norm'] - step_metrics[0]['grad_norm']) \
-        / abs(plain_first['grad_norm'])
-    log(f'path train-step: first step with the plain attention: loss '
-        f'{plain_first["loss"]:.6g} (rel {r_loss:.3e}, band 1e-2), grad norm '
-        f'{plain_first["grad_norm"]:.6g} (rel {r_norm:.3e}, band 5e-2)')
-    assert r_loss <= 1e-2 and r_norm <= 5e-2, (r_loss, r_norm)
-    del tmodel, init_state, train_step, dev_batch, dev_raw
-    torch.cuda.empty_cache()
+    # float32: every FFT block's attention on the float32 kernels. Bands 10x
+    # tighter than bf16's: the kernels agree with the plain attention to
+    # about 1e-6 (band 1e-5) and the rest of the step is the same float32
+    # code on both sides (cuDNN TF32 in the convs on both sides, where the
+    # attention's differences can flip a TF32 rounding, 2^-11 of a value)
+    hp_f = HyperParams(verbose=False, training_files='unused',
+                       validation_files='unused',
+                       output_directory=os.path.join(ROOT, 'build', 'smoke'),
+                       language='english', speakers=['lj'],
+                       compute_dtype='float32')
+    train_step_path('train-step-f32', hp_f, TRAIN_STEPS_F32, (1e-3, 5e-3))
+    assert all(k[-1] == 'float32' for calls in paths[-1][2].values()
+               for k in calls), paths[-1][2]
+    del dev_batch, dev_raw
 
     # the train() entry point, then a resume from its checkpoint
     root = os.path.join(ROOT, 'build', 'smoke', 'train')
@@ -1315,14 +1369,17 @@ def main():
         ms = time_ms(torch, c['fn'])
         plain_ms = time_ms(torch, c['plain'], warmup=1, iters=3)
         lib_ms = time_ms(torch, c['lib']) if 'lib' in c else None
+        lib_kernels = library_kernels(torch, c['lib']) if 'lib' in c else None
         b_ms, b_by = bound(c['flops'], c['nbytes'], c.get('int8_ops', 0),
-                           c.get('f32_flops', 0))
+                           c.get('f32_flops', 0), c.get('tf32x3_flops', 0))
         log(f'time {name} {c["desc"]}: ms={ms:.4f} plain_ms={plain_ms:.4f} '
             f'library_ms={lib_ms if lib_ms is None else round(lib_ms, 4)} '
-            f'bound_ms={b_ms:.4f} ({b_by}), {per_launch} launches per call')
+            f'bound_ms={b_ms:.4f} ({b_by}), {per_launch} launches per call'
+            + (f'; library kernels {lib_kernels}' if lib_kernels else ''))
         return dict(shape=c['desc'], launches_per_call=per_launch, ms=ms,
                     plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                    bound_by=b_by, max_abs=m, rel_l2=r)
+                    bound_by=b_by, max_abs=m, rel_l2=r,
+                    library_kernels=lib_kernels)
 
     def mode_of(key):
         """The mode a multi-mode wrapper keys its calls by ('' if none)."""
@@ -1356,17 +1413,17 @@ def main():
                 f'{tier} {name}: {launches[name]} launches on the path, '
                 f'{counted} from its calls by shape times launches per call')
 
-    # the forward and the backward at p = 0 too, at each training shape,
-    # and in float32 (the FMA kernels) at the longest one (not on a path)
+    # the forward and the backward at p = 0 too, at each training shape, in
+    # bf16 and in float32, and a float32 call past the old T <= 2048 limit
     off_path = {'fused_attention': [], 'fused_attention_bwd': []}
     train_keys = sorted({k[:4] for _, _, calls in paths
                          for k in calls.get('fused_attention_bwd', {})})
     for key in [k + (0.0,) for k in train_keys] + [
-            max(train_keys, key=lambda k: k[2]) + (0.1, 'float32')]:
+            k + (0.0, 'float32') for k in train_keys] + [ATTN_LONG_F32]:
         for name, rows in off_path.items():
             if (name, key) not in measured:
                 measured[name, key] = measure(name, key)
-                rows.append(measured[name, key])
+                rows.append((mode_of(key), measured[name, key]))
 
     sources = {'fused_attention': 'daft_exprt_torch/ops/csrc/attention_fwd.cu',
                'fused_attention_bwd':
@@ -1422,7 +1479,7 @@ def main():
             paths={t: total(rows) for t, rows in by_tier.items()},
             per_shape=[r for rows in by_tier.values() for r in rows]))
         if name in off_path:
-            table[-1]['off_path'] = off_path[name]
+            table[-1]['off_path'] = [r for m, r in off_path[name] if m == mode]
     assert {e['name'].split('[')[0] for e in table} == set(by_name)
 
     # ---- 5. end to end ----------------------------------------------------
@@ -1468,6 +1525,13 @@ def main():
                                                       SEED),
                      'train-step', ranges=('forward', 'backward',
                                            'optimizer'))
+        fmodel = DaftExprt.from_hparams(hp_f, seed=SEED).train()
+        fstep = make_train_step(fmodel, make_optimizer(fmodel, hp_f),
+                                loss_cfg, pitch_pp)
+        profile_path(torch, lambda ranges=False: fstep(b_dev, r_dev, 0.0,
+                                                       SEED),
+                     'train-step-f32', ranges=('forward', 'backward',
+                                               'optimizer'))
 
     log(json.dumps({'kernels': table}))
     log(json.dumps({'ok': True, 'device': {

@@ -8,8 +8,8 @@ Numerics follow the TPU kernels: float32 logits of the pre-scaled q
 against k, keys at or past ``lengths[b]`` set to -1e9, float32 softmax,
 dropout on the normalised float32 weights, weights cast to v's dtype,
 float32 accumulation of every product, outputs in the inputs' dtype. The
-backward recomputes p and the mask (the bf16 kernels draw the mask once,
-in the first of their two launches, into a bit scratch the second reads);
+backward recomputes p and the mask (the kernels draw the mask once, in
+the first of their two launches, into a bit scratch the second reads);
 dk and dv are summed over all query rows in float32 and cast last.
 
 The dropout mask is the port's own (TPU PRNG bits cannot be reproduced on
@@ -22,10 +22,11 @@ of ``(seed, b, h, i, j)``: the kernels and the plain versions compute the
 same bits, and the backward regenerates the forward's mask.
 
 Bound on the card: bytes at T=128, operations at T=1024 (see the notes in
-the .cu files). bf16 calls run on the tensor cores (mma.sync over 64-row
-bf16 tiles streamed through shared memory) and take any T; float32 calls
-keep the first FMA kernels, which hold (16, T) float32 rows in shared
-memory, so T <= 2048 there.
+the .cu files). Both types run on the tensor cores (mma.sync over 64-row
+tiles streamed through shared memory) and take any T: bf16 calls in bf16,
+float32 calls in 3xTF32 (each product split into three TF32 products of
+its operands' high and low halves, which keeps it within the float32
+band).
 """
 import collections
 import ctypes
@@ -38,9 +39,8 @@ from daft_exprt_torch.ops import _build
 __all__ = ['fused_attention', 'fused_attention_bwd', 'attention_plain',
            'attention_bwd_plain', 'dropout_bits', 'dropout_threshold']
 
-MAX_T = 2048          # float32 only: (16, T) float32 rows in shared memory
 HEAD_DIM = 64         # the only instantiation: the FFT blocks' head width
-TILE = 64             # rows per tile of the bf16 kernels (the stats' padding)
+TILE = 64             # rows per tile of the kernels (the stats' padding)
 _U32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
@@ -170,10 +170,16 @@ def _check_inputs(what, q, k, v, *more):
             torch.bfloat16, torch.float32):
         raise ValueError(f'{what}: q, k, v (and do) must share bfloat16 '
                          f'or float32 (got {q.dtype})')
-    if D != HEAD_DIM or (q.dtype == torch.float32 and T > MAX_T):
-        raise ValueError(f'{what}: head dim {D} / length {T} not '
-                         f'supported (D = {HEAD_DIM}; T <= {MAX_T} in '
-                         'float32)')
+    if D != HEAD_DIM:
+        raise ValueError(f'{what}: head dim {D} not supported (D = '
+                         f'{HEAD_DIM})')
+
+
+def _call_key(q, dropout_p):
+    """The wrappers' ``.calls`` key: q's shape and dropout_p, then
+    'float32' for a float32 call."""
+    key = tuple(q.shape) + (float(dropout_p),)
+    return key + ('float32',) if q.dtype == torch.float32 else key
 
 
 def _aligned(t):
@@ -207,7 +213,7 @@ def _launch_fwd(q, k, v, lengths, seed, dropout_p):
         thr, scale, _build.stream_ptr(q))
     _build.check(err, 'attention_fwd')
     fused_attention.launches += 1
-    fused_attention.calls[tuple(q.shape) + (float(dropout_p),)] += 1
+    fused_attention.calls[_call_key(q, dropout_p)] += 1
     return out
 
 
@@ -218,8 +224,8 @@ def fused_attention_bwd(q, k, v, do, lengths, seed=0, dropout_p=0.0):
     :func:`attention_bwd_plain`.
 
     ``fused_attention_bwd.launches`` counts CUDA launches;
-    ``fused_attention_bwd.calls`` counts calls by q's shape and
-    dropout_p."""
+    ``fused_attention_bwd.calls`` counts calls by q's shape and dropout_p
+    (and 'float32' for a float32 call)."""
     if q.device.type == 'cpu':
         return attention_bwd_plain(q, k, v, do, lengths, seed, dropout_p)
     if q.device.type != 'cuda':
@@ -232,14 +238,14 @@ def fused_attention_bwd(q, k, v, do, lengths, seed=0, dropout_p=0.0):
     thr, scale = dropout_threshold(dropout_p)
     s, sp = _seed_ptr(seed, thr, q.device)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    # each row's statistics (bf16: max * log2(e), 1 / sum, sum dp * p, 0;
-    # float32: max, sum, sum dp * p in three planes); rows padded to tiles
+    # each row's statistics (max * log2(e), 1 / sum, sum dp * p, 0), rows
+    # padded to tiles
     Tp = -(-T // TILE) * TILE
     stats = torch.empty((B * H, Tp, 4), device=q.device, dtype=torch.float32)
     bf16 = q.dtype == torch.bfloat16
-    # bf16 with dropout: the mask bits, drawn once by the first launch
+    # with dropout: the mask bits, drawn once by the first launch
     keep = torch.empty((B * H, Tp * Tp // 32), device=q.device,
-                       dtype=torch.int32) if thr and bf16 else None
+                       dtype=torch.int32) if thr else None
     err = _fn('attention_bwd', 11)(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(do),
         _build.ptr(lens), sp, _build.ptr(dq), _build.ptr(dk), _build.ptr(dv),
@@ -248,7 +254,7 @@ def fused_attention_bwd(q, k, v, do, lengths, seed=0, dropout_p=0.0):
         _build.stream_ptr(q))
     _build.check(err, 'attention_bwd')
     fused_attention_bwd.launches += 2
-    fused_attention_bwd.calls[tuple(q.shape) + (float(dropout_p),)] += 1
+    fused_attention_bwd.calls[_call_key(q, dropout_p)] += 1
     return dq, dk, dv
 
 
@@ -286,7 +292,8 @@ def fused_attention(q, k, v, lengths, seed=0, dropout_p=0.0):
     tensor it runs :func:`attention_plain`.
 
     ``fused_attention.launches`` counts CUDA launches;
-    ``fused_attention.calls`` counts them by q's shape and dropout_p."""
+    ``fused_attention.calls`` counts them by q's shape and dropout_p (and
+    'float32' for a float32 call)."""
     return _FusedAttention.apply(q, k, v, lengths, seed, dropout_p)
 
 

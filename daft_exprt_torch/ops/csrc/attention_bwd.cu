@@ -48,326 +48,23 @@
 //    mask per 8 rows x 16 keys and four shuffles deal the bits out.
 // Both run 3 blocks per SM: the most their registers allow unspilled.
 //
-// float32 (bwd_q_kernel, bwd_kv_kernel): the first version, kept for
-// float32 calls (TF32 would leave the float32 band; no card path runs
-// attention in float32), with FMAs:
-// 1. bwd_q_kernel, one block per BQ query rows of one (b, h): holds the rows'
-//    (BQ, T) logits and dpd in shared memory, writes dq and each row's max,
-//    sum of exponentials and sum dp * p.
-// 2. bwd_kv_kernel, one block per BKV keys of one (b, h): walks all query
-//    rows in order, recomputes p from those row statistics (the same float
-//    operations in the same order as launch 1, so the same bits), and sums
-//    dk and dv in registers.
-// Rows per block of launch 1 follow T: two float32 (BQ, T) tiles must fit
-// in a block's 227 KB, so BQ = 16 up to T = 1024 and 8 up to T = 2048.
+// float32 (bwd_q_f32_kernel, bwd_kv_f32_kernel): the same two launches,
+// blocks, passes, statistics and mask scratch in float32, on the tensor cores
+// in 3xTF32 (attention_common.cuh: three mma.sync m16n8k8 TF32 products of
+// the operands' split halves per product, within the float32 band). Tiles of
+// 64 rows x 64 float32 (68-float rows, conflict-free 32-bit LDS for both
+// fragment reads, so no transposed copy is needed) stream through shared
+// memory beside the block's own two tiles (q and do, or k and v), which are
+// read from there too (104 KB, 2 blocks per SM); every operand is split where
+// it is read. ds (launch 1) and pd^T, ds^T (launch 2) stay in the
+// accumulators' registers, which with the 8 keys or rows of each step
+// permuted are the A fragments of the next product; each 64-key (64-row)
+// tile's dq (dk, dv) is summed in its own accumulator and added once. Bound
+// at (16, 2, 1024, 64): the 5 products at a third of the TF32 rate, 0.130 ms;
+// the kernels issue 9 (27 TF32 products).
 #include "attention_common.cuh"
 
 namespace attn {
-
-constexpr int BK = 64;          // keys per staged chunk (launch 1)
-constexpr int kThreadsQ = 128;  // launch 1
-constexpr int BKV = 64;         // keys per block (launch 2)
-constexpr int RQ = 32;          // query rows per chunk (launch 2)
-constexpr int kThreadsKV = 256; // launch 2
-
-template <int BQ>
-size_t smem_q_bytes(int T, int D) {
-  return sizeof(float) * (2 * (size_t)BQ * D + (size_t)D * (BK + 1) + 2 * (size_t)BQ * T);
-}
-
-inline size_t smem_kv_bytes(int D) {
-  return sizeof(float) * (2 * (size_t)D * (BKV + 1) + 2 * (size_t)RQ * (D + 1) + 2 * (size_t)RQ * BKV + 3 * RQ);
-}
-
-// grid: (ceil(T / BQ), B * H); q, k, v, g (= do), dq: (B, H, T, D);
-// stats: row max, row sum of exp, row sum dp * p, each (B, H, T) float32
-template <int D, int BQ>
-__global__ void __launch_bounds__(kThreadsQ) bwd_q_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v, const float* __restrict__ g,
-    const int* __restrict__ lengths, const long long* __restrict__ seed, float* __restrict__ dq,
-    float* __restrict__ row_max, float* __restrict__ row_sum, float* __restrict__ row_dot, int H, int T_len,
-    unsigned thr, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* s_q = smem;                    // (BQ, D)
-  float* s_g = s_q + BQ * D;            // (BQ, D)
-  float* s_kv = s_g + BQ * D;           // chunk (D, BK + 1) or (BK, D)
-  float* s_p = s_kv + D * (BK + 1);     // (BQ, T) logits -> p -> rounded ds
-  float* s_dp = s_p + BQ * T_len;       // (BQ, T) dpd -> dp
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int q0 = blockIdx.x * BQ;
-  const long long base = (long long)bh * T_len * D;
-  const int len = lengths[b];
-  const Dropout drop = make_dropout(seed, bh, thr, scale);
-
-  for (int i = tid; i < BQ * D; i += kThreadsQ) {
-    const int r = i / D, d = i - r * D;
-    const int qi = q0 + r;
-    const bool in = qi < T_len;
-    s_q[i] = in ? q[base + (long long)qi * D + d] : 0.f;
-    s_g[i] = in ? g[base + (long long)qi * D + d] : 0.f;
-  }
-
-  // logits and dpd: thread owns key j of the chunk and RPT query rows; each
-  // dot runs over d in order from 0 (bwd_kv_kernel repeats it bit for bit)
-  constexpr int RPT = BQ / 2;
-  static_assert(kThreadsQ == 2 * BK, "logit mapping");
-  const int j = tid % BK;
-  const int rg = (tid / BK) * RPT;
-  for (int k0 = 0; k0 < T_len; k0 += BK) {
-    const int kj = k0 + j;
-    for (int pass = 0; pass < 2; ++pass) {
-      const float* src = pass == 0 ? k : v;
-      const float* lhs = pass == 0 ? s_q : s_g;
-      __syncthreads();
-      for (int i = tid; i < BK * D; i += kThreadsQ) {
-        const int jj = i / D, d = i - jj * D;
-        const int kk = k0 + jj;
-        s_kv[d * (BK + 1) + jj] = kk < T_len ? src[base + (long long)kk * D + d] : 0.f;
-      }
-      __syncthreads();
-      float acc[RPT];
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) acc[r] = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) {
-        const float kv = s_kv[d * (BK + 1) + j];
-#pragma unroll
-        for (int r = 0; r < RPT; ++r) acc[r] = fmaf(lhs[(rg + r) * D + d], kv, acc[r]);
-      }
-      if (kj < T_len) {
-#pragma unroll
-        for (int r = 0; r < RPT; ++r) {
-          if (pass == 0) s_p[(rg + r) * T_len + kj] = kj < len ? acc[r] : -1e9f;
-          else s_dp[(rg + r) * T_len + kj] = acc[r];
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // per row (warp w owns rows w, w + 4, ...): softmax, dropout, sum dp * p,
-  // then ds in place of p
-  const int warp = tid >> 5, lane = tid & 31;
-  for (int r = warp; r < BQ; r += kThreadsQ / 32) {
-    const int qi = q0 + r;
-    float* pr = s_p + r * T_len;
-    float* dr = s_dp + r * T_len;
-    float m = -3.402823466e38f;
-    for (int c = lane; c < T_len; c += 32) m = fmaxf(m, pr[c]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int c = lane; c < T_len; c += 32) {
-      const float e = expf(pr[c] - m);
-      pr[c] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    float dot = 0.f;
-    for (int c0 = 4 * lane; c0 < T_len; c0 += 128) {
-      const uint4 w = drop.on() ? drop.bits(qi, c0) : make_uint4(0u, 0u, 0u, 0u);
-      for (int c = c0; c < min(c0 + 4, T_len); ++c) {
-        const float p = pr[c] / sum;
-        const float dp = drop.on() ? drop.apply(w, c, dr[c]) : dr[c];
-        pr[c] = p;
-        dr[c] = dp;
-        dot = fmaf(dp, p, dot);
-      }
-    }
-    dot = warp_sum(dot);
-    for (int c = lane; c < T_len; c += 32) pr[c] = pr[c] * (dr[c] - dot);
-    if (lane == 0 && qi < T_len) {
-      const long long o = (long long)bh * T_len + qi;
-      row_max[o] = m;
-      row_sum[o] = sum;
-      row_dot[o] = dot;
-    }
-  }
-
-  // dq = ds . k: thread owns column d and rows r0, r0 + RSTEP, ...
-  constexpr int RSTEP = kThreadsQ / D;
-  constexpr int NR = BQ / RSTEP;
-  static_assert(kThreadsQ % D == 0 && BQ % RSTEP == 0, "output mapping");
-  const int dcol = tid % D;
-  const int r0 = tid / D;
-  float acc[NR];
-#pragma unroll
-  for (int r = 0; r < NR; ++r) acc[r] = 0.f;
-  for (int k0 = 0; k0 < T_len; k0 += BK) {
-    __syncthreads();
-    for (int i = tid; i < BK * D; i += kThreadsQ) {
-      const int jj = i / D, d = i - jj * D;
-      const int kk = k0 + jj;
-      s_kv[jj * D + d] = kk < T_len ? k[base + (long long)kk * D + d] : 0.f;
-    }
-    __syncthreads();
-    const int nk = min(BK, T_len - k0);
-    for (int jj = 0; jj < nk; ++jj) {
-      const float kv = s_kv[jj * D + dcol];
-#pragma unroll
-      for (int r = 0; r < NR; ++r) acc[r] = fmaf(s_p[(r0 + r * RSTEP) * T_len + k0 + jj], kv, acc[r]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < NR; ++r) {
-    const int qi = q0 + r0 + r * RSTEP;
-    if (qi < T_len) dq[base + (long long)qi * D + dcol] = acc[r];
-  }
-}
-
-// grid: (ceil(T / BKV), B * H); dk, dv: (B, H, T, D)
-template <int D>
-__global__ void __launch_bounds__(kThreadsKV) bwd_kv_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v, const float* __restrict__ g,
-    const int* __restrict__ lengths, const long long* __restrict__ seed, const float* __restrict__ row_max,
-    const float* __restrict__ row_sum, const float* __restrict__ row_dot, float* __restrict__ dk,
-    float* __restrict__ dv, int H, int T_len, unsigned thr, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* s_kt = smem;                      // (D, BKV + 1): the block's keys
-  float* s_vt = s_kt + D * (BKV + 1);      // (D, BKV + 1): their values
-  float* s_q = s_vt + D * (BKV + 1);       // (RQ, D + 1): a chunk of q rows
-  float* s_g = s_q + RQ * (D + 1);         // (RQ, D + 1): their do rows
-  float* s_pd = s_g + RQ * (D + 1);        // (RQ, BKV): rounded pd
-  float* s_ds = s_pd + RQ * BKV;           // (RQ, BKV): rounded ds
-  float* s_st = s_ds + RQ * BKV;           // (3, RQ): max, sum, sum dp * p
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int j0 = blockIdx.x * BKV;
-  const long long base = (long long)bh * T_len * D;
-  const int len = lengths[b];
-  const Dropout drop = make_dropout(seed, bh, thr, scale);
-
-  for (int i = tid; i < BKV * D; i += kThreadsKV) {
-    const int jj = i / D, d = i - jj * D;
-    const int kj = j0 + jj;
-    const bool in = kj < T_len;
-    s_kt[d * (BKV + 1) + jj] = in ? k[base + (long long)kj * D + d] : 0.f;
-    s_vt[d * (BKV + 1) + jj] = in ? v[base + (long long)kj * D + d] : 0.f;
-  }
-
-  // score mapping: thread owns row r of the chunk and keys 4u + {0..3} and
-  // 32 + 4u + {0..3}, so one Philox call serves 4 keys
-  static_assert(kThreadsKV == RQ * 8 && BKV == 64, "score mapping");
-  const int sr = tid / 8;
-  const int su = tid % 8;
-  // sum mapping: thread owns column d of 16 keys jd, jd + 4, ...
-  static_assert(kThreadsKV == 4 * D && BKV % 4 == 0, "sum mapping");
-  const int dcol = tid % D;
-  const int jd = tid / D;
-  constexpr int NJ = BKV / 4;
-  float acc_k[NJ], acc_v[NJ];
-#pragma unroll
-  for (int u = 0; u < NJ; ++u) acc_k[u] = acc_v[u] = 0.f;
-
-  for (int i0 = 0; i0 < T_len; i0 += RQ) {
-    const int nr = min(RQ, T_len - i0);
-    __syncthreads();
-    for (int i = tid; i < RQ * D; i += kThreadsKV) {
-      const int r = i / D, d = i - r * D;
-      const bool in = r < nr;
-      s_q[r * (D + 1) + d] = in ? q[base + (long long)(i0 + r) * D + d] : 0.f;
-      s_g[r * (D + 1) + d] = in ? g[base + (long long)(i0 + r) * D + d] : 0.f;
-    }
-    for (int i = tid; i < RQ; i += kThreadsKV) {
-      const long long o = (long long)bh * T_len + i0 + i;
-      const bool in = i < nr;
-      s_st[i] = in ? row_max[o] : 0.f;
-      s_st[RQ + i] = in ? row_sum[o] : 1.f;
-      s_st[2 * RQ + i] = in ? row_dot[o] : 0.f;
-    }
-    __syncthreads();
-
-    const float m = s_st[sr], sum = s_st[RQ + sr], dot = s_st[2 * RQ + sr];
-    const int qi = i0 + sr;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int jb = half * 32 + 4 * su;
-      const uint4 w = drop.on() ? drop.bits(qi, j0 + jb) : make_uint4(0u, 0u, 0u, 0u);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int jj = jb + e;
-        float s = 0.f, dpd = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < D; ++d) {
-          s = fmaf(s_q[sr * (D + 1) + d], s_kt[d * (BKV + 1) + jj], s);
-          dpd = fmaf(s_g[sr * (D + 1) + d], s_vt[d * (BKV + 1) + jj], dpd);
-        }
-        const int kj = j0 + jj;
-        float pd = 0.f, ds = 0.f;
-        if (sr < nr && kj < T_len) {
-          const float p = expf((kj < len ? s : -1e9f) - m) / sum;
-          pd = drop.on() ? drop.apply(w, kj, p) : p;
-          const float dp = drop.on() ? drop.apply(w, kj, dpd) : dpd;
-          ds = p * (dp - dot);
-        }
-        s_pd[sr * BKV + jj] = pd;
-        s_ds[sr * BKV + jj] = ds;
-      }
-    }
-    __syncthreads();
-
-    // dv_j += pd_ij * do_i and dk_j += ds_ij * q_i, over the rows in order
-    for (int r = 0; r < nr; ++r) {
-      const float gv = s_g[r * (D + 1) + dcol];
-      const float qv = s_q[r * (D + 1) + dcol];
-#pragma unroll
-      for (int u = 0; u < NJ; ++u) {
-        const int jj = jd + 4 * u;
-        acc_v[u] = fmaf(s_pd[r * BKV + jj], gv, acc_v[u]);
-        acc_k[u] = fmaf(s_ds[r * BKV + jj], qv, acc_k[u]);
-      }
-    }
-  }
-#pragma unroll
-  for (int u = 0; u < NJ; ++u) {
-    const int kj = j0 + jd + 4 * u;
-    if (kj < T_len) {
-      dk[base + (long long)kj * D + dcol] = acc_k[u];
-      dv[base + (long long)kj * D + dcol] = acc_v[u];
-    }
-  }
-}
-
-template <int D, int BQ>
-cudaError_t launch_q(const void* q, const void* k, const void* v, const void* g, const int* lengths,
-                     const long long* seed, void* dq, float* stats, int B, int H, int T_len, unsigned thr,
-                     float scale, cudaStream_t stream) {
-  const size_t smem = smem_q_bytes<BQ>(T_len, D);
-  const void* kern = reinterpret_cast<const void*>(&bwd_q_kernel<D, BQ>);
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const long long n = (long long)B * H * T_len;
-  float* row_max = stats;
-  float* row_sum = stats + n;
-  float* row_dot = stats + 2 * n;
-  dim3 grid((T_len + BQ - 1) / BQ, B * H);
-  void* args[] = {&q, &k, &v, &g, &lengths, &seed, &dq, &row_max, &row_sum, &row_dot, &H, &T_len, &thr, &scale};
-  e = cudaLaunchKernel(kern, grid, dim3(kThreadsQ), args, smem, stream);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_kv(const void* q, const void* k, const void* v, const void* g, const int* lengths,
-                      const long long* seed, const float* stats, void* dk, void* dv, int B, int H, int T_len,
-                      unsigned thr, float scale, cudaStream_t stream) {
-  const size_t smem = smem_kv_bytes(D);
-  const void* kern = reinterpret_cast<const void*>(&bwd_kv_kernel<D>);
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const long long n = (long long)B * H * T_len;
-  const float* row_max = stats;
-  const float* row_sum = stats + n;
-  const float* row_dot = stats + 2 * n;
-  dim3 grid((T_len + BKV - 1) / BKV, B * H);
-  void* args[] = {&q, &k, &v, &g, &lengths, &seed, &row_max, &row_sum, &row_dot, &dk, &dv, &H, &T_len,
-                  &thr, &scale};
-  e = cudaLaunchKernel(kern, grid, dim3(kThreadsKV), args, smem, stream);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
-}
 
 // ---- bf16 on the tensor cores -----------------------------------------------
 
@@ -682,27 +379,341 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* g
   return cudaGetLastError();
 }
 
-// ---- float32 with FMAs -------------------------------------------------------
+// ---- float32 on the tensor cores (3xTF32) ------------------------------------
+
+// dynamic shared memory: the block's own two tiles (q and do, or k and v) and
+// two buffers of each streamed tile; launch 2 adds the query tile's row
+// statistics and keep words
+constexpr int kBwdF32Smem = 6 * kTileF * (int)sizeof(float);
+constexpr int kBwdF32KvSmem = kBwdF32Smem + 2 * kTile * (int)(sizeof(float4) + 2 * sizeof(uint32_t));
+
+// grid: (ceil(T / 64), B * H); q, k, v, g (= do), dq: (B, H, T, 64) float32;
+// stats and keep_words as bwd_q_tc_kernel
+__global__ void __launch_bounds__(kTcThreads, 2) bwd_q_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ g, const int* __restrict__ lengths, const long long* __restrict__ seed,
+    float* __restrict__ dq, float4* __restrict__ stats, uint32_t* __restrict__ keep_words, int H, int T_len,
+    unsigned thr, float scale) {
+  extern __shared__ __align__(16) float smf[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float* const s_q = smf + 16 * warp * kLdsF;          // this warp's 16 rows of q
+  const float* const s_g = s_q + kTileF;                     // and of do
+  float* const s_k = smf + 2 * kTileF;                       // buffer b at s_k + b * kTileF
+  float* const s_v = smf + 4 * kTileF;
+  const int t = lane & 3;
+  const int bh = blockIdx.y;
+  const int len = lengths[bh / H];
+  const int i0 = blockIdx.x * kTile;
+  const int rg = i0 + 16 * warp + (lane >> 2);   // this thread's rows rg and rg + 8
+  const size_t base = (size_t)bh * T_len * kHead;
+  const Dropout drop = make_dropout(seed, bh, thr, scale);
+  const int nt = (T_len + kTile - 1) / kTile;
+  const int Tp = nt * kTile;
+  const int valid = min(len, T_len);            // keys below: no mask
+  uint32_t* my_words = keep_words + ((size_t)bh * nt * Tp + rg + 8 * (lane & 1)) * 2 + (t >> 1);
+
+  load_tile_f32(smf, q + base, i0, T_len);
+  load_tile_f32(smf + kTileF, g + base, i0, T_len);
+  load_tile_f32(s_k, k + base, 0, T_len);
+  load_tile_f32(s_v, v + base, 0, T_len);
+  cp_commit();
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, dsum[2] = {0.f, 0.f}, mL[2], inv_l[2], dot[2];
+  float acc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  // stages 0 .. nt-1: pass (a); nt .. 2nt-1: pass (b); K and V tiles each,
+  // taken 32 keys at a time
+  for (int st = 0; st < 2 * nt; ++st) {
+    const bool pass2 = st >= nt;
+    const int j0 = (pass2 ? st - nt : st) * kTile;
+    if (st + 1 < 2 * nt) {
+      const int nj = (st + 1 < nt ? st + 1 : st + 1 - nt) * kTile;
+      const int nb = ((st + 1) & 1) * kTileF;
+      load_tile_f32(s_k + nb, k + base, nj, T_len);
+      load_tile_f32(s_v + nb, v + base, nj, T_len);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    if (st == nt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int o = 1; o <= 2; o <<= 1) {
+          l[h] += __shfl_xor_sync(0xffffffffu, l[h], o);
+          dsum[h] += __shfl_xor_sync(0xffffffffu, dsum[h], o);
+        }
+        mL[h] = m[h] * kLog2e;
+        inv_l[h] = 1.f / l[h];
+        dot[h] = dsum[h] / l[h];
+      }
+    }
+    const float* sk = s_k + (st & 1) * kTileF;
+    const float* sv = s_v + (st & 1) * kTileF;
+    const bool full = j0 + kTile <= valid;
+    uint32_t word = 0u;
+    if (drop.on() && pass2) word = my_words[(size_t)(j0 / kTile) * Tp * 2];
+    float part[8][4];                            // this tile's ds.k (see attention_common.cuh)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) part[n][0] = part[n][1] = part[n][2] = part[n][3] = 0.f;
+#pragma unroll
+    for (int jh = 0; jh < 2; ++jh) {
+      float s[4][4], dpd[4][4];
+      mma_abt_f32<4, 8>(s, s_q, sk + 32 * jh * kLdsF, lane);
+      mma_abt_f32<4, 8>(dpd, s_g, sv + 32 * jh * kLdsF, lane);
+      if (!full) {
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int j = j0 + 32 * jh + 8 * n + 2 * t + (c & 1);
+            s[n][c] = j >= T_len ? -INFINITY : j >= len ? -1e9f : s[n][c];
+          }
+      }
+      if (!pass2) {
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) mx[c >> 1] = fmaxf(mx[c >> 1], s[n][c]);
+        float mnL[2], sum[2] = {0.f, 0.f}, dps[2] = {0.f, 0.f};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+          mx[h] = fmaxf(m[h], mx[h]);
+          mnL[h] = mx[h] * kLog2e;
+        }
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          uint32_t keep = 0xFu;
+          if (drop.on()) {
+            const uint32_t mine = row_draw(drop, rg, j0 + 32 * jh + 8 * n, lane);
+            word |= mine << (4 * (4 * jh + n));
+            keep = deal_rows(mine, lane);
+          }
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float e = exp2f(fmaf(s[n][c], kLog2e, -mnL[c >> 1]));
+            const float dp = drop.on() ? ((keep >> c & 1u) ? dpd[n][c] * drop.scale : 0.f) : dpd[n][c];
+            sum[c >> 1] += e;
+            dps[c >> 1] = fmaf(dp, e, dps[c >> 1]);
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float alpha = exp2f((m[h] - mx[h]) * kLog2e);
+          l[h] = l[h] * alpha + sum[h];
+          dsum[h] = dsum[h] * alpha + dps[h];
+          m[h] = mx[h];
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const uint32_t keep = drop.on() ? deal_rows(word >> (4 * (4 * jh + n)) & 0xFu, lane) : 0xFu;
+          float ds[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float p = exp2f(fmaf(s[n][c], kLog2e, -mL[c >> 1])) * inv_l[c >> 1];
+            const float dp = drop.on() ? ((keep >> c & 1u) ? dpd[n][c] * drop.scale : 0.f) : dpd[n][c];
+            ds[c] = p * (dp - dot[c >> 1]);
+          }
+          mma_ab_f32(part, c_to_a(ds), sk, 32 * jh + 8 * n, lane);
+        }
+      }
+    }
+    if (pass2) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[n][c] += part[n][c];
+    } else if (drop.on()) {
+      my_words[(size_t)(j0 / kTile) * Tp * 2] = word;
+    }
+    __syncthreads();
+  }
+
+  float* out = dq + base;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int d = 8 * n + 2 * t;
+    if (rg < T_len) *reinterpret_cast<float2*>(out + (size_t)rg * kHead + d) = make_float2(acc[n][0], acc[n][1]);
+    if (rg + 8 < T_len)
+      *reinterpret_cast<float2*>(out + (size_t)(rg + 8) * kHead + d) = make_float2(acc[n][2], acc[n][3]);
+  }
+  if (t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = rg + 8 * h;
+      stats[(size_t)bh * Tp + i] = i < T_len ? make_float4(mL[h], inv_l[h], dot[h], 0.f)
+                                             : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+}
+
+// grid: (ceil(T / 64), B * H); dk, dv: (B, H, T, 64) float32; stats and
+// keep_words as written by bwd_q_f32_kernel
+__global__ void __launch_bounds__(kTcThreads, 2) bwd_kv_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ g, const int* __restrict__ lengths, const long long* __restrict__ seed,
+    const float4* __restrict__ stats, const uint32_t* __restrict__ keep_words, float* __restrict__ dk,
+    float* __restrict__ dv, int H, int T_len, unsigned thr, float scale) {
+  extern __shared__ __align__(16) float smf[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float* const s_k = smf + 16 * warp * kLdsF;          // this warp's 16 keys of k
+  const float* const s_v = s_k + kTileF;                     // and of v
+  float* const s_q = smf + 2 * kTileF;                       // buffer b at s_q + b * kTileF
+  float* const s_g = smf + 4 * kTileF;
+  float4 (*s_st)[kTile] = reinterpret_cast<float4 (*)[kTile]>(smf + 6 * kTileF);     // [2][64]
+  uint32_t (*s_kw)[kTile][2] = reinterpret_cast<uint32_t (*)[kTile][2]>(s_st + 2);  // [2][64][2]
+  const int lg = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y;
+  const int len = lengths[bh / H];
+  const int j0 = blockIdx.x * kTile;
+  const int kg = j0 + 16 * warp + lg;              // this thread's keys kg and kg + 8
+  const bool masked[2] = {kg >= len, kg + 8 >= len};
+  const size_t base = (size_t)bh * T_len * kHead;
+  const Dropout drop = make_dropout(seed, bh, thr, scale);
+  const int nq = (T_len + kTile - 1) / kTile;
+  const int Tp = nq * kTile;
+  const float4* st_bh = stats + (size_t)bh * Tp;
+  const uint32_t* words = keep_words + ((size_t)bh * nq + blockIdx.x) * Tp * 2;
+
+  // one query tile's statistics (64 copies of 16 bytes) and, with dropout,
+  // its rows' keep words of this key tile (32 copies)
+  auto load_stats = [&](int b, int i0) {
+    const int c = threadIdx.x;
+    if (c < 64) cp_async16(&s_st[b][c], st_bh + i0 + c, 16);
+    else if (c < 96 && drop.on()) cp_async16(&s_kw[b][(c - 64) * 2][0], words + (size_t)i0 * 2 + (c - 64) * 4, 16);
+  };
+  load_tile_f32(smf, k + base, j0, T_len);
+  load_tile_f32(smf + kTileF, v + base, j0, T_len);
+  load_tile_f32(s_q, q + base, 0, T_len);
+  load_tile_f32(s_g, g + base, 0, T_len);
+  load_stats(0, 0);
+  cp_commit();
+
+  float dka[8][4], dva[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dka[n][c] = dva[n][c] = 0.f;
+
+  for (int it = 0; it < nq; ++it) {
+    const int buf = it & 1;
+    const int i0 = it * kTile;
+    if (it + 1 < nq) {
+      load_tile_f32(s_q + (buf ^ 1) * kTileF, q + base, i0 + kTile, T_len);
+      load_tile_f32(s_g + (buf ^ 1) * kTileF, g + base, i0 + kTile, T_len);
+      load_stats(buf ^ 1, i0 + kTile);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const float* sq = s_q + buf * kTileF;
+    const float* sg = s_g + buf * kTileF;
+    const bool full = i0 + kTile <= T_len;
+    float pk[8][4], pv[8][4];                     // this tile's ds^T.q and pd^T.do
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) pk[n][c] = pv[n][c] = 0.f;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r0 = 32 * half;                   // tile rows r0 .. r0 + 31
+      float s[4][4], dpd[4][4];
+      mma_abt_f32<4, 2>(s, s_k, sq + r0 * kLdsF, lane);
+      mma_abt_f32<4, 2>(dpd, s_v, sg + r0 * kLdsF, lane);
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        // lane (lg, t) brings row r0 + 8n + 2t + (lg & 1), key group 4 * warp +
+        // lg / 2 of the tile: nibble 2 * warp + lg / 4 of that row's word (lg / 2) & 1
+        const uint32_t keep = drop.on() ? deal_cols(s_kw[buf][r0 + 8 * n + 2 * t + (lg & 1)][(lg >> 1) & 1] >>
+                                                        (4 * (2 * warp + (lg >> 2))) & 0xFu, lane)
+                                        : 0xFu;
+        float pd[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = r0 + 8 * n + 2 * t + e;           // query row i0 + r
+          const float4 sr = s_st[buf][r];
+          const bool in = full || i0 + r < T_len;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {                   // key kg + 8h
+            const int c = 2 * h + e;
+            const float p = exp2f(fmaf(masked[h] ? -1e9f : s[n][c], kLog2e, -sr.x)) * sr.y;
+            const bool kept = (keep >> c & 1u) != 0u;
+            const float pdv = drop.on() ? (kept ? p * drop.scale : 0.f) : p;
+            const float dp = drop.on() ? (kept ? dpd[n][c] * drop.scale : 0.f) : dpd[n][c];
+            pd[c] = in ? pdv : 0.f;
+            ds[c] = in ? p * (dp - sr.z) : 0.f;
+          }
+        }
+        // (key g, rows 2t, 2t + 1) and (key g + 8, ...): A fragments over 8 rows
+        mma_ab_f32(pv, c_to_a(pd), sg, r0 + 8 * n, lane);
+        mma_ab_f32(pk, c_to_a(ds), sq, r0 + 8 * n, lane);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        dka[n][c] += pk[n][c];
+        dva[n][c] += pv[n][c];
+      }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int d = 8 * n + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = kg + 8 * h;
+      if (j < T_len) {
+        const size_t o = base + (size_t)j * kHead + d;
+        *reinterpret_cast<float2*>(dk + o) = make_float2(dka[n][2 * h], dka[n][2 * h + 1]);
+        *reinterpret_cast<float2*>(dv + o) = make_float2(dva[n][2 * h], dva[n][2 * h + 1]);
+      }
+    }
+  }
+}
 
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* g, const int* lengths,
-                       const long long* seed, void* dq, void* dk, void* dv, float* stats, int B, int H, int T_len,
-                       unsigned thr, float scale, cudaStream_t s) {
-  if (T_len > 2048) return cudaErrorInvalidValue;
-  cudaError_t e = T_len <= 1024
-      ? launch_q<64, 16>(q, k, v, g, lengths, seed, dq, stats, B, H, T_len, thr, scale, s)
-      : launch_q<64, 8>(q, k, v, g, lengths, seed, dq, stats, B, H, T_len, thr, scale, s);
+                       const long long* seed, void* dq, void* dk, void* dv, float* stats, uint32_t* keep_words,
+                       int B, int H, int T_len, unsigned thr, float scale, cudaStream_t stream) {
+  const void* kq = reinterpret_cast<const void*>(&bwd_q_f32_kernel);
+  const void* kkv = reinterpret_cast<const void*>(&bwd_kv_f32_kernel);
+  cudaError_t e = cudaFuncSetAttribute(kq, cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdF32Smem);
   if (e != cudaSuccess) return e;
-  return launch_kv<64>(q, k, v, g, lengths, seed, stats, dk, dv, B, H, T_len, thr, scale, s);
+  e = cudaFuncSetAttribute(kkv, cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdF32KvSmem);
+  if (e != cudaSuccess) return e;
+  float4* st4 = reinterpret_cast<float4*>(stats);
+  dim3 grid((T_len + kTile - 1) / kTile, B * H);
+  void* args_q[] = {&q, &k, &v, &g, &lengths, &seed, &dq, &st4, &keep_words, &H, &T_len, &thr, &scale};
+  e = cudaLaunchKernel(kq, grid, dim3(kTcThreads), args_q, kBwdF32Smem, stream);
+  if (e != cudaSuccess) return e;
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  void* args_kv[] = {&q, &k, &v, &g, &lengths, &seed, &st4, &keep_words, &dk, &dv, &H, &T_len, &thr, &scale};
+  e = cudaLaunchKernel(kkv, grid, dim3(kTcThreads), args_kv, kBwdF32KvSmem, stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
 }
 
 }  // namespace attn
 
-// Two launches on ``stream``. dtype: 1 = bf16 (tensor cores, any T), 0 =
-// float32 (FMA, T <= 2048). thr: the dropout threshold (0: off; seed, an
-// int64 on the card, is then not read). stats: 4 * B * H * Tp float32 of
-// scratch, 16-byte aligned, Tp = T rounded up to 64. keep: with dropout in bf16, 2 * B * H *
-// Tp * Tp / 64 uint32 of scratch for the mask bits (else not read). D must
-// be 64. Returns cudaGetLastError() after the launches.
+// Two launches on ``stream``. dtype: 1 = bf16, 0 = float32 (both on the
+// tensor cores, any T). thr: the dropout threshold (0: off; seed, an int64 on
+// the card, is then not read). stats: 4 * B * H * Tp float32 of scratch,
+// 16-byte aligned, Tp = T rounded up to 64. keep: with dropout, 2 * B * H *
+// Tp * Tp / 64 uint32 of scratch for the mask bits (else not read). D must be
+// 64. Returns cudaGetLastError() after the launches.
 extern "C" int attention_bwd(const void* q, const void* k, const void* v, const void* g,
                              const void* lengths, const void* seed, void* dq, void* dk, void* dv,
                              void* stats, void* keep, int B, int H, int T_len, int D, int dtype, unsigned thr,
@@ -716,5 +727,6 @@ extern "C" int attention_bwd(const void* q, const void* k, const void* v, const 
   if (dtype == 1)
     return (int)attn::launch_tc(q, k, v, g, len, sd, dq, dk, dv, st, static_cast<uint32_t*>(keep), B, H, T_len,
                                 thr, scale, s);
-  return (int)attn::launch_f32(q, k, v, g, len, sd, dq, dk, dv, st, B, H, T_len, thr, scale, s);
+  return (int)attn::launch_f32(q, k, v, g, len, sd, dq, dk, dv, st, static_cast<uint32_t*>(keep), B, H, T_len,
+                               thr, scale, s);
 }

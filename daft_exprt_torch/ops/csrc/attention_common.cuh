@@ -1,7 +1,8 @@
 // Shared pieces of the attention kernels (attention_fwd.cu, attention_bwd.cu):
-// warp reductions, the dropout mask, and the tensor-core pieces of the bf16
+// the dropout mask, the tensor-core pieces of the bf16
 // kernels (cp.async tile loads, ldmatrix, mma.sync m16n8k16 and the dropout
-// bits in the accumulator fragments' layout).
+// bits in the accumulator fragments' layout) and those of the float32 ones
+// (3xTF32 on mma.sync m16n8k8).
 #pragma once
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -11,15 +12,6 @@
 namespace attn {
 
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // Dropout bits: Philox-4x32-10 with key (seed, b*H + h) and counter
 // (i, j / 4, 0, 0); key j of query row i takes word j % 4. The mask is a pure
@@ -42,23 +34,13 @@ __device__ __forceinline__ uint4 philox(uint32_t c0, uint32_t c1, uint32_t k0, u
   return make_uint4(c0, c1, c2, c3);
 }
 
-__device__ __forceinline__ uint32_t word(const uint4& w, int u) {
-  return u == 0 ? w.x : u == 1 ? w.y : u == 2 ? w.z : w.w;
-}
-
 // Dropout on the normalised weights: keep where bits >= thr, kept values
 // scaled (as the TPU kernel's p * keep_scale in float32); thr == 0 is off.
+// The kernels draw the bits with keep_bits below.
 struct Dropout {
   uint32_t seed, bh, thr;
   float scale;
   __device__ __forceinline__ bool on() const { return thr != 0u; }
-  // the words of keys 4 * (j / 4) .. 4 * (j / 4) + 3 of row i
-  __device__ __forceinline__ uint4 bits(int i, int j) const {
-    return philox((uint32_t)i, (uint32_t)(j >> 2), seed, bh);
-  }
-  __device__ __forceinline__ float apply(const uint4& w, int j, float x) const {
-    return word(w, j & 3) >= thr ? x * scale : 0.f;
-  }
 };
 
 __device__ __forceinline__ Dropout make_dropout(const long long* seed, int bh, unsigned thr, float scale) {
@@ -222,6 +204,126 @@ __device__ __forceinline__ uint32_t deal_cols(uint32_t mine, int lane) {
     out |= (bits >> (g & 3) & 1u) << c;
   }
   return out;
+}
+
+// ---- the float32 tensor-core kernels (3xTF32) --------------------------------
+// The bf16 kernels' blocks, tiles and passes, in float32. Every product is
+// split as a.b ~ a_hi.b_lo + a_lo.b_hi + a_hi.b_hi with x_hi = tf32(x) and
+// x_lo = tf32(x - x_hi) (cvt.rna's rounding), three mma.sync m16n8k8 TF32
+// products into one float32 accumulator, small terms first (CUTLASS's
+// OpMultiplyAddFastF32).
+// The dropped a_lo.b_lo and the rounding of x_lo leave each product within
+// about 2^-22 of its float32 value: the float32 band (1e-5 rel-L2) holds,
+// where one TF32 product (a_hi.b_hi) leaves it by some 40x
+// (tests/test_torch_attention_tf32x3.py models both).
+//
+// Tiles of 64 rows x 64 float32 stream through shared memory by cp.async, a
+// row padded to kLdsF = 68 floats: both fragment reads below are plain 32-bit
+// LDS and free of bank conflicts (row stride 4 banks: 4g + t, and 8 banks per
+// two rows: 8t + g). Every operand, the blocks' own rows too, is read from
+// shared memory and split where it is read: split halves are never held.
+//
+// The tensor cores add each product into the float32 accumulator with
+// truncation, so an error that grows with the length of an accumulator's
+// chain of mma: a sum over keys or query rows (p.v, ds.k, pd^T.do, ds^T.q)
+// takes each 64-row tile in a fresh accumulator (24 mma) and adds it to the
+// running sum with one float32 add (one chain of 3T/8 mma left the 1e-5
+// band at T = 2048 on an H100).
+//
+// mma.sync m16n8k8 TF32 fragments (g = lane / 4, t = lane % 4):
+//   A (16 x 8, row-major) a0: (g, t) a1: (g+8, t) a2: (g, t+4) a3: (g+8, t+4);
+//   B (8 x 8)             b0: (k t, n g) b1: (k t+4, n g);
+//   C (16 x 8, float32)   c0, c1: (g, 2t..2t+1) c2, c3: (g+8, 2t..2t+1).
+// A C fragment is the A fragment of the next product over its 8 columns with
+// k permuted: k = t is column 2t and k = t + 4 column 2t + 1, so a = (c0, c2,
+// c1, c3) and the B fragment of that product reads rows 2t and 2t + 1
+// (mma_ab_f32); the sum over k does not care about the order.
+
+constexpr int kLdsF = kHead + 4;       // padded shared-memory row (floats)
+constexpr int kTileF = kTile * kLdsF;  // floats per staged tile
+
+// cvt.rna.tf32.f32 (nearest, ties away from zero) of a finite x in two
+// integer operations: ptxas expands the cvt with an infinity test and a
+// select, four operations a value (inf stays inf here too)
+__device__ __forceinline__ uint32_t to_tf32(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }
+
+// x ~ hi + lo, both TF32 (the low 13 bits zero)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+
+__device__ __forceinline__ FragA split_a(float a0, float a1, float a2, float a3) {
+  FragA f;
+  split_tf32(a0, f.hi[0], f.lo[0]);
+  split_tf32(a1, f.hi[1], f.lo[1]);
+  split_tf32(a2, f.hi[2], f.lo[2]);
+  split_tf32(a3, f.hi[3], f.lo[3]);
+  return f;
+}
+
+__device__ __forceinline__ void mma1688(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a.b in 3xTF32, b = (b0, b1) split here
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, float b0, float b1) {
+  uint32_t h0, l0, h1, l1;
+  split_tf32(b0, h0, l0);
+  split_tf32(b1, h1, l1);
+  mma1688(c, a.hi, l0, l1);
+  mma1688(c, a.lo, h0, h1);
+  mma1688(c, a.hi, h0, h1);
+}
+
+// Rows [r0, r0 + 64) of a (T, 64) float32 matrix into a padded tile, as
+// cp.async copies of 16 bytes (16 per row); rows at or past T are zero-filled.
+__device__ __forceinline__ void load_tile_f32(float* s, const float* g, int r0, int T_len) {
+#pragma unroll
+  for (int c = 0; c < kTile * 16 / kTcThreads; ++c) {
+    const int idx = (int)threadIdx.x + c * kTcThreads;
+    const int r = idx >> 4, ch = idx & 15;
+    const bool in = r0 + r < T_len;
+    cp_async16(s + r * kLdsF + ch * 4, g + (size_t)(in ? r0 + r : 0) * kHead + ch * 4, in ? 16 : 0);
+  }
+}
+
+// acc[n][*] = A (16 rows x 64 dims: rows 0..15 of tile sa) times rows 8n.. of
+// tile s, transposed (k over the 64 dims): the scores of 16 rows against
+// NT * 8 tile rows. A is read and split per 8 dims (not held in registers);
+// the 8 steps unrolled by U (a kernel's registers decide: measured per kernel).
+template <int NT, int U>
+__device__ __forceinline__ void mma_abt_f32(float (&acc)[NT][4], const float* sa, const float* s, int lane) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const float* pa = sa + (lane >> 2) * kLdsF + (lane & 3);
+  const float* pb = s + (lane >> 2) * kLdsF + (lane & 3);
+#pragma unroll U
+  for (int kk = 0; kk < 8; ++kk) {
+    const FragA fa = split_a(pa[8 * kk], pa[8 * kLdsF + 8 * kk], pa[8 * kk + 4], pa[8 * kLdsF + 8 * kk + 4]);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) mma3(acc[n], fa, pb[8 * n * kLdsF + 8 * kk], pb[8 * n * kLdsF + 8 * kk + 4]);
+  }
+}
+
+// The A fragment of 8 columns of a C fragment (values c = (g, 2t), (g, 2t+1),
+// (g+8, 2t), (g+8, 2t+1)), k permuted as above.
+__device__ __forceinline__ FragA c_to_a(const float (&c)[4]) { return split_a(c[0], c[2], c[1], c[3]); }
+
+// acc (16 x 64) += A (16 x 8, from c_to_a) times tile rows r0 .. r0 + 7, all
+// 64 dims: one 8-row step of P.V, dS.K, pd^T.dO, ds^T.Q.
+__device__ __forceinline__ void mma_ab_f32(float (&acc)[8][4], const FragA& a, const float* s, int r0, int lane) {
+  const float* p = s + (r0 + 2 * (lane & 3)) * kLdsF + (lane >> 2);
+#pragma unroll
+  for (int dn = 0; dn < 8; ++dn) mma3(acc[dn], a, p[8 * dn], p[kLdsF + 8 * dn]);
 }
 
 }  // namespace attn

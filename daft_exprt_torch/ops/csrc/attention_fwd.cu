@@ -31,149 +31,21 @@
 // row pair: lanes 2u and 2u + 1 share a 4-key group, draw a row each and
 // swap the bits.
 //
-// float32 (attn_fwd_kernel): the first version, kept for float32 calls
-// (tensor cores in TF32 would leave the float32 band; no card path runs
-// attention in float32). One block of 128 threads owns 16 query rows and
-// their (16, T) float32 logits in shared memory (T <= 2048) and runs FMAs.
+// float32 (attn_fwd_f32_kernel): the same block, tiles and two passes in
+// float32, on the tensor cores in 3xTF32 (attention_common.cuh): each product
+// is three mma.sync m16n8k8 TF32 products of the operands' split halves, which
+// keeps it within the float32 band where one TF32 product would leave it. K
+// and V tiles of 64 keys x 64 float32 (68-float rows: conflict-free 32-bit
+// LDS) stream through shared memory, double-buffered, beside the block's q
+// tile (87 KB, 2 blocks per SM); every operand is split where it is read. p
+// stays in the accumulators' registers, which with the keys permuted within
+// each 8-key step are the A fragments of p.v; each key tile's p.v is summed in
+// its own accumulator and added to o once. Bound at (16, 2, 1024, 64):
+// the 2 products at a third of the TF32 rate, 0.052 ms; the kernel issues 3
+// (the second pass recomputes q.k^T), 9 TF32 products in all.
 #include "attention_common.cuh"
 
 namespace attn {
-
-constexpr int BQ = 16;       // query rows per block
-constexpr int BK = 64;       // keys per staged chunk
-constexpr int kThreads = 128;
-
-inline size_t smem_bytes(int T, int D) {
-  return sizeof(float) * ((size_t)BQ * D + (size_t)D * (BK + 1) + (size_t)BQ * T);
-}
-
-// grid: (ceil(T / BQ), B * H); q, k, v, o: (B, H, T, D) contiguous
-template <int D>
-__global__ void __launch_bounds__(kThreads) attn_fwd_kernel(const float* __restrict__ q,
-                                                            const float* __restrict__ k,
-                                                            const float* __restrict__ v,
-                                                            const int* __restrict__ lengths,
-                                                            const long long* __restrict__ seed,
-                                                            float* __restrict__ o, int H, int T_len,
-                                                            unsigned thr, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* s_q = smem;                    // (BQ, D)
-  float* s_kv = s_q + BQ * D;           // K chunk (D, BK + 1) or V chunk (BK, D)
-  float* s_p = s_kv + D * (BK + 1);     // (BQ, T_len) logits, then probabilities
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int q0 = blockIdx.x * BQ;
-  const long long base = (long long)bh * T_len * D;
-  const int len = lengths[b];
-  const Dropout drop = make_dropout(seed, bh, thr, scale);
-
-  for (int i = tid; i < BQ * D; i += kThreads) {
-    const int r = i / D, d = i - r * D;
-    const int qi = q0 + r;
-    s_q[i] = qi < T_len ? q[base + (long long)qi * D + d] : 0.f;
-  }
-
-  // logits: thread owns key j of the chunk and 8 query rows
-  static_assert(kThreads == 2 * BK && BQ == 16, "logit mapping");
-  const int j = tid % BK;
-  const int rg = (tid / BK) * 8;
-  for (int k0 = 0; k0 < T_len; k0 += BK) {
-    __syncthreads();
-    for (int i = tid; i < BK * D; i += kThreads) {
-      const int jj = i / D, d = i - jj * D;
-      const int kj = k0 + jj;
-      s_kv[d * (BK + 1) + jj] = kj < T_len ? k[base + (long long)kj * D + d] : 0.f;
-    }
-    __syncthreads();
-    float acc[8];
-#pragma unroll
-    for (int r = 0; r < 8; ++r) acc[r] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float kv = s_kv[d * (BK + 1) + j];
-#pragma unroll
-      for (int r = 0; r < 8; ++r) acc[r] = fmaf(s_q[(rg + r) * D + d], kv, acc[r]);
-    }
-    const int kj = k0 + j;
-    if (kj < T_len) {
-#pragma unroll
-      for (int r = 0; r < 8; ++r) s_p[(rg + r) * T_len + kj] = kj < len ? acc[r] : -1e9f;
-    }
-  }
-  __syncthreads();
-
-  // softmax over whole rows: warp w owns rows 4w .. 4w+3
-  const int warp = tid >> 5, lane = tid & 31;
-  for (int rr = 0; rr < BQ / (kThreads / 32); ++rr) {
-    float* pr = s_p + (warp * (BQ / (kThreads / 32)) + rr) * T_len;
-    float m = -3.402823466e38f;
-    for (int c = lane; c < T_len; c += 32) m = fmaxf(m, pr[c]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int c = lane; c < T_len; c += 32) {
-      const float e = expf(pr[c] - m);
-      pr[c] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    if (!drop.on()) {
-      for (int c = lane; c < T_len; c += 32) pr[c] = pr[c] / sum;
-      continue;
-    }
-    // lane owns groups of 4 keys: one Philox call gives their 4 words
-    const int qi = q0 + warp * (BQ / (kThreads / 32)) + rr;
-    for (int c0 = 4 * lane; c0 < T_len; c0 += 128) {
-      const uint4 w = drop.bits(qi, c0);
-      for (int c = c0; c < min(c0 + 4, T_len); ++c) pr[c] = drop.apply(w, c, pr[c] / sum);
-    }
-  }
-
-  // o = p . v: thread owns column d and rows rg2, rg2 + step, ...
-  constexpr int RSTEP = kThreads / D;
-  constexpr int NR = BQ / RSTEP;
-  static_assert(kThreads % D == 0 && BQ % RSTEP == 0, "output mapping");
-  const int dcol = tid % D;
-  const int r0 = tid / D;
-  float acc[NR];
-#pragma unroll
-  for (int r = 0; r < NR; ++r) acc[r] = 0.f;
-  for (int k0 = 0; k0 < T_len; k0 += BK) {
-    __syncthreads();
-    for (int i = tid; i < BK * D; i += kThreads) {
-      const int jj = i / D, d = i - jj * D;
-      const int kj = k0 + jj;
-      s_kv[jj * D + d] = kj < T_len ? v[base + (long long)kj * D + d] : 0.f;
-    }
-    __syncthreads();
-    const int nk = min(BK, T_len - k0);
-    for (int jj = 0; jj < nk; ++jj) {
-      const float vv = s_kv[jj * D + dcol];
-#pragma unroll
-      for (int r = 0; r < NR; ++r) acc[r] = fmaf(s_p[(r0 + r * RSTEP) * T_len + k0 + jj], vv, acc[r]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < NR; ++r) {
-    const int qi = q0 + r0 + r * RSTEP;
-    if (qi < T_len) o[base + (long long)qi * D + dcol] = acc[r];
-  }
-}
-
-template <int D>
-cudaError_t launch_t(const void* q, const void* k, const void* v, const int* lengths,
-                     const long long* seed, void* o, int B, int H, int T_len, unsigned thr, float scale,
-                     cudaStream_t stream) {
-  const size_t smem = smem_bytes(T_len, D);
-  const void* kern = reinterpret_cast<const void*>(&attn_fwd_kernel<D>);
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((T_len + BQ - 1) / BQ, B * H);
-  void* args[] = {&q, &k, &v, &lengths, &seed, &o, &H, &T_len, &thr, &scale};
-  e = cudaLaunchKernel(kern, grid, dim3(kThreads), args, smem, stream);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
-}
 
 // grid: (ceil(T / 64), B * H); q, k, v, o: (B, H, T, 64) bf16 contiguous
 __global__ void __launch_bounds__(kTcThreads) attn_fwd_tc_kernel(const bf16* __restrict__ q,
@@ -299,11 +171,144 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const int* le
   return cudaGetLastError();
 }
 
+// grid: (ceil(T / 64), B * H); q, k, v, o: (B, H, T, 64) float32 contiguous;
+// kFwdF32Smem bytes of dynamic shared memory: the q tile, two K and two V tiles
+constexpr int kFwdF32Smem = 5 * kTileF * (int)sizeof(float);
+
+__global__ void __launch_bounds__(kTcThreads, 2) attn_fwd_f32_kernel(const float* __restrict__ q,
+                                                                     const float* __restrict__ k,
+                                                                     const float* __restrict__ v,
+                                                                     const int* __restrict__ lengths,
+                                                                     const long long* __restrict__ seed,
+                                                                     float* __restrict__ o, int H, int T_len,
+                                                                     unsigned thr, float scale) {
+  extern __shared__ __align__(16) float smf[];
+  const float* const s_q = smf + 16 * (threadIdx.x >> 5) * kLdsF;   // this warp's 16 rows
+  float* const s_k = smf + kTileF;                                   // buffer b at s_k + b * kTileF
+  float* const s_v = smf + 3 * kTileF;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const int bh = blockIdx.y;
+  const int len = lengths[bh / H];
+  const int i0 = blockIdx.x * kTile;
+  const int rg = i0 + 16 * warp + (lane >> 2);   // this thread's rows rg and rg + 8
+  const size_t base = (size_t)bh * T_len * kHead;
+  const Dropout drop = make_dropout(seed, bh, thr, scale);
+  const int nt = (T_len + kTile - 1) / kTile;
+  const int valid = min(len, T_len);            // keys below: no mask
+
+  load_tile_f32(smf, q + base, i0, T_len);
+  load_tile_f32(s_k, k + base, 0, T_len);
+  cp_commit();
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, mL[2], inv_l[2];
+  float acc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  // stages 0 .. nt-1: pass 1 (K tiles); nt .. 2nt-1: pass 2 (K and V tiles)
+  for (int st = 0; st < 2 * nt; ++st) {
+    const bool pass2 = st >= nt;
+    const int j0 = (pass2 ? st - nt : st) * kTile;
+    const int nb = ((st + 1) & 1) * kTileF;
+    if (st + 1 < 2 * nt) {
+      const int nj = (st + 1 < nt ? st + 1 : st + 1 - nt) * kTile;
+      load_tile_f32(s_k + nb, k + base, nj, T_len);
+      if (st + 1 >= nt) load_tile_f32(s_v + nb, v + base, nj, T_len);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    if (st == nt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+        mL[h] = m[h] * kLog2e;
+        inv_l[h] = 1.f / l[h];
+      }
+    }
+    const int cb = (st & 1) * kTileF;
+    float s[8][4];
+    mma_abt_f32<8, 8>(s, s_q, s_k + cb, lane);
+    if (j0 + kTile > valid) {                    // keys past len (-1e9) or T (dropped)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int j = j0 + 8 * n + 2 * t + (c & 1);
+          s[n][c] = j >= T_len ? -INFINITY : j >= len ? -1e9f : s[n][c];
+        }
+    }
+    if (!pass2) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float mn = fmaxf(m[h], mx);
+        const float mnL = mn * kLog2e;
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          sum += exp2f(fmaf(s[n][2 * h], kLog2e, -mnL)) + exp2f(fmaf(s[n][2 * h + 1], kLog2e, -mnL));
+        l[h] = l[h] * exp2f((m[h] - mn) * kLog2e) + sum;
+        m[h] = mn;
+      }
+    } else {
+      float part[8][4];                          // this tile's p.v (see attention_common.cuh)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) part[n][0] = part[n][1] = part[n][2] = part[n][3] = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const uint32_t keep = drop.on() ? deal_rows(row_draw(drop, rg, j0 + 8 * n, lane), lane) : 0xFu;
+        float p[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          p[c] = exp2f(fmaf(s[n][c], kLog2e, -mL[c >> 1])) * inv_l[c >> 1];
+          if (drop.on()) p[c] = (keep >> c & 1u) ? p[c] * drop.scale : 0.f;
+        }
+        mma_ab_f32(part, c_to_a(p), s_v + cb, 8 * n, lane);
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[n][c] += part[n][c];
+    }
+    __syncthreads();
+  }
+
+  float* out = o + base;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int d = 8 * n + 2 * t;
+    if (rg < T_len) *reinterpret_cast<float2*>(out + (size_t)rg * kHead + d) = make_float2(acc[n][0], acc[n][1]);
+    if (rg + 8 < T_len)
+      *reinterpret_cast<float2*>(out + (size_t)(rg + 8) * kHead + d) = make_float2(acc[n][2], acc[n][3]);
+  }
+}
+
+cudaError_t launch_f32(const void* q, const void* k, const void* v, const int* lengths, const long long* seed,
+                       void* o, int B, int H, int T_len, unsigned thr, float scale, cudaStream_t stream) {
+  const void* kern = reinterpret_cast<const void*>(&attn_fwd_f32_kernel);
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdF32Smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((T_len + kTile - 1) / kTile, B * H);
+  void* args[] = {&q, &k, &v, &lengths, &seed, &o, &H, &T_len, &thr, &scale};
+  e = cudaLaunchKernel(kern, grid, dim3(kTcThreads), args, kFwdF32Smem, stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
 }  // namespace attn
 
-// dtype: 1 = bf16 (tensor cores, any T), 0 = float32 (FMA, T <= 2048). thr:
-// the dropout threshold (0: off; seed, an int64 on the card, is then not
-// read). D must be 64. Returns cudaGetLastError() after the launch.
+// dtype: 1 = bf16, 0 = float32 (both on the tensor cores, any T). thr: the
+// dropout threshold (0: off; seed, an int64 on the card, is then not read). D
+// must be 64. Returns cudaGetLastError() after the launch.
 extern "C" int attention_fwd(const void* q, const void* k, const void* v, const void* lengths,
                              const void* seed, void* o, int B, int H, int T_len, int D, int dtype,
                              unsigned thr, float scale, void* stream) {
@@ -313,6 +318,5 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v, const 
   // D = 64: the FFT blocks' head width (2 heads of a 128-wide model)
   if (D != attn::kHead) return (int)cudaErrorInvalidValue;
   if (dtype == 1) return (int)attn::launch_tc(q, k, v, len, sd, o, B, H, T_len, thr, scale, s);
-  if (T_len > 2048) return (int)cudaErrorInvalidValue;
-  return (int)attn::launch_t<64>(q, k, v, len, sd, o, B, H, T_len, thr, scale, s);
+  return (int)attn::launch_f32(q, k, v, len, sd, o, B, H, T_len, thr, scale, s);
 }

@@ -58,11 +58,16 @@ def _cuda_tree(tree, dtype):
     return tree.cuda().to(dtype)
 
 
-# T: one tile, a ragged last tile (1000), whole tiles, the float32
-# kernels' limit and, in bf16 only, past it (the tensor-core kernels stream
-# any T); lengths at the 64-key tile edges
-ATTN_T = [(T, dt) for T in (128, 1000, 1024, 2048) for dt in DTYPES] + [
-    (2500, torch.bfloat16)]
+# T: one tile, a ragged last tile (1000), whole tiles, and past the old
+# float32 limit of 2048 (the kernels stream any T); lengths at the 64-key
+# tile edges
+ATTN_T = [(T, dt) for T in (128, 1000, 1024, 2048, 2500) for dt in DTYPES]
+
+
+def _call_key(q, p):
+    """The attention wrappers' ``.calls`` key of a call."""
+    key = tuple(q.shape) + (p,)
+    return key + ('float32',) if q.dtype == torch.float32 else key
 
 
 def _edge_lengths(T, B):
@@ -82,11 +87,11 @@ def test_attention_kernel_matches_plain(T, dtype):
                .cuda().to(dtype) for _ in range(3))
     q = q * D ** -0.5
     lengths = _edge_lengths(T, B)
-    n, c = fused_attention.launches, fused_attention.calls[(B, H, T, D, 0.0)]
+    n, c = fused_attention.launches, fused_attention.calls[_call_key(q, 0.0)]
     out = fused_attention(q, k, v, lengths)
     torch.cuda.synchronize()
     assert fused_attention.launches == n + 1
-    assert fused_attention.calls[(B, H, T, D, 0.0)] == c + 1
+    assert fused_attention.calls[_call_key(q, 0.0)] == c + 1
     ref = attention_plain(q, k, v, lengths)
     assert rel_l2(out.float().cpu(), ref.float().cpu()) < _band(dtype)
 
@@ -127,12 +132,12 @@ def test_attention_bwd_kernel_matches_plain(p, T, dtype):
     q, k, v, do, lengths = _attention_inputs(T, dtype, T + int(p * 10), B=6)
     seed = torch.tensor([2 ** 32 - 5], dtype=torch.int64, device='cuda')
     n = fused_attention_bwd.launches
-    c = fused_attention_bwd.calls[tuple(q.shape) + (p,)]
+    c = fused_attention_bwd.calls[_call_key(q, p)]
     got = fused_attention_bwd(q, k, v, do, lengths, seed, p)
     again = fused_attention_bwd(q, k, v, do, lengths, seed, p)
     torch.cuda.synchronize()
     assert fused_attention_bwd.launches == n + 4          # two per call
-    assert fused_attention_bwd.calls[tuple(q.shape) + (p,)] == c + 2
+    assert fused_attention_bwd.calls[_call_key(q, p)] == c + 2
     ref = attention_bwd_plain(q, k, v, do, lengths, seed, p)
     for a, b, r in zip(got, again, ref):
         assert a.dtype == dtype and a.shape == q.shape
@@ -159,17 +164,21 @@ def test_attention_kernel_gradient_through_autograd(dtype):
 
 @pytest.mark.cuda
 def test_attention_float32_length_limit():
-    """float32 calls keep the FMA kernels and their T <= 2048; bf16 calls
-    take longer rows."""
+    """float32 calls have no length limit (the FMA kernels' T <= 2048 is
+    gone): at T = 2049 and 2500, with dropout, the forward and the
+    backward match their plain versions within the float32 band."""
     need_cuda()
-    q = torch.zeros((1, 2, 2049, 64), device='cuda')
-    lengths = torch.full((1,), 2049, dtype=torch.int32, device='cuda')
-    with pytest.raises(ValueError, match='length 2049'):
-        fused_attention(q, q, q, lengths)
-    with pytest.raises(ValueError, match='length 2049'):
-        fused_attention_bwd(q, q, q, q, lengths)
-    out = fused_attention(*(q.to(torch.bfloat16),) * 3, lengths)
-    assert out.shape == q.shape and torch.isfinite(out.float()).all()
+    seed = torch.tensor([31337], dtype=torch.int64, device='cuda')
+    for T in (2049, 2500):
+        q, k, v, do, lengths = _attention_inputs(T, torch.float32, T, B=2)
+        out = fused_attention(q, k, v, lengths, seed, 0.1)
+        got = fused_attention_bwd(q, k, v, do, lengths, seed, 0.1)
+        torch.cuda.synchronize()
+        ref = attention_plain(q, k, v, lengths, seed, 0.1)
+        assert out.shape == q.shape and rel_l2(out, ref) < 1e-5
+        for a, r in zip(got, attention_bwd_plain(q, k, v, do, lengths, seed,
+                                                 0.1)):
+            assert a.shape == q.shape and rel_l2(a, r) < 1e-5
 
 
 @pytest.mark.cuda
