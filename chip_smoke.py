@@ -5,8 +5,7 @@
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the CUDA kernels of daft_exprt_torch/ops/csrc into build/ (one
-   nvcc per source, all at once) and prints the build seconds; holds a
-   float32 call of the tc kernel to its plain version (rel-L2 <= 1e-5).
+   nvcc per source, all at once) and prints the build seconds.
 3. Drives the synthesis path through the user entry points with seeded
    random weights, each path with every launch counter set to 0 just
    before it and read just after:
@@ -60,7 +59,12 @@
      synthesizer.vocoder.infer. It prints which.
    - resblock1: fused_resblock1 (one ResBlock1 chain; no path of the JAX
      package calls it) through its wrapper at (8, 8192, 256) and (8,
-     65536, 128), k in {3, 7, 11}, dilations (1, 3, 5), bf16 and float32.
+     65536, 128), k in {3, 7, 11}, dilations (1, 3, 5), bf16 and float32:
+     one launch a call (tc_bf_kernel in bf16, tc_f32_kernel in float32,
+     3xTF32 on the tensor cores), 6 + 6 launches, checked;
+   - tc-f32: fused_mrf_tc in float32 at V1's L0 shape (8, 8192, 256), one
+     tc_f32_kernel launch per chain (3, checked), against its plain
+     version (TF32 off), rel-L2 <= 1e-5.
    Each path checks its outputs' shape and finiteness and that every kernel
    of its path, and no other, was launched.
    Then training, default HyperParams (4+4+4 FFT blocks, width 128, 2
@@ -97,20 +101,21 @@
    version's (median of 3) and (attention) the library call's, with CUDA
    events, beside the least time the card could take (H100 SXM: 989
    TFLOP/s bf16, 494.7/3 TFLOP/s for float32 on the tensor cores in
-   3xTF32 (the float32 attention), 67 TFLOP/s float32 outside the tensor
-   cores, 1979 TOP/s int8, 3.35 TB/s) and, for the attention, the names of
-   the kernels the library call launched (its backend). Each wrapper
-   counts its CUDA launches and its calls by input shape (the attention
-   wrappers by shape, dropout rate and type, the multi-mode MRF wrappers
-   by shape and mode); the run fails unless, on
-   every path, the calls times the launches per call add up to the launch
-   count. The attention forward and backward are also checked and timed at
-   p = 0 at each training shape, in bf16 and in float32, and in float32 at
-   T = 2500, past the old limit of 2048 (their "off_path" rows in the JSON,
+   3xTF32 (the float32 attention, fused_mrf_tc and fused_resblock1; their
+   bound at the 67 TFLOP/s float32 FMA rate is printed beside it,
+   fma_bound_ms), 1979 TOP/s int8, 3.35 TB/s) and, for the attention, the
+   names of the kernels the library call launched (its backend). Each
+   wrapper counts its CUDA launches and its calls by input shape (the
+   attention wrappers by shape, dropout rate and type, the multi-mode MRF
+   wrappers by shape and mode); the run fails unless, on every path, the
+   calls times the launches per call add up to the launch count. The
+   attention forward and backward are also checked and timed at p = 0 at
+   each training shape, in bf16 and in float32, and in float32 at T =
+   2500, past the old limit of 2048 (their "off_path" rows in the JSON,
    beside SDPA's time); two calls of the backward must be bit-identical.
    The kernels' JSON has one entry per kernel and mode ("name[mode]"; the
-   attention's float32 calls are its "float32" mode, main path
-   train-step-f32).
+   float32 calls of the attention and of fused_mrf_tc are their "float32"
+   mode, main paths train-step-f32 and tc-f32).
 5. Prints the end-to-end audio-seconds per second of the B=8 synthesis
    paths and the train-step path's steps/s and utterances/s (host clock,
    synchronised after each step).
@@ -458,18 +463,25 @@ class KernelCases:
                     nbytes=nbytes, **work)
 
     def fused_mrf_tc(self, key):
-        vk = self.vk
-        Bx, Tx, C = key
-        wb = [t.to(self.torch.bfloat16) for t in vk.pack_mrf_tc_weights(
+        """key: x's shape, and 'float32' for a float32 call (on the tensor
+        cores in 3xTF32: its flops at a third of the TF32 rate)."""
+        torch, vk = self.torch, self.vk
+        Bx, Tx, C = key[:3]
+        f32 = key[3:] == ('float32',)
+        dt = torch.float32 if f32 else torch.bfloat16
+        wb = [t.to(dt) for t in vk.pack_mrf_tc_weights(
             self.params(2 * C, C), 0, self.ks, self.dils)]
         mrf = vk.prepare_mrf(wb, self.ks, self.dils)
-        x = self.randn(Bx, Tx, C)
+        x = self.randn(Bx, Tx, C).to(dt)
         wbytes = sum(t.numel() * t.element_size() for t in wb)
-        return dict(desc=f'x ({Bx},{Tx},{C}) bf16', band=1e-2,
+        flops = 252 * Bx * Tx * C * C
+        return dict(desc=f'x ({Bx},{Tx},{C}) {"float32" if f32 else "bf16"}',
+                    band=1e-5 if f32 else 1e-2,
                     fn=lambda: vk.fused_mrf_tc(x, mrf),
                     plain=lambda: vk.mrf_tc_plain(x, wb, self.ks, self.dils),
-                    flops=252 * Bx * Tx * C * C,
-                    nbytes=2 * Bx * Tx * C * 2 + wbytes)
+                    **(dict(flops=0, tf32x3_flops=flops) if f32
+                       else dict(flops=flops)),
+                    nbytes=2 * Bx * Tx * C * x.element_size() + wbytes)
 
     def _phase_float(self, key, mrf, fn, plain):
         """A float narrow level's case: x a transposed (B, T, C) tensor, as
@@ -537,11 +549,13 @@ class KernelCases:
         f32 = dt == torch.float32
         flops = 4 * len(dils) * k * Bx * Tx * C * C
         esz = x.element_size()
+        # float32: on the tensor cores in 3xTF32 (a third of the TF32 rate)
         return dict(desc=f'x ({Bx},{Tx},{C}) {dname} k={k} d={dils}',
                     band=1e-5 if f32 else 1e-2,
                     fn=lambda: vk.fused_resblock1(x, *w, k, dils, tile),
                     plain=lambda: vk.resblock1_plain(x, *w, k, dils, tile),
-                    flops=0 if f32 else flops, f32_flops=flops if f32 else 0,
+                    flops=0 if f32 else flops,
+                    tf32x3_flops=flops if f32 else 0,
                     nbytes=2 * Bx * Tx * C * esz
                     + sum(t.numel() * esz for t in w))
 
@@ -852,19 +866,6 @@ def main():
     ks = tuple(DEFAULT_CONFIG['resblock_kernel_sizes'])
     dils = tuple(tuple(d) for d in DEFAULT_CONFIG['resblock_dilation_sizes'])
 
-    # the float32 route of the tc kernel (not on a serving path)
-    w32 = vk.pack_mrf_tc_weights(level_params(torch, gen, 512, 256, ks, dils,
-                                              dev), 0, ks, dils)
-    x32 = torch.randn((B, T * 8, 256), generator=gen).to(dev)
-    out32 = vk.fused_mrf_tc(x32, vk.prepare_mrf(w32, ks, dils))
-    ref32 = vk.mrf_tc_plain(x32, w32, ks, dils)
-    torch.cuda.synchronize()
-    r32 = rel_l2(out32.float(), ref32.float())
-    log(f'check fused_mrf_tc L0 float32: max_abs='
-        f'{max_abs(out32.float(), ref32.float()):.3e} rel_l2={r32:.3e} '
-        '(band 1e-05)')
-    assert r32 <= 1e-5, r32
-    del w32, x32, out32, ref32
     # the float32 route of the ct kernel at V2's L0 and L3 shapes
     for C, n in ((64, 8192), (8, 262144)):
         w32 = vk.pack_mrf_tc_weights(level_params(torch, gen, 2 * C, C, ks,
@@ -1189,6 +1190,29 @@ def main():
             assert y.shape == key[:3] and torch.isfinite(y.float()).all()
 
     run_path('resblock1', resblock1_checks, (vk.fused_resblock1,))
+    # one launch of the chain kernel per call, six calls in each dtype
+    assert paths[-1][1]['fused_resblock1'] == 12, paths[-1][1]
+    assert sorted(sum(n for key, n in paths[-1][2]['fused_resblock1'].items()
+                      if key[-1] == dn) for dn in ('bfloat16', 'float32')
+                  ) == [6, 6], paths[-1][2]
+
+    # fused_mrf_tc in float32 (no serving path; V1's L0 shape), one launch
+    # of the float32 chain kernel per chain
+    def tc_f32_check():
+        w32 = vk.pack_mrf_tc_weights(level_params(
+            torch, gen, 512, 256, ks, dils, dev), 0, ks, dils)
+        x32 = torch.randn((B, T * 8, 256), generator=gen).to(dev)
+        out32 = vk.fused_mrf_tc(x32, vk.prepare_mrf(w32, ks, dils))
+        ref32 = vk.mrf_tc_plain(x32, w32, ks, dils)
+        torch.cuda.synchronize()
+        r32 = rel_l2(out32.float(), ref32.float())
+        log(f'check fused_mrf_tc L0 float32: max_abs='
+            f'{max_abs(out32.float(), ref32.float()):.3e} rel_l2={r32:.3e} '
+            '(band 1e-05)')
+        assert r32 <= 1e-5, r32
+
+    run_path('tc-f32', tc_f32_check, (vk.fused_mrf_tc,))
+    assert paths[-1][1]['fused_mrf_tc'] == 3, paths[-1][1]
 
     # ---- 3b. training ------------------------------------------------------
     attn_kernels = (fused_attention, fused_attention_bwd)
@@ -1372,14 +1396,20 @@ def main():
         lib_kernels = library_kernels(torch, c['lib']) if 'lib' in c else None
         b_ms, b_by = bound(c['flops'], c['nbytes'], c.get('int8_ops', 0),
                            c.get('f32_flops', 0), c.get('tf32x3_flops', 0))
+        # float32 on the tensor cores: the bound at the FMA rate beside it
+        fma = bound(0, c['nbytes'], f32_flops=c['tf32x3_flops'])[0] \
+            if c.get('tf32x3_flops') else None
         log(f'time {name} {c["desc"]}: ms={ms:.4f} plain_ms={plain_ms:.4f} '
             f'library_ms={lib_ms if lib_ms is None else round(lib_ms, 4)} '
-            f'bound_ms={b_ms:.4f} ({b_by}), {per_launch} launches per call'
+            f'bound_ms={b_ms:.4f} ({b_by})'
+            + (f' fma_bound_ms={fma:.4f}' if fma is not None else '')
+            + f', {per_launch} launches per call'
             + (f'; library kernels {lib_kernels}' if lib_kernels else ''))
         return dict(shape=c['desc'], launches_per_call=per_launch, ms=ms,
                     plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                     bound_by=b_by, max_abs=m, rel_l2=r,
-                    library_kernels=lib_kernels)
+                    library_kernels=lib_kernels,
+                    **({'fma_bound_ms': fma} if fma is not None else {}))
 
     def mode_of(key):
         """The mode a multi-mode wrapper keys its calls by ('' if none)."""
@@ -1395,7 +1425,9 @@ def main():
             library_ms=None if any(r['library_ms'] is None for r in rows)
             else tot('library_ms'),
             bound_by=max(rows, key=lambda r: r['bound_ms'] * r['per_call']
-                         )['bound_by'])
+                         )['bound_by'],
+            **({'fma_bound_ms': tot('fma_bound_ms')}
+               if all('fma_bound_ms' in r for r in rows) else {}))
 
     per_path = {}         # (name, mode) -> {tier: rows}
     for tier, launches, calls in paths:
@@ -1475,6 +1507,8 @@ def main():
                             for r in rows),
             ms=m['ms'], plain_ms=m['plain_ms'], bound_ms=m['bound_ms'],
             bound_by=m['bound_by'], library_ms=m['library_ms'],
+            **({'fma_bound_ms': m['fma_bound_ms']} if 'fma_bound_ms' in m
+               else {}),
             main_path=main_tier,
             paths={t: total(rows) for t, rows in by_tier.items()},
             per_shape=[r for rows in by_tier.values() for r in rows]))

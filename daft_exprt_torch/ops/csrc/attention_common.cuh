@@ -2,12 +2,14 @@
 // the dropout mask, the tensor-core pieces of the bf16
 // kernels (cp.async tile loads, ldmatrix, mma.sync m16n8k16 and the dropout
 // bits in the accumulator fragments' layout) and those of the float32 ones
-// (3xTF32 on mma.sync m16n8k8).
+// (3xTF32 on mma.sync m16n8k8, tf32x3.cuh).
 #pragma once
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tf32x3.cuh"
 
 namespace attn {
 
@@ -208,14 +210,10 @@ __device__ __forceinline__ uint32_t deal_cols(uint32_t mine, int lane) {
 
 // ---- the float32 tensor-core kernels (3xTF32) --------------------------------
 // The bf16 kernels' blocks, tiles and passes, in float32. Every product is
-// split as a.b ~ a_hi.b_lo + a_lo.b_hi + a_hi.b_hi with x_hi = tf32(x) and
-// x_lo = tf32(x - x_hi) (cvt.rna's rounding), three mma.sync m16n8k8 TF32
-// products into one float32 accumulator, small terms first (CUTLASS's
-// OpMultiplyAddFastF32).
-// The dropped a_lo.b_lo and the rounding of x_lo leave each product within
-// about 2^-22 of its float32 value: the float32 band (1e-5 rel-L2) holds,
-// where one TF32 product (a_hi.b_hi) leaves it by some 40x
-// (tests/test_torch_attention_tf32x3.py models both).
+// three mma.sync m16n8k8 TF32 products of the operands' split halves
+// (tf32x3.cuh, which also gives the fragment layouts): the float32 band
+// (1e-5 rel-L2) holds, where one TF32 product (a_hi.b_hi) leaves it by some
+// 40x (tests/test_torch_attention_tf32x3.py models both).
 //
 // Tiles of 64 rows x 64 float32 stream through shared memory by cp.async, a
 // row padded to kLdsF = 68 floats: both fragment reads below are plain 32-bit
@@ -230,10 +228,6 @@ __device__ __forceinline__ uint32_t deal_cols(uint32_t mine, int lane) {
 // running sum with one float32 add (one chain of 3T/8 mma left the 1e-5
 // band at T = 2048 on an H100).
 //
-// mma.sync m16n8k8 TF32 fragments (g = lane / 4, t = lane % 4):
-//   A (16 x 8, row-major) a0: (g, t) a1: (g+8, t) a2: (g, t+4) a3: (g+8, t+4);
-//   B (8 x 8)             b0: (k t, n g) b1: (k t+4, n g);
-//   C (16 x 8, float32)   c0, c1: (g, 2t..2t+1) c2, c3: (g+8, 2t..2t+1).
 // A C fragment is the A fragment of the next product over its 8 columns with
 // k permuted: k = t is column 2t and k = t + 4 column 2t + 1, so a = (c0, c2,
 // c1, c3) and the B fragment of that product reads rows 2t and 2t + 1
@@ -242,46 +236,18 @@ __device__ __forceinline__ uint32_t deal_cols(uint32_t mine, int lane) {
 constexpr int kLdsF = kHead + 4;       // padded shared-memory row (floats)
 constexpr int kTileF = kTile * kLdsF;  // floats per staged tile
 
-// cvt.rna.tf32.f32 (nearest, ties away from zero) of a finite x in two
-// integer operations: ptxas expands the cvt with an infinity test and a
-// select, four operations a value (inf stays inf here too)
-__device__ __forceinline__ uint32_t to_tf32(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }
-
-// x ~ hi + lo, both TF32 (the low 13 bits zero)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-struct FragA {
-  uint32_t hi[4], lo[4];
-};
-
-__device__ __forceinline__ FragA split_a(float a0, float a1, float a2, float a3) {
-  FragA f;
-  split_tf32(a0, f.hi[0], f.lo[0]);
-  split_tf32(a1, f.hi[1], f.lo[1]);
-  split_tf32(a2, f.hi[2], f.lo[2]);
-  split_tf32(a3, f.hi[3], f.lo[3]);
-  return f;
-}
-
-__device__ __forceinline__ void mma1688(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using tf32x3::FragA;
+using tf32x3::mma1688;
+using tf32x3::split_a;
+using tf32x3::split_tf32;
+using tf32x3::to_tf32;
 
 // c += a.b in 3xTF32, b = (b0, b1) split here
 __device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, float b0, float b1) {
   uint32_t h0, l0, h1, l1;
   split_tf32(b0, h0, l0);
   split_tf32(b1, h1, l1);
-  mma1688(c, a.hi, l0, l1);
-  mma1688(c, a.lo, h0, h1);
-  mma1688(c, a.hi, h0, h1);
+  tf32x3::mma3_split(c, a, h0, h1, l0, l1);
 }
 
 // Rows [r0, r0 + 64) of a (T, 64) float32 matrix into a padded tile, as

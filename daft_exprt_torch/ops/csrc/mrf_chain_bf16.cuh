@@ -480,15 +480,25 @@ struct TcBfLayout {
   }
 };
 
+// the output pair of a FINAL sink, in the output's type
+__device__ __forceinline__ void put_out(bf16* p, float v0, float v1, bool valid) {
+  const uint32_t w = pack_bf2(v0, v1);
+  if (valid) *reinterpret_cast<uint32_t*>(p) = w;
+}
+__device__ __forceinline__ void put_out(float* p, float v0, float v1, bool valid) {
+  if (valid) *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+
 // Where a chain's value of sample n0 + m goes: WRITE to its float32 sum;
-// FINAL ((the earlier chains' sums in order) + chain) * scale in bf16. The
-// earlier sums are read-only during the launch (ld.global.nc), so their
-// loads can run ahead of the stores.
-template <int C, bool FINAL>
+// FINAL ((the earlier chains' sums in order) + chain) * scale in the output
+// type O (bf16, or float32 for mrf_chain_f32.cuh). The earlier sums are
+// read-only during the launch (ld.global.nc), so their loads can run ahead
+// of the stores.
+template <int C, bool FINAL, class O = bf16>
 struct TcSink {
   float* sum;
   long long sum_cs;
-  bf16* out;
+  O* out;
   int n_acc, T, n0;
   float scale;
   __device__ __forceinline__ long long at(int m, int n) const {
@@ -519,8 +529,7 @@ struct TcSink {
         v0 = __fadd_rn(e.x, v0);
         v1 = __fadd_rn(e.y, v1);
       }
-      const uint32_t w = pack_bf2(__fmul_rn(v0, scale), __fmul_rn(v1, scale));
-      if (valid) *reinterpret_cast<uint32_t*>(out + o) = w;
+      put_out(out + o, __fmul_rn(v0, scale), __fmul_rn(v1, scale), valid);
     }
   }
 };

@@ -19,7 +19,7 @@ the same function the port's kernels and plain versions compute.
   (the bf16 tier's phase-tc form, opt-in): the float phase kernel's
   function with its upsample output kept in float32.
 - :func:`fused_resblock1` replaces ``fused_resblock1``: one ResBlock1
-  chain, the tc kernel's steps.
+  chain, the tc kernels' group of one chain.
 - :func:`fused_mrf_tc_q8` replaces ``fused_mrf_tc`` with ``q8=True``: the
   int8-static serving tier, with the quantisation helpers and the int8
   packers (second half of the file; ``fused_mrf_ptc`` itself lives in
@@ -33,15 +33,17 @@ by side); the int8 ones :class:`MrfQ8Weights` from
 bf16 engine (``mrf_chain_bf16.cuh``: one launch per chain, or per level
 with the upsample and conv_post; weights packed by
 :func:`pack_stage_bf16`), :func:`fused_mrf_tc_q8` on the int8 one
-(``mrf_chain_q8.cuh``, :func:`pack_stage_s8`): each block keeps a chain's
-residual window on chip. The other float routes (float32, fdot,
-:func:`fused_resblock1`) run one launch per (chain, dilation) step
+(``mrf_chain_q8.cuh``, :func:`pack_stage_s8`), and :func:`fused_mrf_tc`
+in float32 and :func:`fused_resblock1` in both dtypes on the chain
+kernels (``mrf_chain_f32.cuh`` in float32: 3xTF32 on the tensor cores,
+weights split by :func:`pack_stage_tf32`): each block keeps a chain's
+residual window on chip. The other float routes (float32
+:func:`fused_mrf_phase`, fdot) run one launch per (chain, dilation) step
 (``mrf_common.cuh::step_kernel``; each step reads its float32 input and
-writes its float32 output over the (B, T + 2E, C) buffers, ~9 float32
-read+write passes for V1). The sample ranges of every launch and block
-are planned here (:func:`_chain_steps`, :func:`_tc_bf_plan`,
-:func:`_phase_bf_plan`, :func:`_tc_q8_plan`) so the CPU tests can replay
-the plan.
+writes its float32 output over (B, T + 2E, C) buffers). The sample
+ranges of every launch and block are planned here (:func:`_chain_steps`,
+:func:`_tc_bf_plan`, :func:`_tc_f32_plan`, :func:`_phase_bf_plan`,
+:func:`_tc_q8_plan`) so the CPU tests can replay the plan.
 """
 import collections
 import contextlib
@@ -335,10 +337,12 @@ def prepare_mrf(packed, kernel_sizes, dilations, ups=None, post=None,
     upsample in :data:`PHASE_BF_CFG`) are staged for it (``blk``: per chain
     and step (w1, b1, w2, b2), the taps by :func:`pack_stage_bf16`;
     ``blk_ups``: per phase the upsample's taps staged, the bias, the bytes
-    of a phase). Every other form keeps the step kernels' ``chains`` (a
-    narrow level's too: its fallback to ``fused_mrf_ct`` reads them);
-    ``engine=False`` (``fused_mrf_ptc_f``'s and ``fused_resblock1``'s
-    weights) stages only those."""
+    of a phase); float32 weights of a wide level of :data:`TC_F32_CFG`
+    for the float32 chain kernel (``blk``, the taps by
+    :func:`pack_stage_tf32`). Every other form keeps the step kernels'
+    ``chains`` (a narrow level's too: its fallback to ``fused_mrf_ct`` reads
+    them); ``engine=False`` (``fused_mrf_ptc_f``'s weights) stages only
+    those."""
     cdt, device = packed[0].dtype, packed[0].device
     kernel_sizes = tuple(kernel_sizes)
     dilations = tuple(tuple(d) for d in dilations)
@@ -351,14 +355,18 @@ def prepare_mrf(packed, kernel_sizes, dilations, ups=None, post=None,
     if engine and cdt == torch.bfloat16:
         cfg = TC_BF_CFG.get(C) if ups is None else \
             PHASE_BF_CFG.get((ups[0].shape[0], C))
+        stage = None if cfg is None else \
+            (lambda w: pack_stage_bf16(w, cfg.tps, cfg.kch))
+    elif engine and ups is None:
+        cfg = TC_F32_CFG.get(C)
+        stage = None if cfg is None else \
+            (lambda w: pack_stage_tf32(w, cfg.kch))
     if cfg is not None:
         mrf.blk = []
         for j, dils in enumerate(dilations):
             w1, b1, w2, b2 = packed[4 * j:4 * j + 4]
-            mrf.blk.append([(pack_stage_bf16(w1[i], cfg.tps, cfg.kch),
-                             b1[i].float().contiguous(),
-                             pack_stage_bf16(w2[i], cfg.tps, cfg.kch),
-                             b2[i].float().contiguous())
+            mrf.blk.append([(stage(w1[i]), b1[i].float().contiguous(),
+                             stage(w2[i]), b2[i].float().contiguous())
                             for i in range(len(dils))])
     if cfg is None or ups is not None:
         mrf.chains = []
@@ -436,7 +444,9 @@ def _check_kernel_sizes(name, kernel_sizes):
 
 
 def _tc_plan(x, prep, kernel_sizes, dilations, alloc):
-    """Launch plan of :func:`fused_mrf_tc`: (steps, out). ``alloc(shape,
+    """The step-kernel launches of an MRF group in (B, T, C) layout, one
+    per (chain, dilation) step (the routes of ``mrf_ct.py`` and the q8s /
+    q8f ct routes of ``mrf_int8.py``): (steps, out). ``alloc(shape,
     dtype)`` makes the buffers (``torch.empty`` on the card)."""
     B, T, C = x.shape
     E = -(-max(chain_halo(k, d) for k, d in zip(kernel_sizes, dilations))
@@ -457,39 +467,24 @@ def _check_weights(name, x, mrf):
 def fused_mrf_tc(x, mrf):
     """Fused MRF group of a wide level. x: (B, T, C) in bfloat16 or float32;
     ``mrf`` from :func:`prepare_mrf` in x's dtype. Returns (B, T, C) in x's
-    dtype. On a CUDA tensor this launches ``mrf_tc.cu`` (or raises): in
-    bf16 the block-resident engine, one ``tc_bf_kernel`` launch per chain;
-    in float32 one ``step_kernel`` launch per chain step. On a CPU tensor
-    it runs :func:`mrf_tc_plain`.
+    dtype. On a CUDA tensor this launches ``mrf_tc.cu`` (or raises), one
+    launch per chain: the block-resident bf16 engine (``tc_bf_kernel``) in
+    bf16, its float32 counterpart on the tensor cores in 3xTF32
+    (``tc_f32_kernel``) in float32. On a CPU tensor it runs
+    :func:`mrf_tc_plain`.
 
     ``fused_mrf_tc.launches`` counts CUDA launches;
-    ``fused_mrf_tc.calls`` counts CUDA-route calls by x's shape."""
+    ``fused_mrf_tc.calls`` counts CUDA-route calls by x's shape (and
+    'float32' for a float32 call)."""
     if x.device.type == 'cpu':
         return mrf_tc_plain(x, mrf.packed, mrf.kernel_sizes, mrf.dilations)
     C = x.shape[2]
     _check_cuda_input(x, 'fused_mrf_tc', TC_CHANNELS, C)
     _check_kernel_sizes('fused_mrf_tc', mrf.kernel_sizes)
     _check_weights('fused_mrf_tc', x, mrf)
-    if x.dtype == torch.bfloat16:
-        out = _launch_tc_bf(fused_mrf_tc, x, mrf)
-    else:
-        out = _launch_tc_steps(fused_mrf_tc, x, mrf.chains, mrf.kernel_sizes,
-                               mrf.dilations)
-    fused_mrf_tc.calls[tuple(x.shape)] += 1
-    return out
-
-
-def _launch_tc_steps(wrapper, x, chains, kernel_sizes, dilations):
-    """The step-kernel launches of ``mrf_tc.cu`` (float32, and
-    :func:`fused_resblock1`), counted on ``wrapper``."""
-    B, _, C = x.shape
-    x = x.contiguous()
-    steps, out = _tc_plan(x, chains, kernel_sizes, dilations,
-                          _empty_on(x.device))
-    fn = _fn('mrf_tc', 'mrf_tc_step', _STEP_ARGTYPES)
-    for st in steps:
-        _launch_step(fn, st, B, C, x.dtype)
-        wrapper.launches += 1
+    out = _launch_tc_chains(fused_mrf_tc, x, mrf)
+    fused_mrf_tc.calls[tuple(x.shape) + (
+        ('float32',) if x.dtype == torch.float32 else ())] += 1
     return out
 
 
@@ -696,6 +691,51 @@ def stage_taps(taps, tps):
             for g in range(G)]
 
 
+_STAGE_ORDER = {}
+
+
+def _stage_order(kind, shape, tps, kch, device):
+    """The source index of every word of a staged weight tensor (the packer's
+    permutation of the weights, computed once per shape and device on an
+    index tensor, so that staging a weight is one gather); bf16: an index
+    of taps*C_in*C_out reads a zero, tf32: the source is (hi, lo)."""
+    key = (kind, shape, tps, kch, device)
+    idx = _STAGE_ORDER.get(key)
+    if idx is None:
+        taps, ci, co = shape
+        n = taps * ci * co
+        if kind == 'bf16':
+            idx = _order_bf16(torch.arange(n).reshape(shape), n, tps, kch)
+        else:
+            idx = torch.arange(2 * n).reshape(
+                2, taps, ci // kch, kch // 8, 2, 4, co // 8, 8)
+            # [hl][tap][kc][ks][h][t][n8][g] -> [tap][kc][ks][n8][g][t][hl][h]
+            idx = idx.permute(1, 2, 3, 6, 7, 5, 0, 4).reshape(-1)
+        idx = _STAGE_ORDER[key] = idx.to(device)
+    return idx
+
+
+def _order_bf16(src, zero, tps, kch):
+    """:func:`pack_stage_bf16`'s order of the (taps, C_in, C_out) entries of
+    ``src``; ``zero`` where a group repeats a tap an earlier group holds."""
+    taps, ci, co = src.shape
+    if taps % tps:
+        groups = []
+        for t0, n in stage_taps(taps, tps):
+            g = src[t0:t0 + tps].clone()
+            g[:tps - n] = zero          # taps an earlier group holds
+            groups.append(g)
+        w = torch.stack(groups)         # [g][tp][ci][co]
+    else:                               # the groups tile the taps
+        w = src.reshape(taps // tps, tps, ci, co)
+    # [g][kc][tp][n][k]
+    w = w.reshape(w.shape[0], tps, ci // kch, kch, co).permute(0, 2, 1, 4, 3)
+    key = swizzle_key(co, 2 * kch)
+    pos = torch.arange(kch)
+    s = (((pos[None, :] >> 3) ^ key[:, None]) << 3) | (pos[None, :] & 7)
+    return torch.gather(w, 4, s.expand(w.shape).contiguous()).reshape(-1)
+
+
 def pack_stage_bf16(w_kio, tps, kch):
     """(taps, C_in, C_out) -> bfloat16 in the staged order the bf16 engine
     copies into shared memory (``mrf_chain_bf16.cuh``): stage s =
@@ -703,21 +743,12 @@ def pack_stage_bf16(w_kio, tps, kch):
     channels [kc*kch, (kc+1)*kch), as [tap][output channel n][kch], the
     16-byte chunks (8 values) of row n swizzled by :func:`swizzle_key` for
     rows of 2*kch bytes."""
-    taps, ci, co = w_kio.shape
-    w = w_kio.to(torch.bfloat16).view(torch.int16)
-    groups = []
-    for t0, n in stage_taps(taps, tps):
-        g = w[t0:t0 + tps].clone()
-        g[:tps - n] = 0                 # taps an earlier group holds
-        groups.append(g)
-    w = torch.stack(groups)             # [g][tp][ci][co]
-    # [g][kc][tp][n][k]
-    w = w.reshape(len(groups), tps, ci // kch, kch, co).permute(0, 2, 1, 4, 3)
-    key = swizzle_key(co, 2 * kch).to(w.device)
-    pos = torch.arange(kch, device=w.device)
-    src = (((pos[None, :] >> 3) ^ key[:, None]) << 3) | (pos[None, :] & 7)
-    w = torch.gather(w, 4, src.expand(w.shape).contiguous())
-    return w.contiguous().reshape(-1).view(torch.bfloat16)
+    taps = w_kio.shape[0]
+    w = w_kio.to(torch.bfloat16).reshape(-1).view(torch.int16)
+    if taps % tps:
+        w = torch.cat([w, w.new_zeros(1)])
+    idx = _stage_order('bf16', tuple(w_kio.shape), tps, kch, w.device)
+    return w[idx].view(torch.bfloat16)
 
 
 def _pass_rows(C, nw):
@@ -796,17 +827,17 @@ def tc_bf_block(C, k, dils, T):
 
 @dataclass
 class TcBfLaunch:
-    """One launch of ``tc_bf_kernel``: chain ``weights`` (per step: staged
-    w1, b1, staged w2, b2) of an MRF group over blocks of ``block_m``
-    output samples. Block i of utterance b reads x samples [i*block_m -
-    halo, (i+1)*block_m + halo) (zero outside [0, T)), runs the chain's
-    steps with valid convs on that window and, for samples n in
-    [i*block_m, min((i+1)*block_m, T)), writes the chain into ``sum`` (a
-    (B, T, C) float32 buffer of its own; WRITE) or (FINAL) writes ((the
-    earlier chains' buffers ``sum[:n_acc]`` summed in order) + chain) *
-    scale into ``out``. ``r_smem``: the float32 window in shared memory,
-    else a scratch slice of (block_m + 2*halo) x (C + 8) floats per
-    resident block."""
+    """One launch of ``tc_bf_kernel`` (bf16) or ``tc_f32_kernel``
+    (float32): chain ``weights`` (per step: staged w1, b1, staged w2, b2)
+    of an MRF group over blocks of ``block_m`` output samples. Block i of
+    utterance b reads x samples [i*block_m - halo, (i+1)*block_m + halo)
+    (zero outside [0, T)), runs the chain's steps with valid convs on that
+    window and, for samples n in [i*block_m, min((i+1)*block_m, T)), writes
+    the chain into ``sum`` (a (B, T, C) float32 buffer of its own; WRITE)
+    or (FINAL) writes ((the earlier chains' buffers ``sum[:n_acc]`` summed
+    in order) + chain) * scale into ``out``. ``r_smem``: the float32 window
+    in shared memory, else a scratch slice of (block_m + 2*halo) rows per
+    resident block (C + 8 floats a row in bf16, C in float32)."""
     x: torch.Tensor
     sum: Optional[torch.Tensor]
     out: torch.Tensor
@@ -822,54 +853,77 @@ class TcBfLaunch:
     r_smem: bool
 
 
-def _tc_bf_plan(x, chains, kernel_sizes, dilations, alloc, slots):
-    """Launch plan of the bf16 :func:`fused_mrf_tc`: (launches, out), one
-    launch per chain, and the scratch floats the launches need (0 when
-    every window is in shared memory); ``slots``: resident blocks (SMs)."""
+def _group_plan(x, chains, kernel_sizes, dilations, alloc, slots, block,
+                r_smem, row_floats):
+    """One chain-kernel launch per chain of an MRF group: the first chains
+    WRITE their own float32 buffer, the last (FINAL) reads them and writes
+    the mean. ``block(k, dils)``: a chain's block_m; ``row_floats``: a
+    scratch row's floats. Returns (launches, out, scratch floats)."""
     B, T, C = x.shape
-    cfg = TC_BF_CFG[C]
     nb = len(kernel_sizes)
     sums = alloc((nb - 1, B, T, C), torch.float32) if nb > 1 else None
     out = alloc((B, T, C), x.dtype)
     launches, scratch = [], 0
     for j, (k, dils) in enumerate(zip(kernel_sizes, dilations)):
         final = j == nb - 1
-        bm = tc_bf_block(C, k, tuple(dils), T)
+        bm = block(k, tuple(dils))
         h = chain_halo(k, dils)
         n_blocks = -(-T // bm)
         launches.append(TcBfLaunch(
             x, sums if final else sums[j], out, FINAL if final else WRITE,
             j if final else 0, 1.0 / nb, chains[j], k, tuple(dils), h, bm,
-            n_blocks, cfg.r_smem))
-        if not cfg.r_smem:
-            scratch = max(scratch, (bm + 2 * h) * (C + 8)
+            n_blocks, r_smem))
+        if not r_smem:
+            scratch = max(scratch, (bm + 2 * h) * row_floats
                           * min(B * n_blocks, slots))
     return launches, out, scratch
 
 
+def _tc_bf_plan(x, chains, kernel_sizes, dilations, alloc, slots):
+    """Launch plan of the bf16 :func:`fused_mrf_tc`: (launches, out), one
+    launch per chain, and the scratch floats the launches need (0 when
+    every window is in shared memory); ``slots``: resident blocks (SMs)."""
+    B, T, C = x.shape
+    cfg = TC_BF_CFG[C]
+    return _group_plan(x, chains, kernel_sizes, dilations, alloc, slots,
+                       lambda k, d: tc_bf_block(C, k, d, T), cfg.r_smem,
+                       C + 8)
+
+
 _TC_BF_ARGTYPES = ([_P, _I64, _I32, _P, _I64, _I64, _P, _I64, _I32, _I32,
                     _F32, _P, _P] + [_I32] * 8 + [_P, _I64, _I32, _P])
+_TC_F32_ARGTYPES = ([_P, _I64, _I32, _P, _I64, _I64, _P, _I64, _I32, _I32,
+                     _F32, _P, _P] + [_I32] * 6 + [_P, _I64, _I32, _P])
 
 
 def _scratch(n, device):
     return torch.empty(max(n, 1), dtype=torch.float32, device=device)
 
 
-def _launch_tc_bf(wrapper, x, mrf):
-    """The ``tc_bf_kernel`` launches of a bf16 :func:`fused_mrf_tc` call,
-    counted on ``wrapper``."""
+def _launch_tc_chains(wrapper, x, mrf):
+    """The chain-kernel launches of a :func:`fused_mrf_tc` (or
+    :func:`fused_resblock1`) call: ``tc_bf_kernel`` in bf16,
+    ``tc_f32_kernel`` in float32, counted on ``wrapper``."""
     B, T, C = x.shape
+    f32 = x.dtype == torch.float32
     if mrf.blk is None:
-        raise ValueError('fused_mrf_tc: the weights carry no bf16 engine form '
-                         '(prepare_mrf(..., engine=True) on the card)')
+        raise ValueError(
+            f'{wrapper.__name__}: the weights carry no '
+            f'{"float32" if f32 else "bf16"} engine form '
+            '(prepare_mrf(..., engine=True) on the card)')
     x = aligned(x)
     slots = sm_count(x.device)
-    launches, out, n_scratch = _tc_bf_plan(
-        x, mrf.blk, mrf.kernel_sizes, mrf.dilations, _empty_on(x.device),
-        slots)
-    cfg = TC_BF_CFG[C]
+    plan = _tc_f32_plan if f32 else _tc_bf_plan
+    launches, out, n_scratch = plan(x, mrf.blk, mrf.kernel_sizes,
+                                    mrf.dilations, _empty_on(x.device), slots)
     scratch = _scratch(n_scratch, x.device)
-    fn = _fn('mrf_tc', 'mrf_tc_bf_chain', _TC_BF_ARGTYPES)
+    if f32:
+        fn = _fn('mrf_tc', 'mrf_tc_f32_chain', _TC_F32_ARGTYPES)
+        cfg_args = (TC_F32_CFG[C].kch,)
+    else:
+        fn = _fn('mrf_tc', 'mrf_tc_bf_chain', _TC_BF_ARGTYPES)
+        cfg = TC_BF_CFG[C]
+        cfg_args = (int(cfg.r_smem), cfg.tps, cfg.kch)
     stream = _build.stream_ptr(x)
     for st in launches:
         wp = (ctypes.c_int64 * (4 * len(st.dils)))(
@@ -882,12 +936,84 @@ def _launch_tc_bf(wrapper, x, mrf):
                  _build.ptr(st.out), st.out.stride(0), st.mode, st.n_acc,
                  st.scale, ctypes.cast(wp, ctypes.c_void_p),
                  ctypes.cast(dl, ctypes.c_void_p), len(st.dils), st.k, C, B,
-                 st.block_m, int(st.r_smem), cfg.tps, cfg.kch,
-                 _build.ptr(scratch), scratch.numel(), slots, stream)
-        _build.check(err, f'MRF bf16 chain (C={C}, k={st.k}, '
-                     f'block_m={st.block_m})')
+                 st.block_m, *cfg_args, _build.ptr(scratch), scratch.numel(),
+                 slots, stream)
+        _build.check(err, f'MRF {"float32" if f32 else "bf16"} chain (C={C}, '
+                     f'k={st.k}, block_m={st.block_m})')
         wrapper.launches += 1
     return out
+
+
+# ----------------------------------------------------------------------
+# the float32 chain kernel (mrf_chain_f32.cuh): 3xTF32 on the tensor cores
+# ----------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class F32Cfg:
+    """``tc_f32_kernel``'s geometry (``mrf_chain_f32.cuh`` TcF32Cfg): warps,
+    a warp's tile of 16*mt rows x 8*nt columns, input channels per weight
+    stage (one tap a stage), ring slots. The kernel checks ``kch``."""
+    nw: int
+    mt: int
+    nt: int
+    kch: int
+    nbuf: int
+
+
+TC_F32_CFG = {128: F32Cfg(8, 2, 8, 32, 2), 256: F32Cfg(8, 4, 8, 8, 2)}
+
+
+def tf32(x):
+    """cvt.rna.tf32.f32 (``tf32x3.cuh`` to_tf32): the nearest value with 10
+    mantissa bits, ties away from zero (the low 13 bits of the pattern
+    cleared)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def pack_stage_tf32(w_kio, kch):
+    """(taps, C_in, C_out) float32 -> the staged float32 words the float32
+    chain kernel copies into shared memory (``mrf_chain_f32.cuh``): stage s
+    = tap*(C_in/kch) + kc holds input channels [kc*kch, (kc+1)*kch) of one
+    tap, as [k8 step][n-tile of 8 output channels][lane = 4g + t][hi0, hi1,
+    lo0, lo1], the mma.sync m16n8k8 B fragment (b0: input channel t, b1: t +
+    4, output channel g of the n-tile) split once into TF32 halves, hi =
+    tf32(w), lo = tf32(w - hi)."""
+    w = w_kio.float()
+    hi = tf32(w)
+    idx = _stage_order('tf32', tuple(w.shape), 1, kch, w.device)
+    return torch.stack([hi, tf32(w - hi)]).reshape(-1)[idx]
+
+
+def _f32_pass_rows(C, cfg):
+    """Output rows of one pass of a conv (``ConvF32::ROWS``)."""
+    return cfg.nw // (C // (8 * cfg.nt)) * 16 * cfg.mt
+
+
+def _tc_f32_smem(C, cfg, k, dils, bm):
+    """Shared memory of a ``tc_f32_kernel`` block (``TcF32Layout``): the
+    weight ring, the float32 conv tile (rows of C + 4 floats), the
+    schedule."""
+    wrows = bm + 2 * chain_halo(k, dils)
+    rows = _f32_pass_rows(C, cfg)
+    n_sched = sum(_conv_passes(M, rows) for M in _chain_convs(k, dils, wrows))
+    return (cfg.nbuf * cfg.kch * C * 8 + wrows * (C + 4) * 4 + 16 * n_sched)
+
+
+def tc_f32_block(C, k, dils, T):
+    """``tc_f32_kernel``'s block_m for one chain of a (B, T, C) group."""
+    cfg = TC_F32_CFG[C]
+    return _largest_block(
+        T, 8, lambda bm: _tc_f32_smem(C, cfg, k, dils, bm) <= SMEM_MAX)
+
+
+def _tc_f32_plan(x, chains, kernel_sizes, dilations, alloc, slots):
+    """Launch plan of the float32 :func:`fused_mrf_tc` (and
+    :func:`fused_resblock1`): :func:`_tc_bf_plan`'s launches with the
+    float32 kernel's blocks; every residual window in the scratch."""
+    B, T, C = x.shape
+    return _group_plan(x, chains, kernel_sizes, dilations, alloc, slots,
+                       lambda k, d: tc_f32_block(C, k, d, T), False, C)
 
 
 def _phase_bf_smem(C_in, C, cfg, ks, dils, stride, span, P, hx, bm):
@@ -1073,9 +1199,12 @@ def fused_resblock1(x, w1, b1, w2, b2, kernel_size, dilations, tile=4096):
     kernel's time tile; the result does not depend on it); w1/w2 (n_dil,
     k, C_in, C_out) and b1/b2 (n_dil, C) from
     :func:`pack_resblock_weights`, in x's dtype on the card. Returns (B, T,
-    C) in x's dtype. On a CUDA tensor this launches ``mrf_tc.cu``'s step
-    kernel, one launch per dilation (C in :data:`TC_CHANNELS`, or raises);
-    on a CPU tensor it runs :func:`resblock1_plain`.
+    C) in x's dtype. On a CUDA tensor this stages the weights for the chain
+    kernels (:func:`prepare_mrf`) and launches ``mrf_tc.cu`` once (C in
+    :data:`TC_CHANNELS`, or raises): the group of one chain of
+    :func:`fused_mrf_tc`, ``tc_bf_kernel`` in bf16 and ``tc_f32_kernel``
+    (3xTF32 on the tensor cores) in float32. On a CPU tensor it runs
+    :func:`resblock1_plain`.
 
     ``fused_resblock1.launches`` counts CUDA launches;
     ``fused_resblock1.calls`` counts CUDA-route calls by (B, T, C, k,
@@ -1092,9 +1221,9 @@ def fused_resblock1(x, w1, b1, w2, b2, kernel_size, dilations, tile=4096):
         raise ValueError(f'fused_resblock1: weights {w1.dtype} for x '
                          f'{x.dtype}; the kernel takes them in x\'s dtype')
     ks, dils = (kernel_size,), (tuple(dilations),)
-    mrf = prepare_mrf([w1, b1, w2, b2], ks, dils, engine=False)
+    mrf = prepare_mrf([w1, b1, w2, b2], ks, dils)
     _check_weights('fused_resblock1', x, mrf)
-    out = _launch_tc_steps(fused_resblock1, x, mrf.chains, ks, dils)
+    out = _launch_tc_chains(fused_resblock1, x, mrf)
     fused_resblock1.calls[tuple(x.shape) + (kernel_size, dils[0],
                                             str(x.dtype)[6:])] += 1
     return out

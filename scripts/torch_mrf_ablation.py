@@ -14,17 +14,22 @@ conv_post waveform within one bf16 ulp; the bf16 sections within rel-L2
 
 - ``bf16``: the bf16 tier's block-resident engine (mrf_chain_bf16.cuh:
   tc_bf_kernel, phase_bf_kernel; fused_mrf_tc and fused_mrf_phase in
-  bf16), ablated by MRF_ABL_NOW (no weight copies), MRF_ABL_NOMMA (no
+  bf16, and fused_resblock1 in bf16 at chip_smoke.py's resblock1 shapes,
+  one chain a launch), ablated by MRF_ABL_NOW (no weight copies), MRF_ABL_NOMMA (no
   wgmma), MRF_ABL_NOEPI (no conv epilogues: the residual and conv-input
   writes, the chains' outputs) and the three together (the skeleton:
   loads, the per-block prologue and tail, launches).
-- ``bf16_steps``: the bf16 kernels still on the one-launch-per-step route
-  (mrf_tc.cu, mrf_phase.cu: step_kernel, ups_kernel, post_kernel of
-  mrf_common.cuh): fused_resblock1 in bf16 at V1's wide levels and
-  fused_mrf_ptc's fdot mode at the narrow ones, ablated by
+- ``bf16_steps``: the bf16 kernel still on the one-launch-per-step route
+  (mrf_phase.cu: step_kernel, ups_kernel, post_kernel of mrf_common.cuh):
+  fused_mrf_ptc's fdot mode at V1's narrow levels, ablated by
   MRF_ABL_STEP_NOW (no weight loads), MRF_ABL_STEP_NOMMA (no mma.sync),
   MRF_ABL_STEP_NOF32 (no float32 residual and chain-sum traffic) and all
   three (the skeleton of launches and tails).
+- ``f32``: the float32 chain kernel (mrf_chain_f32.cuh: tc_f32_kernel,
+  3xTF32 on the tensor cores; fused_resblock1 in float32 at chip_smoke.py's
+  resblock1 shapes and fused_mrf_tc in float32 at V1's L0), ablated by
+  MRF_ABL_NOW (no weight copies), MRF_ABL_NOMMA (no A fragment loads and
+  no mma.sync: the epilogues see zero sums) and the two together.
 - ``static``: the block-resident int8-static kernels (mrf_tc_q8.cu,
   mrf_ptc.cu: fused_mrf_tc_q8, fused_mrf_ptc static), ablated by
   MRF_ABL_NOW (no weight copies: the convs read whatever the ring holds),
@@ -58,17 +63,22 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SKELETON = ['-DMRF_ABL_NOW', '-DMRF_ABL_NOMMA']
 STEP_SKELETON = ['-DMRF_ABL_STEP_NOW', '-DMRF_ABL_STEP_NOMMA',
                  '-DMRF_ABL_STEP_NOF32']
+# the bf16 path's levels and chip_smoke.py's resblock1 path (bf16 half)
 BF16_SHAPES = (('fused_mrf_tc', (8, 8192, 256)),
                ('fused_mrf_tc', (8, 65536, 128)),
                ('fused_mrf_phase', (8, 128, 65536)),
-               ('fused_mrf_phase', (8, 64, 131072)))
+               ('fused_mrf_phase', (8, 64, 131072))) + tuple(
+    ('fused_resblock1', (8, n, C, k, (1, 3, 5), 'bfloat16'))
+    for n, C in ((8192, 256), (65536, 128)) for k in (3, 7, 11))
 ENGINE_SKELETON = SKELETON + ['-DMRF_ABL_NOEPI']
-# chip_smoke.py's resblock1 path (bf16 half) and bf16-ptc path (fdot)
-STEP_SHAPES = tuple(('fused_resblock1', (8, n, C, k, (1, 3, 5), 'bfloat16'))
-                    for n, C in ((8192, 256), (65536, 128))
-                    for k in (3, 7, 11)) + (
-    ('fused_mrf_ptc_f', (8, 128, 65536, 'fdot')),
-    ('fused_mrf_ptc_f', (8, 64, 131072, 'fdot')))
+# chip_smoke.py's resblock1 path (float32 half) and tc-f32 path
+F32_SHAPES = tuple(('fused_resblock1', (8, n, C, k, (1, 3, 5), 'float32'))
+                   for n, C in ((8192, 256), (65536, 128))
+                   for k in (3, 7, 11)) + (
+    ('fused_mrf_tc', (8, 8192, 256, 'float32')),)
+# chip_smoke.py's bf16-ptc path (fdot)
+STEP_SHAPES = (('fused_mrf_ptc_f', (8, 128, 65536, 'fdot')),
+               ('fused_mrf_ptc_f', (8, 64, 131072, 'fdot')))
 
 
 SECTIONS = {
@@ -83,7 +93,7 @@ SECTIONS = {
         },
         shapes=BF16_SHAPES),
     'bf16_steps': dict(
-        sources=('mrf_tc', 'mrf_phase'), band=1e-2,
+        sources=('mrf_phase',), band=1e-2,
         builds={
             'kernel': [],
             'no_weights': ['-DMRF_ABL_STEP_NOW'],
@@ -92,6 +102,15 @@ SECTIONS = {
             'skeleton': STEP_SKELETON,
         },
         shapes=STEP_SHAPES),
+    'f32': dict(
+        sources=('mrf_tc',), band=1e-5,
+        builds={
+            'kernel': [],
+            'no_weights': ['-DMRF_ABL_NOW'],
+            'no_mma': ['-DMRF_ABL_NOMMA'],
+            'no_weights_no_mma': SKELETON,
+        },
+        shapes=F32_SHAPES),
     'static': dict(
         sources=('mrf_tc_q8', 'mrf_ptc'),
         builds={

@@ -1,7 +1,7 @@
 // Host stand-ins for the CUDA runtime declarations the MRF kernel headers
 // use, so that g++ can compile their __host__ __device__ layout code for
-// the CPU (tests/test_torch_bf16_engine.py). Declarations only: no kernel
-// is instantiated or run.
+// the CPU (tests/test_torch_bf16_engine.py, test_torch_f32_engine.py).
+// Declarations only: no kernel is instantiated or run.
 #pragma once
 #include <cstddef>
 #include <cstdint>
@@ -43,6 +43,7 @@ template <class T> T __ldg(const T*);
 float __fmul_rn(float, float);
 float __fadd_rn(float, float);
 float __uint_as_float(unsigned);
+unsigned __float_as_uint(float);
 float __int2float_rn(int);
 unsigned __byte_perm(unsigned, unsigned, unsigned);
 int min(int, int);

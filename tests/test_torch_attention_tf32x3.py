@@ -27,42 +27,11 @@ from daft_exprt_torch.ops.attention_kernels import (
 )
 
 from tests.test_torch_attention import _inputs, _jax_xla
-from tests.torch_port_utils import rel_l2
+from tests.torch_port_utils import mm_tf32, rel_l2, tf32
 
 BAND = 1e-5
 LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
-STEP, TILE = 8, 64        # k per mma.sync m16n8k8; rows per staged tile
-
-
-def tf32(x):
-    """cvt.rna.tf32.f32: the nearest value with 10 mantissa bits, ties
-    away from zero (the low 13 bits of the pattern cleared)."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def mm_tf32(a, b, terms=3, tile=None):
-    """a (..., M, K) @ b (..., K, N) as the kernels compute it. K is padded
-    to a multiple of 8 with zeros (the tiles' zero-filled rows); each 8-wide
-    step adds its split products to a float32 accumulator, small terms
-    first; with ``tile``, every ``tile`` values of K go to a fresh
-    accumulator that is then added to the sum. ``terms=1``: hi.hi only."""
-    K = a.shape[-1]
-    pad = -K % STEP
-    a = torch.nn.functional.pad(a, (0, pad))
-    b = torch.nn.functional.pad(b, (0, 0, 0, pad))
-    a_hi, b_hi = tf32(a), tf32(b)
-    a_lo, b_lo = tf32(a - a_hi), tf32(b - b_hi)
-    pairs = [(a_hi, b_lo), (a_lo, b_hi), (a_hi, b_hi)][3 - terms:]
-    total = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
-    part = torch.zeros_like(total)
-    per_tile = (tile or K + pad) // STEP
-    for i, k0 in enumerate(range(0, K + pad, STEP)):
-        for x, y in pairs:
-            part = part + x[..., k0:k0 + STEP] @ y[..., k0:k0 + STEP, :]
-        if (i + 1) % per_tile == 0 or k0 + STEP >= K + pad:
-            total, part = total + part, torch.zeros_like(part)
-    return total
+TILE = 64                 # rows per staged tile
 
 
 def _probs(q, k, lengths, terms):

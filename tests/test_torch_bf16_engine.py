@@ -337,11 +337,11 @@ int main() {
 """
 
 
-def _kernel_layouts(lines, tmp_path):
+def _kernel_layouts(lines, tmp_path, main=_LAYOUT_MAIN):
     gxx = shutil.which('g++')
     if gxx is None:
         pytest.skip('no host C++ compiler (g++) to build the kernel layouts')
-    (tmp_path / 'layout.cpp').write_text(_LAYOUT_MAIN)
+    (tmp_path / 'layout.cpp').write_text(main)
     exe = tmp_path / 'layout'
     subprocess.run([gxx, '-std=c++17', '-O0', '-I', str(CSRC), '-I',
                     str(Path(__file__).parent / 'cuda_host'), '-o', str(exe),

@@ -194,9 +194,8 @@ def test_mrf_tc_kernel_matches_plain(C, dtype):
     n = vk.fused_mrf_tc.launches
     out = vk.fused_mrf_tc(x, vk.prepare_mrf(w, KS, DILS))
     torch.cuda.synchronize()
-    # bf16: one engine launch per chain; float32: one per chain step
-    assert vk.fused_mrf_tc.launches == n + (3 if dtype == torch.bfloat16
-                                            else 9)
+    # one chain-kernel launch per chain (bf16 engine, float32 3xTF32)
+    assert vk.fused_mrf_tc.launches == n + 3
     ref = vk.mrf_tc_plain(x, w, KS, DILS)
     assert rel_l2(out.float().cpu(), ref.float().cpu()) < _band(dtype)
 
@@ -318,9 +317,9 @@ def test_mrf_phase_bf16_engine_at_path_shapes(C_in, C, B, T_in):
 
 @pytest.mark.cuda
 def test_mrf_bf16_engine_refuses_what_it_does_not_take():
-    """No bf16 call falls back to the step kernel: a width the engine has
-    no instantiation for, and bf16 weights without the engine's form,
-    raise."""
+    """No bf16 or float32 tc call falls back to the step kernel: a width
+    the engine has no instantiation for, and weights without the engine's
+    form, raise."""
     need_cuda()
     w, x = _tc_bf_case(64, 1, 256, 1)
     with pytest.raises(ValueError, match='no CUDA instantiation'):
@@ -336,6 +335,11 @@ def test_mrf_bf16_engine_refuses_what_it_does_not_take():
     w, ups, pst, x = _phase_bf_case(32, 16, 1, 256, False, 4)
     with pytest.raises(ValueError, match='no CUDA instantiation'):
         vk.fused_mrf_phase(x, vk.prepare_mrf(w, KS, DILS, ups, pst))
+    # float32 weights without the float32 chain kernel's form
+    w, x = _tc_bf_case(128, 1, 256, 5)
+    w, x = [t.float() for t in w], x.float()
+    with pytest.raises(ValueError, match='no float32 engine form'):
+        vk.fused_mrf_tc(x, vk.prepare_mrf(w, KS, DILS, engine=False))
     assert vk.fused_mrf_tc.launches == n
 
 
@@ -870,11 +874,18 @@ def test_mrf_ptc_fdot_kernel_matches_plain(C_in, C, p_in, post):
     assert rel_l2(out.float().cpu(), ref.float().cpu()) <= 1e-2
 
 
+# (k, C, B, T): both widths at both ends of k, and the longest reduction
+# (k = 11, K = 11*128 per conv) at the path's length
+RESBLOCK1_CASES = [(k, C, 2, 1024) for k in (3, 11) for C in (128, 256)] + [
+    (11, 128, 1, 65536)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('k', [3, 11])
-@pytest.mark.parametrize('C', [128, 256])
+@pytest.mark.parametrize('k,C,B,T', RESBLOCK1_CASES)
 @pytest.mark.parametrize('dtype', DTYPES)
-def test_resblock1_kernel_matches_plain(k, C, dtype):
+def test_resblock1_kernel_matches_plain(k, C, B, T, dtype):
+    """One launch of the chain kernel per call (tc_f32_kernel in float32,
+    tc_bf_kernel in bf16), bit-identical across two calls."""
     need_cuda()
     rng = np.random.RandomState(C + k)
     rb = {f'{pre}_{i}': {'w': (rng.randn(C, C, k) * (C * k) ** -0.5
@@ -883,12 +894,14 @@ def test_resblock1_kernel_matches_plain(k, C, dtype):
           for pre in ('convs1', 'convs2') for i in range(3)}
     w = [t.cuda().to(dtype) for t in vk.pack_resblock_weights(
         to_torch(rb), 3)]
-    x = torch.from_numpy((rng.randn(2, 1024, C) * 0.5).astype(np.float32)
+    x = torch.from_numpy((rng.randn(B, T, C) * 0.5).astype(np.float32)
                          ).cuda().to(dtype)
     n = vk.fused_resblock1.launches
     out = vk.fused_resblock1(x, *w, k, (1, 3, 5), tile=512)
+    again = vk.fused_resblock1(x, *w, k, (1, 3, 5), tile=512)
     torch.cuda.synchronize()
-    assert vk.fused_resblock1.launches == n + 3
+    assert vk.fused_resblock1.launches == n + 2
+    assert torch.equal(out, again)
     ref = vk.resblock1_plain(x, *w, k, (1, 3, 5), 512)
     assert out.dtype == dtype and out.shape == ref.shape
     assert rel_l2(out.float().cpu(), ref.float().cpu()) < _band(dtype)

@@ -30,7 +30,13 @@ from tests.test_torch_int8 import KS, DILS, act_scales, unit_level
 
 CSRC = Path(__file__).resolve().parent.parent / 'daft_exprt_torch' / 'ops' / 'csrc'
 from tests.test_torch_int8_plan import _emulate_amax, _emulate_ptc_block
-from tests.torch_port_utils import to_torch
+from tests.torch_port_utils import one_torch_thread, to_torch
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_thread():
+    with one_torch_thread():
+        yield
 
 
 def _alloc(shape, dtype):
@@ -53,12 +59,12 @@ def _q(v, amax):
 
 def _conv(A, a0, M, w, d):
     """Rows [0, M) of the s8 x s8 conv of quantised rows A (float, NaN for
-    unwritten), output m reading A[a0 + m + t*d]: per tap one float32
-    matmul (exact: |sums| < 2^24), the taps summed in float64."""
-    acc = torch.zeros((M, w.shape[2]), dtype=torch.float64)
-    for t in range(w.shape[0]):
-        acc += (A[a0 + t * d:a0 + t * d + M] @ w[t].float()).double()
-    return acc.float()
+    unwritten), output m reading A[a0 + m + t*d]: one float64 matmul over
+    the taps' rows side by side (exact: every product and partial sum is
+    an integer far below 2^53, so the order of the sum does not matter)."""
+    k, ci, co = w.shape
+    rows = torch.cat([A[a0 + t * d:a0 + t * d + M] for t in range(k)], 1)
+    return (rows.double() @ w.reshape(k * ci, co).double()).float()
 
 
 def _assert_within_bf16_ulp(out, ref):

@@ -1,7 +1,7 @@
 """``fused_resblock1`` (daft_exprt_torch/ops/vocoder_kernels.py: one
 ResBlock1 chain, one k and its dilations) against the JAX package's Pallas
 kernel in interpret mode, and its CUDA route's launch plan (``mrf_tc.cu``'s
-step kernel as one chain) replayed on the CPU.
+chain kernels, a group of one chain) replayed on the CPU.
 
 The TPU kernel pads x once by its 64-aligned halo and runs valid convs on
 each tile, so the result is a fixed function of the zero-padded input:
@@ -18,10 +18,17 @@ import jax.numpy as jnp
 from daft_exprt_tpu.ops import vocoder_kernels as jvk
 from daft_exprt_torch.ops import vocoder_kernels as vk
 
-from tests.test_torch_vocoder_kernels import _emulate_step, _nan_alloc
-from tests.torch_port_utils import max_abs, rel_l2
+from tests.test_torch_bf16_engine import _nan_alloc, _replay_tc
+from tests.test_torch_f32_engine import _replay_f32
+from tests.torch_port_utils import max_abs, one_torch_thread, rel_l2
 
 DILS = (1, 3, 5)
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_thread():
+    with one_torch_thread():
+        yield
 
 
 def _block(rng, C, k, n_dil=3):
@@ -75,16 +82,24 @@ def test_resblock1_plain_matches_jax(k, dtype):
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_resblock1_launch_plan_replays_plain(dtype):
+    """The CUDA route's plan for one chain (a group of one chain: a single
+    FINAL launch of ``tc_f32_kernel`` or ``tc_bf_kernel``, scale 1, no
+    chain buffers) replayed block by block on NaN buffers; float32 in the
+    kernel's 3xTF32 arithmetic."""
     rng = np.random.RandomState(3)
-    C, k = 16, 7
+    C, k = 128, 7
     w = vk.pack_resblock_weights(_torch_block(_block(rng, C, k), dtype), 3)
-    x = torch.from_numpy((rng.randn(2, 192, C) * 0.5).astype(np.float32)
+    x = torch.from_numpy((rng.randn(2, 448, C) * 0.5).astype(np.float32)
                          ).to(dtype)
-    prep = [[tuple(t[i] for t in w) for i in range(len(DILS))]]
-    steps, out = vk._tc_plan(x, prep, (k,), (DILS,), _nan_alloc)
-    assert len(steps) == 3 and steps[-1].scale == 1.0
-    for st in steps:
-        _emulate_step(st, dtype)
+    plan = vk._tc_f32_plan if dtype == torch.float32 else vk._tc_bf_plan
+    launches, out, _ = plan(x, [None], (k,), (DILS,), _nan_alloc, 132)
+    assert len(launches) == 1 and launches[0].scale == 1.0
+    assert launches[0].mode == vk.FINAL and launches[0].n_blocks > 1
+    if dtype == torch.float32:
+        out, writes = _replay_f32(launches, x, w)
+    else:
+        out, writes = _replay_tc(launches, x, w, dtype)
+    assert bool((writes[0] == 1).all())
     ref = vk.resblock1_plain(x, *w, k, DILS, 64)
     assert torch.isfinite(out.float()).all()
     if dtype == torch.float32:
