@@ -26,7 +26,8 @@
    - int8-partial, B=8: generator_forward on the bf16 path's mel with the
      int8-static calibration restricted to L0 and L1 (and pack_levels
      with the same dict): fused_mrf_tc q8 at L0/L1, fused_mrf_ptc in its
-     dyn mode at L2/L3; the same two bands;
+     dyn mode at L2/L3 (amax + one launch of the segment-synchronised
+     engine a level: 4 launches, checked); the same two bands;
    - bf16-ptc, B=8: HiFiGanVocoder(fast='bf16', ptc_bf16=True) (the JAX
      package's DAFT_MRF_PTC_BF16=1) behind the Synthesizer: fused_mrf_tc
      at L0/L1, fused_mrf_ptc's fdot mode at L2/L3; the waveform against
@@ -64,7 +65,17 @@
      3xTF32 on the tensor cores), 6 + 6 launches, checked;
    - tc-f32: fused_mrf_tc in float32 at V1's L0 shape (8, 8192, 256), one
      tc_f32_kernel launch per chain (3, checked), against its plain
-     version (TF32 off), rel-L2 <= 1e-5.
+     version (TF32 off), rel-L2 <= 1e-5;
+   - fast-f32: generator_forward(use_fast=True) on the float32 V1 params
+     over the bf16 path's mel (B=8 x 1024 frames; pack_levels of the same
+     params): fused_mrf_tc at L0/L1 (tc_f32_kernel, 6 launches) and
+     fused_mrf_phase at L2/L3 (phase_f32_kernel, one launch a level: 2),
+     both 3xTF32 on the tensor cores, checked; the waveform against the
+     float32 plain route of the same function (generator_forward(...,
+     plain=True): the kernels' plain versions, TF32 off), rel-L2 <= 1e-4,
+     and against the per-conv float32 route (HiFiGanVocoder(fast=False),
+     which pads each conv at the utterance edges), rel-L2 <= 5e-2 as the
+     bf16 path.
    Each path checks its outputs' shape and finiteness and that every kernel
    of its path, and no other, was launched.
    Then training, default HyperParams (4+4+4 FFT blocks, width 128, 2
@@ -95,13 +106,15 @@
    rel-L2 <= 1e-2 in bf16 (summation order only), <= 1e-5 in float32,
    <= 2e-3 for the int8 kernels (NUMERICS_r05.json ptc_vs_banded_int8),
    and max-abs 0 for the dynamic engine (fused_mrf_ct q8 at C = 256/128,
-   fused_mrf_phase q8 at V1's L2/L3) and fused_mrf_phase's q8f calls on
-   ptc_fused_q8_kernel (a conv_post waveform: within one bf16 ulp);
+   fused_mrf_phase q8 and fused_mrf_ptc dyn at V1's L2/L3) and
+   fused_mrf_phase's q8f calls on ptc_fused_q8_kernel (a conv_post
+   waveform: within one bf16 ulp);
    its launches per call; its time (median of 10 calls), its plain
    version's (median of 3) and (attention) the library call's, with CUDA
    events, beside the least time the card could take (H100 SXM: 989
    TFLOP/s bf16, 494.7/3 TFLOP/s for float32 on the tensor cores in
-   3xTF32 (the float32 attention, fused_mrf_tc and fused_resblock1; their
+   3xTF32 (the float32 attention, fused_mrf_tc, fused_mrf_phase and
+   fused_resblock1; their
    bound at the 67 TFLOP/s float32 FMA rate is printed beside it,
    fma_bound_ms), 1979 TOP/s int8, 3.35 TB/s) and, for the attention, the
    names of the kernels the library call launched (its backend). Each
@@ -114,8 +127,8 @@
    2500, past the old limit of 2048 (their "off_path" rows in the JSON,
    beside SDPA's time); two calls of the backward must be bit-identical.
    The kernels' JSON has one entry per kernel and mode ("name[mode]"; the
-   float32 calls of the attention and of fused_mrf_tc are their "float32"
-   mode, main paths train-step-f32 and tc-f32).
+   float32 calls of the attention, fused_mrf_tc and fused_mrf_phase are
+   their "float32" mode, main paths train-step-f32, tc-f32 and fast-f32).
 5. Prints the end-to-end audio-seconds per second of the B=8 synthesis
    paths and the train-step path's steps/s and utterances/s (host clock,
    synchronised after each step).
@@ -127,7 +140,9 @@ vocoder (forward/backward/optimizer) split, the device's busy share and
 the attention kernels' share of the busy time.
 
 The float32 calls of fused_mrf_ct at V2's L0 and L3 shapes are held to
-their plain version at rel-L2 <= 1e-5 before the paths run.
+their plain version at rel-L2 <= 1e-5 before the paths run, and timed
+there (the "off_path" rows of fused_mrf_ct's JSON entry, with their bound
+in 3xTF32 and at the FMA rate).
 
 Any failure raises (exit code != 0). Without a CUDA device it exits 2 and
 prints no result. The line before the last is the kernels' JSON; the last
@@ -485,25 +500,38 @@ class KernelCases:
 
     def _phase_float(self, key, mrf, fn, plain):
         """A float narrow level's case: x a transposed (B, T, C) tensor, as
-        the path hands it over."""
+        the path hands it over. A float32 call (key 'float32') runs on the
+        tensor cores in 3xTF32: its flops at a third of the TF32 rate."""
+        torch = self.torch
         Bx, C_in, T_in = key[:3]
+        f32 = key[3:] == ('float32',)
         C, post = C_in // 2, mrf.post is not None
-        x = self.randn(Bx, T_in, C_in).transpose(1, 2)
+        x = (torch.randn((Bx, T_in, C_in), generator=self.gen).to(self.dev)
+             if f32 else self.randn(Bx, T_in, C_in)).transpose(1, 2)
         N = 2 * T_in
         c_out = 1 if post else C
+        esz = x.element_size()
         wbytes = sum(t.numel() * t.element_size() for t in mrf.packed) + \
-            mrf.ups[0].numel() * 2
-        return dict(desc=f'x ({Bx},{C_in},{T_in}) -> ({Bx},{c_out},{N}) bf16',
-                    band=1e-2, fn=lambda: fn(x, mrf), plain=lambda: plain(x, mrf),
-                    flops=252 * Bx * N * C * C + 2 * Bx * N * C_in * C * 2
-                    + (2 * Bx * N * C * 7 if post else 0),
-                    nbytes=Bx * C_in * T_in * 2 + Bx * c_out * N * 2 + wbytes)
+            mrf.ups[0].numel() * esz
+        flops = (252 * Bx * N * C * C + 2 * Bx * N * C_in * C * 2
+                 + (2 * Bx * N * C * 7 if post else 0))
+        return dict(desc=f'x ({Bx},{C_in},{T_in}) -> ({Bx},{c_out},{N}) '
+                    f'{"float32" if f32 else "bf16"}',
+                    band=1e-5 if f32 else 1e-2, fn=lambda: fn(x, mrf),
+                    plain=lambda: plain(x, mrf),
+                    **(dict(flops=0, tf32x3_flops=flops) if f32
+                       else dict(flops=flops)),
+                    nbytes=Bx * C_in * T_in * esz + Bx * c_out * N * esz
+                    + wbytes)
 
     def fused_mrf_phase(self, key):
+        """key: x's shape, and 'float32' for a float32 call."""
         vk = self.vk
         C_in = key[1]
         C, post = C_in // 2, C_in == 64
-        p = self.bf16(self.params(C_in, C, post=post))
+        p = self.params(C_in, C, post=post)
+        if key[3:] != ('float32',):
+            p = self.bf16(p)
         mrf = vk.prepare_mrf(
             vk.pack_mrf_tc_weights(p, 0, self.ks, self.dils), self.ks,
             self.dils, (p['ups_0']['w'], p['ups_0']['b'], 2, 1),
@@ -691,8 +719,12 @@ class KernelCases:
         tile = vk.ptc_tile(x.shape[1] // p_in)
         out = f'({Bx},1,{2 * T_in})' if post else \
             f'({Bx},{2 * T_in},{C_in // 2})'
+        # dyn: the segment-synchronised engine, bit-exact (a conv_post
+        # waveform within one bf16 ulp)
         return dict(desc=f'{mode} x ({Bx},{T_in},{C_in}) -> {out} bf16 '
                     f'tile {tile}', band=2e-3,
+                    exact=(2.0 ** -8 if post else 0.0)
+                    if mode == 'dynamic' else None,
                     fn=lambda: mi.fused_mrf_ptc(x, mrf, tile),
                     plain=lambda: mi.mrf_ptc_plain(x, mrf, tile),
                     **self._narrow_work(key, mrf, post))
@@ -866,20 +898,40 @@ def main():
     ks = tuple(DEFAULT_CONFIG['resblock_kernel_sizes'])
     dils = tuple(tuple(d) for d in DEFAULT_CONFIG['resblock_dilation_sizes'])
 
-    # the float32 route of the ct kernel at V2's L0 and L3 shapes
+    # the float32 route of the ct kernel at V2's L0 and L3 shapes, checked
+    # and timed (its JSON entry's off_path rows)
+    ct_f32 = []
     for C, n in ((64, 8192), (8, 262144)):
         w32 = vk.pack_mrf_tc_weights(level_params(torch, gen, 2 * C, C, ks,
                                                   dils, dev), 0, ks, dils)
         x32 = torch.randn((B, n, C), generator=gen).to(dev)
-        out32 = mc.fused_mrf_ct(x32, vk.prepare_mrf(w32, ks, dils))
-        ref32 = mc.mrf_ct_plain(x32, vk.prepare_mrf(w32, ks, dils))
+        mrf32 = vk.prepare_mrf(w32, ks, dils)
+        n0 = mc.fused_mrf_ct.launches
+        out32 = mc.fused_mrf_ct(x32, mrf32)
+        per_call = mc.fused_mrf_ct.launches - n0
+        ref32 = mc.mrf_ct_plain(x32, mrf32)
         torch.cuda.synchronize()
         r32 = rel_l2(out32.float(), ref32.float())
+        m32 = max_abs(out32.float(), ref32.float())
         log(f'check fused_mrf_ct ({B},{n},{C}) float32: max_abs='
-            f'{max_abs(out32.float(), ref32.float()):.3e} rel_l2={r32:.3e} '
-            '(band 1e-05)')
+            f'{m32:.3e} rel_l2={r32:.3e} (band 1e-05)')
         assert r32 <= 1e-5, r32
-        del w32, x32, out32, ref32
+        ms = time_ms(torch, lambda: mc.fused_mrf_ct(x32, mrf32))
+        plain_ms = time_ms(torch, lambda: mc.mrf_ct_plain(x32, mrf32),
+                           warmup=1, iters=3)
+        flops = 252 * B * n * C * C
+        nbytes = 2 * B * n * C * 4 + sum(t.numel() * 4 for t in w32)
+        b_ms, b_by = bound(0, nbytes, tf32x3_flops=flops)
+        fma = bound(0, nbytes, f32_flops=flops)[0]
+        log(f'time fused_mrf_ct x ({B},{n},{C}) float32: ms={ms:.4f} '
+            f'plain_ms={plain_ms:.4f} library_ms=None bound_ms={b_ms:.4f} '
+            f'({b_by}) fma_bound_ms={fma:.4f}, {per_call} launches per call')
+        ct_f32.append(dict(shape=f'x ({B},{n},{C}) float32',
+                           launches_per_call=per_call, ms=ms,
+                           plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                           bound_by=b_by, fma_bound_ms=fma, max_abs=m32,
+                           rel_l2=r32))
+        del w32, x32, out32, ref32, mrf32
 
     # ---- 3. the paths ------------------------------------------------------
     hp = HyperParams(verbose=False, training_files='unused',
@@ -965,7 +1017,7 @@ def main():
     log(f'path bf16: waveform vs float32 plain route rel_l2={r:.3e} '
         f'(band 5e-2), |wav| max {np.abs(exact).max():.3e}')
     assert r <= 5e-2, r
-    mel_v1 = mel
+    mel_v1, exact_v1 = mel, exact
 
     # the bf16 tier's phase-tc form (the JAX package's DAFT_MRF_PTC_BF16=1)
     vocoder_ptc = HiFiGanVocoder(voc_params, fast='bf16', ptc_bf16=True)
@@ -1028,6 +1080,8 @@ def main():
 
     wav_p = run_path('int8-partial', partial_forward,
                      (vk.fused_mrf_tc_q8, mi.fused_mrf_ptc))
+    # fused_mrf_ptc dyn: amax + one engine launch a level
+    assert paths[-1][1]['fused_mrf_ptc'] == 4, paths[-1][1]
     assert wav_p.shape == (B, 1, T * 256) and torch.isfinite(
         wav_p.float()).all()
     r_plain = rel_l2(wav_p.float(), partial_forward(plain=True).float())
@@ -1213,6 +1267,44 @@ def main():
 
     run_path('tc-f32', tc_f32_check, (vk.fused_mrf_tc,))
     assert paths[-1][1]['fused_mrf_tc'] == 3, paths[-1][1]
+
+    # the float32 fast route on the float32 V1 params over the bf16 path's
+    # mel: fused_mrf_tc at L0/L1, fused_mrf_phase at L2/L3, all float32
+    packed_f32 = pack_levels(voc_params, DEFAULT_CONFIG)
+    mel_f32 = torch.as_tensor(mel_v1).to(dev)
+
+    def fast_f32(plain=False):
+        # float32 throughout: TF32 off in the library ops around the kernels
+        with torch.no_grad(), vk.full_f32():
+            return generator_forward(voc_params, mel_f32, DEFAULT_CONFIG,
+                                     use_fast=True, packed=packed_f32,
+                                     plain=plain)
+
+    wav_32 = run_path('fast-f32', fast_f32, (vk.fused_mrf_tc,
+                                             vk.fused_mrf_phase))
+    assert paths[-1][1] == {'fused_mrf_tc': 6, 'fused_mrf_phase': 2}, \
+        paths[-1][1]
+    assert all(k[-1] == 'float32' for calls in paths[-1][2].values()
+               for k in calls), paths[-1][2]
+    assert wav_32.shape == (B, 1, T * 256) and wav_32.dtype == torch.float32
+    assert torch.isfinite(wav_32).all()
+    r_plain = rel_l2(wav_32, fast_f32(plain=True))
+    r_exact = rel(wav_32.cpu().numpy()[:, 0], exact_v1)
+    log(f'path fast-f32: waveform vs the float32 plain route rel_l2='
+        f'{r_plain:.3e} (band 1e-4), vs the per-conv float32 route rel_l2='
+        f'{r_exact:.3e} (band 5e-2)')
+    assert r_plain <= 1e-4 and r_exact <= 5e-2, (r_plain, r_exact)
+    # the planned blocks of phase_f32_kernel at L2 and L3 (output samples a
+    # block owns, of a window of block_m + 2*hx)
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device='meta')
+
+    for lvl, (C_in, T_in) in ((2, (128, T * 64)), (3, (64, T * 128))):
+        pl = vk._phase_f32_plan(meta((B, C_in, T_in), torch.float32),
+                                packed_f32[lvl], meta, 132)
+        log(f'path fast-f32: L{lvl} phase_f32_kernel block_m={pl.block_m} '
+            f'hx={pl.hx} ({pl.n_blocks} blocks an utterance)')
+    del packed_f32, mel_f32, wav_32
 
     # ---- 3b. training ------------------------------------------------------
     attn_kernels = (fused_attention, fused_attention_bwd)
@@ -1514,6 +1606,8 @@ def main():
             per_shape=[r for rows in by_tier.values() for r in rows]))
         if name in off_path:
             table[-1]['off_path'] = [r for m, r in off_path[name] if m == mode]
+        if name == 'fused_mrf_ct' and not mode:
+            table[-1]['off_path'] = ct_f32
     assert {e['name'].split('[')[0] for e in table} == set(by_name)
 
     # ---- 5. end to end ----------------------------------------------------

@@ -15,12 +15,6 @@
 // scaled to bf16), with max |lrelu(v)| over the launch's samples reduced
 // into the segment's amax word for the next conv (atomicMax on float bits).
 // Roundings follow the JAX order as in mrf_q8.cuh.
-//
-// Ablation builds (scripts/torch_mrf_ablation.py; results wrong, not
-// checked): MRF_ABL_NOF32 drops the float32 reads of the input and the
-// residual and the float32 stores (kWrite, kAdd), MRF_ABL_NOQ the
-// prologue's rint and conversion (the byte is the float's low bits);
-// MRF_ABL_NOW / MRF_ABL_NOMMA act in conv_gemm_s8 (mrf_q8.cuh).
 #pragma once
 
 #include "mrf_q8.cuh"
@@ -81,17 +75,9 @@ __global__ void __launch_bounds__(kThreads) conv_dyn_kernel(const DynParams p) {
   const int s0 = n0 - p.dil * H;
   for (int idx = threadIdx.x; idx < rows * C; idx += kThreads) {
     const int i = idx / C, c = idx - i * C;
-#ifdef MRF_ABL_NOF32
-    const float v = __int2float_rn(idx & 255) - 100.f;
-#else
     const float v = seg_load(p.in, b, t, s0 + i, c, C);
-#endif
     const float l = v >= 0.f ? v : __fmul_rn(kSlope, v);
-#ifdef MRF_ABL_NOQ
-    a[i * LDA + c] = static_cast<int8_t>(__float_as_uint(__fmul_rn(l, inv)));
-#else
     a[i * LDA + c] = static_cast<int8_t>(static_cast<int>(rintf(__fmul_rn(l, inv))));
-#endif
   }
   __syncthreads();
 
@@ -100,14 +86,9 @@ __global__ void __launch_bounds__(kThreads) conv_dyn_kernel(const DynParams p) {
     const int s = n0 + m;
     if (s >= p.n_hi) return;
     float v = __fmaf_rn(__int2float_rn(acc), __fmul_rn(p.sw[n], sx), p.bias[n]);
-#ifndef MRF_ABL_NOF32
     if (p.res.p != nullptr) v = __fadd_rn(seg_load(p.res, b, t, s, n, C), v);
-#endif
     mx = fmaxf(mx, abs_lrelu(v));
     float* o = p.out + b * p.out_bs + t * p.out_ts + (long long)(s + p.out_off) * C + n;
-#ifdef MRF_ABL_NOF32
-    if (p.mode != kFinal) return;
-#endif
     if (p.mode == kWrite) {
       *o = v;
     } else if (p.mode == kAdd) {

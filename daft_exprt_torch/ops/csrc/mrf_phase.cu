@@ -28,17 +28,23 @@
 // tile into (B, C, N), or runs conv_post and tanh per sample into (B, 1,
 // N). Only x is read and only the level's output written.
 //
-// float32 compute keeps one launch per stage: ups_kernel, one
-// mrf::step_kernel per (chain, dilation) step and post_kernel. They also
-// replace fused_mrf_ptc's fdot mode (the bf16 tier's
+// float32 compute: one launch of phase_f32_kernel (mrf_chain_f32.cuh) per
+// level (vocoder_kernels._phase_f32_plan): phase_bf_kernel's blocks and
+// windows with every product in 3xTF32 on the tensor cores (mma.sync), the
+// conv tiles and X0 in float32 and the residual window and chain sum in an
+// L2-resident scratch slice per block.
+//
+// The step route (ups_kernel, one mrf::step_kernel per (chain, dilation)
+// step, post_kernel) serves only fused_mrf_ptc's fdot mode (the bf16 tier's
 // phase-tc form: unquantised bf16 dots on the shift matrices of
-// pack_mrf_ptc_f_weights), which computes this function but for one
+// pack_mrf_ptc_f_weights), which computes this function in bf16 but for one
 // rounding: its upsample output x0 = acc + b stays float32 (ups_kernel
-// writes float32 in both modes) where phase_bf_kernel rounds it to bf16.
+// writes float32) where phase_bf_kernel rounds it to bf16. Only its bf16
+// instantiations are built here.
 //
 // Bound on the card: operations. The MRF group's 252*B*T*C^2 FLOPs at
 // C=64/32 dominate; the upsample adds 2*B*T_out*C_in*C_out*k/s.
-#include "mrf_chain_bf16.cuh"
+#include "mrf_chain_f32.cuh"
 
 namespace mrf {
 
@@ -119,21 +125,27 @@ cudaError_t launch_ups_t(const UpsParams& p, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// cdt: 1 = bf16 compute (fdot), 0 = float32; x0 is float32 in both
-template <int CIN, int COUT>
-cudaError_t launch_ups_c(const UpsParams& p, int B, int cdt, cudaStream_t s) {
-  if (cdt != 1) return launch_ups_t<CIN, COUT, float, float>(p, B, s);
-  return launch_ups_t<CIN, COUT, bf16, float>(p, B, s);
+// fdot's step: bf16 compute on the float32 x0 and residual buffers
+template <int C>
+cudaError_t launch_fdot_step(const StepParams& p, int K, int B, cudaStream_t s) {
+  switch (K) {
+    case 3: return launch_step_t<C, 3, bf16, float>(p, B, s);
+    case 7: return launch_step_t<C, 7, bf16, float>(p, B, s);
+    case 11: return launch_step_t<C, 11, bf16, float>(p, B, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace mrf
 
+// fused_mrf_ptc_f's launches (bf16 compute, float32 x0: cdt 1, in_f32 1)
 extern "C" int mrf_phase_step(MRF_STEP_ARGS) {
+  if (cdt != 1 || in_f32 != 1) return (int)cudaErrorInvalidValue;
   const mrf::StepParams p = MRF_STEP_PARAMS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
-    case 32: return (int)mrf::launch_step_c<32>(p, K, B, cdt, in_f32, s);
-    case 64: return (int)mrf::launch_step_c<64>(p, K, B, cdt, in_f32, s);
+    case 32: return (int)mrf::launch_fdot_step<32>(p, K, B, s);
+    case 64: return (int)mrf::launch_fdot_step<64>(p, K, B, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -142,7 +154,7 @@ extern "C" int mrf_phase_ups(const void* x, long long x_bs, long long x_cs, long
                              void* out, long long out_bs, int out_off, const void* w,
                              const void* bias, int stride, int ntaps, int amin, int span,
                              const int* delta, int m_lo, int m_hi, int n_lo, int n_hi, int c_in,
-                             int c_out, int B, int cdt, void* stream) {
+                             int c_out, int B, void* stream) {
   if (stride < 1 || stride > 8) return (int)cudaErrorInvalidValue;
   mrf::UpsParams p;
   p.x = x;
@@ -165,41 +177,39 @@ extern "C" int mrf_phase_ups(const void* x, long long x_bs, long long x_cs, long
   p.n_hi = n_hi;
   for (int r = 0; r < 8; ++r) p.delta[r] = r < stride ? delta[r] : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c_in == 128 && c_out == 64) return (int)mrf::launch_ups_c<128, 64>(p, B, cdt, s);
-  if (c_in == 64 && c_out == 32) return (int)mrf::launch_ups_c<64, 32>(p, B, cdt, s);
+  using mrf::bf16;
+  if (c_in == 128 && c_out == 64) return (int)mrf::launch_ups_t<128, 64, bf16, float>(p, B, s);
+  if (c_in == 64 && c_out == 32) return (int)mrf::launch_ups_t<64, 32, bf16, float>(p, B, s);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int mrf_phase_post(const void* R, long long r_bs, int r_off, int C, float scale,
                               const void* w, float bias, int kpost, void* out, int N, int B,
-                              int cdt, void* stream) {
+                              void* stream) {
   const dim3 grid((N + 255) / 256, B);
   void* args[] = {&R, &r_bs, &r_off, &C, &scale, &w, &bias, &kpost, &out, &N};
-  const void* kern = cdt == 1 ? reinterpret_cast<const void*>(&mrf::post_kernel<mrf::bf16>)
-                              : reinterpret_cast<const void*>(&mrf::post_kernel<float>);
-  cudaError_t e = cudaLaunchKernel(kern, grid, dim3(256), args, 0,
-                                   static_cast<cudaStream_t>(stream));
+  cudaError_t e = cudaLaunchKernel(reinterpret_cast<const void*>(&mrf::post_kernel<mrf::bf16>),
+                                   grid, dim3(256), args, 0, static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// The bf16 level in one launch. ptrs: wu, bu, wp (null without conv_post),
-// then 4 per step of each chain (w1, b1, w2, b2). ints: stride, ntaps,
-// amin, span, rows_r[8], N, hx, P, kpost, block_m, tps, kch, utps, ukch,
-// r_smem, wu_phase, n_chains, then per chain k, n_steps, dils[4]
-// (vocoder_kernels._phase_bf_args); tps .. r_smem must be the kernel's.
-extern "C" int mrf_phase_bf(const void* x, long long x_bs, long long x_cs, long long x_ts, int t_in,
-                            void* out, long long out_bs, const long long* ptrs, const int* ints,
-                            float scale, float post_bias, int c_in, int C, int B, void* scratch,
-                            long long scratch_floats, int slots, void* stream) {
-  using namespace mrf::bfe;
-  PhaseBfParams p = {};
-  p.x = static_cast<const mrf::bf16*>(x);
+// The fields the bf16 and float32 level launches share, from the entry's
+// arrays: ptrs wu, bu, wp (null without conv_post), then 4 per step of
+// each chain (w1, b1, w2, b2); ints stride, ntaps, amin, span, rows_r[8],
+// N, hx, P, kpost, block_m, the 5 stage ints (tps, kch, utps, ukch,
+// r_smem: checked by the launch), wu_phase, n_chains, then per chain k,
+// n_steps, dils[4] (vocoder_kernels._phase_args). False for a malformed
+// call.
+template <class Params>
+static bool phase_params(Params& p, long long x_bs, long long x_cs, long long x_ts, int t_in,
+                         long long out_bs, const long long* ptrs, const int* ints, float scale,
+                         float post_bias, void* scratch) {
+  using mrf::bfe::StepBf;
   p.x_bs = x_bs;
   p.x_cs = x_cs;
   p.x_ts = x_ts;
   p.t_in = t_in;
-  p.out = static_cast<mrf::bf16*>(out);
   p.out_bs = out_bs;
   p.wu = reinterpret_cast<const int8_t*>(ptrs[0]);
   p.bu = reinterpret_cast<const float*>(ptrs[1]);
@@ -219,26 +229,60 @@ extern "C" int mrf_phase_bf(const void* x, long long x_bs, long long x_cs, long 
   p.bp = post_bias;
   p.scale = scale;
   p.scratch = static_cast<float*>(scratch);
-  if (p.stride < 1 || p.stride > 8 || p.n_chains < 1 || p.n_chains > kMaxChains ||
+  if (p.stride < 1 || p.stride > 8 || p.n_chains < 1 || p.n_chains > mrf::bfe::kMaxChains ||
       (p.kpost > 0) != (p.wp != nullptr) || (p.kpost > 0 && p.P != (p.kpost - 1) / 2) ||
       (p.kpost == 0 && p.P != 0))
-    return (int)cudaErrorInvalidValue;
+    return false;
   const long long* w = ptrs + 3;
   for (int j = 0; j < p.n_chains; ++j) {
     const int* cj = ints + 24 + 6 * j;
     p.k[j] = cj[0];
     p.n_steps[j] = cj[1];
-    if (p.n_steps[j] < 1 || p.n_steps[j] > kMaxSteps || p.k[j] < 1 || p.k[j] % 2 == 0)
-      return (int)cudaErrorInvalidValue;
+    if (p.n_steps[j] < 1 || p.n_steps[j] > mrf::bfe::kMaxSteps || p.k[j] < 1 || p.k[j] % 2 == 0)
+      return false;
     for (int i = 0; i < p.n_steps[j]; ++i, w += 4)
       p.steps[j][i] = StepBf{reinterpret_cast<const int8_t*>(w[0]), reinterpret_cast<const float*>(w[1]),
                              reinterpret_cast<const int8_t*>(w[2]), reinterpret_cast<const float*>(w[3]),
                              cj[2 + i]};
   }
+  return true;
+}
+
+// The bf16 level in one launch (the arrays: phase_params).
+extern "C" int mrf_phase_bf(const void* x, long long x_bs, long long x_cs, long long x_ts, int t_in,
+                            void* out, long long out_bs, const long long* ptrs, const int* ints,
+                            float scale, float post_bias, int c_in, int C, int B, void* scratch,
+                            long long scratch_floats, int slots, void* stream) {
+  using namespace mrf::bfe;
+  PhaseBfParams p = {};
+  p.x = static_cast<const mrf::bf16*>(x);
+  p.out = static_cast<mrf::bf16*>(out);
+  if (!phase_params(p, x_bs, x_cs, x_ts, t_in, out_bs, ptrs, ints, scale, post_bias, scratch))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (c_in == 128 && C == 64)
     return (int)launch_phase_bf<128, 64>(p, B, ints + 17, scratch_floats, slots, s);
   if (c_in == 64 && C == 32)
     return (int)launch_phase_bf<64, 32>(p, B, ints + 17, scratch_floats, slots, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The float32 level in one launch (the arrays: phase_params; the taps in
+// pack_stage_tf32's order).
+extern "C" int mrf_phase_f32(const void* x, long long x_bs, long long x_cs, long long x_ts,
+                             int t_in, void* out, long long out_bs, const long long* ptrs,
+                             const int* ints, float scale, float post_bias, int c_in, int C, int B,
+                             void* scratch, long long scratch_floats, int slots, void* stream) {
+  using namespace mrf::f32e;
+  PhaseF32Params p = {};
+  p.x = static_cast<const float*>(x);
+  p.out = static_cast<float*>(out);
+  if (!phase_params(p, x_bs, x_cs, x_ts, t_in, out_bs, ptrs, ints, scale, post_bias, scratch))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (c_in == 128 && C == 64)
+    return (int)launch_phase_f32<128, 64>(p, B, ints + 17, scratch_floats, slots, s);
+  if (c_in == 64 && C == 32)
+    return (int)launch_phase_f32<64, 32>(p, B, ints + 17, scratch_floats, slots, s);
   return (int)cudaErrorInvalidValue;
 }

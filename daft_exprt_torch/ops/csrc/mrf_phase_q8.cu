@@ -22,7 +22,8 @@
 // (mrf_dyn_blk.cuh, mrf_phase_q8_blk) that runs steps 2-4 per block with
 // a segment barrier per conv, each conv over the TPU kernel's column
 // window (each conv shrinks it by W-1 columns and moves it by
-// -dmin-dmin2). The q8f mode there: amax_kernel and fused_mrf_ptc's
+// -dmin-dmin2). The same two entries run fused_mrf_ptc's dyn mode on the
+// phase-tc tiles (mrf_ptc.cu). The q8f mode there: amax_kernel and fused_mrf_ptc's
 // ptc_fused_q8_kernel (mrf_ptc_fused.cuh, mrf_phase_q8_fused) on the phase
 // tiles: the static
 // chains do not depend on the tile, only the upsample's input scale does,

@@ -44,14 +44,13 @@
 //      segments through device memory, which at C = 32 took longer than the
 //      operations.
 // dyn mode (every conv's scale is the amax over a whole segment, which a
-//   block cannot see): amax_kernel, ups_q8_kernel into a float32 segment,
-//   two conv_dyn_kernel launches (mrf_dyn.cuh) per (chain, dilation), each
-//   conv quantising its whole window with one scale (the TPU kernel's
-//   window of a conv is all p phases of the rows it reads: it shrinks by
-//   the conv's row span, _ptc_spec's smin..smax, p*span samples; the launch
-//   plan mrf_int8._narrow_plan sets each launch's samples so), and
-//   post_kernel (mrf_common.cuh).
-#include "mrf_dyn.cuh"
+//   block cannot see) runs mrf_phase_q8.cu's entries, amax_kernel and
+//   one launch of the segment-synchronised engine (mrf_dyn_blk.cuh,
+//   mrf_phase_q8_blk) on the phase-tc tiles: its function is the dynamic
+//   fused_mrf_phase's on other tiles (the TPU kernel's window of a conv is
+//   all p phases of the rows it reads, which is the phase kernel's column
+//   window; mrf_int8._dyn_blk_plan with _ptc_geometry), and one library
+//   builds the engine once.
 #include "mrf_ptc_fused.cuh"
 
 extern "C" int mrf_ptc_amax(const void* x, long long x_bs, int t_in, int c_in, int n_tiles,
@@ -59,37 +58,6 @@ extern "C" int mrf_ptc_amax(const void* x, long long x_bs, int t_in, int c_in, i
                             void* stream) {
   return (int)mrf::launch_amax(x, x_bs, t_in, c_in, n_tiles, tile_in, halo_in, win_len, amax_bits,
                                S, static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int mrf_ptc_ups(const void* x, long long x_bs, int t_in, const void* amax, void* out,
-                           long long out_bs, const void* w, const void* sw, const void* bias,
-                           int stride, int ntaps, int amin, int span, const int* delta,
-                           int n_tiles, int tile_in, int halo_m, int m_len, int c_in, int c_out,
-                           int S, void* amax_out, void* stream) {
-  return (int)mrf::launch_ups_q8(x, x_bs, t_in, amax, out, out_bs, w, sw, bias, stride, ntaps,
-                                 amin, span, delta, n_tiles, tile_in, halo_m, m_len, c_in, c_out,
-                                 S, amax_out, static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int mrf_ptc_conv(MRF_DYN_ARGS) {
-  MRF_DYN_PARAMS(q);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 32: return (int)mrf::launch_conv_dyn_c<32>(q, K, S, s);
-    case 64: return (int)mrf::launch_conv_dyn_c<64>(q, K, S, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-extern "C" int mrf_ptc_post(const void* R, long long r_bs, int r_off, int C, float scale,
-                            const void* w, float bias, int kpost, void* out, int N, int S,
-                            void* stream) {
-  const dim3 grid((N + 255) / 256, S);
-  void* args[] = {&R, &r_bs, &r_off, &C, &scale, &w, &bias, &kpost, &out, &N};
-  cudaError_t e = cudaLaunchKernel(reinterpret_cast<const void*>(&mrf::post_kernel<mrf::bf16>),
-                                   grid, dim3(256), args, 0, static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
 }
 
 // The static mode's fused launch (its arguments: ptc_fused_entry,

@@ -22,9 +22,9 @@ kernels ``csrc/mrf_ct_q8.cu``, ``csrc/mrf_phase_q8.cu`` and
   narrow level without a calibration entry after a static tc level).
   Static: the tile amax, then one block-resident kernel that runs the
   upsample, the chains and conv_post per block of output samples
-  (:func:`_ptc_fused_plan`). Dyn: the phase kernel's launch plan on the
-  phase-tc geometry (halo and tile in rows, 64-aligned): the windows of a
-  dynamic conv are all p phases of the rows it reads, which is the phase
+  (:func:`_ptc_fused_plan`). Dyn: the dynamic phase kernel's engine on
+  the phase-tc geometry (halo and tile in rows, 64-aligned): the windows of
+  a dynamic conv are all p phases of the rows it reads, which is the phase
   layout's column window.
 
 In dynamic mode every conv quantises its whole input window with one scale
@@ -32,14 +32,14 @@ per (utterance, tile, chain, dilation, conv), ``amax(|lrelu(x)|)/127``
 over the window, so the TPU kernels' tile and halo are part of the
 function. The port keeps each tile as a segment of its own and runs each
 conv over exactly the TPU kernel's window (:func:`_dyn_windows`). At V1's
-widths (``fused_mrf_ct_q8`` at C = 256/128, ``fused_mrf_phase_q8`` at
-(128, 64) / (64, 32)) the segment-synchronised engine
+widths (``fused_mrf_ct_q8`` at C = 256/128, ``fused_mrf_phase_q8`` and
+``fused_mrf_ptc`` at (128, 64) / (64, 32)) the segment-synchronised engine
 (``csrc/mrf_dyn_blk.cuh``, :func:`_dyn_blk_plan`) splits each segment
 among resident blocks that keep their rows on chip and meet at a segment
 barrier per conv, where their partial amaxes give the next scale.
-Elsewhere (ct at C <= 64, the phase kernel without prologue, ptc dyn) a
-conv launch of ``conv_dyn_kernel`` writes its float32 output and reduces
-the amax the next conv quantises with (``atomicMax`` on float bits). The
+Elsewhere (ct at C <= 64, the phase kernel without prologue) a conv
+launch of ``conv_dyn_kernel`` writes its float32 output and reduces the
+amax the next conv quantises with (``atomicMax`` on float bits). The
 phase layout (p samples per phase column) is a reshape of the port's
 sample-major tensors, so the windows are whole phase columns in samples.
 
@@ -50,7 +50,7 @@ sample-domain kernels.
 import collections
 import ctypes
 from dataclasses import dataclass
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -58,8 +58,8 @@ import torch.nn.functional as F
 from daft_exprt_torch.ops import _build
 from daft_exprt_torch.ops.mrf_ct import pack_mrf_weights  # noqa: F401
 from daft_exprt_torch.ops.vocoder_kernels import (
-    ADD, FINAL, PHASE_CHANNELS, PTC_Q8_CFG, Q8_PTC_UPS, WRITE, MrfQ8Weights,
-    Post, PtcPrologue, _AMAX_ARGTYPES, _F32, _I32, _I64, _P,
+    ADD, DYN_BLK_CFG, FINAL, PHASE_CHANNELS, PTC_Q8_CFG, Q8_PTC_UPS, WRITE,
+    MrfQ8Weights, Post, PtcPrologue, _AMAX_ARGTYPES, _F32, _I32, _I64, _P,
     _PTC_POST_ARGTYPES, _UPS_Q8_ARGTYPES, _chain_q8, _chain_steps, _const,
     _empty_on, _fma, _fn, _int_conv, _launch_q8_step, _lrelu, _tc_plan,
     _ups_phase_entries, aligned, chain_halo, check_q8_input, device_chains,
@@ -70,25 +70,6 @@ from daft_exprt_torch.ops.vocoder_kernels import (
 
 CT_Q8_CHANNELS = (32, 64, 128, 256)     # fused_mrf_ct_q8 (dynamic)
 CT_Q8F_CHANNELS = (32, 64)               # fused_mrf_ct_q8f / _q8s (static)
-
-
-class DynBlkCfg(NamedTuple):
-    """The segment-synchronised dynamic engine's geometry for one (C_in, C)
-    (csrc/mrf_dyn_blk.cuh ``DynCfg``; a test holds the two together)."""
-    wrows: int          # the most rows a block holds (owned plus halos)
-    rows_pass: int      # rows of one MMA pass (``Conv::ROWS``)
-    tps: int            # chain convs: taps per staged weight stage
-    kch: int            # chain convs: input channels per stage
-    utps: int           # the upsample's taps per stage
-    ukch: int           # the upsample's input channels per stage
-    r_smem: bool        # R in shared memory, else in a global scratch slice
-
-
-# per (C_in, C); C_in == C the ct route
-DYN_BLK_CFG = {(256, 256): DynBlkCfg(256, 128, 1, 128, 1, 128, False),
-               (128, 128): DynBlkCfg(248, 256, 1, 128, 1, 128, True),
-               (128, 64): DynBlkCfg(256, 256, 4, 64, 2, 128, True),
-               (64, 32): DynBlkCfg(512, 512, 8, 32, 2, 64, True)}
 
 
 # ----------------------------------------------------------------------
@@ -971,7 +952,7 @@ def _phase_noups_plan(x, prep, kernel_sizes, dilations, p, tile, alloc):
 
 @dataclass
 class PhasePlan:
-    """The launches of :func:`fused_mrf_phase_q8` and :func:`fused_mrf_ptc`:
+    """The launches of :func:`fused_mrf_phase_q8` (:func:`_phase_plan`):
     the prologue (amax of the upsample input into word 0, the int8 upsample
     into ``pro.x0``, in dynamic mode reducing x0's amax into word 1), the
     chain launches (``DynConv`` or static ``Step``) and conv_post
@@ -982,14 +963,6 @@ class PhasePlan:
     steps: list
     tail: Optional[Post]
     out: torch.Tensor
-
-
-def _phase_plan(x, mrf, tile, prep, alloc):
-    return _narrow_plan(x, mrf, tile, prep, alloc, _phase_geometry)
-
-
-def _ptc_plan(x, mrf, tile, prep, alloc):
-    return _narrow_plan(x, mrf, tile, prep, alloc, _ptc_geometry)
 
 
 @dataclass
@@ -1083,10 +1056,13 @@ def _ptc_fused_args(plan, mrf, chains, ups):
             (ctypes.c_int * len(ints))(*ints))
 
 
-def _narrow_plan(x, mrf, tile, prep, alloc, geometry):
+def _phase_plan(x, mrf, tile, prep, alloc):
+    """The launches of :func:`fused_mrf_phase_q8` where no block-resident
+    kernel serves it (q8s; dynamic at a width outside
+    :data:`DYN_BLK_CFG`): a :class:`PhasePlan` on the phase tiles."""
     B, T_in, _ = x.shape
     p, p_in = mrf.p, mrf.p_in
-    halo, halo_in, n_t, P = geometry(mrf, T_in // p_in, tile)
+    halo, halo_in, n_t, P = _phase_geometry(mrf, T_in // p_in, tile)
     wq_u, _, _, stride, padding, k_u = mrf.ups
     C = wq_u.shape[-1]
     ntaps, amin, rows, span, _ = ups_geometry(k_u, stride, padding)
@@ -1230,10 +1206,13 @@ def _dyn_blocks(X, hx, S, slots, cfg, stride, block_m=None):
     return best[1:]
 
 
-def _dyn_blk_plan(x, mrf, tile, weights, alloc, slots, block_m=None):
+def _dyn_blk_plan(x, mrf, tile, weights, alloc, slots, block_m=None,
+                  geometry=_phase_geometry):
     """Plan of the dynamic engine for x and dynamic ``mrf`` (a ct level
-    when ``mrf.ups`` is None, else a phase level); ``weights`` per chain
-    (staged), ``slots`` the blocks one launch holds."""
+    when ``mrf.ups`` is None, else a narrow level on the tiles and halos
+    ``geometry`` gives: :func:`_phase_geometry`, the default, or
+    :func:`_ptc_geometry`); ``weights`` per chain (staged), ``slots`` the
+    blocks one launch holds."""
     B, T_in, C_in = x.shape
     p = mrf.p
     if mrf.ups is None:
@@ -1246,7 +1225,7 @@ def _dyn_blk_plan(x, mrf, tile, weights, alloc, slots, block_m=None):
         stride = 1
     else:
         C = mrf.ups[0].shape[-1]
-        halo, _, n_t, P = _phase_geometry(mrf, T_in // mrf.p_in, tile)
+        halo, _, n_t, P = geometry(mrf, T_in // mrf.p_in, tile)
         N, tile_in, E = tile * p, tile * mrf.p_in, halo * p
         x_lo, x_hi, out_lo, out_hi = -E, N + E, -P, N + P
         stride = mrf.ups[3]
@@ -1404,8 +1383,7 @@ def fused_mrf_phase_q8(x, mrf, tile):
         return _launch_ptc_fused(fused_mrf_phase_q8, 'mrf_phase_q8', x, mrf,
                                  tile, _phase_geometry, mrf.blk_dev,
                                  mrf.blk_ups_dev)
-    return _launch_narrow(fused_mrf_phase_q8, 'mrf_phase_q8', x, mrf, tile,
-                          _phase_plan)
+    return _launch_narrow(fused_mrf_phase_q8, 'mrf_phase_q8', x, mrf, tile)
 
 
 fused_mrf_phase_q8.launches = 0
@@ -1422,11 +1400,12 @@ def fused_mrf_ptc(x, mrf, tile):
     ``vocoder_kernels.prepare_mrf_ptc``; ``tile`` phase rows per tile
     (divides rows). Returns (B, rows*p, C), or with ``mrf.post`` the
     waveform (B, 1, rows*p), bfloat16. On a CUDA tensor this launches
-    ``mrf_ptc.cu`` (or raises); on a CPU tensor it runs
-    :func:`mrf_ptc_plain`.
+    ``mrf_ptc.cu`` (static) or ``mrf_phase_q8.cu`` (dyn), or raises; on a
+    CPU tensor it runs :func:`mrf_ptc_plain`.
 
     ``fused_mrf_ptc.launches`` counts CUDA launches (static: amax, the
-    fused kernel; dyn: amax, upsample, two per chain step, conv_post);
+    fused kernel; dyn: amax, one launch of the segment-synchronised
+    engine, ``mrf_phase_q8.cu``'s on the phase-tc tiles);
     ``fused_mrf_ptc.calls`` counts CUDA-route calls by x's shape and mode:
     (B, T_in, C_in, 'q8f' or 'dynamic')."""
     if mrf.ups is None:
@@ -1436,8 +1415,15 @@ def fused_mrf_ptc(x, mrf, tile):
     if mrf.q8s:
         raise ValueError('fused_mrf_ptc has no q8s mode')
     if mrf.dynamic:
-        return _launch_narrow(fused_mrf_ptc, 'mrf_ptc', x, mrf, tile,
-                              _ptc_plan)
+        C_in, C = x.shape[2], mrf.ups[0].shape[-1]
+        check_q8_input('fused_mrf_ptc', x, mrf, PHASE_CHANNELS, C)
+        if C_in == C or (C_in, C) not in DYN_BLK_CFG:
+            raise ValueError(f'fused_mrf_ptc: upsample {C_in}->{C} has no '
+                             'CUDA instantiation of the dynamic engine')
+        out = _launch_dyn_blk(fused_mrf_ptc, 'mrf_phase_q8', aligned(x), mrf,
+                              tile, _ptc_geometry)
+        fused_mrf_ptc.calls[tuple(x.shape) + (mrf.mode,)] += 1
+        return out
     return _launch_ptc_fused(fused_mrf_ptc, 'mrf_ptc', x, mrf, tile,
                              _ptc_geometry, mrf.chains_dev, mrf.ups_dev)
 
@@ -1527,15 +1513,16 @@ def _dyn_blk_args(plan, launch, mrf, x):
             (ctypes.c_int * len(ints))(*ints))
 
 
-def _launch_dyn_blk(wrapper, lib, x, mrf, tile):
+def _launch_dyn_blk(wrapper, lib, x, mrf, tile, geometry=_phase_geometry):
     """The launches of a :class:`DynBlkPlan` (``amax_kernel``, then
-    ``dyn_blk_kernel`` per chain (ct) or per level (phase)) through
-    ``lib``'s entry points, counted on ``wrapper``."""
+    ``dyn_blk_kernel`` per chain (ct) or per level (phase, on
+    ``geometry``'s tiles)) through ``lib``'s entry points, counted on
+    ``wrapper``."""
     name = wrapper.__name__
     B, T_in, C_in = x.shape
     slots = sm_count(x.device)
     plan = _dyn_blk_plan(x, mrf, tile, mrf.blk_dev, _empty_on(x.device),
-                         slots)
+                         slots, geometry=geometry)
     C = C_in if mrf.ups is None else mrf.ups[0].shape[-1]
     stream = _build.stream_ptr(x)
     plan.sync.zero_()
@@ -1543,7 +1530,7 @@ def _launch_dyn_blk(wrapper, lib, x, mrf, tile):
     if mrf.ups is None:
         win_in, halo_in = plan.x_hi - plan.x_lo, -plan.x_lo
     else:
-        _, halo_in, _, _ = _phase_geometry(mrf, T_in // mrf.p_in, tile)
+        _, halo_in, _, _ = geometry(mrf, T_in // mrf.p_in, tile)
         halo_in *= mrf.p_in
         win_in = plan.tile_in + 2 * halo_in
     err = _fn(lib, f'{lib}_amax', _AMAX_ARGTYPES)(
@@ -1577,10 +1564,10 @@ def _launch_dyn_blk(wrapper, lib, x, mrf, tile):
     return plan.out
 
 
-def _launch_narrow(wrapper, lib, x, mrf, tile, plan_fn):
-    """The launches of a narrow int8 level (the :class:`PhasePlan` of
-    ``plan_fn``, :func:`_phase_plan` or :func:`_ptc_plan`) through
-    ``lib``'s entry points, counted on ``wrapper``."""
+def _launch_narrow(wrapper, lib, x, mrf, tile):
+    """The launches of a narrow int8 level's :class:`PhasePlan`
+    (:func:`_phase_plan`) through ``lib``'s entry points, counted on
+    ``wrapper``."""
     name = wrapper.__name__
     B, T_in, C_in = x.shape
     C = mrf.ups[0].shape[-1]
@@ -1589,7 +1576,7 @@ def _launch_narrow(wrapper, lib, x, mrf, tile, plan_fn):
         raise ValueError(f'{name}: upsample {C_in}->{C} has no CUDA '
                          f'instantiation (built for {Q8_PTC_UPS})')
     x = x.contiguous()
-    plan = plan_fn(x, mrf, tile, mrf.chains_dev, _empty_on(x.device))
+    plan = _phase_plan(x, mrf, tile, mrf.chains_dev, _empty_on(x.device))
     pro = plan.pro
     S = plan.amax.shape[1]
     _check_segments(name, S)

@@ -34,23 +34,23 @@ bf16 engine (``mrf_chain_bf16.cuh``: one launch per chain, or per level
 with the upsample and conv_post; weights packed by
 :func:`pack_stage_bf16`), :func:`fused_mrf_tc_q8` on the int8 one
 (``mrf_chain_q8.cuh``, :func:`pack_stage_s8`), and :func:`fused_mrf_tc`
-in float32 and :func:`fused_resblock1` in both dtypes on the chain
-kernels (``mrf_chain_f32.cuh`` in float32: 3xTF32 on the tensor cores,
-weights split by :func:`pack_stage_tf32`): each block keeps a chain's
-residual window on chip. The other float routes (float32
-:func:`fused_mrf_phase`, fdot) run one launch per (chain, dilation) step
-(``mrf_common.cuh::step_kernel``; each step reads its float32 input and
-writes its float32 output over (B, T + 2E, C) buffers). The sample
-ranges of every launch and block are planned here (:func:`_chain_steps`,
-:func:`_tc_bf_plan`, :func:`_tc_f32_plan`, :func:`_phase_bf_plan`,
-:func:`_tc_q8_plan`) so the CPU tests can replay the plan.
+and :func:`fused_mrf_phase` in float32 and :func:`fused_resblock1` in
+both dtypes on the chain kernels (``mrf_chain_f32.cuh`` in float32:
+3xTF32 on the tensor cores, weights split by :func:`pack_stage_tf32`):
+each block keeps a chain's residual window on chip. fdot runs one launch
+per (chain, dilation) step (``mrf_common.cuh::step_kernel``; each step
+reads its float32 input and writes its float32 output over (B, T + 2E, C)
+buffers). The sample ranges of every launch and block are planned here
+(:func:`_chain_steps`, :func:`_tc_bf_plan`, :func:`_tc_f32_plan`,
+:func:`_phase_bf_plan`, :func:`_phase_f32_plan`, :func:`_tc_q8_plan`) so
+the CPU tests can replay the plan.
 """
 import collections
 import contextlib
 import ctypes
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -337,8 +337,9 @@ def prepare_mrf(packed, kernel_sizes, dilations, ups=None, post=None,
     upsample in :data:`PHASE_BF_CFG`) are staged for it (``blk``: per chain
     and step (w1, b1, w2, b2), the taps by :func:`pack_stage_bf16`;
     ``blk_ups``: per phase the upsample's taps staged, the bias, the bytes
-    of a phase); float32 weights of a wide level of :data:`TC_F32_CFG`
-    for the float32 chain kernel (``blk``, the taps by
+    of a phase); float32 weights of a wide level of :data:`TC_CHANNELS` or
+    a narrow one with its upsample in :data:`PHASE_F32_UKCH` for the
+    float32 chain kernels (``blk`` and ``blk_ups`` alike, the taps by
     :func:`pack_stage_tf32`). Every other form keeps the step kernels'
     ``chains`` (a narrow level's too: its fallback to ``fused_mrf_ct`` reads
     them); ``engine=False`` (``fused_mrf_ptc_f``'s weights) stages only
@@ -357,10 +358,10 @@ def prepare_mrf(packed, kernel_sizes, dilations, ups=None, post=None,
             PHASE_BF_CFG.get((ups[0].shape[0], C))
         stage = None if cfg is None else \
             (lambda w: pack_stage_bf16(w, cfg.tps, cfg.kch))
-    elif engine and ups is None:
-        cfg = TC_F32_CFG.get(C)
-        stage = None if cfg is None else \
-            (lambda w: pack_stage_tf32(w, cfg.kch))
+    elif engine and (ups is None and C in TC_CHANNELS or ups is not None
+                     and (ups[0].shape[0], C) in PHASE_F32_UKCH):
+        cfg = TC_F32_CFG[C]
+        stage = (lambda w: pack_stage_tf32(w, cfg.kch))
     if cfg is not None:
         mrf.blk = []
         for j, dils in enumerate(dilations):
@@ -381,10 +382,15 @@ def prepare_mrf(packed, kernel_sizes, dilations, ups=None, post=None,
         w, b, stride, padding = ups
         _, _, _, _, taps = ups_geometry(w.shape[-1], stride, padding)
         phases = [torch.stack([w[:, :, j] for j in tp]) for tp in taps]
-        if cfg is not None:
+        if cfg is not None and cdt == torch.bfloat16:
             staged = [pack_stage_bf16(t, cfg.utps, cfg.ukch) for t in phases]
             mrf.blk_ups = (torch.cat(staged), b.float().contiguous(),
                            2 * staged[0].numel())
+        elif cfg is not None:
+            ukch = PHASE_F32_UKCH[w.shape[0], C]
+            staged = [pack_stage_tf32(t, ukch) for t in phases]
+            mrf.blk_ups = (torch.cat(staged), b.float().contiguous(),
+                           4 * staged[0].numel())
         else:
             mrf.ups_dev = (torch.cat([_device_taps(t, cdt) for t in phases]),
                            b.float().contiguous())
@@ -561,9 +567,9 @@ def _phase_plan(x, prep, ups_prep, kernel_sizes, dilations, ups, post,
 
 
 _UPS_ARGTYPES = ([_P, _I64, _I64, _I64, _I32, _P, _I64, _I32, _P, _P]
-                 + [_I32] * 4 + [_P] + [_I32] * 8 + [_P])
+                 + [_I32] * 4 + [_P] + [_I32] * 7 + [_P])
 _POST_ARGTYPES = [_P, _I64, _I32, _I32, _F32, _P, _F32, _I32, _P, _I32,
-                  _I32, _I32, _P]
+                  _I32, _P]
 
 
 def fused_mrf_phase(x, mrf):
@@ -578,20 +584,20 @@ def fused_mrf_phase(x, mrf):
     a CUDA tensor this launches ``mrf_phase.cu`` (or raises); on a CPU
     tensor it runs :func:`mrf_phase_plain`.
 
-    In bf16 the CUDA route is one launch of the block-resident
-    ``phase_bf_kernel``; in float32 the upsample, one launch per chain step
-    and conv_post. ``fused_mrf_phase.launches`` counts CUDA launches;
-    ``fused_mrf_phase.calls`` counts CUDA-route calls by x's shape."""
+    The CUDA route is one launch a call: the block-resident
+    ``phase_bf_kernel`` in bf16, its float32 counterpart on the tensor
+    cores in 3xTF32 (``phase_f32_kernel``) in float32.
+    ``fused_mrf_phase.launches`` counts CUDA launches;
+    ``fused_mrf_phase.calls`` counts CUDA-route calls by x's shape (and
+    'float32' for a float32 call)."""
     if mrf.ups is None:
         raise ValueError('fused_mrf_phase: the weights carry no upsample')
     if x.device.type == 'cpu':
         return mrf_phase_plain(x, mrf.packed, mrf.kernel_sizes,
                                mrf.dilations, mrf.ups, mrf.post)
-    if x.dtype == torch.bfloat16:
-        out = _launch_phase_bf(fused_mrf_phase, x, mrf)
-    else:
-        out = _launch_phase(fused_mrf_phase, x, mrf)
-    fused_mrf_phase.calls[tuple(x.shape)] += 1
+    out = _launch_phase_engine(fused_mrf_phase, x, mrf)
+    fused_mrf_phase.calls[tuple(x.shape) + (
+        ('float32',) if x.dtype == torch.float32 else ())] += 1
     return out
 
 
@@ -600,9 +606,9 @@ fused_mrf_phase.calls = collections.Counter()
 
 
 def _launch_phase(wrapper, x, mrf):
-    """The step-kernel launches of ``mrf_phase.cu`` for float32
-    :func:`fused_mrf_phase` and :func:`fused_mrf_ptc_f` (the upsample
-    writes float32 in both), counted on ``wrapper``."""
+    """The step-kernel launches of ``mrf_phase.cu`` for
+    :func:`fused_mrf_ptc_f` (bf16 compute, the upsample writing float32),
+    counted on ``wrapper``."""
     name = wrapper.__name__
     w_u, _, stride, _ = mrf.ups
     B, C_in, T_in = x.shape
@@ -618,14 +624,13 @@ def _launch_phase(wrapper, x, mrf):
         x, mrf.chains, mrf.ups_dev, mrf.kernel_sizes, mrf.dilations, mrf.ups,
         mrf.post, mrf.post_dev, _empty_on(x.device), torch.float32)
     stream = _build.stream_ptr(x)
-    bf = int(cdt == torch.bfloat16)
     w_p, b_p = up.weights
     err = _fn('mrf_phase', 'mrf_phase_ups', _UPS_ARGTYPES)(
         _build.ptr(x), x.stride(0), x.stride(1), x.stride(2), T_in,
         _build.ptr(up.out), up.out.stride(0), up.out_off, _build.ptr(w_p),
         _build.ptr(b_p), stride, up.ntaps, up.amin, up.span,
         ctypes.cast((ctypes.c_int * stride)(*up.rows), ctypes.c_void_p),
-        up.m_lo, up.m_hi, up.n_lo, up.n_hi, C_in, C, B, bf, stream)
+        up.m_lo, up.m_hi, up.n_lo, up.n_hi, C_in, C, B, stream)
     _build.check(err, 'MRF upsample')
     wrapper.launches += 1
     fn = _fn('mrf_phase', 'mrf_phase_step', _STEP_ARGTYPES)
@@ -637,7 +642,7 @@ def _launch_phase(wrapper, x, mrf):
         err = _fn('mrf_phase', 'mrf_phase_post', _POST_ARGTYPES)(
             _build.ptr(tail.src), tail.src.stride(0), tail.src_off, C,
             tail.scale, _build.ptr(w_t), b_t, tail.k, _build.ptr(out),
-            stride * T_in, B, bf, stream)
+            stride * T_in, B, stream)
         _build.check(err, 'MRF conv_post')
         wrapper.launches += 1
     return out
@@ -950,9 +955,10 @@ def _launch_tc_chains(wrapper, x, mrf):
 
 @dataclass(frozen=True)
 class F32Cfg:
-    """``tc_f32_kernel``'s geometry (``mrf_chain_f32.cuh`` TcF32Cfg): warps,
-    a warp's tile of 16*mt rows x 8*nt columns, input channels per weight
-    stage (one tap a stage), ring slots. The kernel checks ``kch``."""
+    """The float32 chain kernels' geometry per width C (``mrf_chain_f32.cuh``
+    TcF32Cfg): warps, a warp's tile of 16*mt rows x 8*nt columns, input
+    channels per weight stage (one tap a stage), ring slots. The kernels
+    check ``kch``."""
     nw: int
     mt: int
     nt: int
@@ -960,7 +966,12 @@ class F32Cfg:
     nbuf: int
 
 
-TC_F32_CFG = {128: F32Cfg(8, 2, 8, 32, 2), 256: F32Cfg(8, 4, 8, 8, 2)}
+# the wide levels' tc_f32_kernel, the narrow levels' phase_f32_kernel chains
+TC_F32_CFG = {128: F32Cfg(8, 2, 8, 32, 2), 256: F32Cfg(8, 4, 8, 8, 2),
+              64: F32Cfg(8, 2, 8, 32, 2), 32: F32Cfg(8, 2, 4, 32, 2)}
+# phase_f32_kernel's upsample (C_in -> C): input channels per weight stage
+# (``PhaseF32Cfg``; its warps and tiles are the chains')
+PHASE_F32_UKCH = {(128, 64): 32, (64, 32): 32}
 
 
 def tf32(x):
@@ -1043,19 +1054,47 @@ def _phase_bf_smem(C_in, C, cfg, ks, dils, stride, span, P, hx, bm):
     return total if total <= SMEM_MAX else None
 
 
+def _phase_f32_smem(C_in, C, ks, dils, stride, span, P, hx, bm):
+    """Shared memory of a ``phase_f32_kernel`` block (``PhaseF32Layout``),
+    or None where the launch would refuse it: the ring, X0 (the window's
+    upsample) and the conv tile A (the widest chain's window, or the x
+    tile while the upsample runs), rows of C + 4 floats (the x tile's C_in
+    + 4), and the schedule; conv_post's sums and the transposed output tile
+    must fit in X0 and A."""
+    cfg, ukch = TC_F32_CFG[C], PHASE_F32_UKCH[C_in, C]
+    wrows = bm + 2 * hx
+    prows = _f32_pass_rows(C, cfg)
+    chain_rows = [(k, d, bm + 2 * chain_halo(k, d) + 2 * P)
+                  for k, d in zip(ks, dils)]
+    n_sched = stride * _conv_passes(wrows // stride, prows) + sum(
+        _conv_passes(M, prows) for k, d, w in chain_rows
+        for M in _chain_convs(k, d, w))
+    x0 = wrows * (C + 4) * 4
+    a = max(max(w for _, _, w in chain_rows) * (C + 4) * 4,
+            (wrows // stride + span) * (C_in + 4) * 4)
+    orows = bm + 2 * P
+    if orows * (C + 1) * 4 > x0 + a or C * (bm + 4) * 4 > x0 + a:
+        return None
+    ring = cfg.nbuf * max(cfg.kch, ukch) * C * 8
+    total = ring + x0 + a + 16 * n_sched
+    return total if total <= SMEM_MAX else None
+
+
 @dataclass
-class PhaseBfLaunch:
-    """The launch of ``phase_bf_kernel`` for a narrow level. Block i of
-    utterance b owns output samples [n0, n0 + block_m), n0 = i*block_m; its
-    window is samples [n0 - hx, n0 + block_m + hx). It reads lrelu(x) at
-    input samples (n0 - hx)/stride + amin + q for q < window/stride + span
-    (zero outside [0, T_in)), runs the upsample into the window (output
-    sample stride*m + r: taps t < ntaps of input row m + rows[r] + t), each
-    chain on its own window [n0 - halo - P, n0 + block_m + halo + P), sums
-    the chains over [n0 - P, n0 + block_m + P) and writes the mean (B, C,
-    N) or conv_post's waveform (B, 1, N). ``r_smem``: the float32 windows
-    in shared memory, else a scratch slice of (window + block_m + 2P) x (C
-    + 8) floats per resident block."""
+class PhaseLaunch:
+    """The launch of ``phase_bf_kernel`` (bf16) or ``phase_f32_kernel``
+    (float32) for a narrow level. Block i of utterance b owns output
+    samples [n0, n0 + block_m), n0 = i*block_m; its window is samples [n0 -
+    hx, n0 + block_m + hx). It reads lrelu(x) at input samples (n0 -
+    hx)/stride + amin + q for q < window/stride + span (zero outside [0,
+    T_in)), runs the upsample into the window (output sample stride*m + r:
+    taps t < ntaps of input row m + rows[r] + t), each chain on its own
+    window [n0 - halo - P, n0 + block_m + halo + P), sums the chains over
+    [n0 - P, n0 + block_m + P) and writes the mean (B, C, N) or conv_post's
+    waveform (B, 1, N). ``r_smem``: the float32 windows in shared memory,
+    else a scratch slice per resident block (bf16: (window + block_m + 2P)
+    x (C + 8) floats; float32: (the widest chain's window + block_m + 2P) x
+    C floats)."""
     x: torch.Tensor
     out: torch.Tensor
     chains: list
@@ -1077,13 +1116,14 @@ class PhaseBfLaunch:
     scratch: int
 
 
-def _phase_bf_plan(x, mrf, alloc, slots):
-    """Launch plan of the bf16 :func:`fused_mrf_phase`: a
-    :class:`PhaseBfLaunch`."""
+def _phase_engine_plan(x, mrf, alloc, slots, f32):
+    """Launch plan of :func:`fused_mrf_phase` on a chain kernel
+    (``phase_f32_kernel`` when ``f32``, else ``phase_bf_kernel``): a
+    :class:`PhaseLaunch`, block_m the largest whose window fits the
+    kernel's shared memory."""
     w_u, _, stride, padding = mrf.ups
     B, C_in, T_in = x.shape
     C = w_u.shape[1]
-    cfg = PHASE_BF_CFG[C_in, C]
     ks, dils = mrf.kernel_sizes, mrf.dilations
     ntaps, amin, rows, span, _ = ups_geometry(w_u.shape[-1], stride, padding)
     post_w = mrf.post
@@ -1093,76 +1133,114 @@ def _phase_bf_plan(x, mrf, alloc, slots):
     hx = -(-(hmax + P) // stride) * stride
     N = stride * T_in
     step = 8 * stride // math.gcd(8, stride)
-    bm = _largest_block(N, step, lambda bm: _phase_bf_smem(
-        C_in, C, cfg, ks, dils, stride, span, P, hx, bm) is not None)
+    if f32:
+        def smem(bm):
+            return _phase_f32_smem(C_in, C, ks, dils, stride, span, P, hx, bm)
+        r_smem = False
+    else:
+        cfg = PHASE_BF_CFG[C_in, C]
+
+        def smem(bm):
+            return _phase_bf_smem(C_in, C, cfg, ks, dils, stride, span, P,
+                                  hx, bm)
+        r_smem = cfg.r_smem
+    bm = _largest_block(N, step, lambda bm: smem(bm) is not None)
     n_blocks = -(-N // bm)
     out = alloc((B, 1 if post_w is not None else C, N), x.dtype)
-    scratch = 0 if cfg.r_smem else \
-        (2 * bm + 2 * hx + 2 * P) * (C + 8) * min(B * n_blocks, slots)
-    return PhaseBfLaunch(x, out, mrf.blk, mrf.blk_ups, post_w, ks, dils,
-                         stride, ntaps, amin, rows, span, N, hx, P, bm,
-                         n_blocks, cfg.r_smem, scratch)
+    resident = min(B * n_blocks, slots)
+    if f32:
+        scratch = (bm + 2 * hmax + 2 * P + bm + 2 * P) * C * resident
+    else:
+        scratch = 0 if r_smem else \
+            (2 * bm + 2 * hx + 2 * P) * (C + 8) * resident
+    return PhaseLaunch(x, out, mrf.blk, mrf.blk_ups, post_w, ks, dils,
+                       stride, ntaps, amin, rows, span, N, hx, P, bm,
+                       n_blocks, r_smem, scratch)
 
 
-_PHASE_BF_ARGTYPES = ([_P, _I64, _I64, _I64, _I32, _P, _I64, _P, _P, _F32,
-                       _F32, _I32, _I32, _I32, _P, _I64, _I32, _P])
+def _phase_bf_plan(x, mrf, alloc, slots):
+    """Launch plan of the bf16 :func:`fused_mrf_phase`."""
+    return _phase_engine_plan(x, mrf, alloc, slots, False)
 
 
-def _phase_bf_args(pl, cfg, post_dev):
-    """The C entry's pointer and int arrays (``mrf_phase_bf``)."""
+def _phase_f32_plan(x, mrf, alloc, slots):
+    """Launch plan of the float32 :func:`fused_mrf_phase`: every float32
+    window (the residual, the chain sum) in the scratch."""
+    return _phase_engine_plan(x, mrf, alloc, slots, True)
+
+
+_PHASE_ARGTYPES = ([_P, _I64, _I64, _I64, _I32, _P, _I64, _P, _P, _F32,
+                    _F32, _I32, _I32, _I32, _P, _I64, _I32, _P])
+
+
+def _phase_args(pl, stages, post_dev):
+    """The C entry's pointer and int arrays (``mrf_phase.cu``
+    phase_params); ``stages``: the kernel's (taps, input channels) per
+    stage of the chain convs and of the upsample."""
     wu, bu, wu_phase = pl.ups
     ptrs = [wu.data_ptr(), bu.data_ptr(),
             post_dev[0].data_ptr() if pl.post is not None else 0]
     ints = [pl.stride, pl.ntaps, pl.amin, pl.span]
     ints += list(pl.rows) + [0] * (8 - pl.stride)
     ints += [pl.N, pl.hx, pl.P, pl.post[0].shape[-1] if pl.post is not None
-             else 0, pl.block_m, cfg.tps, cfg.kch, cfg.utps, cfg.ukch,
-             int(pl.r_smem), wu_phase, len(pl.chains)]
+             else 0, pl.block_m, *stages, int(pl.r_smem), wu_phase,
+             len(pl.chains)]
     for k, dils, steps in zip(pl.kernel_sizes, pl.dilations, pl.chains):
         ints += [k, len(dils)] + list(dils) + [0] * (4 - len(dils))
         ptrs += [t.data_ptr() for st in steps for t in st]
     return ptrs, ints
 
 
-def _launch_phase_bf(wrapper, x, mrf):
-    """The ``phase_bf_kernel`` launch of a bf16 :func:`fused_mrf_phase`
-    call, counted on ``wrapper``."""
+def _launch_phase_engine(wrapper, x, mrf):
+    """The chain-kernel launch of a :func:`fused_mrf_phase` call,
+    ``phase_bf_kernel`` in bf16 and ``phase_f32_kernel`` in float32,
+    counted on ``wrapper``."""
     name = wrapper.__name__
     w_u = mrf.ups[0]
     B, C_in, T_in = x.shape
     C = w_u.shape[1]
+    f32 = x.dtype == torch.float32
     _check_cuda_input(x, name, PHASE_CHANNELS, C)
     _check_kernel_sizes(name, mrf.kernel_sizes)
     _check_weights(name, x, mrf)
-    if (C_in, C) not in PHASE_BF_CFG:
+    cfgs = PHASE_F32_UKCH if f32 else PHASE_BF_CFG
+    if (C_in, C) not in cfgs:
         raise ValueError(f'{name}: upsample {C_in}->{C} has no CUDA '
-                         f'instantiation (built for {tuple(PHASE_BF_CFG)})')
+                         f'instantiation (built for {tuple(cfgs)})')
     if mrf.blk is None or mrf.blk_ups is None:
-        raise ValueError(f'{name}: the weights carry no bf16 engine form '
-                         '(prepare_mrf(..., engine=True) on the card)')
+        raise ValueError(
+            f'{name}: the weights carry no {"float32" if f32 else "bf16"} '
+            'engine form (prepare_mrf(..., engine=True) on the card)')
     # channel-last rows of 16-byte-aligned channels, or channel-major
+    chunk = 16 // x.element_size()
     if x.stride(1) == 1:
-        if x.stride(2) % 8 or x.stride(0) % 8 or x.data_ptr() % 16:
+        if x.stride(2) % chunk or x.stride(0) % chunk or x.data_ptr() % 16:
             x = x.transpose(1, 2).contiguous().transpose(1, 2)
     elif x.stride(2) != 1:
         x = x.contiguous()
     slots = sm_count(x.device)
-    pl = _phase_bf_plan(x, mrf, _empty_on(x.device), slots)
-    cfg = PHASE_BF_CFG[C_in, C]
+    pl = (_phase_f32_plan if f32 else _phase_bf_plan)(
+        x, mrf, _empty_on(x.device), slots)
+    if f32:
+        stages = (1, TC_F32_CFG[C].kch, 1, PHASE_F32_UKCH[C_in, C])
+    else:
+        cfg = PHASE_BF_CFG[C_in, C]
+        stages = (cfg.tps, cfg.kch, cfg.utps, cfg.ukch)
     scratch = _scratch(pl.scratch, x.device)
-    ptrs, ints = _phase_bf_args(pl, cfg, mrf.post_dev)
+    ptrs, ints = _phase_args(pl, stages, mrf.post_dev)
     pa = (ctypes.c_int64 * len(ptrs))(*ptrs)
     ia = (ctypes.c_int * len(ints))(*ints)
     out = pl.out
-    err = _fn('mrf_phase', 'mrf_phase_bf', _PHASE_BF_ARGTYPES)(
+    err = _fn('mrf_phase', 'mrf_phase_f32' if f32 else 'mrf_phase_bf',
+              _PHASE_ARGTYPES)(
         _build.ptr(x), x.stride(0), x.stride(1), x.stride(2), T_in,
         _build.ptr(out), out.stride(0), ctypes.cast(pa, ctypes.c_void_p),
         ctypes.cast(ia, ctypes.c_void_p),
         1.0 / len(mrf.kernel_sizes),
         mrf.post_dev[1] if pl.post is not None else 0.0, C_in, C, B,
         _build.ptr(scratch), scratch.numel(), slots, _build.stream_ptr(x))
-    _build.check(err, f'MRF bf16 phase level ({C_in}->{C}, '
-                 f'block_m={pl.block_m})')
+    _build.check(err, f'MRF {"float32" if f32 else "bf16"} phase level '
+                 f'({C_in}->{C}, block_m={pl.block_m})')
     wrapper.launches += 1
     return out
 
@@ -1843,13 +1921,15 @@ def prepare_mrf_ptc(packed, kernel_sizes, dilations, p, ups, post=None):
         w_p = _ptc_taps(P, post_k, 1, p, C, 1)[:, :, 0].float()   # (k, C)
         mrf.post = (w_p, b_p[0, :1].float(), P.dtype)
     if mrf.device.type == 'cuda':
+        dyn = DYN_BLK_CFG.get((C_in, C)) if mrf.dynamic else None
         cfg = None if mrf.dynamic else PTC_Q8_CFG.get((C_in, C))
-        if cfg is None:           # dyn: the phase kernel's launches
-            mrf.chains_dev = device_chains(chains)
-            mrf.ups_dev = (torch.cat([pack_mma_s8(wq_u[r])
-                                      for r in range(stride)]),
-                           sw.contiguous(), mrf.ups[2].contiguous())
-        else:                     # static: ptc_fused_q8_kernel
+        if dyn is not None:       # dyn: the segment-synchronised engine
+            mrf.blk_dev = staged_chains(chains, dyn.tps, dyn.kch)
+            mrf.blk_ups_dev = (torch.cat([
+                pack_stage_s8(wq_u[r], dyn.utps, dyn.ukch)
+                for r in range(stride)]), sw.contiguous(),
+                mrf.ups[2].contiguous())
+        elif cfg is not None:     # static: ptc_fused_q8_kernel
             _, tps, kch, utps, ukch = cfg
             mrf.chains_dev = staged_chains(chains, tps, kch)
             mrf.ups_dev = (torch.cat([pack_stage_s8(wq_u[r], utps, ukch)
@@ -2000,6 +2080,26 @@ TC_Q8_CFG = {128: (128, 1, 128), 256: (128, 1, 128)}
 # per block, the chain convs' taps and input channels per stage, the
 # upsample's
 PTC_Q8_CFG = {(128, 64): (128, 4, 64, 2, 128), (64, 32): (256, 8, 32, 2, 64)}
+
+
+class DynBlkCfg(NamedTuple):
+    """The segment-synchronised dynamic engine's geometry for one (C_in, C)
+    (csrc/mrf_dyn_blk.cuh ``DynCfg``; a test holds the two together)."""
+    wrows: int          # the most rows a block holds (owned plus halos)
+    rows_pass: int      # rows of one MMA pass (``Conv::ROWS``)
+    tps: int            # chain convs: taps per staged weight stage
+    kch: int            # chain convs: input channels per stage
+    utps: int           # the upsample's taps per stage
+    ukch: int           # the upsample's input channels per stage
+    r_smem: bool        # R in shared memory, else in a global scratch slice
+
+
+# per (C_in, C); C_in == C the ct route (mrf_int8.fused_mrf_ct_q8), else
+# a narrow level's (mrf_int8.fused_mrf_phase_q8 and fused_mrf_ptc dynamic)
+DYN_BLK_CFG = {(256, 256): DynBlkCfg(256, 128, 1, 128, 1, 128, False),
+               (128, 128): DynBlkCfg(248, 256, 1, 128, 1, 128, True),
+               (128, 64): DynBlkCfg(256, 256, 4, 64, 2, 128, True),
+               (64, 32): DynBlkCfg(512, 512, 8, 32, 2, 64, True)}
 _TC_Q8_ARGTYPES = ([_P, _I64, _I32, _P, _I64, _P, _I64, _I32, _I32, _F32,
                     _P, _P] + [_I32] * 7 + [_P, _I64, _I32, _P])
 

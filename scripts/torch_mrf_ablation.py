@@ -25,26 +25,25 @@ conv_post waveform within one bf16 ulp; the bf16 sections within rel-L2
   MRF_ABL_STEP_NOW (no weight loads), MRF_ABL_STEP_NOMMA (no mma.sync),
   MRF_ABL_STEP_NOF32 (no float32 residual and chain-sum traffic) and all
   three (the skeleton of launches and tails).
-- ``f32``: the float32 chain kernel (mrf_chain_f32.cuh: tc_f32_kernel,
-  3xTF32 on the tensor cores; fused_resblock1 in float32 at chip_smoke.py's
-  resblock1 shapes and fused_mrf_tc in float32 at V1's L0), ablated by
-  MRF_ABL_NOW (no weight copies), MRF_ABL_NOMMA (no A fragment loads and
-  no mma.sync: the epilogues see zero sums) and the two together.
+- ``f32``: the float32 chain kernels (mrf_chain_f32.cuh: tc_f32_kernel
+  and phase_f32_kernel, 3xTF32 on the tensor cores; fused_resblock1 in
+  float32 at chip_smoke.py's resblock1 shapes, fused_mrf_tc in float32 at
+  V1's L0 and fused_mrf_phase in float32 at the fast-f32 path's L2/L3),
+  ablated by MRF_ABL_NOW (no weight copies), MRF_ABL_NOMMA (no A fragment
+  loads and no mma.sync: the epilogues see zero sums) and the two
+  together.
+- ``f32_phase``: fused_mrf_phase in float32 at the fast-f32 path's L2/L3
+  as the tree builds it, unablated (so that a tree whose float32 level
+  runs another route can be timed at the same shapes).
 - ``static``: the block-resident int8-static kernels (mrf_tc_q8.cu,
   mrf_ptc.cu: fused_mrf_tc_q8, fused_mrf_ptc static), ablated by
   MRF_ABL_NOW (no weight copies: the convs read whatever the ring holds),
   MRF_ABL_NOMMA (no ldmatrix/wgmma: the epilogues see zero sums),
   MRF_ABL_NOEPI (no conv epilogues), MRF_ABL_NOSYNC (no __syncthreads per
   weight stage; only beside the first two).
-- ``conv_dyn``: the one-launch-per-conv int8-dynamic kernel
-  (conv_dyn_kernel, mrf_dyn.cuh) where it still runs at V1's shapes:
-  fused_mrf_ptc dyn at L2/L3 (mrf_ptc.cu), ablated by MRF_ABL_NOW (no
-  weight loads), MRF_ABL_NOMMA (no mma.sync), MRF_ABL_NOF32 (no float32
-  input, residual and output traffic), MRF_ABL_NOQ (no rint/conversion in
-  the prologue quantisation).
 - ``dyn_blk``: the segment-synchronised int8-dynamic engine
   (mrf_dyn_blk.cuh: fused_mrf_ct_q8 at C = 256/128, fused_mrf_phase_q8
-  dynamic at C = 64/32), ablated by MRF_ABL_NOW, MRF_ABL_NOMMA,
+  dynamic at C = 64/32, fused_mrf_ptc dyn at V1's L2/L3), ablated by MRF_ABL_NOW, MRF_ABL_NOMMA,
   MRF_ABL_NOEPI and MRF_ABL_NOBAR (no segment barrier: every block reads
   the scale word without waiting).
 
@@ -76,6 +75,9 @@ F32_SHAPES = tuple(('fused_resblock1', (8, n, C, k, (1, 3, 5), 'float32'))
                    for n, C in ((8192, 256), (65536, 128))
                    for k in (3, 7, 11)) + (
     ('fused_mrf_tc', (8, 8192, 256, 'float32')),)
+# the fast-f32 path's narrow levels (float32 fused_mrf_phase)
+F32_PHASE_SHAPES = (('fused_mrf_phase', (8, 128, 65536, 'float32')),
+                    ('fused_mrf_phase', (8, 64, 131072, 'float32')))
 # chip_smoke.py's bf16-ptc path (fdot)
 STEP_SHAPES = (('fused_mrf_ptc_f', (8, 128, 65536, 'fdot')),
                ('fused_mrf_ptc_f', (8, 64, 131072, 'fdot')))
@@ -103,14 +105,18 @@ SECTIONS = {
         },
         shapes=STEP_SHAPES),
     'f32': dict(
-        sources=('mrf_tc',), band=1e-5,
+        sources=('mrf_tc', 'mrf_phase'), band=1e-5,
         builds={
             'kernel': [],
             'no_weights': ['-DMRF_ABL_NOW'],
             'no_mma': ['-DMRF_ABL_NOMMA'],
             'no_weights_no_mma': SKELETON,
         },
-        shapes=F32_SHAPES),
+        shapes=F32_SHAPES + F32_PHASE_SHAPES),
+    'f32_phase': dict(
+        sources=('mrf_phase',), band=1e-5,
+        builds={'kernel': []},
+        shapes=F32_PHASE_SHAPES),
     'static': dict(
         sources=('mrf_tc_q8', 'mrf_ptc'),
         builds={
@@ -125,20 +131,6 @@ SECTIONS = {
                 ('fused_mrf_tc_q8', (8, 65536, 128)),
                 ('fused_mrf_ptc', (8, 65536, 128, 'q8f')),
                 ('fused_mrf_ptc', (8, 131072, 64, 'q8f')))),
-    'conv_dyn': dict(
-        sources=('mrf_ptc',),
-        builds={
-            'kernel': [],
-            'no_weights': ['-DMRF_ABL_NOW'],
-            'no_mma': ['-DMRF_ABL_NOMMA'],
-            'no_f32': ['-DMRF_ABL_NOF32'],
-            'no_quant': ['-DMRF_ABL_NOQ'],
-            'no_weights_no_mma': SKELETON,
-            'skeleton_no_f32_no_quant': SKELETON + ['-DMRF_ABL_NOF32',
-                                                    '-DMRF_ABL_NOQ'],
-        },
-        shapes=(('fused_mrf_ptc', (8, 65536, 128, 'dynamic')),
-                ('fused_mrf_ptc', (8, 131072, 64, 'dynamic')))),
     'dyn_blk': dict(
         sources=('mrf_ct_q8', 'mrf_phase_q8'),
         builds={
@@ -154,7 +146,9 @@ SECTIONS = {
         shapes=(('fused_mrf_ct_q8', (8, 8192, 256)),
                 ('fused_mrf_ct_q8', (8, 65536, 128)),
                 ('fused_mrf_phase_q8', (8, 65536, 128, 'dynamic')),
-                ('fused_mrf_phase_q8', (8, 131072, 64, 'dynamic')))),
+                ('fused_mrf_phase_q8', (8, 131072, 64, 'dynamic')),
+                ('fused_mrf_ptc', (8, 65536, 128, 'dynamic')),
+                ('fused_mrf_ptc', (8, 131072, 64, 'dynamic')))),
 }
 
 

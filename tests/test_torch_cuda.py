@@ -223,10 +223,9 @@ def test_mrf_phase_kernel_matches_plain(C_in, C, post, dtype):
         n = vk.fused_mrf_phase.launches
         out = vk.fused_mrf_phase(xin, mrf)
         torch.cuda.synchronize()
-        # bf16: one engine launch; float32: the upsample, one per chain
-        # step, conv_post
-        assert vk.fused_mrf_phase.launches == n + (
-            1 if dtype == torch.bfloat16 else 10 + post)
+        # one launch: phase_bf_kernel in bf16, phase_f32_kernel (3xTF32)
+        # in float32
+        assert vk.fused_mrf_phase.launches == n + 1
         ref = vk.mrf_phase_plain(xin, w, KS, DILS, ups, pst)
         assert out.shape == ref.shape
         assert rel_l2(out.float().cpu(), ref.float().cpu()) < _band(dtype)
@@ -313,6 +312,58 @@ def test_mrf_phase_bf16_engine_at_path_shapes(C_in, C, B, T_in):
         assert out.shape == ref.shape and torch.isfinite(out.float()).all()
         assert out.is_contiguous()
         assert rel_l2(out.float(), ref.float()) < 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('C_in,C,B,T_in', PHASE_BF_SHAPES)
+def test_mrf_phase_f32_engine_at_path_shapes(C_in, C, B, T_in):
+    """phase_f32_kernel (1 launch a call, with conv_post at C = 32 as on
+    the fast-f32 path) against the plain version (TF32 off) at the
+    float32 band, from a channel-last and a channel-major input; the same
+    call twice is bit-identical."""
+    need_cuda()
+    post = C == 32
+    w, ups, pst, x = _phase_bf_case(C_in, C, B, T_in, post, C + B + T_in)
+    w = [t.float() for t in w]
+    ups = (ups[0].float(), ups[1].float()) + ups[2:]
+    pst = None if pst is None else tuple(t.float() for t in pst)
+    x = torch.randn(x.transpose(1, 2).shape, generator=torch.Generator(
+        ).manual_seed(T_in)).cuda().transpose(1, 2)
+    mrf = vk.prepare_mrf(w, KS, DILS, ups, pst)
+    assert mrf.blk is not None and mrf.blk_ups is not None
+    assert mrf.ups_dev is None
+    ref = vk.mrf_phase_plain(x, w, KS, DILS, ups, pst)
+    for xin in (x, x.contiguous()):
+        n = vk.fused_mrf_phase.launches
+        key = tuple(xin.shape) + ('float32',)
+        c = vk.fused_mrf_phase.calls[key]
+        out = vk.fused_mrf_phase(xin, mrf)
+        again = vk.fused_mrf_phase(xin, mrf)
+        torch.cuda.synchronize()
+        assert vk.fused_mrf_phase.launches == n + 2
+        assert vk.fused_mrf_phase.calls[key] == c + 2
+        assert torch.equal(out, again)
+        assert out.dtype == torch.float32 and out.is_contiguous()
+        assert out.shape == ref.shape and torch.isfinite(out).all()
+        assert rel_l2(out, ref) < 1e-5
+
+
+@pytest.mark.cuda
+def test_mrf_phase_f32_engine_refuses_what_it_does_not_take():
+    """No float32 fused_mrf_phase call falls back to another route: a
+    width the kernel has no instantiation for, and weights without the
+    float32 chain kernel's form, raise."""
+    need_cuda()
+    n = vk.fused_mrf_phase.launches
+    for C_in, C, engine, match in ((128, 64, False, 'no float32 engine form'),
+                                   (32, 16, True, 'no CUDA instantiation')):
+        w, ups, pst, x = _phase_bf_case(C_in, C, 1, 256, False, C)
+        w = [t.float() for t in w]
+        ups = (ups[0].float(), ups[1].float()) + ups[2:]
+        with pytest.raises(ValueError, match=match):
+            vk.fused_mrf_phase(x.float(), vk.prepare_mrf(
+                w, KS, DILS, ups, None, engine=engine))
+    assert vk.fused_mrf_phase.launches == n
 
 
 @pytest.mark.cuda
@@ -610,6 +661,47 @@ def test_dyn_engine_phase_matches_plain(C_in, C, p_in, post, B, cols, tile):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('C_in,C,p_in,post', [(128, 64, 1, False),
+                                              (64, 32, 2, True)])
+def test_dyn_engine_ptc_matches_plain(C_in, C, p_in, post):
+    """fused_mrf_ptc's dyn mode at the int8-partial path's shapes (B = 8,
+    8192-row tiles, one loud): amax and one engine launch a call, every
+    sample equal to mrf_ptc_plain (a conv_post waveform within one bf16
+    ulp; the chain mean before it exact)."""
+    from daft_exprt_torch.ops import mrf_int8 as mi
+    need_cuda()
+    rng = np.random.RandomState(C + 5)
+    p = 2 * p_in
+    tp = unit_params(rng, C, C_in, post)
+    pst = vk.pack_post_ptc_weights(tp['conv_post']['w'],
+                                   tp['conv_post']['b'], p,
+                                   torch.bfloat16) if post else None
+    mrf = vk.prepare_mrf_ptc(
+        vk.pack_mrf_ptc_weights(tp, 1, KS, DILS, p), KS, DILS, p,
+        tuple(vk.pack_ups_ptc_weights(tp['ups_1']['w'], tp['ups_1']['b'], 2,
+                                      1, p_in)) + (4, 2, 1, p_in), pst)
+    assert mrf.dynamic and mrf.blk_dev is not None and mrf.chains_dev is None
+    rows, tile = 65536, 8192
+    x = torch.from_numpy((rng.randn(8, rows * p_in, C_in) * 0.5)
+                         .astype(np.float32))
+    x[-1, :tile * p_in] *= 4.0
+    x = x.cuda().to(torch.bfloat16)
+    n = mi.fused_mrf_ptc.launches
+    out = mi.fused_mrf_ptc(x, mrf, tile)
+    torch.cuda.synchronize()
+    assert mi.fused_mrf_ptc.launches == n + 2
+    ref = mi.mrf_ptc_plain(x, mrf, tile)
+    assert out.shape == ref.shape
+    _report(f'dyn engine ptc ({8},{rows * p_in},{C_in}) tile {tile}', out, ref)
+    assert_exact(out, ref, post)
+    if post:       # the chain mean before conv_post: exact
+        from dataclasses import replace
+        bare = replace(mrf, post=None, post_dev=None)
+        assert_exact(mi.fused_mrf_ptc(x, bare, tile),
+                     mi.mrf_ptc_plain(x, bare, tile))
+
+
+@pytest.mark.cuda
 def test_dyn_engine_refuses_short_scratch(monkeypatch):
     """At C = 256 each block's R and conv1's first pass live in a global
     scratch slice; a table that says R fits in shared memory gives the
@@ -813,8 +905,8 @@ def test_mrf_phase_q8s_kernel_matches_plain(C_in, C, p_in, post):
                                               (64, 32, 2, True)])
 def test_mrf_ptc_dyn_kernel_matches_plain(C_in, C, p_in, post):
     """fused_mrf_ptc's dyn mode at V1's L2 and L3: four tiles of 256 rows,
-    one loud; amax, upsample (with x0's amax), two launches per chain
-    step, conv_post."""
+    one loud; amax and one launch of the segment-synchronised engine on
+    the phase-tc tiles."""
     from daft_exprt_torch.ops import mrf_int8 as mi
     need_cuda()
     rng = np.random.RandomState(C + 3)
@@ -837,7 +929,7 @@ def test_mrf_ptc_dyn_kernel_matches_plain(C_in, C, p_in, post):
     c = mi.fused_mrf_ptc.calls[key]
     out = mi.fused_mrf_ptc(x, mrf, tile)
     torch.cuda.synchronize()
-    assert mi.fused_mrf_ptc.launches == n + 2 + 18 + post
+    assert mi.fused_mrf_ptc.launches == n + 2
     assert mi.fused_mrf_ptc.calls[key] == c + 1
     ref = mi.mrf_ptc_plain(x, mrf, tile)
     assert out.dtype == torch.bfloat16 and out.shape == ref.shape

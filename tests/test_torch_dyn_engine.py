@@ -1,6 +1,8 @@
 """CPU replay of the segment-synchronised int8-dynamic engine
-(daft_exprt_torch/ops/csrc/mrf_dyn_blk.cuh) and of the q8f phase route on
-``ptc_fused_q8_kernel``'s plan (daft_exprt_torch/ops/mrf_int8.py).
+(daft_exprt_torch/ops/csrc/mrf_dyn_blk.cuh: the dynamic ``fused_mrf_ct_q8``,
+``fused_mrf_phase_q8`` and, on the phase-tc tiles, ``fused_mrf_ptc``) and
+of the q8f phase route on ``ptc_fused_q8_kernel``'s plan
+(daft_exprt_torch/ops/mrf_int8.py).
 
 The engine's plan (``mrf_int8._dyn_blk_plan``) is replayed block by block:
 each block keeps its own float32 residual rows and quantised conv inputs on
@@ -10,8 +12,9 @@ reading only rows it wrote itself; at each segment barrier the blocks'
 partial amaxes are reduced, and that reduction must equal the amax over the
 conv's whole window. Segments run in each launch's waves, every block of
 a wave's segments a distinct grid slot. The result must equal ``mrf_ct_q8_plain`` /
-``mrf_phase_q8_plain`` at every sample (the chain mean before conv_post
-exactly, the waveform within one bf16 ulp). The
+``mrf_phase_q8_plain`` / ``mrf_ptc_plain`` at every sample (the chain mean
+before conv_post exactly, the waveform within one bf16 ulp), and JAX's
+``fused_mrf_ptc(dyn=True)`` in interpret mode. The
 kernels themselves are held to the plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py)."""
 import re
@@ -26,11 +29,13 @@ import torch.nn.functional as F
 from daft_exprt_torch.ops import mrf_int8 as mi
 from daft_exprt_torch.ops import vocoder_kernels as vk
 
-from tests.test_torch_int8 import KS, DILS, act_scales, unit_level
+from tests.test_torch_int8 import KS, DILS, _t, act_scales, unit_level
 
 CSRC = Path(__file__).resolve().parent.parent / 'daft_exprt_torch' / 'ops' / 'csrc'
+from tests.test_torch_int8_dynamic import _jp
 from tests.test_torch_int8_plan import _emulate_amax, _emulate_ptc_block
-from tests.torch_port_utils import one_torch_thread, to_torch
+from tests.test_torch_ptc_modes import _case as _ptc_case, _jax_ptc
+from tests.torch_port_utils import max_abs, one_torch_thread, to_torch
 
 
 @pytest.fixture(autouse=True, scope='module')
@@ -78,23 +83,24 @@ def _assert_within_bf16_ulp(out, ref):
     assert bool(((out.float() - r).abs() <= ulp).all())
 
 
-def _x0_segments(x, mrf, tile, plan):
+def _x0_segments(x, mrf, tile, plan, geometry):
     """The segments' x0 over X (the plain versions' windows): ct the
-    zero-padded x windows, phase the int8 upsample prologue."""
+    zero-padded x windows, phase and ptc the int8 upsample prologue."""
     if mrf.ups is None:
         return mi._windows(x, tile, -plan.x_lo, plan.x_hi - plan.x_lo)
-    halo, halo_in, _, _ = mi._phase_geometry(mrf, x.shape[1] // mrf.p_in,
-                                             tile)
+    halo, halo_in, _, _ = geometry(mrf, x.shape[1] // mrf.p_in, tile)
     return mi._phase_prologue_plain(x, mrf, tile, halo, halo_in)
 
 
-def _replay(x, mrf, tile, slots, block_m=None):
-    """The engine's launches of x on the CPU, block by block; returns the
-    level's output as the wrapper would."""
-    plan = mi._dyn_blk_plan(x, mrf, tile, None, _alloc, slots, block_m)
+def _replay(x, mrf, tile, slots, block_m=None, geometry=mi._phase_geometry):
+    """The engine's launches of x on the CPU, block by block (a narrow
+    level on ``geometry``'s tiles: the phase kernel's or, ptc, the phase-tc
+    kernel's); returns the level's output as the wrapper would."""
+    plan = mi._dyn_blk_plan(x, mrf, tile, None, _alloc, slots, block_m,
+                            geometry)
     B, T_in, _ = x.shape
     ct = mrf.ups is None
-    x0 = _x0_segments(x, mrf, tile, plan)
+    x0 = _x0_segments(x, mrf, tile, plan, geometry)
     assert x0.shape[1] == plan.x_hi - plan.x_lo
     plan.sync.zero_()                   # the wrapper zeroes it
     means = torch.full((plan.S, plan.N, x0.shape[2]), float('nan'))
@@ -278,6 +284,20 @@ def _phase_level(seed, C_in, C, p_in, post, static=False):
                                         tuple(ups) + (4, 2, 1, p_in), pst)
 
 
+def _ptc_level(seed, C_in, C, p_in, post):
+    """A narrow level's dyn phase-tc weights (``prepare_mrf_ptc`` on the
+    phase-tc packers without act scales)."""
+    rng = np.random.RandomState(seed)
+    p = 2 * p_in
+    tp = _bf16(to_torch(unit_level(rng, 1, C, C_in=C_in, post=post)))
+    pst = vk.pack_post_ptc_weights(tp['conv_post']['w'], tp['conv_post']['b'],
+                                   p, torch.bfloat16) if post else None
+    return rng, vk.prepare_mrf_ptc(
+        vk.pack_mrf_ptc_weights(tp, 1, KS, DILS, p), KS, DILS, p,
+        tuple(vk.pack_ups_ptc_weights(tp['ups_1']['w'], tp['ups_1']['b'], 2,
+                                      1, p_in)) + (4, 2, 1, p_in), pst)
+
+
 @pytest.mark.parametrize('C,B,T,tile,slots,block_m', [
     (256, 1, 128, 64, 3, 128),     # V1 L0 width: 2 segments of 3 blocks
                                    # (the last 64 of 128), one a wave
@@ -298,32 +318,67 @@ def test_ct_engine_replays_plain(C, B, T, tile, slots, block_m):
     assert torch.equal(out, ref)
 
 
-@pytest.mark.parametrize('C_in,C,p_in,post,cols,tile,slots,block_m', [
-    (128, 64, 1, False, 512, 256, 8, 128),    # V1 L2: 4 segments of 8,
-                                              # one a wave
-    (64, 32, 2, True, 256, 64, 5, None),      # V1 L3, conv_post: 5 blocks
-    (64, 32, 2, True, 256, 128, 11, 192),     # blocks of 192 (the last 80)
+def _engine_case(*args, kind='phase', id=None):
+    return pytest.param(*args, kind, id=id or '-'.join(map(str, args)))
+
+
+@pytest.mark.parametrize('C_in,C,p_in,post,cols,tile,slots,block_m,kind', [
+    _engine_case(128, 64, 1, False, 512, 256, 8, 128),  # V1 L2: 4 segments
+                                                        # of 8, one a wave
+    _engine_case(64, 32, 2, True, 256, 64, 5, None),    # V1 L3, conv_post:
+                                                        # 5 blocks
+    _engine_case(64, 32, 2, True, 256, 128, 11, 192),   # blocks of 192 (the
+                                                        # last 80)
+    # fused_mrf_ptc dyn: the phase-tc tiles (rows) and halos (64 rows at
+    # L3, 128 at L2), 4 and 6 segments
+    _engine_case(128, 64, 1, False, 128, 64, 11, None, kind='ptc',
+                 id='ptc-L2'),
+    _engine_case(64, 32, 2, True, 128, 64, 5, None, kind='ptc',
+                 id='ptc-L3-conv_post'),
 ])
 def test_phase_engine_replays_plain(C_in, C, p_in, post, cols, tile, slots,
-                                    block_m):
+                                    block_m, kind):
     """The int8 upsample prologue with its per-tile scale, x0's scale
     reduced over the whole window, conv_post at L3; B = 2, one loud
-    tile."""
-    rng, mrf = _phase_level(12, C_in, C, p_in, post)
+    tile. ``kind`` 'ptc': the same engine on fused_mrf_ptc's phase-tc
+    geometry (``cols`` and ``tile`` in rows), held to ``mrf_ptc_plain``."""
+    ptc = kind == 'ptc'
+    rng, mrf = (_ptc_level if ptc else _phase_level)(12, C_in, C, p_in, post)
+    plain = mi.mrf_ptc_plain if ptc else mi.mrf_phase_q8_plain
+    geometry = mi._ptc_geometry if ptc else mi._phase_geometry
     x = torch.from_numpy((rng.randn(2, cols * p_in, C_in) * 0.5)
                          .astype(np.float32)).bfloat16()
     x[1, :tile * p_in] *= 5.0
-    out = _replay(x, mrf, tile, slots, block_m)
-    ref = mi.mrf_phase_q8_plain(x, mrf, tile)
+    out = _replay(x, mrf, tile, slots, block_m, geometry)
+    ref = plain(x, mrf, tile)
     assert out.shape == ref.shape
     assert torch.isfinite(out.float()).all()
     if post:       # conv_post's float32 sum in another order
         _assert_within_bf16_ulp(out, ref)
-        ref_mean = mi.mrf_phase_q8_plain(x, replace(mrf, post=None), tile)
-        mean = _replay(x, replace(mrf, post=None), tile, slots, block_m)
+        ref_mean = plain(x, replace(mrf, post=None), tile)
+        mean = _replay(x, replace(mrf, post=None), tile, slots, block_m,
+                       geometry)
         assert torch.equal(mean, ref_mean)
     else:
         assert torch.equal(out, ref)
+
+
+def test_ptc_engine_replay_matches_jax():
+    """fused_mrf_ptc's dyn mode on the engine's plan against JAX's Pallas
+    kernel (``fused_mrf_ptc(dyn=True)``, interpret mode) at V1's L2
+    geometry on JAX's packed weights, two utterances of three 64-row tiles,
+    one loud: every sample equal."""
+    C_in, C, p_in = 128, 64, 1
+    params, x, tile = _ptc_case(C_in, C, p_in, False, 17)
+    ref, jw, ups, _ = _jax_ptc(_jp(params), x, 2, p_in, tile, False,
+                               'bfloat16', False)
+    mrf = vk.prepare_mrf_ptc(_t(jw), KS, DILS, 2,
+                             _t(ups[:3]) + [ups[3], 4, 2, 1, p_in])
+    assert mrf.dynamic
+    out = _replay(torch.from_numpy(x).bfloat16(), mrf, tile, 11,
+                  geometry=mi._ptc_geometry)
+    assert out.shape == ref.shape
+    assert max_abs(out.float().numpy(), ref) == 0.0
 
 
 def test_engine_plan_blocks_and_windows():
@@ -370,6 +425,26 @@ def test_engine_plan_blocks_and_windows():
         x = torch.empty((8, 65536, 128), dtype=torch.bfloat16, device='meta')
         mi._dyn_blk_plan(x, ph64, 8192, None, lambda s, d: torch.empty(
             s, dtype=d, device='meta'), 114)
+    # fused_mrf_ptc dyn at the int8-partial path's shapes: 8192-row tiles,
+    # segments of 16384 + 2*256 (L2) and 32768 + 2*256 samples (L3), at
+    # least 125 (blocks of 136) and 87 (of 384) of the 132 slots; the plan
+    # spreads each over all 132, one segment a wave. A card with fewer
+    # resident blocks than an L2 segment needs makes the plan raise
+    _, pt64 = _ptc_level(1, 128, 64, 1, False)
+    _, pt32 = _ptc_level(1, 64, 32, 2, True)
+    for mrf, shape, blocks in ((pt64, (8, 65536, 128), (128, 132, 64)),
+                               (pt32, (8, 131072, 64), (254, 132, 64))):
+        x = torch.empty(shape, dtype=torch.bfloat16, device='meta')
+        plan = mi._dyn_blk_plan(x, mrf, 8192, None, lambda s, d: torch.empty(
+            s, dtype=d, device='meta'), 132, geometry=mi._ptc_geometry)
+        (ln,) = plan.launches
+        assert (ln.block_m, ln.G, ln.n_waves) == blocks and ln.n_bar == 16
+        assert plan.x_hi - plan.x_lo == 8192 * mrf.p + 512
+    with pytest.raises(ValueError, match='resident blocks'):
+        mi._dyn_blk_plan(torch.empty((8, 65536, 128), dtype=torch.bfloat16,
+                                     device='meta'), pt64, 8192, None,
+                         lambda s, d: torch.empty(s, dtype=d, device='meta'),
+                         124, geometry=mi._ptc_geometry)
 
 
 @pytest.mark.parametrize('C_in,C,p_in,post,block_m', [

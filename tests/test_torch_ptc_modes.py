@@ -13,7 +13,9 @@ package's Pallas kernel in interpret mode.
   upsample output kept in float32. Plain version vs ``fused_mrf_ptc(fdot=
   True)``, band rel-L2 <= 3e-2 (NUMERICS_r05.json ``ptc_bf16_vs_banded_
   bf16``), in bf16 and with float32 activations (the dots stay bf16).
-- The packers bit for bit, and the launch plans replayed on NaN buffers.
+- The packers bit for bit, and the fdot launch plan replayed on NaN
+  buffers (the dyn mode's, on the int8-dynamic engine, is replayed in
+  ``tests/test_torch_dyn_engine.py``).
 """
 import numpy as np
 import pytest
@@ -28,8 +30,6 @@ from daft_exprt_torch.ops import vocoder_kernels as vk
 
 from tests.test_torch_int8 import KS, DILS, _t, unit_level
 from tests.test_torch_int8_dynamic import _jp, _tp
-from tests.test_torch_int8_dynamic_plan import _emulate_dyn
-from tests.test_torch_int8_plan import _emulate_post, _emulate_prologue
 from tests.test_torch_vocoder_kernels import (
     _emulate_post as _emulate_post_f, _emulate_step, _emulate_upsample,
     _nan_alloc,
@@ -165,47 +165,6 @@ def test_ptc_dyn_and_fdot_packers_match_jax():
         assert torch.equal(a.float(), b.float())
     assert torch.equal(mrf.ups[0], tp['ups_1']['w'])
     assert torch.equal(mrf.post[0], tp['conv_post']['w'])
-
-
-def test_ptc_dyn_launch_plan_replays_plain():
-    """The dyn plan on NaN buffers: the prologue (word 0), the upsample's
-    amax of x0 (word 1), then two conv launches per chain step over the
-    phase-tc windows, conv_post."""
-    rng = np.random.RandomState(5)
-    C_in, C, p_in = 32, 16, 2            # V1 L3's geometry at half width
-    p = 2 * p_in
-    tp = _tp(_jp(unit_level(rng, 1, C, C_in=C_in, post=True)))
-    mrf = vk.prepare_mrf_ptc(
-        vk.pack_mrf_ptc_weights(tp, 1, KS, DILS, p), KS, DILS, p,
-        tuple(vk.pack_ups_ptc_weights(tp['ups_1']['w'], tp['ups_1']['b'], 2,
-                                      1, p_in)) + (4, 2, 1, p_in),
-        vk.pack_post_ptc_weights(tp['conv_post']['w'], tp['conv_post']['b'],
-                                 p, torch.bfloat16))
-    rows, tile = 192, 64
-    x = torch.from_numpy((rng.randn(2, rows * p_in, C_in) * 0.5)
-                         .astype(np.float32)).bfloat16()
-    x[1, :64 * p_in] *= 5.0
-    plan = mi._ptc_plan(x, mrf, tile, mrf.chains, _nan_alloc)
-    assert len(plan.steps) == 18 and plan.tail is not None
-    # the windows are whole phase-tc rows: each conv's output window moves
-    # in by -p*smin and shrinks by p*span samples
-    st = plan.steps[4]                       # chain 0, d=5, conv1
-    assert (st.k, st.d) == (3, 5)
-    sp = vk._ptc_spec(3, 5, p)
-    src = plan.steps[3]                      # its input: d=3's conv2
-    assert st.n_lo == src.n_lo - p * sp['smin']
-    assert st.n_hi - st.n_lo == src.n_hi - src.n_lo - p * sp['span']
-    assert p * sp['span'] == 16            # the sample-major reach: 10
-    plan.amax.zero_()
-    _emulate_prologue(plan.pro, mrf)
-    plan.amax[1] = vk._lrelu(plan.pro.x0).abs().amax(dim=(1, 2))
-    for st in plan.steps:
-        _emulate_dyn(st, plan.amax, plan.pro.n_tiles, C)
-    _emulate_post(plan.tail, mrf, tile * p)
-    ref = mi.mrf_ptc_plain(x, mrf, tile)
-    assert plan.out.shape == ref.shape
-    assert torch.isfinite(plan.out.float()).all()
-    assert rel_l2(plan.out.float().numpy(), ref.float().numpy()) < 1e-3
 
 
 def test_ptc_fdot_launch_plan_replays_plain():
