@@ -30,9 +30,11 @@
      engine a level: 4 launches, checked); the same two bands;
    - bf16-ptc, B=8: HiFiGanVocoder(fast='bf16', ptc_bf16=True) (the JAX
      package's DAFT_MRF_PTC_BF16=1) behind the Synthesizer: fused_mrf_tc
-     at L0/L1, fused_mrf_ptc's fdot mode at L2/L3; the waveform against
-     the float32 plain route (rel-L2 <= 5e-2) and the banded bf16 tier
-     (<= 3e-2, NUMERICS_r05.json ptc_bf16_vs_banded_bf16);
+     at L0/L1, fused_mrf_ptc's fdot mode at L2/L3 (the bf16 engine's
+     phase_bf_kernel with its upsample output in float32, one launch a
+     level: 2, checked; it prints the block_m of each level); the waveform
+     against the float32 plain route (rel-L2 <= 5e-2) and the banded bf16
+     tier (<= 3e-2, NUMERICS_r05.json ptc_bf16_vs_banded_bf16);
    - HiFi-GAN V2 (jik876/hifi-gan config_v2.json: V1 at 128 initial
      channels, levels of C = 64/32/16/8) behind the same Synthesizer at
      B=8 x 1024 frames, each tier: bf16 (fused_mrf_ct at L0,
@@ -54,7 +56,9 @@
      int8-dynamic one; each utterance's waveform against the plain int8
      route, rel-L2 <= 1e-2; prints the RTF; then entry-int8-unfused, the
      same with the int8-static vocoder at int8_fused=False (the q8s int8
-     fused_mrf_phase with its prologue at L2/L3). With matplotlib the entry
+     fused_mrf_phase with its prologue at L2/L3: the amax and the q8s form
+     of fused_mrf_ptc's ptc_fused_q8_kernel, 2 launches a level, 12 for
+     the three utterances, checked). With matplotlib the entry
      point saves its outputs (npz, png, wav); without it, it runs with
      save_outputs=False and the path vocodes each mel itself through
      synthesizer.vocoder.infer. It prints which.
@@ -107,7 +111,7 @@
    <= 2e-3 for the int8 kernels (NUMERICS_r05.json ptc_vs_banded_int8),
    and max-abs 0 for the dynamic engine (fused_mrf_ct q8 at C = 256/128,
    fused_mrf_phase q8 and fused_mrf_ptc dyn at V1's L2/L3) and
-   fused_mrf_phase's q8f calls on ptc_fused_q8_kernel (a conv_post
+   fused_mrf_phase's q8f and q8s calls on ptc_fused_q8_kernel (a conv_post
    waveform: within one bf16 ulp);
    its launches per call; its time (median of 10 calls), its plain
    version's (median of 3) and (attention) the library call's, with CUDA
@@ -771,7 +775,7 @@ class KernelCases:
         Bx, T_in = key[:2]
         out = f'({Bx},1,{2 * T_in})' if post else \
             f'({Bx},{2 * T_in},{C_in // 2})'
-        blk = mode != 'q8s' and (C_in, C_in // 2) in mi.DYN_BLK_CFG
+        blk = (C_in, C_in // 2) in mi.PTC_Q8_CFG
         return dict(desc=f'{mode} x ({Bx},{T_in},{C_in}) -> {out} bf16 '
                     f'tile {tile}', band=2e-3,
                     exact=(2.0 ** -8 if post else 0.0) if blk else None,
@@ -828,10 +832,11 @@ def profile_path(torch, synthesize, tier, ranges=('acoustic', 'vocoder')):
         g = next((p for p in ('mrf::blk::tc_chain_q8_kernel',
                               'mrf::blk::ptc_fused_q8_kernel',
                               'mrf::blk::dyn_blk_kernel',
-                              'mrf::step_kernel', 'mrf::ups_kernel',
+                              'mrf::bfe::phase_bf_kernel',
+                              'mrf::bfe::tc_bf_kernel',
+                              'mrf::step_kernel',
                               'mrf::step_q8_kernel', 'mrf::conv_dyn_kernel',
-                              'mrf::ups_q8_kernel', 'mrf::amax_kernel',
-                              'mrf::post_kernel', 'attn::bwd',
+                              'mrf::amax_kernel', 'attn::bwd',
                               'attn::', 'Memcpy')
                   if p in e.key), 'other')
         groups[g] = groups.get(g, 0.0) + dev_us(e)
@@ -1024,6 +1029,16 @@ def main():
     synthesize_ptc = synthesizer(vocoder_ptc)
     mel_f, wav_f = run_path('bf16-ptc', synthesize_ptc, (
         fused_attention, vk.fused_mrf_tc, vk.fused_mrf_ptc_f))
+    # fdot: one phase_bf_kernel launch a level, float32 X0
+    assert paths[-1][1]['fused_mrf_ptc_f'] == 2, paths[-1][1]
+    for lvl, (C_in, T_in) in ((2, (128, T * 64)), (3, (64, T * 128))):
+        pl = vk._phase_bf_plan(
+            torch.empty((B, C_in, T_in), dtype=bf16, device='meta'),
+            vocoder_ptc.packed[lvl].ptc,
+            lambda shape, dt: torch.empty(shape, dtype=dt, device='meta'),
+            vk.sm_count(dev), fdot=True)
+        log(f'path bf16-ptc: L{lvl} fdot phase_bf_kernel block_m='
+            f'{pl.block_m} hx={pl.hx} ({pl.n_blocks} blocks an utterance)')
     check_b8('bf16-ptc', mel_f, wav_f)
     r, r_banded = rel(wav_f, exact), rel(wav_f, wav)
     log(f'path bf16-ptc: waveform vs float32 plain route rel_l2={r:.3e} '
@@ -1213,6 +1228,11 @@ def main():
             return preds, wavs
 
         preds, wavs = run_path(tier, entry, kern)
+        # the narrow levels of the static tiers: the amax and
+        # ptc_fused_q8_kernel (q8f, or q8s when unfused) a level
+        if tier != 'entry-int8-dynamic':
+            assert paths[-1][1]['fused_mrf_phase_q8'] == 4 * len(names), \
+                paths[-1][1]
         frames = [preds[f'{n}_spk_0'][4].shape[1] for n in names]
         log(f'path {tier}: {len(names)} utterances of {frames} frames, RTF '
             f'{preds["__rtf__"]:.2f} (host clock, first call)')

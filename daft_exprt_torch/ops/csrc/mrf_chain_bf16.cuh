@@ -1,7 +1,8 @@
 // Block-resident bf16 ResBlock1 chains for Hopper: the engine of the bf16
 // tier's two MRF kernels, tc_bf_kernel (mrf_tc.cu: fused_mrf_tc, bf16
 // compute) and phase_bf_kernel (mrf_phase.cu: fused_mrf_phase, bf16, with
-// its upsample prologue and conv_post epilogue).
+// its upsample prologue and conv_post epilogue; with a float32 upsample
+// output, fused_mrf_ptc's fdot mode).
 //
 // The function is the one mrf_common.cuh's step_kernel computes launch by
 // launch, with its rounding points: each conv's input lrelu'd and rounded
@@ -696,6 +697,10 @@ __host__ __device__ int phase_bf_schedule(Ld* sched, const PhaseBfParams& p) {
 // O (R_SMEM) | schedule. conv_post's lrelu'd sums and the transposed
 // output tile reuse X0 and A. fits: the launch takes it
 // (vocoder_kernels._phase_bf_smem mirrors this; a CPU test holds them equal).
+// A float32 X0 (fused_mrf_ptc's fdot mode) lives in the block's scratch
+// slice instead, rows of C floats after R and O (!R_SMEM), and the X0
+// region here holds only conv_post's sums and the transposed tile: the
+// same layout, so the same blocks, as the bf16 level.
 template <int CIN, int C>
 struct PhaseBfLayout {
   using T = PhaseBfTypes<CIN, C>;
@@ -729,6 +734,14 @@ struct PhaseBfLayout {
   }
 };
 
+// floats of a block's scratch slice: R and O unless R_SMEM, then a
+// float32 X0
+template <int CIN, int C, typename X0T>
+__host__ __device__ size_t phase_bf_slice(const PhaseBfLayout<CIN, C>& L) {
+  return (PhaseBfCfg<CIN, C>::R_SMEM ? 0 : (size_t)(L.wrows + L.orows) * (C + 8)) +
+         (sizeof(X0T) == 4 ? (size_t)L.wrows * C : 0);
+}
+
 // The chain sum O (rows RS floats apart) of a block: the first chain
 // writes it, the others add to it (rows past the window store nothing).
 template <int RS>
@@ -746,13 +759,17 @@ struct SumSink {
   }
 };
 
-template <int CIN, int C>
+// X0T: the upsample output's type, bf16 (fused_mrf_phase: acc + b_u
+// rounded, in shared memory) or float (fused_mrf_ptc's fdot mode: kept in
+// float32, in the block's L2-resident scratch slice).
+template <int CIN, int C, typename X0T>
 __global__ void __launch_bounds__(PhaseBfCfg<CIN, C>::NW * 32, 1)
     phase_bf_kernel(const PhaseBfParams p) {
   using T = PhaseBfTypes<CIN, C>;
   using CH = typename T::CH;
   using UC = typename T::UC;
   constexpr int RS = CH::RS, NTH = T::CF::NW * 32;
+  constexpr bool kF32 = sizeof(X0T) == 4;
   const PhaseBfLayout<CIN, C> L(p);
   extern __shared__ __align__(16) unsigned char smem[];
   int8_t* ring = reinterpret_cast<int8_t*>(smem);
@@ -765,9 +782,11 @@ __global__ void __launch_bounds__(PhaseBfCfg<CIN, C>::NW * 32, 1)
     R = reinterpret_cast<float*>(Xq);
     O = reinterpret_cast<float*>(Xq + L.u);
   } else {
-    R = p.scratch + (size_t)blockIdx.x * (L.wrows + L.orows) * RS;
+    R = p.scratch + (size_t)blockIdx.x * phase_bf_slice<CIN, C, X0T>(L);
     O = R + (size_t)L.wrows * RS;
   }
+  float* X0f = p.scratch + (size_t)blockIdx.x * phase_bf_slice<CIN, C, X0T>(L) +
+               (T::CF::R_SMEM ? 0 : (size_t)(L.wrows + L.orows) * RS);
   Ld* sched = reinterpret_cast<Ld*>(Xq + L.u + L.o);
   const int n_sched = phase_bf_schedule<CIN, C>(nullptr, p);
   if (threadIdx.x == 0) phase_bf_schedule<CIN, C>(sched, p);
@@ -807,15 +826,23 @@ __global__ void __launch_bounds__(PhaseBfCfg<CIN, C>::NW * 32, 1)
     }
     fence_async();
     __syncthreads();
-    // X0 row stride*mq + r <- the upsample (acc + bias, rounded to bf16)
+    // X0 row stride*mq + r <- the upsample, acc + bias (rounded to bf16,
+    // or float32)
     for (int r = 0; r < p.stride; ++r) {
       const float* bu = p.bu;
       const int stride = p.stride;
       UC::run(pipe, Xq, L.xrt, p.rows_r[r], mu, 1, p.ntaps, false,
               [&](int n) { return bias2(bu, n); }, [](int, int, bool) { return 0; },
               [&](int m, int n, float a0, float a1, const float2& c, int, bool valid) {
-                const uint32_t v = pack_bf2(__fadd_rn(a0, c.x), __fadd_rn(a1, c.y));
-                if (valid) *reinterpret_cast<uint32_t*>(X0 + tile_off(L.wrows, stride * m + r, n)) = v;
+                const float v0 = __fadd_rn(a0, c.x), v1 = __fadd_rn(a1, c.y);
+                if constexpr (kF32) {
+                  if (valid)
+                    *reinterpret_cast<float2*>(X0f + (stride * m + r) * C + n) =
+                        make_float2(v0, v1);
+                } else {
+                  const uint32_t v = pack_bf2(v0, v1);
+                  if (valid) *reinterpret_cast<uint32_t*>(X0 + tile_off(L.wrows, stride * m + r, n)) = v;
+                }
               });
     }
     for (int j = 0; j < p.n_chains; ++j) {
@@ -829,7 +856,15 @@ __global__ void __launch_bounds__(PhaseBfCfg<CIN, C>::NW * 32, 1)
       for (int i = threadIdx.x; i < (hi - lo) * (C / 8); i += NTH) {
         const int ra = i / (C / 8), c8 = (i - ra * (C / 8)) * 8;
         float f[8];
-        unpack8(*reinterpret_cast<const uint4*>(X0 + tile_off(L.wrows, lo + ra, c8)), f);
+        if constexpr (kF32) {
+          const float* src = X0f + (lo + ra) * C + c8;
+          const float4 u = *reinterpret_cast<const float4*>(src);
+          const float4 w = *reinterpret_cast<const float4*>(src + 4);
+          f[0] = u.x; f[1] = u.y; f[2] = u.z; f[3] = u.w;
+          f[4] = w.x; f[5] = w.y; f[6] = w.z; f[7] = w.w;
+        } else {
+          unpack8(*reinterpret_cast<const uint4*>(X0 + tile_off(L.wrows, lo + ra, c8)), f);
+        }
         put8<RS>(R, lo + ra, A, L.rt, ra, c8, f);
       }
       fence_async();
@@ -899,7 +934,7 @@ __global__ void __launch_bounds__(PhaseBfCfg<CIN, C>::NW * 32, 1)
   pipe.finish();
 }
 
-template <int CIN, int C>
+template <int CIN, int C, typename X0T>
 cudaError_t launch_phase_bf(PhaseBfParams& p, int B, const int* cfg, long long scratch_floats,
                             int slots, cudaStream_t stream) {
   using CF = PhaseBfCfg<CIN, C>;
@@ -923,9 +958,9 @@ cudaError_t launch_phase_bf(PhaseBfParams& p, int B, const int* cfg, long long s
   p.n_items = p.n_tiles * B;
   if (p.n_items <= 0) return cudaSuccess;
   const int grid = p.n_items < slots ? p.n_items : slots;
-  if (!CF::R_SMEM && (long long)(L.wrows + L.orows) * (C + 8) * grid > scratch_floats)
+  if ((long long)phase_bf_slice<CIN, C, X0T>(L) * grid > scratch_floats)
     return cudaErrorInvalidValue;
-  const void* kern = reinterpret_cast<const void*>(&phase_bf_kernel<CIN, C>);
+  const void* kern = reinterpret_cast<const void*>(&phase_bf_kernel<CIN, C, X0T>);
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (e != cudaSuccess) return e;
   void* args[] = {&p};

@@ -4,8 +4,11 @@
 //
 // The arithmetic is mrf_q8.cuh's step_q8_kernel's, in the same order (see
 // the header there): q_lrelu, s8 x s8 -> s32 sums, requant at the conv1 ->
-// conv2 boundary, the dequant as one __fmaf_rn, res + fma(...). What
-// changes is where the data lives and how the convs run:
+// conv2 boundary, the dequant as one __fmaf_rn, res + fma(...); or, in the
+// q8s form (Chain::step<true>, ptc_fused_q8_kernel for fused_mrf_phase's
+// q8s mode), its float32 boundary: q_static of each step's input and
+// q_static(fma(acc, sw1, b1), inv2) at conv1's output. What changes is
+// where the data lives and how the convs run:
 //
 //   - A block owns BM output samples and keeps a chain's whole residual
 //     window, BM + 2*halo rows x C float32, resident (shared memory, or at
@@ -56,7 +59,8 @@ namespace blk {
 constexpr int kMaxSteps = 4;   // dilations per chain
 
 // One chain step's weights in the staged form (vocoder_kernels.pack_stage_s8
-// for the taps, (C,) vectors for the rest).
+// for the taps, (C,) vectors for the rest): q8f's conv1 -> conv2 boundary
+// in s32 (b1i, m1), or q8s's in float32 (sw1, b1, inv2).
 struct Step {
   const int8_t* w1;
   const float* inv1;
@@ -66,6 +70,9 @@ struct Step {
   const float* sw2;
   const float* b2;
   int dil;
+  const float* sw1;
+  const float* b1;
+  const float* inv2;
 };
 
 __host__ __device__ inline int chain_halo(int k, const Step* st, int n) {
@@ -97,6 +104,19 @@ __device__ __forceinline__ uint32_t q2(float x0, float x1, float2 inv, float2 ne
   const float m0 = x0 >= 0.f ? inv.x : neg.x, m1 = x1 >= 0.f ? inv.y : neg.y;
   return pack2(qbits_sat(__fmul_rn(x0, m0)), qbits_sat(__fmul_rn(x1, m1)));
 }
+// q8s: quantize_static(lrelu(x), inv) of two values (q_static: the lrelu
+// rounded first)
+__device__ __forceinline__ uint32_t qs2(float x0, float x1, float2 inv) {
+  const float l0 = x0 >= 0.f ? x0 : __fmul_rn(kSlope, x0);
+  const float l1 = x1 >= 0.f ? x1 : __fmul_rn(kSlope, x1);
+  return pack2(qbits_sat(__fmul_rn(l0, inv.x)), qbits_sat(__fmul_rn(l1, inv.y)));
+}
+// a step input's quantisation in the form S (q8s) or q8f
+template <bool S>
+__device__ __forceinline__ uint32_t q_in(float x0, float x1, float2 inv, float2 neg) {
+  if constexpr (S) return qs2(x0, x1, inv);
+  else return q2(x0, x1, inv, neg);
+}
 __device__ __forceinline__ float2 neg2(float2 v) {
   return make_float2(__fmul_rn(kSlope, v.x), __fmul_rn(kSlope, v.y));
 }
@@ -118,33 +138,52 @@ struct Chain {
   }
 
   // One step on R rows [lo, hi), whose quantised values A1 rows [0, hi -
-  // lo) already hold: conv1 (dilated) requantised into A2, conv2
-  // dequantised onto the residual. The new value of R row lo + r1 + r2 + m
-  // (m < hi - lo - 2*(r1 + r2)), the next step's row m: with inv_next (the
-  // next step's conv1 multiplier) it is stored back and quantised into A1
-  // row m; without (the chain's last step) it goes to out(m, n, v0, v1).
-  template <class P, class Out>
+  // lo) already hold: conv1 (dilated) requantised into A2 (S: q8s's
+  // float32 boundary, else q8f's s32 one), conv2 dequantised onto the
+  // residual. The new value of R row lo + r1 + r2 + m (m < hi - lo - 2*(r1
+  // + r2)), the next step's row m: with inv_next (the next step's conv1
+  // multiplier) it is stored back and quantised (q_in<S>) into A1 row m;
+  // without (the chain's last step) it goes to out(m, n, v0, v1).
+  template <bool S = false, class P, class Out>
   static __device__ __forceinline__ void step(P& pipe, float* R, int lo, int hi, const Step& st,
                                               int k, int8_t* A1, int8_t* A2, int arows,
                                               const float* inv_next, Out&& out) {
     const int half = (k - 1) / 2;
     const int r1 = st.dil * half;
     const int M1 = hi - lo - 2 * r1;
-    const int* b1i = st.b1i;
-    const float* m1 = st.m1;
-    struct C1 { int2 b; float2 m, neg; };
-    CV::run(pipe, A1, 0, M1, st.dil, k, arows,
-            [&](int n) {
-              const float2 m = __ldg(reinterpret_cast<const float2*>(m1 + n));
-              return C1{__ldg(reinterpret_cast<const int2*>(b1i + n)), m, neg2(m)};
-            },
-            [&](int m, int n, int a0, int a1, const C1& c) {
-              const int s0 = a0 + c.b.x, s1 = a1 + c.b.y;
-              const float f0 = s0 >= 0 ? c.m.x : c.neg.x, f1 = s1 >= 0 ? c.m.y : c.neg.y;
-              *reinterpret_cast<uint16_t*>(A2 + swz<C>(m, n)) = static_cast<uint16_t>(
-                  pack2(qbits_sat(__fmul_rn(__int2float_rn(s0), f0)),
-                        qbits_sat(__fmul_rn(__int2float_rn(s1), f1))));
-            });
+    if constexpr (S) {
+      const float* sw1 = st.sw1;
+      const float* b1 = st.b1;
+      const float* inv2 = st.inv2;
+      struct C1 { float2 s, b, inv; };
+      CV::run(pipe, A1, 0, M1, st.dil, k, arows,
+              [&](int n) {
+                return C1{__ldg(reinterpret_cast<const float2*>(sw1 + n)),
+                          __ldg(reinterpret_cast<const float2*>(b1 + n)),
+                          __ldg(reinterpret_cast<const float2*>(inv2 + n))};
+              },
+              [&](int m, int n, int a0, int a1, const C1& c) {
+                *reinterpret_cast<uint16_t*>(A2 + swz<C>(m, n)) = static_cast<uint16_t>(
+                    qs2(__fmaf_rn(__int2float_rn(a0), c.s.x, c.b.x),
+                        __fmaf_rn(__int2float_rn(a1), c.s.y, c.b.y), c.inv));
+              });
+    } else {
+      const int* b1i = st.b1i;
+      const float* m1 = st.m1;
+      struct C1 { int2 b; float2 m, neg; };
+      CV::run(pipe, A1, 0, M1, st.dil, k, arows,
+              [&](int n) {
+                const float2 m = __ldg(reinterpret_cast<const float2*>(m1 + n));
+                return C1{__ldg(reinterpret_cast<const int2*>(b1i + n)), m, neg2(m)};
+              },
+              [&](int m, int n, int a0, int a1, const C1& c) {
+                const int s0 = a0 + c.b.x, s1 = a1 + c.b.y;
+                const float f0 = s0 >= 0 ? c.m.x : c.neg.x, f1 = s1 >= 0 ? c.m.y : c.neg.y;
+                *reinterpret_cast<uint16_t*>(A2 + swz<C>(m, n)) = static_cast<uint16_t>(
+                    pack2(qbits_sat(__fmul_rn(__int2float_rn(s0), f0)),
+                          qbits_sat(__fmul_rn(__int2float_rn(s1), f1))));
+              });
+    }
     const int M2 = M1 - 2 * half;
     float* base = R + (lo + r1 + half) * RS;
     const float* sw2 = st.sw2;
@@ -169,7 +208,7 @@ struct Chain {
               if (inv_next != nullptr) {
                 *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
                 *reinterpret_cast<uint16_t*>(A1 + swz<C>(m, n)) =
-                    static_cast<uint16_t>(q2(v0, v1, c.inv, c.neg));
+                    static_cast<uint16_t>(q_in<S>(v0, v1, c.inv, c.neg));
               } else {
                 out(m, n, v0, v1);
               }

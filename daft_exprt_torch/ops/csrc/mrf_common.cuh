@@ -1,4 +1,4 @@
-// Shared pieces of the HiFi-GAN MRF kernels (mrf_tc.cu, mrf_phase.cu).
+// Shared pieces of the HiFi-GAN MRF kernels (mrf_ct.cu and the engines).
 //
 // One chain step of a ResBlock1 chain,
 //     out[n] = in[n] + conv2_k(lrelu(conv1_{k,d}(lrelu(in))))[n],
@@ -14,13 +14,6 @@
 // compute runs the same GEMMs with FMAs (exact f32, no TF32).
 //
 // The residual stream between steps is float32 in device memory.
-//
-// Ablation builds (scripts/torch_mrf_ablation.py, section bf16_steps; results
-// wrong, not checked): MRF_ABL_STEP_NOW replaces the bf16 weight loads of
-// conv_gemm by a value of the lane, MRF_ABL_STEP_NOMMA drops its mma.sync
-// and A loads (the weights still load), MRF_ABL_STEP_NOF32 drops the
-// float32 traffic of step_kernel and post_kernel: the residual input and
-// its reads, the WRITE and ADD stores and the chain-sum reads.
 #pragma once
 
 #include <cstdint>
@@ -102,17 +95,9 @@ __device__ __forceinline__ void conv_gemm(const bf16* A, int lda, int M, int dil
         }
 #pragma unroll
         for (int ni = 0; ni < NG; ++ni) {
-#ifdef MRF_ABL_STEP_NOW
-          const uint2 bw = make_uint2(0x3c003c00u ^ (lane << 4), kt);
-#else
           const uint2 bw = __ldg(w_base + ((size_t)ni * KT + kt) * 32);
-#endif
-#ifdef MRF_ABL_STEP_NOMMA
-          acc[0][ni][0] += __uint_as_float((bw.x ^ bw.y) & 1u);
-#else
           mma_bf16(acc[0][ni], a[0], bw.x, bw.y);
           mma_bf16(acc[1][ni], a[1], bw.x, bw.y);
-#endif
         }
       }
     }
@@ -231,9 +216,6 @@ __global__ void __launch_bounds__(kThreads) step_kernel(const StepParams p) {
     const int i = idx / CP, c = idx - i * CP;
     const int s = s0 + i;
     float v = 0.f;
-#ifdef MRF_ABL_STEP_NOF32
-    if (sizeof(TIn) == 4) v = __int2float_rn(idx & 255) - 100.f; else
-#endif
     if (c < C && s >= p.in_lo && s < p.in_hi) v = to_f32(in[(long long)(s + p.in_off) * C + c]);
     a1[i * LDA + c] = from_f32<CT>(lrelu(v));
   }
@@ -258,14 +240,6 @@ __global__ void __launch_bounds__(kThreads) step_kernel(const StepParams p) {
   conv_gemm<CP, C>(a2, LDA, BM, 1, K, p.w2, [&](int m, int n, float acc) {
     const int s = n0 + m;
     if (s >= p.n_hi) return;
-#ifdef MRF_ABL_STEP_NOF32
-    const float res = (sizeof(TIn) == 2 && s >= p.in_lo && s < p.in_hi)
-                          ? to_f32(in[(long long)(s + p.in_off) * C + n]) : 0.f;
-    const float v = res + (acc + b2[n]);
-    if (p.mode != kFinal) return;
-    {
-      const float tot = v;
-#else
     const float res = (s >= p.in_lo && s < p.in_hi)
                           ? to_f32(in[(long long)(s + p.in_off) * C + n]) : 0.f;
     const float v = res + (acc + b2[n]);
@@ -276,7 +250,6 @@ __global__ void __launch_bounds__(kThreads) step_kernel(const StepParams p) {
       *o = *o + v;
     } else {
       const float tot = p.has_acc ? *o + v : v;
-#endif
       static_cast<CT*>(p.fin)[b * p.fin_bs + (long long)s * p.fin_ns + (long long)n * p.fin_cs] =
           from_f32<CT>(tot * p.scale);
     }
@@ -348,35 +321,6 @@ inline StepParams make_step_params(const void* in, long long in_bs, int in_off, 
   p.n_lo = n_lo;
   p.n_hi = n_hi;
   return p;
-}
-
-// ---------------------------------------------------------------------------
-// conv_post epilogue (mrf_phase.cu, mrf_ptc.cu)
-
-// conv_post epilogue: out[b, n] = tanh(bias + sum_tap sum_c
-//   w[tap][c] * cast(lrelu(R[n - h + tap][c] * scale)))
-template <typename CT>
-__global__ void post_kernel(const float* R, long long r_bs, int r_off, int C, float scale,
-                            const float* w, float bias, int kpost, CT* out, int N) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  const int b = blockIdx.y;
-  if (n >= N) return;
-  const int h = (kpost - 1) / 2;
-  const float* rb = R + b * r_bs;
-  float acc = 0.f;
-  for (int tap = 0; tap < kpost; ++tap) {
-    const float* row = rb + (long long)(n - h + tap + r_off) * C;
-    const float* wt = w + tap * C;
-    for (int c = 0; c < C; ++c) {
-#ifdef MRF_ABL_STEP_NOF32
-      const float r = __int2float_rn((c + tap) & 15) - 7.f;
-#else
-      const float r = row[c];
-#endif
-      acc = fmaf(to_f32(from_f32<CT>(lrelu(r * scale))), wt[c], acc);
-    }
-  }
-  out[(long long)b * N + n] = from_f32<CT>(tanhf(acc + bias));
 }
 
 }  // namespace mrf

@@ -34,165 +34,20 @@
 // conv tiles and X0 in float32 and the residual window and chain sum in an
 // L2-resident scratch slice per block.
 //
-// The step route (ups_kernel, one mrf::step_kernel per (chain, dilation)
-// step, post_kernel) serves only fused_mrf_ptc's fdot mode (the bf16 tier's
-// phase-tc form: unquantised bf16 dots on the shift matrices of
-// pack_mrf_ptc_f_weights), which computes this function in bf16 but for one
-// rounding: its upsample output x0 = acc + b stays float32 (ups_kernel
-// writes float32) where phase_bf_kernel rounds it to bf16. Only its bf16
-// instantiations are built here.
+// fused_mrf_ptc's fdot mode (the bf16 tier's phase-tc form:
+// unquantised bf16 dots on the shift matrices of pack_mrf_ptc_f_weights,
+// replacing daft_exprt_tpu/ops/vocoder_kernels.py::fused_mrf_ptc with
+// fdot=True) computes the bf16 function but for one rounding: its upsample
+// output x0 = acc + b stays float32. It is one launch of phase_bf_kernel
+// with a float32 X0 (mrf_phase_fdot) in the block's L2-resident scratch
+// slice, so that its blocks are the bf16 level's: X0 in shared memory
+// would double there and shrink the blocks (at L2 from 136 to 96 samples,
+// 1.18x the bf16 level's time on an H100 80GB HBM3 at 700 W;
+// vocoder_kernels._phase_bf_plan with fdot).
 //
 // Bound on the card: operations. The MRF group's 252*B*T*C^2 FLOPs at
 // C=64/32 dominate; the upsample adds 2*B*T_out*C_in*C_out*k/s.
 #include "mrf_chain_f32.cuh"
-
-namespace mrf {
-
-struct UpsParams {
-  const void* x;  // (B, C_in, T_in) through strides, compute type
-  long long x_bs, x_cs, x_ts;
-  int t_in;
-  void* out;  // channel-last (B, N + 2E, C_out): sample n at (n + out_off)
-  long long out_bs;
-  int out_off;
-  const void* w;  // per phase r: ntaps taps, packed like the chain weights
-  const float* bias;
-  int stride, ntaps, amin, span;
-  int m_lo, m_hi;  // input-rate positions m: output samples stride*m + r
-  int n_lo, n_hi;  // output samples kept
-  int delta[8];    // phase r reads A rows delta[r] + m + tap
-};
-
-constexpr int kUpsRows = 128;
-
-template <int CIN, int COUT, typename CT, typename TOut>
-__global__ void __launch_bounds__(kThreads) ups_kernel(const UpsParams p) {
-  constexpr int LDA = CIN + Tile<CT>::pad;
-  const int rows = kUpsRows + p.span;
-  extern __shared__ __align__(16) unsigned char smem[];
-  CT* a = reinterpret_cast<CT*>(smem);
-  const int b = blockIdx.y;
-  const int m0 = p.m_lo + blockIdx.x * kUpsRows;
-  const CT* x = static_cast<const CT*>(p.x) + b * p.x_bs;
-  const int t0 = m0 + p.amin;
-  if (p.x_ts == 1) {  // channel-major input: threads walk time
-    for (int idx = threadIdx.x; idx < rows * CIN; idx += kThreads) {
-      const int c = idx / rows, i = idx - c * rows;
-      const int t = t0 + i;
-      float v = 0.f;
-      if (t >= 0 && t < p.t_in) v = lrelu(to_f32(x[c * p.x_cs + t]));
-      a[i * LDA + c] = from_f32<CT>(v);
-    }
-  } else {  // channel-last input: threads walk channels
-    for (int idx = threadIdx.x; idx < rows * CIN; idx += kThreads) {
-      const int i = idx / CIN, c = idx - i * CIN;
-      const int t = t0 + i;
-      float v = 0.f;
-      if (t >= 0 && t < p.t_in) v = lrelu(to_f32(x[c * p.x_cs + (long long)t * p.x_ts]));
-      a[i * LDA + c] = from_f32<CT>(v);
-    }
-  }
-  __syncthreads();
-  TOut* out = static_cast<TOut*>(p.out) + b * p.out_bs;
-  const float* bias = p.bias;
-  const size_t phase_elems = (size_t)p.ntaps * CIN * COUT;
-  for (int r = 0; r < p.stride; ++r) {
-    const void* w_r = static_cast<const char*>(p.w) + r * phase_elems * sizeof(CT);
-    conv_gemm<CIN, COUT>(a + p.delta[r] * LDA, LDA, kUpsRows, 1, p.ntaps, w_r,
-                         [&](int m, int n, float acc) {
-                           const int mm = m0 + m;
-                           if (mm >= p.m_hi) return;
-                           const int s = p.stride * mm + r;
-                           if (s < p.n_lo || s >= p.n_hi) return;
-                           out[(long long)(s + p.out_off) * COUT + n] = from_f32<TOut>(acc + bias[n]);
-                         });
-  }
-}
-
-template <int CIN, int COUT, typename CT, typename TOut>
-cudaError_t launch_ups_t(const UpsParams& p, int B, cudaStream_t stream) {
-  const size_t smem = (size_t)(kUpsRows + p.span) * (CIN + Tile<CT>::pad) * sizeof(CT);
-  const void* kern = reinterpret_cast<const void*>(&ups_kernel<CIN, COUT, CT, TOut>);
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const int n = p.m_hi - p.m_lo;
-  if (n <= 0) return cudaSuccess;
-  dim3 grid((n + kUpsRows - 1) / kUpsRows, B);
-  UpsParams arg = p;
-  void* args[] = {&arg};
-  e = cudaLaunchKernel(kern, grid, dim3(kThreads), args, smem, stream);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
-}
-
-// fdot's step: bf16 compute on the float32 x0 and residual buffers
-template <int C>
-cudaError_t launch_fdot_step(const StepParams& p, int K, int B, cudaStream_t s) {
-  switch (K) {
-    case 3: return launch_step_t<C, 3, bf16, float>(p, B, s);
-    case 7: return launch_step_t<C, 7, bf16, float>(p, B, s);
-    case 11: return launch_step_t<C, 11, bf16, float>(p, B, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace mrf
-
-// fused_mrf_ptc_f's launches (bf16 compute, float32 x0: cdt 1, in_f32 1)
-extern "C" int mrf_phase_step(MRF_STEP_ARGS) {
-  if (cdt != 1 || in_f32 != 1) return (int)cudaErrorInvalidValue;
-  const mrf::StepParams p = MRF_STEP_PARAMS;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 32: return (int)mrf::launch_fdot_step<32>(p, K, B, s);
-    case 64: return (int)mrf::launch_fdot_step<64>(p, K, B, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-extern "C" int mrf_phase_ups(const void* x, long long x_bs, long long x_cs, long long x_ts, int t_in,
-                             void* out, long long out_bs, int out_off, const void* w,
-                             const void* bias, int stride, int ntaps, int amin, int span,
-                             const int* delta, int m_lo, int m_hi, int n_lo, int n_hi, int c_in,
-                             int c_out, int B, void* stream) {
-  if (stride < 1 || stride > 8) return (int)cudaErrorInvalidValue;
-  mrf::UpsParams p;
-  p.x = x;
-  p.x_bs = x_bs;
-  p.x_cs = x_cs;
-  p.x_ts = x_ts;
-  p.t_in = t_in;
-  p.out = out;
-  p.out_bs = out_bs;
-  p.out_off = out_off;
-  p.w = w;
-  p.bias = static_cast<const float*>(bias);
-  p.stride = stride;
-  p.ntaps = ntaps;
-  p.amin = amin;
-  p.span = span;
-  p.m_lo = m_lo;
-  p.m_hi = m_hi;
-  p.n_lo = n_lo;
-  p.n_hi = n_hi;
-  for (int r = 0; r < 8; ++r) p.delta[r] = r < stride ? delta[r] : 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using mrf::bf16;
-  if (c_in == 128 && c_out == 64) return (int)mrf::launch_ups_t<128, 64, bf16, float>(p, B, s);
-  if (c_in == 64 && c_out == 32) return (int)mrf::launch_ups_t<64, 32, bf16, float>(p, B, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-extern "C" int mrf_phase_post(const void* R, long long r_bs, int r_off, int C, float scale,
-                              const void* w, float bias, int kpost, void* out, int N, int B,
-                              void* stream) {
-  const dim3 grid((N + 255) / 256, B);
-  void* args[] = {&R, &r_bs, &r_off, &C, &scale, &w, &bias, &kpost, &out, &N};
-  cudaError_t e = cudaLaunchKernel(reinterpret_cast<const void*>(&mrf::post_kernel<mrf::bf16>),
-                                   grid, dim3(256), args, 0, static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
-}
 
 // The fields the bf16 and float32 level launches share, from the entry's
 // arrays: ptrs wu, bu, wp (null without conv_post), then 4 per step of
@@ -248,11 +103,12 @@ static bool phase_params(Params& p, long long x_bs, long long x_cs, long long x_
   return true;
 }
 
-// The bf16 level in one launch (the arrays: phase_params).
-extern "C" int mrf_phase_bf(const void* x, long long x_bs, long long x_cs, long long x_ts, int t_in,
-                            void* out, long long out_bs, const long long* ptrs, const int* ints,
-                            float scale, float post_bias, int c_in, int C, int B, void* scratch,
-                            long long scratch_floats, int slots, void* stream) {
+// The bf16 level in one launch, X0 of type X0T (the arrays: phase_params).
+template <typename X0T>
+static int phase_bf_entry(const void* x, long long x_bs, long long x_cs, long long x_ts, int t_in,
+                          void* out, long long out_bs, const long long* ptrs, const int* ints,
+                          float scale, float post_bias, int c_in, int C, int B, void* scratch,
+                          long long scratch_floats, int slots, void* stream) {
   using namespace mrf::bfe;
   PhaseBfParams p = {};
   p.x = static_cast<const mrf::bf16*>(x);
@@ -261,10 +117,29 @@ extern "C" int mrf_phase_bf(const void* x, long long x_bs, long long x_cs, long 
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (c_in == 128 && C == 64)
-    return (int)launch_phase_bf<128, 64>(p, B, ints + 17, scratch_floats, slots, s);
+    return (int)launch_phase_bf<128, 64, X0T>(p, B, ints + 17, scratch_floats, slots, s);
   if (c_in == 64 && C == 32)
-    return (int)launch_phase_bf<64, 32>(p, B, ints + 17, scratch_floats, slots, s);
+    return (int)launch_phase_bf<64, 32, X0T>(p, B, ints + 17, scratch_floats, slots, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// fused_mrf_phase in bf16: X0 rounded to bf16.
+extern "C" int mrf_phase_bf(const void* x, long long x_bs, long long x_cs, long long x_ts, int t_in,
+                            void* out, long long out_bs, const long long* ptrs, const int* ints,
+                            float scale, float post_bias, int c_in, int C, int B, void* scratch,
+                            long long scratch_floats, int slots, void* stream) {
+  return phase_bf_entry<mrf::bf16>(x, x_bs, x_cs, x_ts, t_in, out, out_bs, ptrs, ints, scale,
+                                   post_bias, c_in, C, B, scratch, scratch_floats, slots, stream);
+}
+
+// fused_mrf_ptc's fdot mode: the same launch with X0 in float32.
+extern "C" int mrf_phase_fdot(const void* x, long long x_bs, long long x_cs, long long x_ts,
+                              int t_in, void* out, long long out_bs, const long long* ptrs,
+                              const int* ints, float scale, float post_bias, int c_in, int C,
+                              int B, void* scratch, long long scratch_floats, int slots,
+                              void* stream) {
+  return phase_bf_entry<float>(x, x_bs, x_cs, x_ts, t_in, out, out_bs, ptrs, ints, scale,
+                               post_bias, c_in, C, B, scratch, scratch_floats, slots, stream);
 }
 
 // The float32 level in one launch (the arrays: phase_params; the taps in

@@ -7,34 +7,30 @@
 // JAX's DAFT_INT8_FUSED_EPI=0) modes, with the int8 upsample
 // prologue and the bf16 conv_post epilogue. The TPU kernel's phase layout (p
 // samples per phase column, p*C rows) is a reshape of the sample-major
-// tensors the port keeps; its windows are whole phase columns. For each
-// tile of `tile` columns:
-//   1. amax_kernel (mrf_q8.cuh): the upsample input's scale over tile +
-//      2*halo_in input columns;
-//   2. ups_q8_kernel (mrf_q8.cuh): the int8 upsample into a float32 segment
-//      of tile + 2*halo columns (dynamic mode: also its amax);
-//   3. q8s: one step_q8_kernel launch (mrf_q8.cuh) per (chain, dilation),
-//      the static chain being a fixed function of the segment;
-//   4. the chain mean to bf16, or post_kernel (mrf_common.cuh): conv_post
-//      on lrelu(mean) rounded to bf16, tanh, bf16.
-// The dynamic mode at (C_in, C) = (128, 64) and (64, 32) (V1's L2/L3):
-// amax_kernel, then one launch of the segment-synchronised engine
-// (mrf_dyn_blk.cuh, mrf_phase_q8_blk) that runs steps 2-4 per block with
-// a segment barrier per conv, each conv over the TPU kernel's column
-// window (each conv shrinks it by W-1 columns and moves it by
-// -dmin-dmin2). The same two entries run fused_mrf_ptc's dyn mode on the
-// phase-tc tiles (mrf_ptc.cu). The q8f mode there: amax_kernel and fused_mrf_ptc's
-// ptc_fused_q8_kernel (mrf_ptc_fused.cuh, mrf_phase_q8_fused) on the phase
-// tiles: the static
-// chains do not depend on the tile, only the upsample's input scale does,
-// and amax_kernel takes it over the phase tile's window.
+// tensors the port keeps; its windows are whole phase columns. Every mode
+// runs at (C_in, C) = (128, 64) and (64, 32) (V1's L2/L3) in two launches:
+//   1. amax_kernel (mrf_q8.cuh): the upsample input's scale per tile, over
+//      tile + 2*halo_in input columns (in JAX it is per tile in every
+//      mode);
+//   2. q8f and q8s: fused_mrf_ptc's ptc_fused_q8_kernel (mrf_ptc_fused.cuh,
+//      mrf_phase_q8_fused; q8s with its float32 boundary) on the phase
+//      tiles: the static chains do not depend on the tile, only the
+//      upsample's input scale does, and amax_kernel takes it over the
+//      phase tile's window. Dynamic: the segment-synchronised engine
+//      (mrf_dyn_blk.cuh, mrf_phase_q8_blk), which runs the upsample, the
+//      chains and conv_post per block with a segment barrier per conv,
+//      each conv over the TPU kernel's column window (each conv shrinks it
+//      by W-1 columns and moves it by -dmin-dmin2). The same two entries
+//      run fused_mrf_ptc's dyn mode on the phase-tc tiles (mrf_ptc.cu).
 // Without the prologue (in_phase=False: x in (B, C, T), HiFi-GAN V2's L1 at
 // C=32, p=4) the tile's window is the zero-padded x itself, columns
-// [-halo, tile + halo): step 1 takes the first conv's scale over that
-// window of x (amax_kernel with the window in samples), step 2 drops out,
-// and the first conv of each chain reads x through its zero-padded view.
-// q8f and q8s need no scale there: the static chains are the zero-padded
-// valid chains of mrf_tc_q8.cu, whatever the tile.
+// [-halo, tile + halo): the dynamic mode takes the first conv's scale over
+// that window of x (amax_kernel with the window in samples), and each conv
+// is one launch of conv_dyn_kernel (mrf_dyn.cuh, mrf_phase_q8_conv), the
+// first reading x through its zero-padded view. q8f and q8s need no scale
+// there: the static chains are the zero-padded valid chains of
+// mrf_tc_q8.cu, whatever the tile, one step_q8_kernel launch (mrf_q8.cuh)
+// per (chain, dilation).
 //
 // Bound on the card: operations at C=64 (252*B*T*C^2 int8 operations and
 // the upsample's), device memory at C=32 for the one-launch-per-step
@@ -54,13 +50,17 @@ extern "C" int mrf_phase_q8_blk(MRF_DYN_BLK_ARGS) {
   return (int)cudaErrorInvalidValue;
 }
 
-// fused_mrf_phase_q8's q8f mode: ptc_fused_q8_kernel with the phase tiles
+// fused_mrf_phase_q8's q8f and (q8s != 0) q8s modes: ptc_fused_q8_kernel
+// with the phase tiles
 extern "C" int mrf_phase_q8_fused(const void* x, long long x_bs, int t_in, const void* amax,
                                   void* out, long long out_bs, const long long* ptrs,
                                   const int* ints, float scale, float post_bias, int c_in, int C,
-                                  int S, int slots, void* stream) {
-  return mrf::blk::ptc_fused_entry(x, x_bs, t_in, amax, out, out_bs, ptrs, ints, scale, post_bias,
-                                   c_in, C, S, slots, stream);
+                                  int S, int slots, int q8s, void* stream) {
+  if (q8s)
+    return mrf::blk::ptc_fused_entry<true>(x, x_bs, t_in, amax, out, out_bs, ptrs, ints, scale,
+                                           post_bias, c_in, C, S, slots, stream);
+  return mrf::blk::ptc_fused_entry<false>(x, x_bs, t_in, amax, out, out_bs, ptrs, ints, scale,
+                                          post_bias, c_in, C, S, slots, stream);
 }
 
 extern "C" int mrf_phase_q8_amax(const void* x, long long x_bs, int t_in, int c_in, int n_tiles,
@@ -68,16 +68,6 @@ extern "C" int mrf_phase_q8_amax(const void* x, long long x_bs, int t_in, int c_
                                  void* stream) {
   return (int)mrf::launch_amax(x, x_bs, t_in, c_in, n_tiles, tile_in, halo_in, win_len, amax_bits,
                                S, static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int mrf_phase_q8_ups(const void* x, long long x_bs, int t_in, const void* amax,
-                                void* out, long long out_bs, const void* w, const void* sw,
-                                const void* bias, int stride, int ntaps, int amin, int span,
-                                const int* delta, int n_tiles, int tile_in, int halo_m, int m_len,
-                                int c_in, int c_out, int S, void* amax_out, void* stream) {
-  return (int)mrf::launch_ups_q8(x, x_bs, t_in, amax, out, out_bs, w, sw, bias, stride, ntaps,
-                                 amin, span, delta, n_tiles, tile_in, halo_m, m_len, c_in, c_out,
-                                 S, amax_out, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mrf_phase_q8_conv(MRF_DYN_ARGS) {
@@ -108,15 +98,4 @@ extern "C" int mrf_phase_q8_step_s(MRF_Q8S_STEP_ARGS) {
     case 64: return (int)mrf::launch_step_q8_c<64, true>(q, K, B, s);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-extern "C" int mrf_phase_q8_post(const void* R, long long r_bs, int r_off, int C, float scale,
-                                 const void* w, float bias, int kpost, void* out, int N, int S,
-                                 void* stream) {
-  const dim3 grid((N + 255) / 256, S);
-  void* args[] = {&R, &r_bs, &r_off, &C, &scale, &w, &bias, &kpost, &out, &N};
-  cudaError_t e = cudaLaunchKernel(reinterpret_cast<const void*>(&mrf::post_kernel<mrf::bf16>),
-                                   grid, dim3(256), args, 0, static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
 }

@@ -25,8 +25,8 @@
 // static mode, two launches:
 //   1. amax_kernel (mrf_q8.cuh): the tile scales (a tile's window, up to
 //      8192 rows, is wider than a block).
-//   2. ptc_fused_q8_kernel (mrf_ptc_fused.cuh, shared with the q8f mode
-//      of mrf_phase_q8.cu): a block owns BM output samples of one tile
+//   2. ptc_fused_q8_kernel (mrf_ptc_fused.cuh, shared with the q8f and q8s
+//      modes of mrf_phase_q8.cu): a block owns BM output samples of one tile
 //      (BM = 128 at C = 64, 256 at C = 32) and works on chip throughout: it
 //      quantises its own x window with the tile's scale into an s8 tile,
 //      and for each chain runs the s8 upsample into a float32 residual
@@ -61,11 +61,12 @@ extern "C" int mrf_ptc_amax(const void* x, long long x_bs, int t_in, int c_in, i
 }
 
 // The static mode's fused launch (its arguments: ptc_fused_entry,
-// mrf_ptc_fused.cuh).
+// mrf_ptc_fused.cuh; fused_mrf_ptc has no q8s mode, q8s must be 0).
 extern "C" int mrf_ptc_fused(const void* x, long long x_bs, int t_in, const void* amax, void* out,
                              long long out_bs, const long long* ptrs, const int* ints,
                              float scale, float post_bias, int c_in, int C, int S, int slots,
-                             void* stream) {
-  return mrf::blk::ptc_fused_entry(x, x_bs, t_in, amax, out, out_bs, ptrs, ints, scale, post_bias,
-                                   c_in, C, S, slots, stream);
+                             int q8s, void* stream) {
+  if (q8s) return (int)cudaErrorInvalidValue;
+  return mrf::blk::ptc_fused_entry<false>(x, x_bs, t_in, amax, out, out_bs, ptrs, ints, scale,
+                                          post_bias, c_in, C, S, slots, stream);
 }

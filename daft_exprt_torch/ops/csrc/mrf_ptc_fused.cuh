@@ -2,8 +2,10 @@
 // (+ conv_post) of a narrow level: fused_mrf_ptc's static mode (mrf_ptc.cu)
 // and fused_mrf_phase_q8's q8f mode (mrf_phase_q8.cu), which compute the
 // same function on different tiles (the tile sets only the upsample's
-// input scale, which amax_kernel takes before the launch). The design is
-// in mrf_ptc.cu's header.
+// input scale, which amax_kernel takes before the launch), and, with S,
+// fused_mrf_phase_q8's q8s mode: the same kernel with q8s's float32
+// conv1 -> conv2 boundary and each step's input quantised by q_static
+// (Chain::step<true>). The design is in mrf_ptc.cu's header.
 #pragma once
 
 #include "mrf_chain_q8.cuh"
@@ -93,7 +95,7 @@ struct PtcLayout {
   }
 };
 
-template <int CIN, int C>
+template <int CIN, int C, bool S>
 __global__ void __launch_bounds__(PtcCfg<CIN, C>::NW * 32, 1) ptc_fused_q8_kernel(const PtcParams p) {
   using CF = PtcCfg<CIN, C>;
   using CH = typename PtcTypes<CIN, C>::CH;
@@ -164,7 +166,7 @@ __global__ void __launch_bounds__(PtcCfg<CIN, C>::NW * 32, 1) ptc_fused_q8_kerne
       int lo = p.hx - h - p.P, hi = p.hx + BM + h + p.P;
       // the upsample output over R rows [lo, hi), phase by phase (row =
       // stride*mm + r; R row 0 is tile sample n0 - hx), and its
-      // quantize_lrelu_static with the chain's step 0 multipliers into A1
+      // quantisation (q_in<S>) with the chain's step 0 multipliers into A1
       const int mm0 = lo / p.stride, mu = (hi + p.stride - 1) / p.stride - mm0;
       const float* inv0 = p.steps[j][0].inv1;
       for (int r = 0; r < p.stride; ++r) {
@@ -189,18 +191,18 @@ __global__ void __launch_bounds__(PtcCfg<CIN, C>::NW * 32, 1) ptc_fused_q8_kerne
                   *reinterpret_cast<float2*>(R + row * RS + n) = make_float2(v0, v1);
                   if (row >= lo_j && row < hi_j)
                     *reinterpret_cast<uint16_t*>(A1 + swz<C>(row - lo_j, n)) =
-                        static_cast<uint16_t>(q2(v0, v1, c.inv, c.neg));
+                        static_cast<uint16_t>(q_in<S>(v0, v1, c.inv, c.neg));
                 });
       }
       for (int si = 0; si < p.n_steps[j]; ++si) {
         const Step& st = p.steps[j][si];
         if (si + 1 < p.n_steps[j]) {
-          CH::step(pipe, R, lo, hi, st, k, A1, A2, hi - lo, p.steps[j][si + 1].inv1,
-                   [](int, int, float, float) {});
+          CH::template step<S>(pipe, R, lo, hi, st, k, A1, A2, hi - lo,
+                               p.steps[j][si + 1].inv1, [](int, int, float, float) {});
         } else {
           const bool first = j == 0;
-          CH::step(pipe, R, lo, hi, st, k, A1, A2, hi - lo, nullptr,
-                   [&](int m, int n, float v0, float v1) {
+          CH::template step<S>(pipe, R, lo, hi, st, k, A1, A2, hi - lo, nullptr,
+                               [&](int m, int n, float v0, float v1) {
             float2* o = reinterpret_cast<float2*>(O + m * RS + n);
             if (first) {
               *o = make_float2(v0, v1);
@@ -255,7 +257,7 @@ __global__ void __launch_bounds__(PtcCfg<CIN, C>::NW * 32, 1) ptc_fused_q8_kerne
   pipe.finish();
 }
 
-template <int CIN, int C>
+template <int CIN, int C, bool Q8S>
 cudaError_t launch_ptc_fused(PtcParams& p, const int* ints, int S, int slots, cudaStream_t stream) {
   using CF = PtcCfg<CIN, C>;
   if (ints[18] != CF::BM || ints[19] != CF::TPS || ints[20] != CF::KCH || ints[21] != CF::UTPS ||
@@ -277,7 +279,7 @@ cudaError_t launch_ptc_fused(PtcParams& p, const int* ints, int S, int slots, cu
   p.n_items = p.blocks_per_tile * S;
   if (p.n_items <= 0) return cudaSuccess;
   const int grid = p.n_items < slots ? p.n_items : slots;
-  const void* kern = reinterpret_cast<const void*>(&ptc_fused_q8_kernel<CIN, C>);
+  const void* kern = reinterpret_cast<const void*>(&ptc_fused_q8_kernel<CIN, C, Q8S>);
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (e != cudaSuccess) return e;
@@ -293,15 +295,16 @@ cudaError_t launch_ptc_fused(PtcParams& p, const int* ints, int S, int slots, cu
 namespace mrf {
 namespace blk {
 
-// The static mode's fused launch. ptrs: wu, swu, bu, wp (null without
-// conv_post), then 7 per step of each chain (w1, inv1, b1i, m1, w2, sw2,
-// b2). ints: stride, ntaps, amin, span, rows_r[8], n_tiles, tile_in, N, hx,
-// P, kpost, block_m, tps, kch, utps, ukch, wu_phase, n_chains, then per
-// chain k, n_steps, dils[4] (vocoder_kernels ... mrf_int8._ptc_fused_args).
-inline int ptc_fused_entry(const void* x, long long x_bs, int t_in, const void* amax, void* out,
-                             long long out_bs, const long long* ptrs, const int* ints,
-                             float scale, float post_bias, int c_in, int C, int S, int slots,
-                             void* stream) {
+// The static modes' fused launch. ptrs: wu, swu, bu, wp (null without
+// conv_post), then per step of each chain 7 (q8f: w1, inv1, b1i, m1, w2,
+// sw2, b2) or, Q8S, 8 (w1, sw1, inv1, b1, w2, sw2, inv2, b2: the q8s
+// packing order). ints: stride, ntaps, amin, span, rows_r[8], n_tiles,
+// tile_in, N, hx, P, kpost, block_m, tps, kch, utps, ukch, wu_phase,
+// n_chains, then per chain k, n_steps, dils[4] (mrf_int8._ptc_fused_args).
+template <bool Q8S>
+int ptc_fused_entry(const void* x, long long x_bs, int t_in, const void* amax, void* out,
+                    long long out_bs, const long long* ptrs, const int* ints, float scale,
+                    float post_bias, int c_in, int C, int S, int slots, void* stream) {
   PtcParams p = {};
   p.x = static_cast<const bf16*>(x);
   p.x_bs = x_bs;
@@ -339,15 +342,30 @@ inline int ptc_fused_entry(const void* x, long long x_bs, int t_in, const void* 
     p.n_steps[j] = cj[1];
     if (p.n_steps[j] < 1 || p.n_steps[j] > kMaxSteps || p.k[j] < 1 || p.k[j] % 2 == 0)
       return (int)cudaErrorInvalidValue;
-    for (int i = 0; i < p.n_steps[j]; ++i, w += 7)
-      p.steps[j][i] = Step{reinterpret_cast<const int8_t*>(w[0]), reinterpret_cast<const float*>(w[1]),
-                           reinterpret_cast<const int*>(w[2]), reinterpret_cast<const float*>(w[3]),
-                           reinterpret_cast<const int8_t*>(w[4]), reinterpret_cast<const float*>(w[5]),
-                           reinterpret_cast<const float*>(w[6]), cj[2 + i]};
+    for (int i = 0; i < p.n_steps[j]; ++i, w += Q8S ? 8 : 7) {
+      Step& st = p.steps[j][i];
+      auto f = [&](int e) { return reinterpret_cast<const float*>(w[e]); };
+      st.w1 = reinterpret_cast<const int8_t*>(w[0]);
+      st.w2 = reinterpret_cast<const int8_t*>(w[4]);
+      st.sw2 = f(5);
+      st.dil = cj[2 + i];
+      if (Q8S) {
+        st.sw1 = f(1);
+        st.inv1 = f(2);
+        st.b1 = f(3);
+        st.inv2 = f(6);
+        st.b2 = f(7);
+      } else {
+        st.inv1 = f(1);
+        st.b1i = reinterpret_cast<const int*>(w[2]);
+        st.m1 = f(3);
+        st.b2 = f(6);
+      }
+    }
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c_in == 128 && C == 64) return (int)launch_ptc_fused<128, 64>(p, ints, S, slots, s);
-  if (c_in == 64 && C == 32) return (int)launch_ptc_fused<64, 32>(p, ints, S, slots, s);
+  if (c_in == 128 && C == 64) return (int)launch_ptc_fused<128, 64, Q8S>(p, ints, S, slots, s);
+  if (c_in == 64 && C == 32) return (int)launch_ptc_fused<64, 32, Q8S>(p, ints, S, slots, s);
   return (int)cudaErrorInvalidValue;
 }
 

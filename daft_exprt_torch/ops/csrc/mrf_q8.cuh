@@ -1,6 +1,6 @@
 // int8 pieces of the HiFi-GAN MRF kernels (mrf_tc_q8.cu, mrf_ptc.cu, mrf_ct_q8.cu,
-// mrf_phase_q8.cu): the int8-static chain step (q8f and q8s), the per-tile amax
-// and the int8 upsample prologue.
+// mrf_phase_q8.cu): the int8-static chain step (q8f and q8s) and the
+// per-tile amax.
 //
 // One chain step of a ResBlock1 chain in the int8-static serving form
 // (daft_exprt_tpu/ops/vocoder_kernels.py::_fused_mrf_tc_kernel, q8 branch;
@@ -263,7 +263,7 @@ cudaError_t launch_step_q8_c(const Q8Params& q, int K, int B, cudaStream_t s) {
 
 
 // ---------------------------------------------------------------------------
-// per-tile int8 upsample prologue (mrf_ptc.cu, mrf_phase_q8.cu)
+// the per-tile amax of the int8 upsample prologue (mrf_ptc.cu, mrf_phase_q8.cu)
 
 constexpr int kAmaxRows = 64;
 
@@ -318,122 +318,6 @@ inline cudaError_t launch_amax(const void* x, long long x_bs, int t_in, int C, i
                                    dim3(kThreads), args, 0, stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
-}
-
-// lrelu(x) quantised with the tile's scale (rintf, no clip), the
-// ConvTranspose1d upsample as per-phase s8 x s8 -> s32 products with
-// per-(phase, channel) weight scales, dequantised with fma(acc, sw*sx, b)
-// into a float32 segment; with amax_out, also max |lrelu(.)| of the segment.
-struct UpsQ8Params {
-  const bf16* x;  // (B, T_in, C_in) channel-last
-  long long x_bs;
-  int t_in;
-  const float* amax;  // per segment
-  float* out;         // (S, m_len * stride, C_out): segment sample stride*m + r
-  long long out_bs;
-  const void* w;      // per phase r: ntaps s8 taps packed by pack_mma_s8
-  const float* sw;    // (stride, C_out) weight scales
-  const float* bias;  // (C_out,)
-  int stride, ntaps, amin, span;
-  int n_tiles, tile_in, halo_m, m_len;  // segment m=0 is input t*tile_in - halo_m
-  int delta[8];       // phase r reads staged rows delta[r] + m + tap
-  unsigned* amax_out; // per segment, or null
-};
-
-constexpr int kUpsRowsQ8 = 128;
-
-template <int CIN, int COUT>
-__global__ void __launch_bounds__(kThreads) ups_q8_kernel(const UpsQ8Params p) {
-  constexpr int LDA = CIN + kPadS8;
-  const int rows = kUpsRowsQ8 + p.span;
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* a = reinterpret_cast<int8_t*>(smem);
-  const int seg = blockIdx.y;
-  const int b = seg / p.n_tiles, t = seg - b * p.n_tiles;
-  const int m0 = blockIdx.x * kUpsRowsQ8;
-  const float amax = fmaxf(p.amax[seg], 1e-30f);
-  const float inv = __fdiv_rn(127.f, amax);
-  const float sx = __fmul_rn(amax, static_cast<float>(1.0 / 127.0));
-  const bf16* x = p.x + b * p.x_bs;
-  const int g0 = t * p.tile_in - p.halo_m + m0 + p.amin;  // input sample of staged row 0
-  for (int idx = threadIdx.x; idx < rows * CIN; idx += kThreads) {
-    const int i = idx / CIN, c = idx - i * CIN;
-    const int s = g0 + i;
-    int8_t v = 0;
-    if (s >= 0 && s < p.t_in) {
-      const float f = __bfloat162float(x[(long long)s * CIN + c]);
-      const float l = f >= 0.f ? f : __fmul_rn(kSlope, f);
-      v = static_cast<int8_t>(static_cast<int>(rintf(__fmul_rn(l, inv))));
-    }
-    a[i * LDA + c] = v;
-  }
-  __syncthreads();
-  float* out = p.out + seg * p.out_bs;
-  const size_t phase_bytes = (size_t)p.ntaps * CIN * COUT;
-  float mx = 0.f;
-  for (int r = 0; r < p.stride; ++r) {
-    const void* w_r = static_cast<const char*>(p.w) + r * phase_bytes;
-    const float* sw = p.sw + r * COUT;
-    conv_gemm_s8<CIN, COUT>(a + p.delta[r] * LDA, LDA, kUpsRowsQ8, 1, p.ntaps, w_r,
-                            [&](int m, int n, int acc) {
-                              const int mm = m0 + m;
-                              if (mm >= p.m_len) return;
-                              const float v = __fmaf_rn(__int2float_rn(acc),
-                                                        __fmul_rn(sw[n], sx), p.bias[n]);
-                              out[(long long)(p.stride * mm + r) * COUT + n] = v;
-                              mx = fmaxf(mx, abs_lrelu(v));
-                            });
-  }
-  if (p.amax_out != nullptr) block_amax(mx, p.amax_out + seg);
-}
-
-template <int CIN, int COUT>
-cudaError_t launch_ups_q8_t(const UpsQ8Params& p, int S, cudaStream_t stream) {
-  const size_t smem = (size_t)(kUpsRowsQ8 + p.span) * (CIN + kPadS8);
-  const void* kern = reinterpret_cast<const void*>(&ups_q8_kernel<CIN, COUT>);
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  if (p.m_len <= 0) return cudaSuccess;
-  dim3 grid((p.m_len + kUpsRowsQ8 - 1) / kUpsRowsQ8, S);
-  UpsQ8Params arg = p;
-  void* args[] = {&arg};
-  e = cudaLaunchKernel(kern, grid, dim3(kThreads), args, smem, stream);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
-}
-
-// The C entry point of the int8 upsample prologue (mrf_ptc.cu without an
-// amax output, mrf_phase_q8.cu with one).
-inline cudaError_t launch_ups_q8(const void* x, long long x_bs, int t_in, const void* amax,
-                                 void* out, long long out_bs, const void* w, const void* sw,
-                                 const void* bias, int stride, int ntaps, int amin, int span,
-                                 const int* delta, int n_tiles, int tile_in, int halo_m,
-                                 int m_len, int c_in, int c_out, int S, void* amax_out,
-                                 cudaStream_t s) {
-  if (stride < 1 || stride > 8) return cudaErrorInvalidValue;
-  UpsQ8Params p;
-  p.x = static_cast<const bf16*>(x);
-  p.x_bs = x_bs;
-  p.t_in = t_in;
-  p.amax = static_cast<const float*>(amax);
-  p.out = static_cast<float*>(out);
-  p.out_bs = out_bs;
-  p.w = w;
-  p.sw = static_cast<const float*>(sw);
-  p.bias = static_cast<const float*>(bias);
-  p.stride = stride;
-  p.ntaps = ntaps;
-  p.amin = amin;
-  p.span = span;
-  p.n_tiles = n_tiles;
-  p.tile_in = tile_in;
-  p.halo_m = halo_m;
-  p.m_len = m_len;
-  for (int r = 0; r < 8; ++r) p.delta[r] = r < stride ? delta[r] : 0;
-  p.amax_out = static_cast<unsigned*>(amax_out);
-  if (c_in == 128 && c_out == 64) return launch_ups_q8_t<128, 64>(p, S, s);
-  if (c_in == 64 && c_out == 32) return launch_ups_q8_t<64, 32>(p, S, s);
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace mrf

@@ -13,7 +13,9 @@ kernels ``csrc/mrf_ct_q8.cu``, ``csrc/mrf_phase_q8.cu`` and
   ``int8_chain=True``, its int8 upsample prologue and the bf16 conv_post
   epilogue, in its ``q8`` (dynamic), ``q8f`` (static, fused s32 boundary)
   and ``q8s`` modes: V1's narrow levels in the dynamic tier at any batch
-  and in the static tier below ``PTC_MIN_BATCH``.
+  and in the static tier below ``PTC_MIN_BATCH``. Static (q8f, q8s): the
+  tile amax, then ``fused_mrf_ptc``'s block-resident kernel on the phase
+  tiles (:func:`_ptc_fused_plan` with :func:`_phase_geometry`).
   :func:`fused_mrf_phase_q8_noups` replaces it without the prologue
   (``in_phase=False``), every mode: V2's L1.
 - :func:`fused_mrf_ptc` replaces ``fused_mrf_ptc`` (upsample prologue,
@@ -58,14 +60,13 @@ import torch.nn.functional as F
 from daft_exprt_torch.ops import _build
 from daft_exprt_torch.ops.mrf_ct import pack_mrf_weights  # noqa: F401
 from daft_exprt_torch.ops.vocoder_kernels import (
-    ADD, DYN_BLK_CFG, FINAL, PHASE_CHANNELS, PTC_Q8_CFG, Q8_PTC_UPS, WRITE,
-    MrfQ8Weights, Post, PtcPrologue, _AMAX_ARGTYPES, _F32, _I32, _I64, _P,
-    _PTC_POST_ARGTYPES, _UPS_Q8_ARGTYPES, _chain_q8, _chain_steps, _const,
+    ADD, DYN_BLK_CFG, FINAL, PHASE_CHANNELS, PTC_Q8_CFG, WRITE,
+    MrfQ8Weights, _AMAX_ARGTYPES, _F32, _I32, _I64, _P, _chain_q8, _const,
     _empty_on, _fma, _fn, _int_conv, _launch_q8_step, _lrelu, _tc_plan,
     _ups_phase_entries, aligned, chain_halo, check_q8_input, device_chains,
-    full_f32, fuse_boundary_consts, mrf_tc_q8_plain, pack_mma_s8,
-    pack_stage_s8, ptc_amax, ptc_chain_halo, ptc_halo_in, ptc_post_feasible,
-    q8_step_fn, sm_count, staged_chains, ups_geometry,
+    full_f32, fuse_boundary_consts, mrf_tc_q8_plain, pack_stage_s8, ptc_amax,
+    ptc_chain_halo, ptc_halo_in, ptc_post_feasible, q8_step_fn, sm_count,
+    staged_chains, ups_geometry,
 )
 
 CT_Q8_CHANNELS = (32, 64, 128, 256)     # fused_mrf_ct_q8 (dynamic)
@@ -538,16 +539,12 @@ def prepare_mrf_phase_q8(qw, kernel_sizes, dilations, p, ups, post=None):
         post_k = Wd.shape[1] // C - (p - 1)                # kcols = p + k - 1
         w_p = Wd[0, :post_k * C].reshape(post_k, C).float()  # (k, C)
         mrf.post = (w_p, b_p[:1, 0].float(), Wd.dtype)
-    if mrf.device.type == 'cuda':
-        cfg = None if mrf.q8s else DYN_BLK_CFG.get((C_in, C))
-        if cfg is None:           # q8s: step_q8_kernel
-            mrf.chains_dev = device_chains(chains)
-            mrf.ups_dev = (torch.cat([pack_mma_s8(wq_u[r])
-                                      for r in range(stride)]),
-                           sw.contiguous(), mrf.ups[2].contiguous())
-        else:
+    if mrf.device.type != 'cpu':
+        cfg = DYN_BLK_CFG.get((C_in, C))
+        if cfg is not None:
             # the block-resident kernels' staged form (the dynamic engine
-            # and, q8f, ptc_fused_q8_kernel: the same stage shapes)
+            # and, q8f and q8s, ptc_fused_q8_kernel: the same stage shapes);
+            # no other width has a kernel
             mrf.blk_dev = staged_chains(chains, cfg.tps, cfg.kch)
             mrf.blk_ups_dev = (torch.cat([
                 pack_stage_s8(wq_u[r], cfg.utps, cfg.ukch)
@@ -951,21 +948,6 @@ def _phase_noups_plan(x, prep, kernel_sizes, dilations, p, tile, alloc):
 
 
 @dataclass
-class PhasePlan:
-    """The launches of :func:`fused_mrf_phase_q8` (:func:`_phase_plan`):
-    the prologue (amax of the upsample input into word 0, the int8 upsample
-    into ``pro.x0``, in dynamic mode reducing x0's amax into word 1), the
-    chain launches (``DynConv`` or static ``Step``) and conv_post
-    (``tail``). Sample n of a tile lives at n + halo*p in x0 and in the
-    chain buffers."""
-    pro: PtcPrologue
-    amax: torch.Tensor
-    steps: list
-    tail: Optional[Post]
-    out: torch.Tensor
-
-
-@dataclass
 class PtcFusedPlan:
     """The two launches of :func:`fused_mrf_ptc`'s static mode over S =
     B*n_tiles segments (segment b*n_tiles + t is tile t of utterance b).
@@ -1002,9 +984,9 @@ class PtcFusedPlan:
 def _ptc_fused_plan(x, mrf, tile, alloc, block_m=None,
                     geometry=_ptc_geometry):
     """Launch plan of :func:`fused_mrf_ptc`'s static mode (and, with
-    :func:`_phase_geometry`, of :func:`fused_mrf_phase_q8`'s q8f mode, the
-    same function on the phase kernel's tiles); ``block_m`` defaults to the
-    kernel's for the level's (C_in, C)."""
+    :func:`_phase_geometry`, of :func:`fused_mrf_phase_q8`'s q8f and q8s
+    modes, the same functions on the phase kernel's tiles); ``block_m``
+    defaults to the kernel's for the level's (C_in, C)."""
     B, T_in, C_in = x.shape
     p, p_in = mrf.p, mrf.p_in
     halo, halo_in, n_t, P = geometry(mrf, T_in // p_in, tile)
@@ -1033,12 +1015,13 @@ def _ptc_fused_plan(x, mrf, tile, alloc, block_m=None,
 
 
 _PTC_FUSED_ARGTYPES = ([_P, _I64, _I32, _P, _P, _I64, _P, _P, _F32, _F32]
-                       + [_I32] * 4 + [_P])
+                       + [_I32] * 5 + [_P])
 
 
 def _ptc_fused_args(plan, mrf, chains, ups):
     """The pointer and int arrays of ``mrf_ptc_fused`` (their order is the
-    C entry point's) for staged ``chains`` and upsample ``ups``."""
+    C entry point's) for staged ``chains`` (per step q8f's seven arrays or
+    q8s's eight) and upsample ``ups``."""
     C_in, C = plan.x.shape[2], mrf.ups[0].shape[-1]
     _, tps, kch, utps, ukch = PTC_Q8_CFG[(C_in, C)]
     wu, swu, bu = ups
@@ -1054,47 +1037,6 @@ def _ptc_fused_args(plan, mrf, chains, ups):
         ints += [k, len(dils)] + list(dils) + [0] * (4 - len(dils))
     return ((ctypes.c_int64 * len(ptrs))(*ptrs),
             (ctypes.c_int * len(ints))(*ints))
-
-
-def _phase_plan(x, mrf, tile, prep, alloc):
-    """The launches of :func:`fused_mrf_phase_q8` where no block-resident
-    kernel serves it (q8s; dynamic at a width outside
-    :data:`DYN_BLK_CFG`): a :class:`PhasePlan` on the phase tiles."""
-    B, T_in, _ = x.shape
-    p, p_in = mrf.p, mrf.p_in
-    halo, halo_in, n_t, P = _phase_geometry(mrf, T_in // p_in, tile)
-    wq_u, _, _, stride, padding, k_u = mrf.ups
-    C = wq_u.shape[-1]
-    ntaps, amin, rows, span, _ = ups_geometry(k_u, stride, padding)
-    S = B * n_t
-    m_len = (tile + 2 * halo) * p_in
-    E = halo * p
-    amax = alloc((_n_words(mrf.dilations), S), torch.float32)
-    pro = PtcPrologue(x, amax[0], alloc((S, m_len * stride, C), torch.float32),
-                      mrf.ups_dev, n_t, tile * p_in, halo_in * p_in,
-                      (tile + 2 * halo_in) * p_in, halo * p_in, m_len, stride,
-                      ntaps, amin, rows, span)
-    N = tile * p
-    bufs = alloc((4 if mrf.dynamic else 3, S, N + 2 * E, C), torch.float32)
-    if mrf.post is None:
-        out = alloc((B, n_t * N, C), x.dtype)
-        fin_view = out.view(S, N, C)
-    else:
-        out = alloc((B, 1, n_t * N), x.dtype)
-        fin_view = None
-    if mrf.dynamic:
-        x0 = _seg_buffer(pro.x0, n_t, E, -E, N + E)
-        fin = None if fin_view is None else (out, n_t * N * C, N * C, C, 1)
-        steps = _dyn_steps(x0, 1, prep, mrf.kernel_sizes, mrf.dilations, p,
-                           -E, N + E, bufs, n_t, E, -P, N + P, fin,
-                           iter(range(2, 1 << 30)))
-    else:
-        steps = _chain_steps(pro.x0, E, -E, N + E, prep, mrf.kernel_sizes,
-                             mrf.dilations, N, P, bufs, E, fin_view)
-    tail = None if mrf.post is None else Post(
-        bufs[2], E, 1.0 / len(mrf.kernel_sizes), mrf.post_dev,
-        mrf.post[0].shape[0], out)
-    return PhasePlan(pro, amax, steps, tail, out)
 
 
 @dataclass
@@ -1281,7 +1223,6 @@ _VIEW = [_P, _I64, _I64] + [_I32] * 5
 _DYN_ARGTYPES = (_VIEW + [_P] + _VIEW + [_P, _I64, _I64, _I32]
                  + [_P] + [_I64] * 4 + [_I32, _I32, _F32, _P] + [_P] * 3
                  + [_I32] * 7 + [_P])
-_UPS_Q8_AMAX_ARGTYPES = _UPS_Q8_ARGTYPES[:-1] + [_P, _P]
 _MAX_SEGMENTS = 65535                 # the launch grid's y extent
 
 
@@ -1363,27 +1304,25 @@ def fused_mrf_phase_q8(x, mrf, tile):
     tensor this launches ``mrf_phase_q8.cu`` (or raises); on a CPU tensor
     it runs :func:`mrf_phase_q8_plain`.
 
-    ``fused_mrf_phase_q8.launches`` counts CUDA launches (dynamic and q8f
-    at (C_in, C) = (128, 64) / (64, 32): the amax and one fused launch;
-    q8s: amax, upsample, one per chain step, conv_post);
+    ``fused_mrf_phase_q8.launches`` counts CUDA launches (at (C_in, C) =
+    (128, 64) / (64, 32), the only widths built: the amax and one launch of
+    the dynamic engine or, q8f and q8s, ``ptc_fused_q8_kernel``);
     ``fused_mrf_phase_q8.calls`` counts CUDA-route calls by x's shape and
     mode: (B, T_in, C_in, ``mrf.mode``)."""
     if mrf.ups is None:
         raise ValueError('fused_mrf_phase_q8: the weights carry no upsample')
     if x.device.type == 'cpu':
         return mrf_phase_q8_plain(x, mrf, tile)
-    C_in, C = x.shape[2], mrf.ups[0].shape[-1]
-    if mrf.dynamic and (C_in, C) in DYN_BLK_CFG:
-        check_q8_input('fused_mrf_phase_q8', x, mrf, PHASE_CHANNELS, C)
-        out = _launch_dyn_blk(fused_mrf_phase_q8, 'mrf_phase_q8', aligned(x),
-                              mrf, tile)
-        fused_mrf_phase_q8.calls[tuple(x.shape) + (mrf.mode,)] += 1
-        return out
-    if mrf.mode == 'q8f' and (C_in, C) in PTC_Q8_CFG:
+    if not mrf.dynamic:
         return _launch_ptc_fused(fused_mrf_phase_q8, 'mrf_phase_q8', x, mrf,
                                  tile, _phase_geometry, mrf.blk_dev,
                                  mrf.blk_ups_dev)
-    return _launch_narrow(fused_mrf_phase_q8, 'mrf_phase_q8', x, mrf, tile)
+    C = _check_narrow_width('fused_mrf_phase_q8', x, mrf)
+    check_q8_input('fused_mrf_phase_q8', x, mrf, PHASE_CHANNELS, C)
+    out = _launch_dyn_blk(fused_mrf_phase_q8, 'mrf_phase_q8', aligned(x), mrf,
+                          tile)
+    fused_mrf_phase_q8.calls[tuple(x.shape) + (mrf.mode,)] += 1
+    return out
 
 
 fused_mrf_phase_q8.launches = 0
@@ -1415,11 +1354,8 @@ def fused_mrf_ptc(x, mrf, tile):
     if mrf.q8s:
         raise ValueError('fused_mrf_ptc has no q8s mode')
     if mrf.dynamic:
-        C_in, C = x.shape[2], mrf.ups[0].shape[-1]
+        C = _check_narrow_width('fused_mrf_ptc', x, mrf)
         check_q8_input('fused_mrf_ptc', x, mrf, PHASE_CHANNELS, C)
-        if C_in == C or (C_in, C) not in DYN_BLK_CFG:
-            raise ValueError(f'fused_mrf_ptc: upsample {C_in}->{C} has no '
-                             'CUDA instantiation of the dynamic engine')
         out = _launch_dyn_blk(fused_mrf_ptc, 'mrf_phase_q8', aligned(x), mrf,
                               tile, _ptc_geometry)
         fused_mrf_ptc.calls[tuple(x.shape) + (mrf.mode,)] += 1
@@ -1432,9 +1368,20 @@ fused_mrf_ptc.launches = 0
 fused_mrf_ptc.calls = collections.Counter()
 
 
+def _check_narrow_width(name, x, mrf):
+    """C of a narrow int8 level, which must have a CUDA instantiation:
+    (C_in, C) in :data:`PTC_Q8_CFG` (the dynamic engine's narrow widths
+    too)."""
+    C_in, C = x.shape[2], mrf.ups[0].shape[-1]
+    if (C_in, C) not in PTC_Q8_CFG:
+        raise ValueError(f'{name}: upsample {C_in}->{C} has no CUDA '
+                         f'instantiation (built for {tuple(PTC_Q8_CFG)})')
+    return C
+
+
 def _launch_amax(lib, x, pro, S, stream):
-    """``amax_kernel`` over the segments of a prologue (``PtcPrologue`` or
-    :class:`PtcFusedPlan`), into ``pro.amax``."""
+    """``amax_kernel`` over the segments of a :class:`PtcFusedPlan`, into
+    ``pro.amax``."""
     B, T_in, C_in = x.shape
     err = _fn(lib, f'{lib}_amax', _AMAX_ARGTYPES)(
         _build.ptr(x), x.stride(0), T_in, C_in, pro.n_tiles, pro.tile_in,
@@ -1444,16 +1391,13 @@ def _launch_amax(lib, x, pro, S, stream):
 
 def _launch_ptc_fused(wrapper, lib, x, mrf, tile, geometry, chains, ups):
     """The launches of a :class:`PtcFusedPlan` on ``geometry``'s tiles
-    (``fused_mrf_ptc`` static, ``fused_mrf_phase_q8`` q8f) with the staged
-    weights ``chains`` and ``ups`` through ``lib``'s entry points, counted
-    on ``wrapper``."""
+    (``fused_mrf_ptc`` static, ``fused_mrf_phase_q8`` q8f and q8s) with the
+    staged weights ``chains`` and ``ups`` through ``lib``'s entry points,
+    counted on ``wrapper``."""
     name = wrapper.__name__
     B, T_in, C_in = x.shape
-    C = mrf.ups[0].shape[-1]
+    C = _check_narrow_width(name, x, mrf)
     check_q8_input(name, x, mrf, PHASE_CHANNELS, C)
-    if (C_in, C) not in PTC_Q8_CFG:
-        raise ValueError(f'{name}: upsample {C_in}->{C} has no CUDA '
-                         f'instantiation (built for {tuple(PTC_Q8_CFG)})')
     x = aligned(x)
     plan = _ptc_fused_plan(x, mrf, tile, _empty_on(x.device),
                            geometry=geometry)
@@ -1469,7 +1413,7 @@ def _launch_ptc_fused(wrapper, lib, x, mrf, tile, geometry, chains, ups):
         _build.ptr(plan.out), plan.out.stride(0),
         ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(ints, ctypes.c_void_p),
         plan.scale, mrf.post_dev[1] if plan.kpost else 0.0, C_in, C, S,
-        sm_count(x.device), stream)
+        sm_count(x.device), int(mrf.q8s), stream)
     _build.check(err, f'{name} (C_in={C_in}, C={C})')
     wrapper.launches += 1
     wrapper.calls[tuple(x.shape) + (mrf.mode,)] += 1
@@ -1561,60 +1505,6 @@ def _launch_dyn_blk(wrapper, lib, x, mrf, tile, geometry=_phase_geometry):
                  stream)
         _build.check(err, f'{name} dynamic engine (C_in={C_in}, C={C})')
         wrapper.launches += 1
-    return plan.out
-
-
-def _launch_narrow(wrapper, lib, x, mrf, tile):
-    """The launches of a narrow int8 level's :class:`PhasePlan`
-    (:func:`_phase_plan`) through ``lib``'s entry points, counted on
-    ``wrapper``."""
-    name = wrapper.__name__
-    B, T_in, C_in = x.shape
-    C = mrf.ups[0].shape[-1]
-    check_q8_input(name, x, mrf, PHASE_CHANNELS, C)
-    if (C_in, C) not in Q8_PTC_UPS:
-        raise ValueError(f'{name}: upsample {C_in}->{C} has no CUDA '
-                         f'instantiation (built for {Q8_PTC_UPS})')
-    x = x.contiguous()
-    plan = _phase_plan(x, mrf, tile, mrf.chains_dev, _empty_on(x.device))
-    pro = plan.pro
-    S = plan.amax.shape[1]
-    _check_segments(name, S)
-    stream = _build.stream_ptr(x)
-    plan.amax.zero_()
-    _launch_amax(lib, x, pro, S, stream)
-    wrapper.launches += 1
-    w_u, sw_u, b_u = pro.weights
-    err = _fn(lib, f'{lib}_ups', _UPS_Q8_AMAX_ARGTYPES)(
-        _build.ptr(x), x.stride(0), T_in, _build.ptr(pro.amax),
-        _build.ptr(pro.x0), pro.x0.stride(0), _build.ptr(w_u),
-        _build.ptr(sw_u), _build.ptr(b_u), pro.stride, pro.ntaps, pro.amin,
-        pro.span,
-        ctypes.cast((ctypes.c_int * pro.stride)(*pro.rows), ctypes.c_void_p),
-        pro.n_tiles, pro.tile_in, pro.halo_m, pro.m_len, C_in, C, S,
-        _build.ptr(plan.amax[1]) if mrf.dynamic else None, stream)
-    _build.check(err, f'{name} upsample')
-    wrapper.launches += 1
-    if mrf.dynamic:
-        fn = _fn(lib, f'{lib}_conv', _DYN_ARGTYPES)
-        for st in plan.steps:
-            _launch_dyn(fn, st, plan.amax, C, pro.n_tiles, S, stream)
-            wrapper.launches += 1
-    else:
-        fn = q8_step_fn(lib, mrf)
-        for st in plan.steps:
-            _launch_q8_step(fn, st, S, C)
-            wrapper.launches += 1
-    tail = plan.tail
-    if tail is not None:
-        w_t, b_t = tail.weights
-        err = _fn(lib, f'{lib}_post', _PTC_POST_ARGTYPES)(
-            _build.ptr(tail.src), tail.src.stride(0), tail.src_off, C,
-            tail.scale, _build.ptr(w_t), b_t, tail.k, _build.ptr(plan.out),
-            tile * mrf.p, S, stream)
-        _build.check(err, f'{name} conv_post')
-        wrapper.launches += 1
-    wrapper.calls[tuple(x.shape) + (mrf.mode,)] += 1
     return plan.out
 
 

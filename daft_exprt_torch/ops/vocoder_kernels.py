@@ -16,7 +16,7 @@ the same function the port's kernels and plain versions compute.
   (float mode, fused upsample prologue, optional conv_post epilogue), for
   the narrow levels, in the standard (B, C, T) layout.
 - :func:`fused_mrf_ptc_f` replaces ``fused_mrf_ptc`` in its ``fdot`` mode
-  (the bf16 tier's phase-tc form, opt-in): the float phase kernel's
+  (the bf16 tier's phase-tc form, opt-in): the bf16 phase kernel's
   function with its upsample output kept in float32.
 - :func:`fused_resblock1` replaces ``fused_resblock1``: one ResBlock1
   chain, the tc kernels' group of one chain.
@@ -37,10 +37,9 @@ with the upsample and conv_post; weights packed by
 and :func:`fused_mrf_phase` in float32 and :func:`fused_resblock1` in
 both dtypes on the chain kernels (``mrf_chain_f32.cuh`` in float32:
 3xTF32 on the tensor cores, weights split by :func:`pack_stage_tf32`):
-each block keeps a chain's residual window on chip. fdot runs one launch
-per (chain, dilation) step (``mrf_common.cuh::step_kernel``; each step
-reads its float32 input and writes its float32 output over (B, T + 2E, C)
-buffers). The sample ranges of every launch and block are planned here
+each block keeps a chain's residual window on chip. :func:`fused_mrf_ptc_f`
+runs the bf16 engine's phase kernel with its upsample output in float32.
+The sample ranges of every launch and block are planned here
 (:func:`_chain_steps`, :func:`_tc_bf_plan`, :func:`_tc_f32_plan`,
 :func:`_phase_bf_plan`, :func:`_phase_f32_plan`, :func:`_tc_q8_plan`) so
 the CPU tests can replay the plan.
@@ -60,7 +59,6 @@ from daft_exprt_torch.ops import _build
 LRELU_SLOPE = 0.1
 TC_CHANNELS = (128, 256)
 PHASE_CHANNELS = (32, 64)
-PHASE_UPS = ((128, 64), (64, 32))     # (C_in, C_out) of the fused upsample
 KERNEL_SIZES = (3, 7, 11)
 
 WRITE, ADD, FINAL = 0, 1, 2           # step modes (mrf_common.cuh StepMode)
@@ -308,8 +306,8 @@ class MrfWeights:
     :func:`pack_mrf_tc_weights`), ``ups`` and ``post``. For weights on a
     CUDA device the CUDA routes read the same weights in the kernels'
     format for ``dtype`` (None on the CPU): ``chains[j][i]`` = (w1, b1, w2,
-    b2) of chain j, dilation i, ``ups_dev`` = (per-phase taps, float32
-    bias) and ``post_dev`` = ((k, C) float32 taps, bias)."""
+    b2) of chain j, dilation i, and ``post_dev`` = ((k, C) float32 taps,
+    bias)."""
     dtype: torch.dtype
     device: torch.device
     kernel_sizes: tuple
@@ -317,7 +315,6 @@ class MrfWeights:
     packed: list
     chains: Optional[list] = None
     ups: Optional[tuple] = None       # (w (C_in, C, k), b (C,), stride, pad)
-    ups_dev: Optional[tuple] = None
     post: Optional[tuple] = None      # (w (1, C, k), b (1,))
     post_dev: Optional[tuple] = None
     p: int = 0                        # phases (fused_mrf_ptc_f's weights)
@@ -326,40 +323,40 @@ class MrfWeights:
 
 
 def prepare_mrf(packed, kernel_sizes, dilations, ups=None, post=None,
-                engine=True):
+                fallback=True):
     """:class:`MrfWeights` of one level, in the dtype and on the device of
     ``packed``. ``ups`` = (w, b, stride, padding) of the level's
     ConvTranspose1d and ``post`` = (w, b) of conv_post, for
     :func:`fused_mrf_phase`.
 
-    On the card, bf16 weights of a level the block-resident engine serves
-    (``engine``; a wide level of :data:`TC_BF_CFG`, a narrow one with its
-    upsample in :data:`PHASE_BF_CFG`) are staged for it (``blk``: per chain
+    Off the CPU, bf16 weights of a level the block-resident engine serves
+    (a wide level of :data:`TC_BF_CFG`, a narrow one with its upsample in
+    :data:`PHASE_BF_CFG`) are staged for it (``blk``: per chain
     and step (w1, b1, w2, b2), the taps by :func:`pack_stage_bf16`;
     ``blk_ups``: per phase the upsample's taps staged, the bias, the bytes
     of a phase); float32 weights of a wide level of :data:`TC_CHANNELS` or
     a narrow one with its upsample in :data:`PHASE_F32_UKCH` for the
     float32 chain kernels (``blk`` and ``blk_ups`` alike, the taps by
     :func:`pack_stage_tf32`). Every other form keeps the step kernels'
-    ``chains`` (a narrow level's too: its fallback to ``fused_mrf_ct`` reads
-    them); ``engine=False`` (``fused_mrf_ptc_f``'s weights) stages only
-    those."""
+    ``chains``, and so does a narrow level's (its fallback to
+    ``fused_mrf_ct`` reads them), unless not ``fallback``
+    (``fused_mrf_ptc_f``'s weights, which no step kernel reads)."""
     cdt, device = packed[0].dtype, packed[0].device
     kernel_sizes = tuple(kernel_sizes)
     dilations = tuple(tuple(d) for d in dilations)
     mrf = MrfWeights(cdt, device, kernel_sizes, dilations, list(packed),
                      ups=ups, post=post)
-    if device.type != 'cuda':
+    if device.type == 'cpu':
         return mrf
     C = packed[0].shape[-1]
     cfg = None
-    if engine and cdt == torch.bfloat16:
+    if cdt == torch.bfloat16:
         cfg = TC_BF_CFG.get(C) if ups is None else \
             PHASE_BF_CFG.get((ups[0].shape[0], C))
         stage = None if cfg is None else \
             (lambda w: pack_stage_bf16(w, cfg.tps, cfg.kch))
-    elif engine and (ups is None and C in TC_CHANNELS or ups is not None
-                     and (ups[0].shape[0], C) in PHASE_F32_UKCH):
+    elif (ups is None and C in TC_CHANNELS or ups is not None
+          and (ups[0].shape[0], C) in PHASE_F32_UKCH):
         cfg = TC_F32_CFG[C]
         stage = (lambda w: pack_stage_tf32(w, cfg.kch))
     if cfg is not None:
@@ -369,7 +366,7 @@ def prepare_mrf(packed, kernel_sizes, dilations, ups=None, post=None,
             mrf.blk.append([(stage(w1[i]), b1[i].float().contiguous(),
                              stage(w2[i]), b2[i].float().contiguous())
                             for i in range(len(dils))])
-    if cfg is None or ups is not None:
+    if fallback and (cfg is None or ups is not None):
         mrf.chains = []
         for j, dils in enumerate(dilations):
             w1, b1, w2, b2 = packed[4 * j:4 * j + 4]
@@ -378,22 +375,19 @@ def prepare_mrf(packed, kernel_sizes, dilations, ups=None, post=None,
                                 _device_taps(w2[i], cdt),
                                 b2[i].float().contiguous())
                                for i in range(len(dils))])
-    if ups is not None:
+    if ups is not None and cfg is not None:
         w, b, stride, padding = ups
         _, _, _, _, taps = ups_geometry(w.shape[-1], stride, padding)
         phases = [torch.stack([w[:, :, j] for j in tp]) for tp in taps]
-        if cfg is not None and cdt == torch.bfloat16:
+        if cdt == torch.bfloat16:
             staged = [pack_stage_bf16(t, cfg.utps, cfg.ukch) for t in phases]
             mrf.blk_ups = (torch.cat(staged), b.float().contiguous(),
                            2 * staged[0].numel())
-        elif cfg is not None:
+        else:
             ukch = PHASE_F32_UKCH[w.shape[0], C]
             staged = [pack_stage_tf32(t, ukch) for t in phases]
             mrf.blk_ups = (torch.cat(staged), b.float().contiguous(),
                            4 * staged[0].numel())
-        else:
-            mrf.ups_dev = (torch.cat([_device_taps(t, cdt) for t in phases]),
-                           b.float().contiguous())
     if post is not None:
         w, b = post
         mrf.post_dev = (w.to(cdt).float()[0].transpose(0, 1).contiguous(),
@@ -502,76 +496,6 @@ def _empty_on(device):
     return lambda shape, dtype: torch.empty(shape, dtype=dtype, device=device)
 
 
-@dataclass
-class Upsample:
-    """The launch of ``ups_kernel``: X0[b, n + out_off] for samples
-    n = stride*m + r in [n_lo, n_hi), m in [m_lo, m_hi); phase r sums taps
-    t < ntaps of lrelu(x) at input m + amin + rows[r] + t."""
-    x: torch.Tensor
-    out: torch.Tensor
-    out_off: int
-    weights: tuple
-    stride: int
-    ntaps: int
-    amin: int
-    rows: list
-    span: int
-    m_lo: int
-    m_hi: int
-    n_lo: int
-    n_hi: int
-
-
-@dataclass
-class Post:
-    """The launch of ``post_kernel``: out[b, 0, n] for n in [0, N) from the
-    chain sum ``src`` (sample n at n + src_off) times ``scale``."""
-    src: torch.Tensor
-    src_off: int
-    scale: float
-    weights: tuple
-    k: int
-    out: torch.Tensor
-
-
-def _phase_plan(x, prep, ups_prep, kernel_sizes, dilations, ups, post,
-                post_prep, alloc, x0_dtype=None):
-    """Launch plan of :func:`fused_mrf_phase` (and :func:`fused_mrf_ptc_f`,
-    whose upsample output ``x0_dtype`` is float32): (upsample, steps, post
-    or None, out)."""
-    w_u, _, stride, padding = ups
-    B, _, T_in = x.shape
-    C = w_u.shape[1]
-    ntaps, amin, rows, span, _ = ups_geometry(w_u.shape[-1], stride, padding)
-    post_k = post[0].shape[-1] if post is not None else 1
-    E = -(-_phase_ext(kernel_sizes, dilations, post_k) // 16) * 16
-    if E % stride or E < padding:
-        raise ValueError(f'fused_mrf_phase: stride {stride} must divide '
-                         f'the extension {E}')
-    N = stride * T_in
-    x0 = alloc((B, N + 2 * E, C), x0_dtype or x.dtype)
-    upsample = Upsample(x, x0, E, ups_prep, stride, ntaps, amin, rows, span,
-                        -(E // stride), T_in + E // stride, -E, N + E)
-    bufs = alloc((3, B, N + 2 * E, C), torch.float32)
-    if post is None:
-        out = alloc((B, C, N), x.dtype)
-        fin = out.transpose(1, 2)
-    else:
-        out = alloc((B, 1, N), x.dtype)
-        fin = None
-    steps = _chain_steps(x0, E, -E, N + E, prep, kernel_sizes, dilations, N,
-                         (post_k - 1) // 2, bufs, E, fin)
-    tail = None if post is None else Post(bufs[2], E, 1.0 / len(kernel_sizes),
-                                          post_prep, post_k, out)
-    return upsample, steps, tail, out
-
-
-_UPS_ARGTYPES = ([_P, _I64, _I64, _I64, _I32, _P, _I64, _I32, _P, _P]
-                 + [_I32] * 4 + [_P] + [_I32] * 7 + [_P])
-_POST_ARGTYPES = [_P, _I64, _I32, _I32, _F32, _P, _F32, _I32, _P, _I32,
-                  _I32, _P]
-
-
 def fused_mrf_phase(x, mrf):
     """Upsample + fused MRF group (+ conv_post) of a narrow level.
 
@@ -603,49 +527,6 @@ def fused_mrf_phase(x, mrf):
 
 fused_mrf_phase.launches = 0
 fused_mrf_phase.calls = collections.Counter()
-
-
-def _launch_phase(wrapper, x, mrf):
-    """The step-kernel launches of ``mrf_phase.cu`` for
-    :func:`fused_mrf_ptc_f` (bf16 compute, the upsample writing float32),
-    counted on ``wrapper``."""
-    name = wrapper.__name__
-    w_u, _, stride, _ = mrf.ups
-    B, C_in, T_in = x.shape
-    C = w_u.shape[1]
-    cdt = x.dtype
-    _check_cuda_input(x, name, PHASE_CHANNELS, C)
-    _check_kernel_sizes(name, mrf.kernel_sizes)
-    _check_weights(name, x, mrf)
-    if (C_in, C) not in PHASE_UPS:
-        raise ValueError(f'{name}: upsample {C_in}->{C} has no CUDA '
-                         f'instantiation (built for {PHASE_UPS})')
-    up, steps, tail, out = _phase_plan(
-        x, mrf.chains, mrf.ups_dev, mrf.kernel_sizes, mrf.dilations, mrf.ups,
-        mrf.post, mrf.post_dev, _empty_on(x.device), torch.float32)
-    stream = _build.stream_ptr(x)
-    w_p, b_p = up.weights
-    err = _fn('mrf_phase', 'mrf_phase_ups', _UPS_ARGTYPES)(
-        _build.ptr(x), x.stride(0), x.stride(1), x.stride(2), T_in,
-        _build.ptr(up.out), up.out.stride(0), up.out_off, _build.ptr(w_p),
-        _build.ptr(b_p), stride, up.ntaps, up.amin, up.span,
-        ctypes.cast((ctypes.c_int * stride)(*up.rows), ctypes.c_void_p),
-        up.m_lo, up.m_hi, up.n_lo, up.n_hi, C_in, C, B, stream)
-    _build.check(err, 'MRF upsample')
-    wrapper.launches += 1
-    fn = _fn('mrf_phase', 'mrf_phase_step', _STEP_ARGTYPES)
-    for st in steps:
-        _launch_step(fn, st, B, C, cdt)
-        wrapper.launches += 1
-    if tail is not None:
-        w_t, b_t = tail.weights
-        err = _fn('mrf_phase', 'mrf_phase_post', _POST_ARGTYPES)(
-            _build.ptr(tail.src), tail.src.stride(0), tail.src_off, C,
-            tail.scale, _build.ptr(w_t), b_t, tail.k, _build.ptr(out),
-            stride * T_in, B, stream)
-        _build.check(err, 'MRF conv_post')
-        wrapper.launches += 1
-    return out
 
 
 # ----------------------------------------------------------------------
@@ -915,7 +796,7 @@ def _launch_tc_chains(wrapper, x, mrf):
         raise ValueError(
             f'{wrapper.__name__}: the weights carry no '
             f'{"float32" if f32 else "bf16"} engine form '
-            '(prepare_mrf(..., engine=True) on the card)')
+            '(prepare_mrf on the card)')
     x = aligned(x)
     slots = sm_count(x.device)
     plan = _tc_f32_plan if f32 else _tc_bf_plan
@@ -1094,7 +975,7 @@ class PhaseLaunch:
     waveform (B, 1, N). ``r_smem``: the float32 windows in shared memory,
     else a scratch slice per resident block (bf16: (window + block_m + 2P)
     x (C + 8) floats; float32: (the widest chain's window + block_m + 2P) x
-    C floats)."""
+    C floats); fdot's float32 X0 adds window x C floats to the slice."""
     x: torch.Tensor
     out: torch.Tensor
     chains: list
@@ -1116,11 +997,11 @@ class PhaseLaunch:
     scratch: int
 
 
-def _phase_engine_plan(x, mrf, alloc, slots, f32):
+def _phase_engine_plan(x, mrf, alloc, slots, f32, fdot=False):
     """Launch plan of :func:`fused_mrf_phase` on a chain kernel
-    (``phase_f32_kernel`` when ``f32``, else ``phase_bf_kernel``): a
-    :class:`PhaseLaunch`, block_m the largest whose window fits the
-    kernel's shared memory."""
+    (``phase_f32_kernel`` when ``f32``, else ``phase_bf_kernel``, with its
+    X0 in float32 in the scratch when ``fdot``): a :class:`PhaseLaunch`,
+    block_m the largest whose window fits the kernel's shared memory."""
     w_u, _, stride, padding = mrf.ups
     B, C_in, T_in = x.shape
     C = w_u.shape[1]
@@ -1151,16 +1032,18 @@ def _phase_engine_plan(x, mrf, alloc, slots, f32):
     if f32:
         scratch = (bm + 2 * hmax + 2 * P + bm + 2 * P) * C * resident
     else:
-        scratch = 0 if r_smem else \
-            (2 * bm + 2 * hx + 2 * P) * (C + 8) * resident
+        scratch = ((0 if r_smem else (2 * bm + 2 * hx + 2 * P) * (C + 8))
+                   + ((bm + 2 * hx) * C if fdot else 0)) * resident
     return PhaseLaunch(x, out, mrf.blk, mrf.blk_ups, post_w, ks, dils,
                        stride, ntaps, amin, rows, span, N, hx, P, bm,
                        n_blocks, r_smem, scratch)
 
 
-def _phase_bf_plan(x, mrf, alloc, slots):
-    """Launch plan of the bf16 :func:`fused_mrf_phase`."""
-    return _phase_engine_plan(x, mrf, alloc, slots, False)
+def _phase_bf_plan(x, mrf, alloc, slots, fdot=False):
+    """Launch plan of the bf16 :func:`fused_mrf_phase`, or (``fdot``) of
+    :func:`fused_mrf_ptc_f`: the same blocks, its float32 upsample output
+    in the scratch."""
+    return _phase_engine_plan(x, mrf, alloc, slots, False, fdot)
 
 
 def _phase_f32_plan(x, mrf, alloc, slots):
@@ -1191,10 +1074,11 @@ def _phase_args(pl, stages, post_dev):
     return ptrs, ints
 
 
-def _launch_phase_engine(wrapper, x, mrf):
+def _launch_phase_engine(wrapper, x, mrf, fdot=False):
     """The chain-kernel launch of a :func:`fused_mrf_phase` call,
-    ``phase_bf_kernel`` in bf16 and ``phase_f32_kernel`` in float32,
-    counted on ``wrapper``."""
+    ``phase_bf_kernel`` in bf16 and ``phase_f32_kernel`` in float32, or
+    (``fdot``) of a :func:`fused_mrf_ptc_f` call, ``phase_bf_kernel`` with
+    a float32 upsample output; counted on ``wrapper``."""
     name = wrapper.__name__
     w_u = mrf.ups[0]
     B, C_in, T_in = x.shape
@@ -1210,7 +1094,7 @@ def _launch_phase_engine(wrapper, x, mrf):
     if mrf.blk is None or mrf.blk_ups is None:
         raise ValueError(
             f'{name}: the weights carry no {"float32" if f32 else "bf16"} '
-            'engine form (prepare_mrf(..., engine=True) on the card)')
+            'engine form (prepare_mrf on the card)')
     # channel-last rows of 16-byte-aligned channels, or channel-major
     chunk = 16 // x.element_size()
     if x.stride(1) == 1:
@@ -1219,8 +1103,8 @@ def _launch_phase_engine(wrapper, x, mrf):
     elif x.stride(2) != 1:
         x = x.contiguous()
     slots = sm_count(x.device)
-    pl = (_phase_f32_plan if f32 else _phase_bf_plan)(
-        x, mrf, _empty_on(x.device), slots)
+    pl = _phase_f32_plan(x, mrf, _empty_on(x.device), slots) if f32 else \
+        _phase_bf_plan(x, mrf, _empty_on(x.device), slots, fdot)
     if f32:
         stages = (1, TC_F32_CFG[C].kch, 1, PHASE_F32_UKCH[C_in, C])
     else:
@@ -1231,16 +1115,16 @@ def _launch_phase_engine(wrapper, x, mrf):
     pa = (ctypes.c_int64 * len(ptrs))(*ptrs)
     ia = (ctypes.c_int * len(ints))(*ints)
     out = pl.out
-    err = _fn('mrf_phase', 'mrf_phase_f32' if f32 else 'mrf_phase_bf',
-              _PHASE_ARGTYPES)(
+    kind = 'f32' if f32 else 'fdot' if fdot else 'bf'
+    err = _fn('mrf_phase', f'mrf_phase_{kind}', _PHASE_ARGTYPES)(
         _build.ptr(x), x.stride(0), x.stride(1), x.stride(2), T_in,
         _build.ptr(out), out.stride(0), ctypes.cast(pa, ctypes.c_void_p),
         ctypes.cast(ia, ctypes.c_void_p),
         1.0 / len(mrf.kernel_sizes),
         mrf.post_dev[1] if pl.post is not None else 0.0, C_in, C, B,
         _build.ptr(scratch), scratch.numel(), slots, _build.stream_ptr(x))
-    _build.check(err, f'MRF {"float32" if f32 else "bf16"} phase level '
-                 f'({C_in}->{C}, block_m={pl.block_m})')
+    _build.check(err, f'MRF {kind} phase level ({C_in}->{C}, '
+                 f'block_m={pl.block_m})')
     wrapper.launches += 1
     return out
 
@@ -1635,7 +1519,9 @@ def ptc_tile(rows, tile=8192):
 # float32 (vocoder_kernels.py:1835) where the banded phase kernel rounds it
 # to the compute dtype (:1121). The dots are bf16 whatever x's dtype
 # (``hifigan._pallas_mrf_ptc`` packs bf16 weights), conv_post's weights are
-# in x's dtype.
+# in x's dtype. On the card it is the bf16 engine's ``phase_bf_kernel``
+# with its X0 in float32, in a per-block scratch slice, on the bf16 level's
+# blocks (:func:`_phase_bf_plan` with ``fdot``).
 
 def prepare_mrf_ptc_f(packed, kernel_sizes, dilations, p, ups, post=None):
     """:class:`MrfWeights` of a narrow level for :func:`fused_mrf_ptc_f`,
@@ -1676,7 +1562,7 @@ def prepare_mrf_ptc_f(packed, kernel_sizes, dilations, p, ups, post=None):
         pst = (_ptc_taps(P, post_k, 1, p, C, 1).permute(2, 1, 0),
                b_p[0, :1])
     mrf = prepare_mrf(taps, kernel_sizes, dilations,
-                      (w_u, b_u[0, :C], stride, padding), pst, engine=False)
+                      (w_u, b_u[0, :C], stride, padding), pst, fallback=False)
     mrf.p = p
     return mrf
 
@@ -1706,13 +1592,15 @@ def fused_mrf_ptc_f(x, mrf, tile):
     :func:`prepare_mrf_ptc_f`; ``tile`` the TPU kernel's phase-tc rows per
     tile (divides rows; conv_post must fit its halo). Returns (B, C, N), or
     with ``mrf.post`` the waveform (B, 1, N), N = p*rows, in x's dtype. On
-    a CUDA tensor (bfloat16) this launches ``mrf_phase.cu`` with a float32
-    upsample output (or raises); on a CPU tensor it runs
-    :func:`mrf_ptc_f_plain`.
+    a CUDA tensor (bfloat16) this launches ``mrf_phase.cu``'s
+    ``phase_bf_kernel`` with a float32 upsample output, one launch a call
+    (or raises); on a CPU tensor it runs :func:`mrf_ptc_f_plain`. The tile
+    sets what ``_check_ptc_f`` accepts and, through the caller, whether
+    conv_post fuses, not the kernel's blocks.
 
-    ``fused_mrf_ptc_f.launches`` counts CUDA launches (the upsample, one
-    per chain step, conv_post); ``fused_mrf_ptc_f.calls`` counts
-    CUDA-route calls by x's shape and mode 'fdot'."""
+    ``fused_mrf_ptc_f.launches`` counts CUDA launches;
+    ``fused_mrf_ptc_f.calls`` counts CUDA-route calls by x's shape and mode
+    'fdot'."""
     if mrf.ups is None or not mrf.p:
         raise ValueError('fused_mrf_ptc_f: the weights are not '
                          'prepare_mrf_ptc_f\'s')
@@ -1722,7 +1610,7 @@ def fused_mrf_ptc_f(x, mrf, tile):
     if x.dtype != torch.bfloat16:
         raise ValueError('fused_mrf_ptc_f: the CUDA route takes bfloat16 '
                          f'activations, not {x.dtype}')
-    out = _launch_phase(fused_mrf_ptc_f, x, mrf)
+    out = _launch_phase_engine(fused_mrf_ptc_f, x, mrf, fdot=True)
     fused_mrf_ptc_f.calls[tuple(x.shape) + ('fdot',)] += 1
     return out
 
@@ -2021,17 +1909,12 @@ def ptc_amax(x, p_in, tile, halo_in):
 # ----------------------------------------------------------------------
 
 Q8_TC_CHANNELS = (128, 256)
-Q8_PTC_UPS = ((128, 64), (64, 32))    # (C_in, C) of the fused upsample
 
 _Q8_STEP_ARGTYPES = ([_P, _I64, _I32, _I32, _I32, _I32, _P, _I64, _I32, _P,
                       _I64, _I64, _I64, _I32, _I32, _F32] + [_P] * 7
                      + [_I32] * 6 + [_P])
 _Q8S_STEP_ARGTYPES = _Q8_STEP_ARGTYPES[:16] + [_P] * 8 + _Q8_STEP_ARGTYPES[23:]
 _AMAX_ARGTYPES = [_P, _I64] + [_I32] * 6 + [_P, _I32, _P]
-_UPS_Q8_ARGTYPES = ([_P, _I64, _I32, _P, _P, _I64, _P, _P, _P]
-                    + [_I32] * 4 + [_P] + [_I32] * 7 + [_P])
-_PTC_POST_ARGTYPES = [_P, _I64, _I32, _I32, _F32, _P, _F32, _I32, _P, _I32,
-                      _I32, _P]
 
 
 def _launch_q8_step(fn, st, B, C):
@@ -2202,28 +2085,3 @@ def fused_mrf_tc_q8(x, mrf):
 
 fused_mrf_tc_q8.launches = 0
 fused_mrf_tc_q8.calls = collections.Counter()
-
-
-@dataclass
-class PtcPrologue:
-    """The launches of the phase-tc upsample prologue, over S = B*n_tiles
-    segments (segment b*n_tiles + t is tile t of utterance b):
-    ``amax_kernel`` writes ``amax[seg]`` (float bits, from 0), the amax of
-    lrelu(x) over input samples [t*tile_in - halo_in, ... + win_len);
-    ``ups_q8_kernel`` writes ``x0[seg, stride*m + r]`` for m < m_len, the
-    upsample output at input position t*tile_in - halo_m + m."""
-    x: torch.Tensor
-    amax: torch.Tensor
-    x0: torch.Tensor
-    weights: tuple
-    n_tiles: int
-    tile_in: int
-    halo_in: int
-    win_len: int
-    halo_m: int
-    m_len: int
-    stride: int
-    ntaps: int
-    amin: int
-    rows: list
-    span: int

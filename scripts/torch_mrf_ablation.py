@@ -14,17 +14,16 @@ conv_post waveform within one bf16 ulp; the bf16 sections within rel-L2
 
 - ``bf16``: the bf16 tier's block-resident engine (mrf_chain_bf16.cuh:
   tc_bf_kernel, phase_bf_kernel; fused_mrf_tc and fused_mrf_phase in
-  bf16, and fused_resblock1 in bf16 at chip_smoke.py's resblock1 shapes,
-  one chain a launch), ablated by MRF_ABL_NOW (no weight copies), MRF_ABL_NOMMA (no
-  wgmma), MRF_ABL_NOEPI (no conv epilogues: the residual and conv-input
-  writes, the chains' outputs) and the three together (the skeleton:
-  loads, the per-block prologue and tail, launches).
-- ``bf16_steps``: the bf16 kernel still on the one-launch-per-step route
-  (mrf_phase.cu: step_kernel, ups_kernel, post_kernel of mrf_common.cuh):
-  fused_mrf_ptc's fdot mode at V1's narrow levels, ablated by
-  MRF_ABL_STEP_NOW (no weight loads), MRF_ABL_STEP_NOMMA (no mma.sync),
-  MRF_ABL_STEP_NOF32 (no float32 residual and chain-sum traffic) and all
-  three (the skeleton of launches and tails).
+  bf16, fused_mrf_ptc's fdot mode at V1's narrow levels (phase_bf_kernel
+  with a float32 upsample output), and fused_resblock1 in bf16 at
+  chip_smoke.py's resblock1 shapes, one chain a launch), ablated by
+  MRF_ABL_NOW (no weight copies), MRF_ABL_NOMMA (no wgmma), MRF_ABL_NOEPI
+  (no conv epilogues: the residual and conv-input writes, the chains'
+  outputs) and the three together (the skeleton: loads, the per-block
+  prologue and tail, launches).
+- ``fdot``: fused_mrf_ptc's fdot mode at the bf16-ptc path's L2/L3 as the
+  tree builds it, unablated (so that a tree whose fdot level runs another
+  route can be timed at the same shapes).
 - ``f32``: the float32 chain kernels (mrf_chain_f32.cuh: tc_f32_kernel
   and phase_f32_kernel, 3xTF32 on the tensor cores; fused_resblock1 in
   float32 at chip_smoke.py's resblock1 shapes, fused_mrf_tc in float32 at
@@ -36,11 +35,15 @@ conv_post waveform within one bf16 ulp; the bf16 sections within rel-L2
   as the tree builds it, unablated (so that a tree whose float32 level
   runs another route can be timed at the same shapes).
 - ``static``: the block-resident int8-static kernels (mrf_tc_q8.cu,
-  mrf_ptc.cu: fused_mrf_tc_q8, fused_mrf_ptc static), ablated by
+  mrf_ptc.cu, mrf_phase_q8.cu: fused_mrf_tc_q8, fused_mrf_ptc static and
+  fused_mrf_phase_q8 q8s at the batch-1 entry point's L2/L3 for one
+  1024-frame utterance, all on mrf_chain_q8.cuh), ablated by
   MRF_ABL_NOW (no weight copies: the convs read whatever the ring holds),
   MRF_ABL_NOMMA (no ldmatrix/wgmma: the epilogues see zero sums),
   MRF_ABL_NOEPI (no conv epilogues), MRF_ABL_NOSYNC (no __syncthreads per
   weight stage; only beside the first two).
+- ``q8s_phase``: fused_mrf_phase_q8 q8s at those shapes as the tree builds
+  it, unablated.
 - ``dyn_blk``: the segment-synchronised int8-dynamic engine
   (mrf_dyn_blk.cuh: fused_mrf_ct_q8 at C = 256/128, fused_mrf_phase_q8
   dynamic at C = 64/32, fused_mrf_ptc dyn at V1's L2/L3), ablated by MRF_ABL_NOW, MRF_ABL_NOMMA,
@@ -60,8 +63,6 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SKELETON = ['-DMRF_ABL_NOW', '-DMRF_ABL_NOMMA']
-STEP_SKELETON = ['-DMRF_ABL_STEP_NOW', '-DMRF_ABL_STEP_NOMMA',
-                 '-DMRF_ABL_STEP_NOF32']
 # the bf16 path's levels and chip_smoke.py's resblock1 path (bf16 half)
 BF16_SHAPES = (('fused_mrf_tc', (8, 8192, 256)),
                ('fused_mrf_tc', (8, 65536, 128)),
@@ -79,8 +80,11 @@ F32_SHAPES = tuple(('fused_resblock1', (8, n, C, k, (1, 3, 5), 'float32'))
 F32_PHASE_SHAPES = (('fused_mrf_phase', (8, 128, 65536, 'float32')),
                     ('fused_mrf_phase', (8, 64, 131072, 'float32')))
 # chip_smoke.py's bf16-ptc path (fdot)
-STEP_SHAPES = (('fused_mrf_ptc_f', (8, 128, 65536, 'fdot')),
+FDOT_SHAPES = (('fused_mrf_ptc_f', (8, 128, 65536, 'fdot')),
                ('fused_mrf_ptc_f', (8, 64, 131072, 'fdot')))
+# chip_smoke.py's entry-int8-unfused path: L2/L3 of a 1024-frame utterance
+Q8S_PHASE_SHAPES = (('fused_mrf_phase_q8', (1, 65536, 128, 'q8s')),
+                    ('fused_mrf_phase_q8', (1, 131072, 64, 'q8s')))
 
 
 SECTIONS = {
@@ -93,17 +97,11 @@ SECTIONS = {
             'no_epilogue': ['-DMRF_ABL_NOEPI'],
             'skeleton': ENGINE_SKELETON,
         },
-        shapes=BF16_SHAPES),
-    'bf16_steps': dict(
+        shapes=BF16_SHAPES + FDOT_SHAPES),
+    'fdot': dict(
         sources=('mrf_phase',), band=1e-2,
-        builds={
-            'kernel': [],
-            'no_weights': ['-DMRF_ABL_STEP_NOW'],
-            'no_mma': ['-DMRF_ABL_STEP_NOMMA'],
-            'no_f32': ['-DMRF_ABL_STEP_NOF32'],
-            'skeleton': STEP_SKELETON,
-        },
-        shapes=STEP_SHAPES),
+        builds={'kernel': []},
+        shapes=FDOT_SHAPES),
     'f32': dict(
         sources=('mrf_tc', 'mrf_phase'), band=1e-5,
         builds={
@@ -118,7 +116,7 @@ SECTIONS = {
         builds={'kernel': []},
         shapes=F32_PHASE_SHAPES),
     'static': dict(
-        sources=('mrf_tc_q8', 'mrf_ptc'),
+        sources=('mrf_tc_q8', 'mrf_ptc', 'mrf_phase_q8'),
         builds={
             'kernel': [],
             'no_weights': ['-DMRF_ABL_NOW'],
@@ -130,7 +128,11 @@ SECTIONS = {
         shapes=(('fused_mrf_tc_q8', (8, 8192, 256)),
                 ('fused_mrf_tc_q8', (8, 65536, 128)),
                 ('fused_mrf_ptc', (8, 65536, 128, 'q8f')),
-                ('fused_mrf_ptc', (8, 131072, 64, 'q8f')))),
+                ('fused_mrf_ptc', (8, 131072, 64, 'q8f'))) + Q8S_PHASE_SHAPES),
+    'q8s_phase': dict(
+        sources=('mrf_phase_q8',),
+        builds={'kernel': []},
+        shapes=Q8S_PHASE_SHAPES),
     'dyn_blk': dict(
         sources=('mrf_ct_q8', 'mrf_phase_q8'),
         builds={

@@ -1,7 +1,8 @@
 """The bf16 block-resident engine's launch plans
 (daft_exprt_torch/ops/csrc/mrf_chain_bf16.cuh: ``tc_bf_kernel`` for
-``fused_mrf_tc``, ``phase_bf_kernel`` for ``fused_mrf_phase``), replayed on
-the CPU block by block.
+``fused_mrf_tc``, ``phase_bf_kernel`` for ``fused_mrf_phase`` and, with a
+float32 upsample output, for ``fused_mrf_ptc_f``), replayed on the CPU
+block by block.
 
 - Each block's window is emulated as the kernel computes it (its own x
   rows, zero outside the utterance; for the phase kernel its own upsample
@@ -172,11 +173,12 @@ def _phase_case(C_in, C, B, T_in, post, cdt, seed=0):
     return params, vk.prepare_mrf(w, KS, DILS, ups, pst), x
 
 
-def _replay_phase(pl, x, mrf, cdt):
+def _replay_phase(pl, x, mrf, cdt, round_x0=True):
     """What the ``phase_bf_kernel`` launch computes, block by block (its
-    x window, the polyphase upsample over its window, the chains on their
-    own windows, the mean or conv_post); returns the output and how often
-    each sample was written."""
+    x window, the polyphase upsample over its window, rounded to ``cdt``
+    unless not ``round_x0`` (fdot's float32 X0), the chains on their own
+    windows, the mean or conv_post); returns the output and how often each
+    sample was written."""
     w_u, b_u, stride, padding = mrf.ups
     _, _, _, _, taps = vk.ups_geometry(w_u.shape[-1], stride, padding)
     B, C_in, T_in = x.shape
@@ -198,7 +200,8 @@ def _replay_phase(pl, x, mrf, cdt):
                 wr = torch.stack([w_u[:, :, j] for j in taps[r]], dim=2)
                 y = F.conv1d(xq[None, :, pl.rows[r]:pl.rows[r] + W // stride
                                 + pl.ntaps - 1], wr.permute(1, 0, 2).float())
-                x0[:, r::stride] = (y[0] + b_u.float()[:, None]).to(cdt).float()
+                y = y[0] + b_u.float()[:, None]
+                x0[:, r::stride] = y.to(cdt).float() if round_x0 else y
             acc = None
             for j, (k, dils) in enumerate(zip(mrf.kernel_sizes,
                                               mrf.dilations)):
@@ -246,6 +249,64 @@ def test_phase_bf_plan_replays_plain(C_in, C, B, T_in, post, slots, cdt):
     assert out.shape == ref.shape
     assert torch.isfinite(out.float()).all()
     _assert_replay_close(out, ref, cdt)
+
+
+def _fdot_case(C_in, C, B, T_in, post, seed=0):
+    """fused_mrf_ptc_f's weights (the fdot packers read back by tap) and a
+    transposed bf16 input, at V1's L2 (p_in 1) or L3 (p_in 2) geometry."""
+    rng = np.random.RandomState(seed + C + T_in)
+    params = mrf_params(rng, 0, C, KS, DILS)
+    params['ups_0'] = {'w': (rng.randn(C_in, C, 4) * 0.05).astype(np.float32),
+                       'b': (rng.randn(C) * 0.05).astype(np.float32)}
+    if post:
+        params['conv_post'] = {
+            'w': (rng.randn(1, C, 7) * 0.1).astype(np.float32),
+            'b': (rng.randn(1) * 0.05).astype(np.float32)}
+    tp = {k: {kk: (vv.bfloat16() if torch.is_tensor(vv) else
+                   {a: t.bfloat16() for a, t in vv.items()})
+              for kk, vv in v.items()} for k, v in to_torch(params).items()}
+    p_in = 1 if C_in == 128 else 2
+    p = 2 * p_in
+    pst = vk.pack_post_ptc_weights(tp['conv_post']['w'], tp['conv_post']['b'],
+                                   p, torch.bfloat16) if post else None
+    mrf = vk.prepare_mrf_ptc_f(
+        vk.pack_mrf_ptc_f_weights(tp, 0, KS, DILS, p), KS, DILS, p,
+        tuple(vk.pack_ups_ptc_f_weights(tp['ups_0']['w'], tp['ups_0']['b'],
+                                        2, 1, p_in)) + (4, 2, 1, p_in), pst)
+    x = torch.from_numpy((rng.randn(B, T_in, C_in) * 0.5).astype(np.float32)
+                         ).bfloat16().transpose(1, 2)
+    return mrf, x, T_in // p_in
+
+
+@pytest.mark.parametrize('C_in,C,B,T_in,post,slots', [
+    # V1 L2: several blocks per utterance, two utterances
+    (128, 64, 2, 200, False, 132),
+    # V1 L3 with conv_post, one short block, and several blocks
+    (64, 32, 1, 40, True, 132),
+    (64, 32, 2, 300, True, 8),
+    (64, 32, 1, 300, False, 8),
+    # the utterance shorter than the halo
+    (128, 64, 1, 20, False, 132),
+])
+def test_phase_bf_plan_fdot_replays_plain(C_in, C, B, T_in, post, slots):
+    """fused_mrf_ptc_f's plan (``phase_bf_kernel`` with a float32 X0 in a
+    scratch slice per resident block: the bf16 level's blocks) replayed
+    with the upsample output unrounded, against ``mrf_ptc_f_plain``."""
+    mrf, x, rows = _fdot_case(C_in, C, B, T_in, post)
+    pl = vk._phase_bf_plan(x, mrf, _nan_alloc, slots, fdot=True)
+    bf = vk._phase_bf_plan(x, mrf, _nan_alloc, slots)
+    assert (pl.block_m, pl.hx, pl.P) == (bf.block_m, bf.hx, bf.P)
+    assert bf.scratch == 0 and pl.scratch == (pl.block_m + 2 * pl.hx) * C \
+        * min(B * pl.n_blocks, slots)
+    assert pl.P == (3 if post else 0)
+    out, seen = _replay_phase(pl, x, mrf, torch.bfloat16, round_x0=False)
+    assert bool((seen == 1).all())
+    if T_in >= 200:
+        assert pl.n_blocks > 1
+    ref = vk.mrf_ptc_f_plain(x, mrf, rows)
+    assert out.shape == ref.shape
+    assert torch.isfinite(out.float()).all()
+    _assert_replay_close(out, ref, torch.bfloat16)
 
 
 def test_phase_bf_plan_replay_matches_jax_float32():
@@ -302,7 +363,8 @@ def test_phase_bf_cfg_matches_kernel(C_in, C):
 
 # The kernels' TcBfLayout / PhaseBfLayout, compiled for the host: one line
 # in per case ("tc C k n d.. bm" or "ph C_in C n (k n d d d)*n bm hx stride
-# span P"), one out ("total fits"), then kSmemMax.
+# span P"), one out ("total fits"; "pf", the same fields: fdot's scratch
+# floats a block), then kSmemMax.
 _LAYOUT_MAIN = r"""
 #include <cstdio>
 #include <cstring>
@@ -329,7 +391,14 @@ int main() {
       scanf("%d %d %d", &cin, &C, &p.n_chains);
       for (int j = 0; j < p.n_chains; ++j) steps(p.steps[j], &p.n_steps[j], &p.k[j]);
       scanf("%d %d %d %d %d", &p.bm, &p.hx, &p.stride, &p.span, &p.P);
-      if (cin == 128) put(PhaseBfLayout<128, 64>(p)); else put(PhaseBfLayout<64, 32>(p));
+      if (!strcmp(kind, "pf")) {     // fdot: the float32 X0's scratch slice
+        if (cin == 128) printf("%zu\n", phase_bf_slice<128, 64, float>(PhaseBfLayout<128, 64>(p)));
+        else printf("%zu\n", phase_bf_slice<64, 32, float>(PhaseBfLayout<64, 32>(p)));
+      } else if (cin == 128) {
+        put(PhaseBfLayout<128, 64>(p));
+      } else {
+        put(PhaseBfLayout<64, 32>(p));
+      }
     }
   }
   printf("%d\n", kSmemMax);
@@ -357,7 +426,9 @@ def test_bf_smem_layouts_match_kernel(tmp_path):
     holds: the Python layouts (``_tc_bf_smem``, ``_phase_bf_smem``) and the
     fit the launches check are held to the kernels' own layout code, at
     the planned blocks of V1's levels, one 8-sample step past them, and
-    small and odd blocks, with 3 and 2 dilations."""
+    small and odd blocks, with 3 and 2 dilations; fdot's scratch slice a
+    block (its float32 X0) to the kernel's ``phase_bf_slice`` at the
+    planned blocks."""
     cases, lines = [], []
     for C, T in ((256, 8192), (128, 65536)):
         cfg = vk.TC_BF_CFG[C]
@@ -369,6 +440,7 @@ def test_bf_smem_layouts_match_kernel(tmp_path):
                     lines.append(f'tc {C} {k} {len(d)} {" ".join(map(str, d))} '
                                  f'{bm}')
     stride, span = 2, vk.ups_geometry(4, 2, 1)[3]
+    fdot = []               # (line, the plan's scratch floats a block)
     for (C_in, C), T_in in (((128, 64), 65536), ((64, 32), 131072)):
         cfg = vk.PHASE_BF_CFG[C_in, C]
         for P, dils in ((0, DILS), (3, DILS), (3, ((1, 3),) * 3)):
@@ -383,7 +455,21 @@ def test_bf_smem_layouts_match_kernel(tmp_path):
                     C_in, C, cfg, KS, dils, stride, span, P, hx, bm)))
                 lines.append(f'ph {C_in} {C} 3 {ch} {bm} {hx} {stride} '
                              f'{span} {P}')
-    got, smem_max = _kernel_layouts(lines, tmp_path)
+            if dils == DILS:
+                mrf = vk.MrfWeights(
+                    torch.bfloat16, torch.device('meta'), KS, DILS, [],
+                    ups=(torch.empty(C_in, C, 4), None, 2, 1),
+                    post=(torch.empty(1, C, 7), None) if P else None)
+                pl = vk._phase_bf_plan(
+                    torch.empty((8, C_in, T_in), device='meta'), mrf,
+                    lambda shape, dt: torch.empty(shape, device='meta'), 132,
+                    fdot=True)
+                assert (pl.block_m, pl.hx) == (bm0, hx)
+                fdot.append((f'pf {C_in} {C} 3 {ch} {bm0} {hx} {stride} '
+                             f'{span} {P}', pl.scratch // 132))
+    got, smem_max = _kernel_layouts(lines + [ln for ln, _ in fdot], tmp_path)
+    got, slices = got[:len(lines)], got[len(lines):]
+    assert [s_ for (s_,) in slices] == [n for _, n in fdot]
     assert smem_max == vk.SMEM_MAX
     for (kind, py), (total, fits), ln in zip(cases, got, lines):
         if kind == 'tc':
@@ -428,10 +514,12 @@ def test_pack_stage_bf16_matches_kernel_indexing(taps, tps, kch):
 
 
 def test_engine_forms_only_where_the_engine_runs():
-    """prepare_mrf keeps the CPU weights plain; ``engine=False`` and
-    float32 never stage the engine form (checked on the layout functions
-    the card uses)."""
+    """prepare_mrf keeps the CPU weights plain, and the engines' tables
+    name the widths V1's levels have."""
     _, mrf, _ = _phase_case(128, 64, 1, 16, False, torch.bfloat16)
     assert mrf.blk is None and mrf.blk_ups is None and mrf.chains is None
     assert set(vk.TC_BF_CFG) == set(vk.TC_CHANNELS)
-    assert set(vk.PHASE_BF_CFG) == set(vk.PHASE_UPS)
+    # V1's narrow levels, the fused upsample's (C_in, C): the int8 fused
+    # kernels' widths too
+    assert set(vk.PHASE_BF_CFG) == {(2 * C, C) for C in vk.PHASE_CHANNELS} \
+        == set(vk.PTC_Q8_CFG)

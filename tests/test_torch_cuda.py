@@ -10,6 +10,8 @@ Bands: float32 calls rel-L2 <= 1e-5 (summation order only); bf16 calls
 rel-L2 <= 1e-2 (summation order can flip a bf16 rounding of an
 intermediate).
 """
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import torch
@@ -331,7 +333,6 @@ def test_mrf_phase_f32_engine_at_path_shapes(C_in, C, B, T_in):
         ).manual_seed(T_in)).cuda().transpose(1, 2)
     mrf = vk.prepare_mrf(w, KS, DILS, ups, pst)
     assert mrf.blk is not None and mrf.blk_ups is not None
-    assert mrf.ups_dev is None
     ref = vk.mrf_phase_plain(x, w, KS, DILS, ups, pst)
     for xin in (x, x.contiguous()):
         n = vk.fused_mrf_phase.launches
@@ -360,9 +361,11 @@ def test_mrf_phase_f32_engine_refuses_what_it_does_not_take():
         w, ups, pst, x = _phase_bf_case(C_in, C, 1, 256, False, C)
         w = [t.float() for t in w]
         ups = (ups[0].float(), ups[1].float()) + ups[2:]
+        mrf = vk.prepare_mrf(w, KS, DILS, ups, None)
+        if not engine:
+            mrf = replace(mrf, blk=None, blk_ups=None)
         with pytest.raises(ValueError, match=match):
-            vk.fused_mrf_phase(x.float(), vk.prepare_mrf(
-                w, KS, DILS, ups, None, engine=engine))
+            vk.fused_mrf_phase(x.float(), mrf)
     assert vk.fused_mrf_phase.launches == n
 
 
@@ -378,11 +381,11 @@ def test_mrf_bf16_engine_refuses_what_it_does_not_take():
     w, x = _tc_bf_case(128, 1, 256, 2)
     n = vk.fused_mrf_tc.launches
     with pytest.raises(ValueError, match='no bf16 engine form'):
-        vk.fused_mrf_tc(x, vk.prepare_mrf(w, KS, DILS, engine=False))
+        vk.fused_mrf_tc(x, replace(vk.prepare_mrf(w, KS, DILS), blk=None))
     w, ups, pst, x = _phase_bf_case(128, 64, 1, 256, False, 3)
     with pytest.raises(ValueError, match='no bf16 engine form'):
-        vk.fused_mrf_phase(x, vk.prepare_mrf(w, KS, DILS, ups, pst,
-                                             engine=False))
+        vk.fused_mrf_phase(x, replace(vk.prepare_mrf(w, KS, DILS, ups, pst),
+                                      blk=None, blk_ups=None))
     w, ups, pst, x = _phase_bf_case(32, 16, 1, 256, False, 4)
     with pytest.raises(ValueError, match='no CUDA instantiation'):
         vk.fused_mrf_phase(x, vk.prepare_mrf(w, KS, DILS, ups, pst))
@@ -390,7 +393,7 @@ def test_mrf_bf16_engine_refuses_what_it_does_not_take():
     w, x = _tc_bf_case(128, 1, 256, 5)
     w, x = [t.float() for t in w], x.float()
     with pytest.raises(ValueError, match='no float32 engine form'):
-        vk.fused_mrf_tc(x, vk.prepare_mrf(w, KS, DILS, engine=False))
+        vk.fused_mrf_tc(x, replace(vk.prepare_mrf(w, KS, DILS), blk=None))
     assert vk.fused_mrf_tc.launches == n
 
 
@@ -863,10 +866,16 @@ def test_mrf_ct_q8s_kernel_matches_plain(shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('B,cols,tile', [(2, 1024, 256), (1, 65536, 4096)])
 @pytest.mark.parametrize('C_in,C,p_in,post', [(128, 64, 1, False),
                                               (64, 32, 2, True)])
-def test_mrf_phase_q8s_kernel_matches_plain(C_in, C, p_in, post):
-    """The int8 phase kernel with its upsample prologue in q8s mode."""
+def test_mrf_phase_q8s_kernel_matches_plain(C_in, C, p_in, post, B, cols,
+                                            tile):
+    """The int8 phase kernel with its upsample prologue in q8s mode: the
+    amax and ptc_fused_q8_kernel's q8s form (2 launches a call), exact
+    against the plain version (a conv_post waveform within one bf16 ulp);
+    small tiles, and V1's L2 / L3 at one 1024-frame utterance (the batch-1
+    entry point's shapes)."""
     from daft_exprt_torch.ops import mrf_int8 as mi
     need_cuda()
     rng = np.random.RandomState(C + 2)
@@ -883,21 +892,46 @@ def test_mrf_phase_q8s_kernel_matches_plain(C_in, C, p_in, post):
                                      tp['conv_post']['b'], p) if post else None
     mrf = mi.prepare_mrf_phase_q8(qw, KS, DILS, p,
                                   tuple(ups) + (4, 2, 1, p_in), pst)
-    assert mrf.mode == 'q8s'
-    cols, tile = 1024, 256
-    x = torch.from_numpy((rng.randn(2, cols * p_in, C_in) * 0.5)
+    assert mrf.mode == 'q8s' and mrf.chains_dev is None
+    x = torch.from_numpy((rng.randn(B, cols * p_in, C_in) * 0.5)
                          .astype(np.float32))
-    x[0, 256 * p_in:512 * p_in] *= 4.0
+    x[0, tile * p_in:2 * tile * p_in] *= 4.0
     x = x.cuda().to(torch.bfloat16)
     fn = mi.fused_mrf_phase_q8
     n, key = fn.launches, tuple(x.shape) + ('q8s',)
     c = fn.calls[key]
     out = fn(x, mrf, tile)
     torch.cuda.synchronize()
-    assert fn.launches == n + 2 + 9 + post and fn.calls[key] == c + 1
+    assert fn.launches == n + 2 and fn.calls[key] == c + 1
     ref = mi.mrf_phase_q8_plain(x, mrf, tile)
     assert out.dtype == torch.bfloat16 and out.shape == ref.shape
     assert rel_l2(out.float().cpu(), ref.float().cpu()) <= 2e-3
+    assert_exact(out, ref, post)
+
+
+@pytest.mark.cuda
+def test_mrf_phase_q8s_refuses_unbuilt_widths():
+    """No q8s phase call falls back to another route: a width without a
+    kernel raises, naming the built ones, and launches nothing."""
+    from daft_exprt_torch.ops import mrf_int8 as mi
+    need_cuda()
+    rng = np.random.RandomState(5)
+    C_in, C, p_in = 32, 16, 2
+    tp = unit_params(rng, C, C_in)
+    qw = mi.quantize_mrf_phase_weights(
+        mi.pack_mrf_phase_weights(tp, 1, KS, DILS, 4), KS, DILS, 4,
+        _ph_scales(rng, C), fused=False)
+    wb, bu, _, _ = mi.pack_ups_phase_weights(tp['ups_1']['w'],
+                                             tp['ups_1']['b'], 2, 1, p_in)
+    mrf = mi.prepare_mrf_phase_q8(qw, KS, DILS, 4, tuple(
+        mi.quantize_ups_phase_weights(wb, bu, mi.ups_used_blocks(
+            4, 2, 1, p_in), C_in)) + (4, 2, 1, p_in))
+    x = torch.zeros((1, 512 * p_in, C_in), dtype=torch.bfloat16,
+                    device='cuda')
+    n = mi.fused_mrf_phase_q8.launches
+    with pytest.raises(ValueError, match=r'built for \(\(128, 64\)'):
+        mi.fused_mrf_phase_q8(x, mrf, 256)
+    assert mi.fused_mrf_phase_q8.launches == n
 
 
 @pytest.mark.cuda
@@ -937,11 +971,15 @@ def test_mrf_ptc_dyn_kernel_matches_plain(C_in, C, p_in, post):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('B,rows,tile', [(2, 1024, 256), (8, 65536, 4096)])
 @pytest.mark.parametrize('C_in,C,p_in,post', [(128, 64, 1, False),
                                               (64, 32, 2, True)])
-def test_mrf_ptc_fdot_kernel_matches_plain(C_in, C, p_in, post):
-    """fused_mrf_ptc_f (mrf_phase.cu with a float32 upsample output) on a
-    transposed (B, T, C) input, as the generator hands it over."""
+def test_mrf_ptc_fdot_kernel_matches_plain(C_in, C, p_in, post, B, rows,
+                                           tile):
+    """fused_mrf_ptc_f (phase_bf_kernel with a float32 upsample output, one
+    launch a call) on a transposed (B, T, C) input, as the generator hands
+    it over; small tiles, and V1's L2 / L3 at the bf16-ptc path's shapes
+    (B = 8 x 1024 frames). The same call twice is bit-identical."""
     need_cuda()
     rng = np.random.RandomState(C + 4)
     p = 2 * p_in
@@ -953,14 +991,16 @@ def test_mrf_ptc_fdot_kernel_matches_plain(C_in, C, p_in, post):
         vk.pack_mrf_ptc_f_weights(tp, 1, KS, DILS, p), KS, DILS, p,
         tuple(vk.pack_ups_ptc_f_weights(tp['ups_1']['w'], tp['ups_1']['b'],
                                         2, 1, p_in)) + (4, 2, 1, p_in), pst)
-    rows, tile = 1024, 256
-    x = torch.from_numpy((rng.randn(2, rows * p_in, C_in) * 0.5)
+    assert mrf.blk is not None and mrf.chains is None
+    x = torch.from_numpy((rng.randn(B, rows * p_in, C_in) * 0.5)
                          .astype(np.float32)).cuda().to(torch.bfloat16)
     x = x.transpose(1, 2)
     n = vk.fused_mrf_ptc_f.launches
     out = vk.fused_mrf_ptc_f(x, mrf, tile)
+    again = vk.fused_mrf_ptc_f(x, mrf, tile)
     torch.cuda.synchronize()
-    assert vk.fused_mrf_ptc_f.launches == n + 10 + post
+    assert vk.fused_mrf_ptc_f.launches == n + 2
+    assert torch.equal(out, again)
     ref = vk.mrf_ptc_f_plain(x, mrf, tile)
     assert out.dtype == torch.bfloat16 and out.shape == ref.shape
     assert rel_l2(out.float().cpu(), ref.float().cpu()) <= 1e-2

@@ -264,7 +264,7 @@ def _ct_level(seed, C):
         mi.pack_mrf_weights(tp, 0, KS, DILS)), KS, DILS)
 
 
-def _phase_level(seed, C_in, C, p_in, post, static=False):
+def _phase_level(seed, C_in, C, p_in, post, static=False, fused=True):
     rng = np.random.RandomState(seed)
     p = 2 * p_in
     tp = _bf16(to_torch(unit_level(rng, 1, C, C_in=C_in, post=post)))
@@ -273,7 +273,8 @@ def _phase_level(seed, C_in, C, p_in, post, static=False):
         scales = [torch.from_numpy(s[i]) for s1, s2 in act_scales(rng, C)
                   for i in range(s1.shape[0]) for s in (s1, s2)]
     qw = mi.quantize_mrf_phase_weights(
-        mi.pack_mrf_phase_weights(tp, 1, KS, DILS, p), KS, DILS, p, scales)
+        mi.pack_mrf_phase_weights(tp, 1, KS, DILS, p), KS, DILS, p, scales,
+        fused=fused)
     wb, bu, _, _ = mi.pack_ups_phase_weights(tp['ups_1']['w'],
                                              tp['ups_1']['b'], 2, 1, p_in)
     ups = mi.quantize_ups_phase_weights(
@@ -455,8 +456,60 @@ def test_phase_q8f_replays_on_ptc_fused_plan(C_in, C, p_in, post, block_m):
     """The q8f phase mode on ``ptc_fused_q8_kernel``'s plan with the phase
     tiles: the tile's upsample scale over the phase kernel's input window,
     the static chains per block from its own window."""
-    rng, mrf = _phase_level(13, C_in, C, p_in, post, static=True)
-    assert mrf.mode == 'q8f'
+    _replay_static_phase(C_in, C, p_in, post, block_m, 'q8f')
+
+
+@pytest.mark.parametrize('C_in,C,p_in,post,block_m', [
+    (128, 64, 1, False, 128),      # V1 L2, the kernel's block
+    (64, 32, 2, True, 256),        # V1 L3 with conv_post
+    (128, 64, 1, True, 64),        # conv_post at L2's width, more blocks
+])
+def test_phase_q8s_replays_on_ptc_fused_plan(C_in, C, p_in, post, block_m):
+    """The q8s phase mode (``int8_fused=False``) on the same plan: the
+    kernel's q8s form quantises each step's input by quantize_static of its
+    lrelu and takes conv1's output through the float32 dequant."""
+    _replay_static_phase(C_in, C, p_in, post, block_m, 'q8s')
+
+
+# the per-step arrays of each static form, in the packers' order
+# (MrfQ8Weights)
+_STEP_FIELDS = {'q8f': ('w1', 'inv1', 'b1i', 'm1', 'w2', 'sw2', 'b2'),
+                'q8s': ('w1', 'sw1', 'inv1', 'b1', 'w2', 'sw2', 'inv2', 'b2')}
+
+
+@pytest.mark.parametrize('mode', ['q8f', 'q8s'])
+def test_ptc_fused_entry_reads_each_form_in_order(mode):
+    """``mrf_int8._ptc_fused_args`` hands each chain step's arrays over in
+    the packers' order, and ``ptc_fused_entry`` (mrf_ptc_fused.cuh) reads
+    each Step field from the position of that array (parsed from the
+    source): 7 pointers a step for q8f, 8 for q8s."""
+    src = (CSRC / 'mrf_ptc_fused.cuh').read_text()
+    body = src[src.index('Step& st = p.steps[j][i];'):]
+    body = body[:body.index('cudaStream_t s')]
+    branch = body[body.index('if (Q8S) {'):body.index('} else {')] \
+        if mode == 'q8s' else body[body.index('} else {'):]
+    pat = r'st\.(\w+) = (?:f\((\d)\)|reinterpret_cast<[^>]+>\(w\[(\d)\]\))'
+    read = {m[0]: int(m[1] or m[2]) for m in re.findall(
+        pat, body[:body.index('if (Q8S) {')] + branch)}
+    fields = _STEP_FIELDS[mode]
+    assert read == {f: i for i, f in enumerate(fields)}
+    _, mrf = _phase_level(14, 128, 64, 1, False, static=True,
+                          fused=mode == 'q8f')
+    x = torch.zeros((1, 256, 128), dtype=torch.bfloat16)
+    plan = mi._ptc_fused_plan(x, mrf, 128, _alloc, geometry=mi._phase_geometry)
+    ptrs, ints = mi._ptc_fused_args(plan, mrf, mrf.chains, mrf.ups[:3])
+    steps = [st for chain in mrf.chains for st in chain]
+    assert len(ptrs) == 4 + len(fields) * len(steps)
+    for s_, st in enumerate(steps):
+        assert len(st) == len(fields)
+        for i, t in enumerate(st):
+            assert ptrs[4 + len(fields) * s_ + i] == t.data_ptr()
+
+
+def _replay_static_phase(C_in, C, p_in, post, block_m, mode):
+    rng, mrf = _phase_level(13, C_in, C, p_in, post, static=True,
+                            fused=mode == 'q8f')
+    assert mrf.mode == mode
     cols, tile = 256, 128
     x = torch.from_numpy((rng.randn(1, cols * p_in, C_in) * 0.5)
                          .astype(np.float32)).bfloat16()

@@ -386,7 +386,7 @@ def test_phase_f32_cfg_matches_kernel(C_in, C):
     blocks at V1's narrow levels: the largest whose window fits."""
     assert _cfg(f'PhaseF32Cfg<{C_in}, {C}>')['UKCH'] == \
         vk.PHASE_F32_UKCH[C_in, C]
-    assert set(vk.PHASE_F32_UKCH) == set(vk.PHASE_UPS)
+    assert set(vk.PHASE_F32_UKCH) == set(vk.PHASE_BF_CFG)
     P = 3 if C == 32 else 0          # conv_post at V1's last level
     hx, span = _phase_hx(P), vk.ups_geometry(4, 2, 1)[3]
     bm = vk._largest_block(2 * {64: 65536, 32: 131072}[C], 8, lambda b: (

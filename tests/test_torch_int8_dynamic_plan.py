@@ -1,11 +1,10 @@
-"""CPU replay of the launch plans of the int8 kernels in
-daft_exprt_torch/ops/mrf_int8.py (``_ct_plan``, ``_phase_plan`` in dynamic
-and q8f modes): each launch of ``amax_kernel``, ``ups_q8_kernel``,
-``conv_dyn_kernel``, ``step_q8_kernel`` and ``post_kernel`` is emulated with
-the arithmetic its source states, on NaN-filled buffers and amax words
-from 0 (as the wrappers zero them), and the result must equal the plain
-versions. The kernels themselves are held to the plain versions on the
-card (tests/test_torch_cuda.py, chip_smoke.py)."""
+"""CPU replay of the launch plan of the int8-dynamic step route in
+daft_exprt_torch/ops/mrf_int8.py (``_ct_plan``): each launch of
+``conv_dyn_kernel`` is emulated with the arithmetic its source states, on
+NaN-filled buffers and amax words from 0 (as the wrappers zero them), and
+the result must equal the plain version; and V1's int8 level forms. The
+kernels themselves are held to the plain versions on the card
+(tests/test_torch_cuda.py, chip_smoke.py)."""
 import numpy as np
 import pytest
 import torch
@@ -14,10 +13,8 @@ from daft_exprt_torch.ops import mrf_int8 as mi
 from daft_exprt_torch.ops import vocoder_kernels as vk
 
 from tests.test_torch_int8 import KS, DILS, act_scales, unit_level
-from tests.test_torch_int8_plan import (
-    _emulate_post, _emulate_prologue, _emulate_q8_step, _nan_alloc,
-)
-from tests.torch_port_utils import rel_l2, to_torch
+from tests.test_torch_int8_plan import _nan_alloc
+from tests.torch_port_utils import to_torch
 
 
 def _read(v, b, t, n0, n1, C):
@@ -99,63 +96,6 @@ def test_ct_launch_plan_replays_plain():
     ref = mi.mrf_ct_q8_plain(x, mrf, tile)
     assert torch.isfinite(plan.out.float()).all()
     assert torch.equal(plan.out, ref)
-
-
-def _phase_level(seed, C_in, C, p_in, post, static):
-    rng = np.random.RandomState(seed)
-    p = 2 * p_in
-    tp = _bf16(to_torch(unit_level(rng, 1, C, C_in=C_in, post=post)))
-    scales = None
-    if static:
-        scales = [torch.from_numpy(s[i]) for s1, s2 in act_scales(rng, C)
-                  for i in range(s1.shape[0]) for s in (s1, s2)]
-    qw = mi.quantize_mrf_phase_weights(
-        mi.pack_mrf_phase_weights(tp, 1, KS, DILS, p), KS, DILS, p, scales)
-    wb, bu, _, _ = mi.pack_ups_phase_weights(tp['ups_1']['w'],
-                                             tp['ups_1']['b'], 2, 1, p_in)
-    ups = mi.quantize_ups_phase_weights(
-        wb, bu, mi.ups_used_blocks(4, 2, 1, p_in), C_in)
-    pst = mi.pack_post_phase_weights(tp['conv_post']['w'],
-                                     tp['conv_post']['b'], p) if post else None
-    return rng, mi.prepare_mrf_phase_q8(qw, KS, DILS, p,
-                                        tuple(ups) + (4, 2, 1, p_in), pst)
-
-
-@pytest.mark.parametrize('static', [False, True])
-@pytest.mark.parametrize('C_in,C,p_in,post', [
-    (64, 32, 1, False),           # V1 L2's geometry at half width
-    (32, 16, 2, True),            # V1 L3's geometry at half width
-])
-def test_phase_launch_plan_replays_plain(C_in, C, p_in, post, static):
-    rng, mrf = _phase_level(5, C_in, C, p_in, post, static)
-    assert mrf.dynamic == (not static)
-    cols, tile = 192, 64
-    x = torch.from_numpy((rng.randn(2, cols * p_in, C_in) * 0.5)
-                         .astype(np.float32)).bfloat16()
-    x[1, :64 * p_in] *= 5.0
-    plan = mi._phase_plan(x, mrf, tile, mrf.chains, _nan_alloc)
-    assert len(plan.steps) == (9 if static else 18)
-    assert (plan.tail is None) == (not post)
-    plan.amax.zero_()
-    _emulate_prologue(plan.pro, mrf)
-    n_t = plan.pro.n_tiles
-    if not static:                # ups_q8_kernel's amax of its output
-        plan.amax[1] = vk._lrelu(plan.pro.x0).abs().amax(dim=(1, 2))
-    for st in plan.steps:
-        if static:
-            _emulate_q8_step(st)
-        else:
-            _emulate_dyn(st, plan.amax, n_t, C)
-    if post:
-        _emulate_post(plan.tail, mrf, tile * mrf.p)
-    ref = mi.mrf_phase_q8_plain(x, mrf, tile)
-    out = plan.out
-    assert out.shape == ref.shape
-    assert torch.isfinite(out.float()).all()
-    if post:       # conv_post sums in another order
-        assert rel_l2(out.float().numpy(), ref.float().numpy()) < 1e-3
-    else:
-        assert torch.equal(out, ref)
 
 
 @pytest.mark.parametrize('tier', ['dynamic', 'static'])

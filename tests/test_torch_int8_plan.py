@@ -6,9 +6,8 @@ its own input window only, with the arithmetic and the window bookkeeping
 its source states, on NaN-filled buffers, and the result must equal the
 plain versions at every sample. Also the staged (and the m16n8k32) s8
 weight packing against the kernels' indexing, and the s8 tiles' swizzle.
-The emulators of ``step_q8_kernel``, ``amax_kernel``, ``ups_q8_kernel`` and
-``post_kernel`` (the launches of the ct, phase and ptc dyn plans) live here
-too; the other int8 plan tests import them.
+The emulators of ``step_q8_kernel`` and ``amax_kernel`` live here too; the
+other int8 plan tests import them.
 The kernels themselves are held to the plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py)."""
 from dataclasses import replace
@@ -69,49 +68,26 @@ def _emulate_q8_step(st):
         st.fin[:, st.n_lo:st.n_hi] = (tot * st.scale).to(st.fin.dtype)
 
 
-def _emulate_prologue(pro, mrf):
-    """What the ``amax_kernel`` and ``ups_q8_kernel`` launches compute."""
-    wq_u, sw_u, b_u = mrf.ups[:3]
-    B, T_in, C_in = pro.x.shape
-    xs = pro.x.float()
-    for seg in range(pro.amax.shape[0]):
-        b, t = divmod(seg, pro.n_tiles)
-        s0 = t * pro.tile_in - pro.halo_in
-        w = _read(xs[b:b + 1], 0, 0, T_in, s0, s0 + pro.win_len)
-        pro.amax[seg] = vk._lrelu(w).abs().max()
-        amax = pro.amax[seg].clamp(min=1e-30)
-        g0 = t * pro.tile_in - pro.halo_m + pro.amin
-        a = vk._lrelu(_read(xs[b:b + 1], 0, 0, T_in, g0,
-                            g0 + pro.m_len + pro.span))
-        q = torch.round(a * (torch.full((), 127.0) / amax)).to(torch.int8)
-        sx = amax * (1.0 / 127.0)
-        for r in range(pro.stride):
-            acc = vk._int_conv(q[:, pro.rows[r]:], wq_u[r], 1, pro.m_len)
-            pro.x0[seg, r::pro.stride] = vk._fma(acc, sw_u[r] * sx, b_u)[0]
-
-
-def _emulate_post(tail, mrf, N):
-    w, b, pdt = mrf.post
-    h = (tail.k - 1) // 2
-    src = tail.src[:, tail.src_off - h:tail.src_off + N + h].transpose(1, 2)
-    t = vk._lrelu(src * tail.scale).to(pdt).float()
-    y = F.conv1d(t, w.t()[None]) + b
-    tail.out.view(-1, N)[:] = torch.tanh(y[:, 0]).to(tail.out.dtype)
-
-
 def _chain_window(R, lo, hi, steps, k, dils, out_rows):
     """The kernels' chain on a float32 residual window R (1, rows, C)
     holding valid rows [lo, hi): per step quantise rows [lo, hi), conv1
-    over M1 = hi - lo - 2*r1 rows, requantise, conv2 over M1 - 2*r2 rows
+    over M1 = hi - lo - 2*r1 rows, requantise (q8f: in s32; q8s, eight
+    arrays a step: through the float32 dequant), conv2 over M1 - 2*r2 rows
     onto R rows lo + r1 + r2 ...; returns the last step's rows."""
     half = (k - 1) // 2
     for st, d in zip(steps, dils):
-        wq1, inv1, b1i, m1, wq2, sw2, b2 = st
         r1 = d * half
         M1 = hi - lo - 2 * r1
-        acc = vk._int_conv(vk.quantize_lrelu_static(R[:, lo:hi], inv1), wq1,
-                           d, M1)
-        q2 = vk.requant_lrelu_s32(acc, b1i, m1)
+        if len(st) == 8:
+            wq1, sw1, inv1, b1, wq2, sw2, inv2, b2 = st
+            acc = vk._int_conv(vk.quantize_static(vk._lrelu(R[:, lo:hi]),
+                                                  inv1), wq1, d, M1)
+            q2 = vk.quantize_static(vk._lrelu(vk._fma(acc, sw1, b1)), inv2)
+        else:
+            wq1, inv1, b1i, m1, wq2, sw2, b2 = st
+            acc = vk._int_conv(vk.quantize_lrelu_static(R[:, lo:hi], inv1),
+                               wq1, d, M1)
+            q2 = vk.requant_lrelu_s32(acc, b1i, m1)
         M2 = M1 - 2 * half
         base = lo + r1 + half
         v = R[:, base:base + M2] + vk._fma(vk._int_conv(q2, wq2, 1, M2),

@@ -28,13 +28,16 @@ from daft_exprt_tpu.ops import vocoder_kernels as jvk
 from daft_exprt_torch.ops import mrf_int8 as mi
 from daft_exprt_torch.ops import vocoder_kernels as vk
 
-from tests.test_torch_int8 import KS, DILS, _t, unit_level
+from tests.test_torch_int8 import KS, DILS, _t, act_scales, unit_level
 from tests.test_torch_int8_dynamic import _jp, _tp
-from tests.test_torch_vocoder_kernels import (
-    _emulate_post as _emulate_post_f, _emulate_step, _emulate_upsample,
-    _nan_alloc,
-)
-from tests.torch_port_utils import max_abs, rel_l2
+from tests.torch_port_utils import max_abs, one_torch_thread, rel_l2
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_thread():
+    with one_torch_thread():
+        yield
+
 
 CASES = [                     # (C_in, C, p_in, post): V1's L2 and L3
     (128, 64, 1, False),
@@ -167,35 +170,67 @@ def test_ptc_dyn_and_fdot_packers_match_jax():
     assert torch.equal(mrf.post[0], tp['conv_post']['w'])
 
 
-def test_ptc_fdot_launch_plan_replays_plain():
-    """fused_mrf_ptc_f's launches: mrf_phase.cu's plan with a float32
-    upsample output."""
-    rng = np.random.RandomState(6)
-    C_in, C, p_in = 32, 16, 2
+def _on(tree, device):
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_on(t, device) for t in tree)
+    return tree.to(device) if torch.is_tensor(tree) else tree
+
+
+@pytest.mark.parametrize('C_in,C,p_in', [(128, 64, 1), (32, 16, 2)])
+def test_fdot_and_q8s_weights_take_the_fused_kernels(C_in, C, p_in):
+    """Off the CPU (here the meta device, where nothing runs) fdot's
+    weights are staged for ``phase_bf_kernel`` (``blk`` / ``blk_ups`` by
+    ``pack_stage_bf16``, no step-kernel chains) and the q8s phase weights
+    for ``ptc_fused_q8_kernel`` (``blk_dev`` / ``blk_ups_dev``: the eight
+    q8s arrays a step, taps by ``pack_stage_s8``, no mma form), at V1's L2
+    widths; at a width no kernel is built for, nothing is staged and both
+    wrappers refuse the call, naming the built widths. A float32 fdot call
+    is refused too."""
+    rng = np.random.RandomState(9)
     p = 2 * p_in
-    tp = _tp(_jp(unit_level(rng, 1, C, C_in=C_in, post=True)))
-    mrf = vk.prepare_mrf_ptc_f(
-        vk.pack_mrf_ptc_f_weights(tp, 1, KS, DILS, p), KS, DILS, p,
-        tuple(vk.pack_ups_ptc_f_weights(tp['ups_1']['w'], tp['ups_1']['b'],
-                                        2, 1, p_in)) + (4, 2, 1, p_in),
-        vk.pack_post_ptc_weights(tp['conv_post']['w'], tp['conv_post']['b'],
-                                 p, torch.bfloat16))
-    x = torch.from_numpy((rng.randn(2, 128, C_in) * 0.5).astype(np.float32)
-                         ).bfloat16().transpose(1, 2)
-    prep = [[tuple(t[i] for t in mrf.packed[4 * j:4 * j + 4])
-             for i in range(len(d))] for j, d in enumerate(DILS)]
-    w_u, b_u = mrf.ups[:2]
-    up, steps, tail, out = vk._phase_plan(
-        x, prep, (w_u, b_u), KS, DILS, mrf.ups, mrf.post, mrf.post,
-        _nan_alloc, torch.float32)
-    assert up.out.dtype == torch.float32
-    _emulate_upsample(up, torch.bfloat16)
-    for st in steps:
-        _emulate_step(st, torch.bfloat16)
-    _emulate_post_f(tail, torch.bfloat16, out.shape[-1])
-    ref = vk.mrf_ptc_f_plain(x, mrf, 64)
-    assert out.shape == ref.shape and torch.isfinite(out.float()).all()
-    assert rel_l2(out.float(), ref.float()) < 1e-3
+    tp = _tp(_jp(unit_level(rng, 1, C, C_in=C_in)))
+    ups = (4, 2, 1, p_in)
+    f = vk.prepare_mrf_ptc_f(
+        _on(vk.pack_mrf_ptc_f_weights(tp, 1, KS, DILS, p), 'meta'), KS, DILS,
+        p, _on(tuple(vk.pack_ups_ptc_f_weights(
+            tp['ups_1']['w'], tp['ups_1']['b'], 2, 1, p_in)), 'meta') + ups)
+    scales = [torch.from_numpy(s[i]) for s1, s2 in act_scales(rng, C)
+              for i in range(s1.shape[0]) for s in (s1, s2)]
+    qw = mi.quantize_mrf_phase_weights(
+        mi.pack_mrf_phase_weights(tp, 1, KS, DILS, p), KS, DILS, p, scales,
+        fused=False)
+    wb, bu, _, _ = mi.pack_ups_phase_weights(tp['ups_1']['w'],
+                                             tp['ups_1']['b'], 2, 1, p_in)
+    q = mi.prepare_mrf_phase_q8(
+        _on(qw, 'meta'), KS, DILS, p, _on(mi.quantize_ups_phase_weights(
+            wb, bu, mi.ups_used_blocks(4, 2, 1, p_in), C_in), 'meta') + ups)
+    assert f.device.type == 'meta' and q.mode == 'q8s'
+    assert f.chains is None and q.chains_dev is None and q.ups_dev is None
+    x = torch.empty((2, 128 * p_in, C_in), dtype=torch.bfloat16,
+                    device='meta')
+    if (C_in, C) not in vk.PTC_Q8_CFG:
+        assert f.blk is None and q.blk_dev is None
+        for call in (lambda: vk.fused_mrf_ptc_f(x.transpose(1, 2), f, 64),
+                     lambda: mi.fused_mrf_phase_q8(x, q, 64)):
+            with pytest.raises(ValueError, match='no CUDA instantiation'):
+                call()
+        with pytest.raises(ValueError, match=r'\(128, 64\), \(64, 32\)'):
+            mi.fused_mrf_phase_q8(x, q, 64)
+        return
+    # staged taps of chain 0 (k = 3): whole tap groups of C x C; the
+    # upsample: per phase 2 taps of C_in x C (bytes apart: wu_phase)
+    tps = vk.PHASE_BF_CFG[C_in, C].tps
+    assert [len(st) for st in f.blk[0]] == [4] * 3
+    assert f.blk[0][0][0].dtype == torch.bfloat16
+    assert f.blk[0][0][0].numel() == -(-3 // tps) * tps * C * C
+    assert f.blk_ups[0].numel() == 2 * 2 * C_in * C
+    assert f.blk_ups[2] == 2 * 2 * C_in * C
+    tps = vk.PTC_Q8_CFG[C_in, C][1]
+    assert [len(st) for st in q.blk_dev[0]] == [8] * 3
+    assert q.blk_dev[0][0][0].dtype == torch.int8
+    assert q.blk_dev[0][0][0].numel() == -(-3 // tps) * tps * C * C
+    with pytest.raises(ValueError, match='bfloat16'):
+        vk.fused_mrf_ptc_f(x.float().transpose(1, 2), f, 64)
 
 
 def test_ptc_wrappers_run_plain_versions_on_cpu():

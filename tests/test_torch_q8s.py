@@ -16,7 +16,9 @@ taken under ``DAFT_INT8_FUSED_EPI=0`` (``int8_fused=False``):
   ``ptc_vs_banded_int8``); the s32 sums are exact and every float32 step
   keeps JAX's order, so the outputs agree bit for bit in practice (the
   max-abs is asserted 0 where no conv_post sums in another order).
-- The CUDA routes' launch plans replayed on NaN buffers.
+- The ct route's launch plan replayed on NaN buffers (the phase kernel's
+  q8s form on ``ptc_fused_q8_kernel``'s plan is replayed in
+  ``tests/test_torch_dyn_engine.py``).
 """
 import numpy as np
 import pytest
@@ -31,10 +33,14 @@ from daft_exprt_torch.ops import vocoder_kernels as vk
 
 from tests.test_torch_int8 import KS, DILS, _t, act_scales, unit_level
 from tests.test_torch_int8_dynamic import _jp, _jax_ups_q8_weights, _tp
-from tests.test_torch_int8_plan import (
-    _emulate_post, _emulate_prologue, _emulate_q8_step, _nan_alloc,
-)
-from tests.torch_port_utils import max_abs, rel_l2
+from tests.test_torch_int8_plan import _emulate_q8_step, _nan_alloc
+from tests.torch_port_utils import max_abs, one_torch_thread, rel_l2
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_thread():
+    with one_torch_thread():
+        yield
 
 
 @jax.jit
@@ -241,47 +247,6 @@ def test_ct_q8s_launch_plan_replays_plain():
         _emulate_q8_step(st)
     assert torch.isfinite(out.float()).all()
     assert torch.equal(out, mi.mrf_ct_q8s_plain(x, mrf))
-
-
-@pytest.mark.parametrize('C_in,C,p_in,post', [
-    (64, 32, 1, False),           # V1 L2's geometry at half width
-    (32, 16, 2, True),            # V1 L3's geometry at half width
-])
-def test_phase_q8s_launch_plan_replays_plain(C_in, C, p_in, post):
-    rng = np.random.RandomState(5)
-    p = 2 * p_in
-    tp = _bf16_tree(_tp(_jp(unit_level(rng, 1, C, C_in=C_in, post=post))))
-    scales = [torch.from_numpy(s) for s in _ph_scales(act_scales(rng, C))]
-    qw = mi.quantize_mrf_phase_weights(
-        mi.pack_mrf_phase_weights(tp, 1, KS, DILS, p), KS, DILS, p, scales,
-        fused=False)
-    wb, bu, _, _ = mi.pack_ups_phase_weights(tp['ups_1']['w'],
-                                             tp['ups_1']['b'], 2, 1, p_in)
-    ups = mi.quantize_ups_phase_weights(
-        wb, bu, mi.ups_used_blocks(4, 2, 1, p_in), C_in)
-    pst = mi.pack_post_phase_weights(tp['conv_post']['w'],
-                                     tp['conv_post']['b'], p) if post else None
-    mrf = mi.prepare_mrf_phase_q8(qw, KS, DILS, p,
-                                  tuple(ups) + (4, 2, 1, p_in), pst)
-    cols, tile = 192, 64
-    x = torch.from_numpy((rng.randn(2, cols * p_in, C_in) * 0.5)
-                         .astype(np.float32)).bfloat16()
-    x[1, :64 * p_in] *= 5.0
-    plan = mi._phase_plan(x, mrf, tile, mrf.chains, _nan_alloc)
-    assert len(plan.steps) == 9 and (plan.tail is None) == (not post)
-    plan.amax.zero_()
-    _emulate_prologue(plan.pro, mrf)
-    for st in plan.steps:
-        _emulate_q8_step(st)
-    if post:
-        _emulate_post(plan.tail, mrf, tile * mrf.p)
-    ref = mi.mrf_phase_q8_plain(x, mrf, tile)
-    assert plan.out.shape == ref.shape
-    assert torch.isfinite(plan.out.float()).all()
-    if post:       # conv_post sums in another order
-        assert rel_l2(plan.out.float().numpy(), ref.float().numpy()) < 1e-3
-    else:
-        assert torch.equal(plan.out, ref)
 
 
 def test_q8s_wrappers_run_plain_versions_on_cpu():

@@ -5,9 +5,11 @@ the JAX package's Pallas kernels (run in interpret mode on the CPU).
   JAX kernels at every sample, utterance edges included: the TPU kernels'
   valid-conv-over-padded-input function is tile independent, and the plain
   versions compute that function directly.
-- The CUDA routes' launch plans (sample ranges, buffer offsets, modes) are
-  replayed on the CPU by emulating each launch, and must equal the plain
-  versions; the fragment packing is checked against the kernel's indexing.
+- The step route's launch plan (``fused_mrf_ct``'s: sample ranges, buffer
+  offsets, modes) is replayed on the CPU by emulating each launch, and
+  must equal the plain version (the engines' plans are replayed in
+  ``tests/test_torch_bf16_engine.py`` and ``test_torch_f32_engine.py``);
+  the fragment packing is checked against the kernel's indexing.
 - On the card the kernels are held to the plain versions by
   ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
@@ -129,37 +131,6 @@ def _emulate_step(st, cdt):
         st.fin[:, st.n_lo:st.n_hi] = (tot * st.scale).to(st.fin.dtype)
 
 
-def _emulate_upsample(up, cdt):
-    """What the ``ups_kernel`` launch computes."""
-    w, b = up.weights
-    _, _, _, _, taps = vk.ups_geometry(w.shape[-1], up.stride,
-                                       (w.shape[-1] - up.stride) // 2)
-    T_in = up.x.shape[2]
-    i = torch.arange(up.m_lo + up.amin, up.m_hi + up.amin + up.span)
-    valid = ((i >= 0) & (i < T_in))[None, None, :]
-    a = torch.where(valid, up.x[:, :, i.clamp(0, T_in - 1)].float(),
-                    torch.zeros(()))
-    a = vk._lrelu(a).to(cdt).float()
-    M = up.m_hi - up.m_lo
-    for r in range(up.stride):
-        wr = torch.stack([w[:, :, j] for j in taps[r]], dim=2)  # (ci, co, t)
-        y = F.conv1d(a[:, :, up.rows[r]:up.rows[r] + M + up.ntaps - 1],
-                     wr.permute(1, 0, 2).float()) + b.float()[:, None]
-        n = up.stride * torch.arange(up.m_lo, up.m_hi) + r
-        keep = (n >= up.n_lo) & (n < up.n_hi)
-        up.out[:, n[keep] + up.out_off, :] = \
-            y.transpose(1, 2)[:, keep].to(up.out.dtype)
-
-
-def _emulate_post(tail, cdt, N):
-    w, b = tail.weights
-    h = (tail.k - 1) // 2
-    src = tail.src[:, tail.src_off - h:tail.src_off + N + h].transpose(1, 2)
-    t = vk._lrelu(src * tail.scale).to(cdt).float()
-    y = F.conv1d(t, w.to(cdt).float()) + b.float()[:, None]
-    tail.out[:] = torch.tanh(y).to(tail.out.dtype)
-
-
 def _assert_replay_close(out, ref, dtype):
     # float32: the same arithmetic up to summation order. bf16: a different
     # summation order can flip the rounding of an intermediate to bf16.
@@ -187,33 +158,6 @@ def test_tc_launch_plan_replays_plain(dtype):
     for st in steps:
         _emulate_step(st, dtype)
     ref = vk.mrf_tc_plain(x, w, KS, DILS)
-    assert torch.isfinite(out.float()).all()
-    _assert_replay_close(out, ref, dtype)
-
-
-@pytest.mark.parametrize('post', [False, True])
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-def test_phase_launch_plan_replays_plain(post, dtype):
-    rng = np.random.RandomState(4)
-    C_in, C = 32, 16
-    tp = to_torch(_phase_case(rng, C_in, C, post))
-    tp = {k: {kk: vv.to(dtype) if torch.is_tensor(vv) else
-              {a: t.to(dtype) for a, t in vv.items()}
-              for kk, vv in v.items()} for k, v in tp.items()}
-    w, ups, pst = _port_phase_args(tp, post)
-    # a transposed (B, T, C) input, as the generator hands over from L1
-    x = torch.from_numpy((rng.randn(2, 96, C_in) * 0.5).astype(np.float32)
-                         ).to(dtype).transpose(1, 2)
-    up, steps, tail, out = vk._phase_plan(
-        x, _plain_prep(w, DILS), (ups[0], ups[1]), KS, DILS, ups, pst, pst,
-        _nan_alloc)
-    _emulate_upsample(up, dtype)
-    for st in steps:
-        _emulate_step(st, dtype)
-    if post:
-        _emulate_post(tail, dtype, out.shape[-1])
-    ref = vk.mrf_phase_plain(x, w, KS, DILS, ups, pst)
-    assert out.shape == ref.shape
     assert torch.isfinite(out.float()).all()
     _assert_replay_close(out, ref, dtype)
 
@@ -262,7 +206,8 @@ def test_wrappers_run_plain_versions_on_cpu():
     w, ups, pst = _port_phase_args(tp, True)
     mrf = vk.prepare_mrf(w, KS, DILS, ups, pst)
     # CPU weights carry no kernel format
-    assert mrf.chains is None and mrf.ups_dev is None and mrf.post_dev is None
+    assert mrf.chains is None and mrf.blk is None and mrf.blk_ups is None \
+        and mrf.post_dev is None
     x = torch.from_numpy((rng.randn(1, 64, 64) * 0.5).astype(np.float32))
     n_phase = vk.fused_mrf_phase.launches
     calls_phase = sum(vk.fused_mrf_phase.calls.values())
