@@ -38,17 +38,27 @@
    - HiFi-GAN V2 (jik876/hifi-gan config_v2.json: V1 at 128 initial
      channels, levels of C = 64/32/16/8) behind the same Synthesizer at
      B=8 x 1024 frames, each tier: bf16 (fused_mrf_ct at L0,
-     fused_mrf_phase without prologue at L1-L3), int8-static (mel[:4]
-     calibration: fused_mrf_ct q8f at L0, the int8 fused_mrf_phase q8f
-     without prologue at L1, bf16 at L2/L3) and int8-dynamic (the same in
-     q8); each waveform against the float32 plain route (bf16, 5e-2) or
-     the plain int8 route and the V2 bf16 tier (1e-2, 0.25); then
-     v2-int8-unfused, the int8-static tier with int8_fused=False (the JAX
-     package's DAFT_INT8_FUSED_EPI=0): fused_mrf_ct q8s at L0, the int8
+     fused_mrf_phase without prologue at L1-L3, one launch a level of
+     ops/csrc/mrf_ct.cu's ct_kernel over CtBf: 1 + 3, checked; it prints each
+     level's block_m), int8-static (mel[:4] calibration: fused_mrf_ct q8f
+     at L0, the int8 fused_mrf_phase q8f without prologue at L1, bf16 at
+     L2/L3: 2 launches, checked) and int8-dynamic (the same in q8); each
+     waveform against the float32 plain route (bf16, 5e-2) or the plain
+     int8 route and the V2 bf16 tier (1e-2, 0.25); then v2-int8-unfused,
+     the int8-static tier with int8_fused=False (the JAX package's
+     DAFT_INT8_FUSED_EPI=0): fused_mrf_ct q8s at L0, the int8
      fused_mrf_phase q8s without prologue at L1, the same bands;
    - v2-ct-fallback: generator_forward at 12 frames (no phase tile divides
      L1 and L2, which take fused_mrf_ct) in each V2 tier, against the
-     kernels' plain versions (rel-L2 <= 1e-2);
+     kernels' plain versions (rel-L2 <= 1e-2), one launch a float call;
+   - v2-fast-f32: generator_forward(use_fast=True) on the float32 V2 params
+     over the v2-bf16 path's mel (pack_levels of the same params):
+     fused_mrf_ct at L0 and fused_mrf_phase without prologue at L1-L3 on
+     ct_kernel over CtF32 (3xTF32 on the tensor cores), 1 + 3 launches,
+     checked; the waveform against the float32 plain route of the same
+     function, rel-L2 <= 1e-4, and against the per-conv float32 route
+     (HiFiGanVocoder(fast=False)), rel-L2 <= 5e-2, as fast-f32; it prints
+     each level's block_m;
    - the serving entry point at batch 1: generate_mel_specs(batch_size=1)
      over three utterances of about 200, 640 and 1024 frames (so the ct
      tile changes) with the int8-static vocoder (its narrow levels below
@@ -131,8 +141,9 @@
    2500, past the old limit of 2048 (their "off_path" rows in the JSON,
    beside SDPA's time); two calls of the backward must be bit-identical.
    The kernels' JSON has one entry per kernel and mode ("name[mode]"; the
-   float32 calls of the attention, fused_mrf_tc and fused_mrf_phase are
-   their "float32" mode, main paths train-step-f32, tc-f32 and fast-f32).
+   float32 calls of the attention, fused_mrf_tc, fused_mrf_phase,
+   fused_mrf_ct and fused_mrf_phase_noups are their "float32" mode, main
+   paths train-step-f32, tc-f32, fast-f32 and v2-fast-f32).
 5. Prints the end-to-end audio-seconds per second of the B=8 synthesis
    paths and the train-step path's steps/s and utterances/s (host clock,
    synchronised after each step).
@@ -144,9 +155,10 @@ vocoder (forward/backward/optimizer) split, the device's busy share and
 the attention kernels' share of the busy time.
 
 The float32 calls of fused_mrf_ct at V2's L0 and L3 shapes are held to
-their plain version at rel-L2 <= 1e-5 before the paths run, and timed
-there (the "off_path" rows of fused_mrf_ct's JSON entry, with their bound
-in 3xTF32 and at the FMA rate).
+their plain version at rel-L2 <= 1e-5 before the paths run, one launch a
+call (checked), and timed there (the "off_path" rows of the
+fused_mrf_ct[float32] JSON entry, with their bound in 3xTF32 and at the
+FMA rate).
 
 Any failure raises (exit code != 0). Without a CUDA device it exits 2 and
 prints no result. The line before the last is the kernels' JSON; the last
@@ -592,17 +604,24 @@ class KernelCases:
                     + sum(t.numel() * esz for t in w))
 
     def _ct_float(self, key, fn, plain):
-        vk = self.vk
-        Bx, Tx, C = key
-        wb = [t.to(self.torch.bfloat16) for t in vk.pack_mrf_tc_weights(
+        """key: x's shape, and 'float32' for a float32 call (on the tensor
+        cores in 3xTF32: its flops at a third of the TF32 rate)."""
+        torch, vk = self.torch, self.vk
+        Bx, Tx, C = key[:3]
+        f32 = key[3:] == ('float32',)
+        dt = torch.float32 if f32 else torch.bfloat16
+        wb = [t.to(dt) for t in vk.pack_mrf_tc_weights(
             self.params(2 * C, C), 0, self.ks, self.dils)]
         mrf = vk.prepare_mrf(wb, self.ks, self.dils)
-        x = self.randn(Bx, Tx, C)
+        x = self.randn(Bx, Tx, C).to(dt)
         wbytes = sum(t.numel() * t.element_size() for t in wb)
-        return dict(desc=f'x ({Bx},{Tx},{C}) bf16', band=1e-2,
+        flops = 252 * Bx * Tx * C * C
+        return dict(desc=f'x ({Bx},{Tx},{C}) {"float32" if f32 else "bf16"}',
+                    band=1e-5 if f32 else 1e-2,
                     fn=lambda: fn(x, mrf), plain=lambda: plain(x, mrf),
-                    flops=252 * Bx * Tx * C * C,
-                    nbytes=2 * Bx * Tx * C * 2 + wbytes)
+                    **(dict(flops=0, tf32x3_flops=flops) if f32
+                       else dict(flops=flops)),
+                    nbytes=2 * Bx * Tx * C * x.element_size() + wbytes)
 
     def fused_mrf_ct(self, key):
         return self._ct_float(key, self.mc.fused_mrf_ct, self.mc.mrf_ct_plain)
@@ -834,7 +853,7 @@ def profile_path(torch, synthesize, tier, ranges=('acoustic', 'vocoder')):
                               'mrf::blk::dyn_blk_kernel',
                               'mrf::bfe::phase_bf_kernel',
                               'mrf::bfe::tc_bf_kernel',
-                              'mrf::step_kernel',
+                              'mrf::ct::ct_kernel',
                               'mrf::step_q8_kernel', 'mrf::conv_dyn_kernel',
                               'mrf::amax_kernel', 'attn::bwd',
                               'attn::', 'Memcpy')
@@ -919,8 +938,10 @@ def main():
         r32 = rel_l2(out32.float(), ref32.float())
         m32 = max_abs(out32.float(), ref32.float())
         log(f'check fused_mrf_ct ({B},{n},{C}) float32: max_abs='
-            f'{m32:.3e} rel_l2={r32:.3e} (band 1e-05)')
+            f'{m32:.3e} rel_l2={r32:.3e} (band 1e-05), block_m='
+            f'{vk.ct_block(C, True, ks, dils, B, n, vk.sm_count(dev))}')
         assert r32 <= 1e-5, r32
+        assert per_call == 1, per_call
         ms = time_ms(torch, lambda: mc.fused_mrf_ct(x32, mrf32))
         plain_ms = time_ms(torch, lambda: mc.mrf_ct_plain(x32, mrf32),
                            warmup=1, iters=3)
@@ -1114,12 +1135,26 @@ def main():
     synthesize_v2 = synthesizer(vocoder_v2)
     mel, wav = run_path('v2-bf16', synthesize_v2, (
         fused_attention, mc.fused_mrf_ct, mc.fused_mrf_phase_noups))
+    # one level kernel launch a level: L0, then L1-L3
+    assert (paths[-1][1]['fused_mrf_ct'], paths[-1][1]['fused_mrf_phase_noups']
+            ) == (1, 3), paths[-1][1]
+    v2_levels = ((64, T * 8), (32, T * 64), (16, T * 128), (8, T * 256))
+
+    def v2_blocks(tier, f32):
+        for lvl, (C, n) in enumerate(v2_levels):
+            bm = vk.ct_block(C, f32, ks, dils, B, n, vk.sm_count(dev))
+            log(f'path {tier}: L{lvl} ct_kernel<{"CtF32" if f32 else "CtBf"}> '
+                f'block_m={bm} ({-(-n // bm)} blocks an utterance, '
+                f'{B * -(-n // bm)} items)')
+
+    v2_blocks('v2-bf16', False)
     check_b8('v2-bf16', mel, wav)
     exact = HiFiGanVocoder(v2_params, v2, fast=False).infer(mel)
     r = rel(wav, exact)
     log(f'path v2-bf16: waveform vs float32 plain route rel_l2={r:.3e} '
         f'(band 5e-2), |wav| max {np.abs(exact).max():.3e}')
     assert r <= 5e-2, r
+    mel_v2, exact_v2 = mel, exact
     t0 = time.perf_counter()
     vocoder_v2_q8 = HiFiGanVocoder(v2_params, v2, fast='int8',
                                    int8_calibration_mels=mel[:4])
@@ -1128,16 +1163,20 @@ def main():
     synthesize_v2_q8 = int8_path('v2-int8', vocoder_v2_q8, (
         fused_attention, mi.fused_mrf_ct_q8f, mi.fused_mrf_phase_q8_noups,
         mc.fused_mrf_phase_noups), vocoder_v2)
+    # L2 and L3 (C % 32 != 0) in bf16: one launch a level
+    assert paths[-1][1]['fused_mrf_phase_noups'] == 2, paths[-1][1]
     vocoder_v2_dyn = HiFiGanVocoder(v2_params, v2, fast='int8')
     synthesize_v2_dyn = int8_path('v2-int8-dynamic', vocoder_v2_dyn, (
         fused_attention, mi.fused_mrf_ct_q8, mi.fused_mrf_phase_q8_noups,
         mc.fused_mrf_phase_noups), vocoder_v2)
+    assert paths[-1][1]['fused_mrf_phase_noups'] == 2, paths[-1][1]
     vocoder_v2_uf = HiFiGanVocoder(v2_params, v2, fast='int8',
                                    int8_calibration_mels=mel[:4],
                                    int8_fused=False)
     synthesize_v2_uf = int8_path('v2-int8-unfused', vocoder_v2_uf, (
         fused_attention, mi.fused_mrf_ct_q8s, mi.fused_mrf_phase_q8_noups,
         mc.fused_mrf_phase_noups), vocoder_v2)
+    assert paths[-1][1]['fused_mrf_phase_noups'] == 2, paths[-1][1]
 
     def v2_fallback():
         """generator_forward at 12 frames in each V2 tier, and its plain
@@ -1152,9 +1191,14 @@ def main():
                             voc))
         return out
 
-    for w, voc in run_path('v2-ct-fallback', v2_fallback, (
-            mc.fused_mrf_ct, mc.fused_mrf_phase_noups, mi.fused_mrf_ct_q8f,
-            mi.fused_mrf_ct_q8)):
+    fallback_out = run_path('v2-ct-fallback', v2_fallback, (
+        mc.fused_mrf_ct, mc.fused_mrf_phase_noups, mi.fused_mrf_ct_q8f,
+        mi.fused_mrf_ct_q8))
+    # the float levels: one launch a call
+    for name in ('fused_mrf_ct', 'fused_mrf_phase_noups'):
+        assert paths[-1][1][name] == sum(paths[-1][2][name].values()), \
+            paths[-1]
+    for w, voc in fallback_out:
         m = torch.as_tensor(mel[:, :, :V2_FALLBACK_FRAMES]).to(dev, bf16)
         with torch.no_grad():
             ref = generator_forward(voc.params, m, v2, use_fast=True,
@@ -1169,6 +1213,36 @@ def main():
         log(f'path v2-ct-fallback {tier}: waveform vs the plain route '
             f'rel_l2={r:.3e} (band 1e-2)')
         assert r <= 1e-2, r
+    del fallback_out
+
+    # the float32 fast route on the float32 V2 params over the v2-bf16
+    # path's mel: fused_mrf_ct at L0, fused_mrf_phase_noups at L1-L3, all on
+    # the float32 level kernel
+    packed_v2_f32 = pack_levels(v2_params, v2)
+    mel_v2_f32 = torch.as_tensor(mel_v2).to(dev)
+
+    def v2_fast_f32(plain=False):
+        with torch.no_grad(), vk.full_f32():
+            return generator_forward(v2_params, mel_v2_f32, v2, use_fast=True,
+                                     packed=packed_v2_f32, plain=plain)
+
+    wav_v2_32 = run_path('v2-fast-f32', v2_fast_f32, (
+        mc.fused_mrf_ct, mc.fused_mrf_phase_noups))
+    assert paths[-1][1] == {'fused_mrf_ct': 1, 'fused_mrf_phase_noups': 3}, \
+        paths[-1][1]
+    assert all(k[-1] == 'float32' for calls in paths[-1][2].values()
+               for k in calls), paths[-1][2]
+    v2_blocks('v2-fast-f32', True)
+    assert wav_v2_32.shape == (B, 1, T * 256)
+    assert wav_v2_32.dtype == torch.float32
+    assert torch.isfinite(wav_v2_32).all()
+    r_plain = rel_l2(wav_v2_32, v2_fast_f32(plain=True))
+    r_exact = rel(wav_v2_32.cpu().numpy()[:, 0], exact_v2)
+    log(f'path v2-fast-f32: waveform vs the float32 plain route rel_l2='
+        f'{r_plain:.3e} (band 1e-4), vs the per-conv float32 route rel_l2='
+        f'{r_exact:.3e} (band 5e-2)')
+    assert r_plain <= 1e-4 and r_exact <= 5e-2, (r_plain, r_exact)
+    del packed_v2_f32, mel_v2_f32, wav_v2_32
 
     # the serving entry point at batch 1, each tier
     sentences, prosody, stats = entry_inputs(hp, SEED)
@@ -1626,7 +1700,7 @@ def main():
             per_shape=[r for rows in by_tier.values() for r in rows]))
         if name in off_path:
             table[-1]['off_path'] = [r for m, r in off_path[name] if m == mode]
-        if name == 'fused_mrf_ct' and not mode:
+        if name == 'fused_mrf_ct' and mode == 'float32':
             table[-1]['off_path'] = ct_f32
     assert {e['name'].split('[')[0] for e in table} == set(by_name)
 

@@ -1,16 +1,18 @@
 // Block-resident bf16 ResBlock1 chains for Hopper: the engine of the bf16
-// tier's two MRF kernels, tc_bf_kernel (mrf_tc.cu: fused_mrf_tc, bf16
-// compute) and phase_bf_kernel (mrf_phase.cu: fused_mrf_phase, bf16, with
-// its upsample prologue and conv_post epilogue; with a float32 upsample
-// output, fused_mrf_ptc's fdot mode).
+// tier's MRF kernels, tc_bf_kernel (mrf_tc.cu: fused_mrf_tc, bf16 compute),
+// phase_bf_kernel (mrf_phase.cu: fused_mrf_phase, bf16, with its upsample
+// prologue and conv_post epilogue; with a float32 upsample output,
+// fused_mrf_ptc's fdot mode) and mrf_ct.cuh's ct_kernel<CtBf> (mrf_ct.cu:
+// fused_mrf_ct and fused_mrf_phase without prologue, the levels that take
+// no fused upsample, C = 64..8).
 //
-// The function is the one mrf_common.cuh's step_kernel computes launch by
-// launch, with its rounding points: each conv's input lrelu'd and rounded
-// to bf16, float32 sums, + bias, the residual in float32, res + (acc + b2)
-// (vocoder_kernels.mrf_tc_plain / mrf_phase_plain). Only the order in
-// which a conv's products are summed may differ. What changes is where the
-// data lives and how the convs run (Pipe, b_desc and the wgmma helpers are
-// the int8 engines', in mrf_wgmma.cuh):
+// The function is a chain of ResBlock1 steps with their rounding points:
+// each conv's input lrelu'd and rounded to bf16, float32 sums, + bias, the
+// residual in float32, res + (acc + b2) (vocoder_kernels.mrf_tc_plain /
+// mrf_phase_plain). Only the order in which a conv's products are summed
+// may differ. What the engine decides is where the data lives and how the
+// convs run (Pipe, b_desc and the wgmma helpers are the int8 engines', in
+// mrf_wgmma.cuh):
 //
 //   - A block owns bm output samples and keeps a chain's float32 residual
 //     window, bm + 2*halo rows x C, resident: in shared memory, or at C =
@@ -46,6 +48,18 @@
 // last group is the last TPS taps, those an earlier group holds zeroed:
 // every stage issues the same MMAs (a wgmma under a condition is
 // serialised) and reads only rows of the conv's window.
+//
+// C = 8: a k16 step needs 16 bf16 values of K, and a tile row is one
+// 16-byte chunk (8 channels). A k16 step then reads a pair of taps: the
+// descriptor's K-adjacent core matrix is the one lbo bytes on, and with lbo
+// = d*16 (the tap's row offset) the step's second 8 values of K are tap
+// t+1's channels of the same rows (ConvSS::PAIR). Pair v holds taps t =
+// min(2v, k-2) and t+1, so an odd k's last pair repeats tap k-2 with zero
+// weights and reads no row past the conv's window (whose values are
+// finite: a NaN there times a zero weight would be NaN). The weights are
+// staged as one tap of 16 input channels per pair
+// (vocoder_kernels.pack_stage_bf16_pairs). Against 16 staged channels with
+// a zero half, this halves the MMAs and the tile.
 #pragma once
 
 #include "mrf_common.cuh"
@@ -85,16 +99,18 @@ __host__ __device__ inline int chain_halo(int k, const StepBf* st, int n) {
 __host__ __device__ inline int round64(int m) { return (m + 63) / 64 * 64; }
 
 // Rows a chain's conv tile holds on a window of wrows rows: a warpgroup's
-// MMAs read 64 rows from its first, so a conv over M rows reads up to row
-// round64(M) - 1 + (k - 1)*d of the tile, past its input where M is not a
-// multiple of 64 (those outputs are dropped).
-__host__ __device__ inline int tile_rows(int wrows, int k, const StepBf* st, int n) {
+// MMAs read g = 64*MG rows from its first (ConvSS), so a conv over M rows
+// reads up to row M rounded up to g, - 1 + (k - 1)*d of the tile, past its
+// input where g does not divide M (those outputs are dropped).
+__host__ __device__ inline int tile_rows(int wrows, int k, const StepBf* st, int n, int g = 64) {
   const int half = (k - 1) / 2;
   int rt = wrows, cur = wrows;
   for (int i = 0; i < n; ++i) {
     const int m1 = cur - 2 * st[i].dil * half, m2 = m1 - 2 * half;
-    rt = rt > round64(m1) + 2 * st[i].dil * half ? rt : round64(m1) + 2 * st[i].dil * half;
-    rt = rt > round64(m2) + 2 * half ? rt : round64(m2) + 2 * half;
+    const int r1 = (m1 + g - 1) / g * g + 2 * st[i].dil * half;
+    const int r2 = (m2 + g - 1) / g * g + 2 * half;
+    rt = rt > r1 ? rt : r1;
+    rt = rt > r2 ? rt : r2;
     cur = m2;
   }
   return rt;
@@ -140,10 +156,57 @@ __device__ __forceinline__ void unpack8(const uint4& raw, float (&f)[8]) {
   }
 }
 
+// R rows [0, wrows) <- samples [s0, s0 + wrows) of one utterance of x ((T,
+// C) bf16, sample-major), zero outside [0, T); A rows <- their lrelu in bf16
+// (a tile of RT rows a chunk). NTH threads; each keeps its 8 channels.
+template <int C, int RS, int NTH>
+__device__ __forceinline__ void load_window(float* R, int8_t* A, int RT, const bf16* xb, int s0,
+                                            int wrows, int T) {
+  static_assert(NTH % (C / 8) == 0, "a thread's channels stay fixed over the x load");
+  const int c8 = (threadIdx.x % (C / 8)) * 8;
+  constexpr int U = 4, RSTEP = NTH / (C / 8);
+  for (int r0 = threadIdx.x / (C / 8); r0 < wrows; r0 += U * RSTEP) {
+    uint4 raw[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = r0 + u * RSTEP, s = s0 + r;
+      raw[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (r < wrows && s >= 0 && s < T)
+        raw[u] = __ldg(reinterpret_cast<const uint4*>(xb + (long long)s * C + c8));
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = r0 + u * RSTEP;
+      if (r >= wrows) break;
+      float f[8];
+      unpack8(raw[u], f);
+      put8<RS>(R, r, A, RT, r, c8, f);
+    }
+  }
+}
+
 // wgmma m64nNk16 bf16 x bf16 -> f32, A and B (both K-major) from shared
 // memory through descriptors; d = A*B, plus d when acc != 0.
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int acc);
+template <>
+__device__ __forceinline__ void wgmma_ss<8>(float (&d)[4], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(acc));
+}
+template <>
+__device__ __forceinline__ void wgmma_ss<16>(float (&d)[8], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(acc));
+}
 template <>
 __device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da, uint64_t db, int acc) {
   asm volatile(
@@ -189,25 +252,30 @@ __device__ __forceinline__ uint64_t a_desc(const void* p, int lbo) {
 
 // out[m][n] = sum_tap sum_ci A[a0 + m + tap*dil][ci] * W(tap, ci, n) for
 // m < M, n < COUT, A a tile of RT rows a chunk (tile_off) of CIN channels,
-// the weights staged by KCH channels and TPS taps a stage. NW warps tile
-// ROWS rows x COUT columns per pass, each warpgroup 64 rows x WN. A
-// warpgroup's MMAs read 64 rows from its first: the tile holds the rows
-// past the last a valid output reads (tile_rows; their outputs are
-// dropped).
-template <int CIN, int COUT, int NW, int TPS, int KCH>
+// the weights staged by KCH channels and TPS taps a stage (CIN = 8: TPS
+// tap pairs of KCH = 16 values, PAIR). NW warps tile ROWS rows x COUT
+// columns per pass, each warpgroup MG groups of 64 rows x WN (MG > 1 at the
+// narrow widths: more independent MMAs and epilogue rows between a pass's
+// barriers). A warpgroup's MMAs read 64*MG rows from its first: the tile
+// holds the rows past the last a valid output reads (tile_rows; their
+// outputs are dropped).
+template <int CIN, int COUT, int NW, int TPS, int KCH, int MG = 1>
 struct ConvSS {
+  static constexpr bool PAIR = CIN == 8;
   static constexpr int WN = COUT < 128 ? COUT : 128;
   static constexpr int CG = COUT / WN;
   static constexpr int NWG = NW / 4;
   static constexpr int RG = NWG / CG;
-  static constexpr int ROWS = RG * 64;
-  static constexpr int KC = CIN / KCH;
+  static constexpr int ROWS = RG * 64 * MG;
+  static constexpr int KC = PAIR ? 1 : CIN / KCH;
   static constexpr int KS = KCH / 16;
   static constexpr int STAGE = TPS * COUT * KCH * 2;
-  static_assert(CIN % KCH == 0 && KCH % 16 == 0 && KCH <= 64, "k-chunk");
+  static_assert(PAIR ? KCH == 16 : (CIN % KCH == 0 && KCH % 16 == 0 && KCH <= 64), "k-chunk");
   static_assert(NW % 4 == 0 && NWG % CG == 0 && WN % 8 == 0, "warpgroup tile");
 
-  __host__ __device__ static int conv_stages(int ntaps) { return ((ntaps + TPS - 1) / TPS) * KC; }
+  // the staged taps of a conv of ntaps taps: its tap pairs when PAIR
+  __host__ __device__ static int vtaps(int ntaps) { return PAIR ? (ntaps + 1) / 2 : ntaps; }
+  __host__ __device__ static int conv_stages(int ntaps) { return ((vtaps(ntaps) + TPS - 1) / TPS) * KC; }
   __host__ __device__ static int passes(int M) { return (M + ROWS - 1) / ROWS; }
   __host__ __device__ static int schedule(Ld* sched, int n, const int8_t* w, int M, int ntaps) {
     for (int ps = 0; ps < passes(M); ++ps) {
@@ -223,7 +291,7 @@ struct ConvSS {
   // pipe leaves one stage's MMAs in flight across the next barrier: the
   // copy that barrier starts overwrites the slot of the stage before.
   template <class P>
-  static __device__ __forceinline__ void mma(P& pipe, float (&acc)[WN / 2], const int8_t* A,
+  static __device__ __forceinline__ void mma(P& pipe, float (&acc)[MG][WN / 2], const int8_t* A,
                                              int RT, int a0, int m0, int M, int dil, int ntaps) {
     static_assert(STAGE <= P::slot, "pipe slot");
     // the warpgroup's index and the conv's shape, which the compiler then
@@ -237,13 +305,16 @@ struct ConvSS {
     a0 = __shfl_sync(0xffffffffu, a0, 0);
     RT = __shfl_sync(0xffffffffu, RT, 0);
     const int rg = wg / CG, cg = wg - rg * CG;
+    const int nv = vtaps(ntaps);
     const int n_st = conv_stages(ntaps);
-    const int g_last = (ntaps + TPS - 1) / TPS - 1;
-    const int wb = m0 + rg * 64;       // the warpgroup's first row
+    const int g_last = (nv + TPS - 1) / TPS - 1;
+    const int wb = m0 + rg * 64 * MG;  // the warpgroup's first row
     const bool active = wb < M;        // the same for its 4 warps
 #ifdef MRF_ABL_NOMMA
 #pragma unroll
-    for (int e = 0; e < WN / 2; ++e) acc[e] = 0.f;
+    for (int mg = 0; mg < MG; ++mg)
+#pragma unroll
+      for (int e = 0; e < WN / 2; ++e) acc[mg][e] = 0.f;
 #endif
     for (int s = 0; s < n_st; ++s) {
       const int8_t* Ws = pipe.acquire();
@@ -254,18 +325,32 @@ struct ConvSS {
         const int g = s / KC, kc = s - g * KC;
         // the group's first tap: the last group is the conv's last TPS taps
         // (vocoder_kernels.stage_taps), so every group issues TPS taps
-        const int t0 = g < g_last ? g * TPS : ntaps - TPS;
+        const int t0 = g < g_last ? g * TPS : nv - TPS;
         wg_fence();
-        const int8_t* Ak = A + (size_t)(kc * KCH / 8) * RT * 16 + (a0 + wb + t0 * dil) * 16;
+        if constexpr (PAIR) {
 #pragma unroll
-        for (int tp = 0; tp < TPS; ++tp) {
-          const int8_t* At = Ak + tp * dil * 16;
-          const int8_t* Wt = Ws + tp * COUT * KCH * 2 + cg * WN * KCH * 2;
+          for (int tp = 0; tp < TPS; ++tp) {
+            // pair t0 + tp: taps t and t + 1, the second dil rows on
+            const int t = min(2 * (t0 + tp), ntaps - 2);
 #pragma unroll
-          for (int ks = 0; ks < KS; ++ks)
-            // the pass's first product overwrites the accumulators
-            wgmma_ss<WN>(acc, a_desc(At + ks * 2 * RT * 16, RT * 16),
-                         b_desc<2 * KCH>(Wt + ks * 32), s | tp | ks);
+            for (int mg = 0; mg < MG; ++mg)
+              wgmma_ss<WN>(acc[mg], a_desc(A + (a0 + wb + mg * 64 + t * dil) * 16, dil * 16),
+                           b_desc<32>(Ws + tp * COUT * 32 + cg * WN * 32), s | tp);
+          }
+        } else {
+          const int8_t* Ak = A + (size_t)(kc * KCH / 8) * RT * 16 + (a0 + wb + t0 * dil) * 16;
+#pragma unroll
+          for (int tp = 0; tp < TPS; ++tp) {
+            const int8_t* At = Ak + tp * dil * 16;
+            const int8_t* Wt = Ws + tp * COUT * KCH * 2 + cg * WN * KCH * 2;
+#pragma unroll
+            for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+              for (int mg = 0; mg < MG; ++mg)
+                // the pass's first product overwrites the accumulators
+                wgmma_ss<WN>(acc[mg], a_desc(At + mg * 64 * 16 + ks * 2 * RT * 16, RT * 16),
+                             b_desc<2 * KCH>(Wt + ks * 32), s | tp | ks);
+          }
         }
       }
       wg_commit();
@@ -274,7 +359,9 @@ struct ConvSS {
     }
     wg_wait<0>();
 #pragma unroll
-    for (int e = 0; e < WN / 2; ++e) wg_hold(acc[e]);
+    for (int mg = 0; mg < MG; ++mg)
+#pragma unroll
+      for (int e = 0; e < WN / 2; ++e) wg_hold(acc[mg][e]);
   }
 
   // The epilogue of one pass's sums, IG column pairs at a time: cc =
@@ -284,32 +371,36 @@ struct ConvSS {
   // stores, which the compiler would otherwise keep in program order
   // (they may alias), and no row takes a branch of its own.
   template <class Col, class Pre, class Epi>
-  static __device__ __forceinline__ void each(const float (&acc)[WN / 2], int m0, int M, Col&& col,
-                                              Pre&& pre, Epi&& epi) {
+  static __device__ __forceinline__ void each(const float (&accs)[MG][WN / 2], int m0, int M,
+                                              Col&& col, Pre&& pre, Epi&& epi) {
 #ifndef MRF_ABL_NOEPI
     constexpr int IG = WN / 8 < 4 ? WN / 8 : 4;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int wq = warp & 3, wg = warp >> 2;
     const int rg = wg / CG, cg = wg - rg * CG;
-    const int r = m0 + rg * 64 + 16 * wq + (lane >> 2);
-    if (m0 + rg * 64 >= M) return;
-    const bool v0 = r < M, v1 = r + 8 < M;
 #pragma unroll
-    for (int i0 = 0; i0 < WN / 8; i0 += IG) {
-      decltype(col(0)) cc[IG];
-      decltype(pre(0, 0, true)) q[IG][2];
+    for (int mg = 0; mg < MG; ++mg) {
+      const float(&acc)[WN / 2] = accs[mg];
+      const int r = m0 + (rg * MG + mg) * 64 + 16 * wq + (lane >> 2);
+      if (m0 + (rg * MG + mg) * 64 >= M) return;
+      const bool v0 = r < M, v1 = r + 8 < M;
 #pragma unroll
-      for (int ii = 0; ii < IG; ++ii) {
-        const int c = cg * WN + (i0 + ii) * 8 + 2 * (lane & 3);
-        cc[ii] = col(c);
-        q[ii][0] = pre(r, c, v0);
-        q[ii][1] = pre(r + 8, c, v1);
-      }
+      for (int i0 = 0; i0 < WN / 8; i0 += IG) {
+        decltype(col(0)) cc[IG];
+        decltype(pre(0, 0, true)) q[IG][2];
 #pragma unroll
-      for (int ii = 0; ii < IG; ++ii) {
-        const int i = i0 + ii, c = cg * WN + i * 8 + 2 * (lane & 3);
-        epi(r, c, acc[4 * i], acc[4 * i + 1], cc[ii], q[ii][0], v0);
-        epi(r + 8, c, acc[4 * i + 2], acc[4 * i + 3], cc[ii], q[ii][1], v1);
+        for (int ii = 0; ii < IG; ++ii) {
+          const int c = cg * WN + (i0 + ii) * 8 + 2 * (lane & 3);
+          cc[ii] = col(c);
+          q[ii][0] = pre(r, c, v0);
+          q[ii][1] = pre(r + 8, c, v1);
+        }
+#pragma unroll
+        for (int ii = 0; ii < IG; ++ii) {
+          const int i = i0 + ii, c = cg * WN + i * 8 + 2 * (lane & 3);
+          epi(r, c, acc[4 * i], acc[4 * i + 1], cc[ii], q[ii][0], v0);
+          epi(r + 8, c, acc[4 * i + 2], acc[4 * i + 3], cc[ii], q[ii][1], v1);
+        }
       }
     }
 #endif
@@ -322,7 +413,7 @@ struct ConvSS {
                                              int dil, int ntaps, bool in_place, Col&& col,
                                              Pre&& pre, Epi&& epi) {
     for (int m0 = 0; m0 < M; m0 += ROWS) {
-      float acc[WN / 2];
+      float acc[MG][WN / 2];
       mma(pipe, acc, A, RT, a0, m0, M, dil, ntaps);
       if (in_place) __syncthreads();
       each(acc, m0, M, col, pre, epi);
@@ -340,12 +431,14 @@ __device__ __forceinline__ void put_a(int8_t* p, uint32_t v) {
 }
 
 // A chain on a float32 residual window R (row stride RS = C + 8 floats:
-// rows 8 banks apart keep a half-warp's float2 accesses conflict-free) and
-// the bf16 tile A of RT rows a chunk, KCH input channels per weight stage.
-template <int C, int NW, int TPS, int KCH>
+// rows 8 banks apart keep a half-warp's float2 accesses conflict-free; at C
+// = 8 rows of 8 floats do, where 16 would put rows g and g + 2 in one bank)
+// and the bf16 tile A of RT rows a chunk, KCH input channels per weight
+// stage.
+template <int C, int NW, int TPS, int KCH, int MG = 1>
 struct ChainBf {
-  using CV = ConvSS<C, C, NW, TPS, KCH>;
-  static constexpr int RS = C + 8;
+  using CV = ConvSS<C, C, NW, TPS, KCH, MG>;
+  static constexpr int RS = C == 8 ? 8 : C + 8;
 
   // the step's loads for a schedule (conv1, then conv2)
   __host__ __device__ static int schedule(Ld* sched, int n, int lo, int hi, const StepBf& st,
@@ -540,7 +633,6 @@ __global__ void __launch_bounds__(TcBfCfg<C>::NW * 32, 1) tc_bf_kernel(const TcB
   using T = TcBfTypes<C>;
   using CH = typename T::CH;
   constexpr int RS = CH::RS, NTH = T::CF::NW * 32;
-  static_assert(NTH % (C / 8) == 0, "a thread's channels stay fixed over the x load");
   const TcBfLayout<C> L(p);
   // the ring first: its stages start on 1024-byte swizzle atoms
   extern __shared__ __align__(16) unsigned char smem[];
@@ -558,33 +650,13 @@ __global__ void __launch_bounds__(TcBfCfg<C>::NW * 32, 1) tc_bf_kernel(const TcB
   __syncthreads();
   Pipe<T::CF::NBUF, CH::CV::STAGE, NTH, T::CF::LAG> pipe;
   pipe.start(ring, sched, n_sched);
-  const int c8 = (threadIdx.x % (C / 8)) * 8;
   const int half = (p.k - 1) / 2;
   for (int item = blockIdx.x; item < p.n_items; item += gridDim.x) {
     const int b = item / p.n_tiles;
     const int n0 = (item - b * p.n_tiles) * p.bm;
     // R rows [0, wrows) <- x samples [n0 - h, n0 + bm + h), zero outside
     // [0, T); A <- their lrelu in bf16
-    const bf16* xb = p.x + b * p.x_bs;
-    constexpr int U = 4, RSTEP = NTH / (C / 8);
-    for (int r0 = threadIdx.x / (C / 8); r0 < L.wrows; r0 += U * RSTEP) {
-      uint4 raw[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int r = r0 + u * RSTEP, s = n0 - L.h + r;
-        raw[u] = make_uint4(0u, 0u, 0u, 0u);
-        if (r < L.wrows && s >= 0 && s < p.T)
-          raw[u] = __ldg(reinterpret_cast<const uint4*>(xb + (long long)s * C + c8));
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int r = r0 + u * RSTEP;
-        if (r >= L.wrows) break;
-        float f[8];
-        unpack8(raw[u], f);
-        put8<RS>(R, r, A, L.rt, r, c8, f);
-      }
-    }
+    load_window<C, RS, NTH>(R, A, L.rt, p.x + b * p.x_bs, n0 - L.h, L.wrows, p.T);
     fence_async();
     __syncthreads();
     int lo = 0, hi = L.wrows;

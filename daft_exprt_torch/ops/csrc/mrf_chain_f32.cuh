@@ -1,8 +1,11 @@
 // Block-resident float32 ResBlock1 chains for Hopper, on the tensor cores in
 // 3xTF32: tc_f32_kernel (mrf_tc.cu), the float32 fused_mrf_tc (one launch
-// per chain of the group) and fused_resblock1 (one chain, one launch), and
+// per chain of the group) and fused_resblock1 (one chain, one launch),
 // phase_f32_kernel (mrf_phase.cu), the float32 fused_mrf_phase (upsample,
-// the three chains and conv_post, one launch per level).
+// the three chains and conv_post, one launch per level), and mrf_ct.cuh's
+// ct_kernel<CtF32> (mrf_ct.cu), the float32 fused_mrf_ct and
+// fused_mrf_phase without prologue (the three chains, one launch per
+// level).
 //
 // The function is the bf16 engine's (mrf_chain_bf16.cuh) in float32: each
 // conv's input lrelu'd (no rounding), float32 sums, + bias, the residual in
@@ -57,6 +60,15 @@
 // 360-sample window so; with R beside X0 and A it would own 128 (of 248),
 // with R and O 96 (of 216).
 //
+// ct_kernel<CtF32> (mrf_ct.cuh, mrf_ct.cu: the float32 fused_mrf_ct and
+// fused_mrf_phase without prologue, HiFi-GAN V2's levels, C = 64..8) is the
+// bf16 level kernel's structure (per chain the window of x loaded, its
+// steps run, the chain added into a sum; the last chain writes the mean)
+// with ChainF32's arithmetic: the conv tile A in shared memory, and the
+// residual window R and the chain sum O in shared memory too where they fit
+// beside it with a useful block (CtF32Cfg), else in the block's scratch
+// slice.
+//
 // Bound on the card: operations, 4*k*C^2 flops per sample and dilation (and
 // the upsample's 2*C_in*C*k/s per output sample) at a third of the TF32
 // rate (three TF32 products per product).
@@ -92,15 +104,50 @@ template <> struct TcF32Cfg<128> {
 template <> struct TcF32Cfg<256> {
   static constexpr int NW = 8, MT = 4, NT = 8, KCH = 8, NBUF = 2;
 };
-// the narrow levels' chains (phase_f32_kernel)
+// the narrow levels' chains (phase_f32_kernel, ct_kernel<CtF32>)
 template <> struct TcF32Cfg<64> {
   static constexpr int NW = 8, MT = 2, NT = 8, KCH = 32, NBUF = 2;
 };
 template <> struct TcF32Cfg<32> {
   static constexpr int NW = 8, MT = 2, NT = 4, KCH = 32, NBUF = 2;
 };
+// HiFi-GAN V2's narrowest levels (ct_kernel<CtF32>): a stage (one tap) is a
+// few hundred bytes of MMAs, so more row tiles a warp and more ring slots
+template <> struct TcF32Cfg<16> {
+  static constexpr int NW = 8, MT = 8, NT = 2, KCH = 16, NBUF = 4;
+};
+template <> struct TcF32Cfg<8> {
+  static constexpr int NW = 8, MT = 8, NT = 1, KCH = 8, NBUF = 4;
+};
 
 __device__ __forceinline__ float lrelu1(float v) { return v >= 0.f ? v : __fmul_rn(kSlope, v); }
+
+// R rows [0, wrows) (C floats a row) <- samples [s0, s0 + wrows) of one
+// utterance of x ((T, C) float32, sample-major), zero outside [0, T); A
+// rows (AS floats apart) <- their lrelu. NTH threads, 4 channels a load.
+template <int C, int AS, int NTH>
+__device__ __forceinline__ void load_window_f32(float* R, float* A, const float* xb, int s0,
+                                                int wrows, int T) {
+  constexpr int Q = C / 4, U = 4;
+  for (int i0 = threadIdx.x; i0 < wrows * Q; i0 += U * NTH) {
+    float4 v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * NTH, r = i / Q, s = s0 + r;
+      v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < wrows && s >= 0 && s < T)
+        v[u] = __ldg(reinterpret_cast<const float4*>(xb + (long long)s * C + (i - r * Q) * 4));
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * NTH, r = i / Q, c = (i - r * Q) * 4;
+      if (r >= wrows) break;
+      *reinterpret_cast<float4*>(R + r * C + c) = v[u];
+      *reinterpret_cast<float4*>(A + r * AS + c) =
+          make_float4(lrelu1(v[u].x), lrelu1(v[u].y), lrelu1(v[u].z), lrelu1(v[u].w));
+    }
+  }
+}
 
 // out[m][n] = sum_tap sum_ci A[m + tap*dil][ci] * W(tap, ci, n) for m < M,
 // n < COUT, A a float32 tile of CIN channels in rows AS = CIN + 4 floats
@@ -376,26 +423,7 @@ __global__ void __launch_bounds__(TcF32Cfg<C>::NW * 32, 1) tc_f32_kernel(const T
     const int n0 = (item - b * p.n_tiles) * p.bm;
     // R rows [0, wrows) <- x samples [n0 - h, n0 + bm + h), zero outside
     // [0, T); A <- their lrelu
-    const float* xb = p.x + b * p.x_bs;
-    constexpr int Q = C / 4, U = 4;
-    for (int i0 = threadIdx.x; i0 < L.wrows * Q; i0 += U * NTH) {
-      float4 v[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int i = i0 + u * NTH, r = i / Q, s = n0 - L.h + r;
-        v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (r < L.wrows && s >= 0 && s < p.T)
-          v[u] = __ldg(reinterpret_cast<const float4*>(xb + (long long)s * C + (i - r * Q) * 4));
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int i = i0 + u * NTH, r = i / Q, c = (i - r * Q) * 4;
-        if (r >= L.wrows) break;
-        *reinterpret_cast<float4*>(R + r * C + c) = v[u];
-        *reinterpret_cast<float4*>(A + r * AS + c) =
-            make_float4(lrelu1(v[u].x), lrelu1(v[u].y), lrelu1(v[u].z), lrelu1(v[u].w));
-      }
-    }
+    load_window_f32<C, AS, NTH>(R, A, p.x + b * p.x_bs, n0 - L.h, L.wrows, p.T);
     __syncthreads();
     int lo = 0, hi = L.wrows;
     const TcSink<C, FINAL, float> sink{p.sum + b * p.sum_bs, p.sum_cs, p.out + b * p.out_bs,

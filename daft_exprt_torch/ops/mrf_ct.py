@@ -11,22 +11,25 @@ Both TPU kernels pad x with zeros by a halo once per tile and run valid
 convs on the window, so at every sample both compute the zero-padded valid
 chains of :func:`vocoder_kernels.mrf_tc_plain`; the tile, the halo, the
 phase layout and the merged taps change the summation order only. One CUDA
-kernel serves both; each wrapper keeps its own counters and plain version.
-The port keeps the level sample-major, (B, T, C), as the polyphase
-upsample before the level emits it: the TPU kernels' (B, C, T) input
-transposed.
+kernel per dtype serves both, one launch a level with the three chains on
+chip (``csrc/mrf_ct.cuh``'s ``ct_kernel`` over the bf16 engine's chains,
+``CtBf``, or the 3xTF32 chains on the tensor cores, ``CtF32``; plan
+:func:`vocoder_kernels._ct_plan`); each wrapper
+keeps its own counters and plain version. The port keeps the level
+sample-major, (B, T, C), as the polyphase upsample before the level emits
+it: the TPU kernels' (B, C, T) input transposed.
 """
 import collections
+import ctypes
 
 import torch
 
+from daft_exprt_torch.ops import _build
 from daft_exprt_torch.ops.vocoder_kernels import (
-    _STEP_ARGTYPES, _check_cuda_input, _check_kernel_sizes, _check_weights,
-    _empty_on, _fn, _launch_step, _tc_plan, mrf_tc_plain, prepare_mrf,
+    CT_BF_CFG, CT_CHANNELS, TC_F32_CFG, _F32, _I32, _I64, _P, _check_cuda_input,
+    _check_kernel_sizes, _check_weights, _ct_args, _ct_plan, _empty_on, _fn,
+    _scratch, aligned, mrf_tc_plain, prepare_mrf, sm_count,
 )
-
-CT_CHANNELS = (8, 16, 32, 64)
-
 
 def pack_mrf_weights(params, level, kernel_sizes, dilations,
                      merge_taps=False):
@@ -73,35 +76,65 @@ def mrf_ct_plain(x, mrf):
 
 mrf_phase_noups_plain = mrf_ct_plain
 
+# x, x_bs, T, out, out_bs, ptrs, ints, scale, C, B, scratch, its floats,
+# slots, stream (mrf_ct.cu mrf_ct_bf / mrf_ct_f32)
+_CT_ARGTYPES = [_P, _I64, _I32, _P, _I64, _P, _P, _F32, _I32, _I32, _P, _I64,
+                _I32, _P]
 
-def _launch(wrapper, name, x, mrf):
+
+def _launch(wrapper, x, mrf):
+    """The level kernel's launch for a call of ``wrapper``: ``ct_kernel``
+    over CtBf in bf16, over CtF32 in float32, one launch."""
+    name = wrapper.__name__
     B, T, C = x.shape
+    f32 = x.dtype == torch.float32
     _check_cuda_input(x, name, CT_CHANNELS, C)
     _check_kernel_sizes(name, mrf.kernel_sizes)
     _check_weights(name, x, mrf)
-    x = x.contiguous()
-    steps, out = _tc_plan(x, mrf.chains, mrf.kernel_sizes, mrf.dilations,
-                          _empty_on(x.device))
-    fn = _fn('mrf_ct', 'mrf_ct_step', _STEP_ARGTYPES)
-    for st in steps:
-        _launch_step(fn, st, B, C, x.dtype)
-        wrapper.launches += 1
-    wrapper.calls[tuple(x.shape)] += 1
-    return out
+    if mrf.packed[0].shape[-1] != C:
+        raise ValueError(f'{name}: x has C={C} but the weights '
+                         f'{mrf.packed[0].shape[-1]}')
+    if mrf.blk is None:
+        raise ValueError(
+            f'{name}: the weights carry no {"float32" if f32 else "bf16"} '
+            'engine form (prepare_mrf on the card)')
+    x = aligned(x)
+    slots = sm_count(x.device)
+    pl = _ct_plan(x, mrf, _empty_on(x.device), slots)
+    if f32:
+        stages = (1, TC_F32_CFG[C].kch)
+    else:
+        stages = (CT_BF_CFG[C].tps, CT_BF_CFG[C].kch)
+    ptrs, ints = _ct_args(pl, stages)
+    pa = (ctypes.c_int64 * len(ptrs))(*ptrs)
+    ia = (ctypes.c_int * len(ints))(*ints)
+    scratch = _scratch(pl.scratch, x.device)
+    kind = 'f32' if f32 else 'bf'
+    err = _fn('mrf_ct', f'mrf_ct_{kind}', _CT_ARGTYPES)(
+        _build.ptr(x), x.stride(0), T, _build.ptr(pl.out), pl.out.stride(0),
+        ctypes.cast(pa, ctypes.c_void_p), ctypes.cast(ia, ctypes.c_void_p),
+        1.0 / len(mrf.kernel_sizes), C, B, _build.ptr(scratch),
+        scratch.numel(), slots, _build.stream_ptr(x))
+    _build.check(err, f'MRF {kind} level without upsample (C={C}, '
+                 f'block_m={pl.block_m})')
+    wrapper.launches += 1
+    wrapper.calls[tuple(x.shape) + (('float32',) if f32 else ())] += 1
+    return pl.out
 
 
 def fused_mrf_ct(x, mrf):
     """Fused MRF group of a level in ``fused_mrf_ct``'s float form. x: (B,
     T, C) in bfloat16 or float32, C in :data:`CT_CHANNELS`; ``mrf`` from
     ``prepare_mrf`` (or :func:`prepare_mrf_ct`) in x's dtype. Returns (B,
-    T, C) in x's dtype. On a CUDA tensor this launches ``mrf_ct.cu`` (or
-    raises); on a CPU tensor it runs :func:`mrf_ct_plain`.
+    T, C) in x's dtype. On a CUDA tensor this launches ``mrf_ct.cu`` once
+    (or raises); on a CPU tensor it runs :func:`mrf_ct_plain`.
 
-    ``fused_mrf_ct.launches`` counts CUDA launches (one per chain step);
-    ``fused_mrf_ct.calls`` counts CUDA-route calls by x's shape."""
+    ``fused_mrf_ct.launches`` counts CUDA launches;
+    ``fused_mrf_ct.calls`` counts CUDA-route calls by x's shape (and
+    'float32' for a float32 call)."""
     if x.device.type == 'cpu':
         return mrf_ct_plain(x, mrf)
-    return _launch(fused_mrf_ct, 'fused_mrf_ct', x, mrf)
+    return _launch(fused_mrf_ct, x, mrf)
 
 
 fused_mrf_ct.launches = 0
@@ -113,15 +146,15 @@ def fused_mrf_phase_noups(x, mrf):
     without the upsample prologue (the upsample ran before it). x: (B, T,
     C) in bfloat16 or float32; ``mrf`` as for :func:`fused_mrf_ct`.
     Returns (B, T, C) in x's dtype. On a CUDA tensor this launches
-    ``mrf_ct.cu`` (or raises); on a CPU tensor it runs
+    ``mrf_ct.cu`` once (or raises); on a CPU tensor it runs
     :func:`mrf_phase_noups_plain`.
 
-    ``fused_mrf_phase_noups.launches`` counts CUDA launches (one per chain
-    step); ``fused_mrf_phase_noups.calls`` counts CUDA-route calls by x's
-    shape."""
+    ``fused_mrf_phase_noups.launches`` counts CUDA launches;
+    ``fused_mrf_phase_noups.calls`` counts CUDA-route calls by x's shape
+    (and 'float32' for a float32 call)."""
     if x.device.type == 'cpu':
         return mrf_phase_noups_plain(x, mrf)
-    return _launch(fused_mrf_phase_noups, 'fused_mrf_phase_noups', x, mrf)
+    return _launch(fused_mrf_phase_noups, x, mrf)
 
 
 fused_mrf_phase_noups.launches = 0

@@ -20,6 +20,10 @@ the same function the port's kernels and plain versions compute.
   function with its upsample output kept in float32.
 - :func:`fused_resblock1` replaces ``fused_resblock1``: one ResBlock1
   chain, the tc kernels' group of one chain.
+- The levels that take no fused upsample (``ops/mrf_ct.py``:
+  ``fused_mrf_ct`` and ``fused_mrf_phase`` without prologue, HiFi-GAN
+  V2's levels) run one launch a level of ``csrc/mrf_ct.cu``, planned here
+  (:data:`CT_BF_CFG`, :func:`_ct_plan`) beside the other engines' plans.
 - :func:`fused_mrf_tc_q8` replaces ``fused_mrf_tc`` with ``q8=True``: the
   int8-static serving tier, with the quantisation helpers and the int8
   packers (second half of the file; ``fused_mrf_ptc`` itself lives in
@@ -41,16 +45,18 @@ each block keeps a chain's residual window on chip. :func:`fused_mrf_ptc_f`
 runs the bf16 engine's phase kernel with its upsample output in float32.
 The sample ranges of every launch and block are planned here
 (:func:`_chain_steps`, :func:`_tc_bf_plan`, :func:`_tc_f32_plan`,
-:func:`_phase_bf_plan`, :func:`_phase_f32_plan`, :func:`_tc_q8_plan`) so
-the CPU tests can replay the plan.
+:func:`_phase_bf_plan`, :func:`_phase_f32_plan`, :func:`_ct_plan`,
+:func:`_tc_q8_plan`) so the CPU tests can replay the plan.
 """
 import collections
 import contextlib
 import ctypes
+import functools
 import math
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -59,6 +65,7 @@ from daft_exprt_torch.ops import _build
 LRELU_SLOPE = 0.1
 TC_CHANNELS = (128, 256)
 PHASE_CHANNELS = (32, 64)
+CT_CHANNELS = (8, 16, 32, 64)          # the levels without fused upsample
 KERNEL_SIZES = (3, 7, 11)
 
 WRITE, ADD, FINAL = 0, 1, 2           # step modes (mrf_common.cuh StepMode)
@@ -203,7 +210,8 @@ def mrf_phase_plain(x, weights, kernel_sizes, dilations, ups, post=None,
 
 @dataclass
 class Step:
-    """One launch of ``step_kernel``. Sample n of utterance b lives at
+    """One launch of an int8 step kernel (``mrf_q8.cuh`` step_q8_kernel:
+    one chain step of the int8 ct routes). Sample n of utterance b lives at
     ``src[b, n + src_off]`` (zero outside [src_lo, src_hi)) and
     ``dst[b, n + dst_off]``; the launch computes samples [n_lo, n_hi).
     ``fin`` is a (B, N, C)-indexed view of the final output (FINAL mode)."""
@@ -281,66 +289,45 @@ def ups_geometry(kernel_size, stride, padding):
 # device weights
 # ----------------------------------------------------------------------
 
-def pack_mma(w_kio):
-    """(taps, C_in, C_out) -> bfloat16 words in the m16n8k16 B-fragment
-    order ``conv_gemm`` reads: [tap][n-tile][k-tile][lane][4]. C_in = 8 is
-    padded with zero rows to the 16 channels the MMA reduces over
-    (``mrf_common.cuh`` ``gemm_cin``)."""
-    if w_kio.shape[1] < 16:
-        w_kio = F.pad(w_kio, (0, 0, 0, 16 - w_kio.shape[1]))
-    taps, ci, co = w_kio.shape
-    w = w_kio.to(torch.bfloat16).reshape(taps, ci // 16, 2, 4, 2, co // 8, 8)
-    return w.permute(0, 5, 1, 6, 3, 2, 4).contiguous().reshape(-1)
-
-
-def _device_taps(w_kio, cdt):
-    if cdt == torch.bfloat16:
-        return pack_mma(w_kio)
-    return w_kio.float().contiguous().reshape(-1)
-
-
 @dataclass
 class MrfWeights:
     """One level's weights for the MRF wrappers, made once by
     :func:`prepare_mrf`. The plain versions read ``packed`` (from
     :func:`pack_mrf_tc_weights`), ``ups`` and ``post``. For weights on a
     CUDA device the CUDA routes read the same weights in the kernels'
-    format for ``dtype`` (None on the CPU): ``chains[j][i]`` = (w1, b1, w2,
-    b2) of chain j, dilation i, and ``post_dev`` = ((k, C) float32 taps,
-    bias)."""
+    format for ``dtype`` (None on the CPU): ``blk[j][i]`` = (w1, b1, w2,
+    b2) of chain j, dilation i, staged for the engine of the level's width,
+    ``blk_ups`` the staged upsample, and ``post_dev`` = ((k, C) float32
+    taps, bias)."""
     dtype: torch.dtype
     device: torch.device
     kernel_sizes: tuple
     dilations: tuple
     packed: list
-    chains: Optional[list] = None
     ups: Optional[tuple] = None       # (w (C_in, C, k), b (C,), stride, pad)
     post: Optional[tuple] = None      # (w (1, C, k), b (1,))
     post_dev: Optional[tuple] = None
     p: int = 0                        # phases (fused_mrf_ptc_f's weights)
-    blk: Optional[list] = None        # the bf16 engine's staged chains
-    blk_ups: Optional[tuple] = None   # its staged upsample
+    blk: Optional[list] = None        # the engines' staged chains
+    blk_ups: Optional[tuple] = None   # the staged upsample
 
 
-def prepare_mrf(packed, kernel_sizes, dilations, ups=None, post=None,
-                fallback=True):
+def prepare_mrf(packed, kernel_sizes, dilations, ups=None, post=None):
     """:class:`MrfWeights` of one level, in the dtype and on the device of
     ``packed``. ``ups`` = (w, b, stride, padding) of the level's
     ConvTranspose1d and ``post`` = (w, b) of conv_post, for
     :func:`fused_mrf_phase`.
 
-    Off the CPU, bf16 weights of a level the block-resident engine serves
-    (a wide level of :data:`TC_BF_CFG`, a narrow one with its upsample in
-    :data:`PHASE_BF_CFG`) are staged for it (``blk``: per chain
-    and step (w1, b1, w2, b2), the taps by :func:`pack_stage_bf16`;
-    ``blk_ups``: per phase the upsample's taps staged, the bias, the bytes
-    of a phase); float32 weights of a wide level of :data:`TC_CHANNELS` or
-    a narrow one with its upsample in :data:`PHASE_F32_UKCH` for the
-    float32 chain kernels (``blk`` and ``blk_ups`` alike, the taps by
-    :func:`pack_stage_tf32`). Every other form keeps the step kernels'
-    ``chains``, and so does a narrow level's (its fallback to
-    ``fused_mrf_ct`` reads them), unless not ``fallback``
-    (``fused_mrf_ptc_f``'s weights, which no step kernel reads)."""
+    Off the CPU, the chains of a level whose width an engine serves are
+    staged for it (``blk``: per chain and step (w1, b1, w2, b2)): in bf16
+    the taps by :func:`pack_stage_bf16` with the stages of
+    :data:`TC_BF_CFG` (the wide levels) or :data:`CT_BF_CFG` (the levels of
+    :data:`CT_CHANNELS`; :func:`pack_stage_bf16_pairs` at C = 8), in
+    float32 by :func:`pack_stage_tf32` with :data:`TC_F32_CFG`'s. The
+    stages depend on the width only, so a chain level's weights also serve
+    its fallback to ``fused_mrf_ct``. With an upsample the phase kernel
+    serves (:data:`PHASE_BF_CFG`, :data:`PHASE_F32_UKCH`), ``blk_ups`` holds
+    it staged per phase, with its bias and the bytes of a phase."""
     cdt, device = packed[0].dtype, packed[0].device
     kernel_sizes = tuple(kernel_sizes)
     dilations = tuple(tuple(d) for d in dilations)
@@ -349,41 +336,24 @@ def prepare_mrf(packed, kernel_sizes, dilations, ups=None, post=None,
     if device.type == 'cpu':
         return mrf
     C = packed[0].shape[-1]
-    cfg = None
-    if cdt == torch.bfloat16:
-        cfg = TC_BF_CFG.get(C) if ups is None else \
-            PHASE_BF_CFG.get((ups[0].shape[0], C))
-        stage = None if cfg is None else \
-            (lambda w: pack_stage_bf16(w, cfg.tps, cfg.kch))
-    elif (ups is None and C in TC_CHANNELS or ups is not None
-          and (ups[0].shape[0], C) in PHASE_F32_UKCH):
-        cfg = TC_F32_CFG[C]
-        stage = (lambda w: pack_stage_tf32(w, cfg.kch))
-    if cfg is not None:
+    stage = _chain_stage(cdt, C)
+    if stage is not None:
         mrf.blk = []
         for j, dils in enumerate(dilations):
             w1, b1, w2, b2 = packed[4 * j:4 * j + 4]
             mrf.blk.append([(stage(w1[i]), b1[i].float().contiguous(),
                              stage(w2[i]), b2[i].float().contiguous())
                             for i in range(len(dils))])
-    if fallback and (cfg is None or ups is not None):
-        mrf.chains = []
-        for j, dils in enumerate(dilations):
-            w1, b1, w2, b2 = packed[4 * j:4 * j + 4]
-            mrf.chains.append([(_device_taps(w1[i], cdt),
-                                b1[i].float().contiguous(),
-                                _device_taps(w2[i], cdt),
-                                b2[i].float().contiguous())
-                               for i in range(len(dils))])
-    if ups is not None and cfg is not None:
+    if ups is not None and stage is not None:
         w, b, stride, padding = ups
         _, _, _, _, taps = ups_geometry(w.shape[-1], stride, padding)
         phases = [torch.stack([w[:, :, j] for j in tp]) for tp in taps]
-        if cdt == torch.bfloat16:
+        if cdt == torch.bfloat16 and (w.shape[0], C) in PHASE_BF_CFG:
+            cfg = PHASE_BF_CFG[w.shape[0], C]
             staged = [pack_stage_bf16(t, cfg.utps, cfg.ukch) for t in phases]
             mrf.blk_ups = (torch.cat(staged), b.float().contiguous(),
                            2 * staged[0].numel())
-        else:
+        elif cdt == torch.float32 and (w.shape[0], C) in PHASE_F32_UKCH:
             ukch = PHASE_F32_UKCH[w.shape[0], C]
             staged = [pack_stage_tf32(t, ukch) for t in phases]
             mrf.blk_ups = (torch.cat(staged), b.float().contiguous(),
@@ -395,15 +365,27 @@ def prepare_mrf(packed, kernel_sizes, dilations, ups=None, post=None,
     return mrf
 
 
+def _chain_stage(cdt, C):
+    """The engines' staging of a chain conv's (taps, C, C) weights at width
+    C in ``cdt`` (one form per width: the tc, phase and ct kernels of a
+    width read the same stages), or None where no engine serves C."""
+    if cdt == torch.bfloat16:
+        cfg = TC_BF_CFG.get(C) or CT_BF_CFG.get(C)
+        if cfg is None:
+            return None
+        if C == 8:
+            return lambda w: pack_stage_bf16_pairs(w, cfg.tps)
+        return lambda w: pack_stage_bf16(w, cfg.tps, cfg.kch)
+    cfg = TC_F32_CFG.get(C) if cdt == torch.float32 else None
+    return None if cfg is None else (lambda w: pack_stage_tf32(w, cfg.kch))
+
+
 # ----------------------------------------------------------------------
 # CUDA launches
 # ----------------------------------------------------------------------
 
 _I64, _I32, _F32, _P = ctypes.c_int64, ctypes.c_int, ctypes.c_float, \
     ctypes.c_void_p
-_STEP_ARGTYPES = ([_P, _I64, _I32, _I32, _I32, _I32, _P, _I64, _I32, _P,
-                   _I64, _I64, _I64, _I32, _I32, _F32, _P, _P, _P, _P]
-                  + [_I32] * 7 + [_P])
 
 
 def _fn(lib, name, argtypes):
@@ -411,20 +393,6 @@ def _fn(lib, name, argtypes):
     f.argtypes = argtypes
     f.restype = ctypes.c_int
     return f
-
-
-def _launch_step(fn, st, B, C, cdt):
-    fs = st.fin.stride() if st.fin is not None else (0, 0, 0)
-    w1, b1, w2, b2 = st.weights
-    err = fn(_build.ptr(st.src), st.src.stride(0), st.src_off, st.src_lo,
-             st.src_hi, int(st.src.dtype == torch.float32),
-             _build.ptr(st.dst), st.dst.stride(0), st.dst_off,
-             _build.ptr(st.fin) if st.fin is not None else None,
-             fs[0], fs[1], fs[2], st.mode, int(st.has_acc), st.scale,
-             _build.ptr(w1), _build.ptr(b1), _build.ptr(w2), _build.ptr(b2),
-             C, st.k, st.d, st.n_lo, st.n_hi, B,
-             int(cdt == torch.bfloat16), _build.stream_ptr(st.dst))
-    _build.check(err, f'MRF step (C={C}, k={st.k}, d={st.d})')
 
 
 def _check_cuda_input(x, name, channels, c):
@@ -445,8 +413,8 @@ def _check_kernel_sizes(name, kernel_sizes):
 
 def _tc_plan(x, prep, kernel_sizes, dilations, alloc):
     """The step-kernel launches of an MRF group in (B, T, C) layout, one
-    per (chain, dilation) step (the routes of ``mrf_ct.py`` and the q8s /
-    q8f ct routes of ``mrf_int8.py``): (steps, out). ``alloc(shape,
+    per (chain, dilation) step (the q8s / q8f ct routes of
+    ``mrf_int8.py``): (steps, out). ``alloc(shape,
     dtype)`` makes the buffers (``torch.empty`` on the card)."""
     B, T, C = x.shape
     E = -(-max(chain_halo(k, d) for k, d in zip(kernel_sizes, dilations))
@@ -545,10 +513,11 @@ SMEM_MAX = 232448             # dynamic shared memory of one H100 block
 @dataclass(frozen=True)
 class BfCfg:
     """A bf16 engine kernel's geometry (``mrf_chain_bf16.cuh`` TcBfCfg /
-    PhaseBfCfg: warps, taps and input channels per weight stage of the
-    chain convs and of the upsample, ring slots, and where its float32
-    windows live: ``r_smem``, shared memory, else a per-block slice of a
-    global scratch, which stays in L2). The kernel checks the stages and
+    PhaseBfCfg, ``mrf_ct.cuh`` CtBfCfg: warps, taps and input channels per
+    weight stage of the chain convs and of the upsample, ring slots, and
+    where its float32 windows live: ``r_smem``, shared memory, else a
+    per-block slice of a global scratch, which stays in L2; ``mg``: 64-row
+    groups a warpgroup takes per pass). The kernel checks the stages and
     ``r_smem``."""
     nw: int
     tps: int
@@ -557,11 +526,21 @@ class BfCfg:
     r_smem: bool
     utps: int = 0
     ukch: int = 0
+    mg: int = 1
 
 
 TC_BF_CFG = {128: BfCfg(16, 1, 64, 3, True), 256: BfCfg(16, 1, 32, 4, False)}
 PHASE_BF_CFG = {(128, 64): BfCfg(16, 2, 64, 3, True, 2, 64),
                 (64, 32): BfCfg(16, 3, 32, 3, True, 2, 64)}
+# the bf16 level kernel of the levels without upsample (``CtBfCfg``; its
+# float32 windows always in shared memory): at C = 64 and 32 the phase
+# kernel's chain stages (a chain level's weights serve its ct fallback); at
+# C = 8 ``tps`` counts tap pairs and ``kch`` is a pair's 16 values
+# (pack_stage_bf16_pairs)
+CT_BF_CFG = {64: BfCfg(16, 2, 64, 3, True, mg=2),
+             32: BfCfg(16, 3, 32, 4, True, mg=2),
+             16: BfCfg(16, 3, 16, 6, True, mg=4),
+             8: BfCfg(16, 2, 16, 6, True, mg=4)}
 
 
 def stage_taps(taps, tps):
@@ -637,10 +616,28 @@ def pack_stage_bf16(w_kio, tps, kch):
     return w[idx].view(torch.bfloat16)
 
 
-def _pass_rows(C, nw):
-    """Output rows of one pass of a conv (``Conv::ROWS``): the warpgroups
-    over C's column groups of 128, 64 rows each."""
-    return (nw // 4) // (C // min(C, 128)) * 64
+def pack_stage_bf16_pairs(w_kio, tps):
+    """(taps, 8, C_out) -> the bf16 engine's staged order at C = 8, where a
+    k16 step reads a pair of taps (``ConvSS::PAIR``): pair v holds taps t =
+    min(2v, taps - 2) and t + 1 as one tap of 16 input channels (tap t's 8,
+    then tap t + 1's; an odd count's last pair repeats tap t with zero
+    weights), staged by :func:`pack_stage_bf16` in groups of ``tps``
+    pairs with 16 channels a stage."""
+    taps = w_kio.shape[0]
+    if taps < 2:
+        raise ValueError(f'{taps} taps: a tap pair needs two')
+    pairs = []
+    for v in range((taps + 1) // 2):
+        t = min(2 * v, taps - 2)
+        first = w_kio[t] if t == 2 * v else torch.zeros_like(w_kio[t])
+        pairs.append(torch.cat([first, w_kio[t + 1]]))
+    return pack_stage_bf16(torch.stack(pairs), tps, 16)
+
+
+def _pass_rows(C, nw, mg=1):
+    """Output rows of one pass of a conv (``ConvSS::ROWS``): the warpgroups
+    over C's column groups of 128, ``mg`` groups of 64 rows each."""
+    return (nw // 4) // (C // min(C, 128)) * 64 * mg
 
 
 def _conv_passes(M, rows):
@@ -662,17 +659,17 @@ def _round64(m):
     return -(-m // 64) * 64
 
 
-def tile_rows(k, dils, wrows):
+def tile_rows(k, dils, wrows, g=64):
     """Rows a chain's conv tile holds on a window of ``wrows`` rows
-    (``mrf_chain_bf16.cuh`` tile_rows): a warpgroup's MMAs read 64 rows
-    from its first, so a conv over M rows reads rows up to round64(M) - 1 +
-    (k - 1)*d."""
+    (``mrf_chain_bf16.cuh`` tile_rows): a warpgroup's MMAs read g = 64*mg
+    rows from its first, so a conv over M rows reads rows up to M rounded
+    up to g, - 1 + (k - 1)*d."""
     half = (k - 1) // 2
     rt, cur = wrows, wrows
     for d in dils:
         m1 = cur - 2 * d * half
         m2 = m1 - 2 * half
-        rt = max(rt, _round64(m1) + 2 * d * half, _round64(m2) + 2 * half)
+        rt = max(rt, -(-m1 // g) * g + 2 * d * half, -(-m2 // g) * g + 2 * half)
         cur = m2
     return rt
 
@@ -849,7 +846,12 @@ class F32Cfg:
 
 # the wide levels' tc_f32_kernel, the narrow levels' phase_f32_kernel chains
 TC_F32_CFG = {128: F32Cfg(8, 2, 8, 32, 2), 256: F32Cfg(8, 4, 8, 8, 2),
-              64: F32Cfg(8, 2, 8, 32, 2), 32: F32Cfg(8, 2, 4, 32, 2)}
+              64: F32Cfg(8, 2, 8, 32, 2), 32: F32Cfg(8, 2, 4, 32, 2),
+              16: F32Cfg(8, 8, 2, 16, 4), 8: F32Cfg(8, 8, 1, 8, 4)}
+# the float32 level kernel (``CtF32Cfg``): whether the float32 windows (the
+# residual and the chain sum) live in shared memory, else in a per-block
+# scratch slice
+CT_F32_R_SMEM = {64: False, 32: False, 16: True, 8: True}
 # phase_f32_kernel's upsample (C_in -> C): input channels per weight stage
 # (``PhaseF32Cfg``; its warps and tiles are the chains')
 PHASE_F32_UKCH = {(128, 64): 32, (64, 32): 32}
@@ -1127,6 +1129,164 @@ def _launch_phase_engine(wrapper, x, mrf, fdot=False):
                  f'block_m={pl.block_m})')
     wrapper.launches += 1
     return out
+
+
+# ----------------------------------------------------------------------
+# the levels without fused upsample (csrc/mrf_ct.cuh: ct_kernel over
+# CtBf or CtF32), HiFi-GAN V2's: one launch a level
+# ----------------------------------------------------------------------
+
+def _ct_windows(ks, dils, bm):
+    """(k, dilations, window rows) of each chain of a block of ``bm``
+    output samples."""
+    return [(k, d, bm + 2 * chain_halo(k, d)) for k, d in zip(ks, dils)]
+
+
+def _ct_sched(ks, dils, bm, rows):
+    return sum(_conv_passes(M, rows) for k, d, w in _ct_windows(ks, dils, bm)
+               for M in _chain_convs(k, d, w))
+
+
+def _bf_rs(C):
+    """Floats a row of the bf16 engine's float32 windows (``ChainBf::RS``)."""
+    return 8 if C == 8 else C + 8
+
+
+def _ct_bf_smem(C, cfg, ks, dils, bm):
+    """Shared memory of a bf16 level kernel block (``CtLayout<CtBf<C>>``):
+    the weight ring, the bf16 conv tile (the chains' widest ``tile_rows``,
+    C/8 chunks), the residual window of the widest chain and the chain sum
+    (bm rows), rows of :func:`_bf_rs` floats, and the schedule."""
+    wins = _ct_windows(ks, dils, bm)
+    wrows = max(w for _, _, w in wins)
+    return (cfg.nbuf * cfg.tps * C * 2 * cfg.kch
+            + max(tile_rows(k, d, w, 64 * cfg.mg) for k, d, w in wins) * 2 * C
+            + (wrows + bm) * _bf_rs(C) * 4
+            + 16 * _ct_sched(ks, dils, bm, _pass_rows(C, cfg.nw, cfg.mg)))
+
+
+def _ct_f32_smem(C, ks, dils, bm, r_smem):
+    """Shared memory of a float32 level kernel block
+    (``CtLayout<CtF32<C>>``): the weight ring, the float32 conv tile (the
+    widest window, rows of C + 4 floats), with ``r_smem`` the residual
+    window and the chain sum (bm rows), rows of C floats, and the
+    schedule."""
+    cfg = TC_F32_CFG[C]
+    wrows = bm + 2 * max(chain_halo(k, d) for k, d in zip(ks, dils))
+    r = (wrows + bm) * C * 4 if r_smem else 0
+    return (cfg.nbuf * cfg.kch * C * 8 + wrows * (C + 4) * 4 + r
+            + 16 * _ct_sched(ks, dils, bm, _f32_pass_rows(C, cfg)))
+
+
+def _ct_geometry(C, f32):
+    """(r_smem, shared memory of a block of bm samples, the weight stages
+    of one pass of a conv of k taps, the pass's rows, a scratch row's
+    floats) of the level kernel at width C."""
+    if f32:
+        cfg, r_smem = TC_F32_CFG[C], CT_F32_R_SMEM[C]
+        return (r_smem, lambda ks, dils, bm: _ct_f32_smem(C, ks, dils, bm,
+                                                          r_smem),
+                lambda k: k * (C // cfg.kch), _f32_pass_rows(C, cfg), C)
+    cfg = CT_BF_CFG[C]
+    vt = (lambda k: (k + 1) // 2) if C == 8 else (lambda k: k)
+    kc = 1 if C == 8 else C // cfg.kch
+    return (cfg.r_smem, lambda ks, dils, bm: _ct_bf_smem(C, cfg, ks, dils, bm),
+            lambda k: -(-vt(k) // cfg.tps) * kc, _pass_rows(C, cfg.nw, cfg.mg),
+            _bf_rs(C))
+
+
+@functools.lru_cache(maxsize=None)
+def _ct_item_stages(C, f32, ks, dils):
+    """The weight stages one item of the level kernel at width C streams
+    (each one block barrier and one pass's MMAs), per block size bm = 8,
+    16, ... up to the largest whose window fits the shared memory: an
+    int64 array, entry i for bm = 8*(i + 1). It depends on neither B nor
+    T, so it is built once per width and chain shape."""
+    _, smem, stages, rows, _ = _ct_geometry(C, f32)
+    per_item = []
+    bm = 8
+    while smem(ks, dils, bm) <= SMEM_MAX:
+        per_item.append(sum(_conv_passes(M, rows) * stages(k)
+                            for k, d, w in _ct_windows(ks, dils, bm)
+                            for M in _chain_convs(k, d, w)))
+        bm += 8
+    if not per_item:
+        raise ValueError('no block size fits the shared memory')
+    return np.array(per_item, dtype=np.int64)
+
+
+@functools.lru_cache(maxsize=256)
+def ct_block(C, f32, ks, dils, B, T, slots):
+    """The level kernel's (``ct_kernel`` over CtBf, over CtF32 when
+    ``f32``) block_m for a (B, T, C) level on ``slots`` resident blocks:
+    of the blocks whose window fits the shared memory (multiples of 8, at
+    most T rounded up), the one with the least waves of items
+    (ceil(B*ceil(T/bm) / slots)) x weight stages an item streams
+    (:func:`_ct_item_stages`), the larger on a tie. Where items outnumber
+    the blocks many times over this is about the largest block that fits;
+    at a short level (V2's L0 at B = 8: 65536 samples) it spreads the
+    items over the card instead of leaving most SMs idle. A new B or T
+    costs one vector minimum on the host."""
+    per_item = _ct_item_stages(C, f32, ks, dils)
+    n = min(len(per_item), -(-T // 8))
+    if n < 1:
+        raise ValueError(f'no block size for a level of {T} samples')
+    bms = 8 * np.arange(1, n + 1, dtype=np.int64)
+    cost = -(-B * -(-T // bms) // slots) * per_item[:n]
+    return int(bms[n - 1 - int(np.argmin(cost[::-1]))])
+
+
+@dataclass
+class CtLaunch:
+    """The launch of the level kernel (``ct_kernel`` over CtBf in bf16,
+    over CtF32 in float32) for a level without upsample. Block i of
+    utterance b owns output samples [n0, n0 + block_m), n0 = i*block_m.
+    Per chain j it reads x over
+    [n0 - halos[j], n0 + block_m + halos[j]) (zero outside [0, T)), runs
+    the chain's steps with valid convs on that window and adds the chain
+    into the block's float32 chain sum; the last chain writes ((the sum) +
+    chain) * scale for samples [n0, min(n0 + block_m, T)) into ``out``.
+    ``r_smem``: the float32 windows in shared memory, else a scratch slice
+    per resident block ((the widest window + block_m) rows of
+    :func:`_bf_rs` floats in bf16, C in float32), ``scratch`` floats in
+    all."""
+    x: torch.Tensor
+    out: torch.Tensor
+    chains: list
+    kernel_sizes: tuple
+    dilations: tuple
+    halos: tuple
+    block_m: int
+    n_blocks: int
+    r_smem: bool
+    scratch: int
+
+
+def _ct_plan(x, mrf, alloc, slots, block_m=None):
+    """Launch plan of ``fused_mrf_ct`` / ``fused_mrf_phase_noups`` on the
+    level kernel of x's dtype: a :class:`CtLaunch`, block_m by
+    :func:`ct_block` unless given."""
+    B, T, C = x.shape
+    f32 = x.dtype == torch.float32
+    ks, dils = mrf.kernel_sizes, mrf.dilations
+    r_smem, _, _, _, row_floats = _ct_geometry(C, f32)
+    bm = block_m or ct_block(C, f32, ks, dils, B, T, slots)
+    halos = tuple(chain_halo(k, d) for k, d in zip(ks, dils))
+    n_blocks = -(-T // bm)
+    scratch = 0 if r_smem else \
+        (2 * bm + 2 * max(halos)) * row_floats * min(B * n_blocks, slots)
+    return CtLaunch(x, alloc((B, T, C), x.dtype), mrf.blk, ks, dils, halos,
+                    bm, n_blocks, r_smem, scratch)
+
+
+def _ct_args(pl, stages):
+    """The C entry's pointer and int arrays (``mrf_ct.cu`` ct_params);
+    ``stages``: the kernel's taps and input channels per weight stage."""
+    ptrs = [t.data_ptr() for steps in pl.chains for st in steps for t in st]
+    ints = [pl.block_m, *stages, int(pl.r_smem), len(pl.chains)]
+    for k, dils in zip(pl.kernel_sizes, pl.dilations):
+        ints += [k, len(dils)] + list(dils) + [0] * (4 - len(dils))
+    return ptrs, ints
 
 
 # ----------------------------------------------------------------------
@@ -1562,7 +1722,7 @@ def prepare_mrf_ptc_f(packed, kernel_sizes, dilations, p, ups, post=None):
         pst = (_ptc_taps(P, post_k, 1, p, C, 1).permute(2, 1, 0),
                b_p[0, :1])
     mrf = prepare_mrf(taps, kernel_sizes, dilations,
-                      (w_u, b_u[0, :C], stride, padding), pst, fallback=False)
+                      (w_u, b_u[0, :C], stride, padding), pst)
     mrf.p = p
     return mrf
 

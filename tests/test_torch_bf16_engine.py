@@ -517,7 +517,7 @@ def test_engine_forms_only_where_the_engine_runs():
     """prepare_mrf keeps the CPU weights plain, and the engines' tables
     name the widths V1's levels have."""
     _, mrf, _ = _phase_case(128, 64, 1, 16, False, torch.bfloat16)
-    assert mrf.blk is None and mrf.blk_ups is None and mrf.chains is None
+    assert mrf.blk is None and mrf.blk_ups is None
     assert set(vk.TC_BF_CFG) == set(vk.TC_CHANNELS)
     # V1's narrow levels, the fused upsample's (C_in, C): the int8 fused
     # kernels' widths too

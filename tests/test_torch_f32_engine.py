@@ -365,8 +365,8 @@ def test_tc_f32_cfg_matches_kernel(C):
     cfg = vk.TC_F32_CFG[C]
     assert (cfg.nw, cfg.mt, cfg.nt, cfg.kch, cfg.nbuf) == (
         k['NW'], k['MT'], k['NT'], k['KCH'], k['NBUF'])
-    assert set(vk.TC_F32_CFG) == set(vk.TC_CHANNELS) | set(vk.PHASE_CHANNELS)
-    if C in vk.PHASE_CHANNELS:
+    assert set(vk.TC_F32_CFG) == set(vk.TC_CHANNELS) | set(vk.CT_CHANNELS)
+    if C in vk.CT_CHANNELS:
         # a warp's 16*mt x 8*nt tile divides the pass, the stages the width
         assert C % (8 * cfg.nt) == 0 and C % cfg.kch == 0
         assert cfg.nw % (C // (8 * cfg.nt)) == 0

@@ -180,10 +180,12 @@ def _on(tree, device):
 def test_fdot_and_q8s_weights_take_the_fused_kernels(C_in, C, p_in):
     """Off the CPU (here the meta device, where nothing runs) fdot's
     weights are staged for ``phase_bf_kernel`` (``blk`` / ``blk_ups`` by
-    ``pack_stage_bf16``, no step-kernel chains) and the q8s phase weights
-    for ``ptc_fused_q8_kernel`` (``blk_dev`` / ``blk_ups_dev``: the eight
-    q8s arrays a step, taps by ``pack_stage_s8``, no mma form), at V1's L2
-    widths; at a width no kernel is built for, nothing is staged and both
+    ``pack_stage_bf16``) and the q8s phase weights for
+    ``ptc_fused_q8_kernel`` (``blk_dev`` / ``blk_ups_dev``: the eight q8s
+    arrays a step, taps by ``pack_stage_s8``, no mma form), at V1's L2
+    widths; at a width no phase kernel is built for, no upsample and no
+    int8 form is staged (fdot's chains carry the level kernels' form of
+    their width, as every bf16 level of ``CT_CHANNELS`` does) and both
     wrappers refuse the call, naming the built widths. A float32 fdot call
     is refused too."""
     rng = np.random.RandomState(9)
@@ -205,11 +207,11 @@ def test_fdot_and_q8s_weights_take_the_fused_kernels(C_in, C, p_in):
         _on(qw, 'meta'), KS, DILS, p, _on(mi.quantize_ups_phase_weights(
             wb, bu, mi.ups_used_blocks(4, 2, 1, p_in), C_in), 'meta') + ups)
     assert f.device.type == 'meta' and q.mode == 'q8s'
-    assert f.chains is None and q.chains_dev is None and q.ups_dev is None
+    assert q.chains_dev is None and q.ups_dev is None
     x = torch.empty((2, 128 * p_in, C_in), dtype=torch.bfloat16,
                     device='meta')
     if (C_in, C) not in vk.PTC_Q8_CFG:
-        assert f.blk is None and q.blk_dev is None
+        assert f.blk_ups is None and q.blk_dev is None
         for call in (lambda: vk.fused_mrf_ptc_f(x.transpose(1, 2), f, 64),
                      lambda: mi.fused_mrf_phase_q8(x, q, 64)):
             with pytest.raises(ValueError, match='no CUDA instantiation'):

@@ -9,9 +9,7 @@ mrf_ct.py) against the JAX package's Pallas kernels in interpret mode.
   packers' arrays. Bands: float32 max-abs 1e-5 (the float32 vocoder band),
   bfloat16 rel-L2 2e-3 (the bf16 band of tests/test_torch_hifigan.py: a
   sum in another order can flip a bf16 rounding of a conv input).
-- The port's ``fused_mrf_ct`` packer against JAX's, bit for bit, and the
-  bf16 fragment packing at C = 8 (zero rows to the 16 channels the MMA
-  reduces over).
+- The port's ``fused_mrf_ct`` packer against JAX's, bit for bit.
 """
 import numpy as np
 import pytest
@@ -105,29 +103,11 @@ def test_ct_packer_matches_jax():
         assert torch.equal(a, c) and torch.equal(b, c)
 
 
-def test_pack_mma_pads_c8_to_16_channels():
-    """C = 8: the fragments conv_gemm<16, 8> reads hold the taps in rows
-    0..7 and zeros in rows 8..15 (the staged zero lanes meet zero
-    weights)."""
-    rng = np.random.RandomState(1)
-    w = torch.from_numpy(rng.randn(3, 8, 8).astype(np.float32))
-    padded = torch.cat([w, torch.zeros(3, 8, 8)], dim=1)
-    assert torch.equal(vk.pack_mma(w), vk.pack_mma(padded))
-    words = vk.pack_mma(w).float().numpy().reshape(-1, 4)
-    wb = w.to(torch.bfloat16).float().numpy()
-    for tap in range(3):
-        for lane in range(32):
-            n, t = lane // 4, lane % 4
-            word = words[tap * 32 + lane]
-            assert np.array_equal(word, [wb[tap, 2 * t, n],
-                                         wb[tap, 2 * t + 1, n], 0.0, 0.0])
-
-
 def test_wrappers_run_plain_versions_on_cpu():
     rng = np.random.RandomState(3)
     tp = to_torch(mrf_params(rng, 0, 8, KS, DILS))
     mrf = vk.prepare_mrf(vk.pack_mrf_tc_weights(tp, 0, KS, DILS), KS, DILS)
-    assert mrf.chains is None
+    assert mrf.blk is None
     x = torch.from_numpy((rng.randn(1, 96, 8) * 0.5).astype(np.float32))
     ref = mc.mrf_ct_plain(x, mrf)
     for fn in (mc.fused_mrf_ct, mc.fused_mrf_phase_noups):

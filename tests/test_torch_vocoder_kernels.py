@@ -5,18 +5,15 @@ the JAX package's Pallas kernels (run in interpret mode on the CPU).
   JAX kernels at every sample, utterance edges included: the TPU kernels'
   valid-conv-over-padded-input function is tile independent, and the plain
   versions compute that function directly.
-- The step route's launch plan (``fused_mrf_ct``'s: sample ranges, buffer
-  offsets, modes) is replayed on the CPU by emulating each launch, and
-  must equal the plain version (the engines' plans are replayed in
-  ``tests/test_torch_bf16_engine.py`` and ``test_torch_f32_engine.py``);
-  the fragment packing is checked against the kernel's indexing.
+- The engines' launch plans are replayed in
+  ``tests/test_torch_bf16_engine.py``, ``test_torch_f32_engine.py`` and
+  ``test_torch_v2_engine.py``.
 - On the card the kernels are held to the plain versions by
   ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 import numpy as np
 import pytest
 import torch
-import torch.nn.functional as F
 
 import jax
 import jax.numpy as jnp
@@ -25,9 +22,7 @@ from daft_exprt_tpu.models.hifigan import _pallas_mrf_phase
 from daft_exprt_tpu.ops import vocoder_kernels as jvk
 from daft_exprt_torch.ops import vocoder_kernels as vk
 
-from tests.torch_port_utils import (
-    max_abs, mrf_params, rel_l2, to_torch,
-)
+from tests.torch_port_utils import max_abs, mrf_params, to_torch
 
 KS = (3, 7, 11)
 DILS = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
@@ -90,100 +85,6 @@ def test_mrf_phase_plain_matches_jax_all_samples(p_in, p, C_in, C, post):
     assert max_abs(out.numpy(), ref) < 1e-5
 
 
-# ----------------------------------------------------------------------
-# CPU replay of the CUDA launch plans
-# ----------------------------------------------------------------------
-
-def _nan_alloc(shape, dtype):
-    """Buffers start as NaN, so a launch that reads a sample no earlier
-    launch wrote poisons the result."""
-    return torch.full(shape, float('nan'), dtype=dtype)
-
-
-def _read(buf, off, lo, hi, n0, n1):
-    n = torch.arange(n0, n1)
-    valid = ((n >= lo) & (n < hi))[None, :, None]
-    idx = (n + off).clamp(0, buf.shape[1] - 1)
-    return torch.where(valid, buf[:, idx, :].float(), torch.zeros(()))
-
-
-def _emulate_step(st, cdt):
-    """What one ``step_kernel`` launch computes."""
-    w1, b1, w2, b2 = st.weights
-    h = (st.k - 1) // 2
-    r = st.d * h
-    win = _read(st.src, st.src_off, st.src_lo, st.src_hi,
-                st.n_lo - h - r, st.n_hi + h + r).transpose(1, 2)
-    t = vk._lrelu(win).to(cdt).float()
-    a = F.conv1d(t, w1.permute(2, 1, 0).float(), dilation=st.d) \
-        + b1.float()[:, None]
-    t2 = vk._lrelu(a).to(cdt).float()
-    a2 = F.conv1d(t2, w2.permute(2, 1, 0).float()) + b2.float()[:, None]
-    res = _read(st.src, st.src_off, st.src_lo, st.src_hi, st.n_lo, st.n_hi)
-    v = res + a2.transpose(1, 2)
-    sl = slice(st.n_lo + st.dst_off, st.n_hi + st.dst_off)
-    if st.mode == vk.WRITE:
-        st.dst[:, sl] = v
-    elif st.mode == vk.ADD:
-        st.dst[:, sl] = st.dst[:, sl] + v
-    else:
-        tot = st.dst[:, sl] + v if st.has_acc else v
-        st.fin[:, st.n_lo:st.n_hi] = (tot * st.scale).to(st.fin.dtype)
-
-
-def _assert_replay_close(out, ref, dtype):
-    # float32: the same arithmetic up to summation order. bf16: a different
-    # summation order can flip the rounding of an intermediate to bf16.
-    if dtype == torch.float32:
-        assert max_abs(out, ref) < 1e-5
-    else:
-        assert rel_l2(out.float(), ref.float()) < 1e-3
-
-
-def _plain_prep(weights, dilations):
-    return [[tuple(t[i] for t in weights[4 * j:4 * j + 4])
-             for i in range(len(d))] for j, d in enumerate(dilations)]
-
-
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-def test_tc_launch_plan_replays_plain(dtype):
-    rng = np.random.RandomState(3)
-    C = 16
-    tp = to_torch(mrf_params(rng, 0, C, KS, DILS))
-    w = [t.to(dtype) for t in vk.pack_mrf_tc_weights(tp, 0, KS, DILS)]
-    x = torch.from_numpy((rng.randn(2, 200, C) * 0.5).astype(np.float32)
-                         ).to(dtype)
-    steps, out = vk._tc_plan(x, _plain_prep(w, DILS), KS, DILS, _nan_alloc)
-    assert len(steps) == 9
-    for st in steps:
-        _emulate_step(st, dtype)
-    ref = vk.mrf_tc_plain(x, w, KS, DILS)
-    assert torch.isfinite(out.float()).all()
-    _assert_replay_close(out, ref, dtype)
-
-
-def test_pack_mma_matches_kernel_indexing():
-    """conv_gemm reads uint2 word ((tap*NT8 + nt)*KT + kt)*32 + lane and
-    feeds b0,b1 = W[k0 + 2t + {0,1}][n], b2,b3 = W[k0 + 8 + 2t + {0,1}][n]
-    with n = 8*nt + lane//4, t = lane % 4, k0 = 16*kt."""
-    rng = np.random.RandomState(0)
-    taps, ci, co = 3, 32, 24
-    w = torch.from_numpy(rng.randn(taps, ci, co).astype(np.float32))
-    packed = vk.pack_mma(w).float().numpy().reshape(-1, 4)
-    wb = w.to(torch.bfloat16).float().numpy()
-    NT8, KT = co // 8, ci // 16
-    for tap in range(taps):
-        for nt in range(NT8):
-            for kt in range(KT):
-                for lane in range(32):
-                    word = packed[((tap * NT8 + nt) * KT + kt) * 32 + lane]
-                    n, t = 8 * nt + lane // 4, lane % 4
-                    k0 = 16 * kt + 2 * t
-                    want = [wb[tap, k0, n], wb[tap, k0 + 1, n],
-                            wb[tap, k0 + 8, n], wb[tap, k0 + 9, n]]
-                    assert np.array_equal(word, want)
-
-
 def test_ups_geometry_is_the_transposed_conv():
     """Phase r of output sample s*m + r sums taps at input
     m + amin + rows[r] + t with kernel index taps[r][t]: the same sum as
@@ -206,8 +107,7 @@ def test_wrappers_run_plain_versions_on_cpu():
     w, ups, pst = _port_phase_args(tp, True)
     mrf = vk.prepare_mrf(w, KS, DILS, ups, pst)
     # CPU weights carry no kernel format
-    assert mrf.chains is None and mrf.blk is None and mrf.blk_ups is None \
-        and mrf.post_dev is None
+    assert mrf.blk is None and mrf.blk_ups is None and mrf.post_dev is None
     x = torch.from_numpy((rng.randn(1, 64, 64) * 0.5).astype(np.float32))
     n_phase = vk.fused_mrf_phase.launches
     calls_phase = sum(vk.fused_mrf_phase.calls.values())
