@@ -41,16 +41,21 @@
      fused_mrf_phase without prologue at L1-L3, one launch a level of
      ops/csrc/mrf_ct.cu's ct_kernel over CtBf: 1 + 3, checked; it prints each
      level's block_m), int8-static (mel[:4] calibration: fused_mrf_ct q8f
-     at L0, the int8 fused_mrf_phase q8f without prologue at L1, bf16 at
-     L2/L3: 2 launches, checked) and int8-dynamic (the same in q8); each
+     at L0, the int8 fused_mrf_phase q8f without prologue at L1, one
+     launch a level of ptc_fused_q8_kernel without prologue: 1 + 1,
+     checked; bf16 at L2/L3: 2 launches, checked) and int8-dynamic (the
+     same in q8, each int8 level the window amax and one launch of the
+     segment-synchronised engine: 2 + 2, checked); each
      waveform against the float32 plain route (bf16, 5e-2) or the plain
      int8 route and the V2 bf16 tier (1e-2, 0.25); then v2-int8-unfused,
      the int8-static tier with int8_fused=False (the JAX package's
      DAFT_INT8_FUSED_EPI=0): fused_mrf_ct q8s at L0, the int8
-     fused_mrf_phase q8s without prologue at L1, the same bands;
+     fused_mrf_phase q8s without prologue at L1 (1 + 1, checked), the
+     same bands;
    - v2-ct-fallback: generator_forward at 12 frames (no phase tile divides
      L1 and L2, which take fused_mrf_ct) in each V2 tier, against the
-     kernels' plain versions (rel-L2 <= 1e-2), one launch a float call;
+     kernels' plain versions (rel-L2 <= 1e-2), one launch a float call and
+     a q8f call, two a q8 call (checked);
    - v2-fast-f32: generator_forward(use_fast=True) on the float32 V2 params
      over the v2-bf16 path's mel (pack_levels of the same params):
      fused_mrf_ct at L0 and fused_mrf_phase without prologue at L1-L3 on
@@ -119,9 +124,10 @@
    its plain PyTorch version on the same inputs (unit-gain random weights):
    rel-L2 <= 1e-2 in bf16 (summation order only), <= 1e-5 in float32,
    <= 2e-3 for the int8 kernels (NUMERICS_r05.json ptc_vs_banded_int8),
-   and max-abs 0 for the dynamic engine (fused_mrf_ct q8 at C = 256/128,
-   fused_mrf_phase q8 and fused_mrf_ptc dyn at V1's L2/L3) and
-   fused_mrf_phase's q8f and q8s calls on ptc_fused_q8_kernel (a conv_post
+   and max-abs 0 for the dynamic engine (fused_mrf_ct q8, fused_mrf_phase
+   q8 with and without prologue, fused_mrf_ptc dyn) and the calls on
+   ptc_fused_q8_kernel (fused_mrf_phase's q8f and q8s with and without
+   prologue, fused_mrf_ct q8f and q8s, fused_mrf_ptc static; a conv_post
    waveform: within one bf16 ulp);
    its launches per call; its time (median of 10 calls), its plain
    version's (median of 3) and (attention) the library call's, with CUDA
@@ -659,7 +665,7 @@ class KernelCases:
         mi = self.mi
         x, mrf = self._ct_int8(key, 'q8f')
         return dict(desc='x ({},{},{}) bf16'.format(*key), band=2e-3,
-                    fn=lambda: mi.fused_mrf_ct_q8f(x, mrf),
+                    exact=0.0, fn=lambda: mi.fused_mrf_ct_q8f(x, mrf),
                     plain=lambda: mi.mrf_ct_q8f_plain(x, mrf),
                     **self._int8_work(key, mrf))
 
@@ -667,7 +673,7 @@ class KernelCases:
         mi = self.mi
         x, mrf = self._ct_int8(key, 'q8s')
         return dict(desc='q8s x ({},{},{}) bf16'.format(*key), band=2e-3,
-                    fn=lambda: mi.fused_mrf_ct_q8s(x, mrf),
+                    exact=0.0, fn=lambda: mi.fused_mrf_ct_q8s(x, mrf),
                     plain=lambda: mi.mrf_ct_q8s_plain(x, mrf),
                     **self._int8_work(key, mrf))
 
@@ -678,7 +684,7 @@ class KernelCases:
         p = 128 // C
         tile = mi.phase_tile(Tx, p)
         return dict(desc=f'{mode} x ({Bx},{Tx},{C}) bf16 p {p} tile {tile}',
-                    band=2e-3,
+                    band=2e-3, exact=0.0,
                     fn=lambda: mi.fused_mrf_phase_q8_noups(x, mrf, p, tile),
                     plain=lambda: mi.mrf_phase_q8_noups_plain(x, mrf, p,
                                                               tile),
@@ -762,10 +768,8 @@ class KernelCases:
         x = self.randn(Bx, Tx, C)
         tile = mi.ct_tile(Tx, C)
         return dict(desc=f'x ({Bx},{Tx},{C}) bf16 tile {tile}', band=2e-3,
-                    exact=0.0 if (C, C) in mi.DYN_BLK_CFG else None,
-                    fn=lambda: mi.fused_mrf_ct_q8(x, mrf, tile),
+                    exact=0.0, fn=lambda: mi.fused_mrf_ct_q8(x, mrf, tile),
                     plain=lambda: mi.mrf_ct_q8_plain(x, mrf, tile), flops=0,
-                    args=(x, mrf, tile),
                     nbytes=2 * Bx * Tx * C * 2 + self.q8_wbytes(mrf, C),
                     int8_ops=self.n_ops * Bx * Tx * C * C)
 
@@ -794,13 +798,12 @@ class KernelCases:
         Bx, T_in = key[:2]
         out = f'({Bx},1,{2 * T_in})' if post else \
             f'({Bx},{2 * T_in},{C_in // 2})'
-        blk = (C_in, C_in // 2) in mi.PTC_Q8_CFG
+        blk = (C_in, C_in // 2) in mi.PTC_Q8_BM
         return dict(desc=f'{mode} x ({Bx},{T_in},{C_in}) -> {out} bf16 '
                     f'tile {tile}', band=2e-3,
                     exact=(2.0 ** -8 if post else 0.0) if blk else None,
                     fn=lambda: mi.fused_mrf_phase_q8(x, mrf, tile),
                     plain=lambda: mi.mrf_phase_q8_plain(x, mrf, tile),
-                    args=(x, mrf, tile),
                     **self._narrow_work(key, mrf, post))
 
 
@@ -853,9 +856,8 @@ def profile_path(torch, synthesize, tier, ranges=('acoustic', 'vocoder')):
                               'mrf::blk::dyn_blk_kernel',
                               'mrf::bfe::phase_bf_kernel',
                               'mrf::bfe::tc_bf_kernel',
-                              'mrf::ct::ct_kernel',
-                              'mrf::step_q8_kernel', 'mrf::conv_dyn_kernel',
-                              'mrf::amax_kernel', 'attn::bwd',
+                              'mrf::ct::ct_kernel', 'mrf::amax_kernel',
+                              'attn::bwd',
                               'attn::', 'Memcpy')
                   if p in e.key), 'other')
         groups[g] = groups.get(g, 0.0) + dev_us(e)
@@ -1160,23 +1162,32 @@ def main():
                                    int8_calibration_mels=mel[:4])
     log(f'path v2-int8: calibration and int8 packing '
         f'{time.perf_counter() - t0:.2f} s')
+
+    def v2_int8_launches(ct_name, per_level):
+        """L0 and L1 in int8, ``per_level`` launches each (the static
+        levels one launch of ptc_fused_q8_kernel without prologue, the
+        dynamic ones the window amax and one engine launch); L2 and L3 (C %
+        32 != 0) in bf16, one launch a level."""
+        n = paths[-1][1]
+        assert (n[ct_name], n['fused_mrf_phase_q8_noups'],
+                n['fused_mrf_phase_noups']) == (per_level, per_level, 2), n
+
     synthesize_v2_q8 = int8_path('v2-int8', vocoder_v2_q8, (
         fused_attention, mi.fused_mrf_ct_q8f, mi.fused_mrf_phase_q8_noups,
         mc.fused_mrf_phase_noups), vocoder_v2)
-    # L2 and L3 (C % 32 != 0) in bf16: one launch a level
-    assert paths[-1][1]['fused_mrf_phase_noups'] == 2, paths[-1][1]
+    v2_int8_launches('fused_mrf_ct_q8f', 1)
     vocoder_v2_dyn = HiFiGanVocoder(v2_params, v2, fast='int8')
     synthesize_v2_dyn = int8_path('v2-int8-dynamic', vocoder_v2_dyn, (
         fused_attention, mi.fused_mrf_ct_q8, mi.fused_mrf_phase_q8_noups,
         mc.fused_mrf_phase_noups), vocoder_v2)
-    assert paths[-1][1]['fused_mrf_phase_noups'] == 2, paths[-1][1]
+    v2_int8_launches('fused_mrf_ct_q8', 2)
     vocoder_v2_uf = HiFiGanVocoder(v2_params, v2, fast='int8',
                                    int8_calibration_mels=mel[:4],
                                    int8_fused=False)
     synthesize_v2_uf = int8_path('v2-int8-unfused', vocoder_v2_uf, (
         fused_attention, mi.fused_mrf_ct_q8s, mi.fused_mrf_phase_q8_noups,
         mc.fused_mrf_phase_noups), vocoder_v2)
-    assert paths[-1][1]['fused_mrf_phase_noups'] == 2, paths[-1][1]
+    v2_int8_launches('fused_mrf_ct_q8s', 1)
 
     def v2_fallback():
         """generator_forward at 12 frames in each V2 tier, and its plain
@@ -1194,10 +1205,12 @@ def main():
     fallback_out = run_path('v2-ct-fallback', v2_fallback, (
         mc.fused_mrf_ct, mc.fused_mrf_phase_noups, mi.fused_mrf_ct_q8f,
         mi.fused_mrf_ct_q8))
-    # the float levels: one launch a call
-    for name in ('fused_mrf_ct', 'fused_mrf_phase_noups'):
-        assert paths[-1][1][name] == sum(paths[-1][2][name].values()), \
-            paths[-1]
+    # the float and the q8f levels: one launch a call; q8: the window amax
+    # and one engine launch
+    for name, per_call in (('fused_mrf_ct', 1), ('fused_mrf_phase_noups', 1),
+                           ('fused_mrf_ct_q8f', 1), ('fused_mrf_ct_q8', 2)):
+        assert paths[-1][1][name] == per_call * sum(
+            paths[-1][2][name].values()), paths[-1]
     for w, voc in fallback_out:
         m = torch.as_tensor(mel[:, :, :V2_FALLBACK_FRAMES]).to(dev, bf16)
         with torch.no_grad():

@@ -1,14 +1,26 @@
 // Block-resident int8-static ResBlock1 chains for Hopper: the engine of
-// mrf_tc_q8.cu (fused_mrf_tc, q8) and of the static mode of mrf_ptc.cu
-// (fused_mrf_ptc).
+// mrf_tc_q8.cu (fused_mrf_tc, q8) and of ptc_fused_q8_kernel
+// (mrf_ptc_fused.cuh: fused_mrf_ptc's static mode, fused_mrf_phase's q8f
+// and q8s modes, and fused_mrf_ct's q8f and q8s); its chain storage and
+// convs also serve the dynamic engine (mrf_dyn_blk.cuh).
 //
-// The arithmetic is mrf_q8.cuh's step_q8_kernel's, in the same order (see
-// the header there): q_lrelu, s8 x s8 -> s32 sums, requant at the conv1 ->
-// conv2 boundary, the dequant as one __fmaf_rn, res + fma(...); or, in the
-// q8s form (Chain::step<true>, ptc_fused_q8_kernel for fused_mrf_phase's
-// q8s mode), its float32 boundary: q_static of each step's input and
-// q_static(fma(acc, sw1, b1), inv2) at conv1's output. What changes is
-// where the data lives and how the convs run:
+// The arithmetic is the TPU kernels' int8-static chain step
+// (vocoder_kernels.py::_fused_mrf_tc_kernel, q8 branch; the same as
+// _fused_mrf_ptc_kernel's static mode), in their order:
+//     q    = clip(rint(x * (x >= 0 ? inv1 : 0.1*inv1)))  s8
+//     acc  = sum_tap q[n + tap*dil] . wq1[tap]          s32 (s8 x s8 dots)
+//     a    = acc + b1i                                  s32
+//     q2   = clip(rint(a * (a >= 0 ? m1 : 0.1*m1)))      s8
+//     acc2 = sum_tap q2[n + tap] . wq2[tap]             s32
+//     out  = in + fma(acc2, sw2, b2)                    f32
+// or, in the q8s form (Chain::step<true>: the TPU kernels' round-3
+// boundary, _fused_mrf_ct_kernel / _fused_mrf_phase_kernel q8s branches),
+// q = clip(rint(lrelu(x) * inv1)) (the lrelu rounded first) and q2 =
+// clip(rint(lrelu(fma(acc, sw1, b1)) * inv2)), the boundary in float32.
+// Roundings: rint ties to even, saturation at +-127, the dequant as one
+// __fmaf_rn (how the JAX kernels compile it on the CPU), every other f32
+// operation an explicit _rn intrinsic so nvcc contracts nothing. What the
+// engines change is where the data lives and how the convs run:
 //
 //   - A block owns BM output samples and keeps a chain's whole residual
 //     window, BM + 2*halo rows x C float32, resident (shared memory, or at

@@ -1,17 +1,20 @@
 // The segment-synchronised int8-dynamic MRF engine for Hopper: the q8
-// (dynamic) route of mrf_ct_q8.cu (fused_mrf_ct, C = 256/128) and of
-// mrf_phase_q8.cu (fused_mrf_phase with its upsample prologue, C = 64/32).
+// (dynamic) route of mrf_ct_q8.cu (fused_mrf_ct, C = 256/128/64/32) and of
+// mrf_phase_q8.cu (fused_mrf_phase with its upsample prologue at (C_in, C)
+// = (128, 64) / (64, 32), and without it at C = 64/32).
 //
-// The function (mrf_int8.mrf_ct_q8_plain / mrf_phase_q8_plain): per tile
-// segment, the chains run on the segment's window X of x0 (ct: the
-// zero-padded x over [-halo, tile + halo); phase: the int8 upsample of the
-// tile's input window over [-halo*p, (tile + halo)*p)), and every conv
-// quantises its whole input window with one scale, amax |lrelu(in)| / 127
-// over the window (the windows shrink conv by conv: mrf_int8._dyn_windows).
-// So a conv's scale depends on every sample of the previous conv in the
-// segment, which no block holds alone.
+// The function (mrf_int8.mrf_ct_q8_plain / mrf_phase_q8_plain /
+// mrf_phase_q8_noups_plain): per tile segment, the chains run on the
+// segment's window X of x0 (ct: the zero-padded x over [-halo, tile +
+// halo); phase: the int8 upsample of the tile's input window over
+// [-halo*p, (tile + halo)*p), or without the prologue the zero-padded x
+// over that window), and every conv quantises its whole input window with
+// one scale, amax |lrelu(in)| / 127 over the window (the windows shrink
+// conv by conv, the phase kernel's by whole phase columns:
+// mrf_int8._dyn_windows). So a conv's scale depends on every sample of the
+// previous conv in the segment, which no block holds alone.
 //
-// Design. The arithmetic per sample is conv_dyn_kernel's (mrf_dyn.cuh):
+// Design. The arithmetic per sample is the TPU kernel's:
 //     q   = rint(lrelu(in) * (127/amax_in))              s8, no clip
 //     v   = fma(acc, sw*amax_in/127, bias) (+ residual)  f32
 // with the s32 sums exact in any order, so every output equals the plain
@@ -30,7 +33,10 @@
 //     (atomicMax on the float bits of the conv's word), arrives at the
 //     segment's counter for that conv and waits for the segment's G
 //     arrivals; then it reads the scale and quantises. One launch per chain
-//     (ct) or per level (phase) replaces 2 per chain step.
+//     (ct at C = 256/128, the chains' sum in float32 in device memory) or
+//     per level (the level form, DynTypes::LEVEL: the upsample levels, and
+//     ct and the phase kernel without prologue at C = 64/32, where the
+//     chain sum O fits in shared memory beside R).
 //   - A conv's input cannot be quantised in the epilogue that makes it (the
 //     scale is not known yet). conv1's sums stay in the accumulator
 //     registers across the barrier and are quantised from there (one pass:
@@ -49,10 +55,10 @@
 //     _dyn_blocks): the largest blocks that fit the launch's halo, packed
 //     so that few SMs idle. Every counter and scale word is used once per
 //     call (the wrapper zeroes them).
-// Float32 traffic to device memory: x in, the output (ct: the chain sum in
-// float32 across the three chain launches), and at C = 256 the residual
-// window and conv1's first pass in a per-block scratch slice (~53 MB on
-// 132 SMs: mostly in L2).
+// Float32 traffic to device memory: x in, the output (ct at C = 256/128:
+// the chain sum in float32 across the three chain launches), and at C =
+// 256 the residual window and conv1's first pass in a per-block scratch
+// slice (~53 MB on 132 SMs: mostly in L2).
 //
 // Bound on the card: operations, 252*B*T*C^2 int8 operations per level at
 // the dense int8 rate (plus the upsample's at C = 64/32). What holds the
@@ -71,7 +77,9 @@ constexpr int kDynConvs = 2 * kMaxSteps;
 // plus 2*hx halo; shared memory or two MMA passes bound it), rows per warp,
 // taps and input channels per weight stage (chain convs, then the
 // upsample's), ring slots and lag, whether R lives in shared memory.
-// C_in == C: the ct route (no upsample).
+// C_in == C: no upsample (the ct route, and at C = 64/32 the phase kernel
+// without prologue too); the narrow widths stage their chain convs as the
+// upsample levels of the same width do, so one staged form serves both.
 template <int CIN, int C> struct DynCfg;
 template <> struct DynCfg<256, 256> {
   static constexpr int NW = 16, WROWS = 256, WM = 16, TPS = 1, KCH = 128, UTPS = 1, UKCH = 128,
@@ -93,6 +101,16 @@ template <> struct DynCfg<64, 32> {
                        NBUF = 3, LAG = 1;
   static constexpr bool R_SMEM = true;
 };
+template <> struct DynCfg<64, 64> {
+  static constexpr int NW = 16, WROWS = 256, WM = 16, TPS = 4, KCH = 64, UTPS = 4, UKCH = 64,
+                       NBUF = 3, LAG = 1;
+  static constexpr bool R_SMEM = true;
+};
+template <> struct DynCfg<32, 32> {
+  static constexpr int NW = 16, WROWS = 512, WM = 32, TPS = 8, KCH = 32, UTPS = 8, UKCH = 32,
+                       NBUF = 3, LAG = 1;
+  static constexpr bool R_SMEM = true;
+};
 
 // One dynamic chain step's weights (taps staged by pack_stage_s8, (C,)
 // float32 vectors).
@@ -107,17 +125,17 @@ struct DynStep {
 };
 
 struct DynBlkParams {
-  const bf16* x;        // ct: (B, T, C); phase: (B, T_in, C_in)
+  const bf16* x;        // no upsample: (B, T, C); else (B, T_in, C_in)
   long long x_bs;
-  int t_in;             // ct: T; phase: T_in
-  const float* amax0;   // per segment: ct the x window's amax, phase the upsample input's
+  int t_in;             // no upsample: T; else T_in
+  const float* amax0;   // per segment: the x window's amax (no upsample), else the upsample input's
   unsigned* sync;       // [2][n_bar][S]: scale words (float bits), then arrival counts
   int n_bar;
-  float* sum;           // ct: (B, T, C) float32 chain sum
+  float* sum;           // one launch per chain: (B, T, C) float32 chain sum
   long long sum_bs;
-  bf16* out;            // ct: (B, T, C); phase (B, n_tiles*N, C) or (B, 1, n_tiles*N)
+  bf16* out;            // (B, n_tiles*N, C), or with conv_post (B, 1, n_tiles*N)
   long long out_bs;
-  int mode, has_acc;    // ct: the chain's kWrite / kAdd / kFinal
+  int mode, has_acc;    // one launch per chain: its kWrite / kAdd / kFinal
   float scale;
   // the upsample (phase): per phase r (wu_phase bytes apart) ntaps staged taps
   const int8_t* wu;
@@ -129,7 +147,7 @@ struct DynBlkParams {
   float bp;
   int kpost, P;
   // segments: tile-relative samples; X = [x_lo, x_hi), tile_in input
-  // samples (ct: samples) a tile, N output samples a tile
+  // samples (without upsample: samples) a tile, N output samples a tile
   int n_tiles, tile_in, N, x_lo, x_hi;
   int bm, hx;           // owned samples a block; R row 0 is the first - hx
   int G, spw, n_waves, S;  // blocks a segment, segments a wave, waves, segments
@@ -144,15 +162,21 @@ struct DynBlkParams {
 template <int CIN, int C>
 struct DynTypes {
   using CF = DynCfg<CIN, C>;
-  static constexpr bool PHASE = CIN != C;
+  static constexpr bool UPS = CIN != C;   // the upsample prologue
   using CV = Conv<C, C, CF::NW, CF::WM, CF::TPS, CF::KCH>;
   using UC = Conv<CIN, C, CF::NW, CF::WM, CF::UTPS, CF::UKCH>;
-  static constexpr int SLOT = !PHASE || CV::STAGE > UC::STAGE ? CV::STAGE : UC::STAGE;
+  static constexpr int SLOT = !UPS || CV::STAGE > UC::STAGE ? CV::STAGE : UC::STAGE;
   // conv1 fits one pass (its sums wait in registers across the barrier),
   // else two (the first pass's values wait in the F scratch slice)
   static constexpr bool ONEPASS = CF::WROWS <= CV::ROWS;
   static_assert(CF::WROWS <= 2 * CV::ROWS, "at most two passes a conv");
   static_assert(ONEPASS || !CF::R_SMEM, "F lives beside R in the scratch");
+  // The level form: the launch holds every chain of the level and sums
+  // them on chip (O, beside R and the s8 tiles), then writes the mean (or
+  // conv_post's waveform); else (no upsample at C = 256/128, where O does
+  // not fit) one launch per chain, its output into the float32 chain sum
+  // p.sum by p.mode.
+  static constexpr bool LEVEL = UPS || C <= 64;
 };
 
 // the rows a conv's (or the upsample's) pass count is planned for: the
@@ -168,7 +192,7 @@ __host__ __device__ int dyn_schedule(Ld* sched, const DynBlkParams& p) {
   int n = 0;
   for (int j = 0; j < p.n_chains; ++j) {
     const int k = p.k[j];
-    if constexpr (T::PHASE) {
+    if constexpr (T::UPS) {
       const int lo = p.hx - p.rem[j][0], hi = p.hx + p.bm + p.rem[j][0];
       const int mu = (hi + p.stride - 1) / p.stride - lo / p.stride;
       for (int r = 0; r < p.stride; ++r)
@@ -191,12 +215,12 @@ struct DynLayout {
   int wrows, xrows;
   size_t ring, r, o, a, xq, red, total;
   __host__ __device__ DynLayout(const DynBlkParams& p) {
-    constexpr bool PHASE = CIN != C;
+    constexpr bool UPS = CIN != C;
     wrows = p.bm + 2 * p.hx;
-    xrows = PHASE ? wrows / p.stride + p.span : 0;
+    xrows = UPS ? wrows / p.stride + p.span : 0;
     ring = (size_t)CF::NBUF * DynTypes<CIN, C>::SLOT;
     r = CF::R_SMEM ? (size_t)wrows * RS * 4 : 0;
-    o = PHASE ? (size_t)(p.bm + 2 * p.P) * RS * 4 : 0;
+    o = DynTypes<CIN, C>::LEVEL ? (size_t)(p.bm + 2 * p.P) * RS * 4 : 0;
     a = (size_t)wrows * C;
     xq = (size_t)xrows * CIN;
     red = 16 * ((4 * (CF::NW + 1) + 15) / 16);
@@ -270,7 +294,8 @@ __global__ void __launch_bounds__(DynCfg<CIN, C>::NW * 32, 1) dyn_blk_kernel(con
   using CF = typename T::CF;
   using CV = typename T::CV;
   using UC = typename T::UC;
-  constexpr bool PHASE = T::PHASE;
+  constexpr bool UPS = T::UPS;
+  constexpr bool LEVEL = T::LEVEL;
   constexpr int RS = C + 8, NTH = CF::NW * 32;
   const int BM = p.bm;
   const DynLayout<CIN, C> L(p);
@@ -316,10 +341,10 @@ __global__ void __launch_bounds__(DynCfg<CIN, C>::NW * 32, 1) dyn_blk_kernel(con
       return a;
     };
     const float* amax0 = p.amax0;
-    float ax0 = fmaxf(amax0[seg], 1e-30f);   // ct: x0's scale; phase: the upsample input's
+    float ax0 = fmaxf(amax0[seg], 1e-30f);   // x0's scale, or the upsample input's
     float inv_x0 = __fdiv_rn(127.f, ax0);
     const bf16* xb = p.x + b * p.x_bs;
-    if constexpr (PHASE) {
+    if constexpr (UPS) {
       // Xq row q <- lrelu(x) at input sample base_in + q, quantised with
       // the tile's input scale (ups_q8_kernel's arithmetic), zero outside
       // the utterance
@@ -345,7 +370,7 @@ __global__ void __launch_bounds__(DynCfg<CIN, C>::NW * 32, 1) dyn_blk_kernel(con
       // x0 over rows [lo, hi): the block's rows of X for this chain
       const int lo = max(o_lo - p.rem[j][0], p.x_lo) - base;
       const int hi = min(o_hi + p.rem[j][0], p.x_hi) - base;
-      if constexpr (PHASE) {
+      if constexpr (UPS) {
         // the upsample, phase by phase (row = stride*mm + r), into R; the
         // first chain posts x0's amax, the others quantise with it
         const bool first = j == 0;
@@ -513,7 +538,7 @@ __global__ void __launch_bounds__(DynCfg<CIN, C>::NW * 32, 1) dyn_blk_kernel(con
                 return;
               }
               const int s = base + lo2 + m;   // tile sample
-              if constexpr (PHASE) {
+              if constexpr (LEVEL) {
                 float2* o = reinterpret_cast<float2*>(O + (s - (o_lo - p.P)) * RS + n);
                 if (j == 0) {
                   *o = make_float2(v0, v1);
@@ -554,7 +579,7 @@ __global__ void __launch_bounds__(DynCfg<CIN, C>::NW * 32, 1) dyn_blk_kernel(con
         }
       }
     }
-    if constexpr (PHASE) {
+    if constexpr (LEVEL) {
       // O rows [0, BM + 2P): the chain sum at tile samples [o_lo - P, o_hi + P)
       const int n_own = o_hi - o_lo;
       if (p.kpost == 0) {
@@ -607,17 +632,18 @@ __global__ void __launch_bounds__(DynCfg<CIN, C>::NW * 32, 1) dyn_blk_kernel(con
 template <int CIN, int C>
 cudaError_t launch_dyn_blk(DynBlkParams& p, int slots, cudaStream_t stream) {
   using CF = DynCfg<CIN, C>;
-  constexpr bool PHASE = CIN != C;
+  constexpr bool UPS = CIN != C;
   if (p.hx < 0 || p.bm < 1 || p.bm + 2 * p.hx > CF::WROWS || p.G < 1 || p.spw < 1 ||
       p.spw * p.G > slots || p.n_waves * p.spw < p.S || p.G * p.bm < p.x_hi - p.x_lo ||
       (p.G - 1) * p.bm >= p.x_hi - p.x_lo ||
-      p.n_chains < 1 || p.n_chains > kDynChains)
+      p.n_chains < 1 || p.n_chains > kDynChains ||
+      (!DynTypes<CIN, C>::LEVEL && p.n_chains > 1))
     return cudaErrorInvalidValue;
-  if (PHASE && (p.hx % p.stride || p.bm % p.stride || p.x_lo % p.stride || p.stride < 1 || p.stride > 8 ||
+  if (UPS && (p.hx % p.stride || p.bm % p.stride || p.x_lo % p.stride || p.stride < 1 || p.stride > 8 ||
                 p.wu_phase != (long long)((p.ntaps + CF::UTPS - 1) / CF::UTPS) * (CIN / CF::UKCH) *
                                   CF::UTPS * C * CF::UKCH))
     return cudaErrorInvalidValue;
-  int bars = PHASE ? 1 : 0;
+  int bars = UPS ? 1 : 0;
   for (int j = 0; j < p.n_chains; ++j) {
     if (p.n_steps[j] < 1 || p.n_steps[j] > kMaxSteps || p.k[j] < 1 || p.k[j] % 2 == 0 ||
         p.rem[j][0] > p.hx)
@@ -626,7 +652,7 @@ cudaError_t launch_dyn_blk(DynBlkParams& p, int slots, cudaStream_t stream) {
   }
   if (bars != p.n_bar) return cudaErrorInvalidValue;
   const DynLayout<CIN, C> L(p);
-  if (L.total > 232448 || (PHASE && (size_t)(p.bm + 2 * p.P) * (C + 1) * 4 > L.r))
+  if (L.total > 232448 || (UPS && (size_t)(p.bm + 2 * p.P) * (C + 1) * 4 > L.r))
     return cudaErrorInvalidValue;
   if (!CF::R_SMEM && (p.scratch == nullptr ||
                       (long long)slots * (L.wrows + DynTypes<CIN, C>::CV::ROWS) * L.RS > p.scratch_n))
@@ -651,7 +677,7 @@ cudaError_t launch_dyn_blk(DynBlkParams& p, int slots, cudaStream_t stream) {
 }  // namespace mrf
 
 // The C entry point of the engine (mrf_ct_q8.cu, mrf_phase_q8.cu). ptrs: wu,
-// swu, bu, wp (null without conv_post or at a ct level), then 6 per step of
+// swu, bu, wp (null without conv_post or without upsample), then 6 per step of
 // each chain (w1, sw1, b1, w2, sw2, b2). ints: stride, ntaps, amin, span,
 // rows_r[8], kpost, P, n_tiles, tile_in, N, x_lo, x_hi, hx, G, spw,
 // n_waves, S, n_bar, mode, has_acc, bm, tps, kch, utps, ukch, wu_phase,

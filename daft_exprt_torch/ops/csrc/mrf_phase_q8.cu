@@ -23,19 +23,18 @@
 //      by W-1 columns and moves it by -dmin-dmin2). The same two entries
 //      run fused_mrf_ptc's dyn mode on the phase-tc tiles (mrf_ptc.cu).
 // Without the prologue (in_phase=False: x in (B, C, T), HiFi-GAN V2's L1 at
-// C=32, p=4) the tile's window is the zero-padded x itself, columns
-// [-halo, tile + halo): the dynamic mode takes the first conv's scale over
-// that window of x (amax_kernel with the window in samples), and each conv
-// is one launch of conv_dyn_kernel (mrf_dyn.cuh, mrf_phase_q8_conv), the
-// first reading x through its zero-padded view. q8f and q8s need no scale
-// there: the static chains are the zero-padded valid chains of
-// mrf_tc_q8.cu, whatever the tile, one step_q8_kernel launch (mrf_q8.cuh)
-// per (chain, dilation).
+// C=32, p=4; C=64, p=2 where a chain level's upsample cannot fuse) the
+// tile's window is the zero-padded x itself, columns [-halo, tile + halo):
+// the dynamic mode takes the first conv's scale over that window of x
+// (amax_kernel with the window in samples), then one launch of the engine
+// (mrf_phase_q8_blk at (C, C): the ct route's x load on the phase
+// kernel's column windows, the three chains and their sum on chip). q8f
+// and q8s need no scale there: the static chains are the zero-padded valid
+// chains of mrf_tc_q8.cu, whatever the tile, one launch of
+// ptc_fused_q8_kernel without prologue (mrf_phase_q8_fused at (C, C)).
 //
-// Bound on the card: operations at C=64 (252*B*T*C^2 int8 operations and
-// the upsample's), device memory at C=32 for the one-launch-per-step
-// forms, where ~20 float32 passes over the segments outweigh them.
-#include "mrf_dyn.cuh"
+// Bound on the card: operations, 252*B*T*C^2 int8 operations per level
+// and the upsample's.
 #include "mrf_dyn_blk.cuh"
 #include "mrf_ptc_fused.cuh"
 
@@ -47,20 +46,24 @@ extern "C" int mrf_phase_q8_blk(MRF_DYN_BLK_ARGS) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (c_in == 128 && C == 64) return mrf::blk::dyn_blk_entry<128, 64>(p, ints, slots, s);
   if (c_in == 64 && C == 32) return mrf::blk::dyn_blk_entry<64, 32>(p, ints, slots, s);
+  if (c_in == 64 && C == 64) return mrf::blk::dyn_blk_entry<64, 64>(p, ints, slots, s);
+  if (c_in == 32 && C == 32) return mrf::blk::dyn_blk_entry<32, 32>(p, ints, slots, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // fused_mrf_phase_q8's q8f and (q8s != 0) q8s modes: ptc_fused_q8_kernel
-// with the phase tiles
-extern "C" int mrf_phase_q8_fused(const void* x, long long x_bs, int t_in, const void* amax,
-                                  void* out, long long out_bs, const long long* ptrs,
-                                  const int* ints, float scale, float post_bias, int c_in, int C,
-                                  int S, int slots, int q8s, void* stream) {
-  if (q8s)
-    return mrf::blk::ptc_fused_entry<true>(x, x_bs, t_in, amax, out, out_bs, ptrs, ints, scale,
-                                           post_bias, c_in, C, S, slots, stream);
-  return mrf::blk::ptc_fused_entry<false>(x, x_bs, t_in, amax, out, out_bs, ptrs, ints, scale,
-                                          post_bias, c_in, C, S, slots, stream);
+// with the phase tiles; at (C, C) without prologue
+extern "C" int mrf_phase_q8_fused(MRF_PTC_FUSED_ARGS) {
+  MRF_PTC_FUSED_PARAMS(p);
+  if (c_in == 128 && C == 64)
+    return mrf::blk::ptc_fused_launch<128, 64>(p, ints, S, slots, q8s, stream);
+  if (c_in == 64 && C == 32)
+    return mrf::blk::ptc_fused_launch<64, 32>(p, ints, S, slots, q8s, stream);
+  if (c_in == 64 && C == 64)
+    return mrf::blk::ptc_fused_launch<64, 64>(p, ints, S, slots, q8s, stream);
+  if (c_in == 32 && C == 32)
+    return mrf::blk::ptc_fused_launch<32, 32>(p, ints, S, slots, q8s, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int mrf_phase_q8_amax(const void* x, long long x_bs, int t_in, int c_in, int n_tiles,
@@ -68,34 +71,4 @@ extern "C" int mrf_phase_q8_amax(const void* x, long long x_bs, int t_in, int c_
                                  void* stream) {
   return (int)mrf::launch_amax(x, x_bs, t_in, c_in, n_tiles, tile_in, halo_in, win_len, amax_bits,
                                S, static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int mrf_phase_q8_conv(MRF_DYN_ARGS) {
-  MRF_DYN_PARAMS(q);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 32: return (int)mrf::launch_conv_dyn_c<32>(q, K, S, s);
-    case 64: return (int)mrf::launch_conv_dyn_c<64>(q, K, S, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-extern "C" int mrf_phase_q8_step(MRF_Q8_STEP_ARGS) {
-  MRF_Q8_PARAMS(q);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 32: return (int)mrf::launch_step_q8_c<32>(q, K, B, s);
-    case 64: return (int)mrf::launch_step_q8_c<64>(q, K, B, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-extern "C" int mrf_phase_q8_step_s(MRF_Q8S_STEP_ARGS) {
-  MRF_Q8S_PARAMS(q);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 32: return (int)mrf::launch_step_q8_c<32, true>(q, K, B, s);
-    case 64: return (int)mrf::launch_step_q8_c<64, true>(q, K, B, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }

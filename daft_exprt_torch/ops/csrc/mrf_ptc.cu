@@ -60,13 +60,14 @@ extern "C" int mrf_ptc_amax(const void* x, long long x_bs, int t_in, int c_in, i
                                S, static_cast<cudaStream_t>(stream));
 }
 
-// The static mode's fused launch (its arguments: ptc_fused_entry,
+// The static mode's fused launch (its arguments: ptc_fused_params,
 // mrf_ptc_fused.cuh; fused_mrf_ptc has no q8s mode, q8s must be 0).
-extern "C" int mrf_ptc_fused(const void* x, long long x_bs, int t_in, const void* amax, void* out,
-                             long long out_bs, const long long* ptrs, const int* ints,
-                             float scale, float post_bias, int c_in, int C, int S, int slots,
-                             int q8s, void* stream) {
+extern "C" int mrf_ptc_fused(MRF_PTC_FUSED_ARGS) {
   if (q8s) return (int)cudaErrorInvalidValue;
-  return mrf::blk::ptc_fused_entry<false>(x, x_bs, t_in, amax, out, out_bs, ptrs, ints, scale,
-                                          post_bias, c_in, C, S, slots, stream);
+  MRF_PTC_FUSED_PARAMS(p);
+  if (c_in == 128 && C == 64)
+    return mrf::blk::ptc_fused_launch<128, 64>(p, ints, S, slots, false, stream);
+  if (c_in == 64 && C == 32)
+    return mrf::blk::ptc_fused_launch<64, 32>(p, ints, S, slots, false, stream);
+  return (int)cudaErrorInvalidValue;
 }

@@ -6,6 +6,16 @@
 // fused_mrf_phase_q8's q8s mode: the same kernel with q8s's float32
 // conv1 -> conv2 boundary and each step's input quantised by q_static
 // (Chain::step<true>). The design is in mrf_ptc.cu's header.
+//
+// Without the prologue (C_in == C: PtcCfg<64, 64> and <32, 32>) the same
+// kernel is one launch a level of the static levels that take no fused
+// upsample: fused_mrf_ct's q8f and q8s modes (mrf_ct_q8.cu) and
+// fused_mrf_phase's without prologue (mrf_phase_q8.cu). Static scales make
+// those the zero-padded valid chains of mrf_tc_q8.cu whatever the tile, so
+// there is no amax launch and one segment an utterance: a block loads its
+// chain's x window [n0 - h, n0 + BM + h) (zero outside the utterance) into
+// R, quantised for the chain's first step as it lands (tc_chain_q8_kernel's
+// x load, q_in<S>), once per chain in place of the upsample.
 #pragma once
 
 #include "mrf_chain_q8.cuh"
@@ -27,12 +37,23 @@ template <> struct PtcCfg<64, 32> {
   static constexpr int NW = 16, BM = 256, WM = 32, TPS = 8, KCH = 32, UTPS = 2, UKCH = 64,
                        NBUF = 3, LAG = 1;
 };
+// no upsample: the chain convs' stages of the same width (the upsample's
+// entries repeat them); BM the largest block whose k = 11 window (BM + 120
+// rows) one MMA pass holds
+template <> struct PtcCfg<64, 64> {
+  static constexpr int NW = 16, BM = 136, WM = 16, TPS = 4, KCH = 64, UTPS = 4, UKCH = 64,
+                       NBUF = 3, LAG = 1;
+};
+template <> struct PtcCfg<32, 32> {
+  static constexpr int NW = 16, BM = 392, WM = 32, TPS = 8, KCH = 32, UTPS = 8, UKCH = 32,
+                       NBUF = 3, LAG = 1;
+};
 
 struct PtcParams {
   const bf16* x;        // (B, T_in, C_in)
   long long x_bs;
   int t_in;
-  const float* amax;    // per segment b*n_tiles + t
+  const float* amax;    // per segment b*n_tiles + t (the upsample's input scale)
   bf16* out;            // (B, n_tiles*N, C), or with conv_post (B, 1, n_tiles*N)
   long long out_bs;
   const int8_t* wu;     // per phase r (wu_phase bytes apart): ntaps taps, staged
@@ -51,6 +72,7 @@ struct PtcParams {
 template <int CIN, int C>
 struct PtcTypes {
   using CF = PtcCfg<CIN, C>;
+  static constexpr bool UPS = CIN != C;   // the upsample prologue
   using CH = Chain<C, CF::NW, CF::WM, CF::TPS, CF::KCH>;
   using UC = Conv<CIN, C, CF::NW, CF::WM, CF::UTPS, CF::UKCH>;
   static constexpr int SLOT = CH::CV::STAGE > UC::STAGE ? CH::CV::STAGE : UC::STAGE;
@@ -65,9 +87,11 @@ __host__ __device__ int ptc_schedule(Ld* sched, const PtcParams& p) {
     const int k = p.k[j], half = (k - 1) / 2;
     const int h = chain_halo(k, p.steps[j], p.n_steps[j]);
     int lo = p.hx - h - p.P, hi = p.hx + T::CF::BM + h + p.P;
-    const int mm0 = lo / p.stride, mu = (hi + p.stride - 1) / p.stride - mm0;
-    for (int r = 0; r < p.stride; ++r)
-      n = T::UC::schedule(sched, n, p.wu + r * p.wu_phase, mu, p.ntaps);
+    if constexpr (T::UPS) {
+      const int mm0 = lo / p.stride, mu = (hi + p.stride - 1) / p.stride - mm0;
+      for (int r = 0; r < p.stride; ++r)
+        n = T::UC::schedule(sched, n, p.wu + r * p.wu_phase, mu, p.ntaps);
+    }
     for (int i = 0; i < p.n_steps[j]; ++i) {
       n = T::CH::schedule(sched, n, lo, hi, p.steps[j][i], k);
       lo += (p.steps[j][i].dil + 1) * half;
@@ -85,7 +109,7 @@ struct PtcLayout {
   size_t r, o, a, xq, ring, total;
   __host__ __device__ PtcLayout(const PtcParams& p) {
     wrows = CF::BM + 2 * p.hx;
-    xrows = wrows / p.stride + p.span;
+    xrows = PtcTypes<CIN, C>::UPS ? wrows / p.stride + p.span : 0;
     r = (size_t)wrows * RS * 4;
     o = (size_t)(CF::BM + 2 * p.P) * RS * 4;
     a = (size_t)wrows * C;
@@ -101,6 +125,8 @@ __global__ void __launch_bounds__(PtcCfg<CIN, C>::NW * 32, 1) ptc_fused_q8_kerne
   using CH = typename PtcTypes<CIN, C>::CH;
   using UC = typename PtcTypes<CIN, C>::UC;
   constexpr int RS = CH::RS, NTH = CF::NW * 32, BM = CF::BM;
+  constexpr bool UPS = PtcTypes<CIN, C>::UPS;
+  static_assert(UPS || NTH % (C / 8) == 0, "a thread's channels stay fixed over the x load");
   const PtcLayout<CIN, C> L(p);
   // the ring first: its stages start on 1024-byte swizzle atoms
   extern __shared__ __align__(16) unsigned char smem[];
@@ -120,79 +146,117 @@ __global__ void __launch_bounds__(PtcCfg<CIN, C>::NW * 32, 1) ptc_fused_q8_kerne
     const int seg = item / p.blocks_per_tile;
     const int n0 = (item - seg * p.blocks_per_tile) * BM;
     const int b = seg / p.n_tiles, t = seg - b * p.n_tiles;
-    const float amax = fmaxf(p.amax[seg], 1e-30f);
-    const float inv = __fdiv_rn(127.f, amax);
-    const float sx = __fmul_rn(amax, static_cast<float>(1.0 / 127.0));
-    // Xq row q <- lrelu(x) at input sample base_in + q, quantised with the
-    // tile's scale (ups_q8_kernel's arithmetic), zero outside the utterance
-    const int base_in = t * p.tile_in + (n0 - p.hx) / p.stride + p.amin;
     const bf16* xb = p.x + b * p.x_bs;
-    constexpr int U = 4;
-    for (int i0 = threadIdx.x; i0 < L.xrows * (CIN / 8); i0 += U * NTH) {
-      uint4 raw[U];
+    float sx = 0.f;   // the upsample input's dequant scale
+    if constexpr (UPS) {
+      const float amax = fmaxf(p.amax[seg], 1e-30f);
+      const float inv = __fdiv_rn(127.f, amax);
+      sx = __fmul_rn(amax, static_cast<float>(1.0 / 127.0));
+      // Xq row q <- lrelu(x) at input sample base_in + q, quantised with the
+      // tile's scale (ups_q8_kernel's arithmetic), zero outside the utterance
+      const int base_in = t * p.tile_in + (n0 - p.hx) / p.stride + p.amin;
+      constexpr int U = 4;
+      for (int i0 = threadIdx.x; i0 < L.xrows * (CIN / 8); i0 += U * NTH) {
+        uint4 raw[U];
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int i = i0 + u * NTH;
-        const int q = i / (CIN / 8), c = (i - q * (CIN / 8)) * 8;
-        const int s = base_in + q;
-        raw[u] = make_uint4(0u, 0u, 0u, 0u);
-        if (q < L.xrows && s >= 0 && s < p.t_in)
-          raw[u] = __ldg(reinterpret_cast<const uint4*>(xb + (long long)s * CIN + c));
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int i = i0 + u * NTH;
-        const int q = i / (CIN / 8), c = (i - q * (CIN / 8)) * 8;
-        if (q >= L.xrows) break;
-        const bf16* v = reinterpret_cast<const bf16*>(&raw[u]);
-        // (int8)(int)rintf(l*inv), no clip (|l*inv| <= 127 inside the
-        // tile's amax window), by qbits
-        uint32_t w[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const float f = __bfloat162float(v[e]);
-          const float l = f >= 0.f ? f : __fmul_rn(kSlope, f);
-          w[e] = qbits(__fmul_rn(l, inv));
+        for (int u = 0; u < U; ++u) {
+          const int i = i0 + u * NTH;
+          const int q = i / (CIN / 8), c = (i - q * (CIN / 8)) * 8;
+          const int s = base_in + q;
+          raw[u] = make_uint4(0u, 0u, 0u, 0u);
+          if (q < L.xrows && s >= 0 && s < p.t_in)
+            raw[u] = __ldg(reinterpret_cast<const uint4*>(xb + (long long)s * CIN + c));
         }
-        *reinterpret_cast<uint2*>(Xq + swz<CIN>(q, c)) = make_uint2(
-            __byte_perm(pack2(w[0], w[1]), pack2(w[2], w[3]), 0x5410),
-            __byte_perm(pack2(w[4], w[5]), pack2(w[6], w[7]), 0x5410));
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int i = i0 + u * NTH;
+          const int q = i / (CIN / 8), c = (i - q * (CIN / 8)) * 8;
+          if (q >= L.xrows) break;
+          const bf16* v = reinterpret_cast<const bf16*>(&raw[u]);
+          // (int8)(int)rintf(l*inv), no clip (|l*inv| <= 127 inside the
+          // tile's amax window), by qbits
+          uint32_t w[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float f = __bfloat162float(v[e]);
+            const float l = f >= 0.f ? f : __fmul_rn(kSlope, f);
+            w[e] = qbits(__fmul_rn(l, inv));
+          }
+          *reinterpret_cast<uint2*>(Xq + swz<CIN>(q, c)) = make_uint2(
+              __byte_perm(pack2(w[0], w[1]), pack2(w[2], w[3]), 0x5410),
+              __byte_perm(pack2(w[4], w[5]), pack2(w[6], w[7]), 0x5410));
+        }
       }
+      __syncthreads();
     }
-    __syncthreads();
     for (int j = 0; j < p.n_chains; ++j) {
       const int k = p.k[j], half = (k - 1) / 2;
       const int h = chain_halo(k, p.steps[j], p.n_steps[j]);
       int lo = p.hx - h - p.P, hi = p.hx + BM + h + p.P;
-      // the upsample output over R rows [lo, hi), phase by phase (row =
-      // stride*mm + r; R row 0 is tile sample n0 - hx), and its
-      // quantisation (q_in<S>) with the chain's step 0 multipliers into A1
-      const int mm0 = lo / p.stride, mu = (hi + p.stride - 1) / p.stride - mm0;
-      const float* inv0 = p.steps[j][0].inv1;
-      for (int r = 0; r < p.stride; ++r) {
-        const float* sw = p.swu + r * C;
-        const float* bu = p.bu;
-        const int stride = p.stride, lo_j = lo, hi_j = hi;
-        struct CU { float2 s, b, inv, neg; };
-        UC::run(pipe, Xq, mm0 + p.rows_r[r], mu, 1, p.ntaps, L.xrows,
-                [&](int n) {
-                  CU c;
-                  c.s = __ldg(reinterpret_cast<const float2*>(sw + n));
-                  c.s = make_float2(__fmul_rn(c.s.x, sx), __fmul_rn(c.s.y, sx));
-                  c.b = __ldg(reinterpret_cast<const float2*>(bu + n));
-                  c.inv = __ldg(reinterpret_cast<const float2*>(inv0 + n));
-                  c.neg = neg2(c.inv);
-                  return c;
-                },
-                [&](int m, int n, int a0, int a1, const CU& c) {
-                  const int row = stride * (mm0 + m) + r;
-                  const float v0 = __fmaf_rn(__int2float_rn(a0), c.s.x, c.b.x);
-                  const float v1 = __fmaf_rn(__int2float_rn(a1), c.s.y, c.b.y);
-                  *reinterpret_cast<float2*>(R + row * RS + n) = make_float2(v0, v1);
-                  if (row >= lo_j && row < hi_j)
-                    *reinterpret_cast<uint16_t*>(A1 + swz<C>(row - lo_j, n)) =
-                        static_cast<uint16_t>(q_in<S>(v0, v1, c.inv, c.neg));
-                });
+      if constexpr (UPS) {
+        // the upsample output over R rows [lo, hi), phase by phase (row =
+        // stride*mm + r; R row 0 is tile sample n0 - hx), and its
+        // quantisation (q_in<S>) with the chain's step 0 multipliers into A1
+        const int mm0 = lo / p.stride, mu = (hi + p.stride - 1) / p.stride - mm0;
+        const float* inv0 = p.steps[j][0].inv1;
+        for (int r = 0; r < p.stride; ++r) {
+          const float* sw = p.swu + r * C;
+          const float* bu = p.bu;
+          const int stride = p.stride, lo_j = lo, hi_j = hi;
+          struct CU { float2 s, b, inv, neg; };
+          UC::run(pipe, Xq, mm0 + p.rows_r[r], mu, 1, p.ntaps, L.xrows,
+                  [&](int n) {
+                    CU c;
+                    c.s = __ldg(reinterpret_cast<const float2*>(sw + n));
+                    c.s = make_float2(__fmul_rn(c.s.x, sx), __fmul_rn(c.s.y, sx));
+                    c.b = __ldg(reinterpret_cast<const float2*>(bu + n));
+                    c.inv = __ldg(reinterpret_cast<const float2*>(inv0 + n));
+                    c.neg = neg2(c.inv);
+                    return c;
+                  },
+                  [&](int m, int n, int a0, int a1, const CU& c) {
+                    const int row = stride * (mm0 + m) + r;
+                    const float v0 = __fmaf_rn(__int2float_rn(a0), c.s.x, c.b.x);
+                    const float v1 = __fmaf_rn(__int2float_rn(a1), c.s.y, c.b.y);
+                    *reinterpret_cast<float2*>(R + row * RS + n) = make_float2(v0, v1);
+                    if (row >= lo_j && row < hi_j)
+                      *reinterpret_cast<uint16_t*>(A1 + swz<C>(row - lo_j, n)) =
+                          static_cast<uint16_t>(q_in<S>(v0, v1, c.inv, c.neg));
+                  });
+        }
+      } else {
+        // R rows [lo, hi) <- x at tile samples n0 - hx + row, zero outside
+        // the utterance; A1 <- their quantisation (q_in<S>) with the
+        // chain's step 0 multipliers (tc_chain_q8_kernel's x load)
+        const float* inv0 = p.steps[j][0].inv1;
+        const int c8 = (threadIdx.x % (C / 8)) * 8;
+        float2 inv[4], neg[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          inv[e] = __ldg(reinterpret_cast<const float2*>(inv0 + c8) + e);
+          neg[e] = neg2(inv[e]);
+        }
+        const int s0 = t * p.tile_in + n0 - p.hx;
+        for (int r = lo + threadIdx.x / (C / 8); r < hi; r += NTH / (C / 8)) {
+          const int s = s0 + r;
+          uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+          if (s >= 0 && s < p.t_in)
+            raw = __ldg(reinterpret_cast<const uint4*>(xb + (long long)s * C + c8));
+          const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(&raw);
+          float2 f[4];
+          uint32_t q[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            f[e] = __bfloat1622float2(v[e]);
+            q[e] = q_in<S>(f[e].x, f[e].y, inv[e], neg[e]);
+          }
+          float* dst = R + r * RS + c8;
+          *reinterpret_cast<float4*>(dst) = make_float4(f[0].x, f[0].y, f[1].x, f[1].y);
+          *reinterpret_cast<float4*>(dst + 4) = make_float4(f[2].x, f[2].y, f[3].x, f[3].y);
+          *reinterpret_cast<uint2*>(A1 + swz<C>(r - lo, c8)) =
+              make_uint2(__byte_perm(q[0], q[1], 0x5410), __byte_perm(q[2], q[3], 0x5410));
+        }
+        __syncthreads();
       }
       for (int si = 0; si < p.n_steps[j]; ++si) {
         const Step& st = p.steps[j][si];
@@ -268,9 +332,12 @@ cudaError_t launch_ptc_fused(PtcParams& p, const int* ints, int S, int slots, cu
     const int h = chain_halo(p.k[j], p.steps[j], p.n_steps[j]);
     hmax = h > hmax ? h : hmax;
   }
-  if (p.hx % p.stride || p.hx < hmax + p.P || CF::BM % p.stride || slots < 1 ||
-      p.wu_phase != (long long)((p.ntaps + CF::UTPS - 1) / CF::UTPS) * (CIN / CF::UKCH) *
-                        CF::UTPS * C * CF::UKCH)
+  if (p.hx % p.stride || p.hx < hmax + p.P || CF::BM % p.stride || slots < 1)
+    return cudaErrorInvalidValue;
+  if (PtcTypes<CIN, C>::UPS
+          ? p.wu_phase != (long long)((p.ntaps + CF::UTPS - 1) / CF::UTPS) * (CIN / CF::UKCH) *
+                              CF::UTPS * C * CF::UKCH
+          : p.stride != 1 || p.kpost != 0 || p.n_tiles != 1 || p.N != p.t_in)
     return cudaErrorInvalidValue;
   const PtcLayout<CIN, C> L(p);
   if (L.total > 232448 || (size_t)(CF::BM + 2 * p.P) * (C + 1) * 4 > L.r)
@@ -295,17 +362,20 @@ cudaError_t launch_ptc_fused(PtcParams& p, const int* ints, int S, int slots, cu
 namespace mrf {
 namespace blk {
 
-// The static modes' fused launch. ptrs: wu, swu, bu, wp (null without
-// conv_post), then per step of each chain 7 (q8f: w1, inv1, b1i, m1, w2,
-// sw2, b2) or, Q8S, 8 (w1, sw1, inv1, b1, w2, sw2, inv2, b2: the q8s
-// packing order). ints: stride, ntaps, amin, span, rows_r[8], n_tiles,
-// tile_in, N, hx, P, kpost, block_m, tps, kch, utps, ukch, wu_phase,
-// n_chains, then per chain k, n_steps, dils[4] (mrf_int8._ptc_fused_args).
+// The static modes' fused launch: PtcParams from the entry point's arrays
+// (false when they are malformed). ptrs: wu, swu, bu, wp (null without
+// conv_post or without upsample), then per step of each chain 7 (q8f: w1,
+// inv1, b1i, m1, w2, sw2, b2) or, q8s, 8 (w1, sw1, inv1, b1, w2, sw2, inv2,
+// b2: the q8s packing order, Q8S). ints: stride, ntaps, amin, span, rows_r[8],
+// n_tiles, tile_in, N, hx, P, kpost, block_m, tps, kch, utps, ukch,
+// wu_phase, n_chains, then per chain k, n_steps, dils[4]
+// (mrf_int8._ptc_fused_args). Without upsample: stride 1, one tile an
+// utterance (n_tiles 1, N = tile_in = t_in), no amax.
 template <bool Q8S>
-int ptc_fused_entry(const void* x, long long x_bs, int t_in, const void* amax, void* out,
-                    long long out_bs, const long long* ptrs, const int* ints, float scale,
-                    float post_bias, int c_in, int C, int S, int slots, void* stream) {
-  PtcParams p = {};
+bool ptc_fused_params(PtcParams& p, const void* x, long long x_bs, int t_in,
+                      const void* amax, void* out, long long out_bs, const long long* ptrs,
+                      const int* ints, float scale, float post_bias) {
+  p = PtcParams{};
   p.x = static_cast<const bf16*>(x);
   p.x_bs = x_bs;
   p.t_in = t_in;
@@ -334,14 +404,14 @@ int ptc_fused_entry(const void* x, long long x_bs, int t_in, const void* amax, v
   if (p.stride < 1 || p.stride > 8 || p.n_chains < 1 || p.n_chains > kMaxChains ||
       (p.kpost > 0) != (p.wp != nullptr) || (p.kpost > 0 && p.P != (p.kpost - 1) / 2) ||
       (p.kpost == 0 && p.P != 0))
-    return (int)cudaErrorInvalidValue;
+    return false;
   const long long* w = ptrs + 4;
   for (int j = 0; j < p.n_chains; ++j) {
     const int* cj = ints + 25 + 6 * j;
     p.k[j] = cj[0];
     p.n_steps[j] = cj[1];
     if (p.n_steps[j] < 1 || p.n_steps[j] > kMaxSteps || p.k[j] < 1 || p.k[j] % 2 == 0)
-      return (int)cudaErrorInvalidValue;
+      return false;
     for (int i = 0; i < p.n_steps[j]; ++i, w += Q8S ? 8 : 7) {
       Step& st = p.steps[j][i];
       auto f = [&](int e) { return reinterpret_cast<const float*>(w[e]); };
@@ -363,11 +433,30 @@ int ptc_fused_entry(const void* x, long long x_bs, int t_in, const void* amax, v
       }
     }
   }
+  return true;
+}
+
+// the launch of one (C_in, C) in the form q8s says
+template <int CIN, int C>
+int ptc_fused_launch(PtcParams& p, const int* ints, int S, int slots, bool q8s, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c_in == 128 && C == 64) return (int)launch_ptc_fused<128, 64, Q8S>(p, ints, S, slots, s);
-  if (c_in == 64 && C == 32) return (int)launch_ptc_fused<64, 32, Q8S>(p, ints, S, slots, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)(q8s ? launch_ptc_fused<CIN, C, true>(p, ints, S, slots, s)
+                   : launch_ptc_fused<CIN, C, false>(p, ints, S, slots, s));
 }
 
 }  // namespace blk
 }  // namespace mrf
+
+// The C entry points' arguments (mrf_ptc.cu, mrf_phase_q8.cu, mrf_ct_q8.cu)
+// and their PtcParams.
+#define MRF_PTC_FUSED_ARGS                                                                    \
+  const void *x, long long x_bs, int t_in, const void *amax, void *out, long long out_bs,     \
+      const long long *ptrs, const int *ints, float scale, float post_bias, int c_in, int C,  \
+      int S, int slots, int q8s, void *stream
+#define MRF_PTC_FUSED_PARAMS(p)                                                               \
+  mrf::blk::PtcParams p;                                                                      \
+  if (!(q8s ? mrf::blk::ptc_fused_params<true>(p, x, x_bs, t_in, amax, out, out_bs, ptrs,    \
+                                               ints, scale, post_bias)                       \
+            : mrf::blk::ptc_fused_params<false>(p, x, x_bs, t_in, amax, out, out_bs, ptrs,   \
+                                                ints, scale, post_bias)))                    \
+  return (int)cudaErrorInvalidValue

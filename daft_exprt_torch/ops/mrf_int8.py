@@ -33,17 +33,20 @@ In dynamic mode every conv quantises its whole input window with one scale
 per (utterance, tile, chain, dilation, conv), ``amax(|lrelu(x)|)/127``
 over the window, so the TPU kernels' tile and halo are part of the
 function. The port keeps each tile as a segment of its own and runs each
-conv over exactly the TPU kernel's window (:func:`_dyn_windows`). At V1's
-widths (``fused_mrf_ct_q8`` at C = 256/128, ``fused_mrf_phase_q8`` and
-``fused_mrf_ptc`` at (128, 64) / (64, 32)) the segment-synchronised engine
-(``csrc/mrf_dyn_blk.cuh``, :func:`_dyn_blk_plan`) splits each segment
+conv over exactly the TPU kernel's window (:func:`_dyn_windows`). Every
+dynamic route (``fused_mrf_ct_q8`` at C = 256..32, ``fused_mrf_phase_q8``
+and ``fused_mrf_ptc`` at (128, 64) / (64, 32), ``fused_mrf_phase_q8_noups``
+at C = 64/32) runs on the segment-synchronised engine
+(``csrc/mrf_dyn_blk.cuh``, :func:`_dyn_blk_plan`): it splits each segment
 among resident blocks that keep their rows on chip and meet at a segment
-barrier per conv, where their partial amaxes give the next scale.
-Elsewhere (ct at C <= 64, the phase kernel without prologue) a conv
-launch of ``conv_dyn_kernel`` writes its float32 output and reduces the
-amax the next conv quantises with (``atomicMax`` on float bits). The
-phase layout (p samples per phase column) is a reshape of the port's
-sample-major tensors, so the windows are whole phase columns in samples.
+barrier per conv, where their partial amaxes give the next scale; one
+launch per chain at C = 256/128, one a level elsewhere. The phase layout
+(p samples per phase column) is a reshape of the port's sample-major
+tensors, so the windows are whole phase columns in samples. The static
+levels without upsample (``fused_mrf_ct_q8f`` / ``_q8s`` and the static
+``fused_mrf_phase_q8_noups``) are the zero-padded valid chains whatever the
+tile: one launch a level of ``ptc_fused_q8_kernel`` without its prologue
+(:func:`_static_plan`).
 
 The packers mirror the JAX ones (held to them bit for bit by the tests);
 ``prepare_*`` read the per-tap int8 weights back out of them for the
@@ -51,7 +54,8 @@ sample-domain kernels.
 """
 import collections
 import ctypes
-from dataclasses import dataclass
+import functools
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import torch
@@ -60,13 +64,13 @@ import torch.nn.functional as F
 from daft_exprt_torch.ops import _build
 from daft_exprt_torch.ops.mrf_ct import pack_mrf_weights  # noqa: F401
 from daft_exprt_torch.ops.vocoder_kernels import (
-    ADD, DYN_BLK_CFG, FINAL, PHASE_CHANNELS, PTC_Q8_CFG, WRITE,
+    ADD, DYN_BLK_CFG, FINAL, PHASE_CHANNELS, PTC_Q8_BM, PTC_Q8_NOUPS_BM,
+    Q8_STAGES, WRITE,
     MrfQ8Weights, _AMAX_ARGTYPES, _F32, _I32, _I64, _P, _chain_q8, _const,
-    _empty_on, _fma, _fn, _int_conv, _launch_q8_step, _lrelu, _tc_plan,
-    _ups_phase_entries, aligned, chain_halo, check_q8_input, device_chains,
-    full_f32, fuse_boundary_consts, mrf_tc_q8_plain, pack_stage_s8, ptc_amax,
-    ptc_chain_halo, ptc_halo_in, ptc_post_feasible, q8_step_fn, sm_count,
-    staged_chains, ups_geometry,
+    _empty_on, _fma, _fn, _int_conv, _lrelu, _ups_phase_entries, aligned,
+    chain_halo, check_q8_input, full_f32, fuse_boundary_consts,
+    mrf_tc_q8_plain, pack_stage_s8, ptc_amax, ptc_chain_halo, ptc_halo_in,
+    ptc_post_feasible, sm_count, staged_chains, ups_geometry,
 )
 
 CT_Q8_CHANNELS = (32, 64, 128, 256)     # fused_mrf_ct_q8 (dynamic)
@@ -99,9 +103,12 @@ def ct_halo(kernel_sizes, dilations):
     return -(-h // 128) * 128
 
 
+@functools.lru_cache(maxsize=None)
 def _phase_conv_spec(k, d, p):
     """Geometry of one dilated conv in phase-p layout (``_phase_conv_spec``):
-    a conv output column q reads input columns q + dmin .. q + dmax."""
+    a conv output column q reads input columns q + dmin .. q + dmax.
+    Cached (a launch plan asks for it per conv and call); callers only
+    read the dict."""
     half = (k - 1) // 2
     dmin = (-(d * half)) // p
     dmax = (p - 1 + d * half) // p
@@ -445,12 +452,11 @@ def _prepare_ct(qw, kernel_sizes, dilations, mode):
     mrf = MrfQ8Weights(qw[0].device, kernel_sizes, dilations, chains,
                        dynamic=mode == 'q8', q8s=mode == 'q8s')
     if mrf.device.type == 'cuda':
-        C = chains[0][0][0].shape[-1]
-        cfg = DYN_BLK_CFG.get((C, C)) if mode == 'q8' else None
-        if cfg is None:           # conv_dyn_kernel / step_q8_kernel
-            mrf.chains_dev = device_chains(chains)
-        else:                     # the dynamic engine
-            mrf.blk_dev = staged_chains(chains, cfg.tps, cfg.kch)
+        # the stages of the width's kernels: the dynamic engine and, q8f and
+        # q8s (C = 64/32), ptc_fused_q8_kernel without prologue
+        st = Q8_STAGES.get((chains[0][0][0].shape[-1],) * 2)
+        if st is not None:
+            mrf.blk_dev = staged_chains(chains, st.tps, st.kch)
     return mrf
 
 
@@ -540,14 +546,14 @@ def prepare_mrf_phase_q8(qw, kernel_sizes, dilations, p, ups, post=None):
         w_p = Wd[0, :post_k * C].reshape(post_k, C).float()  # (k, C)
         mrf.post = (w_p, b_p[:1, 0].float(), Wd.dtype)
     if mrf.device.type != 'cpu':
-        cfg = DYN_BLK_CFG.get((C_in, C))
-        if cfg is not None:
+        st = Q8_STAGES.get((C_in, C))
+        if st is not None:
             # the block-resident kernels' staged form (the dynamic engine
-            # and, q8f and q8s, ptc_fused_q8_kernel: the same stage shapes);
-            # no other width has a kernel
-            mrf.blk_dev = staged_chains(chains, cfg.tps, cfg.kch)
+            # and, q8f and q8s, ptc_fused_q8_kernel); no other width has a
+            # kernel
+            mrf.blk_dev = staged_chains(chains, st.tps, st.kch)
             mrf.blk_ups_dev = (torch.cat([
-                pack_stage_s8(wq_u[r], cfg.utps, cfg.ukch)
+                pack_stage_s8(wq_u[r], st.utps, st.ukch)
                 for r in range(stride)]), sw.contiguous(),
                 mrf.ups[2].contiguous())
         if mrf.post is not None:
@@ -782,90 +788,6 @@ def mrf_phase_q8_noups_plain(x, mrf, p, tile):
 # launch plans (shared by the CUDA routes and the CPU replay in the tests)
 # ----------------------------------------------------------------------
 
-@dataclass
-class SegView:
-    """Sample n of tile t of utterance b at ``t[b*bs + t*ts + (n + off)*C]``
-    (element offsets into the flat tensor), zero unless lo <= n + t*vstep
-    < hi. A buffer of segments has vstep 0; x itself has vstep = tile."""
-    t: torch.Tensor
-    bs: int
-    ts: int
-    off: int
-    lo: int
-    hi: int
-    vstep: int = 0
-
-
-@dataclass
-class DynConv:
-    """One launch of ``conv_dyn_kernel`` over every segment: samples
-    [n_lo, n_hi) of the int8-dynamic conv of ``src`` (scale from amax word
-    ``a_in``) plus, when given, the residual ``res``; written to ``dst``
-    (float32 segments, by ``mode``) or, in FINAL mode, scaled into ``fin``
-    = (tensor, bs, ts, ns, cs); ``a_out``: the amax word it reduces
-    max|lrelu(result)| into, or None."""
-    src: SegView
-    a_in: int
-    res: Optional[SegView]
-    dst: SegView
-    mode: int
-    has_acc: bool
-    scale: float
-    fin: Optional[tuple]
-    a_out: Optional[int]
-    weights: tuple        # (wq, sw, b) of this conv
-    k: int
-    d: int
-    n_lo: int
-    n_hi: int
-
-
-def _seg_buffer(buf, n_t, off, lo, hi):
-    L, C = buf.shape[1], buf.shape[2]
-    return SegView(buf, n_t * L * C, L * C, off, lo, hi)
-
-
-def _dyn_steps(src, a0, prep, kernel_sizes, dilations, p, lo, hi, bufs, n_t,
-               E, out_lo, out_hi, fin, words):
-    """The conv launches of one MRF group in dynamic form. ``src``: the
-    chains' shared input, its window [lo, hi) (samples of the tile), amax
-    word ``a0``; ``prep[j][i]``: weights of chain j, dilation i; ``bufs``:
-    four float32 segment buffers (two residual ping-pong buffers, the
-    chain sum, the conv1 output), sample n at n + E. p = 1: ``fused_mrf_ct``'s
-    windows (each conv shrinks its window by its reach per side); p > 1:
-    the phase kernel's (whole phase columns, ``_phase_conv_spec``). Each
-    chain's last conv2 covers [out_lo, out_hi). ``words``: the next free
-    amax word (an iterator)."""
-    steps = []
-    nb = len(kernel_sizes)
-    for j, (k, dils) in enumerate(zip(kernel_sizes, dilations)):
-        cur, a_cur = src, a0
-        wins = _dyn_windows(k, dils, p, lo, hi, out_lo, out_hi)
-        for i, d in enumerate(dils):
-            w1, s1, b1, w2, s2, b2 = prep[j][i]
-            last = i == len(dils) - 1
-            (l1, h1), (l2, h2) = wins[2 * i:2 * i + 2]
-            a1 = _seg_buffer(bufs[3], n_t, E, l1, h1)
-            mid = next(words)
-            steps.append(DynConv(cur, a_cur, None, a1, WRITE, False, 1.0, None,
-                                 mid, (w1, s1, b1), k, d, l1, h1))
-            a_out, fin_st, has_acc = None, None, False
-            if not last:
-                dst, mode = bufs[i % 2], WRITE
-                a_out = next(words)
-            else:
-                if fin is not None and j == nb - 1:
-                    dst, mode, has_acc, fin_st = bufs[2], FINAL, j > 0, fin
-                else:
-                    dst, mode = bufs[2], (WRITE if j == 0 else ADD)
-            dview = _seg_buffer(dst, n_t, E, l2, h2)
-            steps.append(DynConv(a1, mid, cur, dview, mode, has_acc,
-                                 1.0 / nb, fin_st, a_out, (w2, s2, b2), k, 1,
-                                 l2, h2))
-            cur, a_cur = dview, a_out
-    return steps
-
-
 def _dyn_windows(k, dils, p, lo, hi, out_lo, out_hi):
     """Each conv's output window [l, h) (tile samples) of one chain in
     dynamic form on the input window [lo, hi), conv1 then conv2 per
@@ -894,60 +816,6 @@ def _dyn_windows(k, dils, p, lo, hi, out_lo, out_hi):
 
 
 @dataclass
-class CtPlan:
-    """The launches of :func:`fused_mrf_ct_q8`: ``amax_kernel`` into word 0
-    of ``amax`` (the x windows), then the conv launches ``steps``."""
-    amax: torch.Tensor        # (words, S) float32, float bits, from 0
-    n_tiles: int
-    tile: int
-    halo: int
-    steps: list
-    out: torch.Tensor
-
-
-def _n_words(dilations):
-    return 2 + sum(2 * len(d) - 1 for d in dilations)
-
-
-def _ct_plan(x, prep, kernel_sizes, dilations, tile, alloc):
-    B, T, C = x.shape
-    if T % tile:
-        raise ValueError(f'T={T} not a multiple of tile={tile}')
-    halo = ct_halo(kernel_sizes, dilations)
-    n_t = T // tile
-    S = B * n_t
-    bufs = alloc((4, S, tile + 2 * halo, C), torch.float32)
-    amax = alloc((_n_words(dilations), S), torch.float32)
-    out = alloc((B, T, C), x.dtype)
-    xv = SegView(x, T * C, tile * C, 0, 0, T, tile)
-    steps = _dyn_steps(xv, 0, prep, kernel_sizes, dilations, 1, -halo,
-                       tile + halo, bufs, n_t, halo, 0, tile,
-                       (out, T * C, tile * C, C, 1), iter(range(1, 1 << 30)))
-    return CtPlan(amax, n_t, tile, halo, steps, out)
-
-
-def _phase_noups_plan(x, prep, kernel_sizes, dilations, p, tile, alloc):
-    """Launch plan of the dynamic :func:`fused_mrf_phase_q8_noups`: the
-    ct plan's form (word 0 the amax of x over each window) on the phase
-    kernel's windows, tile*p samples a tile with a halo of halo*p."""
-    B, T, C = x.shape
-    halo = phase_chain_halo(kernel_sizes, dilations, p)
-    N, E = tile * p, halo * p
-    if T % N:
-        raise ValueError(f'T={T} not a multiple of tile*p={N}')
-    n_t = T // N
-    S = B * n_t
-    bufs = alloc((4, S, N + 2 * E, C), torch.float32)
-    amax = alloc((_n_words(dilations), S), torch.float32)
-    out = alloc((B, T, C), x.dtype)
-    xv = SegView(x, T * C, N * C, 0, 0, T, N)
-    steps = _dyn_steps(xv, 0, prep, kernel_sizes, dilations, p, -E, N + E,
-                       bufs, n_t, E, 0, N, (out, T * C, N * C, C, 1),
-                       iter(range(1, 1 << 30)))
-    return CtPlan(amax, n_t, N, E, steps, out)
-
-
-@dataclass
 class PtcFusedPlan:
     """The two launches of :func:`fused_mrf_ptc`'s static mode over S =
     B*n_tiles segments (segment b*n_tiles + t is tile t of utterance b).
@@ -959,9 +827,11 @@ class PtcFusedPlan:
     upsample (output sample stride*m + r from input m + amin + rows[r] +
     tap, tap < ntaps) and each chain on the tile samples [i*block_m - hx,
     (i+1)*block_m + hx), and writes the chain mean times ``scale`` at its
-    samples, or with conv_post (kpost taps, reach P) the waveform."""
+    samples, or with conv_post (kpost taps, reach P) the waveform. Without
+    upsample (:func:`_static_plan`: ``amax`` None, stride 1, no input rows)
+    each chain of block i reads its x window straight from x."""
     x: torch.Tensor
-    amax: torch.Tensor
+    amax: Optional[torch.Tensor]
     n_tiles: int
     tile_in: int
     halo_in: int
@@ -1000,7 +870,7 @@ def _ptc_fused_plan(x, mrf, tile, alloc, block_m=None,
     if hx > halo * p:
         raise ValueError(f'fused_mrf_ptc: block window {hx} beyond the '
                          f'{halo * p}-sample segment halo')
-    bm = block_m or PTC_Q8_CFG[(C_in, C)][0]
+    bm = block_m or PTC_Q8_BM[C_in, C]
     if bm % stride:
         raise ValueError(f'fused_mrf_ptc: stride {stride} must divide the '
                          f'block {bm}')
@@ -1014,6 +884,24 @@ def _ptc_fused_plan(x, mrf, tile, alloc, block_m=None,
                         -(-N // bm), 1.0 / len(mrf.kernel_sizes), out)
 
 
+def _static_plan(x, mrf, alloc):
+    """Launch plan of the static levels without upsample
+    (:func:`fused_mrf_ct_q8f`, :func:`fused_mrf_ct_q8s`, the static
+    :func:`fused_mrf_phase_q8_noups`): ``ptc_fused_q8_kernel`` without its
+    prologue, one segment an utterance (the static chains do not depend on
+    the tile), block i of utterance b owning samples [i*block_m, (i+1)*
+    block_m) and running each chain on x over its window [i*block_m - h,
+    (i+1)*block_m + h) (h: the chain's reach; zero outside the utterance);
+    block_m is the kernel's for x's width."""
+    B, T, C = x.shape
+    bm = PTC_Q8_NOUPS_BM[C]
+    hx = max(chain_halo(k, d) for k, d in zip(mrf.kernel_sizes,
+                                              mrf.dilations))
+    return PtcFusedPlan(x, None, 1, T, 0, 0, 1, 0, 0, [], 0, T, hx, 0, 0, bm,
+                        -(-T // bm), 1.0 / len(mrf.kernel_sizes),
+                        alloc((B, T, C), x.dtype))
+
+
 _PTC_FUSED_ARGTYPES = ([_P, _I64, _I32, _P, _P, _I64, _P, _P, _F32, _F32]
                        + [_I32] * 5 + [_P])
 
@@ -1021,18 +909,22 @@ _PTC_FUSED_ARGTYPES = ([_P, _I64, _I32, _P, _P, _I64, _P, _P, _F32, _F32]
 def _ptc_fused_args(plan, mrf, chains, ups):
     """The pointer and int arrays of ``mrf_ptc_fused`` (their order is the
     C entry point's) for staged ``chains`` (per step q8f's seven arrays or
-    q8s's eight) and upsample ``ups``."""
-    C_in, C = plan.x.shape[2], mrf.ups[0].shape[-1]
-    _, tps, kch, utps, ukch = PTC_Q8_CFG[(C_in, C)]
-    wu, swu, bu = ups
-    ptrs = [wu.data_ptr(), swu.data_ptr(), bu.data_ptr(),
-            mrf.post_dev[0].data_ptr() if plan.kpost else 0]
+    q8s's eight) and upsample ``ups`` (None without upsample)."""
+    C_in = plan.x.shape[2]
+    C = C_in if ups is None else mrf.ups[0].shape[-1]
+    tps, kch, utps, ukch = Q8_STAGES[C_in, C]
+    if ups is None:
+        ptrs, wu_phase = [0] * 4, 0
+    else:
+        wu, swu, bu = ups
+        ptrs = [wu.data_ptr(), swu.data_ptr(), bu.data_ptr(),
+                mrf.post_dev[0].data_ptr() if plan.kpost else 0]
+        wu_phase = wu.numel() // plan.stride
     ptrs += [t.data_ptr() for steps in chains for st in steps for t in st]
     rows = list(plan.rows) + [0] * (8 - len(plan.rows))
     ints = [plan.stride, plan.ntaps, plan.amin, plan.span] + rows + [
         plan.n_tiles, plan.tile_in, plan.N, plan.hx, plan.P, plan.kpost,
-        plan.block_m, tps, kch, utps, ukch, wu.numel() // plan.stride,
-        len(mrf.kernel_sizes)]
+        plan.block_m, tps, kch, utps, ukch, wu_phase, len(mrf.kernel_sizes)]
     for k, dils in zip(mrf.kernel_sizes, mrf.dilations):
         ints += [k, len(dils)] + list(dils) + [0] * (4 - len(dils))
     return ((ctypes.c_int64 * len(ptrs))(*ptrs),
@@ -1055,9 +947,9 @@ class DynChain:
 
 @dataclass
 class DynBlkLaunch:
-    """One launch of ``dyn_blk_kernel``: its chains (ct: one, its output
-    by ``mode`` into the chain sum or, FINAL, ``out``; phase: all, the
-    level's output); each segment's G blocks own ``block_m`` samples of X
+    """One launch of ``dyn_blk_kernel``: its chains (one launch per chain:
+    one, its output by ``mode`` into the chain sum or, FINAL, ``out``; else
+    all, summed on chip into the level's output); each segment's G blocks own ``block_m`` samples of X
     each (block i from x_lo + i*block_m), R row 0 at a block's first owned
     sample - ``hx``; the grid holds ``slots`` blocks and walks the segments
     in ``n_waves`` waves of ``spw`` whole segments (grid block g of wave w
@@ -1078,14 +970,16 @@ class DynBlkLaunch:
 
 @dataclass
 class DynBlkPlan:
-    """The segment-synchronised engine's plan of a ``fused_mrf_ct_q8``
-    (C = 256/128) or dynamic ``fused_mrf_phase_q8`` call: ``amax_kernel``
-    into ``amax0`` (ct: x's amax over each window, the first conv's scale;
-    phase: the upsample input's), then ``launches``. Segment seg = b*n_tiles
-    + t owns the window X = [x_lo, x_hi) of x0 (tile samples), which each
-    launch splits among its blocks (:class:`DynBlkLaunch`). Each chain's
-    output leaves over [out_lo, out_hi) (phase: the chain mean there, then
-    conv_post with reach P)."""
+    """The segment-synchronised engine's plan of a dynamic call
+    (``fused_mrf_ct_q8``, ``fused_mrf_phase_q8``, ``fused_mrf_ptc`` dyn,
+    ``fused_mrf_phase_q8_noups``): ``amax_kernel`` into ``amax0`` (without
+    upsample: x's amax over each window, the first conv's scale; else the
+    upsample input's), then ``launches``. Segment seg = b*n_tiles + t owns
+    the window X = [x_lo, x_hi) of x0 (tile samples), which each launch
+    splits among its blocks (:class:`DynBlkLaunch`). Each chain's output
+    leaves over [out_lo, out_hi) (with upsample the chain mean there, then
+    conv_post with reach P); ``sum``: the float32 chain sum of a plan of
+    one launch per chain."""
     x_lo: int
     x_hi: int
     out_lo: int
@@ -1112,6 +1006,7 @@ def dyn_block_range(plan, launch, i, rem, win):
     return max(o_lo - rem, win[0]), min(o_hi + rem, win[1])
 
 
+@functools.lru_cache(maxsize=None)
 def _dyn_blocks(X, hx, S, slots, cfg, stride, block_m=None):
     """(block_m, G, spw, n_waves) of one launch over segments of X samples
     with block halo ``hx``: the block size (a multiple of ``stride``) and
@@ -1149,28 +1044,41 @@ def _dyn_blocks(X, hx, S, slots, cfg, stride, block_m=None):
 
 
 def _dyn_blk_plan(x, mrf, tile, weights, alloc, slots, block_m=None,
-                  geometry=_phase_geometry):
-    """Plan of the dynamic engine for x and dynamic ``mrf`` (a ct level
-    when ``mrf.ups`` is None, else a narrow level on the tiles and halos
-    ``geometry`` gives: :func:`_phase_geometry`, the default, or
-    :func:`_ptc_geometry`); ``weights`` per chain (staged), ``slots`` the
-    blocks one launch holds."""
+                  geometry=_phase_geometry, p=1):
+    """Plan of the dynamic engine for x and dynamic ``mrf``: a narrow level
+    with its upsample on the tiles and halos ``geometry`` gives
+    (:func:`_phase_geometry`, the default, or :func:`_ptc_geometry`), or,
+    when ``mrf.ups`` is None, a level without upsample on the windows of
+    ``p`` phases: 1 ``fused_mrf_ct``'s (``tile`` samples a tile), else the
+    phase kernel's (``tile`` columns of p samples, a halo of
+    :func:`phase_chain_halo` columns). ``weights`` per chain (staged),
+    ``slots`` the blocks one launch holds. A level without upsample at
+    C = 256/128, where the chain sum does not fit on chip, takes one launch
+    per chain, its output into a float32 chain sum; every other level takes
+    one launch with the sum on chip (``DynTypes::LEVEL`` in
+    mrf_dyn_blk.cuh)."""
     B, T_in, C_in = x.shape
-    p = mrf.p
     if mrf.ups is None:
         C = C_in
-        if T_in % tile:
-            raise ValueError(f'T={T_in} not a multiple of tile={tile}')
-        halo = ct_halo(mrf.kernel_sizes, mrf.dilations)
-        n_t, N, tile_in, P = T_in // tile, tile, tile, 0
-        x_lo, x_hi, out_lo, out_hi = -halo, tile + halo, 0, tile
+        if p == 1:
+            halo = ct_halo(mrf.kernel_sizes, mrf.dilations)
+        else:
+            halo = phase_chain_halo(mrf.kernel_sizes, mrf.dilations, p) * p
+        N = tile * p
+        if T_in % N:
+            raise ValueError(f'T={T_in} not a multiple of the tile\'s {N} '
+                             'samples')
+        n_t, tile_in, P = T_in // N, N, 0
+        x_lo, x_hi, out_lo, out_hi = -halo, N + halo, 0, N
         stride = 1
     else:
+        p = mrf.p
         C = mrf.ups[0].shape[-1]
         halo, _, n_t, P = geometry(mrf, T_in // mrf.p_in, tile)
         N, tile_in, E = tile * p, tile * mrf.p_in, halo * p
         x_lo, x_hi, out_lo, out_hi = -E, N + E, -P, N + P
         stride = mrf.ups[3]
+    level = C_in != C or C <= 64        # DynTypes::LEVEL
     cfg = DYN_BLK_CFG[C_in, C]
     S = B * n_t
     chains = []
@@ -1183,14 +1091,15 @@ def _dyn_blk_plan(x, mrf, tile, weights, alloc, slots, block_m=None,
             [P + sum(reach[c:]) for c in range(len(reach) + 1)],
             None if weights is None else weights[j]))
     nb = len(chains)
-    if mrf.ups is None:      # one launch per chain, the sum in float32
+    if not level:            # one launch per chain, the sum in float32
         groups = [([ch], ch.rem[0], 2 * len(ch.dils) - 1,
                    FINAL if j == nb - 1 else (WRITE if j == 0 else ADD),
                    j > 0) for j, ch in enumerate(chains)]
-    else:                    # one launch per level, the sum on chip
+    else:                    # one launch a level, the sum on chip
         hx = max(ch.rem[0] for ch in chains)
         groups = [(chains, -(-hx // stride) * stride,
-                   1 + sum(2 * len(ch.dils) - 1 for ch in chains), FINAL,
+                   int(mrf.ups is not None)
+                   + sum(2 * len(ch.dils) - 1 for ch in chains), FINAL,
                    False)]
     sync = alloc((sum(2 * g[2] * S for g in groups),), torch.int32)
     launches, at = [], 0
@@ -1200,9 +1109,7 @@ def _dyn_blk_plan(x, mrf, tile, weights, alloc, slots, block_m=None,
                                   block_m), n_bar,
             sync[at:at + 2 * n_bar * S].view(2, n_bar, S), mode, has_acc))
         at += 2 * n_bar * S
-    if mrf.ups is None:
-        out = alloc((B, T_in, C), x.dtype)
-    elif mrf.post is None:
+    if mrf.post is None:
         out = alloc((B, n_t * N, C), x.dtype)
     else:
         out = alloc((B, 1, n_t * N), x.dtype)
@@ -1210,7 +1117,7 @@ def _dyn_blk_plan(x, mrf, tile, weights, alloc, slots, block_m=None,
                       launches, sync,
                       alloc((S,), torch.float32),
                       alloc((B, T_in, C), torch.float32)
-                      if mrf.ups is None and nb > 1 else None, out, 1.0 / nb)
+                      if not level and nb > 1 else None, out, 1.0 / nb)
 
 
 # ----------------------------------------------------------------------
@@ -1219,33 +1126,7 @@ def _dyn_blk_plan(x, mrf, tile, weights, alloc, slots, block_m=None,
 
 _DYN_BLK_ARGTYPES = ([_P, _I64, _I32, _P, _P, _P, _I64, _P, _I64, _P, _P,
                       _F32, _F32, _P, _I64, _I32, _I32, _I32, _P])
-_VIEW = [_P, _I64, _I64] + [_I32] * 5
-_DYN_ARGTYPES = (_VIEW + [_P] + _VIEW + [_P, _I64, _I64, _I32]
-                 + [_P] + [_I64] * 4 + [_I32, _I32, _F32, _P] + [_P] * 3
-                 + [_I32] * 7 + [_P])
 _MAX_SEGMENTS = 65535                 # the launch grid's y extent
-
-
-def _view_args(v):
-    if v is None:
-        return [None, 0, 0, 0, 0, 0, 0, 0]
-    return [_build.ptr(v.t), v.bs, v.ts, v.off, v.lo, v.hi, v.vstep,
-            int(v.t.dtype == torch.float32)]
-
-
-def _launch_dyn(fn, st, amax, C, n_tiles, S, stream):
-    fin, fbs, fts, fns, fcs = st.fin if st.fin is not None else \
-        (None, 0, 0, 0, 0)
-    w, sw, b = st.weights
-    err = fn(*_view_args(st.src), _build.ptr(amax[st.a_in]),
-             *_view_args(st.res), _build.ptr(st.dst.t), st.dst.bs,
-             st.dst.ts, st.dst.off,
-             _build.ptr(fin) if fin is not None else None, fbs, fts, fns,
-             fcs, st.mode, int(st.has_acc), st.scale,
-             _build.ptr(amax[st.a_out]) if st.a_out is not None else None,
-             _build.ptr(w), _build.ptr(sw), _build.ptr(b), C, st.k, st.d,
-             st.n_lo, st.n_hi, n_tiles, S, stream)
-    _build.check(err, f'MRF int8 conv (C={C}, k={st.k}, d={st.d})')
 
 
 def _check_segments(name, S):
@@ -1265,23 +1146,15 @@ def fused_mrf_ct_q8(x, mrf, tile):
     :func:`mrf_ct_q8_plain`.
 
     ``fused_mrf_ct_q8.launches`` counts CUDA launches (the window amax,
-    then at C = 256/128 one engine launch per chain, at C <= 64 two per
-    chain step); ``fused_mrf_ct_q8.calls`` counts CUDA-route calls by x's
-    shape."""
+    then the segment-synchronised engine: at C = 256/128 one launch per
+    chain, at C = 64/32 one); ``fused_mrf_ct_q8.calls`` counts CUDA-route
+    calls by x's shape."""
     if x.device.type == 'cpu':
         return mrf_ct_q8_plain(x, mrf, tile)
-    B, T, C = x.shape
+    C = x.shape[2]
     check_q8_input('fused_mrf_ct_q8', x, mrf, CT_Q8_CHANNELS, C, 'dynamic')
-    if (C, C) in DYN_BLK_CFG:
-        out = _launch_dyn_blk(fused_mrf_ct_q8, 'mrf_ct_q8', aligned(x), mrf,
-                              tile)
-    else:
-        x = x.contiguous()
-        plan = _ct_plan(x, mrf.chains_dev, mrf.kernel_sizes, mrf.dilations,
-                        tile, _empty_on(x.device))
-        _launch_ct_dyn(fused_mrf_ct_q8, 'mrf_ct_q8', x, plan,
-                       _build.stream_ptr(x))
-        out = plan.out
+    out = _launch_dyn_blk(fused_mrf_ct_q8, 'mrf_ct_q8', aligned(x),
+                          _without_ups(mrf), tile)
     fused_mrf_ct_q8.calls[tuple(x.shape)] += 1
     return out
 
@@ -1368,14 +1241,25 @@ fused_mrf_ptc.launches = 0
 fused_mrf_ptc.calls = collections.Counter()
 
 
+def _without_ups(mrf):
+    """A level's weights for a kernel without prologue: a chain level's
+    (``prepare_mrf_phase_q8``) lose their upsample and conv_post, whose
+    per-tap chains and staged form are the ct ones (its fallback)."""
+    if mrf.ups is None:
+        return mrf
+    return replace(mrf, ups=None, post=None, post_dev=None, blk_ups_dev=None,
+                   p=1, p_in=1, ups_shifts=())
+
+
 def _check_narrow_width(name, x, mrf):
     """C of a narrow int8 level, which must have a CUDA instantiation:
-    (C_in, C) in :data:`PTC_Q8_CFG` (the dynamic engine's narrow widths
-    too)."""
+    an upsample (C_in, C) of :data:`PTC_Q8_BM` (the dynamic engine's
+    narrow widths too)."""
     C_in, C = x.shape[2], mrf.ups[0].shape[-1]
-    if (C_in, C) not in PTC_Q8_CFG:
+    built = tuple(PTC_Q8_BM)
+    if (C_in, C) not in built:
         raise ValueError(f'{name}: upsample {C_in}->{C} has no CUDA '
-                         f'instantiation (built for {tuple(PTC_Q8_CFG)})')
+                         f'instantiation (built for {built})')
     return C
 
 
@@ -1425,7 +1309,7 @@ def _dyn_blk_args(plan, launch, mrf, x):
     order is the C entry point's, mrf_dyn_blk.cuh)."""
     C_in = x.shape[2]
     C = C_in if mrf.ups is None else mrf.ups[0].shape[-1]
-    cfg = DYN_BLK_CFG[C_in, C]
+    st = Q8_STAGES[C_in, C]
     if mrf.ups is None:
         ptrs, ups_ints, wu_phase = [0] * 4, [1, 0, 0, 0] + [0] * 8, 0
         kpost = 0
@@ -1445,7 +1329,7 @@ def _dyn_blk_args(plan, launch, mrf, x):
                        plan.x_lo, plan.x_hi, launch.hx, launch.G,
                        launch.spw, launch.n_waves, plan.S, launch.n_bar,
                        launch.mode, int(launch.has_acc), launch.block_m,
-                       cfg.tps, cfg.kch, cfg.utps, cfg.ukch, wu_phase,
+                       st.tps, st.kch, st.utps, st.ukch, wu_phase,
                        len(launch.chains)]
     for ch in launch.chains:
         wins = list(ch.wins) + [(0, 0)] * (8 - len(ch.wins))
@@ -1457,16 +1341,18 @@ def _dyn_blk_args(plan, launch, mrf, x):
             (ctypes.c_int * len(ints))(*ints))
 
 
-def _launch_dyn_blk(wrapper, lib, x, mrf, tile, geometry=_phase_geometry):
+def _launch_dyn_blk(wrapper, lib, x, mrf, tile, geometry=_phase_geometry,
+                    p=1):
     """The launches of a :class:`DynBlkPlan` (``amax_kernel``, then
-    ``dyn_blk_kernel`` per chain (ct) or per level (phase, on
-    ``geometry``'s tiles)) through ``lib``'s entry points, counted on
-    ``wrapper``."""
+    ``dyn_blk_kernel`` per chain or per level; with upsample on
+    ``geometry``'s tiles, without on the windows of ``p`` phases) through
+    ``lib``'s entry points, counted on ``wrapper``."""
     name = wrapper.__name__
     B, T_in, C_in = x.shape
     slots = sm_count(x.device)
     plan = _dyn_blk_plan(x, mrf, tile, mrf.blk_dev, _empty_on(x.device),
-                         slots, geometry=geometry)
+                         slots, geometry=geometry, p=p)
+    _check_segments(name, plan.S)
     C = C_in if mrf.ups is None else mrf.ups[0].shape[-1]
     stream = _build.stream_ptr(x)
     plan.sync.zero_()
@@ -1508,33 +1394,21 @@ def _launch_dyn_blk(wrapper, lib, x, mrf, tile, geometry=_phase_geometry):
     return plan.out
 
 
-def _launch_ct_dyn(wrapper, lib, x, plan, stream):
-    """The window amax, then the conv launches, of a :class:`CtPlan`."""
-    _, T, C = x.shape
-    S = plan.amax.shape[1]
-    _check_segments(wrapper.__name__, S)
-    plan.amax.zero_()
-    err = _fn(lib, f'{lib}_amax', _AMAX_ARGTYPES)(
-        _build.ptr(x), x.stride(0), T, C, plan.n_tiles, plan.tile, plan.halo,
-        plan.tile + 2 * plan.halo, _build.ptr(plan.amax[0]), S, stream)
-    _build.check(err, f'{wrapper.__name__} amax')
-    wrapper.launches += 1
-    fn = _fn(lib, f'{lib}_conv', _DYN_ARGTYPES)
-    for st in plan.steps:
-        _launch_dyn(fn, st, plan.amax, C, plan.n_tiles, S, stream)
-        wrapper.launches += 1
-
-
 def _launch_static(wrapper, lib, x, mrf):
-    """The q8 step launches of the static chains on the tc plan."""
+    """The launch of a :class:`PtcFusedPlan` without upsample
+    (:func:`_static_plan`) through ``lib``'s ``<lib>_fused``, counted on
+    ``wrapper``."""
     B, T, C = x.shape
-    steps, out = _tc_plan(x, mrf.chains_dev, mrf.kernel_sizes, mrf.dilations,
-                          _empty_on(x.device))
-    fn = q8_step_fn(lib, mrf)
-    for st in steps:
-        _launch_q8_step(fn, st, B, C)
-        wrapper.launches += 1
-    return out
+    plan = _static_plan(x, mrf, _empty_on(x.device))
+    ptrs, ints = _ptc_fused_args(plan, mrf, mrf.blk_dev, None)
+    err = _fn(lib, f'{lib}_fused', _PTC_FUSED_ARGTYPES)(
+        _build.ptr(x), x.stride(0), T, None, _build.ptr(plan.out),
+        plan.out.stride(0), ctypes.cast(ptrs, ctypes.c_void_p),
+        ctypes.cast(ints, ctypes.c_void_p), plan.scale, 0.0, C, C, B,
+        sm_count(x.device), int(mrf.q8s), _build.stream_ptr(x))
+    _build.check(err, f'{wrapper.__name__} (C={C}, {mrf.mode})')
+    wrapper.launches += 1
+    return plan.out
 
 
 def fused_mrf_ct_q8f(x, mrf):
@@ -1545,14 +1419,14 @@ def fused_mrf_ct_q8f(x, mrf):
     this launches ``mrf_ct_q8.cu`` (or raises); on a CPU tensor it runs
     :func:`mrf_ct_q8f_plain`.
 
-    ``fused_mrf_ct_q8f.launches`` counts CUDA launches (one per chain
-    step); ``fused_mrf_ct_q8f.calls`` counts CUDA-route calls by x's
-    shape."""
+    ``fused_mrf_ct_q8f.launches`` counts CUDA launches (one a call:
+    ``ptc_fused_q8_kernel`` without prologue); ``fused_mrf_ct_q8f.calls``
+    counts CUDA-route calls by x's shape."""
     if x.device.type == 'cpu':
         return mrf_ct_q8f_plain(x, mrf)
     check_q8_input('fused_mrf_ct_q8f', x, mrf, CT_Q8F_CHANNELS, x.shape[2],
                    'q8f')
-    x = x.contiguous()
+    x = aligned(x)
     out = _launch_static(fused_mrf_ct_q8f, 'mrf_ct_q8', x, mrf)
     fused_mrf_ct_q8f.calls[tuple(x.shape)] += 1
     return out
@@ -1570,14 +1444,14 @@ def fused_mrf_ct_q8s(x, mrf):
     a CUDA tensor this launches ``mrf_ct_q8.cu`` (or raises); on a CPU
     tensor it runs :func:`mrf_ct_q8s_plain`.
 
-    ``fused_mrf_ct_q8s.launches`` counts CUDA launches (one per chain
-    step); ``fused_mrf_ct_q8s.calls`` counts CUDA-route calls by x's
-    shape."""
+    ``fused_mrf_ct_q8s.launches`` counts CUDA launches (one a call:
+    ``ptc_fused_q8_kernel`` without prologue); ``fused_mrf_ct_q8s.calls``
+    counts CUDA-route calls by x's shape."""
     if x.device.type == 'cpu':
         return mrf_ct_q8s_plain(x, mrf)
     check_q8_input('fused_mrf_ct_q8s', x, mrf, CT_Q8F_CHANNELS, x.shape[2],
                    'q8s')
-    x = x.contiguous()
+    x = aligned(x)
     out = _launch_static(fused_mrf_ct_q8s, 'mrf_ct_q8', x, mrf)
     fused_mrf_ct_q8s.calls[tuple(x.shape)] += 1
     return out
@@ -1601,20 +1475,18 @@ def fused_mrf_phase_q8_noups(x, mrf, p, tile):
     :func:`mrf_phase_q8_noups_plain`.
 
     ``fused_mrf_phase_q8_noups.launches`` counts CUDA launches (dynamic:
-    the window amax and two per chain step; static: one per chain step);
+    the window amax and one launch of the segment-synchronised engine;
+    static: one of ``ptc_fused_q8_kernel`` without prologue);
     ``fused_mrf_phase_q8_noups.calls`` counts CUDA-route calls by x's
     shape and mode: (B, T, C, ``mrf.mode``)."""
     if x.device.type == 'cpu':
         return mrf_phase_q8_noups_plain(x, mrf, p, tile)
     name = 'fused_mrf_phase_q8_noups'
     check_q8_input(name, x, mrf, PHASE_CHANNELS, x.shape[2])
-    x = x.contiguous()
+    x = aligned(x)
     if mrf.dynamic:
-        plan = _phase_noups_plan(x, mrf.chains_dev, mrf.kernel_sizes,
-                                 mrf.dilations, p, tile, _empty_on(x.device))
-        _launch_ct_dyn(fused_mrf_phase_q8_noups, 'mrf_phase_q8', x, plan,
-                       _build.stream_ptr(x))
-        out = plan.out
+        out = _launch_dyn_blk(fused_mrf_phase_q8_noups, 'mrf_phase_q8', x,
+                              _without_ups(mrf), tile, p=p)
     else:
         out = _launch_static(fused_mrf_phase_q8_noups, 'mrf_phase_q8', x,
                              mrf)

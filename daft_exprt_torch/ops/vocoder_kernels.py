@@ -44,7 +44,7 @@ both dtypes on the chain kernels (``mrf_chain_f32.cuh`` in float32:
 each block keeps a chain's residual window on chip. :func:`fused_mrf_ptc_f`
 runs the bf16 engine's phase kernel with its upsample output in float32.
 The sample ranges of every launch and block are planned here
-(:func:`_chain_steps`, :func:`_tc_bf_plan`, :func:`_tc_f32_plan`,
+(:func:`_tc_bf_plan`, :func:`_tc_f32_plan`,
 :func:`_phase_bf_plan`, :func:`_phase_f32_plan`, :func:`_ct_plan`,
 :func:`_tc_q8_plan`) so the CPU tests can replay the plan.
 """
@@ -68,7 +68,7 @@ PHASE_CHANNELS = (32, 64)
 CT_CHANNELS = (8, 16, 32, 64)          # the levels without fused upsample
 KERNEL_SIZES = (3, 7, 11)
 
-WRITE, ADD, FINAL = 0, 1, 2           # step modes (mrf_common.cuh StepMode)
+WRITE, ADD, FINAL = 0, 1, 2           # chain output modes (mrf_common.cuh StepMode)
 
 
 def _lrelu(x):
@@ -202,66 +202,6 @@ def mrf_phase_plain(x, weights, kernel_sizes, dilations, ups, post=None,
         y = F.conv1d(t, post[0].to(x.dtype).float()) + \
             post[1].float()[:, None]
     return torch.tanh(y).to(x.dtype)
-
-
-# ----------------------------------------------------------------------
-# launch plan (shared by the CUDA route and the CPU replay in the tests)
-# ----------------------------------------------------------------------
-
-@dataclass
-class Step:
-    """One launch of an int8 step kernel (``mrf_q8.cuh`` step_q8_kernel:
-    one chain step of the int8 ct routes). Sample n of utterance b lives at
-    ``src[b, n + src_off]`` (zero outside [src_lo, src_hi)) and
-    ``dst[b, n + dst_off]``; the launch computes samples [n_lo, n_hi).
-    ``fin`` is a (B, N, C)-indexed view of the final output (FINAL mode)."""
-    src: torch.Tensor
-    src_off: int
-    src_lo: int
-    src_hi: int
-    dst: torch.Tensor
-    dst_off: int
-    mode: int
-    has_acc: bool
-    scale: float
-    fin: Optional[torch.Tensor]
-    weights: tuple            # (w1, b1, w2, b2) of this (chain, dilation)
-    k: int
-    d: int
-    n_lo: int
-    n_hi: int
-
-
-def _chain_steps(x0, x0_off, x0_lo, x0_hi, prep, kernel_sizes, dilations, N,
-                 P, bufs, E, fin):
-    """The launches of one MRF group. ``x0``: the chains' shared input;
-    ``prep[j][i]``: the weights of chain j, dilation i; ``bufs``: three
-    float32 (B, N + 2E, C) buffers (two step ping-pong buffers and the
-    chain sum), sample n at index n + E. Each chain's last step covers
-    [-P, N + P) (P: conv_post's reach); ``fin`` given, the last chain's
-    last step writes the mean there, else the chain sum stays in bufs[2]."""
-    steps = []
-    nb = len(kernel_sizes)
-    for j, (k, dils) in enumerate(zip(kernel_sizes, dilations)):
-        half = (k - 1) // 2
-        reach = [d * half + half for d in dils]
-        src, off, lo, hi = x0, x0_off, x0_lo, x0_hi
-        for i, d in enumerate(dils):
-            after = sum(reach[i + 1:]) + P
-            n_lo, n_hi = -after, N + after
-            last = i == len(dils) - 1
-            has_acc = False
-            if not last:
-                dst, mode = bufs[i % 2], WRITE
-            elif fin is not None and j == nb - 1:
-                dst, mode, has_acc = bufs[2], FINAL, j > 0
-            else:
-                dst, mode = bufs[2], (WRITE if j == 0 else ADD)
-            steps.append(Step(src, off, lo, hi, dst, E, mode, has_acc,
-                              1.0 / nb, fin if mode == FINAL else None,
-                              prep[j][i], k, d, n_lo, n_hi))
-            src, off, lo, hi = dst, E, n_lo, n_hi
-    return steps
 
 
 def ups_geometry(kernel_size, stride, padding):
@@ -409,20 +349,6 @@ def _check_kernel_sizes(name, kernel_sizes):
     if bad:
         raise ValueError(f'{name}: kernel sizes {bad} have no CUDA '
                          f'instantiation (built for {KERNEL_SIZES})')
-
-
-def _tc_plan(x, prep, kernel_sizes, dilations, alloc):
-    """The step-kernel launches of an MRF group in (B, T, C) layout, one
-    per (chain, dilation) step (the q8s / q8f ct routes of
-    ``mrf_int8.py``): (steps, out). ``alloc(shape,
-    dtype)`` makes the buffers (``torch.empty`` on the card)."""
-    B, T, C = x.shape
-    E = -(-max(chain_halo(k, d) for k, d in zip(kernel_sizes, dilations))
-          // 8) * 8
-    bufs = alloc((3, B, T + 2 * E, C), torch.float32)
-    out = alloc((B, T, C), x.dtype)
-    return _chain_steps(x, 0, 0, T, prep, kernel_sizes, dilations, T, 0,
-                        bufs, E, out), out
 
 
 def _check_weights(name, x, mrf):
@@ -1796,8 +1722,7 @@ class MrfQ8Weights:
     (1,) float32, post_dtype). For weights on a CUDA device the ``*_dev``
     fields hold the kernels' format (None on the CPU); in
     ``ops/mrf_int8.py``'s ct and phase forms ``blk_dev`` / ``blk_ups_dev``
-    hold, in their place, the staged form where the route runs on a
-    block-resident kernel.
+    hold the staged form in their place.
 
     ``dynamic`` weights (the int8-dynamic tier, ``ops/mrf_int8.py``) hold
     per step (wq1, sw1, b1, wq2, sw2, b2) with float32 (C,) vectors: the
@@ -1825,23 +1750,6 @@ class MrfQ8Weights:
     def mode(self):
         """The chain weights' form: 'dynamic', 'q8f' or 'q8s'."""
         return 'dynamic' if self.dynamic else 'q8s' if self.q8s else 'q8f'
-
-
-def pack_mma_s8(w_kio):
-    """(taps, C_in, C_out) int8 -> bytes in the m16n8k32 s8 B-fragment
-    order ``conv_gemm_s8`` reads: [tap][n-tile][k-tile][lane][8], the 8
-    bytes of a lane (group g, thread t) being W[32kt + 4t + e][8nt + g]
-    then W[32kt + 16 + 4t + e][8nt + g] for e < 4."""
-    taps, ci, co = w_kio.shape
-    w = w_kio.to(torch.int8).reshape(taps, ci // 32, 2, 4, 4, co // 8, 8)
-    return w.permute(0, 5, 1, 6, 3, 2, 4).contiguous().reshape(-1)
-
-
-def device_chains(chains):
-    """The kernels' format of per-step int8 weights of any form: taps
-    packed by :func:`pack_mma_s8`, vectors contiguous."""
-    return [[tuple(pack_mma_s8(a) if a.dtype == torch.int8 else a.contiguous()
-                   for a in st) for st in steps] for steps in chains]
 
 
 def swizzle_key(rows, row_bytes):
@@ -1969,18 +1877,16 @@ def prepare_mrf_ptc(packed, kernel_sizes, dilations, p, ups, post=None):
         w_p = _ptc_taps(P, post_k, 1, p, C, 1)[:, :, 0].float()   # (k, C)
         mrf.post = (w_p, b_p[0, :1].float(), P.dtype)
     if mrf.device.type == 'cuda':
-        dyn = DYN_BLK_CFG.get((C_in, C)) if mrf.dynamic else None
-        cfg = None if mrf.dynamic else PTC_Q8_CFG.get((C_in, C))
-        if dyn is not None:       # dyn: the segment-synchronised engine
-            mrf.blk_dev = staged_chains(chains, dyn.tps, dyn.kch)
+        st = Q8_STAGES.get((C_in, C))
+        if st is not None and mrf.dynamic:   # the segment-synchronised engine
+            mrf.blk_dev = staged_chains(chains, st.tps, st.kch)
             mrf.blk_ups_dev = (torch.cat([
-                pack_stage_s8(wq_u[r], dyn.utps, dyn.ukch)
+                pack_stage_s8(wq_u[r], st.utps, st.ukch)
                 for r in range(stride)]), sw.contiguous(),
                 mrf.ups[2].contiguous())
-        elif cfg is not None:     # static: ptc_fused_q8_kernel
-            _, tps, kch, utps, ukch = cfg
-            mrf.chains_dev = staged_chains(chains, tps, kch)
-            mrf.ups_dev = (torch.cat([pack_stage_s8(wq_u[r], utps, ukch)
+        elif st is not None:     # static: ptc_fused_q8_kernel
+            mrf.chains_dev = staged_chains(chains, st.tps, st.kch)
+            mrf.ups_dev = (torch.cat([pack_stage_s8(wq_u[r], st.utps, st.ukch)
                                       for r in range(stride)]),
                            sw.contiguous().clone(),
                            mrf.ups[2].contiguous().clone())
@@ -2070,31 +1976,7 @@ def ptc_amax(x, p_in, tile, halo_in):
 
 Q8_TC_CHANNELS = (128, 256)
 
-_Q8_STEP_ARGTYPES = ([_P, _I64, _I32, _I32, _I32, _I32, _P, _I64, _I32, _P,
-                      _I64, _I64, _I64, _I32, _I32, _F32] + [_P] * 7
-                     + [_I32] * 6 + [_P])
-_Q8S_STEP_ARGTYPES = _Q8_STEP_ARGTYPES[:16] + [_P] * 8 + _Q8_STEP_ARGTYPES[23:]
 _AMAX_ARGTYPES = [_P, _I64] + [_I32] * 6 + [_P, _I32, _P]
-
-
-def _launch_q8_step(fn, st, B, C):
-    fs = st.fin.stride() if st.fin is not None else (0, 0, 0)
-    err = fn(_build.ptr(st.src), st.src.stride(0), st.src_off, st.src_lo,
-             st.src_hi, int(st.src.dtype == torch.float32),
-             _build.ptr(st.dst), st.dst.stride(0), st.dst_off,
-             _build.ptr(st.fin) if st.fin is not None else None,
-             fs[0], fs[1], fs[2], st.mode, int(st.has_acc), st.scale,
-             *(_build.ptr(t) for t in st.weights),
-             C, st.k, st.d, st.n_lo, st.n_hi, B, _build.stream_ptr(st.dst))
-    _build.check(err, f'MRF q8 step (C={C}, k={st.k}, d={st.d})')
-
-
-def q8_step_fn(lib, mrf):
-    """The static step entry point of ``lib`` for ``mrf``'s form: q8f's
-    ``<lib>_step`` or q8s's ``<lib>_step_s``."""
-    if mrf.q8s:
-        return _fn(lib, f'{lib}_step_s', _Q8S_STEP_ARGTYPES)
-    return _fn(lib, f'{lib}_step', _Q8_STEP_ARGTYPES)
 
 
 def check_q8_input(name, x, mrf, channels, c, mode=None):
@@ -2119,30 +2001,51 @@ def check_q8_input(name, x, mrf, channels, c, mode=None):
 # tc_chain_q8_kernel's geometry per C (mrf_tc_q8.cu TcCfg): output samples
 # per block, taps and input channels per staged weight stage
 TC_Q8_CFG = {128: (128, 1, 128), 256: (128, 1, 128)}
-# ptc_fused_q8_kernel's per (C_in, C) (mrf_ptc.cu PtcCfg): output samples
-# per block, the chain convs' taps and input channels per stage, the
-# upsample's
-PTC_Q8_CFG = {(128, 64): (128, 4, 64, 2, 128), (64, 32): (256, 8, 32, 2, 64)}
-
-
-class DynBlkCfg(NamedTuple):
-    """The segment-synchronised dynamic engine's geometry for one (C_in, C)
-    (csrc/mrf_dyn_blk.cuh ``DynCfg``; a test holds the two together)."""
-    wrows: int          # the most rows a block holds (owned plus halos)
-    rows_pass: int      # rows of one MMA pass (``Conv::ROWS``)
+class Q8Stage(NamedTuple):
+    """How the int8 block kernels stage one (C_in, C)'s weights (taps and
+    input channels per ring stage; csrc ``DynCfg`` and ``PtcCfg``, which a
+    test holds to this table)."""
     tps: int            # chain convs: taps per staged weight stage
     kch: int            # chain convs: input channels per stage
     utps: int           # the upsample's taps per stage
     ukch: int           # the upsample's input channels per stage
+
+
+# per (C_in, C); C_in == C without upsample (the upsample's entries repeat
+# the chains'). The dynamic engine and ptc_fused_q8_kernel stage a (C_in,
+# C) alike, and a width's chain convs alike at every C_in, so one staged
+# form serves every int8 block kernel of a level and of its fallback.
+Q8_STAGES = {(256, 256): Q8Stage(1, 128, 1, 128),
+             (128, 128): Q8Stage(1, 128, 1, 128),
+             (128, 64): Q8Stage(4, 64, 2, 128),
+             (64, 32): Q8Stage(8, 32, 2, 64),
+             (64, 64): Q8Stage(4, 64, 4, 64),
+             (32, 32): Q8Stage(8, 32, 8, 32)}
+# ptc_fused_q8_kernel's output samples per block (mrf_ptc_fused.cuh
+# PtcCfg BM): per upsample (C_in, C), and per C without its prologue (the
+# static ct levels and the static phase kernel without prologue)
+PTC_Q8_BM = {(128, 64): 128, (64, 32): 256}
+PTC_Q8_NOUPS_BM = {64: 136, 32: 392}
+
+
+class DynBlkCfg(NamedTuple):
+    """The segment-synchronised dynamic engine's geometry for one (C_in, C)
+    (csrc/mrf_dyn_blk.cuh ``DynCfg``; a test holds the two together; its
+    stages are :data:`Q8_STAGES`')."""
+    wrows: int          # the most rows a block holds (owned plus halos)
+    rows_pass: int      # rows of one MMA pass (``Conv::ROWS``)
     r_smem: bool        # R in shared memory, else in a global scratch slice
 
 
-# per (C_in, C); C_in == C the ct route (mrf_int8.fused_mrf_ct_q8), else
-# a narrow level's (mrf_int8.fused_mrf_phase_q8 and fused_mrf_ptc dynamic)
-DYN_BLK_CFG = {(256, 256): DynBlkCfg(256, 128, 1, 128, 1, 128, False),
-               (128, 128): DynBlkCfg(248, 256, 1, 128, 1, 128, True),
-               (128, 64): DynBlkCfg(256, 256, 4, 64, 2, 128, True),
-               (64, 32): DynBlkCfg(512, 512, 8, 32, 2, 64, True)}
+# per (C_in, C); C_in == C without upsample (mrf_int8.fused_mrf_ct_q8 and,
+# at C = 64/32, fused_mrf_phase_q8_noups), else a narrow level's
+# (mrf_int8.fused_mrf_phase_q8 and fused_mrf_ptc dynamic)
+DYN_BLK_CFG = {(256, 256): DynBlkCfg(256, 128, False),
+               (128, 128): DynBlkCfg(248, 256, True),
+               (128, 64): DynBlkCfg(256, 256, True),
+               (64, 32): DynBlkCfg(512, 512, True),
+               (64, 64): DynBlkCfg(256, 256, True),
+               (32, 32): DynBlkCfg(512, 512, True)}
 _TC_Q8_ARGTYPES = ([_P, _I64, _I32, _P, _I64, _P, _I64, _I32, _I32, _F32,
                     _P, _P] + [_I32] * 7 + [_P, _I64, _I32, _P])
 

@@ -520,6 +520,6 @@ def test_engine_forms_only_where_the_engine_runs():
     assert mrf.blk is None and mrf.blk_ups is None
     assert set(vk.TC_BF_CFG) == set(vk.TC_CHANNELS)
     # V1's narrow levels, the fused upsample's (C_in, C): the int8 fused
-    # kernels' widths too
+    # kernels' upsample widths too
     assert set(vk.PHASE_BF_CFG) == {(2 * C, C) for C in vk.PHASE_CHANNELS} \
-        == set(vk.PTC_Q8_CFG)
+        == set(vk.PTC_Q8_BM)

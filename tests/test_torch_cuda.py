@@ -786,9 +786,10 @@ def _v2_int8_level(rng, C, static):
                                    (2, 2048, 64), (1, 65536, 32)])
 @pytest.mark.parametrize('static', [False, True])
 def test_mrf_ct_int8_kernel_matches_plain(shape, static):
-    """fused_mrf_ct_q8f (one launch per step) and fused_mrf_ct_q8 at the
-    narrow widths (the window amax and two launches per step), tiles by
-    ct_tile; one loud tile."""
+    """fused_mrf_ct_q8f (one launch of ptc_fused_q8_kernel without
+    prologue) and fused_mrf_ct_q8 at the narrow widths (the window amax and
+    one launch of the segment-synchronised engine), tiles by ct_tile; one
+    loud tile; every sample equal to the plain version."""
     from daft_exprt_torch.ops import mrf_int8 as mi
     need_cuda()
     B, T, C = shape
@@ -802,11 +803,13 @@ def test_mrf_ct_int8_kernel_matches_plain(shape, static):
     n = fn.launches
     out = fn(x, mrf) if static else fn(x, mrf, tile)
     torch.cuda.synchronize()
-    assert fn.launches == n + (9 if static else 19)
+    assert fn.launches == n + (1 if static else 2)
     ref = mi.mrf_ct_q8f_plain(x, mrf) if static else \
         mi.mrf_ct_q8_plain(x, mrf, tile)
     assert out.dtype == torch.bfloat16 and out.shape == ref.shape
     assert rel_l2(out.float().cpu(), ref.float().cpu()) <= 2e-3
+    _report(f'{fn.__name__} {shape}', out, ref)
+    assert_exact(out, ref)
 
 
 @pytest.mark.cuda
@@ -814,7 +817,9 @@ def test_mrf_ct_int8_kernel_matches_plain(shape, static):
 @pytest.mark.parametrize('static', [False, True])
 def test_mrf_phase_q8_noups_kernel_matches_plain(T, tile, static):
     """V2's L1 (C = 32, p = 4) at 32 frames and three tiles of 128
-    columns; one loud tile."""
+    columns; one loud tile: the window amax and one engine launch
+    (dynamic), one launch of ptc_fused_q8_kernel without prologue (q8f);
+    every sample equal to the plain version."""
     from daft_exprt_torch.ops import mrf_int8 as mi
     need_cuda()
     rng = np.random.RandomState(T + static)
@@ -827,11 +832,13 @@ def test_mrf_phase_q8_noups_kernel_matches_plain(T, tile, static):
     c = fn.calls[key]
     out = fn(x, mrf, 4, tile)
     torch.cuda.synchronize()
-    assert fn.launches == n + (9 if static else 19)
+    assert fn.launches == n + (1 if static else 2)
     assert fn.calls[key] == c + 1
     ref = mi.mrf_phase_q8_noups_plain(x, mrf, 4, tile)
     assert out.dtype == torch.bfloat16 and out.shape == ref.shape
     assert rel_l2(out.float().cpu(), ref.float().cpu()) <= 2e-3
+    _report(f'{fn.__name__} ({2},{T},32) tile {tile}', out, ref)
+    assert_exact(out, ref)
 
 
 # ----------------------------------------------------------------------
@@ -847,8 +854,9 @@ def _ph_scales(rng, C):
 @pytest.mark.cuda
 @pytest.mark.parametrize('shape', [(1, 8192, 64), (2, 768, 32)])
 def test_mrf_ct_q8s_kernel_matches_plain(shape):
-    """fused_mrf_ct_q8s (one launch per step, step_q8_kernel<C, K, true>)
-    and the q8s phase kernel without prologue at C = 32, p = 4."""
+    """fused_mrf_ct_q8s and the q8s phase kernel without prologue at C =
+    32, p = 4: one launch of ptc_fused_q8_kernel<C, C, true> each, every
+    sample equal to the plain version."""
     from daft_exprt_torch.ops import mrf_int8 as mi
     need_cuda()
     B, T, C = shape
@@ -868,9 +876,10 @@ def test_mrf_ct_q8s_kernel_matches_plain(shape):
         n = fn.launches
         out = fn(*args)
         torch.cuda.synchronize()
-        assert fn.launches == n + 9
+        assert fn.launches == n + 1
         assert out.dtype == torch.bfloat16 and out.shape == ref.shape
         assert rel_l2(out.float().cpu(), ref.float().cpu()) <= 2e-3
+        assert_exact(out, ref)
 
 
 @pytest.mark.cuda

@@ -1,8 +1,10 @@
 """CPU replay of the segment-synchronised int8-dynamic engine
 (daft_exprt_torch/ops/csrc/mrf_dyn_blk.cuh: the dynamic ``fused_mrf_ct_q8``,
-``fused_mrf_phase_q8`` and, on the phase-tc tiles, ``fused_mrf_ptc``) and
-of the q8f phase route on ``ptc_fused_q8_kernel``'s plan
-(daft_exprt_torch/ops/mrf_int8.py).
+``fused_mrf_phase_q8`` with and without its prologue and, on the phase-tc
+tiles, ``fused_mrf_ptc``) and of the static routes on
+``ptc_fused_q8_kernel``'s plan: the q8f and q8s phase modes, and without
+the prologue the static ct levels and the static phase kernel without
+prologue (daft_exprt_torch/ops/mrf_int8.py).
 
 The engine's plan (``mrf_int8._dyn_blk_plan``) is replayed block by block:
 each block keeps its own float32 residual rows and quantised conv inputs on
@@ -12,7 +14,8 @@ reading only rows it wrote itself; at each segment barrier the blocks'
 partial amaxes are reduced, and that reduction must equal the amax over the
 conv's whole window. Segments run in each launch's waves, every block of
 a wave's segments a distinct grid slot. The result must equal ``mrf_ct_q8_plain`` /
-``mrf_phase_q8_plain`` / ``mrf_ptc_plain`` at every sample (the chain mean
+``mrf_phase_q8_plain`` / ``mrf_phase_q8_noups_plain`` / ``mrf_ptc_plain``
+at every sample (the chain mean
 before conv_post exactly, the waveform within one bf16 ulp), and JAX's
 ``fused_mrf_ptc(dyn=True)`` in interpret mode. The
 kernels themselves are held to the plain versions on the card
@@ -84,22 +87,25 @@ def _assert_within_bf16_ulp(out, ref):
 
 
 def _x0_segments(x, mrf, tile, plan, geometry):
-    """The segments' x0 over X (the plain versions' windows): ct the
-    zero-padded x windows, phase and ptc the int8 upsample prologue."""
+    """The segments' x0 over X (the plain versions' windows): without
+    upsample the zero-padded x windows, phase and ptc the int8 upsample
+    prologue."""
     if mrf.ups is None:
-        return mi._windows(x, tile, -plan.x_lo, plan.x_hi - plan.x_lo)
+        return mi._windows(x, plan.N, -plan.x_lo, plan.x_hi - plan.x_lo)
     halo, halo_in, _, _ = geometry(mrf, x.shape[1] // mrf.p_in, tile)
     return mi._phase_prologue_plain(x, mrf, tile, halo, halo_in)
 
 
-def _replay(x, mrf, tile, slots, block_m=None, geometry=mi._phase_geometry):
+def _replay(x, mrf, tile, slots, block_m=None, geometry=mi._phase_geometry,
+            p=1):
     """The engine's launches of x on the CPU, block by block (a narrow
     level on ``geometry``'s tiles: the phase kernel's or, ptc, the phase-tc
-    kernel's); returns the level's output as the wrapper would."""
+    kernel's; a level without upsample on the windows of ``p`` phases);
+    returns the level's output as the wrapper would."""
     plan = mi._dyn_blk_plan(x, mrf, tile, None, _alloc, slots, block_m,
-                            geometry)
+                            geometry, p)
     B, T_in, _ = x.shape
-    ct = mrf.ups is None
+    level = _level_form(mrf, x.shape[2])
     x0 = _x0_segments(x, mrf, tile, plan, geometry)
     assert x0.shape[1] == plan.x_hi - plan.x_lo
     plan.sync.zero_()                   # the wrapper zeroes it
@@ -125,19 +131,27 @@ def _replay(x, mrf, tile, slots, block_m=None, geometry=mi._phase_geometry):
                 _replay_segment(plan, ln, j0, mrf, x0[seg], seg, means)
         assert seen == set(range(plan.S))
         j0 += len(ln.chains)
-    if ct:
+    if not level:
         return plan.out
     if mrf.post is None:
         return (means * plan.scale).to(x.dtype).reshape(B, -1, x0.shape[2])
     return plan.out
 
 
+def _level_form(mrf, C_in):
+    """Whether a launch holds the level's chains and sums them on chip
+    (``DynTypes::LEVEL`` in mrf_dyn_blk.cuh), else one chain into the
+    float32 chain sum."""
+    return mrf.ups is not None or C_in <= 64
+
+
 def _replay_segment(plan, ln, j0, mrf, x0, seg, means):
     """One segment of one launch: its G blocks in lockstep, a barrier per
-    conv (and, phase, one for x0's scale)."""
+    conv (and, with the upsample, one for x0's scale)."""
     G, bm, P = ln.G, ln.block_m, plan.P
     C = x0.shape[1]
     ct = mrf.ups is None
+    level = _level_form(mrf, C)
     b, t = divmod(seg, plan.n_tiles)
     wrows = bm + 2 * ln.hx
     own = [(plan.x_lo + i * bm, min(plan.x_lo + (i + 1) * bm, plan.x_hi))
@@ -217,7 +231,7 @@ def _replay_segment(plan, ln, j0, mrf, x0, seg, means):
                     parts.append(vk._lrelu(v).abs().max() if M else
                                  torch.zeros(()))
                     continue
-                if ct:
+                if not level:
                     o0, o1 = own[i]
                     n0, n1 = max(lo, o0), min(hi, o1)
                     if n1 <= n0:
@@ -241,7 +255,7 @@ def _replay_segment(plan, ln, j0, mrf, x0, seg, means):
                     A1[i][lo - base[i]:hi - base[i]] = _q(
                         R[i][lo - base[i]:hi - base[i]], ax)
     assert bar == ln.n_bar
-    if ct:
+    if not level:
         return
     for i, (o0, o1) in enumerate(own):      # the owned samples in [0, N)
         n0, n1 = max(o0, 0), min(o1, plan.N)
@@ -305,6 +319,13 @@ def _ptc_level(seed, C_in, C, p_in, post):
     (128, 2, 256, 128, 9, 96),     # V1 L1 width: blocks of 96 (the last
                                    # 32), 4 segments, 2 a wave
     (128, 2, 256, 64, 7, None),    # the launches' own block sizes
+    # V2's widths, one launch a level with the chain sum on chip
+    (64, 2, 512, 256, 6, None),    # V2 L0: 4 segments of 4 blocks
+    (64, 1, 384, 128, 9, 96),      # blocks of 96, 3 segments, 2 a wave
+    (32, 2, 1024, 512, 7, None),   # the C = 32 ct fallback's width
+    (32, 2, 768, 768, 5, None),    # V2 L1 at 12 frames: one segment an
+                                   # utterance, its windows in the zero
+                                   # padding at both ends
 ])
 def test_ct_engine_replays_plain(C, B, T, tile, slots, block_m):
     """x windows reaching into the zero padding at both utterance edges,
@@ -317,6 +338,76 @@ def test_ct_engine_replays_plain(C, B, T, tile, slots, block_m):
     ref = mi.mrf_ct_q8_plain(x, mrf, tile)
     assert torch.isfinite(out.float()).all()
     assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize('C', [256, 128, 64, 32])
+def test_ct_engine_groups_as_the_kernel_is_compiled(C):
+    """The plan of a level without upsample takes one launch per chain
+    through the float32 chain sum exactly where the kernel's ``LEVEL``
+    (mrf_dyn_blk.cuh, a compile-time constant of the width) leaves the
+    chain sum off chip, else one launch with every chain."""
+    src = (CSRC / 'mrf_dyn_blk.cuh').read_text()
+    top = int(re.search(r'bool LEVEL = UPS \|\| C <= (\d+);', src).group(1))
+    _, mrf = _ct_level(11, C)
+    x = torch.zeros((2, 256, C), dtype=torch.bfloat16)
+    plan = mi._dyn_blk_plan(x, mrf, 128, None, _alloc, 8)
+    if C <= top:
+        (ln,) = plan.launches
+        assert len(ln.chains) == 3 and ln.mode == vk.FINAL
+        assert plan.sum is None
+    else:
+        assert [len(ln.chains) for ln in plan.launches] == [1, 1, 1]
+        assert [ln.mode for ln in plan.launches] == [vk.WRITE, vk.ADD,
+                                                     vk.FINAL]
+        assert plan.sum is not None and plan.sum.dtype == torch.float32
+
+
+@pytest.mark.parametrize('C_in,C,p_in,post', [(128, 64, 1, False),
+                                              (64, 32, 2, True)])
+def test_ct_engine_runs_a_chain_levels_weights(C_in, C, p_in, post):
+    """A chain level's dynamic weights (``prepare_mrf_phase_q8``, with its
+    upsample and, at L3, conv_post) serve its fallback to fused_mrf_ct:
+    without them (``_without_ups``, as the wrapper takes them) the engine's
+    ct plan equals ``mrf_ct_q8_plain`` on the weights as packed, and the
+    staged chains are those of the width's ct form."""
+    rng, mrf = _phase_level(18, C_in, C, p_in, post)
+    w = mi._without_ups(mrf)
+    assert w.ups is None and w.post is None and w.dynamic
+    assert w.chains is mrf.chains
+    x = torch.from_numpy((rng.randn(2, 512, C) * 0.5).astype(np.float32)
+                         ).bfloat16()
+    x[1, :256] *= 6.0
+    out = _replay(x, w, 256, 9)
+    assert torch.equal(out, mi.mrf_ct_q8_plain(x, mrf, 256))
+
+
+@pytest.mark.parametrize('C,p,T,tile,slots,block_m', [
+    (32, 4, 512, 64, 9, None),     # V2 L1's width and phases: 2 tiles an
+                                   # utterance, halos of 128 columns
+    (32, 4, 1024, 128, 6, 256),    # blocks of 256, one segment a wave
+    (64, 2, 512, 128, 8, None),    # C = 64 at p = 2 (a chain level whose
+                                   # upsample does not fuse)
+])
+def test_phase_noups_engine_replays_plain(C, p, T, tile, slots, block_m):
+    """The dynamic phase kernel without prologue on the engine: x's windows
+    of tile + 2*halo columns, every conv over the phase kernel's column
+    window (whole columns of p samples), one launch a level; B = 2, one
+    loud tile."""
+    rng, mrf = _ct_level(16, C)
+    x = torch.from_numpy((rng.randn(2, T, C) * 0.5).astype(np.float32)
+                         ).bfloat16()
+    x[1, :tile * p] *= 5.0
+    plan = mi._dyn_blk_plan(x, mrf, tile, None, _alloc, slots, block_m, p=p)
+    (ln,) = plan.launches
+    assert ln.n_bar == 15 and plan.sum is None
+    assert (plan.x_lo, plan.N) == (-mi.phase_chain_halo(KS, DILS, p) * p,
+                                   tile * p)
+    out = _replay(x, mrf, tile, slots, block_m, p=p)
+    ref = mi.mrf_phase_q8_noups_plain(x, mrf, p, tile)
+    assert torch.isfinite(out.float()).all()
+    assert torch.equal(out, ref)
+    # the phase windows are not the ct ones: another function of x
+    assert not torch.equal(ref, mi.mrf_ct_q8_plain(x, mrf, tile * p))
 
 
 def _engine_case(*args, kind='phase', id=None):
@@ -533,14 +624,64 @@ def _replay_static_phase(C_in, C, p_in, post, block_m, mode):
         assert torch.equal(plan.out, ref)
 
 
+def _static_level(seed, C, mode):
+    """A level's static ct-packed weights (q8f or q8s), calibrated on
+    random act scales."""
+    rng = np.random.RandomState(seed)
+    tp = _bf16(to_torch(unit_level(rng, 0, C)))
+    w = mi.pack_mrf_weights(tp, 0, KS, DILS)
+    sc = [torch.from_numpy(s) for s1, s2 in act_scales(rng, C)
+          for s in (s1, s2)]
+    if mode == 'q8s':
+        return rng, mi.prepare_mrf_ct_q8s(
+            mi.quantize_mrf_ct_q8s_weights(w, sc), KS, DILS)
+    return rng, mi.prepare_mrf_ct_q8f(mi.quantize_mrf_ct_q8f_weights(w, sc),
+                                      KS, DILS)
+
+
+def _replay_static(x, mrf):
+    """Every block of ``ptc_fused_q8_kernel`` without prologue on
+    :func:`mi._static_plan`, each from its own x window."""
+    plan = mi._static_plan(x, mrf, _alloc)
+    assert plan.amax is None and plan.n_tiles == 1 and plan.P == 0
+    assert plan.hx == max(vk.chain_halo(k, d) for k, d in zip(KS, DILS))
+    for b in range(x.shape[0]):
+        for i in range(plan.blocks_per_tile):
+            _emulate_ptc_block(plan, mrf, b, i)
+    return plan.out
+
+
+@pytest.mark.parametrize('C,T', [
+    (64, 300),                     # V2 L0's width: 3 blocks, a partial
+                                   # last one
+    (32, 900),                     # V2 L1's width (and the fallback's)
+    (32, 200),                     # one block, longer than the utterance
+])
+@pytest.mark.parametrize('mode', ['q8f', 'q8s'])
+def test_static_noups_replays_plain(mode, C, T):
+    """fused_mrf_ct_q8f / _q8s and the static fused_mrf_phase_q8_noups:
+    one launch of ptc_fused_q8_kernel without prologue, each block's
+    chains on x over their own windows (zero outside the utterance), equal
+    to the zero-padded valid chains (``mrf_tc_q8_plain``) at every
+    sample; B = 2, one loud stretch."""
+    rng, mrf = _static_level(17 + C, C, mode)
+    assert mrf.mode == mode
+    x = torch.from_numpy((rng.randn(2, T, C) * 0.5).astype(np.float32)
+                         ).bfloat16()
+    x[1, T // 3:T // 2] *= 5.0
+    out = _replay_static(x, mrf)
+    assert torch.isfinite(out.float()).all()
+    assert torch.equal(out, vk.mrf_tc_q8_plain(x, mrf))
+
+
 @pytest.mark.parametrize('C_in,C', sorted(mi.DYN_BLK_CFG))
 def test_dyn_blk_cfg_matches_kernel(C_in, C):
     """``DYN_BLK_CFG`` holds the kernel's ``DynCfg`` (mrf_dyn_blk.cuh): the
     rows a block holds, the rows of one MMA pass (``Conv::ROWS`` of its
     warps), the staged weights' shapes and where R lives, from which the
-    launcher sizes the global scratch. The q8f phase mode stages its
-    weights by this table and runs ``ptc_fused_q8_kernel`` on
-    ``PTC_Q8_CFG``'s stages, so the two agree."""
+    launcher sizes the global scratch; its stages are ``Q8_STAGES``'. A
+    width's chain convs are staged alike whatever the upsample, so the
+    weights of a level serve its fallback's kernels."""
     src = (CSRC / 'mrf_dyn_blk.cuh').read_text()
     body = re.search(r'struct DynCfg<%d, %d> \{(.*?)\};' % (C_in, C), src,
                      re.S).group(1)
@@ -548,8 +689,32 @@ def test_dyn_blk_cfg_matches_kernel(C_in, C):
     nw, wm = int(k['NW']), int(k['WM'])
     wn = min(C, 128)
     rows_pass = (nw // 4) // (C // wn) * 64 * (wm // 16)
-    cfg = mi.DYN_BLK_CFG[C_in, C]
-    assert cfg == (int(k['WROWS']), rows_pass, int(k['TPS']), int(k['KCH']),
-                   int(k['UTPS']), int(k['UKCH']), k['R_SMEM'] == 'true')
-    if C_in != C:
-        assert vk.PTC_Q8_CFG[C_in, C][1:] == cfg[2:6]
+    assert mi.DYN_BLK_CFG[C_in, C] == (int(k['WROWS']), rows_pass,
+                                       k['R_SMEM'] == 'true')
+    st = vk.Q8_STAGES[C_in, C]
+    assert st == (int(k['TPS']), int(k['KCH']), int(k['UTPS']),
+                  int(k['UKCH']))
+    same = [s_ for (ci, co), s_ in vk.Q8_STAGES.items() if co == C]
+    assert {(s_.tps, s_.kch) for s_ in same} == {(st.tps, st.kch)}
+
+
+@pytest.mark.parametrize('C_in,C', sorted(
+    set(vk.PTC_Q8_BM) | {(C, C) for C in vk.PTC_Q8_NOUPS_BM}))
+def test_ptc_cfg_matches_kernel(C_in, C):
+    """``PTC_Q8_BM`` (with upsample) and ``PTC_Q8_NOUPS_BM`` (without,
+    C_in == C) hold the kernel's ``PtcCfg`` block (mrf_ptc_fused.cuh), and
+    ``Q8_STAGES`` its chain convs' and upsample's stages (without upsample
+    the chains' repeated), which the entry point checks; without upsample
+    the k = 11 window of a block (BM + 120 rows) fits one MMA pass."""
+    src = (CSRC / 'mrf_ptc_fused.cuh').read_text()
+    body = re.search(r'struct PtcCfg<%d, %d> \{(.*?)\};' % (C_in, C), src,
+                     re.S).group(1)
+    k = {m[0]: int(m[1]) for m in re.findall(r'(\w+) = (\d+)', body)}
+    bm = vk.PTC_Q8_NOUPS_BM[C] if C_in == C else vk.PTC_Q8_BM[C_in, C]
+    assert bm == k['BM']
+    assert vk.Q8_STAGES[C_in, C] == (k['TPS'], k['KCH'], k['UTPS'],
+                                     k['UKCH'])
+    if C_in == C:
+        assert (k['UTPS'], k['UKCH']) == (k['TPS'], k['KCH'])
+        rows_pass = (k['NW'] // 4) // (C // min(C, 128)) * 64 * (k['WM'] // 16)
+        assert k['BM'] + 2 * vk.chain_halo(11, (1, 3, 5)) <= rows_pass

@@ -4,10 +4,10 @@
 ``ptc_fused_q8_kernel`` (and each ``amax_kernel`` segment) is emulated from
 its own input window only, with the arithmetic and the window bookkeeping
 its source states, on NaN-filled buffers, and the result must equal the
-plain versions at every sample. Also the staged (and the m16n8k32) s8
-weight packing against the kernels' indexing, and the s8 tiles' swizzle.
-The emulators of ``step_q8_kernel`` and ``amax_kernel`` live here too; the
-other int8 plan tests import them.
+plain versions at every sample. Also the staged s8 weight packing against
+the kernels' indexing, and the s8 tiles' swizzle. The emulators of
+``ptc_fused_q8_kernel`` (with and without its upsample prologue) and
+``amax_kernel`` live here too; the other int8 plan tests import them.
 The kernels themselves are held to the plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py)."""
 from dataclasses import replace
@@ -35,37 +35,6 @@ def _read(buf, off, lo, hi, n0, n1):
     valid = ((n >= lo) & (n < hi))[None, :, None]
     idx = (n + off).clamp(0, buf.shape[1] - 1)
     return torch.where(valid, buf[:, idx, :].float(), torch.zeros(()))
-
-
-def _emulate_q8_step(st):
-    """What one ``step_q8_kernel`` launch computes (q8f, or q8s when the
-    step holds eight weight arrays)."""
-    h = (st.k - 1) // 2
-    r = st.d * h
-    n = st.n_hi - st.n_lo
-    win = _read(st.src, st.src_off, st.src_lo, st.src_hi, st.n_lo - h - r,
-                st.n_hi + h + r)
-    if len(st.weights) == 8:
-        wq1, sw1, inv1, b1, wq2, sw2, inv2, b2 = st.weights
-        acc = vk._int_conv(vk.quantize_static(vk._lrelu(win), inv1), wq1,
-                           st.d, n + 2 * h)
-        q2 = vk.quantize_static(vk._lrelu(vk._fma(acc, sw1, b1)), inv2)
-    else:
-        wq1, inv1, b1i, m1, wq2, sw2, b2 = st.weights
-        acc = vk._int_conv(vk.quantize_lrelu_static(win, inv1), wq1, st.d,
-                           n + 2 * h)
-        q2 = vk.requant_lrelu_s32(acc, b1i, m1)
-    acc2 = vk._int_conv(q2, wq2, 1, n)
-    v = _read(st.src, st.src_off, st.src_lo, st.src_hi, st.n_lo, st.n_hi) \
-        + vk._fma(acc2, sw2, b2)
-    sl = slice(st.n_lo + st.dst_off, st.n_hi + st.dst_off)
-    if st.mode == vk.WRITE:
-        st.dst[:, sl] = v
-    elif st.mode == vk.ADD:
-        st.dst[:, sl] = st.dst[:, sl] + v
-    else:
-        tot = st.dst[:, sl] + v if st.has_acc else v
-        st.fin[:, st.n_lo:st.n_hi] = (tot * st.scale).to(st.fin.dtype)
 
 
 def _chain_window(R, lo, hi, steps, k, dils, out_rows):
@@ -130,32 +99,40 @@ def _emulate_amax(plan):
 
 def _emulate_ptc_block(plan, mrf, seg, i, means=None):
     """What block i of segment ``seg`` of ``ptc_fused_q8_kernel`` computes,
-    from its own x rows and the segment's amax alone; with conv_post, the
-    chain mean at its samples also goes to ``means``."""
+    from its own x rows and the segment's amax alone (without upsample,
+    ``mrf.ups`` None: each chain's window of x, read straight from x); with
+    conv_post, the chain mean at its samples also goes to ``means``."""
     b, t = divmod(seg, plan.n_tiles)
     bm, hx, P, s = plan.block_m, plan.hx, plan.P, plan.stride
     n0 = i * bm
-    wq_u, sw_u, b_u = mrf.ups[:3]
-    amax = plan.amax[seg].clamp(min=1e-30)
-    inv = torch.full((), 127.0) / amax
-    sx = amax * (1.0 / 127.0)
     wrows = bm + 2 * hx
-    base_in = t * plan.tile_in + (n0 - hx) // s + plan.amin
     x = plan.x.float()[b:b + 1]
-    a = vk._lrelu(_read(x, 0, 0, x.shape[1], base_in,
-                        base_in + wrows // s + plan.span))
-    xq = torch.round(a * inv).to(torch.int8)
+    if mrf.ups is not None:
+        wq_u, sw_u, b_u = mrf.ups[:3]
+        amax = plan.amax[seg].clamp(min=1e-30)
+        inv = torch.full((), 127.0) / amax
+        sx = amax * (1.0 / 127.0)
+        base_in = t * plan.tile_in + (n0 - hx) // s + plan.amin
+        a = vk._lrelu(_read(x, 0, 0, x.shape[1], base_in,
+                            base_in + wrows // s + plan.span))
+        xq = torch.round(a * inv).to(torch.int8)
     O = None
     for steps, k, dils in zip(mrf.chains, mrf.kernel_sizes, mrf.dilations):
         h = vk.chain_halo(k, dils)
         lo, hi = hx - h - P, hx + bm + h + P
-        R = torch.full((1, wrows, wq_u.shape[-1]), float('nan'))
-        mm0 = lo // s
-        mu = -(-hi // s) - mm0
-        for r in range(s):
-            acc = vk._int_conv(xq[:, mm0 + plan.rows[r]:], wq_u[r], 1, mu)
-            R[:, s * mm0 + r:s * (mm0 + mu):s] = vk._fma(acc, sw_u[r] * sx,
-                                                         b_u)
+        R = torch.full((1, wrows, x.shape[2] if mrf.ups is None
+                        else wq_u.shape[-1]), float('nan'))
+        if mrf.ups is None:
+            s0 = t * plan.tile_in + n0 - hx
+            R[:, lo:hi] = _read(x, 0, 0, x.shape[1], s0 + lo, s0 + hi)
+        else:
+            mm0 = lo // s
+            mu = -(-hi // s) - mm0
+            for r in range(s):
+                acc = vk._int_conv(xq[:, mm0 + plan.rows[r]:], wq_u[r], 1,
+                                   mu)
+                R[:, s * mm0 + r:s * (mm0 + mu):s] = vk._fma(
+                    acc, sw_u[r] * sx, b_u)
         v = _chain_window(R, lo, hi, steps, k, dils, bm + 2 * P)
         O = v if O is None else O + v
     n1 = min(n0 + bm, plan.N) - n0
@@ -323,29 +300,6 @@ def test_swizzle_spreads_ldmatrix_rows_over_banks(row_bytes):
     for r in range(64):
         assert sorted(c ^ key[r] for c in range(chunks)) == list(
             range(chunks))
-
-
-def test_pack_mma_s8_matches_kernel_indexing():
-    """conv_gemm_s8 reads uint2 word ((tap*NT8 + nt)*KT + kt)*32 + lane and
-    feeds b0 = W[k0 + 4t + e][n], b1 = W[k0 + 16 + 4t + e][n] (e < 4) with
-    n = 8*nt + lane//4, t = lane % 4, k0 = 32*kt."""
-    rng = np.random.RandomState(0)
-    taps, ci, co = 3, 64, 24
-    w = torch.from_numpy(rng.randint(-127, 128, (taps, ci, co))
-                         .astype(np.int8))
-    packed = vk.pack_mma_s8(w).numpy().reshape(-1, 8)
-    wn = w.numpy()
-    NT8, KT = co // 8, ci // 32
-    for tap in range(taps):
-        for nt in range(NT8):
-            for kt in range(KT):
-                for lane in range(32):
-                    word = packed[((tap * NT8 + nt) * KT + kt) * 32 + lane]
-                    n, t = 8 * nt + lane // 4, lane % 4
-                    k0 = 32 * kt + 4 * t
-                    want = [wn[tap, k0 + e, n] for e in range(4)] + \
-                        [wn[tap, k0 + 16 + e, n] for e in range(4)]
-                    assert np.array_equal(word, want)
 
 
 @pytest.mark.parametrize('row_bytes', [32, 64, 128])

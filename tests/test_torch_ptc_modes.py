@@ -210,7 +210,7 @@ def test_fdot_and_q8s_weights_take_the_fused_kernels(C_in, C, p_in):
     assert q.chains_dev is None and q.ups_dev is None
     x = torch.empty((2, 128 * p_in, C_in), dtype=torch.bfloat16,
                     device='meta')
-    if (C_in, C) not in vk.PTC_Q8_CFG:
+    if (C_in, C) not in vk.PTC_Q8_BM:
         assert f.blk_ups is None and q.blk_dev is None
         for call in (lambda: vk.fused_mrf_ptc_f(x.transpose(1, 2), f, 64),
                      lambda: mi.fused_mrf_phase_q8(x, q, 64)):
@@ -227,7 +227,7 @@ def test_fdot_and_q8s_weights_take_the_fused_kernels(C_in, C, p_in):
     assert f.blk[0][0][0].numel() == -(-3 // tps) * tps * C * C
     assert f.blk_ups[0].numel() == 2 * 2 * C_in * C
     assert f.blk_ups[2] == 2 * 2 * C_in * C
-    tps = vk.PTC_Q8_CFG[C_in, C][1]
+    tps = vk.Q8_STAGES[C_in, C].tps
     assert [len(st) for st in q.blk_dev[0]] == [8] * 3
     assert q.blk_dev[0][0][0].dtype == torch.int8
     assert q.blk_dev[0][0][0].numel() == -(-3 // tps) * tps * C * C

@@ -29,11 +29,10 @@ import jax.numpy as jnp
 
 from daft_exprt_tpu.ops import vocoder_kernels as jvk
 from daft_exprt_torch.ops import mrf_int8 as mi
-from daft_exprt_torch.ops import vocoder_kernels as vk
 
 from tests.test_torch_int8 import KS, DILS, _t, act_scales, unit_level
 from tests.test_torch_int8_dynamic import _jp, _jax_ups_q8_weights, _tp
-from tests.test_torch_int8_plan import _emulate_q8_step, _nan_alloc
+from tests.test_torch_dyn_engine import _replay_static
 from tests.torch_port_utils import max_abs, one_torch_thread, rel_l2
 
 
@@ -230,23 +229,26 @@ def test_mrf_phase_q8s_plain_matches_jax(C_in, C, p_in, post):
         out.float().numpy(), ref)
 
 
-def _bf16_tree(tree):
-    if isinstance(tree, dict):
-        return {k: _bf16_tree(v) for k, v in tree.items()}
-    return tree.bfloat16()
-
-
-def test_ct_q8s_launch_plan_replays_plain():
-    C = 32
-    rng, _, _, _, mrf = _level(C, 4)
-    x = torch.from_numpy(_x(rng, C, 384, 128)).bfloat16()
-    steps, out = vk._tc_plan(x, mrf.chains, KS, DILS, _nan_alloc)
-    assert len(steps) == 9
-    for st in steps:
-        assert len(st.weights) == 8
-        _emulate_q8_step(st)
-    assert torch.isfinite(out.float()).all()
-    assert torch.equal(out, mi.mrf_ct_q8s_plain(x, mrf))
+@pytest.mark.parametrize('C', [64, 32])
+def test_ct_q8s_static_plan_replay_matches_jax(C):
+    """fused_mrf_ct_q8s's launch, ptc_fused_q8_kernel without prologue
+    (one launch a level, the q8s boundary), replayed block by block on
+    the port's q8s weights (equal to JAX's jitted ones,
+    test_q8s_packers_match_jax_jit) against JAX's ``fused_mrf_ct`` with
+    ``int8_fused=False`` in interpret mode: three 256-sample tiles (the
+    static function does not depend on them), one loud; every sample
+    equal."""
+    tile = 256
+    rng, jp, _, sc, mrf = _level(C, 5 + C)
+    x = _x(rng, C, 3 * tile, tile)
+    ref = np.asarray(jvk.fused_mrf_ct(
+        jnp.asarray(x, jnp.bfloat16).transpose(0, 2, 1),
+        jvk.pack_mrf_weights(jp, 0, KS, DILS), KS, DILS, tile=tile,
+        int8_chain=True, act_scales=sc, int8_fused=False,
+        interpret=True).astype(jnp.float32)).transpose(0, 2, 1)
+    out = _replay_static(torch.from_numpy(x).bfloat16(), mrf)
+    assert out.shape == ref.shape
+    assert max_abs(out.float().numpy(), ref) == 0.0
 
 
 def test_q8s_wrappers_run_plain_versions_on_cpu():

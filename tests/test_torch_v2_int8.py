@@ -15,7 +15,10 @@ mrf_int8.py) against the JAX package's Pallas kernels in interpret mode.
   weights (the phase kernel's banded ones read back by tap). Band rel-L2
   <= 1e-4 (tests/test_torch_int8_dynamic.py's): the s32 sums are exact and
   every float32 step keeps JAX's order.
-- The launch plans of the new CUDA routes replayed on the CPU.
+- The engine's launch plan held to the Pallas kernel itself: the dynamic
+  ``fused_mrf_ct`` at V2's L0 width replayed block by block on JAX's
+  jitted weights (tests/test_torch_dyn_engine.py replays every V2 int8
+  route against the plain versions).
 """
 import numpy as np
 import pytest
@@ -26,15 +29,19 @@ import jax.numpy as jnp
 
 from daft_exprt_tpu.ops import vocoder_kernels as jvk
 from daft_exprt_torch.ops import mrf_int8 as mi
-from daft_exprt_torch.ops import vocoder_kernels as vk
 
 from tests.test_torch_int8 import KS, DILS, _t, act_scales, unit_level
 from tests.test_torch_int8_dynamic import (
     _jax_ct_q8_weights, _jax_phase_q8_weights, _jp, _tp,
 )
-from tests.test_torch_int8_dynamic_plan import _emulate_dyn, _read
-from tests.test_torch_int8_plan import _emulate_q8_step, _nan_alloc
-from tests.torch_port_utils import max_abs, rel_l2
+from tests.test_torch_dyn_engine import _replay
+from tests.torch_port_utils import max_abs, one_torch_thread, rel_l2
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_thread():
+    with one_torch_thread():
+        yield
 
 
 @jax.jit
@@ -159,38 +166,22 @@ def test_mrf_phase_q8_noups_plain_matches_jax(mode):
         out.float().numpy(), ref)
 
 
-def test_phase_noups_launch_plan_replays_plain():
-    """The dynamic plan: word 0 the amax of x over each tile's window, then
-    the conv launches (NaN buffers)."""
-    C, p, tile = 32, 4, 64
-    rng, _, _, _, _, mrf = _level(C, 11, False)
-    T = 2 * tile * p
-    x = torch.from_numpy(_x(rng, C, T, tile * p)).bfloat16()
-    plan = mi._phase_noups_plan(x, mrf.chains, KS, DILS, p, tile, _nan_alloc)
-    assert len(plan.steps) == 18 and plan.tile == tile * p
-    assert plan.halo == mi.phase_chain_halo(KS, DILS, p) * p
-    plan.amax.zero_()
-    xv = mi.SegView(x, T * C, plan.tile * C, 0, 0, T, plan.tile)
-    for seg in range(plan.amax.shape[1]):
-        b, t = divmod(seg, plan.n_tiles)
-        win = _read(xv, b, t, -plan.halo, plan.tile + plan.halo, C)
-        plan.amax[0, seg] = vk._lrelu(win).abs().max()
-    for st in plan.steps:
-        _emulate_dyn(st, plan.amax, plan.n_tiles, C)
-    assert torch.isfinite(plan.out.float()).all()
-    assert torch.equal(plan.out, mi.mrf_phase_q8_noups_plain(x, mrf, p, tile))
-
-
-def test_ct_q8f_launch_plan_replays_plain():
-    C = 32
-    rng, _, _, _, _, mrf = _level(C, 12, True)
-    x = torch.from_numpy(_x(rng, C, 384, 128)).bfloat16()
-    steps, out = vk._tc_plan(x, mrf.chains, KS, DILS, _nan_alloc)
-    assert len(steps) == 9
-    for st in steps:
-        _emulate_q8_step(st)
-    assert torch.isfinite(out.float()).all()
-    assert torch.equal(out, mi.mrf_ct_q8f_plain(x, mrf))
+def test_ct_engine_replay_matches_jax():
+    """The dynamic fused_mrf_ct at V2's L0 width (C = 64) on the
+    segment-synchronised engine's plan, one launch a level, replayed block
+    by block on JAX's jitted weights, against JAX's Pallas kernel in
+    interpret mode: two utterances of three 256-sample tiles, one loud,
+    every sample equal."""
+    C, tile = 64, 256
+    rng, jp, jw, _, _, _ = _level(C, 21, False)
+    x = _x(rng, C, 3 * tile, tile)
+    ref = _jax_out(jvk.fused_mrf_ct(
+        jnp.asarray(x, jnp.bfloat16).transpose(0, 2, 1), jw, KS, DILS,
+        tile=tile, int8_chain=True, interpret=True))
+    mrf = mi.prepare_mrf_ct_q8(_t(_jax_ct_q8_weights(jw)), KS, DILS)
+    out = _replay(torch.from_numpy(x).bfloat16(), mrf, tile, 10)
+    assert out.shape == ref.shape
+    assert max_abs(out.float().numpy(), ref) == 0.0
 
 
 def test_int8_wrappers_run_plain_versions_on_cpu():
