@@ -97,6 +97,34 @@
      bf16 path.
    Each path checks its outputs' shape and finiteness and that every kernel
    of its path, and no other, was launched.
+   Then the audio front end (no kernel of its own: plain PyTorch on the
+   card, float32 matmuls without TF32, the pitch scores in float64):
+   - preprocess: a corpus under build/smoke/preprocess, 2 speakers x 4
+     utterances of 1.8-3 s (a pulse train at a seeded F0 through a
+     resonator, markers, .lab files, metadata.csv) through
+     extract_features(pitch_method='device') on the card, create_sets and
+     extract_features_stats; no kernel launched. Checks: every utterance
+     extracted (the count, so no silent skips), each file's durations sum
+     to its mel frames, the median voiced F0 within 8% of the known F0,
+     each .npy within max-abs 1e-3 of the port's CPU run of the same
+     corpus and .frames_f0 equal to it on >= 99% of lines;
+   - preprocess-batch: scripts/bench_preprocess.py's shape, B=32 x 11.9 s,
+     through MelExtractor.batched + frame_energy +
+     PitchTracker.batched_frame_f0; batched_frame_f0 must equal frame_f0
+     on every row. Prints each stage's host seconds (synchronised), the
+     Viterbi's share, the NCCF's time and its depthwise correlation's
+     (CUDA events) and the audio-seconds per second, each beside the
+     card's name and power limit;
+   - reference (accent conversion from audio): a seeded 3 s recording
+     through extract_reference_parameters(device='cuda') (the card's
+     pitch tracker), padded to a frame bucket as scripts/synthesize.py
+     does, model.encode_accent, the embedding tiled to B=8 as accent_emb,
+     then Synthesizer.infer and HiFiGanVocoder(fast='bf16').infer:
+     fused_attention (every FFT block: accent encoder, phoneme encoder,
+     frame decoder; counted), fused_mrf_tc and fused_mrf_phase. Checks:
+     the npz's lengths agree, the accent embedding within rel-L2 1e-2 of
+     the same call with the plain attention, the waveform finite and of
+     its shape.
    Then training, default HyperParams (4+4+4 FFT blocks, width 128, 2
    heads of 64, conv 1024, dropout 0.1, bf16 compute, all five loss terms
    with a seeded random PitchPredictor), seeded random weights:
@@ -151,12 +179,12 @@
    fused_mrf_ct and fused_mrf_phase_noups are their "float32" mode, main
    paths train-step-f32, tc-f32, fast-f32 and v2-fast-f32).
 5. Prints the end-to-end audio-seconds per second of the B=8 synthesis
-   paths and the train-step path's steps/s and utterances/s (host clock,
-   synchronised after each step).
+   paths and of preprocess-batch, and the train-step path's steps/s and
+   utterances/s (host clock, synchronised after each step).
 
 ``--profile`` adds a torch.profiler pass over one synthesis call of each
-B=8 tier, one generate_mel_specs call of each batch-1 path and one train
-step in bf16 and one in float32: device time by kernel, the acoustic/
+B=8 tier, one generate_mel_specs call of each batch-1 path, one
+preprocess-batch call and one train step in bf16 and one in float32: device time by kernel, the acoustic/
 vocoder (forward/backward/optimizer) split, the device's busy share and
 the attention kernels' share of the busy time.
 
@@ -196,6 +224,9 @@ TB, TL, TT = 16, 128, 1024   # bench_train_step.py's batch, symbols, frames
 TRAIN_STEPS = 5
 TRAIN_STEPS_F32 = 3          # train-step-f32: compute_dtype='float32'
 ATTN_LONG_F32 = (4, 2, 2500, 64, 0.1, 'float32')   # past the old T <= 2048
+PRE_SPEAKERS, PRE_UTTERANCES = 2, 4   # the preprocess path's corpus
+PRE_B, PRE_SECONDS = 32, 11.9         # scripts/bench_preprocess.py's shape
+REF_SECONDS = 3.0                     # the reference path's recording
 
 
 def log(*a):
@@ -312,6 +343,60 @@ def entry_inputs(hp, seed):
     stats = {'spk 0': {'energy': {'mean': 1.0, 'std': 1.5},
                        'pitch': {'mean': 5.0, 'std': 0.3}}}
     return sentences, prosody, stats
+
+
+def voice_like(rng, f0, n, begin, end, sr=22050):
+    """A pulse train at ``f0`` Hz over samples [begin, end) through a 500
+    Hz resonator (tests/test_frontend.py's voice-like audio), silence
+    around it, a little seeded noise on top; peak 1/1.3."""
+    from scipy.signal import lfilter
+    sig = np.zeros(n)
+    idx = np.arange(begin, end, sr / f0).astype(int)
+    sig[idx[idx < n]] = 1.0
+    y = lfilter([1.0], [1, -1.8 * np.cos(2 * np.pi * 500 / sr), 0.81], sig)
+    y = y / (np.abs(y).max() * 1.3) + 1e-4 * rng.randn(n)
+    return y.astype(np.float32)
+
+
+def write_preprocess_corpus(root, save_wav, seed=SEED, sr=22050):
+    """PRE_SPEAKERS x PRE_UTTERANCES utterances of 1.8-3 s under
+    ``root``/dataset, in the layout extract_features reads: wavs/*.wav,
+    align/*.markers ('hello world': HH OW1, a silence, W D, spread over
+    the voiced span) and *.lab, metadata.csv. Returns [(speaker, name,
+    F0 in Hz)]."""
+    rng = np.random.RandomState(seed)
+    frac = (0.0, 1 / 6, 1 / 3, 7 / 15, 11 / 15, 1.0)
+    phones = (('HH', 'hello', 0), ('OW1', 'hello', 0), ('SIL', '<sil>', 1),
+              ('W', 'world', 2), ('D', 'world', 2))
+    corpus = []
+    for s in range(PRE_SPEAKERS):
+        spk = f'speaker_{s}'
+        for sub in ('wavs', 'align'):
+            os.makedirs(os.path.join(root, 'dataset', spk, sub))
+        meta = []
+        for u in range(PRE_UTTERANCES):
+            name, f0 = f'utt_{u}', float(rng.uniform(100.0, 250.0))
+            dur = rng.uniform(1.8, 3.0)
+            begin, end = 0.2, dur - 0.1
+            n = int(dur * sr)
+            save_wav(os.path.join(root, 'dataset', spk, 'wavs',
+                                  f'{name}.wav'),
+                     voice_like(rng, f0, n, int(begin * sr), int(end * sr)),
+                     sr)
+            t = [begin + f * (end - begin) for f in frac]
+            with open(os.path.join(root, 'dataset', spk, 'align',
+                                   f'{name}.markers'), 'w') as f:
+                f.writelines(f'{t[i]:.3f}\t{t[i + 1]:.3f}\t{p}\t{w}\t{wi}\n'
+                             for i, (p, w, wi) in enumerate(phones))
+            with open(os.path.join(root, 'dataset', spk, 'align',
+                                   f'{name}.lab'), 'w') as f:
+                f.write('hello world')
+            meta.append(f'{name}|hello world\n')
+            corpus.append((spk, name, f0))
+        with open(os.path.join(root, 'dataset', spk, 'metadata.csv'),
+                  'w') as f:
+            f.writelines(meta)
+    return corpus
 
 
 def rel_l2(a, b):
@@ -1413,6 +1498,231 @@ def main():
             f'hx={pl.hx} ({pl.n_blocks} blocks an utterance)')
     del packed_f32, mel_f32, wav_32
 
+    # ---- 3a. the audio front end ------------------------------------------
+    # preprocess: a corpus through extract_features on the card, then the
+    # set lists and the stats; the same corpus on the port's CPU route
+    from daft_exprt_torch.data.sets import (
+        create_sets, extract_features_stats, save_stats,
+    )
+    from daft_exprt_torch.frontend.audio import save_wav
+    from daft_exprt_torch.frontend.extract_features import extract_features
+    from daft_exprt_torch.frontend.pitch import extract_pitch
+    from daft_exprt_torch.generate import (
+        _round_to_bucket, extract_reference_parameters,
+    )
+    from daft_exprt_torch.ops.mel import MelExtractor, frame_energy
+    from daft_exprt_torch.ops.pitch import PitchTracker, _nccf, _viterbi
+
+    pre_root = os.path.join(ROOT, 'build', 'smoke', 'preprocess')
+    shutil.rmtree(pre_root, ignore_errors=True)
+    corpus = write_preprocess_corpus(pre_root, save_wav)
+    dataset = os.path.join(pre_root, 'dataset')
+    speakers = sorted({spk for spk, _, _ in corpus})
+
+    def pre_hp(tag):
+        lists = os.path.join(pre_root, tag, 'lists')
+        return HyperParams(verbose=False, language='english',
+                           speakers=speakers,
+                           training_files=os.path.join(lists, 'train.txt'),
+                           validation_files=os.path.join(lists, 'val.txt'),
+                           output_directory=os.path.join(pre_root, tag))
+
+    def preprocess(tag, device=None):
+        hp_p = pre_hp(tag)
+        feats = os.path.join(pre_root, tag, 'features')
+        got = extract_features(dataset, feats, hp_p, pitch_method='device',
+                               device=device)
+        create_sets(feats, hp_p)
+        return got, save_stats(extract_features_stats(hp_p),
+                               hp_p.output_directory)
+
+    got, stats_path = run_path('preprocess', lambda: preprocess('card'), ())
+    got_cpu, _ = preprocess('cpu', device='cpu')
+    n_done = sum(len(v) for v in got.values())
+    assert n_done == len(corpus) == sum(len(v) for v in got_cpu.values()), \
+        (got, got_cpu)
+    with open(stats_path) as f:
+        pre_stats = json.load(f)
+    assert all(math.isfinite(v[k]['mean']) and v[k]['std'] > 0
+               for spk, v in pre_stats.items() if spk != 'symbols'
+               for k in ('energy', 'pitch')), pre_stats
+    with open(pre_hp('card').training_files) as f_t, \
+            open(pre_hp('card').validation_files) as f_v:
+        n_lists = (len(f_t.readlines()), len(f_v.readlines()))
+    assert sum(n_lists) == len(corpus) and n_lists[1] == len(speakers)
+    worst_mel, f0_agree, f0_dev = 0.0, [], []
+    for spk, name, f0 in corpus:
+        card = os.path.join(pre_root, 'card', 'features', spk, name)
+        cpu = os.path.join(pre_root, 'cpu', 'features', spk, name)
+        mel_c, mel_h = np.load(f'{card}.npy'), np.load(f'{cpu}.npy')
+        assert mel_c.shape == mel_h.shape and np.isfinite(mel_c).all()
+        worst_mel = max(worst_mel, float(np.abs(mel_c - mel_h).max()))
+        with open(f'{card}.markers') as f:
+            durs = [int(line.split('\t')[2]) for line in f]
+        assert sum(durs) == mel_c.shape[1], (name, sum(durs), mel_c.shape)
+        with open(f'{card}.frames_f0') as f_c, open(f'{cpu}.frames_f0') as f_h:
+            lc, lh = f_c.read().split(), f_h.read().split()
+        assert len(lc) == len(lh) == mel_c.shape[1]
+        f0_agree.append(np.mean([a == b for a, b in zip(lc, lh)]))
+        track = np.array([float(v) for v in lc])
+        f0_dev.append(abs(np.exp(np.median(track[track > 0])) - f0) / f0)
+    log(f'path preprocess: {n_done}/{len(corpus)} utterances extracted on '
+        f'the card, sets {n_lists[0]} train / {n_lists[1]} validation; card '
+        f'vs CPU: log-mel max-abs {worst_mel:.3e} (band 1e-3), frames_f0 '
+        f'lines equal {min(f0_agree):.4f} at worst (band 0.99); median '
+        f'voiced F0 vs the known F0 {max(f0_dev):.4f} at worst (band 0.08)')
+    assert worst_mel <= 1e-3 and min(f0_agree) >= 0.99 and \
+        max(f0_dev) <= 0.08, (worst_mel, f0_agree, f0_dev)
+
+    # scripts/bench_preprocess.py's shape: B = 32 x 11.9 s through
+    # MelExtractor.batched + frame_energy + PitchTracker.batched_frame_f0
+    rng_p = np.random.RandomState(SEED)
+    n_pre = int(PRE_SECONDS * hp.sampling_rate)
+    t_pre = np.arange(n_pre) / hp.sampling_rate
+    wavs_pre = (0.3 * np.sin(2 * np.pi * rng_p.uniform(100, 300, (PRE_B, 1))
+                             * t_pre[None, :])
+                + 0.02 * rng_p.randn(PRE_B, n_pre)).astype(np.float32)
+    mel_ex, tracker = MelExtractor(hp), PitchTracker(hp)
+    w_pre = torch.from_numpy(wavs_pre).to(dev)
+
+    def features(ranges=False):
+        with _range(torch, 'mel', ranges):
+            mel_b = mel_ex.batched(list(wavs_pre))
+        with _range(torch, 'energy', ranges):
+            nrg_b = frame_energy(mel_b)
+        with _range(torch, 'pitch', ranges):
+            f0_b = tracker.batched_frame_f0(w_pre)
+        return mel_b, nrg_b, f0_b
+
+    mel_b, nrg_b, f0_b = run_path('preprocess-batch', features, ())
+    n_f = tracker.n_frames(n_pre)
+    total = -(-(n_pre + 2 * mel_ex.pad) // mel_ex.bucket) * mel_ex.bucket
+    assert mel_b.shape == (PRE_B, hp.n_mel_channels,
+                           1 + (total - mel_ex.n_fft) // mel_ex.hop)
+    assert nrg_b.shape == (PRE_B, mel_b.shape[-1])
+    assert f0_b.shape == (PRE_B, n_f) and torch.isfinite(mel_b).all()
+    for i in range(PRE_B):
+        assert np.array_equal(f0_b[i].cpu().numpy(),
+                              tracker.frame_f0(wavs_pre[i])), \
+            f'batched_frame_f0 row {i} differs from frame_f0'
+    log(f'path preprocess-batch: batched_frame_f0 equals frame_f0 on all '
+        f'{PRE_B} rows ({n_f} frames each); voiced '
+        f'{float((f0_b > 0).float().mean()):.4f}')
+
+    def timed(fn):
+        """``fn()`` and its host seconds, synchronised before and after."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    stage_s = {}
+    _, stage_s['mel'] = timed(lambda: mel_ex.batched(list(wavs_pre)))
+    _, stage_s['energy'] = timed(lambda: frame_energy(mel_b))
+    prep, stage_s['highpass'] = timed(lambda: tracker._prepare(w_pre))
+    scores, stage_s['nccf'] = timed(lambda: tracker._scores(*prep))
+    _, stage_s['viterbi'] = timed(lambda: _viterbi(
+        scores[0], tracker.log_lags, tracker.uv_cost, tracker.n_lags,
+        local_uv=scores[1]))
+    del prep, scores
+    _, pre_s = timed(features)
+    # the NCCF's depthwise correlation alone (B x F groups, float64)
+    x_pre = tracker._prepare(w_pre)[0]
+    G = PRE_B * n_f
+    idx_p = (torch.arange(n_f, device=dev)[:, None] * tracker.frame_step
+             + torch.arange(tracker.win + tracker.max_lag + 1,
+                            device=dev)[None, :])
+    ext_p = x_pre[:, idx_p].reshape(1, G, -1)
+    frames_p = ext_p[0, :, :tracker.win].reshape(G, 1, tracker.win)
+    conv_ms = time_ms(torch, lambda: F.conv1d(ext_p, frames_p, groups=G),
+                      warmup=1, iters=3)
+    nccf_ms = time_ms(torch, lambda: _nccf(
+        x_pre, tracker.frame_step, tracker.win, tracker.min_lag,
+        tracker.max_lag, n_f, 0.0), warmup=1, iters=3)
+    del x_pre, ext_p, frames_p
+    pre_audio_s = PRE_B * n_pre / hp.sampling_rate
+    total_stage = sum(stage_s.values())
+    log(f'path preprocess-batch: stages (host s, synchronised) ' + ', '.join(
+        f'{k} {v:.4f}' for k, v in stage_s.items()) + f'; Viterbi '
+        f'{stage_s["viterbi"] / total_stage:.4f} of {total_stage:.4f} s '
+        f'({n_f - 1} frames, {(n_f - 1) / stage_s["viterbi"]:.0f} '
+        f'frames/s); NCCF {nccf_ms:.4f} ms (events), its depthwise '
+        f'correlation alone {conv_ms:.4f} ms over {G} groups '
+        f'[{smi.splitlines()[0]}]')
+    log(f'path preprocess-batch: {pre_audio_s:.2f} audio-s in {pre_s:.4f} s: '
+        f'{pre_audio_s / pre_s:.2f} audio-s/s (host clock, synchronised) '
+        f'[{smi.splitlines()[0]}]')
+
+    # reference: accent conversion from a recording
+    ref_root = os.path.join(ROOT, 'build', 'smoke', 'reference')
+    shutil.rmtree(ref_root, ignore_errors=True)
+    os.makedirs(ref_root)
+    rng_r = np.random.RandomState(SEED + 3)
+    n_ref = int(REF_SECONDS * hp.sampling_rate)
+    ref_wav = os.path.join(ref_root, 'reference.wav')
+    save_wav(ref_wav, voice_like(rng_r, float(rng_r.uniform(100.0, 250.0)),
+                                 n_ref, int(0.1 * hp.sampling_rate),
+                                 n_ref - int(0.1 * hp.sampling_rate)),
+             hp.sampling_rate)
+    acc_attn = [m for m in model.accent_encoder.modules()
+                if isinstance(m, MultiHeadSelfAttention)]
+
+    def reference_inputs(npz):
+        """The npz padded to a frame bucket as scripts/synthesize.py does."""
+        ref = np.load(npz)
+        T_r = min(ref['mel_spec'].shape[1], len(ref['energy']),
+                  len(ref['pitch']))
+        T_p = _round_to_bucket(T_r, hp.frame_buckets)
+
+        def pad_t(x):
+            return torch.as_tensor(np.pad(x[:T_r], (0, T_p - T_r))[None],
+                                   dtype=torch.float32, device=dev)
+        mel_p = np.full((1, ref['mel_spec'].shape[0], T_p), np.log(1e-5),
+                        dtype=np.float32)
+        mel_p[0, :, :T_r] = ref['mel_spec'][:, :T_r]
+        return ref, (pad_t(ref['energy']), pad_t(ref['pitch']),
+                     torch.as_tensor(mel_p, device=dev),
+                     torch.tensor([T_r], device=dev))
+
+    def encode(inputs):
+        with torch.no_grad():
+            return model.encode_accent(*inputs).float()
+
+    def reference_path():
+        npz = extract_reference_parameters(
+            ref_wav, ref_root, hp, device='cuda',
+            pitch_extractor=lambda w, sr, h: extract_pitch(
+                w, sr, h, method='device', device='cuda'))
+        ref, inputs = reference_inputs(npz)
+        emb_r = encode(inputs)
+        mel_r, _, _ = synth.infer(**dict(
+            batch, accent_emb=np.tile(emb_r.cpu().numpy(), (B, 1))))
+        return ref, inputs, emb_r, mel_r, vocoder.infer(mel_r)
+
+    ref, ref_in, emb_r, mel_r, wav_r = run_path('reference', reference_path,
+                                                kernels[:3])
+    n_blocks = sum(getattr(hp, m)['nb_blocks'] for m in (
+        'accent_encoder', 'phoneme_encoder', 'frame_decoder'))
+    assert paths[-1][1]['fused_attention'] == n_blocks, paths[-1][1]
+    assert len(ref['energy']) == len(ref['pitch']) == \
+        ref['mel_spec'].shape[1], {k: ref[k].shape for k in ref.files}
+    for m in acc_attn:
+        m.fused = False
+    n0 = fused_attention.launches
+    emb_plain = encode(ref_in)
+    assert fused_attention.launches == n0, 'the plain call used the kernel'
+    for m in acc_attn:
+        m.fused = True
+    r_emb = rel_l2(emb_r, emb_plain)
+    check_b8('reference', mel_r, wav_r)
+    log(f'path reference: {ref["mel_spec"].shape[1]} frames of '
+        f'{REF_SECONDS} s (voiced {float(np.mean(ref["pitch"] > 0)):.3f}), '
+        f'padded to {ref_in[2].shape[-1]}; accent embedding vs the plain '
+        f'attention rel_l2={r_emb:.3e} (band 1e-2); waveform {wav_r.shape}')
+    assert r_emb <= 1e-2, r_emb
+    del mel_b, nrg_b, f0_b, mel_r, wav_r
+
     # ---- 3b. training ------------------------------------------------------
     attn_kernels = (fused_attention, fused_attention_bwd)
     hp_t = HyperParams(verbose=False, training_files='unused',
@@ -1734,6 +2044,10 @@ def main():
         log(f'end to end {tier}: {e2e:.3f} s for {audio_s:.2f} audio-s at '
             f'B={B}: {audio_s / e2e:.1f} audio-s/s (host clock, '
             'synchronized)')
+    _, pre_s = timed(features)
+    log(f'end to end preprocess-batch: {pre_s:.4f} s for {pre_audio_s:.2f} '
+        f'audio-s at B={PRE_B}: {pre_audio_s / pre_s:.2f} audio-s/s (host '
+        f'clock, synchronized) [{smi.splitlines()[0]}]')
     log(f'end to end train-step: {per_step:.4f} s/step (median of steps '
         f'2-{TRAIN_STEPS}) at B={TB}, L={TL}, T={TT}: {1 / per_step:.3f} '
         f'steps/s, {TB / per_step:.2f} utterances/s (host clock, '
@@ -1750,6 +2064,8 @@ def main():
         profile_path(torch, synthesize_v2_uf, 'v2-int8-unfused')
         for tier, fn in entry_fns.items():
             profile_path(torch, fn, tier)
+        profile_path(torch, features, 'preprocess-batch',
+                     ranges=('mel', 'energy', 'pitch'))
         tmodel = DaftExprt.from_hparams(hp_t, seed=SEED).train()
         step = make_train_step(tmodel, make_optimizer(tmodel, hp_t), loss_cfg,
                                pitch_pp)

@@ -3,9 +3,12 @@
 The port runs on an NVIDIA Hopper card (H100): the serving entry point
 (``generate.py``), the acoustic model's inference and training forward
 (``models/daft_exprt.py``), its training (``train.py``: one process on
-one card) and the HiFi-GAN V1 generator in its float32, bf16, int8-static
-and int8-dynamic tiers (``models/hifigan.py``), with the Pallas kernels of
-the JAX package replaced by hand-written CUDA kernels (``ops/csrc``).
+one card), the HiFi-GAN V1 and V2 generators in their float32, bf16,
+int8-static and int8-dynamic tiers (``models/hifigan.py``), and the audio
+front end (log-mel, energy and pitch extraction, corpus pre-processing,
+reference recordings for accent conversion, Griffin-Lim), with the Pallas
+kernels of the JAX package replaced by hand-written CUDA kernels
+(``ops/csrc``).
 
 It imports ``torch`` and numpy only: never ``jax``, ``flax`` or anything of
 ``daft_exprt_tpu``. Every entry point takes ``device=`` and defaults to
@@ -16,18 +19,23 @@ Layout:
     text/      symbol table (copy of the JAX package's)
     hparams.py config system (copy of the JAX package's)
     bridge.py  JAX param pytrees (as numpy) -> torch state dicts
-    frontend/  duration quantization and WAV writing (copies)
-    data/      dataset, collation, iterators, dynamic speaker stats (copies)
+    frontend/  WAV I/O, duration quantization, markers (copies); pitch
+               extraction (native binary or the card's tracker), feature
+               extraction driver, Griffin-Lim
+    data/      dataset, collation, iterators, dynamic speaker stats, set
+               lists and feature stats (copies)
     utils/     chunker, plot_2d_data (copies), TensorBoard logger
     ops/       CUDA kernels (csrc/), their build step and PyTorch wrappers;
-               gradient reversal
+               gradient reversal; log-mel (mel.py) and the NCCF + Viterbi
+               pitch tracker (pitch.py), plain PyTorch on the card
     models/    acoustic model, frozen pitch predictor, HiFi-GAN generator
     loss.py    the five-term training loss
     parallel/  train and eval steps (one device), LR schedule, optimizer
-    checkpoint.py  torch-native checkpoints (weights_only loads)
+    checkpoint.py  torch-native checkpoints (weights_only loads); the
+               reference implementation's .pt checkpoints
     train.py   training driver: train, validate, resume
     generate.py  synthesis entry point: prosody transforms, bucketed
-               Synthesizer, generate_mel_specs
+               Synthesizer, generate_mel_specs, extract_reference_parameters
 """
 
 __version__ = '0.1.0'

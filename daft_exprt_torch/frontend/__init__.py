@@ -1,2 +1,3 @@
-"""Host-side front end pieces the port's synthesis entry point needs
-(numpy and scipy copies of the JAX package's ``frontend`` modules)."""
+"""The audio front end: WAV I/O, duration quantization and markers (numpy
+and scipy copies of the JAX package's ``frontend`` modules), pitch
+extraction, the feature-extraction driver and Griffin-Lim."""

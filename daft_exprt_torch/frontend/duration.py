@@ -1,5 +1,6 @@
 """Phoneme float-duration -> integer mel-frame duration quantization (copy
-of ``daft_exprt_tpu/frontend/duration.py``'s ``duration_to_integer``).
+of ``daft_exprt_tpu/frontend/duration.py``: ``get_min_phone_duration``,
+``duration_to_integer``).
 
 Each phone's frame count is the number of analysis-window centers
 p_i = filter_length/2 + hop*i strictly after its begin sample and at/before
@@ -7,6 +8,17 @@ its end sample, plus the HiFi-GAN edge-padding distribution for
 center=False ((filter_length-hop)/hop extra frames split 1-left/2-right for
 1024/256) and the centered variant.
 """
+
+
+def get_min_phone_duration(lines, min_phone_dur=1000.0):
+    """Shortest phone duration in a .markers line list (tab-separated
+    begin/end)."""
+    for line in lines:
+        parts = line.strip().split(sep='\t')
+        begin, end = float(parts[0]), float(parts[1])
+        if end - begin < min_phone_dur:
+            min_phone_dur = end - begin
+    return min_phone_dur
 
 
 def duration_to_integer(float_durations, hparams, nb_samples=None):

@@ -1,11 +1,14 @@
 """Synthesis entry point (PyTorch port of ``daft_exprt_tpu/generate.py``):
 external symbol prosody -> host prosody transforms -> ``Synthesizer``
 (acoustic model on bucket-padded batches) -> vocoder -> outputs, with the
-RTF accounting of ``generate_mel_specs``.
+RTF accounting of ``generate_mel_specs``; and
+``extract_reference_parameters``, a reference recording's energy, pitch and
+mel for accent conditioning, extracted on the card.
 
 The prosody transforms run on the host in numpy, exactly as the JAX
 package runs them; the models run on the device the caller built them on.
 """
+import functools
 import logging
 import os
 import time
@@ -13,8 +16,11 @@ import time
 import numpy as np
 import torch
 
-from daft_exprt_torch.frontend.audio import save_wav
+from daft_exprt_torch.device import resolve_device
+from daft_exprt_torch.frontend.audio import load_wav, save_wav
 from daft_exprt_torch.frontend.duration import duration_to_integer
+from daft_exprt_torch.frontend.pitch import extract_pitch
+from daft_exprt_torch.ops.mel import MelExtractor
 from daft_exprt_torch.utils import chunker, plot_2d_data
 
 _logger = logging.getLogger(__name__)
@@ -416,3 +422,30 @@ def generate_mel_specs(synthesizer, sentences, file_names, speaker_ids,
         _logger.info(f'DaftExprt RTF: {total_audio / max(total_time, 1e-9):.2f}')
         predictions['__rtf__'] = total_audio / max(total_time, 1e-9)
     return predictions
+
+
+def extract_reference_parameters(audio_ref, output_dir, hparams,
+                                 ref_name=None, pitch_extractor=None,
+                                 device=None):
+    """Audio -> {energy, pitch, mel_spec} npz for reference conditioning,
+    returns its path (an existing npz is kept). Mel and energy run on
+    ``device`` (default cuda; raises without CUDA unless ``device='cpu'``);
+    ``pitch_extractor(wav, fs, hparams)`` defaults to ``extract_pitch``
+    ('auto': the native tracker if built, else the card's)."""
+    dev = resolve_device(device)
+    os.makedirs(output_dir, exist_ok=True)
+    file_name = ref_name if ref_name is not None else \
+        os.path.basename(audio_ref).replace('.wav', '')
+    ref_file = os.path.join(output_dir, f'{file_name}.npz')
+    if os.path.isfile(ref_file):
+        return ref_file
+    wav, fs = load_wav(audio_ref, target_sr=hparams.sampling_rate)
+    if pitch_extractor is None:
+        pitch_extractor = functools.partial(extract_pitch, device=dev)
+    pitch = pitch_extractor(wav, fs, hparams)
+    mel_spec, energy = MelExtractor(hparams, device=dev).with_energy(wav)
+    min_len = min(len(pitch), len(energy), mel_spec.shape[1])
+    pitch, energy = pitch[:min_len], energy[:min_len]
+    mel_spec = mel_spec[:, :min_len]
+    np.savez(ref_file, energy=energy, pitch=pitch, mel_spec=mel_spec)
+    return ref_file

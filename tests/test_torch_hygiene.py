@@ -1,11 +1,15 @@
 """The port stands alone: no JAX, flax, optax or daft_exprt_tpu import in
-daft_exprt_torch/ or chip_smoke.py; the package imports with JAX blocked;
-entry points default to CUDA and raise without it unless given 'cpu'."""
+daft_exprt_torch/ or chip_smoke.py; the package imports with JAX blocked
+(every module of the audio front end too); entry points default to CUDA
+and raise without it unless given 'cpu' (the feature extractors, the
+pitch tracker, Griffin-Lim and extract_reference_parameters too, before
+they touch a file)."""
 import ast
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -57,6 +61,14 @@ def test_port_imports_with_jax_blocked():
         'import daft_exprt_torch.parallel.train_step\n'
         'import daft_exprt_torch.models.pitch_predictor\n'
         'import daft_exprt_torch.utils.logger, daft_exprt_torch.ops.grl\n'
+        'import daft_exprt_torch.ops.mel, daft_exprt_torch.ops.pitch\n'
+        'import daft_exprt_torch.frontend.audio\n'
+        'import daft_exprt_torch.frontend.duration\n'
+        'import daft_exprt_torch.frontend.markers\n'
+        'import daft_exprt_torch.frontend.pitch\n'
+        'import daft_exprt_torch.frontend.extract_features\n'
+        'import daft_exprt_torch.frontend.griffin_lim\n'
+        'import daft_exprt_torch.data.sets\n'
         'assert not any(m.split(".")[0] in %r for m in sys.modules)\n'
         'print("ok")\n' % (FORBIDDEN,))
     res = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
@@ -74,6 +86,14 @@ def test_entry_points_default_to_cuda():
     from daft_exprt_torch.models.hifigan import (
         HiFiGanVocoder, init_generator_params,
     )
+    from daft_exprt_torch.frontend.extract_features import extract_features
+    from daft_exprt_torch.frontend.griffin_lim import (
+        griffin_lim_reconstruction_from_mel_spec,
+    )
+    from daft_exprt_torch.frontend.pitch import extract_pitch
+    from daft_exprt_torch.generate import extract_reference_parameters
+    from daft_exprt_torch.ops.mel import MelExtractor, frame_energy
+    from daft_exprt_torch.ops.pitch import PitchTracker
     from daft_exprt_torch.train import train
     hp = HyperParams(verbose=False, training_files='x', validation_files='x',
                      output_directory='/nonexistent', language='english',
@@ -83,7 +103,17 @@ def test_entry_points_default_to_cuda():
                  lambda: DaftExprt.from_hparams(hp),
                  lambda: train(hp),
                  lambda: init_generator_params(0),
-                 lambda: HiFiGanVocoder({}, fast='bf16')):
+                 lambda: HiFiGanVocoder({}, fast='bf16'),
+                 lambda: MelExtractor(hp),
+                 lambda: frame_energy(np.zeros((80, 4), np.float32)),
+                 lambda: PitchTracker(hp),
+                 lambda: extract_pitch(np.zeros(4000, np.float32), 22050, hp,
+                                       method='device'),
+                 lambda: extract_features('/nonexistent', '/nonexistent', hp),
+                 lambda: extract_reference_parameters(
+                     '/nonexistent/ref.wav', '/nonexistent', hp),
+                 lambda: griffin_lim_reconstruction_from_mel_spec(
+                     np.zeros((80, 4), np.float32), hp)):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()
     assert resolve_device('cpu') == torch.device('cpu')
