@@ -107,7 +107,10 @@
      extracted (the count, so no silent skips), each file's durations sum
      to its mel frames, the median voiced F0 within 8% of the known F0,
      each .npy within max-abs 1e-3 of the port's CPU run of the same
-     corpus and .frames_f0 equal to it on >= 99% of lines;
+     corpus and .frames_f0 equal to it on >= 99% of lines; the corpus's
+     markers written as Montreal Forced Aligner TextGrids and read back
+     through frontend/mfa.extract_markers(n_jobs=2) must give the same
+     .markers;
    - preprocess-batch: scripts/bench_preprocess.py's shape, B=32 x 11.9 s,
      through MelExtractor.batched + frame_energy +
      PitchTracker.batched_frame_f0; batched_frame_f0 must equal frame_f0
@@ -125,6 +128,43 @@
      the npz's lengths agree, the accent embedding within rel-L2 1e-2 of
      the same call with the plain attention, the waveform finite and of
      its shape.
+   Then vocoder GAN fine-tuning and the text front end (no kernel of their
+   own: the GAN steps run the plain generator and cuDNN's convs):
+   - finetune-dataset: fine_tuning(params=a seeded random acoustic state,
+     device='cuda') over preprocess's features (all 8 utterances in one
+     list, batch 4; seeded stand-ins for the external ECAPA embeddings):
+     8/8 pairs and no skip counted, each .wav the marker crop of its
+     corpus wav, fused_attention 12 launches a batch and no vocoder
+     kernel; then the same call with the plain attention (its .npy rel-L2
+     printed: in bf16, one ulp of an attention output moves a random
+     model's mel as much as bf16 rounding does) and both again in float32
+     (the float32 kernels): each .npy within rel-L2 1e-2;
+   - gan-step (scripts/bench_gan_step.py's shape): make_gan_steps on the
+     V1 generator at full width (DEFAULT_CONFIG), MPD + MSD, B=16 x 8192
+     samples, seeded random weights, five iterations (d_step + g_step) in
+     float32, then five in bf16, TF32 as train.py (cuDNN's default for
+     float32 convs; the matmuls and the loss mel without); prints the
+     median s/iteration of iterations 2-5 and the segments/s. Checks:
+     every loss finite, parameters and optimizer states float32, scale_0's
+     power-iteration state moved, no hand-written kernel launched, the
+     first bf16 iteration's losses within |a - b| < 0.1 max(|a|, 1) of the
+     float32 ones, and the first float32 iteration on the card (TF32 off)
+     against the port's CPU run of it at B=2 x 8192: d_loss rel <= 1e-4,
+     g_loss and mel_l1 rel <= 1e-3;
+   - finetune: the finetune() entry point on finetune-dataset's speaker_0
+     pairs at full V1 width, batch 2, 'utt_0' held out, 4 steps,
+     checkpoints at 2 and 4 (each reloaded), a finite validation mel L1;
+     then the generator of g_00000004 through HiFiGanVocoder(fast='bf16')
+     on one mel: fused_mrf_tc 6 and fused_mrf_phase 2 launches, the
+     waveform within rel-L2 5e-2 of the float32 plain route;
+   - text: a sentences file (numbers, a year, dollar amounts, ordinals,
+     'Dr.', mixed punctuation) through prepare_sentences_for_inference
+     with an MFA-style dictionary of every word under a home of the smoke's
+     own, at n_jobs 2 and 1 (equal files, no <unk>, an 'mfa' on PATH never
+     called), then generate_mel_specs(batch_size=1) with the int8-static
+     vocoder on seeded prosody per symbol: fused_attention 8 a sentence,
+     the narrow levels' fused_mrf_phase_q8 4 a sentence, each waveform
+     within rel-L2 1e-2 of the plain int8 route.
    Then training, default HyperParams (4+4+4 FFT blocks, width 128, 2
    heads of 64, conv 1024, dropout 0.1, bf16 compute, all five loss terms
    with a seeded random PitchPredictor), seeded random weights:
@@ -179,14 +219,16 @@
    fused_mrf_ct and fused_mrf_phase_noups are their "float32" mode, main
    paths train-step-f32, tc-f32, fast-f32 and v2-fast-f32).
 5. Prints the end-to-end audio-seconds per second of the B=8 synthesis
-   paths and of preprocess-batch, and the train-step path's steps/s and
-   utterances/s (host clock, synchronised after each step).
+   paths and of preprocess-batch, the train-step path's steps/s and
+   utterances/s and the gan-step path's s/iteration and segments/s (host
+   clock, synchronised after each step).
 
 ``--profile`` adds a torch.profiler pass over one synthesis call of each
 B=8 tier, one generate_mel_specs call of each batch-1 path, one
-preprocess-batch call and one train step in bf16 and one in float32: device time by kernel, the acoustic/
-vocoder (forward/backward/optimizer) split, the device's busy share and
-the attention kernels' share of the busy time.
+preprocess-batch call, one train step in bf16 and one in float32, and one
+GAN iteration in each: device time by kernel and kernel family, the
+acoustic/vocoder (forward/backward/optimizer, d_step/g_step) split, the
+device's busy share and the attention kernels' share of the busy time.
 
 The float32 calls of fused_mrf_ct at V2's L0 and L3 shapes are held to
 their plain version at rel-L2 <= 1e-5 before the paths run, one launch a
@@ -200,6 +242,7 @@ is {"ok": true, "device": {...}}.
 """
 import contextlib
 import json
+import logging
 import math
 import os
 import subprocess
@@ -227,6 +270,16 @@ ATTN_LONG_F32 = (4, 2, 2500, 64, 0.1, 'float32')   # past the old T <= 2048
 PRE_SPEAKERS, PRE_UTTERANCES = 2, 4   # the preprocess path's corpus
 PRE_B, PRE_SECONDS = 32, 11.9         # scripts/bench_preprocess.py's shape
 REF_SECONDS = 3.0                     # the reference path's recording
+FT_B = 4                              # finetune-dataset's batch
+GAN_B, GAN_SEG = 16, 8192             # bench_gan_step.py's batch, samples
+GAN_ITERS = 5                         # gan-step: iterations a dtype
+GAN_CPU_B = 2                         # gan-step's card-vs-CPU check
+FT_STEPS = 4                          # the finetune path's steps
+TEXT_SENTENCES = (
+    'Dr. Smith paid $5.50 for 3 books in 1984!',
+    'On the 2nd of May, it rained -- a lot; really?',
+    'Wait... what?! The 21st "test" costs $1,250.',
+)
 
 
 def log(*a):
@@ -397,6 +450,47 @@ def write_preprocess_corpus(root, save_wav, seed=SEED, sr=22050):
                   'w') as f:
             f.writelines(meta)
     return corpus
+
+
+def markers_to_textgrid(rows, xmax):
+    """A Montreal Forced Aligner TextGrid (long text format) of ``.markers``
+    rows [begin, end, phone, word, word index]: a words tier (the silent
+    word '<sil>' as MFA's '') and a phones tier ('SIL' as MFA's 'sil')."""
+    words = []
+    for b, e, phone, word, idx in rows:
+        if words and words[-1][3] == idx:
+            words[-1][1] = e
+        else:
+            words.append([b, e, '' if word == '<sil>' else word, idx])
+    phones = [(b, e, 'sil' if p == 'SIL' else p) for b, e, p, _, _ in rows]
+    out = ['File type = "ooTextFile"', 'Object class = "TextGrid"', '',
+           'xmin = 0', f'xmax = {xmax}', 'tiers? <exists>', 'size = 2',
+           'item []:']
+    for i, (name, tier) in enumerate((('words', [w[:3] for w in words]),
+                                      ('phones', phones)), 1):
+        out += [f'    item [{i}]:', '        class = "IntervalTier"',
+                f'        name = "{name}"', '        xmin = 0',
+                f'        xmax = {xmax}',
+                f'        intervals: size = {len(tier)}']
+        for j, (b, e, text) in enumerate(tier, 1):
+            out += [f'        intervals [{j}]:', f'            xmin = {b}',
+                    f'            xmax = {e}', f'            text = "{text}"']
+    return '\n'.join(out) + '\n'
+
+
+def write_mfa_dictionary(path, sentences, cleaner, phones, seed=SEED):
+    """An MFA-style dictionary: one pronunciation (1-5 phones) for every
+    word of ``sentences`` after ``cleaner``. Returns the words."""
+    import re
+    rng = np.random.RandomState(seed)
+    words = sorted({w for s in sentences for w in re.findall(
+        r"[\w']+", cleaner(s)) if re.search('[a-z]', w)})
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, 'w', encoding='utf-8') as f:
+        for w in words:
+            f.write(f'{w}\t{" ".join(rng.choice(phones, rng.randint(1, 6)))}'
+                    '\n')
+    return words
 
 
 def rel_l2(a, b):
@@ -943,7 +1037,8 @@ def profile_path(torch, synthesize, tier, ranges=('acoustic', 'vocoder')):
                               'mrf::bfe::tc_bf_kernel',
                               'mrf::ct::ct_kernel', 'mrf::amax_kernel',
                               'attn::bwd',
-                              'attn::', 'Memcpy')
+                              'attn::', 'fprop', 'dgrad', 'wgrad', 'gemm',
+                              'elementwise', 'reduce', 'Memcpy')
                   if p in e.key), 'other')
         groups[g] = groups.get(g, 0.0) + dev_us(e)
     log(f'profile {tier} groups: ' + ', '.join(
@@ -1573,6 +1668,27 @@ def main():
         f'voiced F0 vs the known F0 {max(f0_dev):.4f} at worst (band 0.08)')
     assert worst_mel <= 1e-3 and min(f0_agree) >= 0.99 and \
         max(f0_dev) <= 0.08, (worst_mel, f0_agree, f0_dev)
+    # the corpus's alignments as the aligner's TextGrids, read back through
+    # frontend/mfa.extract_markers: the .markers the corpus was written with
+    from daft_exprt_torch.frontend.mfa import extract_markers
+    grid_root = os.path.join(pre_root, 'textgrid')
+    for spk, name, _ in corpus:
+        with open(os.path.join(dataset, spk, 'align',
+                               f'{name}.markers')) as f:
+            rows = [line.rstrip('\n').split('\t') for line in f]
+        os.makedirs(os.path.join(grid_root, spk), exist_ok=True)
+        with open(os.path.join(grid_root, spk, f'{name}.TextGrid'),
+                  'w') as f:
+            f.write(markers_to_textgrid(rows, rows[-1][1]))
+    for spk in speakers:
+        extract_markers(os.path.join(grid_root, spk), n_jobs=2)
+    for spk, name, _ in corpus:
+        with open(os.path.join(grid_root, spk, f'{name}.markers')) as f_g, \
+                open(os.path.join(dataset, spk, 'align',
+                                  f'{name}.markers')) as f_m:
+            assert f_g.read() == f_m.read(), (spk, name)
+    log(f'path preprocess: {len(corpus)} TextGrids through '
+        'extract_markers(n_jobs=2) give the corpus\'s .markers')
 
     # scripts/bench_preprocess.py's shape: B = 32 x 11.9 s through
     # MelExtractor.batched + frame_energy + PitchTracker.batched_frame_f0
@@ -1722,6 +1838,318 @@ def main():
         f'attention rel_l2={r_emb:.3e} (band 1e-2); waveform {wav_r.shape}')
     assert r_emb <= 1e-2, r_emb
     del mel_b, nrg_b, f0_b, mel_r, wav_r
+
+    # ---- 3c. vocoder fine-tuning and the text front end -------------------
+    from scipy.io import wavfile
+    from daft_exprt_torch.fine_tune import fine_tuning
+    from daft_exprt_torch.frontend.audio import load_wav
+    from daft_exprt_torch.generate import prepare_sentences_for_inference
+    from daft_exprt_torch.models.discriminators import (
+        init_mpd_params, init_msd_params,
+    )
+    from daft_exprt_torch.text.cleaners import text_cleaner
+    from daft_exprt_torch.text.symbols import arpabet_stressed
+    from daft_exprt_torch.vocoder_finetune import (
+        finetune, generator_to_weight_norm, load_discriminators,
+        make_gan_steps, param_leaves,
+    )
+
+    # finetune-dataset: the preprocess corpus's features (every utterance
+    # in one list; seeded stand-ins for the external ECAPA embeddings)
+    # through fine_tuning with a seeded random acoustic model
+    feats = os.path.join(pre_root, 'card', 'features')
+    rng_e = np.random.RandomState(SEED + 4)
+    lines_ft = []
+    for spk, name, _ in corpus:
+        np.save(os.path.join(feats, spk, f'{name}.spk_emb.npy'),
+                rng_e.randn(hp.external_emb_dim).astype(np.float32))
+        lines_ft.append(f'{os.path.join(feats, spk)}|{name}|'
+                        f'{speakers.index(spk)}\n')
+
+    def ft_hp(tag, fused, dtype='bfloat16'):
+        lists = os.path.join(pre_root, tag)
+        os.makedirs(lists, exist_ok=True)
+        with open(os.path.join(lists, 'all.txt'), 'w') as f:
+            f.writelines(lines_ft)
+        return HyperParams(verbose=False, language='english',
+                           speakers=speakers,
+                           training_files=os.path.join(lists, 'all.txt'),
+                           validation_files=os.path.join(lists, 'all.txt'),
+                           output_directory=lists, batch_size=FT_B,
+                           fused_attention='auto' if fused else False,
+                           compute_dtype=dtype)
+
+    hp_ft = ft_hp('finetune', True)
+    ft_params = DaftExprt.from_hparams(hp_ft, seed=SEED).state_dict()
+    ft_root = run_path('finetune-dataset', lambda: fine_tuning(
+        hp_ft, dataset, params=ft_params, device='cuda'), kernels[:1])
+    ft_counts = dict(fine_tuning.counts)
+    n_ft_batches = len(corpus) // FT_B
+    assert ft_counts == {'written': len(corpus), 'shape_mismatch': 0,
+                         'too_short': 0}, ft_counts
+    assert paths[-1][1]['fused_attention'] == 12 * n_ft_batches, paths[-1][1]
+    # against the plain attention: in bf16 as information (one bf16 ulp
+    # of an attention output, amplified through the 12 blocks of a random
+    # model, moves a mel as much as bf16 rounding does), checked in float32
+    # (the float32 kernels, 3xTF32)
+    n0 = fused_attention.launches
+    ft_plain = fine_tuning(ft_hp('finetune-plain', False), dataset,
+                           params=ft_params, device='cuda')
+    ft_f32 = {fused: fine_tuning(ft_hp(f'finetune-f32-{fused}', fused,
+                                       'float32'), dataset,
+                                 params=ft_params, device='cuda')
+              for fused in (True, False)}
+    assert fused_attention.launches == n0 + 12 * n_ft_batches, \
+        'only the float32 fused call launches the kernel'
+    worst_ft = worst_bf = 0.0
+    for spk, name, _ in corpus:
+        mel_k = np.load(os.path.join(ft_root, spk, f'{name}.npy'))
+        mel_p = np.load(os.path.join(ft_plain, spk, f'{name}.npy'))
+        mel_k32, mel_p32 = (np.load(os.path.join(ft_f32[fused], spk,
+                                                 f'{name}.npy'))
+                            for fused in (True, False))
+        assert mel_k.shape == mel_p.shape == mel_k32.shape
+        assert np.isfinite(mel_k).all() and np.isfinite(mel_k32).all()
+        worst_bf = max(worst_bf, rel(mel_k, mel_p))
+        worst_ft = max(worst_ft, rel(mel_k32, mel_p32))
+        wav_c, sr_c = load_wav(os.path.join(dataset, spk, 'wavs',
+                                            f'{name}.wav'),
+                               target_sr=hp.sampling_rate)
+        with open(os.path.join(feats, spk, f'{name}.markers')) as f:
+            mk = [line.split('\t') for line in f]
+        crop = wav_c[int(float(mk[0][0]) * sr_c):int(float(mk[-1][1]) * sr_c)]
+        _, saved = wavfile.read(os.path.join(ft_root, spk, f'{name}.wav'))
+        assert np.array_equal(saved, (crop * 32767.5).clip(
+            -32768, 32767).astype(np.int16)), (spk, name)
+        assert mel_k.shape[1] == sum(int(m[2]) for m in mk)
+    log(f'path finetune-dataset: {ft_counts}; {n_ft_batches} batches of '
+        f'{FT_B}, fused_attention {paths[-1][1]["fused_attention"]} '
+        f'launches; each .wav the marker crop of its corpus wav; .npy vs the '
+        f'plain attention rel_l2 {worst_bf:.3e} at worst in bf16 (no band), '
+        f'{worst_ft:.3e} in float32 (band 1e-2)')
+    assert worst_ft <= 1e-2, worst_ft
+
+    # gan-step: scripts/bench_gan_step.py's shape at full width, V1 + MPD +
+    # MSD, five iterations a dtype (TF32 as train.py: cuDNN's default for
+    # float32 convs, none in the matmuls; the loss mel in full float32)
+    rng_g = np.random.RandomState(SEED + 5)
+    gan_mel = (0.5 * rng_g.randn(GAN_B, hp.n_mel_channels,
+                                 GAN_SEG // 256) - 4.0).astype(np.float32)
+    gan_y = (0.1 * rng_g.randn(GAN_B, 1, GAN_SEG)).astype(np.float32)
+
+    def gan_setup(dtype, b, device):
+        d_step, g_step, (optim_g, optim_d), loss_mel_fn = make_gan_steps(
+            DEFAULT_CONFIG, compute_dtype=dtype, device=device)
+        g_wn = generator_to_weight_norm(init_generator_params(
+            SEED, device=device))
+        mpd, msd = init_mpd_params(SEED, device), init_msd_params(SEED,
+                                                                   device)
+        mel_g = torch.from_numpy(gan_mel[:b]).to(device)
+        y_g = torch.from_numpy(gan_y[:b]).to(device)
+        with torch.no_grad():
+            y_mel = loss_mel_fn(y_g[:, 0])
+        state = dict(g_wn=g_wn, mpd=mpd, msd=msd, g_opt=optim_g(g_wn),
+                     d_opt=optim_d(mpd, msd))
+
+        def iteration(ranges=False):
+            with _range(torch, 'd_step', ranges):
+                d_loss = d_step(mpd, msd, state['d_opt'], g_wn, mel_g, y_g)
+            with _range(torch, 'g_step', ranges):
+                g_loss, mel_l1 = g_step(g_wn, state['g_opt'], mpd, msd,
+                                        mel_g, y_g, y_mel)
+            return float(d_loss), float(g_loss), float(mel_l1)
+        return iteration, state
+
+    def gan_run(dtype):
+        iteration, state = gan_setup(dtype, GAN_B, dev)
+        u0 = state['msd'].scale_0.conv_0.u.clone()
+        losses, secs = [], []
+        for _ in range(GAN_ITERS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(iteration())
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        tensors = param_leaves(state['g_wn']) + list(
+            state['mpd'].parameters()) + list(state['msd'].parameters()) + \
+            list(state['msd'].buffers())
+        for opt in (state['g_opt'], state['d_opt']):
+            tensors += [v for st in opt.state.values() for k, v in st.items()
+                        if k != 'step']
+        assert all(t.dtype == torch.float32 for t in tensors), dtype
+        assert all(math.isfinite(v) for loss in losses for v in loss), losses
+        moved = float((state['msd'].scale_0.conv_0.u - u0).abs().max())
+        assert moved > 0, 'the spectral state did not move'
+        del state, iteration
+        torch.cuda.empty_cache()
+        return losses, secs, moved
+
+    gan = run_path('gan-step', lambda: {dt: gan_run(dt) for dt in (
+        'float32', 'bfloat16')}, ())
+    gan_s = {}
+    for dt, (losses, secs, moved) in gan.items():
+        gan_s[dt] = float(np.median(secs[1:]))
+        log(f'path gan-step {dt}: losses (d, g, mel_l1) '
+            + ' '.join(f'({d:.6g}, {g:.6g}, {m:.6g})' for d, g, m in losses)
+            + f'; scale_0 u moved {moved:.3e}; host s/iteration '
+            f'{[round(x, 4) for x in secs]}')
+        log(f'path gan-step {dt}: {gan_s[dt]:.4f} s/iteration (median of '
+            f'iterations 2-{GAN_ITERS}, synchronised) at B={GAN_B} x '
+            f'{GAN_SEG} samples, full V1 width: {GAN_B / gan_s[dt]:.2f} '
+            f'segments/s [{smi.splitlines()[0]}]')
+    f32_0, b16_0 = gan['float32'][0][0], gan['bfloat16'][0][0]
+    for a, b in zip(f32_0, b16_0):
+        assert abs(a - b) < 0.1 * max(abs(a), 1.0), (f32_0, b16_0)
+    log(f'path gan-step: first bf16 iteration {b16_0} vs float32 {f32_0} '
+        '(band |a - b| < 0.1 max(|a|, 1))')
+    # the first float32 iteration on the card (TF32 off) against the port's
+    # CPU run of the same iteration, B = 2 x 8192 at full width
+    with vk.full_f32():
+        card_it, _ = gan_setup('float32', GAN_CPU_B, dev)
+        card_l = card_it()
+    cpu_it, _ = gan_setup('float32', GAN_CPU_B, 'cpu')
+    t0 = time.perf_counter()
+    cpu_l = cpu_it()
+    cpu_s = time.perf_counter() - t0
+    r_gan = [abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l)]
+    log(f'path gan-step: card (TF32 off) {card_l} vs the CPU {cpu_l} at '
+        f'B={GAN_CPU_B}: rel {r_gan} (bands 1e-4, 1e-3, 1e-3; the CPU '
+        f'iteration took {cpu_s:.1f} s)')
+    assert r_gan[0] <= 1e-4 and r_gan[1] <= 1e-3 and r_gan[2] <= 1e-3, r_gan
+    del card_it, cpu_it
+    torch.cuda.empty_cache()
+
+    # finetune: the entry point on finetune-dataset's speaker_0 pairs, full
+    # V1 width, then its generator served on the bf16 kernels
+    ft_out = os.path.join(ROOT, 'build', 'smoke', 'finetune')
+    shutil.rmtree(ft_out, ignore_errors=True)
+    val_l1 = []
+
+    class ValLog(logging.Handler):
+        def emit(self, record):
+            msg = record.getMessage()
+            if msg.startswith('Validation mel L1'):
+                val_l1.append(float(msg.rsplit(' ', 1)[1]))
+    ft_log = logging.getLogger('daft_exprt_torch.vocoder_finetune')
+    ft_log.setLevel(logging.INFO)
+    ft_log.addHandler(ValLog())
+    ft_pairs = os.path.join(ft_root, speakers[0])
+    val_mel = np.load(os.path.join(ft_pairs, 'utt_0.npy'))
+
+    def finetune_path():
+        out = finetune(ft_pairs, ft_out, init_generator_params(SEED),
+                       training_steps=FT_STEPS, batch_size=2,
+                       checkpoint_interval=2, log_interval=1, seed=SEED,
+                       val_names=['utt_0'], device='cuda')
+        payload, meta = ckpt.load_checkpoint(os.path.join(ft_out,
+                                                          'g_00000004'))
+        served = HiFiGanVocoder(payload['model']['generator'], fast='bf16')
+        return out, payload, meta, served, served.infer(val_mel)
+
+    ft_gen, ft_payload, ft_meta, ft_voc, ft_wav = run_path(
+        'finetune', finetune_path, kernels[1:3])
+    assert paths[-1][1] == {'fused_mrf_tc': 6, 'fused_mrf_phase': 2}, \
+        paths[-1][1]
+    for step in (2, 4):
+        g_payload, _ = ckpt.load_checkpoint(os.path.join(ft_out,
+                                                         f'g_{step:08d}'))
+        assert len(param_leaves(g_payload['model']['generator'])) == \
+            len(param_leaves(ft_gen))
+        load_discriminators(os.path.join(ft_out, f'do_{step:08d}'))
+    assert ft_meta['iteration'] == 4
+    assert all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(
+        param_leaves(ft_payload['model']['generator']),
+        param_leaves(ft_gen)))
+    assert len(val_l1) == 2 and all(math.isfinite(v) for v in val_l1), val_l1
+    exact_ft = HiFiGanVocoder(ft_payload['model']['generator'],
+                              fast=False).infer(val_mel)
+    r_ft = rel(ft_wav, exact_ft)
+    log(f'path finetune: {FT_STEPS} steps at batch 2 on '
+        f'{len(os.listdir(ft_pairs)) // 2} pairs, validation mel L1 {val_l1}; '
+        f'g_00000004 served in bf16 on {val_mel.shape[1]} frames: waveform '
+        f'vs the float32 plain route rel_l2={r_ft:.3e} (band 5e-2)')
+    assert ft_wav.shape == (val_mel.shape[1] * 256,) and r_ft <= 5e-2, r_ft
+    del ft_gen, ft_payload, ft_voc
+
+    # text: a sentences file through prepare_sentences_for_inference (an
+    # MFA-style dictionary under a home of the smoke's own; an mfa on PATH
+    # that would leave a mark), then generate_mel_specs(batch_size=1) with
+    # the int8-static vocoder
+    text_root = os.path.join(ROOT, 'build', 'smoke', 'text')
+    shutil.rmtree(text_root, ignore_errors=True)
+    os.makedirs(os.path.join(text_root, 'bin'))
+    mark = os.path.join(text_root, 'mfa_ran')
+    with open(os.path.join(text_root, 'bin', 'mfa'), 'w') as f:
+        f.write(f'#!/bin/sh\ntouch {mark}\n')
+    os.chmod(os.path.join(text_root, 'bin', 'mfa'), 0o755)
+    text_file = os.path.join(text_root, 'sentences.txt')
+    with open(text_file, 'w') as f:
+        f.write('\n'.join(TEXT_SENTENCES) + '\n')
+    env_keep = {k: os.environ.get(k) for k in ('HOME', 'PATH')}
+    os.environ['HOME'] = os.path.join(text_root, 'home')
+    os.environ['PATH'] = os.path.join(text_root, 'bin') + os.pathsep + \
+        env_keep['PATH']
+    try:
+        hp_text = HyperParams(verbose=False, training_files='unused',
+                              validation_files='unused',
+                              output_directory=text_root, language='english',
+                              speakers=['lj'])
+        n_words = len(write_mfa_dictionary(
+            hp_text.mfa_dictionary, TEXT_SENTENCES,
+            lambda s: text_cleaner(s, 'english'), arpabet_stressed))
+        prepared = {n_jobs: prepare_sentences_for_inference(
+            text_file, os.path.join(text_root, f'jobs_{n_jobs}'), hp_text,
+            n_jobs=n_jobs) for n_jobs in (2, 1)}
+    finally:
+        for k, v in env_keep.items():
+            os.environ[k] = v
+    outs = {}
+    for n_jobs in prepared:
+        with open(os.path.join(text_root, f'jobs_{n_jobs}',
+                               'sentences_to_generate.txt')) as f:
+            outs[n_jobs] = f.read()
+    assert outs[2] == outs[1] and prepared[2] == prepared[1]
+    assert '<unk>' not in outs[2] and not os.path.exists(mark)
+    text_sents, text_names = prepared[2]
+    log(f'path text: {len(text_sents)} sentences, {n_words} dictionary '
+        f'words, n_jobs 2 == n_jobs 1, no <unk>, no mfa subprocess: '
+        + ' | '.join(outs[2].splitlines()))
+    rng_t = np.random.RandomState(SEED + 6)
+    text_prosody = []
+    for sent in text_sents:
+        n = sum(len(x) if isinstance(x, list) else 1 for x in sent)
+        text_prosody.append({
+            'symbols': list(range(n)),
+            'durations_frames': rng_t.randint(4, 9, n).astype(np.float64),
+            'energy': rng_t.rand(n) * 3.0,
+            'pitch': np.where(rng_t.rand(n) < 0.3, 0.0,
+                              100.0 + 150.0 * rng_t.rand(n))})
+    text_out = os.path.join(text_root, 'out')
+
+    def text_path():
+        text_synth = Synthesizer(model, hp, vocoder=vocoder_q8)
+        preds = generate_mel_specs(
+            text_synth, text_sents, text_names, [0] * len(text_names),
+            text_out, hp, batch_size=1, get_time_perf=True,
+            external_prosody=text_prosody, external_embeddings=emb,
+            external_accent_emb=emb[:model.hidden_dim], save_outputs=save)
+        return preds, None if save else {
+            k: text_synth.vocoder.infer(v[4]) for k, v in preds.items()
+            if k != '__rtf__'}
+
+    text_preds, text_wavs = run_path('text', text_path, (
+        fused_attention, vk.fused_mrf_tc_q8, mi.fused_mrf_phase_q8))
+    assert paths[-1][1]['fused_attention'] == 8 * len(text_names)
+    assert paths[-1][1]['fused_mrf_phase_q8'] == 4 * len(text_names)
+    for name in text_names:
+        m = text_preds[f'{name}_spk_0'][4]
+        w = text_wavs[f'{name}_spk_0'] if text_wavs else \
+            vocoder_q8.infer(m)
+        assert w.shape == (m.shape[1] * 256,) and np.isfinite(w).all()
+        r = rel(w, plain_int8(vocoder_q8, m)[0])
+        log(f'path text {name}: {m.shape[1]} frames, waveform vs the plain '
+            f'int8 route rel_l2={r:.3e} (band 1e-2)')
+        assert r <= 1e-2, r
 
     # ---- 3b. training ------------------------------------------------------
     attn_kernels = (fused_attention, fused_attention_bwd)
@@ -2052,6 +2480,11 @@ def main():
         f'2-{TRAIN_STEPS}) at B={TB}, L={TL}, T={TT}: {1 / per_step:.3f} '
         f'steps/s, {TB / per_step:.2f} utterances/s (host clock, '
         'synchronized)')
+    for dt, sec in gan_s.items():
+        log(f'end to end gan-step {dt}: {sec:.4f} s/iteration (median of '
+            f'iterations 2-{GAN_ITERS}) at B={GAN_B} x {GAN_SEG} samples: '
+            f'{GAN_B / sec:.2f} segments/s (host clock, synchronized) '
+            f'[{smi.splitlines()[0]}]')
 
     if '--profile' in sys.argv:
         profile_path(torch, synthesize, 'bf16')
@@ -2083,6 +2516,12 @@ def main():
                                                        SEED),
                      'train-step-f32', ranges=('forward', 'backward',
                                                'optimizer'))
+        for dt in ('float32', 'bfloat16'):
+            gan_it, _ = gan_setup(dt, GAN_B, dev)
+            profile_path(torch, gan_it, f'gan-step-{dt}',
+                         ranges=('d_step', 'g_step'))
+            del gan_it
+            torch.cuda.empty_cache()
 
     log(json.dumps({'kernels': table}))
     log(json.dumps({'ok': True, 'device': {

@@ -6,7 +6,9 @@ The port runs on an NVIDIA Hopper card (H100): the serving entry point
 one card), the HiFi-GAN V1 and V2 generators in their float32, bf16,
 int8-static and int8-dynamic tiers (``models/hifigan.py``), and the audio
 front end (log-mel, energy and pitch extraction, corpus pre-processing,
-reference recordings for accent conversion, Griffin-Lim), with the Pallas
+reference recordings for accent conversion, Griffin-Lim), vocoder GAN
+fine-tuning (``fine_tune.py``, ``vocoder_finetune.py``) and the text and
+alignment front end (host code), with the Pallas
 kernels of the JAX package replaced by hand-written CUDA kernels
 (``ops/csrc``).
 
@@ -16,26 +18,32 @@ It imports ``torch`` and numpy only: never ``jax``, ``flax`` or anything of
 for ``'cpu'`` (the CPU runs each kernel's plain PyTorch version).
 
 Layout:
-    text/      symbol table (copy of the JAX package's)
+    text/      symbol table, number and text cleaners (copies)
     hparams.py config system (copy of the JAX package's)
     bridge.py  JAX param pytrees (as numpy) -> torch state dicts
-    frontend/  WAV I/O, duration quantization, markers (copies); pitch
+    frontend/  WAV I/O, duration quantization, markers, TextGrids and the
+               Montreal Forced Aligner's driver (copies); pitch
                extraction (native binary or the card's tracker), feature
                extraction driver, Griffin-Lim
     data/      dataset, collation, iterators, dynamic speaker stats, set
                lists and feature stats (copies)
-    utils/     chunker, plot_2d_data (copies), TensorBoard logger
+    utils/     chunker, Timer, multiprocessing pool, plot_2d_data
+               (copies), TensorBoard logger
     ops/       CUDA kernels (csrc/), their build step and PyTorch wrappers;
                gradient reversal; log-mel (mel.py) and the NCCF + Viterbi
                pitch tracker (pitch.py), plain PyTorch on the card
-    models/    acoustic model, frozen pitch predictor, HiFi-GAN generator
+    models/    acoustic model, frozen pitch predictor, HiFi-GAN generator,
+               its MPD and MSD discriminators
     loss.py    the five-term training loss
     parallel/  train and eval steps (one device), LR schedule, optimizer
     checkpoint.py  torch-native checkpoints (weights_only loads); the
                reference implementation's .pt checkpoints
     train.py   training driver: train, validate, resume
-    generate.py  synthesis entry point: prosody transforms, bucketed
-               Synthesizer, generate_mel_specs, extract_reference_parameters
+    generate.py  synthesis entry point: the phonemizer, prosody transforms,
+               bucketed Synthesizer, generate_mel_specs,
+               extract_reference_parameters
+    fine_tune.py  (predicted-mel, wav) pairs from a trained acoustic model
+    vocoder_finetune.py  HiFi-GAN GAN fine-tuning: steps, driver
 """
 
 __version__ = '0.1.0'

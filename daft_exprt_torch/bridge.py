@@ -21,6 +21,12 @@ same way and its flax BatchNorm statistics (``batch_stats``: ``mean``,
 ``generator_from_jax`` is a copy: the JAX vocoder keeps its kernels in
 torch layout already ((out, in, k), and (in, out, k) for the transposed
 convs).
+
+``discriminators_from_jax`` maps the JAX MPD and MSD trees (weight norm
+``g``/``v``/``b``, spectral norm ``w``/``b``, torch layout) and the
+spectral norm's ``sn_state`` onto the state dicts of the port's
+``MultiPeriodDiscriminator`` and ``MultiScaleDiscriminator``, whose module
+names are the JAX tree's keys; ``u`` becomes the buffer of its conv.
 """
 import numpy as np
 import torch
@@ -93,3 +99,34 @@ def generator_from_jax(np_params):
         out[name] = {k: torch.from_numpy(
             np.array(v, dtype=np.float32, copy=True)) for k, v in sub.items()}
     return out
+
+
+_DISC_LEAVES = ('g', 'v', 'b', 'w')
+
+
+def _disc_state(tree, what):
+    state = {}
+    for path, value in _flatten(tree):
+        if len(path) != 3 or path[-1] not in _DISC_LEAVES:
+            raise KeyError(f'bridge has no mapping for {what} leaf '
+                           f'{"/".join(path)}')
+        state['.'.join(path)] = torch.from_numpy(
+            np.array(value, dtype=np.float32, copy=True))
+    return state
+
+
+def discriminators_from_jax(mpd, msd, sn_state):
+    """JAX ``init_mpd_params`` / ``init_msd_params`` trees (as numpy) ->
+    {'mpd': state dict, 'msd': state dict with the ``u`` buffers of
+    ``sn_state``}; load each with ``load_state_dict(..., strict=True)``.
+    A leaf that is not a conv's g, v, b or w, or a state vector without
+    its conv, raises."""
+    msd_state = _disc_state(msd, 'MSD')
+    for path, value in _flatten(sn_state):
+        conv = '.'.join(path)
+        if len(path) != 2 or f'{conv}.w' not in msd_state:
+            raise KeyError(f'bridge: sn_state leaf {"/".join(path)} has no '
+                           'spectral-norm conv')
+        msd_state[f'{conv}.u'] = torch.from_numpy(
+            np.array(value, dtype=np.float32, copy=True))
+    return {'mpd': _disc_state(mpd, 'MPD'), 'msd': msd_state}

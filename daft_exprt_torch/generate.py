@@ -1,5 +1,7 @@
 """Synthesis entry point (PyTorch port of ``daft_exprt_tpu/generate.py``):
-external symbol prosody -> host prosody transforms -> ``Synthesizer``
+sentences phonemized with the MFA dictionary (``phonemize_sentence``,
+``prepare_sentences_for_inference``; host code, copied), external symbol
+prosody -> host prosody transforms -> ``Synthesizer``
 (acoustic model on bucket-padded batches) -> vocoder -> outputs, with the
 RTF accounting of ``generate_mel_specs``; and
 ``extract_reference_parameters``, a reference recording's energy, pitch and
@@ -8,10 +10,16 @@ mel for accent conditioning, extracted on the card.
 The prosody transforms run on the host in numpy, exactly as the JAX
 package runs them; the models run on the device the caller built them on.
 """
+import collections
 import functools
 import logging
 import os
+import random
+import re
+import subprocess
 import time
+import uuid
+from shutil import rmtree
 
 import numpy as np
 import torch
@@ -21,9 +29,120 @@ from daft_exprt_torch.frontend.audio import load_wav, save_wav
 from daft_exprt_torch.frontend.duration import duration_to_integer
 from daft_exprt_torch.frontend.pitch import extract_pitch
 from daft_exprt_torch.ops.mel import MelExtractor
-from daft_exprt_torch.utils import chunker, plot_2d_data
+from daft_exprt_torch.text.cleaners import collapse_whitespace, text_cleaner
+from daft_exprt_torch.text.symbols import (
+    ascii_letters, eos, punctuation, whitespace,
+)
+from daft_exprt_torch.utils import chunker, launch_multi_process, plot_2d_data
 
 _logger = logging.getLogger(__name__)
+FILE_ROOT = os.path.dirname(os.path.realpath(__file__))
+
+
+# ----------------------------------------------------------------------
+# text -> phonemes (copies of generate.py:42-143)
+# ----------------------------------------------------------------------
+
+def phonemize_sentence(sentence, hparams, log_queue=None):
+    """Phonemize with the MFA dictionary ``hparams.mfa_dictionary`` (a word
+    with several pronunciations takes one at random); out-of-vocabulary
+    words go through the external ``mfa g2p`` command with
+    ``hparams.mfa_g2p_model``. Nothing is downloaded."""
+    word_trans = collections.defaultdict(list)
+    with open(hparams.mfa_dictionary, 'r', encoding='utf-8') as f:
+        for line in f:
+            parts = line.strip().split()
+            if parts:
+                word_trans[parts[0].lower()].append(parts[1:])
+
+    if hparams.language == 'english':
+        all_chars = ascii_letters + punctuation
+    else:
+        raise NotImplementedError(hparams.language)
+
+    sentence = text_cleaner(sentence.strip(), hparams.language).lower().strip()
+    sent_words = re.findall(rf"[\w']+|[{punctuation}]", sentence)
+    sent_words = [x for x in sent_words
+                  if len(re.sub(f'[^{all_chars}]', '', x)) != 0]
+    while sent_words and sent_words[0] in punctuation:
+        sent_words.pop(0)
+    punctuation_end = None
+    while sent_words and sent_words[-1] in punctuation:
+        punctuation_end = sent_words.pop(-1)
+    sent_words.append(punctuation_end)
+
+    phonemized, unk_words = [], []
+    while len(sent_words) != 0:
+        word = sent_words.pop(0)
+        if word is None:
+            phonemized.append(None)
+        elif word in word_trans:
+            phonemized.append(random.choice(word_trans[word]))
+        else:
+            unk_words.append(word)
+            phonemized.append('<unk>')
+        if len(sent_words) != 0:
+            bound = sent_words.pop(0) if sent_words[0] in punctuation \
+                else whitespace
+            phonemized.append(bound)
+    # the trailing None placeholder (end punctuation) folds away
+    phonemized = [x for x in phonemized if x is not None]
+    if punctuation_end is not None and phonemized[-1] != punctuation_end:
+        phonemized.append(punctuation_end)
+    phonemized.append(eos)
+
+    if unk_words:
+        rand = str(uuid.uuid4())
+        oovs = os.path.join(FILE_ROOT, f'{rand}_oovs.txt')
+        with open(oovs, 'w', encoding='utf-8') as f:
+            f.write('\n'.join(unk_words) + '\n')
+        oovs_trans = os.path.join(FILE_ROOT, f'{rand}_oovs_trans.txt')
+        tmp_dir = os.path.join(FILE_ROOT, rand)
+        try:
+            subprocess.run(['mfa', 'g2p', hparams.mfa_g2p_model, oovs,
+                            oovs_trans, '-t', tmp_dir], check=False)
+            if os.path.isfile(oovs_trans):
+                with open(oovs_trans, 'r', encoding='utf-8') as f:
+                    for line in f:
+                        parts = line.strip().split()
+                        if '<unk>' in phonemized:
+                            phonemized[phonemized.index('<unk>')] = parts[1:]
+        finally:
+            for p in (oovs, oovs_trans):
+                if os.path.isfile(p):
+                    os.remove(p)
+            rmtree(tmp_dir, ignore_errors=True)
+    return phonemized
+
+
+def prepare_sentences_for_inference(text_file, output_dir, hparams, n_jobs=1):
+    """Phonemize a sentences file (one sentence a line) into
+    ``output_dir/sentences_to_generate.txt``; returns (sentences,
+    file_names). ``hparams.update_mfa_paths()`` runs first, as in the JAX
+    package: the dictionary is the one under the user's home
+    (``~/Documents/MFA/pretrained_models``). The workers (``n_jobs`` > 1)
+    are forked processes that run host Python only."""
+    if os.path.exists(output_dir):
+        rmtree(output_dir)
+    os.makedirs(output_dir, exist_ok=False)
+    with open(text_file, 'r', encoding='utf-8') as f:
+        raw = [line.strip() for line in f if line.strip()]
+    file_names = [f'{os.path.basename(text_file)}_line{idx}'
+                  for idx in range(len(raw))]
+    hparams.update_mfa_paths()
+    sentences = launch_multi_process(iterable=raw, func=phonemize_sentence,
+                                     n_jobs=n_jobs, timer_verbose=False,
+                                     hparams=hparams)
+    with open(os.path.join(output_dir, 'sentences_to_generate.txt'), 'w',
+              encoding='utf-8') as f:
+        for sentence, file_name in zip(sentences, file_names):
+            text = ''
+            for item in sentence:
+                if isinstance(item, list):
+                    item = '{' + ' '.join(item) + '}'
+                text = f'{text} {item} '
+            f.write(f'{file_name}|{collapse_whitespace(text).strip()}\n')
+    return sentences, file_names
 
 
 # ----------------------------------------------------------------------

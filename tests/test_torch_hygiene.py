@@ -1,9 +1,10 @@
 """The port stands alone: no JAX, flax, optax or daft_exprt_tpu import in
 daft_exprt_torch/ or chip_smoke.py; the package imports with JAX blocked
-(every module of the audio front end too); entry points default to CUDA
-and raise without it unless given 'cpu' (the feature extractors, the
-pitch tracker, Griffin-Lim and extract_reference_parameters too, before
-they touch a file)."""
+(every module of the audio front end, the GAN fine-tuning and the text and
+alignment front end too); entry points default to CUDA and raise without
+it unless given 'cpu' (the feature extractors, the pitch tracker,
+Griffin-Lim, extract_reference_parameters, the GAN steps, finetune and
+fine_tuning too, before they touch a file)."""
 import ast
 import subprocess
 import sys
@@ -69,6 +70,19 @@ def test_port_imports_with_jax_blocked():
         'import daft_exprt_torch.frontend.extract_features\n'
         'import daft_exprt_torch.frontend.griffin_lim\n'
         'import daft_exprt_torch.data.sets\n'
+        'import daft_exprt_torch.models.discriminators\n'
+        'import daft_exprt_torch.vocoder_finetune\n'
+        'import daft_exprt_torch.fine_tune\n'
+        'import daft_exprt_torch.text, daft_exprt_torch.text.numbers\n'
+        'import daft_exprt_torch.text.cleaners\n'
+        'import daft_exprt_torch.utils.multiproc, daft_exprt_torch.utils\n'
+        'import daft_exprt_torch.frontend.textgrid\n'
+        'import daft_exprt_torch.frontend.mfa\n'
+        'from daft_exprt_torch.generate import (\n'
+        '    phonemize_sentence, prepare_sentences_for_inference)\n'
+        'from daft_exprt_torch.bridge import discriminators_from_jax\n'
+        'from daft_exprt_torch.utils.misc import (\n'
+        '    Timer, estimate_required_time)\n'
         'assert not any(m.split(".")[0] in %r for m in sys.modules)\n'
         'print("ok")\n' % (FORBIDDEN,))
     res = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
@@ -95,6 +109,13 @@ def test_entry_points_default_to_cuda():
     from daft_exprt_torch.ops.mel import MelExtractor, frame_energy
     from daft_exprt_torch.ops.pitch import PitchTracker
     from daft_exprt_torch.train import train
+    from daft_exprt_torch.fine_tune import fine_tuning
+    from daft_exprt_torch.models.discriminators import (
+        init_mpd_params, init_msd_params,
+    )
+    from daft_exprt_torch.vocoder_finetune import (
+        finetune, make_gan_steps, make_loss_mel_fn,
+    )
     hp = HyperParams(verbose=False, training_files='x', validation_files='x',
                      output_directory='/nonexistent', language='english',
                      speakers=['a'])
@@ -113,7 +134,13 @@ def test_entry_points_default_to_cuda():
                  lambda: extract_reference_parameters(
                      '/nonexistent/ref.wav', '/nonexistent', hp),
                  lambda: griffin_lim_reconstruction_from_mel_spec(
-                     np.zeros((80, 4), np.float32), hp)):
+                     np.zeros((80, 4), np.float32), hp),
+                 lambda: make_gan_steps(),
+                 lambda: make_loss_mel_fn(),
+                 lambda: init_mpd_params(0),
+                 lambda: init_msd_params(0),
+                 lambda: finetune('/nonexistent', '/nonexistent/out', {}),
+                 lambda: fine_tuning(hp, '/nonexistent')):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()
     assert resolve_device('cpu') == torch.device('cpu')

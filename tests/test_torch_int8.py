@@ -24,7 +24,16 @@ from daft_exprt_tpu.ops import vocoder_kernels as jvk
 from daft_exprt_torch.ops import mrf_int8 as mi
 from daft_exprt_torch.ops import vocoder_kernels as vk
 
-from tests.torch_port_utils import rel_l2, to_torch
+from tests.torch_port_utils import one_torch_thread, rel_l2, to_torch
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_thread():
+    """torch on one thread: the file replays many small ops (no check
+    depends on the thread count)."""
+    with one_torch_thread():
+        yield
+
 
 KS = (3, 7, 11)
 DILS = ((1, 3, 5), (1, 3, 5), (1, 3, 5))

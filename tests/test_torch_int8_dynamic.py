@@ -28,7 +28,15 @@ from daft_exprt_torch.ops import mrf_int8 as mi
 from daft_exprt_torch.ops import vocoder_kernels as vk
 
 from tests.test_torch_int8 import KS, DILS, _t, act_scales, unit_level
-from tests.torch_port_utils import max_abs, rel_l2
+from tests.torch_port_utils import max_abs, one_torch_thread, rel_l2
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_thread():
+    """torch on one thread: the file replays many small ops (no check
+    depends on the thread count)."""
+    with one_torch_thread():
+        yield
 
 
 def _jp(params, dtype='bfloat16'):

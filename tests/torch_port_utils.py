@@ -89,3 +89,63 @@ def mm_tf32(a, b, terms=3, tile=None):
         if (i + 1) % per_tile == 0 or k0 + TF32_STEP >= K + pad:
             total, part = total + part, torch.zeros_like(part)
     return total
+
+
+# ---- discriminator trees in the JAX layout, from seeded numpy --------------
+
+def _wn_leaf(rng, shape):
+    """Weight norm (g, v, b): g off |v| by a random factor, so the fold
+    matters."""
+    fan_in = int(np.prod(shape[1:]))
+    v = (rng.randn(*shape) / np.sqrt(fan_in)).astype(np.float32)
+    norm = np.sqrt((v.astype(np.float64) ** 2).sum(
+        axis=tuple(range(1, v.ndim)), keepdims=True))
+    g = norm * (1.0 + 0.1 * rng.randn(*norm.shape))
+    return {'g': g.astype(np.float32), 'v': v,
+            'b': (0.02 * rng.randn(shape[0])).astype(np.float32)}
+
+
+def disc_trees(rng):
+    """(mpd, msd, sn_state): the JAX package's ``init_mpd_params`` /
+    ``init_msd_params`` trees at full width, drawn from ``rng`` (numpy)
+    instead of ``jax.random`` (seconds instead of half a minute)."""
+    from daft_exprt_tpu.models.discriminators import (
+        MPD_PERIODS, _MPD_CHANNELS, _MSD_LAYERS,
+    )
+    mpd = {}
+    for period in MPD_PERIODS:
+        sub = {f'conv_{i}': _wn_leaf(rng, (cout, cin, 5, 1))
+               for i, (cin, cout) in enumerate(_MPD_CHANNELS)}
+        sub['conv_post'] = _wn_leaf(rng, (1, 1024, 3, 1))
+        mpd[f'period_{period}'] = sub
+    msd, sn_state = {}, {}
+    layers = [(f'conv_{i}', (cout, cin // groups, k))
+              for i, (cin, cout, k, _s, groups, _p) in enumerate(_MSD_LAYERS)]
+    layers.append(('conv_post', (1, 1024, 3)))
+    for s in range(3):
+        if s == 0:
+            msd['scale_0'] = {}
+            sn_state['scale_0'] = {}
+            for name, shape in layers:
+                leaf = _wn_leaf(rng, shape)
+                msd['scale_0'][name] = {'w': leaf['v'], 'b': leaf['b']}
+                sn_state['scale_0'][name] = rng.randn(shape[0]).astype(
+                    np.float32)
+        else:
+            msd[f'scale_{s}'] = {name: _wn_leaf(rng, shape)
+                                 for name, shape in layers}
+    return mpd, msd, sn_state
+
+
+def load_discs(mpd, msd, sn_state, device='cpu'):
+    """The port's MPD and MSD holding the JAX trees (the bridge)."""
+    from daft_exprt_torch.bridge import discriminators_from_jax
+    from daft_exprt_torch.models.discriminators import (
+        init_mpd_params, init_msd_params,
+    )
+    state = discriminators_from_jax(mpd, msd, sn_state)
+    t_mpd, t_msd = init_mpd_params(device=device), init_msd_params(
+        device=device)
+    t_mpd.load_state_dict(state['mpd'], strict=True)
+    t_msd.load_state_dict(state['msd'], strict=True)
+    return t_mpd, t_msd
