@@ -188,6 +188,37 @@
      800-1024 frames): batch 16, 4 iterations, a validation at 4, a
      checkpoint; then a resume from it to iteration 6, checking the
      iteration and the optimizer state.
+   Then scale-out (parallel/{mesh,train_step,vocoder_sharding}.py,
+   vocoder_finetune's mesh; no kernel of their own):
+   - ddp-train-step: make_train_step(mesh=...) over a mesh of one rank
+     (NCCL, world 1, in this process) on train-step's model, batch and
+     seed, five steps: 12 attention forward launches and 24 backward a
+     step (60 / 120), every metric of every step equal bit for bit to a
+     single-process run of the same steps (both with cuDNN's deterministic
+     algorithms); prints s/step beside train-step's;
+   - ddp-2rank: two spawned ranks sharing the card over gloo, default
+     HyperParams in float32, TF32 off, dropout 0, the B=16 x L=128 x
+     T=1024 batch split 8 + 8 (the second half's rows 48-384 frames
+     shorter and voiced on ~30% of frames against ~90%: the global
+     denominators matter), two steps: both ranks' metrics identical, loss
+     within rel 1e-5 and grad norm within 1e-4 of the single-process step
+     on the whole batch; each rank's float32 attention launches (24 / 48)
+     checked in the rank; prints each rank's s/step and the gloo
+     all-reduce time of the gradient's size;
+   - gan-dp: make_gan_steps(mesh=...) over the world-1 mesh at gan-step's
+     shape in float32: the first iteration's losses equal bit for bit to
+     a single-process iteration (both with cuDNN deterministic), then four
+     more; prints s/iteration beside gan-step's;
+   - voc-tp: make_sharded_vocoder on a 1 x 2 mesh (two ranks over gloo),
+     V1 at full width, B=2 x 256 frames, float32 with TF32 off: both ranks'
+     waveforms identical and within rel-L2 1e-5 of the plain float32
+     generator_forward;
+   - profile-trace: utils/profiling.profiler_trace around one bf16
+     synthesis call (the bf16 path's kernels, counted) writes
+     build/smoke/trace/trace.json; prints its events, its device kernels
+     and ThroughputCounter's rate.
+   Every spawned rank is joined under a deadline (launch.run_ranks): a
+   rank that fails or hangs fails the phase.
 4. At every input shape a path called a kernel with: the kernel against
    its plain PyTorch version on the same inputs (unit-gain random weights):
    rel-L2 <= 1e-2 in bf16 (summation order only), <= 1e-5 in float32,
@@ -275,6 +306,8 @@ GAN_B, GAN_SEG = 16, 8192             # bench_gan_step.py's batch, samples
 GAN_ITERS = 5                         # gan-step: iterations a dtype
 GAN_CPU_B = 2                         # gan-step's card-vs-CPU check
 FT_STEPS = 4                          # the finetune path's steps
+DDP_STEPS = 2                         # ddp-2rank: steps of the float32 step
+TP_B, TP_FRAMES = 2, 256              # voc-tp: utterances, frames
 TEXT_SENTENCES = (
     'Dr. Smith paid $5.50 for 3 books in 1984!',
     'On the 2nd of May, it rained -- a lot; really?',
@@ -300,29 +333,6 @@ def make_batch(hp, B, L, T, seed=0):
         energy_preds=rng.randn(B, L).astype(np.float32),
         pitch_preds=rng.randn(B, L).astype(np.float32),
         input_lengths=np.full((B,), L, dtype=np.int64),
-        spk_embs=rng.randn(B, hp.external_emb_dim).astype(np.float32),
-    )
-
-
-def make_train_batch(hp, B, L, T, seed=0):
-    """Own numpy copy of the JAX repo's __graft_entry__._make_batch (all
-    training fields)."""
-    rng = np.random.RandomState(seed)
-    dur_int = np.full((B, L), T // L, dtype=np.int64)
-    dur_int[:, -1] += T - (T // L) * L
-    return dict(
-        symbols=rng.randint(1, hp.n_symbols, (B, L)),
-        durations_float=(dur_int * hp.hop_length / hp.sampling_rate
-                         ).astype(np.float32),
-        durations_int=dur_int,
-        symbols_energy=rng.randn(B, L).astype(np.float32),
-        symbols_pitch=rng.randn(B, L).astype(np.float32),
-        input_lengths=np.full((B,), L, dtype=np.int64),
-        frames_energy=rng.randn(B, T).astype(np.float32),
-        frames_pitch=rng.randn(B, T).astype(np.float32),
-        mel_specs=rng.randn(B, hp.n_mel_channels, T).astype(np.float32),
-        output_lengths=np.full((B,), T, dtype=np.int64),
-        speaker_ids=np.zeros((B,), dtype=np.int64),
         spk_embs=rng.randn(B, hp.external_emb_dim).astype(np.float32),
     )
 
@@ -491,6 +501,156 @@ def write_mfa_dictionary(path, sentences, cleaner, phones, seed=SEED):
             f.write(f'{w}\t{" ".join(rng.choice(phones, rng.randint(1, 6)))}'
                     '\n')
     return words
+
+
+def random_pitch_predictor(n_mel, seed):
+    """A PitchPredictor with seeded random weights: convs with std
+    1/sqrt(fan-in), BatchNorm scales 1 + N(0, 0.1), biases N(0, 0.02),
+    statistics (0, 1); on the CPU."""
+    import torch
+    from daft_exprt_torch.models.pitch_predictor import PitchPredictor
+    pp = PitchPredictor(n_mel)
+    gen_pp = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, prm in pp.named_parameters():
+            z = torch.randn(prm.shape, generator=gen_pp)
+            if prm.dim() > 1:
+                prm.copy_(z / prm[0].numel() ** 0.5)
+            elif name.startswith('bn') and name.endswith('weight'):
+                prm.copy_(1.0 + 0.1 * z)
+            else:
+                prm.copy_(0.02 * z)
+    return pp
+
+
+def ddp_hparams(**kw):
+    """Default HyperParams in float32 with every dropout at 0 (the
+    data-parallel checks: a rank's masks cannot be the single process's)."""
+    from daft_exprt_torch.hparams import HyperParams
+    hp = HyperParams(verbose=False, training_files='unused',
+                     validation_files='unused',
+                     output_directory=os.path.join(ROOT, 'build', 'smoke'),
+                     language='english', speakers=['lj'],
+                     compute_dtype='float32', **kw)
+    for name in ('phoneme_encoder', 'accent_encoder', 'frame_decoder'):
+        setattr(hp, name, dict(getattr(hp, name), attn_dropout=0.0,
+                               conv_dropout=0.0))
+    return hp
+
+
+def ddp_batch(hp, B, L, T, seed=SEED):
+    """The training batch of ``dryrun.make_batch`` with halves that differ:
+    rows of the second half 48 frames shorter each (durations spread over
+    the symbols, summing to each row's frames) and voiced on ~30% of their
+    frames against ~90% in the first half. Returns (batch, raw frames)."""
+    from daft_exprt_torch.parallel.dryrun import make_batch as train_batch
+    b = train_batch(hp, B, L, T, seed)
+    half = B // 2
+    lens = np.array([T] * half + [T - 48 * (i + 1) for i in range(B - half)])
+    dur = np.zeros((B, L), np.int64)
+    dur[:] = (lens // L)[:, None]
+    dur[:, -1] += lens - (lens // L) * L
+    b.update(output_lengths=lens, durations_int=dur, durations_float=(
+        dur * hp.hop_length / hp.sampling_rate).astype(np.float32))
+    rng = np.random.RandomState(seed + 7)
+    dens = np.array([0.9] * half + [0.3] * (B - half))[:, None]
+    raw = {'frames_energy': (np.abs(b['frames_energy']) * 3).astype(
+        np.float32),
+           'frames_pitch': np.where(rng.rand(B, T) < dens,
+                                    np.abs(b['frames_pitch']) + 5,
+                                    0).astype(np.float32)}
+    return b, raw
+
+
+def ddp_rank(rank, batch, raw, n_steps, device='cuda'):
+    """One rank of ddp-2rank: ``n_steps`` of the data-parallel float32 step
+    (TF32 off, dropout 0, cuDNN's deterministic algorithms, as the
+    single-process reference) on this rank's rows of the global batch,
+    with the attention counters zeroed before; then three all-reduces of
+    a buffer the size of the gradient. Returns metrics, host seconds a
+    step, the attention launches and calls, and the all-reduce seconds."""
+    import torch
+    import torch.distributed as dist
+    from daft_exprt_torch.loss import loss_cfg_from_hparams
+    from daft_exprt_torch.models.daft_exprt import DaftExprt
+    from daft_exprt_torch.ops.attention_kernels import (
+        fused_attention, fused_attention_bwd,
+    )
+    from daft_exprt_torch.ops.vocoder_kernels import full_f32
+    from daft_exprt_torch.parallel.mesh import (
+        data_rows, make_mesh, shard_batch,
+    )
+    from daft_exprt_torch.parallel.train_step import (
+        make_optimizer, make_train_step,
+    )
+    hp = ddp_hparams()
+    sync = torch.cuda.synchronize if device == 'cuda' else (lambda: None)
+    torch.backends.cudnn.deterministic = True
+    with full_f32():
+        model = DaftExprt.from_hparams(hp, device=device, seed=SEED).train()
+        pp = random_pitch_predictor(hp.n_mel_channels,
+                                    SEED + 1).to(device).frozen()
+        mesh = make_mesh(device=device)
+        step = make_train_step(model, make_optimizer(model, hp),
+                               loss_cfg_from_hparams(hp), pp, mesh=mesh)
+        lo, hi = data_rows(len(batch['mel_specs']), mesh)
+        b = shard_batch({k: v[lo:hi] for k, v in batch.items()}, mesh)
+        r = shard_batch({k: v[lo:hi] for k, v in raw.items()}, mesh)
+        attn = (fused_attention, fused_attention_bwd)
+        for kern in attn:
+            kern.launches = 0
+            kern.calls.clear()
+        metrics, secs = [], []
+        for i in range(n_steps):
+            sync()
+            t0 = time.perf_counter()
+            m = step(b, r, float(i), SEED)
+            sync()
+            secs.append(time.perf_counter() - t0)
+            metrics.append({k: float(v) for k, v in m.items()})
+        counts = {k.__name__: (k.launches, dict(k.calls)) for k in attn}
+        n_grad = sum(p.numel() for p in model.parameters()
+                     if p.requires_grad)
+        flat = torch.zeros(n_grad, device=mesh.device)
+        ar_s = []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            dist.all_reduce(flat, group=mesh.data_group)
+            sync()
+            ar_s.append(time.perf_counter() - t0)
+    return dict(metrics=metrics, secs=secs, counts=counts, n_grad=n_grad,
+                allreduce_s=ar_s, rows=int(b['mel_specs'].shape[0]))
+
+
+def tp_rank(rank, mel, device='cuda'):
+    """One rank of voc-tp: V1 at full width, seeded weights, channels over
+    a 1 x 2 mesh, float32 with TF32 off; returns the waveform and its host
+    seconds."""
+    import torch
+    from daft_exprt_torch.models.hifigan import init_generator_params
+    from daft_exprt_torch.ops.vocoder_kernels import full_f32
+    from daft_exprt_torch.parallel.mesh import make_mesh
+    from daft_exprt_torch.parallel.vocoder_sharding import (
+        make_sharded_vocoder, shard_generator_params,
+    )
+    sync = torch.cuda.synchronize if device == 'cuda' else (lambda: None)
+    mesh = make_mesh(n_data=1, n_model=2, device=device)
+    params = shard_generator_params(init_generator_params(SEED,
+                                                          device=device),
+                                    mesh)
+    voc = make_sharded_vocoder(mesh)
+    secs = []
+    with full_f32(), torch.no_grad():
+        for _ in range(2):
+            sync()
+            t0 = time.perf_counter()
+            wav = voc(params, torch.from_numpy(mel))
+            sync()
+            secs.append(time.perf_counter() - t0)
+    return dict(wav=wav.cpu().numpy(), secs=secs,
+                shapes={k: tuple(v['w'].shape) for k, v in params.items()
+                        if 'w' in v})
 
 
 def rel_l2(a, b):
@@ -1077,12 +1237,20 @@ def main():
     from daft_exprt_torch import checkpoint as ckpt
     from daft_exprt_torch.loss import loss_cfg_from_hparams
     from daft_exprt_torch.models.modules import MultiHeadSelfAttention
-    from daft_exprt_torch.models.pitch_predictor import PitchPredictor
+    from daft_exprt_torch.parallel.dryrun import (
+        make_batch as make_train_batch,
+    )
     from daft_exprt_torch.parallel.train_step import (
         make_optimizer, make_train_step, to_device,
     )
     from daft_exprt_torch.train import train
+    from daft_exprt_torch.parallel.launch import run_ranks
+    from daft_exprt_torch.parallel.mesh import init_distributed, make_mesh
+    from daft_exprt_torch.utils.profiling import (
+        ThroughputCounter, profiler_trace,
+    )
     import shutil
+    import torch.distributed as dist
     import torch.nn.functional as F
 
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
@@ -1937,9 +2105,9 @@ def main():
                                  GAN_SEG // 256) - 4.0).astype(np.float32)
     gan_y = (0.1 * rng_g.randn(GAN_B, 1, GAN_SEG)).astype(np.float32)
 
-    def gan_setup(dtype, b, device):
+    def gan_setup(dtype, b, device, mesh=None):
         d_step, g_step, (optim_g, optim_d), loss_mel_fn = make_gan_steps(
-            DEFAULT_CONFIG, compute_dtype=dtype, device=device)
+            DEFAULT_CONFIG, compute_dtype=dtype, device=device, mesh=mesh)
         g_wn = generator_to_weight_norm(init_generator_params(
             SEED, device=device))
         mpd, msd = init_mpd_params(SEED, device), init_msd_params(SEED,
@@ -2158,23 +2326,8 @@ def main():
                        output_directory=os.path.join(ROOT, 'build', 'smoke'),
                        language='english', speakers=['lj'])
 
-    def random_pitch_predictor(seed):
-        """Seeded random weights: convs with std 1/sqrt(fan-in), BatchNorm
-        scales 1 + N(0, 0.1), biases N(0, 0.02), statistics (0, 1)."""
-        pp = PitchPredictor(hp_t.n_mel_channels)
-        gen_pp = torch.Generator().manual_seed(seed)
-        with torch.no_grad():
-            for name, prm in pp.named_parameters():
-                z = torch.randn(prm.shape, generator=gen_pp)
-                if prm.dim() > 1:
-                    prm.copy_(z / prm[0].numel() ** 0.5)
-                elif name.startswith('bn') and name.endswith('weight'):
-                    prm.copy_(1.0 + 0.1 * z)
-                else:
-                    prm.copy_(0.02 * z)
-        return pp
-
-    pitch_pp = random_pitch_predictor(SEED + 1).to(dev).frozen()
+    pitch_pp = random_pitch_predictor(hp_t.n_mel_channels,
+                                      SEED + 1).to(dev).frozen()
     loss_cfg = loss_cfg_from_hparams(hp_t)
     tbatch = make_train_batch(hp_t, TB, TL, TT, seed=SEED)
     dev_batch = to_device(tbatch, dev)
@@ -2241,7 +2394,8 @@ def main():
         return metrics, step_s
 
     # bf16 rounds at other points in the two routes
-    _, step_s = train_step_path('train-step', hp_t, TRAIN_STEPS, (1e-2, 5e-2))
+    ts_metrics, step_s = train_step_path('train-step', hp_t, TRAIN_STEPS,
+                                         (1e-2, 5e-2))
     per_step = float(np.median(step_s[1:]))
     # float32: every FFT block's attention on the float32 kernels. Bands 10x
     # tighter than bf16's: the kernels agree with the plain attention to
@@ -2263,7 +2417,8 @@ def main():
     shutil.rmtree(root, ignore_errors=True)
     train_list, val_list = write_train_dataset(root, hp_t.symbols)
     pp_path = os.path.join(root, 'pitch_predictor.pt')
-    torch.save(random_pitch_predictor(SEED + 2).state_dict(), pp_path)
+    torch.save(random_pitch_predictor(hp_t.n_mel_channels,
+                                      SEED + 2).state_dict(), pp_path)
     train_kw = dict(verbose=False, training_files=train_list,
                     validation_files=val_list,
                     output_directory=os.path.join(root, 'out'),
@@ -2296,6 +2451,186 @@ def main():
     for i, st in payload4['optimizer']['state'].items():
         assert int(payload6['optimizer']['state'][i]['step']) == \
             int(st['step']) + 2
+
+    # ---- 3c. scale-out ------------------------------------------------------
+    # ddp-train-step and gan-dp: NCCL at world 1 in this process; ddp-2rank
+    # and voc-tp: two spawned ranks sharing the card over gloo
+    store = os.path.join(ROOT, 'build', 'smoke', 'pg_store')
+    if os.path.exists(store):
+        os.remove(store)
+    init_distributed(0, 1, 'file://' + store, device='cuda', timeout=300)
+    mesh1 = make_mesh()
+    log(f'scale-out: process group {dist.get_backend()} world '
+        f'{dist.get_world_size()}, mesh {mesh1.n_data}x{mesh1.n_model} on '
+        f'{mesh1.device}')
+    dev_batch = to_device(tbatch, dev)
+    dev_raw = to_device({'frames_energy': tbatch['frames_energy'],
+                         'frames_pitch': tbatch['frames_pitch']}, dev)
+    cudnn_det = torch.backends.cudnn.deterministic
+
+    def train_steps(mesh):
+        """TRAIN_STEPS steps of train-step's model, batch and seed."""
+        xmodel = DaftExprt.from_hparams(hp_t, seed=SEED).train()
+        step = make_train_step(xmodel, make_optimizer(xmodel, hp_t),
+                               loss_cfg, pitch_pp, mesh=mesh)
+        out, secs = [], []
+        for i in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            m = step(dev_batch, dev_raw, float(i), SEED)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            out.append({k: float(v) for k, v in m.items()})
+        return out, secs
+
+    # both runs with cuDNN's deterministic algorithms, so that equality
+    # tests the step and not the card's atomics
+    torch.backends.cudnn.deterministic = True
+    ref_m, ref_s = train_steps(None)
+    ddp_m, ddp_s = run_path('ddp-train-step', lambda: train_steps(mesh1),
+                            attn_kernels)
+    torch.backends.cudnn.deterministic = cudnn_det
+    assert paths[-1][1] == {'fused_attention': 12 * TRAIN_STEPS,
+                            'fused_attention_bwd': 24 * TRAIN_STEPS}, \
+        paths[-1][1]
+    for i, (a, b) in enumerate(zip(ddp_m, ref_m)):
+        log(f'path ddp-train-step: step {i}: loss {a["loss"]!r} grad_norm '
+            f'{a["grad_norm"]!r}; single process {b["loss"]!r} '
+            f'{b["grad_norm"]!r}')
+        assert a == b, (i, a, b)
+    same_ts = all(a['loss'] == b['loss'] and a['grad_norm'] == b['grad_norm']
+                  for a, b in zip(ddp_m, ts_metrics))
+    ddp_step = float(np.median(ddp_s[1:]))
+    log(f'path ddp-train-step: every metric of {TRAIN_STEPS} steps equal to '
+        f'the single-process step bit for bit (both with cuDNN '
+        f'deterministic; equal to the train-step path\'s run, cuDNN '
+        f'default: {same_ts}); {ddp_step:.4f} s/step (median of steps '
+        f'2-{TRAIN_STEPS}) against the single process\'s '
+        f'{float(np.median(ref_s[1:])):.4f} in the same setting and '
+        f'train-step\'s {per_step:.4f} [{smi.splitlines()[0]}]')
+    del dev_batch, dev_raw
+    torch.cuda.empty_cache()
+
+    # ddp-2rank: the float32 step on two ranks over gloo against one
+    # process, B = 16 split 8 + 8, halves of other lengths and voicing
+    hp_d = ddp_hparams()
+    d_batch, d_raw = ddp_batch(hp_d, TB, TL, TT)
+    # cuDNN's deterministic algorithms on both sides: the second step's
+    # loss moves with the sign of every near-zero gradient element (Adam's
+    # first update is ~lr sign(g)), so atomics' order would move it between
+    # runs
+    torch.backends.cudnn.deterministic = True
+    with vk.full_f32():
+        dmodel = DaftExprt.from_hparams(hp_d, seed=SEED).train()
+        dstep = make_train_step(dmodel, make_optimizer(dmodel, hp_d),
+                                loss_cfg_from_hparams(hp_d), pitch_pp)
+        ref2 = [{k: float(v) for k, v in dstep(
+            to_device(d_batch, dev), to_device(d_raw, dev), float(i),
+            SEED).items()} for i in range(DDP_STEPS)]
+    torch.backends.cudnn.deterministic = cudnn_det
+    del dmodel, dstep
+    torch.cuda.empty_cache()
+    r0, r1 = run_path('ddp-2rank', lambda: run_ranks(
+        ddp_rank, 2, args=(d_batch, d_raw, DDP_STEPS), backend='gloo',
+        device='cuda', timeout=900, pg_timeout=300), ())
+    assert r0['metrics'] == r1['metrics'], (r0['metrics'], r1['metrics'])
+    assert r0['rows'] == r1['rows'] == TB // 2
+    for i, (a, b) in enumerate(zip(r0['metrics'], ref2)):
+        r_loss = abs(a['loss'] - b['loss']) / abs(b['loss'])
+        r_norm = abs(a['grad_norm'] - b['grad_norm']) / abs(b['grad_norm'])
+        log(f'path ddp-2rank: step {i}: loss {a["loss"]:.9g} (one process '
+            f'{b["loss"]:.9g}, rel {r_loss:.3e}, band 1e-5), grad_norm '
+            f'{a["grad_norm"]:.9g} ({b["grad_norm"]:.9g}, rel {r_norm:.3e}, '
+            'band 1e-4)')
+        assert r_loss <= 1e-5 and r_norm <= 1e-4, (r_loss, r_norm)
+    for res in (r0, r1):
+        n = {k: v[0] for k, v in res['counts'].items()}
+        assert n == {'fused_attention': 12 * DDP_STEPS,
+                     'fused_attention_bwd': 24 * DDP_STEPS}, n
+        assert all(k[-1] == 'float32' for _, calls in res['counts'].values()
+                   for k in calls), res['counts']
+    log(f'path ddp-2rank: each rank launched {r0["counts"]}; host s/step '
+        f'{[round(x, 4) for x in r0["secs"]]} (rank 0) '
+        f'{[round(x, 4) for x in r1["secs"]]} (rank 1); gloo all-reduce of '
+        f'{r0["n_grad"]} float32 (the gradient) '
+        f'{[round(x, 4) for x in r0["allreduce_s"]]} s '
+        f'[{smi.splitlines()[0]}]')
+
+    # gan-dp: the GAN steps over the world-1 mesh against gan-step's
+    torch.backends.cudnn.deterministic = True
+    ref_it, _ = gan_setup('float32', GAN_B, dev)
+    gan_ref = ref_it()
+    del ref_it
+    torch.cuda.empty_cache()
+
+    def gan_dp_run():
+        iteration, _ = gan_setup('float32', GAN_B, dev, mesh=mesh1)
+        first = iteration()
+        torch.backends.cudnn.deterministic = cudnn_det
+        secs = []
+        for _ in range(GAN_ITERS - 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = iteration()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            assert all(math.isfinite(v) for v in loss), loss
+        return first, secs
+
+    gan_first, gan_dp_s = run_path('gan-dp', gan_dp_run, ())
+    assert gan_first == gan_ref, (gan_first, gan_ref)
+    gan_dp_it = float(np.median(gan_dp_s))
+    log(f'path gan-dp: first iteration (d_loss, g_loss, mel_l1) {gan_first}'
+        f' equal to one process\'s bit for bit (both with cuDNN '
+        f'deterministic; the gan-step path\'s: {gan["float32"][0][0]}); '
+        f'{gan_dp_it:.4f} s/iteration (median of iterations 2-{GAN_ITERS}) '
+        f'against gan-step\'s {gan_s["float32"]:.4f} '
+        f'[{smi.splitlines()[0]}]')
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # voc-tp: V1's channels over two ranks (1 x 2, gloo) against the plain
+    # float32 generator
+    rng_v = np.random.RandomState(SEED + 9)
+    tp_mel = (0.5 * rng_v.randn(TP_B, hp.n_mel_channels, TP_FRAMES)
+              - 4.0).astype(np.float32)
+    t0, t1 = run_path('voc-tp', lambda: run_ranks(
+        tp_rank, 2, args=(tp_mel,), backend='gloo', device='cuda',
+        timeout=900, pg_timeout=300), ())
+    with vk.full_f32(), torch.no_grad():
+        tp_ref = generator_forward(init_generator_params(SEED),
+                                   torch.from_numpy(tp_mel).to(dev),
+                                   DEFAULT_CONFIG).cpu().numpy()
+    r_tp = rel_l2(torch.from_numpy(t0['wav']), torch.from_numpy(tp_ref))
+    assert np.array_equal(t0['wav'], t1['wav'])
+    log(f'path voc-tp: waveform {t0["wav"].shape} against the plain float32 '
+        f'generator rel_l2={r_tp:.3e} (band 1e-5); rank shards '
+        f'conv_pre {t0["shapes"]["conv_pre"]}, ups_0 {t0["shapes"]["ups_0"]}'
+        f'; host s/call {[round(x, 4) for x in t0["secs"]]} '
+        f'[{smi.splitlines()[0]}]')
+    assert t0['wav'].shape == tp_ref.shape and r_tp <= 1e-5, r_tp
+
+    # profile-trace: profiler_trace around one bf16 synthesis call
+    trace_dir = os.path.join(ROOT, 'build', 'smoke', 'trace')
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    counter = ThroughputCounter(hp)
+
+    def traced():
+        with profiler_trace(trace_dir):
+            t0 = time.perf_counter()
+            out = synthesize()
+            counter.add([T] * B, time.perf_counter() - t0)
+        return out
+
+    run_path('profile-trace', traced, kernels[:3])
+    trace_file = os.path.join(trace_dir, 'trace.json')
+    with open(trace_file) as f:
+        events = json.load(f)['traceEvents']
+    n_kern = sum(e.get('cat') == 'kernel' for e in events)
+    log(f'path profile-trace: {trace_file} {os.path.getsize(trace_file)} '
+        f'bytes, {len(events)} events, {n_kern} device kernels; '
+        f'ThroughputCounter {counter.rate:.2f} audio-s/s (one call under '
+        f'the profiler) [{smi.splitlines()[0]}]')
+    assert events
 
     # ---- 4. each kernel at each shape a path called it with ----------------
     by_name = {kern.__name__: kern for kern in kernels}

@@ -152,8 +152,8 @@ class HyperParams:
         # enables it when running on TPU (tests pinned to CPU keep the XLA
         # path); True/False force. Env DAFT_FUSED_ATTN overrides 'auto'.
         self.fused_attention = 'auto'
-        self.mesh_data_axis = 'data'        # DP axis name
-        self.mesh_model_axis = 'model'      # optional TP axis (vocoder)
+        self.mesh_data_axis = 'data'        # DP axis name (JAX's; unread)
+        self.mesh_model_axis = 'model'      # TP axis name (JAX's; unread)
         self.length_buckets = [64, 128, 192, 256, 384, 512]       # symbol axis
         self.frame_buckets = [256, 512, 768, 1024, 1536, 2048]    # frame axis
 

@@ -1,15 +1,29 @@
-"""Training and evaluation steps on one device (PyTorch port of
-``daft_exprt_tpu/parallel/train_step.py`` without the mesh; the sharded
-multi-replica step is later work).
+"""Training and evaluation steps (PyTorch port of
+``daft_exprt_tpu/parallel/train_step.py``), on one device or data-parallel
+over a mesh's data axis.
 
 One step: forward with dropout, the composite loss, backward, gradient
 accumulation over strided micro-batches (averaged), the global gradient
 norm, clipping, and Adam with the warmup + inverse-sqrt schedule.
+
+With a mesh, each rank runs the step on its local rows and the step
+computes the JAX step's function over the global batch (one SPMD program
+there): every loss term is this rank's share of the global term
+(``compute_loss(group=...)``: global denominators), so the ranks' gradients
+sum to the global gradient. They are summed once per step, after the
+micro-batches, in one all-reduce of a flat buffer that also carries the
+loss terms, as the JAX step reduces once after its scan; the reported
+metrics are then the global ones on every rank. The micro-batch split stays
+strided on each rank's rows: where the local batch divides by
+``accumulation_steps``, the union of the ranks' micro-batch m is the JAX
+step's global micro-batch m.
 """
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
-from daft_exprt_torch.loss import compute_loss
+from daft_exprt_torch.loss import GLOBAL_STATS, compute_loss
+from daft_exprt_torch.parallel.mesh import all_reduce_grads
 
 MODEL_INPUT_KEYS = (
     'symbols', 'durations_float', 'durations_int', 'symbols_energy',
@@ -75,11 +89,17 @@ def make_optimizer(model, hp):
     return ScheduledAdam(model.parameters(), hp)
 
 
-def step_seed(seed, iteration, micro):
-    """The seed of the dropout generator of one micro-batch of one step:
-    each (seed, iteration, micro-batch) has its own stream, as the JAX step
-    folds the iteration and the micro-batch index into its key."""
-    return (seed * 1_000_003 + int(iteration) * 7919 + micro) % (2 ** 63)
+RANK_STRIDE = 1 << 40       # past every (iteration, micro-batch) offset
+
+
+def step_seed(seed, iteration, micro, rank=0):
+    """The seed of the dropout generator of one micro-batch of one step on
+    one data rank: each (seed, iteration, micro-batch, rank) has its own
+    stream, as the JAX step folds the iteration and the micro-batch index
+    into its key (and draws each global row's mask once); rank 0 keeps the
+    single-process seed."""
+    return (seed * 1_000_003 + int(iteration) * 7919 + micro
+            + rank * RANK_STRIDE) % (2 ** 63)
 
 
 def _targets(micro, raw):
@@ -96,7 +116,7 @@ def _split(x, n):
 
 
 def make_train_step(model, optimizer, loss_cfg, pitch_predictor=None,
-                    accumulation_steps=1, grad_clip=float('inf')):
+                    accumulation_steps=1, grad_clip=float('inf'), mesh=None):
     """Returns train_step(batch, raw_frames, iteration, seed) -> metrics
     (a dict of float32 tensors on the model's device: loss, each loss term,
     grad_norm); it updates the model and the optimizer in place. Its
@@ -109,10 +129,16 @@ def make_train_step(model, optimizer, loss_cfg, pitch_predictor=None,
     must divide into that many strided micro-batches; their gradients and
     losses are averaged. Each micro-batch draws its dropout masks from its
     own ``torch.Generator`` on the model's device, seeded by
-    :func:`step_seed` (seed, iteration, micro-batch)."""
+    :func:`step_seed` (seed, iteration, micro-batch, data rank).
+
+    ``mesh`` (:func:`mesh.make_mesh`): data-parallel over its data axis
+    (module note); ``batch`` and ``raw_frames`` are this rank's rows, the
+    model and optimizer identical on every rank."""
     params = [p for p in model.parameters() if p.requires_grad]
     device = params[0].device
     n = accumulation_steps
+    group = None if mesh is None else mesh.data_group
+    rank = 0 if mesh is None else mesh.data_rank
 
     def train_step(batch, raw_frames, iteration, seed):
         model.train()
@@ -126,12 +152,12 @@ def make_train_step(model, optimizer, loss_cfg, pitch_predictor=None,
         loss_sum = None
         for m in range(n):
             gen = torch.Generator(device).manual_seed(
-                step_seed(seed, iteration, m))
+                step_seed(seed, iteration, m, rank))
             with record_function('forward'):
                 out = model(**micro[m], generator=gen)
                 loss, indiv = compute_loss(
                     out, _targets(micro[m], micro_raw[m]), iteration,
-                    loss_cfg, pitch_predictor)
+                    loss_cfg, pitch_predictor, group=group)
             with record_function('backward'):
                 (loss / n).backward()
             terms = torch.stack([loss.detach()] +
@@ -142,6 +168,9 @@ def make_train_step(model, optimizer, loss_cfg, pitch_predictor=None,
             for p in params:
                 if p.grad is None:          # unused here: a zero gradient
                     p.grad = torch.zeros_like(p)
+            if group is not None:
+                with record_function('all_reduce'):
+                    loss_sum, = all_reduce_grads(params, [loss_sum], group)
             grads = [p.grad for p in params]
             grad_norm = torch.linalg.vector_norm(
                 torch.stack([torch.linalg.vector_norm(g) for g in grads]))
@@ -156,18 +185,38 @@ def make_train_step(model, optimizer, loss_cfg, pitch_predictor=None,
     return train_step
 
 
-def make_eval_step(model, loss_cfg, pitch_predictor=None):
+def make_eval_step(model, loss_cfg, pitch_predictor=None, mesh=None):
     """Deterministic forward + loss for validation: eval_step(batch,
-    raw_frames) -> (metrics, outputs)."""
+    raw_frames) -> (metrics, outputs). With a ``mesh``, ``batch`` holds
+    this rank's rows and the metrics are those of the global batch (the
+    ranks' rows together; one all-reduce of the terms), the outputs this
+    rank's. A rank without rows while others have some (uneven validation
+    shards) passes ``None`` for both and gets the others' global metrics
+    and no outputs; when no rank has rows, every rank gets (None, None)."""
+    group = None if mesh is None else mesh.data_group
+    keys = ('loss',) + LOSS_TERMS
+    device = next(model.parameters()).device
 
     @torch.no_grad()
     def eval_step(batch, raw_frames):
+        if batch is None:
+            stats = torch.zeros(len(GLOBAL_STATS), device=device)
+            dist.all_reduce(stats, group=group)
+            if not stats[0]:
+                return None, None
+            terms = torch.zeros(len(keys), device=device)
+            dist.all_reduce(terms, group=group)
+            return dict(zip(keys, terms.unbind())), None
         model.eval()
         out = model(**{k: batch[k] for k in MODEL_INPUT_KEYS})
         loss, indiv = compute_loss(out, _targets(batch, raw_frames), 0.0,
-                                   loss_cfg, pitch_predictor)
+                                   loss_cfg, pitch_predictor, group=group)
         metrics = dict(indiv)
         metrics['loss'] = loss
+        if group is not None:
+            terms = torch.stack([metrics[k].float() for k in keys])
+            dist.all_reduce(terms, group=group)
+            metrics = dict(zip(keys, terms.unbind()))
         return metrics, out
 
     return eval_step

@@ -1,5 +1,5 @@
-"""Training driver for one process on one device (PyTorch port of
-``daft_exprt_tpu/train.py``; multi-process data parallelism is later work).
+"""Training driver, one process or data-parallel over several (PyTorch
+port of ``daft_exprt_tpu/train.py``).
 
 The loop follows the JAX driver: dynamic per-speaker stats refreshed every
 ``stats_refresh_interval`` iterations, the normalised batch plus the raw
@@ -9,6 +9,15 @@ every ``iters_check_for_model_improvement`` iterations with a best-model
 checkpoint, a checkpoint every ``iters_per_checkpoint`` iterations and at
 the end, and resume from ``hparams.checkpoint``. Batches are made on the
 host and moved to the device per step.
+
+Data parallel (``mesh``, or any initialised process group): one process a
+rank, each reading the sampler shard ``host_id::num_hosts`` of every epoch
+at a local batch of ``batch_size * (replicas // num_hosts)``, the step
+reducing gradients once a step (``parallel/train_step.py``); only the chief
+(host 0) logs, writes TensorBoard and saves checkpoints, and every rank
+waits at a barrier after each save; validation takes each global batch's
+losses, as JAX's does (the ranks' b-th batches together, global
+denominators), and averages them over the batches.
 
 Precision: float32 matmuls run in full float32 (PyTorch's default); cuDNN's
 TF32 for float32 convolutions stays at PyTorch's default (on), as the JAX
@@ -22,6 +31,7 @@ import os
 import time
 
 import numpy as np
+import torch.distributed as dist
 
 from daft_exprt_torch import checkpoint as ckpt
 from daft_exprt_torch.data import (
@@ -31,6 +41,7 @@ from daft_exprt_torch.device import resolve_device
 from daft_exprt_torch.loss import loss_cfg_from_hparams
 from daft_exprt_torch.models.daft_exprt import DaftExprt
 from daft_exprt_torch.models.pitch_predictor import PitchPredictor
+from daft_exprt_torch.parallel.mesh import make_mesh, mesh_device
 from daft_exprt_torch.parallel.train_step import (
     make_eval_step, make_optimizer, make_train_step, to_device,
 )
@@ -85,10 +96,30 @@ def init_model_and_state(hparams, device=None, seed=None):
     return model, make_optimizer(model, hparams)
 
 
-def train(hparams, num_iterations=None, device=None, log_every=1):
+def train(hparams, num_iterations=None, device=None, log_every=1, mesh=None,
+          host_id=None, num_hosts=None):
     """Run the training loop on ``device`` (default cuda; raises without it
-    unless given 'cpu'); returns (model, final metrics as floats)."""
-    dev = resolve_device(device)
+    unless given 'cpu'); returns (model, final metrics as floats).
+
+    ``mesh``: a data mesh (``make_mesh(n_model=1)``); where a process group
+    is initialised and none is given, one over the whole world. ``host_id``
+    and ``num_hosts`` default to the process group's rank and world size
+    (0 and 1 without one)."""
+    if mesh is None and dist.is_initialized():
+        mesh = make_mesh(n_model=1, device=device)
+    dev = mesh_device(mesh, device)
+    if mesh is not None and mesh.n_model != 1:
+        raise ValueError('the acoustic step is data-parallel only: make the '
+                         f'mesh with n_model=1, not {mesh.n_model}')
+    distributed = dist.is_initialized()
+    if host_id is None:
+        host_id = dist.get_rank() if distributed else 0
+    if num_hosts is None:
+        num_hosts = dist.get_world_size() if distributed else 1
+    is_chief = host_id == 0
+    group = None if mesh is None else mesh.data_group
+    n_replicas = 1 if mesh is None else mesh.size
+    local_batch = hparams.batch_size * max(1, n_replicas // num_hosts)
     check_train_config(hparams)
     os.makedirs(hparams.output_directory, exist_ok=True)
 
@@ -105,25 +136,37 @@ def train(hparams, num_iterations=None, device=None, log_every=1):
             optimizer.load_state_dict(payload['optimizer'])
         iteration = int(meta.get('iteration', 0))
         best_val_loss = float(meta.get('best_val_loss', float('inf')))
-        _logger.info(f'resumed from {hparams.checkpoint} at iteration '
-                     f'{iteration}')
+        if is_chief:
+            _logger.info(f'resumed from {hparams.checkpoint} at iteration '
+                         f'{iteration}')
 
     train_step = make_train_step(
         model, optimizer, loss_cfg, pitch_predictor,
         accumulation_steps=hparams.accumulation_steps,
-        grad_clip=hparams.grad_clip_thresh)
-    eval_step = make_eval_step(model, loss_cfg, pitch_predictor)
+        grad_clip=hparams.grad_clip_thresh, mesh=mesh)
+    eval_step = make_eval_step(model, loss_cfg, pitch_predictor, mesh=mesh)
 
     train_it, val_it, nb_examples = prepare_data_iterators(
-        hparams, batch_size=hparams.batch_size * hparams.accumulation_steps)
-    _logger.info(
-        f'{nb_examples} training examples; effective batch '
-        f'{hparams.batch_size * hparams.accumulation_steps} '
-        f'({hparams.batch_size} x {hparams.accumulation_steps} accum)')
+        hparams, batch_size=local_batch * hparams.accumulation_steps,
+        host_id=host_id, num_hosts=num_hosts)
+    if is_chief:
+        _logger.info(
+            f'{nb_examples} training examples; effective batch '
+            f'{hparams.batch_size * hparams.accumulation_steps * n_replicas}'
+            f' ({hparams.batch_size}/replica x {hparams.accumulation_steps} '
+            f'accum x {n_replicas} replicas)')
 
     stats_manager = DynamicSpeakerStatsManager(hparams)
     refresh_interval = getattr(hparams, 'stats_refresh_interval', 100)
-    tb = DaftExprtLogger(os.path.join(hparams.output_directory, 'logs'))
+    tb = DaftExprtLogger(os.path.join(hparams.output_directory, 'logs')) \
+        if is_chief else None
+
+    def save(name):
+        if is_chief:
+            _save(hparams, name, model, optimizer, iteration, lr_fn,
+                  best_val_loss)
+        if group is not None:
+            dist.barrier(group=group)
 
     num_iterations = num_iterations or hparams.nb_iterations
     epochs = max(1, math.ceil((num_iterations - iteration)
@@ -146,7 +189,7 @@ def train(hparams, num_iterations=None, device=None, log_every=1):
                                  hparams.seed)
             iteration += 1
 
-            if iteration % log_every == 0:
+            if is_chief and iteration % log_every == 0:
                 m = {k: float(v) for k, v in metrics.items()}
                 duration = time.time() - start
                 start = time.time()
@@ -162,45 +205,59 @@ def train(hparams, num_iterations=None, device=None, log_every=1):
 
             if iteration % hparams.iters_check_for_model_improvement == 0:
                 val_loss = validate(eval_step, val_it, stats_manager, dev,
-                                    tb, iteration)
+                                    tb, iteration, mesh, is_chief)
                 if val_loss < best_val_loss:
                     best_val_loss = val_loss
-                    _save(hparams, 'best_model', model, optimizer, iteration,
-                          lr_fn, best_val_loss)
+                    save('best_model')
 
             if iteration % hparams.iters_per_checkpoint == 0:
-                _save(hparams, f'DaftExprt_{iteration}', model, optimizer,
-                      iteration, lr_fn, best_val_loss)
+                save(f'DaftExprt_{iteration}')
 
             if iteration >= num_iterations:
                 done = True
                 break
 
-    _save(hparams, f'DaftExprt_{iteration}', model, optimizer, iteration,
-          lr_fn, best_val_loss)
-    tb.close()
+    save(f'DaftExprt_{iteration}')
+    if tb is not None:
+        tb.close()
     return model, {k: float(v) for k, v in metrics.items()}
 
 
-def validate(eval_step, val_it, stats_manager, device, tb=None, iteration=0):
-    """Mean validation loss over ``val_it`` (inf when it is empty)."""
-    losses, indiv_acc, n = [], None, 0
-    for batch, _, _ in val_it:
-        norm_batch = stats_manager.process_batch(batch)
-        raw = {'frames_energy': batch['frames_energy'],
-               'frames_pitch': batch['frames_pitch']}
-        metrics, _ = eval_step(to_device(norm_batch, device),
-                               to_device(raw, device))
+def validate(eval_step, val_it, stats_manager, device, tb=None, iteration=0,
+             mesh=None, log=True):
+    """Mean validation loss over ``val_it``'s batches (inf when there are
+    none), as JAX's validate. With a ``mesh`` (``eval_step`` made with
+    it), each batch's losses are the global batch's: the ranks' b-th
+    batches together. Where the shards differ by a batch, a rank whose
+    shard has ended joins the others with no rows until every shard has,
+    so every rank averages the same global batches. ``log``: write the
+    loss to the logger (and ``tb``)."""
+    losses, indiv_acc = [], None
+    batches = iter(val_it)
+    while True:
+        item = next(batches, None)
+        if item is not None:
+            norm_batch = stats_manager.process_batch(item[0])
+            raw = {'frames_energy': item[0]['frames_energy'],
+                   'frames_pitch': item[0]['frames_pitch']}
+            metrics, _ = eval_step(to_device(norm_batch, device),
+                                   to_device(raw, device))
+        elif mesh is not None:
+            metrics, _ = eval_step(None, None)
+        else:
+            metrics = None
+        if metrics is None:
+            break
         m = {k: float(v) for k, v in metrics.items()}
         losses.append(m.pop('loss'))
         indiv_acc = m if indiv_acc is None else \
             {k: indiv_acc[k] + v for k, v in m.items()}
-        n += 1
-    if n == 0:
+    if not losses:
         return float('inf')
     val_loss = float(np.mean(losses))
-    indiv = {k: v / n for k, v in (indiv_acc or {}).items()}
-    _logger.info(f'Validation loss [{iteration}]: {val_loss:.6f}')
+    indiv = {k: v / len(losses) for k, v in indiv_acc.items()}
+    if log:
+        _logger.info(f'Validation loss [{iteration}]: {val_loss:.6f}')
     if tb is not None:
         tb.log_validation(val_loss, indiv, iteration)
     return val_loss
@@ -216,3 +273,29 @@ def _save(hparams, name, model, optimizer, iteration, lr_fn, best_val_loss):
                          best_val_loss=best_val_loss,
                          config_params=config_params)
     _logger.info(f'saved checkpoint {path}')
+
+
+def launch_training(hparams, **kwargs):
+    """Entry point of a training run: a ``training.log`` handler on the
+    ``daft_exprt_torch`` logger and ``config.json`` in the output directory
+    (the chief only), then :func:`train` with ``kwargs``. The handler is
+    removed when ``train`` returns, so launches in one process do not stack
+    handlers."""
+    host_id = kwargs.get('host_id')
+    if host_id is None:
+        host_id = dist.get_rank() if dist.is_initialized() else 0
+    handler = None
+    if host_id == 0:
+        os.makedirs(hparams.output_directory, exist_ok=True)
+        handler = logging.FileHandler(
+            os.path.join(hparams.output_directory, 'training.log'))
+        handler.setLevel(logging.INFO)
+        logging.getLogger('daft_exprt_torch').addHandler(handler)
+        hparams.save_hyper_params(
+            os.path.join(hparams.output_directory, 'config.json'))
+    try:
+        return train(hparams, **kwargs)
+    finally:
+        if handler is not None:
+            logging.getLogger('daft_exprt_torch').removeHandler(handler)
+            handler.close()

@@ -1,4 +1,4 @@
-"""Plot helper (copy of ``daft_exprt_tpu/utils/plots.py``'s ``plot_2d_data``).
+"""Plot helpers (copy of ``daft_exprt_tpu/utils/plots.py``).
 matplotlib is imported when a figure is made, not with the module: the
 synthesis path runs without it unless it saves its outputs."""
 import numpy as np
@@ -18,6 +18,25 @@ def plot_2d_data(data, x_labels=None, filename=None, dpi=100):
         im = ax.imshow(arr, aspect='auto', origin='lower', interpolation='none')
         ax.set_title(label)
         fig.colorbar(im, ax=ax)
+    fig.tight_layout()
+    if filename is not None:
+        fig.savefig(filename, dpi=dpi)
+    plt.close(fig)
+
+
+def plot_1d_overlay(curves, labels=None, filename=None, title='', dpi=100):
+    """Overlay 1-D curves (e.g. GT vs predicted pitch)."""
+    import matplotlib
+    matplotlib.use('Agg')
+    import matplotlib.pyplot as plt
+
+    fig, ax = plt.subplots(figsize=(12, 4))
+    labels = labels or ['' for _ in curves]
+    for curve, label in zip(curves, labels):
+        ax.plot(np.asarray(curve), label=label)
+    if any(labels):
+        ax.legend()
+    ax.set_title(title)
     fig.tight_layout()
     if filename is not None:
         fig.savefig(filename, dpi=dpi)

@@ -15,8 +15,18 @@ without TF32. ``compute_dtype='bfloat16'`` runs the generator and the
 discriminators' convs in bf16 (params, optimizer states, weight-norm
 folds, the power iteration and the mel loss stay float32).
 
-Differences by design: no ``mesh`` (data-parallel steps are later work),
-and no TensorBoard where neither ``tensorboardX`` nor
+``mesh`` runs both steps data-parallel over the mesh's data axis, one
+process a rank: the steps take this rank's rows of the global batch, as
+many on every rank; parameters, optimizer states and the spectral state
+stay replicated (the power iteration depends on the weights only). Every
+loss term is a plain mean over equal shards (LSGAN scores, feature maps,
+mel L1), so the global gradient is the mean of the ranks' gradients: one
+all-reduce of a flat buffer a step, divided by the data-axis size,
+carries the gradients and the losses. ``finetune`` then logs, validates
+and saves on rank 0 only, the others waiting at a barrier after each
+save.
+
+Difference by design: no TensorBoard where neither ``tensorboardX`` nor
 ``torch.utils.tensorboard`` imports (``utils/logger._summary_writer``):
 the loop then logs to Python logging only.
 """
@@ -27,6 +37,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from daft_exprt_torch import checkpoint as ckpt
@@ -41,6 +52,9 @@ from daft_exprt_torch.models.hifigan import (
 )
 from daft_exprt_torch.ops.mel import _windowed_dft_basis, mel_filterbank
 from daft_exprt_torch.ops.vocoder_kernels import full_f32
+from daft_exprt_torch.parallel.mesh import (
+    all_reduce_grads, data_rows, mesh_device,
+)
 from daft_exprt_torch.utils.logger import _summary_writer
 
 _logger = logging.getLogger(__name__)
@@ -207,7 +221,7 @@ def _frozen(modules):
 
 
 def make_gan_steps(config=None, lr=2e-4, b1=0.8, b2=0.99,
-                   compute_dtype='float32', device=None):
+                   compute_dtype='float32', device=None, mesh=None):
     """Builds the GAN training steps on ``device`` (default cuda; raises
     without CUDA unless ``device='cpu'``). Returns ``(d_step, g_step,
     (optim_g, optim_d), loss_mel_fn)``:
@@ -224,9 +238,22 @@ def make_gan_steps(config=None, lr=2e-4, b1=0.8, b2=0.99,
 
     Every tensor argument lies on ``device``; mel (B, n_mels, T), y (B, 1,
     T * hop), y_mel ``loss_mel_fn(y[:, 0])``.
+
+    ``mesh``: data-parallel steps on the mesh's device (module note); mel,
+    y and y_mel are this rank's rows, as many on every rank.
     """
     cfg = config or DEFAULT_CONFIG
-    dev = resolve_device(device)
+    dev = mesh_device(mesh, device)
+    group = None if mesh is None else mesh.data_group
+    n_shards = 1 if mesh is None else mesh.n_data
+
+    def reduce(params, *losses):
+        """Mean gradients and losses over the data axis."""
+        if group is None:
+            return losses
+        return tuple(t[0] for t in all_reduce_grads(
+            params, losses, group, divide_by=n_shards))
+
     cdt = torch.bfloat16 if compute_dtype == 'bfloat16' else None
     loss_mel_fn = make_loss_mel_fn(device=dev)
 
@@ -261,6 +288,8 @@ def make_gan_steps(config=None, lr=2e-4, b1=0.8, b2=0.99,
         loss = loss_f + loss_s
         d_opt.zero_grad(set_to_none=True)
         loss.backward()
+        loss, = reduce([p for grp in d_opt.param_groups
+                        for p in grp['params']], loss.detach())
         d_opt.step()
         msd.load_sn_state(new_sn)
         return loss.detach()
@@ -283,8 +312,10 @@ def make_gan_steps(config=None, lr=2e-4, b1=0.8, b2=0.99,
             grads = torch.autograd.grad(total, leaves)
         for p, g in zip(leaves, grads):
             p.grad = g
+        total, mel_l1 = reduce(leaves, total.detach(),
+                               (loss_mel / 45.0).detach())
         g_opt.step()
-        return total.detach(), (loss_mel / 45.0).detach()
+        return total.detach(), mel_l1.detach()
 
     return d_step, g_step, (optim_g, optim_d), loss_mel_fn
 
@@ -292,16 +323,23 @@ def make_gan_steps(config=None, lr=2e-4, b1=0.8, b2=0.99,
 def finetune(data_dir, output_dir, generator_params, config=None,
              training_steps=1000, batch_size=16, lr=2e-4,
              checkpoint_interval=1000, log_interval=20, seed=1234,
-             val_names=None, compute_dtype='float32', device=None):
+             val_names=None, compute_dtype='float32', device=None,
+             mesh=None):
     """Run GAN fine-tuning on ``device`` (default cuda; raises without CUDA
     unless ``device='cpu'``); returns the fine-tuned generator params
     (plain kernels {'w', 'b'}, float32, on the device).
-    ``compute_dtype='bfloat16'`` runs mixed-precision steps."""
-    dev = resolve_device(device)
+    ``compute_dtype='bfloat16'`` runs mixed-precision steps. ``mesh`` runs
+    both steps data-parallel over it (module note): ``batch_size`` is then
+    the global batch, which must divide by the data-axis size, and each
+    rank steps on its rows of every batch."""
+    dev = mesh_device(mesh, device)
+    lo, hi = (0, batch_size) if mesh is None else \
+        data_rows(batch_size, mesh)
+    is_chief = mesh is None or dist.get_rank() == 0
     os.makedirs(output_dir, exist_ok=True)
     cfg = config or DEFAULT_CONFIG
     d_step, g_step, (optim_g, optim_d), loss_mel_fn = make_gan_steps(
-        cfg, lr, compute_dtype=compute_dtype, device=dev)
+        cfg, lr, compute_dtype=compute_dtype, device=dev, mesh=mesh)
 
     g_params_wn = generator_to_weight_norm(
         _to(generator_params, torch.float32, dev))
@@ -317,11 +355,20 @@ def finetune(data_dir, output_dir, generator_params, config=None,
             if len(all_names) > 4 else []
     train_names = [n for n in all_names if n not in set(val_names)]
     dataset = HiFiGANFinetuneDataset(data_dir, names=train_names, seed=seed)
-    _logger.info(f'{len(dataset)} training pairs, {len(val_names)} '
-                 f'validation pairs')
+    if is_chief:
+        _logger.info(f'{len(dataset)} training pairs, {len(val_names)} '
+                     f'validation pairs')
 
-    writer = _summary_writer()
+    writer = _summary_writer() if is_chief else None
     sw = writer(os.path.join(output_dir, 'logs')) if writer else None
+
+    def checkpoint():
+        if is_chief:
+            _validate(data_dir, val_names, g_params_wn, cfg, loss_mel_fn,
+                      sw, step, dev)
+            _save(output_dir, step, g_params_wn, mpd, msd)
+        if mesh is not None:
+            dist.barrier(group=mesh.data_group)
 
     step, epoch = 0, 0
     start = time.time()
@@ -330,8 +377,8 @@ def finetune(data_dir, output_dir, generator_params, config=None,
         for mels, wavs, _names in dataset.batches(batch_size):
             if step >= training_steps:
                 break
-            wavs = torch.from_numpy(wavs).to(dev)
-            mels = torch.from_numpy(mels).to(dev)
+            wavs = torch.from_numpy(wavs[lo:hi]).to(dev)
+            mels = torch.from_numpy(mels[lo:hi]).to(dev)
             y = wavs[:, None, :]
             with torch.no_grad():
                 y_mel = loss_mel_fn(wavs)
@@ -339,7 +386,7 @@ def finetune(data_dir, output_dir, generator_params, config=None,
             g_loss, mel_l1 = g_step(g_params_wn, g_opt, mpd, msd, mels, y,
                                     y_mel)
             step += 1
-            if step % log_interval == 0:
+            if is_chief and step % log_interval == 0:
                 _logger.info(
                     f'Step {step} | Gen {float(g_loss):.3f} | '
                     f'Disc {float(d_loss):.3f} | Mel L1 {float(mel_l1):.4f} '
@@ -349,13 +396,9 @@ def finetune(data_dir, output_dir, generator_params, config=None,
                     sw.add_scalar('training/disc_loss', float(d_loss), step)
                     sw.add_scalar('training/mel_l1', float(mel_l1), step)
             if step % checkpoint_interval == 0:
-                _validate(data_dir, val_names, g_params_wn, cfg, loss_mel_fn,
-                          sw, step, dev)
-                _save(output_dir, step, g_params_wn, mpd, msd)
+                checkpoint()
     if step % checkpoint_interval != 0:
-        _validate(data_dir, val_names, g_params_wn, cfg, loss_mel_fn, sw,
-                  step, dev)
-        _save(output_dir, step, g_params_wn, mpd, msd)
+        checkpoint()
     if sw is not None:
         sw.close()
     return _plain_detached(g_params_wn)

@@ -1,10 +1,12 @@
 """The port stands alone: no JAX, flax, optax or daft_exprt_tpu import in
 daft_exprt_torch/ or chip_smoke.py; the package imports with JAX blocked
 (every module of the audio front end, the GAN fine-tuning and the text and
-alignment front end too); entry points default to CUDA and raise without
-it unless given 'cpu' (the feature extractors, the pitch tracker,
-Griffin-Lim, extract_reference_parameters, the GAN steps, finetune and
-fine_tuning too, before they touch a file)."""
+alignment front end, and of scale-out and the host tools too); entry points
+default to CUDA and raise without it unless given 'cpu' (the feature
+extractors, the pitch tracker, Griffin-Lim, extract_reference_parameters,
+the GAN steps, finetune and fine_tuning too, before they touch a file; and
+init_distributed, make_mesh, make_sharded_vocoder on a default mesh,
+dryrun_multichip, entry and train with a mesh)."""
 import ast
 import subprocess
 import sys
@@ -78,6 +80,14 @@ def test_port_imports_with_jax_blocked():
         'import daft_exprt_torch.utils.multiproc, daft_exprt_torch.utils\n'
         'import daft_exprt_torch.frontend.textgrid\n'
         'import daft_exprt_torch.frontend.mfa\n'
+        'import daft_exprt_torch.parallel.mesh\n'
+        'import daft_exprt_torch.parallel.launch\n'
+        'import daft_exprt_torch.parallel.vocoder_sharding\n'
+        'import daft_exprt_torch.parallel.dryrun\n'
+        'import daft_exprt_torch.utils.profiling\n'
+        'import daft_exprt_torch.frontend.ecapa\n'
+        'from daft_exprt_torch.utils.plots import plot_1d_overlay\n'
+        'from daft_exprt_torch.train import launch_training\n'
         'from daft_exprt_torch.generate import (\n'
         '    phonemize_sentence, prepare_sentences_for_inference)\n'
         'from daft_exprt_torch.bridge import discriminators_from_jax\n'
@@ -116,6 +126,11 @@ def test_entry_points_default_to_cuda():
     from daft_exprt_torch.vocoder_finetune import (
         finetune, make_gan_steps, make_loss_mel_fn,
     )
+    from daft_exprt_torch.parallel.dryrun import dryrun_multichip, entry
+    from daft_exprt_torch.parallel.mesh import init_distributed, make_mesh
+    from daft_exprt_torch.parallel.vocoder_sharding import (
+        make_sharded_vocoder,
+    )
     hp = HyperParams(verbose=False, training_files='x', validation_files='x',
                      output_directory='/nonexistent', language='english',
                      speakers=['a'])
@@ -140,7 +155,13 @@ def test_entry_points_default_to_cuda():
                  lambda: init_mpd_params(0),
                  lambda: init_msd_params(0),
                  lambda: finetune('/nonexistent', '/nonexistent/out', {}),
-                 lambda: fine_tuning(hp, '/nonexistent')):
+                 lambda: fine_tuning(hp, '/nonexistent'),
+                 lambda: init_distributed(0, 1, 'file:///nonexistent/store'),
+                 lambda: make_mesh(),
+                 lambda: make_sharded_vocoder(make_mesh()),
+                 lambda: dryrun_multichip(1),
+                 lambda: entry(),
+                 lambda: train(hp, mesh=make_mesh())):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()
     assert resolve_device('cpu') == torch.device('cpu')
