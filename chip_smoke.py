@@ -194,8 +194,15 @@
      (NCCL, world 1, in this process) on train-step's model, batch and
      seed, five steps: 12 attention forward launches and 24 backward a
      step (60 / 120), every metric of every step equal bit for bit to a
-     single-process run of the same steps (both with cuDNN's deterministic
-     algorithms); prints s/step beside train-step's;
+     single-process run of the same steps, run twice (all three with
+     cuDNN's deterministic algorithms and its TF32 on, torch's default,
+     set by the phase; the two single-process runs equal too, or the step
+     itself is not deterministic); then one more step under
+     torch.use_deterministic_algorithms(warn_only=True) names the step's
+     operations that torch reports as not deterministic; the mesh and one
+     process again in full float32 (cuDNN TF32 off), where they differ in
+     the last bits: loss within rel 1e-5 and grad norm within 1e-4 at
+     every step; prints s/step beside train-step's;
    - ddp-2rank: two spawned ranks sharing the card over gloo, default
      HyperParams in float32, TF32 off, dropout 0, the B=16 x L=128 x
      T=1024 batch split 8 + 8 (the second half's rows 48-384 frames
@@ -219,6 +226,48 @@
      and ThroughputCounter's rate.
    Every spawned rank is joined under a deadline (launch.run_ranks): a
    rank that fails or hangs fails the phase.
+   Then the command-line tools (daft_exprt_torch/scripts), each through
+   its main([...]) in this process (after scale-out: no process group),
+   default HyperParams (full width):
+   - cli-preprocess: training.py pre_process --skip_mfa --skip_ecapa on
+     preprocess's corpus (no kernel); ECAPA needs SpeechBrain's weights,
+     which a card host has not: seeded stand-in .spk_emb.npy files (it
+     says so);
+   - cli-train-pitch: train_pitch_predictor, 3 epochs of one step at
+     batch 8: the running statistics moved and finite;
+   - cli-train: training.py train --num_iterations 3 with that predictor
+     as pitch_predictor_path: 12 attention forward and 24 backward
+     launches a step, the checkpoint written;
+   - cli-adapt-speaker and cli-adapt-accent: one epoch each from
+     cli-train's checkpoint: the frozen tensors bit-equal, the memorized
+     embedding in the output's extra (the accent tool's encoder adds 4
+     forward launches a batch);
+   - cli-style-bank: make_style_bank over cli-preprocess's features;
+   - cli-synthesize, four tiers of synthesize.main (the vocoder from a
+     reference-format generator checkpoint of the seeded weights; it runs
+     one utterance a call, as the JAX package's generate_mel_specs, so
+     the static tier's narrow levels take the q8f phase kernel at any
+     file size): the zero-argument demo on the committed bank with
+     --int8_vocoder (static, calibrated on the bank's wavs:
+     fused_mrf_tc_q8 6 and fused_mrf_phase_q8 4 launches an utterance),
+     eight utterances of ~1000 frames with the cli bank's calibration
+     (the same kernels), the same with -sb '' (dynamic: fused_mrf_ct_q8 8,
+     fused_mrf_phase_q8 4) and with --fast_vocoder (fused_mrf_tc 6,
+     fused_mrf_phase 2); each tier exactly its kernels; the CLI's own
+     vocoder recorded (its HiFiGanVocoder.infer calls): its tier, its
+     static scales within rel-L2 1e-5 of a calibration on the same bank's
+     mels made here, the float waveform it hands to save_wav for each
+     written mel within rel-L2 1e-2 (int8) of the plain int8 route or 5e-2
+     (bf16) of the float32 plain route on the mel padded as the fast tiers
+     pad it, and each written wav that waveform as save_wav quantises it
+     (0 int16 steps); the written mels within 1e-2 of a direct
+     generate_mel_specs call; then python -m daft_exprt_torch.scripts.synthesize
+     --real_time_factor in a process of its own: exit 0 and its wavs;
+   - cli-fine-tune: training.py fine_tune from cli-train's checkpoint: a
+     pair for each training utterance, 12 attention launches a batch.
+   The process-wide torch settings (backend flags, deterministic mode,
+   threads, grad mode, device, environment) are the same after each CLI
+   phase as before it, and after the CLI block as before it.
 4. At every input shape a path called a kernel with: the kernel against
    its plain PyTorch version on the same inputs (unit-gain random weights):
    rel-L2 <= 1e-2 in bf16 (summation order only), <= 1e-5 in float32,
@@ -279,6 +328,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -308,6 +358,9 @@ GAN_CPU_B = 2                         # gan-step's card-vs-CPU check
 FT_STEPS = 4                          # the finetune path's steps
 DDP_STEPS = 2                         # ddp-2rank: steps of the float32 step
 TP_B, TP_FRAMES = 2, 256              # voc-tp: utterances, frames
+CLI_LONG_N, CLI_LONG_FRAMES = 8, 1000  # cli-synthesize's prosody file
+CLI_PITCH_STEPS = 3                   # cli-train-pitch: epochs of 1 step
+CLI_TRAIN_STEPS = 3                   # cli-train: --num_iterations
 TEXT_SENTENCES = (
     'Dr. Smith paid $5.50 for 3 books in 1984!',
     'On the 2nd of May, it rained -- a lot; really?',
@@ -317,6 +370,29 @@ TEXT_SENTENCES = (
 
 def log(*a):
     print(*a, flush=True)
+
+
+def torch_settings(torch):
+    """The process-wide settings a phase could leave behind: backend flags,
+    deterministic mode, threads, grad mode, current device, environment."""
+    b = torch.backends
+    return {
+        'cudnn': (b.cudnn.enabled, b.cudnn.benchmark, b.cudnn.deterministic,
+                  b.cudnn.allow_tf32),
+        'matmul': (b.cuda.matmul.allow_tf32,
+                   b.cuda.matmul.allow_bf16_reduced_precision_reduction,
+                   b.cuda.matmul.allow_fp16_reduced_precision_reduction,
+                   torch.get_float32_matmul_precision()),
+        'sdp': (b.cuda.flash_sdp_enabled(), b.cuda.mem_efficient_sdp_enabled(),
+                b.cuda.math_sdp_enabled()),
+        'deterministic': (torch.are_deterministic_algorithms_enabled(),
+                          torch.is_deterministic_algorithms_warn_only_enabled()),
+        'threads': (torch.get_num_threads(), torch.get_num_interop_threads()),
+        'grad': torch.is_grad_enabled(),
+        'dtype': str(torch.get_default_dtype()),
+        'device': torch.cuda.current_device(),
+        'env': dict(os.environ),
+    }
 
 
 def make_batch(hp, B, L, T, seed=0):
@@ -521,6 +597,26 @@ def random_pitch_predictor(n_mel, seed):
             else:
                 prm.copy_(0.02 * z)
     return pp
+
+
+def write_long_prosody(path, symbols, n=CLI_LONG_N, frames=CLI_LONG_FRAMES,
+                       seed=SEED):
+    """A symbol-prosody file of ``n`` utterances of about ``frames`` frames
+    (128 symbols of 4-11 frames, scaled to the total), seeded pitch (30%
+    unvoiced) and energy, one utterance a line in the tuple form."""
+    rng = np.random.RandomState(seed)
+    phones = [s for s in symbols if s[0].isalpha()]
+    with open(path, 'w') as f:
+        for i in range(n):
+            durs = rng.randint(4, 12, 128).astype(np.float64)
+            durs = np.maximum(1, np.round(durs * frames / durs.sum()))
+            syms = [phones[j] for j in rng.randint(0, len(phones), 128)]
+            pitch = np.where(rng.rand(128) < 0.3, 0.0,
+                             5.0 + 0.2 * rng.randn(128))
+            energy = 8.0 + 3.0 * rng.rand(128)
+            tuples = [(s, int(d), round(float(p), 3), round(float(e), 3))
+                      for s, d, p, e in zip(syms, durs, pitch, energy)]
+            f.write(f'long_{i}|{tuples!r}\n')
 
 
 def ddp_hparams(**kw):
@@ -2482,27 +2578,67 @@ def main():
             out.append({k: float(v) for k, v in m.items()})
         return out, secs
 
-    # both runs with cuDNN's deterministic algorithms, so that equality
-    # tests the step and not the card's atomics
+    # every run with cuDNN's deterministic algorithms, so that equality
+    # tests the step and not the card's atomics, and with cuDNN's TF32 on
+    # (torch's default, train-step's setting) whatever an earlier phase
+    # left; the single process twice, so that a difference of the step
+    # from itself is told from the mesh's
     torch.backends.cudnn.deterministic = True
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
     ref_m, ref_s = train_steps(None)
     ddp_m, ddp_s = run_path('ddp-train-step', lambda: train_steps(mesh1),
                             attn_kernels)
+    ref2_m, _ = train_steps(None)
+    # the step's operations that torch itself reports as not deterministic
+    # (one step, its warnings recorded; torch's deterministic mode is off
+    # again after it)
+    xmodel = DaftExprt.from_hparams(hp_t, seed=SEED).train()
+    step = make_train_step(xmodel, make_optimizer(xmodel, hp_t), loss_cfg,
+                           pitch_pp)
+    with warnings.catch_warnings(record=True) as alerts:
+        warnings.simplefilter('always')
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            step(dev_batch, dev_raw, 0.0, SEED)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    alerts = sorted({str(a.message).split('. ')[0][:160] for a in alerts
+                     if 'determinis' in str(a.message)})
+    del xmodel, step
+    # the same comparison in full float32 (cuDNN without TF32): within the
+    # bands of ddp-2rank, not bit for bit (see the log)
+    with vk.full_f32():
+        f32_ref, _ = train_steps(None)
+        f32_ddp, _ = train_steps(mesh1)
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
     torch.backends.cudnn.deterministic = cudnn_det
+    log(f'path ddp-train-step: operations torch reports as not '
+        f'deterministic in one step: {alerts or "none"}')
+    f32_rel = [(abs(a['loss'] - b['loss']) / abs(b['loss']),
+                abs(a['grad_norm'] - b['grad_norm']) / abs(b['grad_norm']))
+               for a, b in zip(f32_ddp, f32_ref)]
+    log(f'path ddp-train-step: in full float32 (cuDNN TF32 off), the mesh '
+        f'against one process, (loss, grad_norm) rel by step '
+        f'{[(float(f"{x:.3e}"), float(f"{y:.3e}")) for x, y in f32_rel]} '
+        f'(bands 1e-5, 1e-4)')
+    assert all(x <= 1e-5 and y <= 1e-4 for x, y in f32_rel), f32_rel
     assert paths[-1][1] == {'fused_attention': 12 * TRAIN_STEPS,
                             'fused_attention_bwd': 24 * TRAIN_STEPS}, \
         paths[-1][1]
-    for i, (a, b) in enumerate(zip(ddp_m, ref_m)):
+    for i, (a, b, c) in enumerate(zip(ddp_m, ref_m, ref2_m)):
         log(f'path ddp-train-step: step {i}: loss {a["loss"]!r} grad_norm '
             f'{a["grad_norm"]!r}; single process {b["loss"]!r} '
-            f'{b["grad_norm"]!r}')
-        assert a == b, (i, a, b)
+            f'{b["grad_norm"]!r}, again {c["loss"]!r} {c["grad_norm"]!r}')
+    assert ref2_m == ref_m, 'the single-process step differs from itself'
+    assert ddp_m == ref_m, 'the world-1 mesh step differs from one process'
     same_ts = all(a['loss'] == b['loss'] and a['grad_norm'] == b['grad_norm']
                   for a, b in zip(ddp_m, ts_metrics))
     ddp_step = float(np.median(ddp_s[1:]))
     log(f'path ddp-train-step: every metric of {TRAIN_STEPS} steps equal to '
-        f'the single-process step bit for bit (both with cuDNN '
-        f'deterministic; equal to the train-step path\'s run, cuDNN '
+        f'the single-process step bit for bit, itself equal in two runs (all '
+        f'with cuDNN deterministic; equal to the train-step path\'s run, cuDNN '
         f'default: {same_ts}); {ddp_step:.4f} s/step (median of steps '
         f'2-{TRAIN_STEPS}) against the single process\'s '
         f'{float(np.median(ref_s[1:])):.4f} in the same setting and '
@@ -2631,6 +2767,441 @@ def main():
         f'ThroughputCounter {counter.rate:.2f} audio-s/s (one call under '
         f'the profiler) [{smi.splitlines()[0]}]')
     assert events
+
+    # ---- 3d. the command-line tools -----------------------------------------
+    # each tool's main([...]) in this process (the launch counters read
+    # around it), default HyperParams (full width), on preprocess's corpus
+    from scipy.io import wavfile as cli_wavfile
+    from daft_exprt_torch.models.hifigan import (
+        generator_state_dict, load_torch_generator,
+    )
+    from daft_exprt_torch.scripts import (
+        adapt_accent, adapt_speaker, make_style_bank, synthesize as cli_synth,
+        train_pitch_predictor, training as cli_training,
+    )
+    def settings_left(before):
+        """The process-wide torch settings that differ from ``before``
+        (of the environment, the names of the variables that differ)."""
+        after = torch_settings(torch)
+        left = {k: (v, after[k]) for k, v in before.items() if after[k] != v}
+        if 'env' in left:
+            env0, env1 = left['env']
+            left['env'] = sorted(k for k in env0.keys() | env1.keys()
+                                 if env0.get(k) != env1.get(k))
+        return left
+
+    def run_cli(tier, body, path_kernels):
+        """run_path, and the tool leaves the process-wide torch settings
+        as it found them."""
+        before = torch_settings(torch)
+        out = run_path(tier, body, path_kernels)
+        left = settings_left(before)
+        assert not left, (tier, left)
+        return out
+
+    settings_before_cli = torch_settings(torch)
+    cli_root = os.path.join(ROOT, 'build', 'smoke', 'cli')
+    shutil.rmtree(cli_root, ignore_errors=True)
+    os.makedirs(cli_root)
+    cli_exp = os.path.join(cli_root, 'exp')
+    cli_feats = os.path.join(cli_root, 'features')
+
+    def cli_train_argv(*cmd, overrides=None):
+        return ['-dd', dataset, '-ed', cli_root, '-en', 'exp', '--device',
+                'cuda'] + (['--config_overrides', json.dumps(overrides)]
+                           if overrides else []) + list(cmd)
+
+    run_cli('cli-preprocess', lambda: cli_training.main(cli_train_argv(
+        'pre_process', '--skip_mfa', '--skip_ecapa', '--pitch_method',
+        'device')), ())
+    with open(os.path.join(cli_exp, 'train.txt')) as f_t, \
+            open(os.path.join(cli_exp, 'validation.txt')) as f_v:
+        cli_train_lines = [line.split('|') for line in f_t if line.strip()]
+        n_cli_val = sum(1 for line in f_v if line.strip())
+    with open(os.path.join(cli_exp, 'stats.json')) as f:
+        cli_stats = json.load(f)
+    assert len(cli_train_lines) + n_cli_val == len(corpus), cli_train_lines
+    assert all(math.isfinite(v[k][s]) for spk, v in cli_stats.items()
+               if spk != 'symbols' for k in ('energy', 'pitch')
+               for s in ('mean', 'std')), cli_stats
+    # ECAPA needs SpeechBrain's weights, which this host has not: seeded
+    # stand-ins, as finetune-dataset writes them
+    rng_c = np.random.RandomState(SEED + 10)
+    for spk, name, _ in corpus:
+        np.save(os.path.join(cli_feats, spk, f'{name}.spk_emb.npy'),
+                rng_c.randn(hp.external_emb_dim).astype(np.float32))
+    log(f'path cli-preprocess: training.py pre_process --skip_mfa '
+        f'--skip_ecapa: {len(cli_train_lines)} train / {n_cli_val} '
+        f'validation utterances, stats of {sorted(cli_stats)}; ECAPA '
+        'skipped (no SpeechBrain weights on this host): seeded stand-in '
+        '.spk_emb.npy files written for each utterance')
+
+    # cli-train-pitch: 3 epochs of one step (8 utterances at batch 8)
+    pp_out = os.path.join(cli_root, 'pitch_predictor')
+    pp_file = run_cli('cli-train-pitch', lambda: train_pitch_predictor.main(
+        ['-fd', cli_feats, '-out', pp_out, '--epochs', str(CLI_PITCH_STEPS),
+         '--batch_size', str(len(corpus)), '--device', 'cuda']), ())
+    pp_payload, pp_meta = ckpt.load_checkpoint(pp_file)
+    assert pp_meta['iteration'] == CLI_PITCH_STEPS, pp_meta
+    for name_s, t in pp_payload['model'].items():
+        assert torch.isfinite(t).all(), name_s
+    moved_stats = [float((pp_payload['model'][f'bn_{i}.running_mean']).abs(
+        ).max()) for i in range(3)] + [float((pp_payload['model'][
+            f'bn_{i}.running_var'] - 1.0).abs().max()) for i in range(3)]
+    assert min(moved_stats) > 0, moved_stats
+    log(f'path cli-train-pitch: {CLI_PITCH_STEPS} steps at batch '
+        f'{len(corpus)}, running statistics moved by up to '
+        f'{[round(v, 4) for v in moved_stats]} (means, then variances from '
+        f'1), all finite; {pp_file}')
+
+    # cli-train: train --num_iterations 3 with the trained pitch predictor
+    cli_overrides = {'pitch_predictor_path': pp_file}
+    _, cli_m = run_cli('cli-train', lambda: cli_training.main(
+        cli_train_argv('train', '--num_iterations', str(CLI_TRAIN_STEPS),
+                       overrides=cli_overrides)), attn_kernels)
+    n_launch = paths[-1][1]
+    assert n_launch == {'fused_attention': 12 * CLI_TRAIN_STEPS,
+                        'fused_attention_bwd': 24 * CLI_TRAIN_STEPS}, \
+        n_launch
+    cli_ck = os.path.join(cli_exp, 'checkpoints',
+                          f'DaftExprt_{CLI_TRAIN_STEPS}')
+    cli_payload, cli_meta = ckpt.load_checkpoint(cli_ck)
+    assert cli_meta['iteration'] == CLI_TRAIN_STEPS
+    assert cli_meta['config_params']['pitch_predictor_path'] == pp_file
+    assert all(math.isfinite(v) for v in cli_m.values()), cli_m
+    assert cli_m['pitch_consistency_loss'] > 0, cli_m
+    cli_bs = cli_meta['config_params']['batch_size']
+    log(f'path cli-train: {CLI_TRAIN_STEPS} iterations at batch {cli_bs} '
+        f'(the default), {n_launch} (12 and 24 a step), loss '
+        f'{cli_m["loss"]:.6g}, pitch consistency '
+        f'{cli_m["pitch_consistency_loss"]:.6g}; checkpoint {cli_ck}')
+
+    def frozen_check(tier, out, unfrozen, extra_key, dim):
+        payload, meta = ckpt.load_checkpoint(out)
+        n_frozen = n_moved = 0
+        for k, v in cli_payload['model'].items():
+            if k.split('.', 1)[0] in unfrozen:
+                n_moved += not torch.equal(payload['model'][k], v)
+            else:
+                assert torch.equal(payload['model'][k], v), (tier, k)
+                n_frozen += 1
+        emb_x = payload['extra'][extra_key]
+        assert emb_x.shape == (dim,) and torch.isfinite(emb_x).all()
+        assert n_moved > 0 and n_frozen > 0, (n_moved, n_frozen)
+        log(f'path {tier}: {meta["iteration"]} steps; {n_frozen} frozen '
+            f'tensors bit-equal, {n_moved} of {unfrozen} moved; extra '
+            f'{extra_key} {tuple(emb_x.shape)}')
+        return meta['iteration'], emb_x
+
+    train_txt = os.path.join(cli_exp, 'train.txt')
+    out_spk = os.path.join(cli_root, 'adapted_speaker')
+    run_cli('cli-adapt-speaker', lambda: adapt_speaker.main(
+        ['-chk', cli_ck, '-out', out_spk, '-tf', train_txt, '--epochs', '1',
+         '--device', 'cuda']), attn_kernels)
+    n_adapt, spk_x = frozen_check('cli-adapt-speaker', out_spk,
+                                  adapt_speaker.TIERS[2],
+                                  'memorized_spk_emb', hp.external_emb_dim)
+    assert paths[-1][1] == {'fused_attention': 12 * n_adapt,
+                            'fused_attention_bwd': 24 * n_adapt}, paths[-1]
+    want_spk = np.mean([np.load(os.path.join(d, f'{n}.spk_emb.npy'))
+                        for d, n, _ in cli_train_lines], axis=0)
+    assert np.allclose(spk_x.numpy(), want_spk, rtol=0, atol=1e-6)
+    out_acc = os.path.join(cli_root, 'adapted_accent')
+    run_cli('cli-adapt-accent', lambda: adapt_accent.main(
+        ['-chk', cli_ck, '-out', out_acc, '-tf', train_txt, '--epochs', '1',
+         '--device', 'cuda']), attn_kernels)
+    n_adapt, _ = frozen_check('cli-adapt-accent', out_acc, ['style_adapter'],
+                              'memorized_accent_emb', 128)
+    # each batch: the accent encoder's 4 blocks, then the step's 12 and 24
+    assert paths[-1][1] == {'fused_attention': 16 * n_adapt,
+                            'fused_attention_bwd': 24 * n_adapt}, paths[-1]
+
+    # cli-style-bank: the full demo bank from cli-preprocess's features
+    bank_dir = os.path.join(cli_root, 'bank')
+    run_cli('cli-style-bank', lambda: make_style_bank.main(
+        ['-fd', cli_feats, '-dd', dataset, '-out', bank_dir, '--device',
+         'cuda']), ())
+    bank_files = sorted(os.listdir(bank_dir))
+    assert sum(f.endswith('.wav') for f in bank_files) == len(corpus)
+    assert {'bank.prosody', 'spk_emb.npy', 'speaker_stats.json'} <= set(
+        bank_files), bank_files
+    log(f'path cli-style-bank: {len(bank_files)} files in {bank_dir}')
+
+    # cli-synthesize: four tiers through synthesize.main; the float waveform
+    # the CLI's own vocoder makes for each written mel against the plain
+    # route
+    voc_ck = os.path.join(cli_root, 'generator.pt')
+    torch.save(generator_state_dict(voc_params), voc_ck)
+    cli_voc_params = load_torch_generator(voc_ck)
+    long_pf = os.path.join(cli_root, 'long.prosody')
+    write_long_prosody(long_pf, hp.symbols)
+    rng_s = np.random.RandomState(SEED + 11)
+    spk_file = os.path.join(cli_root, 'spk_emb.npy')
+    acc_file = os.path.join(cli_root, 'accent_emb.npy')
+    np.save(spk_file, rng_s.randn(hp.external_emb_dim).astype(np.float32))
+    np.save(acc_file, rng_s.randn(128).astype(np.float32))
+    committed_bank = os.path.join(ROOT, 'scripts', 'style_bank', 'english')
+    cli_model, cli_hp, _ = cli_synth.load_model_for_synthesis(cli_ck)
+    bank_mels = {b: cli_synth.calibration_mels(b, cli_hp, device='cuda')
+                 for b in (committed_bank, bank_dir)}
+    n_committed = len(cli_synth.parse_symbol_prosody_file(os.path.join(
+        committed_bank, 'bank.prosody'), cli_hp)[0])
+    cli_tiers = (
+        # (tier, argv, vocoder kwargs, kernels, launches an utterance)
+        ('cli-synthesize-demo', ['--int8_vocoder'],
+         dict(fast='int8', int8_calibration_mels=bank_mels[committed_bank]),
+         (fused_attention, vk.fused_mrf_tc_q8, mi.fused_mrf_phase_q8),
+         {'fused_mrf_tc_q8': 6, 'fused_mrf_phase_q8': 4}),
+        ('cli-synthesize-static', ['--int8_vocoder', '-spf', long_pf, '-sb',
+                                   bank_dir, '--accent_emb_file', acc_file],
+         dict(fast='int8', int8_calibration_mels=bank_mels[bank_dir]),
+         (fused_attention, vk.fused_mrf_tc_q8, mi.fused_mrf_phase_q8),
+         {'fused_mrf_tc_q8': 6, 'fused_mrf_phase_q8': 4}),
+        ('cli-synthesize-dynamic', ['--int8_vocoder', '-spf', long_pf, '-sb',
+                                    '', '--spk_emb_file', spk_file,
+                                    '--accent_emb_file', acc_file],
+         dict(fast='int8'),
+         (fused_attention, mi.fused_mrf_ct_q8, mi.fused_mrf_phase_q8),
+         {'fused_mrf_ct_q8': 8, 'fused_mrf_phase_q8': 4}),
+        ('cli-synthesize-bf16', ['--fast_vocoder', '-spf', long_pf, '-sb',
+                                 '', '--spk_emb_file', spk_file,
+                                 '--accent_emb_file', acc_file],
+         dict(fast='bf16'), (fused_attention, vk.fused_mrf_tc,
+                             vk.fused_mrf_phase),
+         {'fused_mrf_tc': 6, 'fused_mrf_phase': 2}))
+    cli_synth_s = {}
+    exact_cli = HiFiGanVocoder(cli_voc_params, fast=False)
+
+    def exact_padded(mel_x):
+        """The float32 plain route on the mel as the fast tiers pad it (to
+        a multiple of 128 frames with the mel floor), cropped back."""
+        T0 = mel_x.shape[-1]
+        pad = np.full((mel_x.shape[0], -(-T0 // 128) * 128 - T0),
+                      math.log(1e-5), np.float32)
+        return exact_cli.infer(np.concatenate([mel_x, pad], 1))[:T0 * 256]
+
+    def cli_run(argv, out_dir):
+        """synthesize.main on ``argv``, with every HiFiGanVocoder.infer
+        call of the run recorded: (vocoder, mel, float waveform), the
+        waveform the CLI hands to save_wav."""
+        calls, infer = [], HiFiGanVocoder.infer
+
+        def recording(self, mel_spec):
+            wav_f = infer(self, mel_spec)
+            calls.append((self, np.array(mel_spec, np.float32), wav_f))
+            return wav_f
+
+        HiFiGanVocoder.infer = recording
+        try:
+            preds = cli_synth.main(['-out', out_dir, '-chk', cli_ck,
+                                    '--vocoder_checkpoint', voc_ck,
+                                    '--device', 'cuda'] + argv)
+        finally:
+            HiFiGanVocoder.infer = infer
+        return preds, calls
+
+    def scales_rel(a, b):
+        """The largest rel_l2 between two calibrations' act scales."""
+        assert a.keys() == b.keys(), (a.keys(), b.keys())
+        return max(rel_l2(x, y) for i in a for ra, rb in zip(a[i], b[i])
+                   for x, y in zip(ra, rb))
+
+    for tier, argv, voc_kw, kern, per_utt in cli_tiers:
+        out_dir = os.path.join(cli_root, tier)
+        t0 = time.perf_counter()
+        preds, calls = run_cli(tier, lambda argv=argv, out_dir=out_dir:
+                                cli_run(argv, out_dir), kern)
+        cli_synth_s[tier] = time.perf_counter() - t0
+        n_utt = len(preds)
+        assert n_utt == (n_committed if tier.endswith('demo')
+                         else CLI_LONG_N), (tier, n_utt)
+        assert len(calls) == n_utt, (tier, len(calls))
+        for name_k, per in per_utt.items():
+            assert paths[-1][1][name_k] == per * n_utt, (tier, paths[-1][1])
+        # the CLI's own vocoder: its tier, and its static scales against a
+        # calibration of the same bank's mels made here
+        cli_voc = calls[0][0]
+        assert all(c[0] is cli_voc for c in calls), tier
+        voc = HiFiGanVocoder(cli_voc_params, **voc_kw)
+        assert (cli_voc.int8, cli_voc.fast) == (voc.int8, voc.fast), tier
+        assert (cli_voc.act_scales is None) == (voc.act_scales is None)
+        r_scales = None if voc.act_scales is None else scales_rel(
+            cli_voc.act_scales, voc.act_scales)
+        by_mel = {c[1].tobytes(): c[2] for c in calls}
+        worst_lsb, worst_plain, peak = 0, 0.0, 0.0
+        for key, pred in preds.items():
+            mel_c = np.load(os.path.join(out_dir, f'{key}.npz'))['mel_spec']
+            assert mel_c.shape == pred[4].shape and np.isfinite(mel_c).all()
+            sr_c, w_int = cli_wavfile.read(os.path.join(out_dir,
+                                                        f'{key}.wav'))
+            assert sr_c == hp.sampling_rate
+            assert w_int.shape == (mel_c.shape[1] * 256,), (key, w_int.shape)
+            # the CLI's float waveform for this written mel: the file is it,
+            # quantised as save_wav does, and it is held to the plain route
+            # (the same function on the kernels' plain versions) at the band
+            cli_w = by_mel[np.asarray(mel_c, np.float32).tobytes()]
+            assert np.isfinite(cli_w).all(), key
+            q = (cli_w * 32767.5).clip(-32768, 32767).astype(np.int16)
+            worst_lsb = max(worst_lsb, int(np.abs(
+                w_int.astype(np.int32) - q.astype(np.int32)).max()))
+            peak = max(peak, float(np.abs(cli_w).max()))
+            plain_w = plain_int8(voc, mel_c)[0] if voc.int8 else \
+                exact_padded(mel_c)
+            worst_plain = max(worst_plain, rel(cli_w, plain_w))
+        band = 1e-2 if voc.int8 else 5e-2
+        log(f'path {tier}: {n_utt} utterances of '
+            f'{sorted({p[4].shape[1] for p in preds.values()})} frames, '
+            f'{paths[-1][1]}; the CLI vocoder\'s float waveform for each '
+            f'written mel vs the plain route rel_l2 <= {worst_plain:.3e} '
+            f'(band {band:g}), |wav| max {peak:.3e}; each written wav vs '
+            f'that waveform as save_wav quantises it: {worst_lsb} LSB at '
+            f'worst (band 0); static scales vs a calibration on the bank\'s '
+            f'mels made here rel_l2 {r_scales} (band 1e-5; None: no static '
+            f'scales); '
+            f'{cli_synth_s[tier]:.2f} s (host clock) '
+            f'[{smi.splitlines()[0]}]')
+        assert worst_lsb == 0 and worst_plain <= band and (
+            r_scales is None or r_scales <= 1e-5), \
+            (tier, worst_lsb, worst_plain, r_scales)
+    # the written mels against a direct Synthesizer call on the same inputs
+    # (the dynamic tier's: embeddings from files)
+    sents, names_l, ext = cli_synth.parse_symbol_prosody_file(long_pf,
+                                                              cli_hp)
+    direct = generate_mel_specs(
+        Synthesizer(cli_model, cli_hp), sents, names_l, [0] * len(sents),
+        os.path.join(cli_root, 'direct'), cli_hp, batch_size=50,
+        external_prosody=ext, external_embeddings=np.load(spk_file),
+        external_accent_emb=np.load(acc_file), save_outputs=False)
+    worst_mel = max(rel(np.load(os.path.join(
+        cli_root, 'cli-synthesize-dynamic', f'{k}.npz'))['mel_spec'], v[4])
+        for k, v in direct.items())
+    log(f'path cli-synthesize: written mels vs a direct Synthesizer call '
+        f'rel_l2 <= {worst_mel:.3e} (band 1e-2)')
+    assert worst_mel <= 1e-2, worst_mel
+    del cli_model, exact_cli
+
+    # python -m daft_exprt_torch.scripts.synthesize --real_time_factor: the
+    # zero-argument demo in a process of its own (two runs, as the script)
+    rtf_dir = os.path.join(cli_root, 'rtf')
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, '-m', 'daft_exprt_torch.scripts.synthesize',
+         '-out', rtf_dir, '-chk', cli_ck, '--vocoder_checkpoint', voc_ck,
+         '--int8_vocoder', '--real_time_factor'], cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    rtf_s = time.perf_counter() - t0
+    rtf_lines = [line for line in res.stderr.splitlines() if 'RTF' in line]
+    assert res.returncode == 0, res.stderr[-3000:]
+    n_wavs = sum(f.endswith('.wav') for f in os.listdir(rtf_dir))
+    assert n_wavs == n_committed, os.listdir(rtf_dir)
+    log(f'path cli-synthesize-rtf: python -m ... --real_time_factor exit 0, '
+        f'{n_wavs} wavs, {rtf_s:.2f} s with start-up; '
+        + ' | '.join(line.split('] ')[-1] for line in rtf_lines)
+        + f' [{smi.splitlines()[0]}]')
+
+    # cli-prosody: extract_symbol_prosody --skip_mfa over preprocess's
+    # corpus (its alignments laid out as the tool's work directory: the
+    # aligner is not on this host), then compute_spk_stats_from_prosody on
+    # what it wrote
+    from daft_exprt_torch.frontend.audio import load_wav
+    from daft_exprt_torch.scripts import (
+        compute_spk_stats_from_prosody, extract_symbol_prosody,
+        grid_search_accent,
+    )
+    esp_work = os.path.join(cli_root, 'prosody_work')
+    esp_wavs = os.path.join(esp_work, 'corpus', 'speaker', 'wavs')
+    os.makedirs(os.path.join(esp_work, 'align'))
+    os.makedirs(esp_wavs)
+    manifest = os.path.join(cli_root, 'manifest.txt')
+    with open(manifest, 'w') as f:
+        for idx, (spk, name, _) in enumerate(corpus):
+            # the manifest names the copies: the corpus's names repeat
+            # across speakers, and a prosody file's names must not
+            wav_esp = os.path.join(esp_wavs, f'utt_{idx:04d}.wav')
+            shutil.copyfile(os.path.join(dataset, spk, 'align',
+                                         f'{name}.markers'),
+                            os.path.join(esp_work, 'align',
+                                         f'utt_{idx:04d}.markers'))
+            shutil.copyfile(os.path.join(dataset, spk, 'wavs',
+                                         f'{name}.wav'), wav_esp)
+            f.write(f'{wav_esp}|hello world\n')
+    esp_file = os.path.join(cli_root, 'corpus.prosody')
+    esp_stats_file = os.path.join(cli_root, 'corpus_stats.json')
+
+    def prosody_tools():
+        n = extract_symbol_prosody.main(
+            ['-m', manifest, '-o', esp_file, '--skip_mfa', '--work_dir',
+             esp_work, '--pitch_method', 'device', '--device', 'cuda'])
+        return n, compute_spk_stats_from_prosody.main(
+            ['-spf', esp_file, '-o', esp_stats_file, '--device', 'cuda'])
+
+    n_esp, esp_stats = run_cli('cli-prosody', prosody_tools, ())
+    _, _, esp_ext = cli_synth.parse_symbol_prosody_file(esp_file, cli_hp)
+    assert n_esp == len(esp_ext) == len(corpus), (n_esp, len(esp_ext))
+    esp_dev = []
+    for (_, _, f0), entry in zip(corpus, esp_ext):
+        pitch_s = np.asarray(entry['pitch'], np.float64)
+        assert np.isfinite(pitch_s).all() and np.isfinite(
+            entry['energy']).all(), entry
+        esp_dev.append(abs(np.exp(np.median(pitch_s[pitch_s > 0])) - f0)
+                       / f0)
+    assert max(esp_dev) <= 0.08, esp_dev
+    assert all(math.isfinite(esp_stats[k][m]) for k in ('pitch', 'energy')
+               for m in ('mean', 'std')), esp_stats
+    log(f'path cli-prosody: extract_symbol_prosody --skip_mfa wrote '
+        f'{n_esp}/{len(corpus)} utterances, voiced symbols\' median F0 '
+        f'within {max(esp_dev):.2%} of the corpus F0 (band 8%); '
+        f'compute_spk_stats_from_prosody {esp_stats}')
+
+    # cli-grid-search: grid_search_accent over two points on that prosody
+    # file (float32 vocoder: the attention kernel only), scored against the
+    # metrics of a corpus wav
+    target_wav = os.path.join(dataset, corpus[0][0], 'wavs',
+                              f'{corpus[0][1]}.wav')
+    wav_t, fs_t = load_wav(target_wav, target_sr=cli_hp.sampling_rate)
+    target_file = os.path.join(cli_root, 'target_metrics.json')
+    target = grid_search_accent.prosody_metrics(
+        wav_t, fs_t, cli_hp, pitch_method='device', device='cuda')
+    with open(target_file, 'w') as f:
+        json.dump({k: v for k, v in target.items() if v is not None}, f)
+    grid_dir = os.path.join(cli_root, 'grid')
+    grid_rows = run_cli('cli-grid-search', lambda: grid_search_accent.main(
+        ['-out', grid_dir, '-chk', cli_ck, '-spf', esp_file,
+         '--vocoder_checkpoint', voc_ck, '--spk_emb_file', spk_file,
+         '--accent_emb_file', acc_file, '--alpha_dur', '1.0',
+         '--alpha_pitch', '0.5', '1.0', '--alpha_energy', '1.0',
+         '--target_metrics', target_file, '--pitch_method', 'device',
+         '--device', 'cuda']), kernels[:1])
+    assert [r['alpha_pitch'] for r in grid_rows] == [0.5, 1.0], grid_rows
+    for r in grid_rows:
+        n_w = sum(f.endswith('.wav') for f in os.listdir(
+            os.path.join(grid_dir, r['tag'])))
+        assert n_w == n_esp, (r['tag'], n_w)
+        assert all(v is None or math.isfinite(v) for k, v in r.items()
+                   if k != 'tag'), r
+    # a synthesis batch: the phoneme encoder's 4 blocks, the decoder's 4
+    assert paths[-1][1]['fused_attention'] == 8 * len(grid_rows) * -(
+        -n_esp // 8), paths[-1][1]
+    log(f'path cli-grid-search: {len(grid_rows)} points against '
+        f'{target_wav}\'s metrics: ' + '; '.join(
+            f'{r["tag"]} distance {r["target_distance"]}' for r in grid_rows))
+
+    # cli-fine-tune: the vocoder fine-tuning dataset from cli-train's model
+    ft_cli = run_cli('cli-fine-tune', lambda: cli_training.main(
+        cli_train_argv('fine_tune', '-chk', cli_ck)), kernels[:1])
+    n_pairs = sum(f.endswith('.npy') for _, _, fs in os.walk(ft_cli)
+                  for f in fs)
+    assert n_pairs == len(cli_train_lines) and n_pairs == sum(
+        f.endswith('.wav') for _, _, fs in os.walk(ft_cli) for f in fs)
+    assert paths[-1][1]['fused_attention'] == 12 * -(-len(
+        cli_train_lines) // cli_bs), paths[-1][1]
+    log(f'path cli-fine-tune: {n_pairs} pairs (.npy + .wav) for the '
+        f'{len(cli_train_lines)} training utterances under {ft_cli}')
+    left = settings_left(settings_before_cli)
+    log(f'cli: process-wide torch settings after the CLI phases as before '
+        f'them: {not left} {left or ""}')
+    assert not left, left
+    torch.cuda.empty_cache()
 
     # ---- 4. each kernel at each shape a path called it with ----------------
     by_name = {kern.__name__: kern for kern in kernels}

@@ -9,7 +9,7 @@ front end (log-mel, energy and pitch extraction, corpus pre-processing,
 reference recordings for accent conversion, Griffin-Lim), vocoder GAN
 fine-tuning (``fine_tune.py``, ``vocoder_finetune.py``, data-parallel
 too), the channel-parallel vocoder and the text and alignment front end
-(host code), with the Pallas
+(host code), and the command-line tools (``scripts/``), with the Pallas
 kernels of the JAX package replaced by hand-written CUDA kernels
 (``ops/csrc``).
 
@@ -34,21 +34,25 @@ Layout:
     ops/       CUDA kernels (csrc/), their build step and PyTorch wrappers;
                gradient reversal; log-mel (mel.py) and the NCCF + Viterbi
                pitch tracker (pitch.py), plain PyTorch on the card
-    models/    acoustic model, frozen pitch predictor, HiFi-GAN generator,
-               its MPD and MSD discriminators
+    models/    acoustic model, pitch predictor (frozen, or in training),
+               HiFi-GAN generator, its MPD and MSD discriminators
     loss.py    the five-term training loss
     parallel/  train and eval steps (one device or data-parallel), LR
                schedule, optimizer; process groups and the (data, model)
                mesh, the rank launcher, the channel-parallel vocoder, the
                dry run
-    checkpoint.py  torch-native checkpoints (weights_only loads); the
-               reference implementation's .pt checkpoints
+    checkpoint.py  torch-native checkpoints with an ``extra`` payload
+               (weights_only loads); the reference implementation's .pt
+               checkpoints, told apart by content
     train.py   training driver: train, validate, resume
     generate.py  synthesis entry point: the phonemizer, prosody transforms,
                bucketed Synthesizer, generate_mel_specs,
                extract_reference_parameters
     fine_tune.py  (predicted-mel, wav) pairs from a trained acoustic model
     vocoder_finetune.py  HiFi-GAN GAN fine-tuning: steps, driver
+    scripts/   the command-line tools, ``python -m
+               daft_exprt_torch.scripts.<name>`` (one per top-level
+               script of the same name)
 """
 
 __version__ = '0.1.0'

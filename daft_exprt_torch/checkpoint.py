@@ -1,11 +1,17 @@
 """Torch-native checkpoints of the training state.
 
-A checkpoint holds the model's state dict and the optimizer's, written by
-``torch.save`` (tensors, numbers and strings only), and a JSON sidecar
-``<path>.json`` with the iteration, learning rate, best validation loss and
-config, as the JAX package's ``checkpoint.py`` writes it. Every load goes
-through ``torch.load(weights_only=True)``: a file that would need
-unpickling of other objects is refused, never executed.
+A checkpoint holds the model's state dict, the optimizer's and an
+``extra`` dict (auxiliary payloads such as the memorized speaker or accent
+embedding of an adapted model), written by ``torch.save`` (tensors,
+numbers and strings only), and a JSON sidecar ``<path>.json`` with the
+iteration, learning rate, best validation loss and config, as the JAX
+package's ``checkpoint.py`` writes it. Every load goes through
+``torch.load(weights_only=True)``: a file that would need unpickling of
+other objects is refused, never executed.
+
+``load_acoustic_checkpoint`` tells the port's own checkpoints from the
+reference implementation's ``.pt`` files by their content, not by their
+name: both are torch files.
 
 ``convert_torch_state_dict`` / ``load_torch_checkpoint`` read the
 reference implementation's DaftExprt ``.pt`` checkpoints, and
@@ -20,14 +26,36 @@ import numpy as np
 import torch
 
 
+def _plain(value):
+    """``extra``'s values as torch.save writes them under weights_only:
+    arrays become tensors; numbers, strings and nested lists or dicts of
+    them stay."""
+    if isinstance(value, dict):
+        return {str(k): _plain(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [_plain(v) for v in value]
+    if isinstance(value, np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(value))
+    if isinstance(value, np.generic):
+        return value.item()
+    if value is None or isinstance(value, (bool, int, float, str,
+                                           torch.Tensor)):
+        return value
+    raise TypeError(f'checkpoint extra: {type(value).__name__} is not a '
+                    'tensor, array, number or string')
+
+
 def save_checkpoint(path, model_state, optimizer_state=None, iteration=0,
                     learning_rate=0.0, best_val_loss=float('inf'),
-                    config_params=None):
-    """Write ``path`` (the state dicts) and ``path + '.json'`` (metadata),
-    each through a temporary file, so a reader never sees half a file."""
+                    config_params=None, extra=None):
+    """Write ``path`` (the state dicts and ``extra``) and ``path + '.json'``
+    (metadata), each through a temporary file, so a reader never sees half
+    a file. ``extra``: a dict of tensors, arrays (stored as tensors),
+    numbers and strings."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = f'{path}.{os.getpid()}.tmp'
-    torch.save({'model': model_state, 'optimizer': optimizer_state}, tmp)
+    torch.save({'model': model_state, 'optimizer': optimizer_state,
+                'extra': _plain(extra or {})}, tmp)
     os.replace(tmp, path)
     meta = {
         'iteration': int(iteration),
@@ -53,9 +81,11 @@ def torch_load_guarded(path):
 
 def load_checkpoint(path):
     """Returns (payload, meta): payload {'model': state dict, 'optimizer':
-    state dict or None} on the CPU; meta the sidecar's dict ({} if
-    absent)."""
+    state dict or None, 'extra': dict ({} for a file written without
+    one)} on the CPU; meta the sidecar's dict ({} if absent)."""
     payload = torch_load_guarded(path)
+    if isinstance(payload, dict) and 'model' in payload:
+        payload.setdefault('extra', {})
     meta = {}
     if os.path.isfile(path + '.json'):
         with open(path + '.json') as f:
@@ -192,6 +222,17 @@ def convert_torch_state_dict(state_dict, nb_pe_blocks=None,
     return out
 
 
+def _reference_payload(ckpt):
+    """A reference ``.pt`` payload -> (its state dict, config_params,
+    meta): a dict with a 'state_dict' (and the training metadata beside
+    it), or a bare state dict."""
+    if isinstance(ckpt, dict) and 'state_dict' in ckpt:
+        return (ckpt['state_dict'], ckpt.get('config_params', {}),
+                {k: ckpt.get(k) for k in
+                 ('iteration', 'learning_rate', 'best_val_loss')})
+    return ckpt, {}, {}
+
+
 def load_torch_checkpoint(path, model=None):
     """Read a reference ``.pt`` checkpoint through ``torch_load_guarded``
     (a file that needs unpickling is refused) and convert it. Returns
@@ -199,15 +240,34 @@ def load_torch_checkpoint(path, model=None):
     learning_rate and best_val_loss when present. With ``model`` (the
     port's ``DaftExprt``) the state dict is loaded into it with
     ``strict=True``: a missing or unexpected parameter raises."""
-    ckpt = torch_load_guarded(path)
-    if isinstance(ckpt, dict) and 'state_dict' in ckpt:
-        sd = ckpt['state_dict']
-        config_params = ckpt.get('config_params', {})
-        meta = {k: ckpt.get(k) for k in
-                ('iteration', 'learning_rate', 'best_val_loss')}
-    else:
-        sd, config_params, meta = ckpt, {}, {}
+    sd, config_params, meta = _reference_payload(torch_load_guarded(path))
     state = convert_torch_state_dict(sd)
     if model is not None:
         model.load_state_dict(state, strict=True)
     return state, config_params, meta
+
+
+def is_port_checkpoint(payload):
+    """A payload of :func:`save_checkpoint`: a dict with a 'model' state
+    dict and an 'optimizer' entry."""
+    return isinstance(payload, dict) and isinstance(
+        payload.get('model'), dict) and 'optimizer' in payload
+
+
+def load_acoustic_checkpoint(path):
+    """An acoustic-model checkpoint of either kind, told apart by content:
+    the port's own (:func:`save_checkpoint`: 'model' / 'optimizer', config
+    in the ``.json`` sidecar) or the reference implementation's (a
+    'state_dict', or a bare state dict). Returns (state dict in the port's
+    names, config_params, extra, meta); ``extra`` is {} for a reference
+    file."""
+    payload, meta = load_checkpoint(path)
+    if is_port_checkpoint(payload):
+        return (payload['model'], dict(meta.get('config_params', {})),
+                payload['extra'], meta)
+    sd, config_params, meta = _reference_payload(payload)
+    if not (isinstance(sd, dict) and sd and all(
+            isinstance(v, torch.Tensor) for v in sd.values())):
+        raise ValueError(f'{path}: neither a port checkpoint (model / '
+                         'optimizer) nor a reference state dict')
+    return convert_torch_state_dict(sd), dict(config_params), {}, meta

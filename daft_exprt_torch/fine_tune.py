@@ -34,11 +34,7 @@ _logger = logging.getLogger(__name__)
 def _load_params(hparams):
     if not hparams.checkpoint:
         raise ValueError('no checkpoint specified in hparams.checkpoint')
-    if hparams.checkpoint.endswith('.pt'):
-        state, _, _ = ckpt.load_torch_checkpoint(hparams.checkpoint)
-        return state
-    payload, _ = ckpt.load_checkpoint(hparams.checkpoint)
-    return payload['model']
+    return ckpt.load_acoustic_checkpoint(hparams.checkpoint)[0]
 
 
 def fine_tuning(hparams, data_set_dir, params=None, device=None):

@@ -33,7 +33,9 @@ from daft_exprt_torch.text.cleaners import collapse_whitespace, text_cleaner
 from daft_exprt_torch.text.symbols import (
     ascii_letters, eos, punctuation, whitespace,
 )
-from daft_exprt_torch.utils import chunker, launch_multi_process, plot_2d_data
+from daft_exprt_torch.utils import (
+    chunker, have_matplotlib, launch_multi_process, plot_2d_data,
+)
 
 _logger = logging.getLogger(__name__)
 FILE_ROOT = os.path.dirname(os.path.realpath(__file__))
@@ -402,8 +404,9 @@ def generate_batch_mel_specs(synthesizer, batch_sentences, batch_dur_factors,
                              external_accent_emb=None, save_outputs=True):
     """One batch: prosody assembly -> inference -> vocode -> outputs. With
     ``save_outputs`` each utterance's mel (``.npz``), mel/alignment figure
-    (``.png``) and waveform (``.wav``, through ``synthesizer.vocoder``) are
-    written to ``output_dir``."""
+    (``.png``, where matplotlib is installed) and waveform (``.wav``,
+    through ``synthesizer.vocoder``, one utterance a call as the JAX
+    package vocodes) are written to ``output_dir``."""
     batch_file_names = [f'{name}_spk_{sid}' for name, sid
                         in zip(batch_file_names, batch_speaker_ids)]
     (symbols, dur_factors, energy_factors, pitch_factors, input_lengths,
@@ -457,10 +460,15 @@ def generate_batch_mel_specs(synthesizer, batch_sentences, batch_dur_factors,
         if synthesizer.vocoder is None:
             raise ValueError('HiFi-GAN vocoder required for mel-to-wave '
                              '(pass vocoder= to the Synthesizer)')
+        plots = have_matplotlib()
+        if not plots:
+            _logger.warning('matplotlib is not installed: no .png figures')
         for file_name, (_, _, _, _, mel, weight) in predictions.items():
-            plot_2d_data(data=(mel, weight),
-                         x_labels=('Mel-Spec Prediction', 'Alignments'),
-                         filename=os.path.join(output_dir, file_name + '.png'))
+            if plots:
+                plot_2d_data(
+                    data=(mel, weight),
+                    x_labels=('Mel-Spec Prediction', 'Alignments'),
+                    filename=os.path.join(output_dir, file_name + '.png'))
             audio = synthesizer.vocoder.infer(mel)
             save_wav(os.path.join(output_dir, f'{file_name}.wav'), audio,
                      hparams.sampling_rate)

@@ -743,6 +743,32 @@ def convert_torch_generator(state_dict, config=None):
     return params
 
 
+def generator_state_dict(params, config=None):
+    """The port's params as a reference ``HiFiGANGenerator`` state dict
+    (plain ``.weight`` / ``.bias``, float32 on the CPU): the inverse of
+    :func:`convert_torch_generator`, for writing a checkpoint that
+    :func:`load_torch_generator` reads."""
+    cfg = config or DEFAULT_CONFIG
+    sd = {}
+
+    def put(prefix, conv):
+        sd[f'{prefix}.weight'] = conv['w'].detach().float().cpu()
+        sd[f'{prefix}.bias'] = conv['b'].detach().float().cpu()
+
+    put('conv_pre', params['conv_pre'])
+    put('conv_post', params['conv_post'])
+    num_kernels = len(cfg['resblock_kernel_sizes'])
+    names = ('convs1', 'convs2') if cfg['resblock'] == '1' else ('convs',)
+    for i in range(len(cfg['upsample_rates'])):
+        put(f'ups.{i}', params[f'ups_{i}'])
+        for j, dils in enumerate(cfg['resblock_dilation_sizes']):
+            for pre in names:
+                for l in range(len(dils)):
+                    put(f'resblocks.{i * num_kernels + j}.{pre}.{l}',
+                        params[f'resblock_{i}_{j}'][f'{pre}_{l}'])
+    return sd
+
+
 def load_torch_generator(path, config=None):
     """Load a reference HiFi-GAN generator checkpoint (its state dict, or a
     dict holding it under 'generator' or 'state_dict') through

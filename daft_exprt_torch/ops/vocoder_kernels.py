@@ -53,6 +53,7 @@ import contextlib
 import ctypes
 import functools
 import math
+import threading
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
@@ -75,20 +76,37 @@ def _lrelu(x):
     return torch.where(x >= 0, x, LRELU_SLOPE * x)
 
 
+_F32_LOCK = threading.Lock()
+_f32_depth = 0             # full_f32 bodies running, in every thread
+_f32_prev = None           # the TF32 flags the first of them found
+
+
 @contextlib.contextmanager
 def full_f32():
     """float32 convolutions and matmuls in full float32 on the card: cuDNN
     defaults to TF32 for float32 convolutions on Hopper, which keeps ~3
-    decimal digits and breaks the 1e-5 vocoder band."""
-    prev = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    decimal digits and breaks the 1e-5 vocoder band.
+
+    The flags are process-wide and threads share them (extract_features
+    runs its files in threads): the first body to enter saves them and
+    the last to leave restores them, so interleaved bodies neither leave
+    TF32 off behind them nor turn it on under another thread."""
+    global _f32_depth, _f32_prev
+    with _F32_LOCK:
+        if _f32_depth == 0:
+            _f32_prev = (torch.backends.cudnn.allow_tf32,
+                         torch.backends.cuda.matmul.allow_tf32)
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _f32_depth += 1
     try:
         yield
     finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = prev
+        with _F32_LOCK:
+            _f32_depth -= 1
+            if _f32_depth == 0:
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32) = _f32_prev
 
 
 def chain_halo(kernel_size, dilations):

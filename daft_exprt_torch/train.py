@@ -71,13 +71,15 @@ def load_frozen_pitch_predictor(hparams, device=None):
     None when ``pitch_predictor_path`` is empty or its weight is 0. The
     file (loaded with ``weights_only=True``) holds the port's
     ``PitchPredictor`` state dict, or the reference predictor's
-    (``conv_layers.*``), bare or under 'state_dict'."""
+    (``conv_layers.*``), bare or under 'state_dict', or is a port
+    checkpoint (``scripts/train_pitch_predictor.py``'s)."""
     path = getattr(hparams, 'pitch_predictor_path', '')
     weight = getattr(hparams, 'pitch_consistency_weight', 0.0)
     if not path or weight <= 0:
         return None
     sd = ckpt.torch_load_guarded(path)
-    sd = sd.get('state_dict', sd)
+    sd = sd['model'] if ckpt.is_port_checkpoint(sd) else \
+        sd.get('state_dict', sd)
     sd = {(k[len('module.'):] if k.startswith('module.') else k): v
           for k, v in sd.items()}
     if any(k.startswith('conv_layers.') for k in sd):

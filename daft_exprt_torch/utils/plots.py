@@ -1,7 +1,16 @@
 """Plot helpers (copy of ``daft_exprt_tpu/utils/plots.py``).
 matplotlib is imported when a figure is made, not with the module: the
-synthesis path runs without it unless it saves its outputs."""
+synthesis path runs without it, and writers of figures ask
+:func:`have_matplotlib` first."""
+import importlib.util
+
 import numpy as np
+
+
+def have_matplotlib():
+    """Whether matplotlib can be imported (figures are skipped without
+    it)."""
+    return importlib.util.find_spec('matplotlib') is not None
 
 
 def plot_2d_data(data, x_labels=None, filename=None, dpi=100):

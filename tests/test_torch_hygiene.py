@@ -1,12 +1,16 @@
-"""The port stands alone: no JAX, flax, optax or daft_exprt_tpu import in
-daft_exprt_torch/ or chip_smoke.py; the package imports with JAX blocked
+"""The port stands alone: no JAX, flax, optax, daft_exprt_tpu or top-level
+``scripts`` import in daft_exprt_torch/ or chip_smoke.py (the top-level
+scripts import daft_exprt_tpu in their functions); the package imports
+with those blocked, its command-line tools too, each of which runs as
+``python -m daft_exprt_torch.scripts.<name>``
 (every module of the audio front end, the GAN fine-tuning and the text and
 alignment front end, and of scale-out and the host tools too); entry points
 default to CUDA and raise without it unless given 'cpu' (the feature
 extractors, the pitch tracker, Griffin-Lim, extract_reference_parameters,
 the GAN steps, finetune and fine_tuning too, before they touch a file; and
 init_distributed, make_mesh, make_sharded_vocoder on a default mesh,
-dryrun_multichip, entry and train with a mesh)."""
+dryrun_multichip, entry and train with a mesh; and every command-line
+tool, before it touches a file)."""
 import ast
 import subprocess
 import sys
@@ -17,7 +21,11 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'daft_exprt_tpu')
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'daft_exprt_tpu', 'scripts')
+TOOLS = ('synthesize', 'training', 'adapt_speaker', 'adapt_accent',
+         'train_pitch_predictor', 'make_style_bank',
+         'compute_spk_stats_from_prosody', 'precompute_ECAPA_spk_embeddings',
+         'extract_symbol_prosody', 'format_dataset', 'grid_search_accent')
 
 
 def _port_files():
@@ -93,6 +101,17 @@ def test_port_imports_with_jax_blocked():
         'from daft_exprt_torch.bridge import discriminators_from_jax\n'
         'from daft_exprt_torch.utils.misc import (\n'
         '    Timer, estimate_required_time)\n'
+        'import importlib, runpy, contextlib, io\n'
+        f'for name in {TOOLS!r}:\n'
+        '    importlib.import_module("daft_exprt_torch.scripts." + name)\n'
+        'sys.argv = ["synthesize", "--help"]\n'
+        'with contextlib.redirect_stdout(io.StringIO()) as out:\n'
+        '    try:\n'
+        '        runpy.run_module("daft_exprt_torch.scripts.synthesize",\n'
+        '                         run_name="__main__")\n'
+        '    except SystemExit as e:\n'
+        '        assert e.code == 0, e.code\n'
+        'assert "--int8_vocoder" in out.getvalue()\n'
         'assert not any(m.split(".")[0] in %r for m in sys.modules)\n'
         'print("ok")\n' % (FORBIDDEN,))
     res = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
@@ -167,3 +186,41 @@ def test_entry_points_default_to_cuda():
     assert resolve_device('cpu') == torch.device('cpu')
     with pytest.raises(ValueError):
         resolve_device('mps')
+
+
+# each tool's required arguments, every path under a directory that does
+# not exist
+TOOL_ARGV = {
+    'synthesize': ['-out', '{d}/out', '-chk', '{d}/ckpt'],
+    'training': ['-dd', '{d}/ds', '-ed', '{d}/exp', '-en', 'x', 'train'],
+    'adapt_speaker': ['-chk', '{d}/ckpt', '-out', '{d}/out', '-tf', '{d}/t'],
+    'adapt_accent': ['-chk', '{d}/ckpt', '-out', '{d}/out', '-tf', '{d}/t'],
+    'train_pitch_predictor': ['-fd', '{d}/feats', '-out', '{d}/out'],
+    'make_style_bank': ['-fd', '{d}/feats', '-out', '{d}/bank'],
+    'compute_spk_stats_from_prosody': ['-spf', '{d}/p', '-o', '{d}/o.json'],
+    'precompute_ECAPA_spk_embeddings': ['-tf', '{d}/t'],
+    'extract_symbol_prosody': ['-m', '{d}/m', '-o', '{d}/o', '--work_dir',
+                               '{d}/w'],
+    'format_dataset': ['--ljspeech_root', '{d}/lj', '-out', '{d}/out'],
+    'grid_search_accent': ['-out', '{d}/out', '-chk', '{d}/ckpt', '-spf',
+                           '{d}/p'],
+}
+
+
+@pytest.mark.parametrize('name', TOOLS)
+def test_tools_default_to_cuda_before_touching_files(name, tmp_path):
+    """Without CUDA every tool's main raises before it reads or writes a
+    file; with --device cpu it goes on (and fails on the missing input)."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA card is present: the default device is valid')
+    import importlib
+    tool = importlib.import_module(f'daft_exprt_torch.scripts.{name}')
+    d = tmp_path / 'absent'
+    argv = [a.format(d=d) for a in TOOL_ARGV[name]]
+    for device in ([], ['--device', 'cuda']):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            tool.main(device + argv)
+        assert not d.exists()
+    with pytest.raises((FileNotFoundError, ImportError, ValueError,
+                        SystemExit)):
+        tool.main(['--device', 'cpu'] + argv)
