@@ -200,9 +200,13 @@
      itself is not deterministic); then one more step under
      torch.use_deterministic_algorithms(warn_only=True) names the step's
      operations that torch reports as not deterministic; the mesh and one
-     process again in full float32 (cuDNN TF32 off), where they differ in
-     the last bits: loss within rel 1e-5 and grad norm within 1e-4 at
-     every step; prints s/step beside train-step's;
+     process again in full float32 (cuDNN TF32 off): every metric of every
+     step equal bit for bit (the mesh's gradient views start on 16-byte
+     boundaries, as a gradient of its own does); the cause held standing:
+     the norms of seeded tensors of the model's parameter shapes read k =
+     1-7 floats into a buffer (counted where they differ from their own;
+     none at k = 4) and through all_reduce_grads's views (all on 16-byte
+     boundaries, every norm its own); prints s/step beside train-step's;
    - ddp-2rank: two spawned ranks sharing the card over gloo, default
      HyperParams in float32, TF32 off, dropout 0, the B=16 x L=128 x
      T=1024 batch split 8 + 8 (the second half's rows 48-384 frames
@@ -264,7 +268,37 @@
      generate_mel_specs call; then python -m daft_exprt_torch.scripts.synthesize
      --real_time_factor in a process of its own: exit 0 and its wavs;
    - cli-fine-tune: training.py fine_tune from cli-train's checkpoint: a
-     pair for each training utterance, 12 attention launches a batch.
+     pair for each training utterance, 12 attention launches a batch;
+   - cli-qualify-int8: qualify_int8.main --train_steps 20 --batch 8
+     --eval_batch 4 --eval_frames 256 at full V1 width (--ptc_min_batch 1,
+     its default: the static tier's narrow levels on fused_mrf_ptc, row
+     5), every fast generator_forward call of the tool recorded and made
+     again on the kernels' plain versions: nine calls (random weights:
+     bf16, dynamic; trained: bf16, dynamic, static; the calibration
+     sweep's three static; the per-level budget's static call with
+     fuse_post=False), each exactly its tier's launches (bf16:
+     fused_mrf_tc 6, fused_mrf_phase 2; dynamic: fused_mrf_ct_q8 8,
+     fused_mrf_phase_q8 4; static: fused_mrf_tc_q8 6, fused_mrf_ptc 4),
+     each waveform within rel-L2 1e-2 of the plain call, the
+     fuse_post=False taps within 2e-3 of the plain taps and its last tap
+     the (4, 32, T) MRF output (its L3 call of fused_mrf_ptc keyed without
+     the wrapper's 'post' flag); prints the metrics and the gate (at 20
+     steps the gate does not decide the phase);
+   - cli-evaluate: compute_wer_and_accent_metrics over two of
+     cli-synthesize-demo's wavs, the second with a corpus wav as its
+     reference, with cli-train's checkpoint: 8 attention launches (two
+     accent embeddings), the externals (Whisper, NISQA) reported as
+     skipped; cli-compare-pitch: compare_pitch_curves on two corpus wavs;
+   - cli-vocoder-tools: hifigan_sanity_check, verify_mel_spec and
+     generate_augmentation_examples over cli-synthesize's generator
+     checkpoint (the float32 plain route, no kernel), each output within
+     rel-L2 1e-5 of HiFiGanVocoder(fast=False) on the same mel;
+   - cli-pitch-views: visualize_pitch_prediction over cli-train-pitch's
+     checkpoint (no matplotlib on the card host: no overlays, the voiced
+     MSEs) and verify_pitch_predictor_shape (exit 0); cli-manifold:
+     analyze_embedding_manifold over cli-train's checkpoint and the
+     stand-in embeddings. convert_prosody_with_llm is tested on the CPU
+     only (a stand-in client: the card host has no network).
    The process-wide torch settings (backend flags, deterministic mode,
    threads, grad mode, device, environment) are the same after each CLI
    phase as before it, and after the CLI block as before it.
@@ -275,8 +309,9 @@
    and max-abs 0 for the dynamic engine (fused_mrf_ct q8, fused_mrf_phase
    q8 with and without prologue, fused_mrf_ptc dyn) and the calls on
    ptc_fused_q8_kernel (fused_mrf_phase's q8f and q8s with and without
-   prologue, fused_mrf_ct q8f and q8s, fused_mrf_ptc static; a conv_post
-   waveform: within one bf16 ulp);
+   prologue, fused_mrf_ct q8f and q8s, fused_mrf_ptc static, with and
+   without conv_post as the call's key says; a conv_post waveform: within
+   one bf16 ulp);
    its launches per call; its time (median of 10 calls), its plain
    version's (median of 3) and (attention) the library call's, with CUDA
    events, beside the least time the card could take (H100 SXM: 989
@@ -1144,7 +1179,8 @@ class KernelCases:
         """(x, bf16 params, float32 params, p_in, post, q8f scales)."""
         torch = self.torch
         Bx, T_in, C_in = key[:3]
-        C, post = C_in // 2, C_in == 64
+        # conv_post where the call's weights carried it (V1's L3)
+        C, post = C_in // 2, key[4:] == ('post',)
         p_in = 1 if C_in == 128 else 2
         p = self.params(C_in, C, post=post)
         x = self.randn(Bx, T_in, C_in)
@@ -1167,10 +1203,12 @@ class KernelCases:
                     + 2 * Bx * N * C_in * C * 2)
 
     def fused_mrf_ptc(self, key):
-        """Static (q8f) or dyn mode, as the key's mode says."""
+        """Static (q8f) or dyn mode, as the key's mode says; with conv_post
+        where the key says 'post' (V1's L3 unless generator_forward ran
+        with fuse_post=False)."""
         vk, mi = self.vk, self.mi
         x, p16, p_in, post, scales = self._narrow(key)
-        Bx, T_in, C_in, mode = key
+        Bx, T_in, C_in, mode = key[:4]
         u = vk.pack_ups_ptc_weights(p16['ups_0']['w'], p16['ups_0']['b'], 2,
                                     1, p_in)
         pst = vk.pack_post_ptc_weights(
@@ -1341,7 +1379,9 @@ def main():
     )
     from daft_exprt_torch.train import train
     from daft_exprt_torch.parallel.launch import run_ranks
-    from daft_exprt_torch.parallel.mesh import init_distributed, make_mesh
+    from daft_exprt_torch.parallel.mesh import (
+        PART_ALIGN_BYTES, all_reduce_grads, init_distributed, make_mesh,
+    )
     from daft_exprt_torch.utils.profiling import (
         ThroughputCounter, profiler_trace,
     )
@@ -2607,8 +2647,10 @@ def main():
     alerts = sorted({str(a.message).split('. ')[0][:160] for a in alerts
                      if 'determinis' in str(a.message)})
     del xmodel, step
-    # the same comparison in full float32 (cuDNN without TF32): within the
-    # bands of ddp-2rank, not bit for bit (see the log)
+    # the same comparison in full float32 (cuDNN without TF32): bit for bit
+    # too, now that every gradient view of the mesh's flat buffer starts on
+    # a 16-byte boundary (mesh.PART_ALIGN_BYTES; the norm of a view that
+    # did not summed in another order)
     with vk.full_f32():
         f32_ref, _ = train_steps(None)
         f32_ddp, _ = train_steps(mesh1)
@@ -2621,9 +2663,36 @@ def main():
                for a, b in zip(f32_ddp, f32_ref)]
     log(f'path ddp-train-step: in full float32 (cuDNN TF32 off), the mesh '
         f'against one process, (loss, grad_norm) rel by step '
-        f'{[(float(f"{x:.3e}"), float(f"{y:.3e}")) for x, y in f32_rel]} '
-        f'(bands 1e-5, 1e-4)')
-    assert all(x <= 1e-5 and y <= 1e-4 for x, y in f32_rel), f32_rel
+        f'{[(float(f"{x:.3e}"), float(f"{y:.3e}")) for x, y in f32_rel]}; '
+        f'every metric equal bit for bit: {f32_ddp == f32_ref}')
+    assert f32_ddp == f32_ref, f32_rel
+    # the cause, held standing: tensors of the model's parameter shapes
+    # (seeded normal values) read through a view k floats into a buffer
+    # against their own norms; then through all_reduce_grads's views (one
+    # rank: the sum is the tensor), each on a PART_ALIGN_BYTES boundary
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    own = [torch.randn(q.shape, device=dev, generator=gen)
+           for q in DaftExprt.from_hparams(hp_t, seed=SEED).parameters()]
+    norms = [torch.linalg.vector_norm(t) for t in own]
+    buf = torch.empty(max(t.numel() for t in own) + 8, device=dev)
+    off_by = {k: sum(not torch.equal(torch.linalg.vector_norm(
+        buf.narrow(0, k, t.numel()).copy_(t.reshape(-1))), nt)
+        for t, nt in zip(own, norms)) for k in range(1, 8)}
+    holders = [torch.nn.Parameter(torch.zeros_like(t)) for t in own]
+    for h, t in zip(holders, own):
+        h.grad = t.clone()
+    all_reduce_grads(holders, [], mesh1.data_group)
+    off_16 = sum(h.grad.data_ptr() % PART_ALIGN_BYTES != 0 for h in holders)
+    kept = sum(torch.equal(torch.linalg.vector_norm(h.grad), nt)
+               for h, nt in zip(holders, norms))
+    log(f'path ddp-train-step: of {len(own)} tensors of the model\'s '
+        f'parameter shapes, the norm read k floats into a buffer differs '
+        f'from the tensor\'s own for {off_by} (k: count); through '
+        f'all_reduce_grads\'s views {off_16} start off a {PART_ALIGN_BYTES}'
+        f'-byte boundary and {kept} norms are the own ones')
+    assert off_by[4] == 0 and off_16 == 0 and kept == len(own), (
+        off_by, off_16, kept)
+    del own, norms, buf, holders
     assert paths[-1][1] == {'fused_attention': 12 * TRAIN_STEPS,
                             'fused_attention_bwd': 24 * TRAIN_STEPS}, \
         paths[-1][1]
@@ -3197,6 +3266,201 @@ def main():
         cli_train_lines) // cli_bs), paths[-1][1]
     log(f'path cli-fine-tune: {n_pairs} pairs (.npy + .wav) for the '
         f'{len(cli_train_lines)} training utterances under {ft_cli}')
+    # ---- the last user tools (no kernel of their own but the vocoder's and
+    # the attention's): the int8 qualification, the evaluation tools, the
+    # vocoder and pitch views, the manifold
+    from daft_exprt_torch.scripts import (
+        analyze_embedding_manifold, generate_augmentation_examples,
+        hifigan_sanity_check, qualify_int8, verify_mel_spec,
+        verify_pitch_predictor_shape, visualize_pitch_prediction,
+    )
+    from daft_exprt_torch.scripts.evaluation import (
+        compare_pitch_curves, compute_wer_and_accent_metrics,
+    )
+    from daft_exprt_torch.ops.mel import MelExtractor
+
+    # cli-qualify-int8: every fast generator_forward call of the tool is
+    # recorded (its tier, the launches it made, its waveform and level
+    # taps) and made again on the kernels' plain versions
+    q8_real_gf = qualify_int8.generator_forward
+    q8_calls = []
+    q8_per_call = {
+        'bf16': {'fused_mrf_tc': 6, 'fused_mrf_phase': 2},
+        'int8-dynamic': {'fused_mrf_ct_q8': 8, 'fused_mrf_phase_q8': 4},
+        'int8-static': {'fused_mrf_tc_q8': 6, 'fused_mrf_ptc': 4},
+        'int8-static-nopost': {'fused_mrf_tc_q8': 6, 'fused_mrf_ptc': 4}}
+
+    def q8_recording(params, mel, **kw):
+        if not kw.get('use_fast'):
+            return q8_real_gf(params, mel, **kw)
+        tap = kw.pop('_tap', None)
+        tier = ('int8-static' if kw.get('int8_act_scales') is not None
+                else 'int8-dynamic' if kw.get('int8') else 'bf16') + (
+            '' if kw.get('fuse_post', True) else '-nopost')
+        n0 = {k.__name__: k.launches for k in kernels}
+        taps, plain_taps = {}, {}
+
+        def rec(i, x):
+            taps[i] = x.float().clone()
+            if tap is not None:
+                tap(i, x)
+        wav = q8_real_gf(params, mel, _tap=rec, **kw)
+        torch.cuda.synchronize()
+        n = {k: v - n0[k] for k, v in ((k.__name__, k.launches)
+                                       for k in kernels) if v != n0[k]}
+        plain_wav = q8_real_gf(params, mel, plain=True, _tap=lambda i, x:
+                               plain_taps.__setitem__(i, x.float()), **kw)
+        q8_calls.append(dict(
+            tier=tier, launches=n, wav=rel_l2(wav.float(), plain_wav.float()),
+            taps={i: rel_l2(taps[i], plain_taps[i]) for i in taps},
+            last=tuple(taps[max(taps)].shape)))
+        return wav
+
+    q8_out = os.path.join(cli_root, 'qualify_int8')
+    qualify_int8.generator_forward = q8_recording
+    try:
+        t0 = time.perf_counter()
+        q8_res = run_cli('cli-qualify-int8', lambda: qualify_int8.main(
+            ['--train_steps', '20', '--batch', '8', '--eval_batch', '4',
+             '--eval_frames', '256', '--out', q8_out, '--device', 'cuda']),
+            (vk.fused_mrf_tc, vk.fused_mrf_phase, vk.fused_mrf_tc_q8,
+             mi.fused_mrf_ptc, mi.fused_mrf_ct_q8, mi.fused_mrf_phase_q8))
+        q8_s = time.perf_counter() - t0
+    finally:
+        qualify_int8.generator_forward = q8_real_gf
+    q8_tiers = [c['tier'] for c in q8_calls]
+    assert q8_tiers == ['bf16', 'int8-dynamic'] * 2 + ['int8-static'] * 4 + [
+        'int8-static-nopost'], q8_tiers
+    q8_t = 256 * 256              # samples: 256 frames x hop 256
+    for c in q8_calls:
+        assert c['launches'] == q8_per_call[c['tier']], c
+        assert c['wav'] <= 1e-2, c
+        if c['tier'].endswith('-nopost'):
+            assert c['last'] == (4, 32, q8_t), c
+            assert max(c['taps'].values()) <= 2e-3, c
+        else:
+            assert c['last'] == (4, 1, q8_t), c
+    # L3 without conv_post once (the per-level budget), with it 4 times
+    # (the static tier and the calibration sweep)
+    l3 = paths[-1][2]['fused_mrf_ptc']
+    assert l3.get((4, 32768, 64, 'q8f')) == 1 and \
+        l3.get((4, 32768, 64, 'q8f', 'post')) == 4, l3
+    q8_metrics = [v for tier in ('random', 'trained')
+                  for row in q8_res[tier].values() for v in row.values()]
+    assert all(math.isfinite(v) for v in q8_metrics), q8_res
+    assert sorted(q8_res['per_level_rel_l2']) == [f'level_{i}'
+                                                  for i in range(4)]
+    assert os.path.isfile(os.path.join(q8_out, 'weights.npz'))
+    worst = {t: max(c['wav'] for c in q8_calls if c['tier'] == t)
+             for t in q8_per_call}
+    log(f'path cli-qualify-int8: qualify_int8 --train_steps 20 --batch 8 '
+        f'--eval_batch 4 --eval_frames 256 at full V1 width: '
+        f'{len(q8_calls)} kernel calls of the generator, each tier exactly '
+        f'its launches {q8_per_call}; each waveform vs the same call on the '
+        f'plain versions rel_l2 <= {worst} (band 1e-2); with fuse_post=False '
+        f'the taps vs the plain taps '
+        f'{ {i: float(f"{v:.3e}") for i, v in q8_calls[-1]["taps"].items()} }'
+        f' (band 2e-3), the last tap {q8_calls[-1]["last"]} (the MRF '
+        f'output); trained: '
+        + '; '.join(f'{t} ' + ', '.join(f'{k} {v:.4g}' for k, v in r.items())
+                    for t, r in q8_res['trained'].items())
+        + f'; per level {q8_res["per_level_rel_l2"]}; matched-calibration '
+        f'saturation max '
+        f'{q8_res["calibration_sweep"]["cal_matched"]["sat_max"]:.3g}'
+        f'; verdict {q8_res["verdict"]} (20 steps: the gate\'s thresholds '
+        f'are for trained weights, it does not decide the phase); '
+        f'{q8_s:.2f} s (host clock) [{smi.splitlines()[0]}]')
+
+    # cli-evaluate: two of the demo's wavs, the second with a corpus wav as
+    # its reference: the prosody metrics and the accent-embedding distance
+    # through cli-train's checkpoint (the accent encoder: 4 attention
+    # launches an embedding, two embeddings a reference row)
+    demo_dir = os.path.join(cli_root, 'cli-synthesize-demo')
+    demo_wavs = sorted(os.path.join(demo_dir, f)
+                       for f in os.listdir(demo_dir) if f.endswith('.wav'))
+    ref_wav = os.path.join(dataset, corpus[1][0], 'wavs',
+                           f'{corpus[1][1]}.wav')
+    ev_manifest = os.path.join(cli_root, 'eval_manifest.txt')
+    with open(ev_manifest, 'w') as f:
+        f.write(f'{demo_wavs[0]}|hello\n{demo_wavs[1]}|hello|{ref_wav}\n')
+    ev_rep = run_cli('cli-evaluate', lambda: compute_wer_and_accent_metrics
+                     .main(['-m', ev_manifest, '-out',
+                            os.path.join(cli_root, 'evaluation'), '-chk',
+                            cli_ck, '--wer', '--nisqa', '--pitch_method',
+                            'device', '--device', 'cuda']), kernels[:1])
+    assert paths[-1][1] == {'fused_attention': 8}, paths[-1][1]
+    ev_rows = ev_rep['per_utterance']
+    assert ev_rep['n_utterances'] == 2 and ev_rep['wer'] is None
+    assert 'accent_emb_cosine_dist' not in ev_rows[0]
+    assert 0.0 <= ev_rows[1]['accent_emb_cosine_dist'] <= 2.0, ev_rows
+    assert all(r['energy_npvi'] is None or math.isfinite(r['energy_npvi'])
+               for r in ev_rows)
+    log(f'path cli-evaluate: {ev_rows}; the externals (Whisper, NISQA) '
+        'reported as skipped: not installed on this host')
+
+    # cli-compare-pitch: two corpus wavs of one speaker
+    wav_of = [os.path.join(dataset, spk, 'wavs', f'{n}.wav')
+              for spk, n, _ in corpus]
+    pcc = run_cli('cli-compare-pitch', lambda: compare_pitch_curves.main(
+        [wav_of[0], wav_of[1], '--pitch_method', 'device', '--device',
+         'cuda']), ())
+    assert pcc is None or -1.0 <= pcc <= 1.0, pcc
+    log(f'path cli-compare-pitch: pitch PCC {pcc}')
+
+    # cli-vocoder-tools: the float32 plain route of cli-synthesize's
+    # generator checkpoint (no kernel), each output against the same mel
+    # through HiFiGanVocoder(fast=False)
+    def vocoder_tools():
+        sc = hifigan_sanity_check.main(
+            ['-w', wav_of[0], '-out', os.path.join(cli_root, 'sanity'),
+             '--vocoder_checkpoint', voc_ck, '--device', 'cuda'])
+        npz = os.path.join(demo_dir, os.path.basename(demo_wavs[0])[:-4]
+                           + '.npz')
+        vm = verify_mel_spec.main(
+            ['-m', npz, '-out', os.path.join(cli_root, 'verify_mel.wav'),
+             '--vocoder_checkpoint', voc_ck, '--device', 'cuda'])
+        aug = generate_augmentation_examples.main(
+            ['-w', wav_of[0], '-out', os.path.join(cli_root, 'augment'),
+             '--vocoder_checkpoint', voc_ck, '--device', 'cuda'])
+        return sc, (npz, vm), aug
+
+    (sc_audio, sc_snr), (vm_npz, vm_audio), aug = run_cli(
+        'cli-vocoder-tools', vocoder_tools, ())
+    exact_voc = HiFiGanVocoder(cli_voc_params, fast=False)
+    wav_0, _ = load_wav(wav_of[0], target_sr=hp.sampling_rate)
+    mel_0 = MelExtractor(hp, device='cuda')(wav_0)
+    voc_rel = [rel(sc_audio, exact_voc.infer(mel_0)),
+               rel(vm_audio, exact_voc.infer(np.load(vm_npz)['mel_spec']))]
+    voc_rel += [rel(a, exact_voc.infer(m)) for m, a in aug.values()]
+    assert len(aug) == 7 and max(voc_rel) <= 1e-5, voc_rel
+    assert all(np.isfinite(a).all() for a in [sc_audio, vm_audio]
+               + [a for _, a in aug.values()])
+    log(f'path cli-vocoder-tools: hifigan_sanity_check (naive SNR '
+        f'{sc_snr:.2f} dB on random weights), verify_mel_spec and 7 '
+        f'augmentations, each within rel_l2 {max(voc_rel):.3e} of '
+        f'HiFiGanVocoder(fast=False) on the same mel (band 1e-5)')
+
+    # cli-pitch-views: cli-train-pitch's checkpoint
+    def pitch_views():
+        mse = visualize_pitch_prediction.main(
+            ['-chk', pp_file, '-fd', cli_feats, '-out',
+             os.path.join(cli_root, 'pitch_views'), '--device', 'cuda'])
+        return mse, verify_pitch_predictor_shape.main(['--device', 'cuda'])
+
+    pv_mse, pv_code = run_cli('cli-pitch-views', pitch_views, ())
+    assert pv_code == 0 and len(pv_mse) == len(corpus), (pv_code, pv_mse)
+    assert all(v is None or math.isfinite(v) for v in pv_mse.values())
+    log(f'path cli-pitch-views: voiced MSE {pv_mse}; the shape check exit '
+        f'{pv_code}')
+
+    # cli-manifold: cli-train's checkpoint over the stand-in embeddings
+    mf = run_cli('cli-manifold', lambda: analyze_embedding_manifold.main(
+        ['-chk', cli_ck, '-fd', cli_feats, '--device', 'cuda']), ())
+    assert len(mf['norms']) == len(corpus) and np.isfinite(
+        mf['cosines']).all() and np.isfinite(mf['singular_values']).all()
+    log(f'path cli-manifold: {len(mf["singular_values"])} singular values, '
+        f'{len(mf["norms"])} projected embeddings')
+
     left = settings_left(settings_before_cli)
     log(f'cli: process-wide torch settings after the CLI phases as before '
         f'them: {not left} {left or ""}')
@@ -3255,7 +3519,9 @@ def main():
                     **({'fma_bound_ms': fma} if fma is not None else {}))
 
     def mode_of(key):
-        """The mode a multi-mode wrapper keys its calls by ('' if none)."""
+        """The mode a multi-mode wrapper keys its calls by ('' if none); a
+        narrow level's 'post' flag is not a mode."""
+        key = key[:-1] if key[-1] == 'post' else key
         return key[-1] if isinstance(key[-1], str) else ''
 
     def total(rows):

@@ -28,8 +28,12 @@ Routes, as ``generator_forward`` in the JAX package:
   ``fused_mrf_ct_q8f`` / ``fused_mrf_ct_q8`` or
   ``fused_mrf_phase_q8_noups``.
 
-Two keywords stand for the JAX package's environment switches, with their
-defaults: ``int8_fused=False`` (``DAFT_INT8_FUSED_EPI=0``) moves the static
+Three keywords stand for the JAX package's environment switches, with
+their defaults: ``fuse_post=False`` (``DAFT_FUSE_POST=0``) packs and
+launches the last chained narrow level without its conv_post epilogue, so
+that level hands over the MRF output and lrelu -> conv_post -> tanh run
+after the loop (the per-level error budget's setting);
+``int8_fused=False`` (``DAFT_INT8_FUSED_EPI=0``) moves the static
 ct, phase and chain levels to the ``q8s`` form (the float32 conv1 -> conv2
 boundary: ``fused_mrf_ct_q8s`` and the q8s modes of the int8 phase
 kernels); ``ptc_bf16=True`` (``DAFT_MRF_PTC_BF16=1``) takes the bf16
@@ -339,11 +343,13 @@ class NarrowLevel:
     phase: Any
 
 
-def _phase_int8_weights(params, i, cfg, p, p_in, act_scales, fused=True):
+def _phase_int8_weights(params, i, cfg, p, p_in, act_scales, fused=True,
+                        fuse_post=True):
     """The int8 phase kernel's weights of level i, packed as
     ``_pallas_mrf_phase`` packs them (bands, compact gather, jitted
     quantisation); ``act_scales`` (this level's calibration entry) selects
-    the ``q8f`` form (``q8s`` when not ``fused``), None the dynamic one."""
+    the ``q8f`` form (``q8s`` when not ``fused``), None the dynamic one;
+    conv_post at the last level unless not ``fuse_post``."""
     ks = tuple(cfg['resblock_kernel_sizes'])
     dils = tuple(tuple(d) for d in cfg['resblock_dilation_sizes'])
     u, k = cfg['upsample_rates'][i], cfg['upsample_kernel_sizes'][i]
@@ -361,17 +367,18 @@ def _phase_int8_weights(params, i, cfg, p, p_in, act_scales, fused=True):
     ups = quantize_ups_phase_weights(wb, bu, ups_used_blocks(k, u, pad, p_in),
                                      w_u.shape[0])
     post = None
-    if i == len(cfg['upsample_rates']) - 1:
+    if fuse_post and i == len(cfg['upsample_rates']) - 1:
         post = pack_post_phase_weights(params['conv_post']['w'],
                                        params['conv_post']['b'], p)
     return prepare_mrf_phase_q8(qw, ks, dils, p, tuple(ups) + (k, u, pad, p_in),
                                 post)
 
 
-def _pack_level(params, cfg, i, route, act_scales, int8_fused):
-    """Level i's weights for ``route``, in the kernels' forms. Every form
-    holds the per-tap chain weights that ``fused_mrf_ct`` and
-    ``fused_mrf_phase`` without prologue read (:func:`_chain_weights`)."""
+def _pack_level(params, cfg, i, route, act_scales, int8_fused, fuse_post):
+    """Level i's weights for ``route``, in the kernels' forms (conv_post
+    at the last narrow level only with ``fuse_post``). Every form holds the
+    per-tap chain weights that ``fused_mrf_ct`` and ``fused_mrf_phase``
+    without prologue read (:func:`_chain_weights`)."""
     ks = tuple(cfg['resblock_kernel_sizes'])
     dils = tuple(tuple(d) for d in cfg['resblock_dilation_sizes'])
     u, k = cfg['upsample_rates'][i], cfg['upsample_kernel_sizes'][i]
@@ -380,7 +387,7 @@ def _pack_level(params, cfg, i, route, act_scales, int8_fused):
     if route.kind in ('ptc', 'chain'):
         ups = (params[f'ups_{i}']['w'], params[f'ups_{i}']['b'], u, pad)
         post = (params['conv_post']['w'], params['conv_post']['b']) \
-            if i == len(cfg['upsample_rates']) - 1 else None
+            if fuse_post and i == len(cfg['upsample_rates']) - 1 else None
         p, p_in = route.p, route.p // u
         pst = None if post is None or route.kind == 'chain' else \
             pack_post_ptc_weights(*post, p, dtype=post[0].dtype)
@@ -402,7 +409,7 @@ def _pack_level(params, cfg, i, route, act_scales, int8_fused):
                 dils, p, tuple(pack_ups_ptc_weights(*ups, p_in))
                 + (k, u, pad, p_in), pst)
         return NarrowLevel(ptc, _phase_int8_weights(
-            params, i, cfg, p, p_in, lvl_scales, int8_fused))
+            params, i, cfg, p, p_in, lvl_scales, int8_fused, fuse_post))
     if route.mode == 'q8f' and route.kind == 'tc':
         return prepare_mrf_tc_q8(pack_mrf_tc_int8_weights(
             params, i, ks, dils, scales), ks, dils)
@@ -434,20 +441,21 @@ def _form(w):
     return 'q8' if w.dynamic else 'q8s' if w.q8s else 'q8f'
 
 
-def _serves(w, route):
-    """Whether level weights ``w`` carry what ``route`` launches."""
+def _serves(w, route, post):
+    """Whether level weights ``w`` carry what ``route`` launches, a chained
+    narrow level's with conv_post if and only if ``post``."""
     if route.kind == 'ptc':
         return isinstance(w, NarrowLevel) and w.ptc is not None and \
-            _form(w.ptc) == route.mode
+            _form(w.ptc) == route.mode and (w.ptc.post is not None) == post
     w = _chain_weights(w)
     if not isinstance(w, (MrfWeights, MrfQ8Weights)):
         return False
-    return _form(w) == route.mode and (route.kind != 'chain'
-                                       or w.ups is not None)
+    return _form(w) == route.mode and (route.kind != 'chain' or (
+        w.ups is not None and (w.post is not None) == post))
 
 
 def pack_levels(params, config=None, act_scales=None, int8=False,
-                int8_fused=True, ptc_bf16=False):
+                int8_fused=True, ptc_bf16=False, fuse_post=True):
     """Per level, the weights its fused kernel takes, made once (the
     serving wrapper packs at construction): the weights of the route
     :func:`level_routes` picks for a batch of at least ``PTC_MIN_BATCH``
@@ -459,16 +467,17 @@ def pack_levels(params, config=None, act_scales=None, int8=False,
     weights quantised from the params' dtype as the JAX tiers quantise
     them): :class:`MrfQ8Weights` at a tc, ct or phase level, a chain
     level's :class:`NarrowLevel`, and float :class:`MrfWeights` where C %
-    32 != 0. ``int8_fused`` and ``ptc_bf16`` as in :func:`level_routes`:
-    pack with the values the generator runs with. They serve every input
-    length: a chain level's weights also hold the per-tap ones its
-    fallback to ``fused_mrf_ct`` reads, and the ct and
-    phase-without-prologue kernels read the same per-tap weights."""
+    32 != 0. ``int8_fused`` and ``ptc_bf16`` as in :func:`level_routes`,
+    ``fuse_post`` as in :func:`generator_forward`: pack with the values the
+    generator runs with. They serve every input length: a chain level's
+    weights also hold the per-tap ones its fallback to ``fused_mrf_ct``
+    reads, and the ct and phase-without-prologue kernels read the same
+    per-tap weights."""
     cfg = config or DEFAULT_CONFIG
     routes = level_routes(params, cfg, PTC_MIN_BATCH, 128, int8, act_scales,
                           int8_fused=int8_fused, ptc_bf16=ptc_bf16)
-    return {i: _pack_level(params, cfg, i, r, act_scales, int8_fused)
-            for i, r in enumerate(routes)}
+    return {i: _pack_level(params, cfg, i, r, act_scales, int8_fused,
+                           fuse_post) for i, r in enumerate(routes)}
 
 
 def _without_post(mrf, feasible):
@@ -546,7 +555,8 @@ def _upsample_phase(x, ups, u, k, p_in, in_tc):
 def generator_forward(params, mel, config=None, use_fast=False, packed=None,
                       int8=False, int8_act_scales=None,
                       ptc_min_batch=PTC_MIN_BATCH, plain=False,
-                      int8_fused=True, ptc_bf16=False, _tap=None):
+                      int8_fused=True, ptc_bf16=False, fuse_post=True,
+                      _tap=None):
     """mel: (B, n_mels, T) -> wav (B, 1, T * prod(upsample_rates)), in the
     dtype of ``mel`` (cast params to it first for the bf16 route).
 
@@ -556,7 +566,9 @@ def generator_forward(params, mel, config=None, use_fast=False, packed=None,
     imply ``int8``), whose narrow levels take the phase-tc kernel from
     batch ``ptc_min_batch`` on, dynamic without; ``int8_fused`` and
     ``ptc_bf16``: the JAX package's ``DAFT_INT8_FUSED_EPI`` and
-    ``DAFT_MRF_PTC_BF16`` switches (module note); ``packed``:
+    ``DAFT_MRF_PTC_BF16`` switches and ``fuse_post`` (False: the last
+    chained narrow level without its conv_post epilogue, the JAX package's
+    ``DAFT_FUSE_POST=0``; module note); ``packed``:
     :func:`pack_levels` of the same params (and tier and switches), so the
     kernels' weight layouts are built once; ``plain`` runs the kernels'
     plain versions on any device (the card-side reference of
@@ -577,7 +589,8 @@ def generator_forward(params, mel, config=None, use_fast=False, packed=None,
                           ptc_bf16) if fast else None
     if fast and packed is None:
         packed = pack_levels(params, cfg, int8_act_scales, int8, int8_fused,
-                             ptc_bf16)
+                             ptc_bf16, fuse_post)
+    last = len(cfg['upsample_rates']) - 1
 
     x = _conv1d(mel, params['conv_pre']['w'], params['conv_pre']['b'])
     tc = False                     # x in (B, T, C) layout
@@ -587,10 +600,10 @@ def generator_forward(params, mel, config=None, use_fast=False, packed=None,
         pad = (k - u) // 2
         route = routes[i] if fast else None
         w = packed.get(i) if fast else None
-        if fast and not _serves(w, route):
+        if fast and not _serves(w, route, fuse_post and i == last):
             raise ValueError(f'level {i}: the packed weights do not serve '
                              f'its route {route}; pack_levels the same '
-                             'params for this tier')
+                             'params for this tier and fuse_post')
         if route is not None and route.kind in ('ptc', 'chain') \
                 and route.mode:
             # narrow level: int8 upsample + MRF (+ conv_post)

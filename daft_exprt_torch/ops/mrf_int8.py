@@ -1180,8 +1180,8 @@ def fused_mrf_phase_q8(x, mrf, tile):
     ``fused_mrf_phase_q8.launches`` counts CUDA launches (at (C_in, C) =
     (128, 64) / (64, 32), the only widths built: the amax and one launch of
     the dynamic engine or, q8f and q8s, ``ptc_fused_q8_kernel``);
-    ``fused_mrf_phase_q8.calls`` counts CUDA-route calls by x's shape and
-    mode: (B, T_in, C_in, ``mrf.mode``)."""
+    ``fused_mrf_phase_q8.calls`` counts CUDA-route calls by
+    :func:`_narrow_key`."""
     if mrf.ups is None:
         raise ValueError('fused_mrf_phase_q8: the weights carry no upsample')
     if x.device.type == 'cpu':
@@ -1194,12 +1194,20 @@ def fused_mrf_phase_q8(x, mrf, tile):
     check_q8_input('fused_mrf_phase_q8', x, mrf, PHASE_CHANNELS, C)
     out = _launch_dyn_blk(fused_mrf_phase_q8, 'mrf_phase_q8', aligned(x), mrf,
                           tile)
-    fused_mrf_phase_q8.calls[tuple(x.shape) + (mrf.mode,)] += 1
+    fused_mrf_phase_q8.calls[_narrow_key(x, mrf)] += 1
     return out
 
 
 fused_mrf_phase_q8.launches = 0
 fused_mrf_phase_q8.calls = collections.Counter()
+
+
+def _narrow_key(x, mrf):
+    """The call key of a narrow level's wrapper (``fused_mrf_phase_q8``,
+    ``fused_mrf_ptc``): (B, T_in, C_in, ``mrf.mode``), and 'post' last where
+    the weights carry the conv_post epilogue."""
+    return tuple(x.shape) + (mrf.mode,) + (
+        ('post',) if mrf.post is not None else ())
 
 
 def fused_mrf_ptc(x, mrf, tile):
@@ -1218,8 +1226,8 @@ def fused_mrf_ptc(x, mrf, tile):
     ``fused_mrf_ptc.launches`` counts CUDA launches (static: amax, the
     fused kernel; dyn: amax, one launch of the segment-synchronised
     engine, ``mrf_phase_q8.cu``'s on the phase-tc tiles);
-    ``fused_mrf_ptc.calls`` counts CUDA-route calls by x's shape and mode:
-    (B, T_in, C_in, 'q8f' or 'dynamic')."""
+    ``fused_mrf_ptc.calls`` counts CUDA-route calls by
+    :func:`_narrow_key`."""
     if mrf.ups is None:
         raise ValueError('fused_mrf_ptc: the weights carry no upsample')
     if x.device.type == 'cpu':
@@ -1231,7 +1239,7 @@ def fused_mrf_ptc(x, mrf, tile):
         check_q8_input('fused_mrf_ptc', x, mrf, PHASE_CHANNELS, C)
         out = _launch_dyn_blk(fused_mrf_ptc, 'mrf_phase_q8', aligned(x), mrf,
                               tile, _ptc_geometry)
-        fused_mrf_ptc.calls[tuple(x.shape) + (mrf.mode,)] += 1
+        fused_mrf_ptc.calls[_narrow_key(x, mrf)] += 1
         return out
     return _launch_ptc_fused(fused_mrf_ptc, 'mrf_ptc', x, mrf, tile,
                              _ptc_geometry, mrf.chains_dev, mrf.ups_dev)
@@ -1300,7 +1308,7 @@ def _launch_ptc_fused(wrapper, lib, x, mrf, tile, geometry, chains, ups):
         sm_count(x.device), int(mrf.q8s), stream)
     _build.check(err, f'{name} (C_in={C_in}, C={C})')
     wrapper.launches += 1
-    wrapper.calls[tuple(x.shape) + (mrf.mode,)] += 1
+    wrapper.calls[_narrow_key(x, mrf)] += 1
     return plan.out
 
 

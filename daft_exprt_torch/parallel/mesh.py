@@ -17,6 +17,7 @@ global batch takes its rows with :func:`data_rows` once.
 """
 import dataclasses
 import datetime
+import functools
 
 import numpy as np
 import torch
@@ -181,21 +182,53 @@ def all_gather_cat(t, group, dim):
     return torch.cat(parts, dim)
 
 
+# every part of all_reduce_grads's flat buffer starts at a multiple of this
+# many bytes, as a tensor of its own does: torch's CUDA reduction reads a
+# view that starts off a 16-byte boundary through another split of its
+# vector loads and sums in another order (``torch.linalg.vector_norm`` of a
+# gradient then moves in its last bit; the card shows none at 16 bytes)
+PART_ALIGN_BYTES = 16
+
+
+def _aligned_offsets(sizes, itemsize):
+    """Each part's element offset in the flat buffer, every one a multiple
+    of ``PART_ALIGN_BYTES``, and the buffer's length."""
+    step = max(1, PART_ALIGN_BYTES // itemsize)
+    offsets, n = [], 0
+    for s in sizes:
+        offsets.append(n)
+        n += -(-s // step) * step
+    return offsets, n
+
+
 def all_reduce_grads(params, extras, group, divide_by=None):
     """One all-reduce (sum) of every parameter's gradient and the
     ``extras`` (1-D float32 tensors, e.g. loss values) over one flat
-    buffer; the gradients become views of the result. A parameter without
-    a gradient counts as a zero one. ``divide_by`` divides the sum (the
-    group size averages). Returns the reduced extras."""
+    buffer; the gradients become views of the result, each starting at a
+    ``PART_ALIGN_BYTES`` boundary as a gradient of its own would (so that
+    the norm of a view sums in the order a single process's does). A
+    parameter without a gradient counts as a zero one. ``divide_by``
+    divides the sum (the group size averages). Returns the reduced
+    extras."""
     grads = [torch.zeros_like(p) if p.grad is None else p.grad
              for p in params]
     extras = [e.reshape(-1).float() for e in extras]
-    flat = torch.cat([g.reshape(-1) for g in grads] + extras)
+    parts = [t.reshape(-1) for t in grads + extras]
+    dtype = functools.reduce(torch.promote_types, (t.dtype for t in parts))
+    sizes = [t.numel() for t in parts]
+    offsets, n = _aligned_offsets(sizes, dtype.itemsize)
+    pad = parts[0].new_zeros(max(1, PART_ALIGN_BYTES // dtype.itemsize),
+                             dtype=dtype)
+    pieces = []
+    for t, o, nxt in zip(parts, offsets, offsets[1:] + [n]):
+        pieces.append(t)
+        if nxt - o > t.numel():
+            pieces.append(pad[:nxt - o - t.numel()])
+    flat = torch.cat(pieces)
     dist.all_reduce(flat, group=group)
     if divide_by is not None:
         flat.div_(divide_by)
-    parts = torch.split(flat, [g.numel() for g in grads]
-                        + [e.numel() for e in extras])
-    for p, g in zip(params, parts):
+    views = [flat.narrow(0, o, s) for o, s in zip(offsets, sizes)]
+    for p, g in zip(params, views):
         p.grad = g.view_as(p)
-    return list(parts[len(grads):])
+    return views[len(grads):]

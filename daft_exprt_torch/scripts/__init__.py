@@ -10,7 +10,15 @@
 - ``train_pitch_predictor``: the predictor the pitch-consistency loss reads;
 - ``make_style_bank``, ``compute_spk_stats_from_prosody``,
   ``precompute_ECAPA_spk_embeddings``, ``extract_symbol_prosody``,
-  ``format_dataset``, ``grid_search_accent``.
+  ``format_dataset``, ``grid_search_accent``;
+- ``qualify_int8``: the int8 tiers against float32 on GAN-trained weights,
+  gated;
+- ``evaluation.compute_wer_and_accent_metrics``,
+  ``evaluation.compare_pitch_curves``;
+- ``hifigan_sanity_check``, ``verify_mel_spec``,
+  ``generate_augmentation_examples``, ``visualize_pitch_prediction``,
+  ``verify_pitch_predictor_shape``, ``analyze_embedding_manifold``;
+- ``benchmarks.convert_prosody_with_llm``.
 
 Each takes the flags of its counterpart with the same names and defaults,
 plus ``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain

@@ -20,47 +20,10 @@ import os
 import numpy as np
 
 from daft_exprt_torch.scripts._cli import add_device_flag, parse_args
+from daft_exprt_torch.scripts.evaluation.compute_wer_and_accent_metrics \
+    import prosody_metrics
 
 _logger = logging.getLogger(__name__)
-
-
-# the prosody metrics of scripts/evaluation/compute_wer_and_accent_metrics.py,
-# which the port has not taken over yet
-
-def npvi(values):
-    """Normalized pairwise variability index of the positive values (None
-    with fewer than two)."""
-    v = np.asarray([x for x in values if x > 0], dtype=np.float64)
-    if len(v) < 2:
-        return None
-    diffs = np.abs(np.diff(v)) / ((v[:-1] + v[1:]) / 2.0)
-    return float(100.0 * np.mean(diffs))
-
-
-def prosody_metrics(wav, fs, hparams, pitch_method='auto', device=None):
-    """Per-utterance pitch std (semitones), energy nPVI and duration nPVI
-    (syllable proxy: voiced-run durations); mel, energy and pitch on
-    ``device`` (default cuda)."""
-    from daft_exprt_torch.frontend.pitch import extract_pitch
-    from daft_exprt_torch.ops.mel import MelExtractor
-
-    pitch = extract_pitch(wav, fs, hparams, method=pitch_method,
-                          device=device)
-    voiced = pitch[pitch > 0]
-    pitch_std = float(np.std(voiced * 12 / np.log(2))) if len(voiced) > 1 \
-        else None
-
-    energy = MelExtractor(hparams, device=device).with_energy(wav)[1]
-    energy_npvi = npvi(energy)
-
-    is_voiced = (pitch > 0).astype(int)
-    changes = np.diff(np.concatenate([[0], is_voiced, [0]]))
-    starts = np.where(changes == 1)[0]
-    ends = np.where(changes == -1)[0]
-    run_durs = (ends - starts).astype(np.float64)
-    duration_npvi = npvi(run_durs)
-    return {'pitch_std_semitones': pitch_std, 'energy_npvi': energy_npvi,
-            'duration_npvi': duration_npvi}
 
 
 def run(args):

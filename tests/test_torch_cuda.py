@@ -976,7 +976,8 @@ def test_mrf_ptc_dyn_kernel_matches_plain(C_in, C, p_in, post):
                          .astype(np.float32))
     x[0, 256 * p_in:512 * p_in] *= 4.0
     x = x.cuda().to(torch.bfloat16)
-    n, key = mi.fused_mrf_ptc.launches, tuple(x.shape) + ('dynamic',)
+    n, key = mi.fused_mrf_ptc.launches, tuple(x.shape) + ('dynamic',) + (
+        ('post',) if post else ())
     c = mi.fused_mrf_ptc.calls[key]
     out = mi.fused_mrf_ptc(x, mrf, tile)
     torch.cuda.synchronize()

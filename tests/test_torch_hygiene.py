@@ -25,7 +25,12 @@ FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'daft_exprt_tpu', 'scripts')
 TOOLS = ('synthesize', 'training', 'adapt_speaker', 'adapt_accent',
          'train_pitch_predictor', 'make_style_bank',
          'compute_spk_stats_from_prosody', 'precompute_ECAPA_spk_embeddings',
-         'extract_symbol_prosody', 'format_dataset', 'grid_search_accent')
+         'extract_symbol_prosody', 'format_dataset', 'grid_search_accent',
+         'qualify_int8', 'evaluation.compute_wer_and_accent_metrics',
+         'evaluation.compare_pitch_curves', 'hifigan_sanity_check',
+         'verify_mel_spec', 'generate_augmentation_examples',
+         'visualize_pitch_prediction', 'verify_pitch_predictor_shape',
+         'analyze_embedding_manifold', 'benchmarks.convert_prosody_with_llm')
 
 
 def _port_files():
@@ -204,13 +209,31 @@ TOOL_ARGV = {
     'format_dataset': ['--ljspeech_root', '{d}/lj', '-out', '{d}/out'],
     'grid_search_accent': ['-out', '{d}/out', '-chk', '{d}/ckpt', '-spf',
                            '{d}/p'],
+    # an empty evaluation batch: fails after the device, before any work
+    'qualify_int8': ['--out', '{d}/out', '--eval_batch', '0'],
+    'evaluation.compute_wer_and_accent_metrics': ['-m', '{d}/m', '-out',
+                                                  '{d}/out'],
+    'evaluation.compare_pitch_curves': ['{d}/a.wav', '{d}/b.wav'],
+    'hifigan_sanity_check': ['-w', '{d}/a.wav', '-out', '{d}/out',
+                             '--vocoder_checkpoint', '{d}/g'],
+    'verify_mel_spec': ['-m', '{d}/m.npy', '-out', '{d}/o.wav',
+                        '--vocoder_checkpoint', '{d}/g'],
+    'generate_augmentation_examples': ['-w', '{d}/a.wav', '-out', '{d}/out',
+                                       '--vocoder_checkpoint', '{d}/g'],
+    'visualize_pitch_prediction': ['-chk', '{d}/pp', '-fd', '{d}/f', '-out',
+                                   '{d}/out'],
+    'verify_pitch_predictor_shape': [],
+    'analyze_embedding_manifold': ['-chk', '{d}/ckpt'],
+    # openai is not installed: ImportError on the CPU
+    'benchmarks.convert_prosody_with_llm': ['-spf', '{d}/p', '-o', '{d}/o'],
 }
 
 
 @pytest.mark.parametrize('name', TOOLS)
 def test_tools_default_to_cuda_before_touching_files(name, tmp_path):
     """Without CUDA every tool's main raises before it reads or writes a
-    file; with --device cpu it goes on (and fails on the missing input)."""
+    file; with --device cpu it goes on (and fails on the missing input;
+    the shape check, which reads nothing, passes)."""
     if torch.cuda.is_available():
         pytest.skip('a CUDA card is present: the default device is valid')
     import importlib
@@ -221,6 +244,9 @@ def test_tools_default_to_cuda_before_touching_files(name, tmp_path):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             tool.main(device + argv)
         assert not d.exists()
+    if name == 'verify_pitch_predictor_shape':
+        assert tool.main(['--device', 'cpu']) == 0
+        return
     with pytest.raises((FileNotFoundError, ImportError, ValueError,
                         SystemExit)):
         tool.main(['--device', 'cpu'] + argv)

@@ -4,9 +4,12 @@ symbol-prosody parser and the small host tools.
 
 - Flags: each tool's parser holds the JAX script's arguments (names,
   defaults, types, choices, sub-commands) plus ``--device`` (default
-  cuda), read from the parsers and their --help text. The one difference
-  by design: ``precompute_ECAPA_spk_embeddings``' ``--device`` (the
-  encoder's) defaults to cuda, not cpu.
+  cuda), read from the parsers and their --help text. The differences by
+  design: ``precompute_ECAPA_spk_embeddings``' ``--device`` (the
+  encoder's) defaults to cuda, not cpu; ``qualify_int8`` adds
+  ``--ptc_min_batch`` (default 1), which stands for the JAX script's
+  ``DAFT_PTC_MIN_BATCH=1``; ``verify_pitch_predictor_shape`` has no parser
+  in JAX (the port's takes ``--device`` only).
 - The prosody parser: the same sentences, names and prosody as JAX's on
   both line forms and the committed bank, the same errors.
 - ``make_style_bank``, ``compute_spk_stats_from_prosody``,
@@ -38,7 +41,13 @@ from tests.torch_scripts_utils import (
 TOOLS = ('synthesize', 'training', 'adapt_speaker', 'adapt_accent',
          'train_pitch_predictor', 'make_style_bank',
          'compute_spk_stats_from_prosody', 'precompute_ECAPA_spk_embeddings',
-         'extract_symbol_prosody', 'format_dataset', 'grid_search_accent')
+         'extract_symbol_prosody', 'format_dataset', 'grid_search_accent',
+         'qualify_int8', 'evaluation/compute_wer_and_accent_metrics',
+         'evaluation/compare_pitch_curves', 'hifigan_sanity_check',
+         'verify_mel_spec', 'generate_augmentation_examples',
+         'visualize_pitch_prediction', 'verify_pitch_predictor_shape',
+         'analyze_embedding_manifold',
+         'benchmarks/convert_prosody_with_llm')
 
 
 def _actions(parser):
@@ -62,19 +71,29 @@ def _flags(text):
 
 @pytest.mark.parametrize('name', TOOLS)
 def test_flags_are_the_jax_scripts_plus_device(name):
-    jp, tp = jax_parser(name), port_tool(name).build_parser()
-    want, got = _actions(jp), _actions(tp)
+    tp = port_tool(name).build_parser()
+    got = _actions(tp)
     device = got.pop('device')
     assert device[:2] == (('--device',), 'cuda'), device
+    if name == 'verify_pitch_predictor_shape':     # no parser in JAX
+        assert got == {}
+        assert _flags(help_text(port_tool(name).main)) == {'--device', '-h',
+                                                           '--help'}
+        return
+    jp = jax_parser(name)
+    want = _actions(jp)
     if name == 'precompute_ECAPA_spk_embeddings':
         assert want.pop('device')[:2] == (('--device',), 'cpu')
+    if name == 'qualify_int8':                     # DAFT_PTC_MIN_BATCH=1
+        assert got.pop('ptc_min_batch')[:3] == (('--ptc_min_batch',), 1, int)
     assert got == want
     # --help: the JAX script's flags and --device on the top-level parser
     # (precompute_ECAPA_spk_embeddings has its own), the JAX script's on
     # each sub-command's
     own = name == 'precompute_ECAPA_spk_embeddings'
+    extra = {'--ptc_min_batch'} if name == 'qualify_int8' else set()
     texts = [(help_text(jp.parse_args), help_text(port_tool(name).main),
-              set() if own else {'--device'})]
+              set() if own else {'--device'} | extra)]
     for cmd in (want.get('command') or {}):
         argv = ('--data_set_dir', 'x', '-en', 'y', cmd, '--help')
         texts.append((help_text(jp.parse_args, argv),

@@ -95,7 +95,8 @@ def save_both_checkpoints(root, config, seed=0):
     hp = JaxHParams(verbose=False, training_files='unused',
                     validation_files='unused',
                     output_directory=os.path.join(root, 'init'), **config)
-    _, params = init_model_and_state(hp, rng_seed=seed)
+    # traced whole: one compile, not one for each operation of the init
+    params = jax.jit(lambda: init_model_and_state(hp, rng_seed=seed)[1])()
     rng = np.random.RandomState(seed + 7)
     params = jax.tree_util.tree_map(
         lambda p: np.asarray(p) + 0.05 * rng.randn(*p.shape).astype(
@@ -153,8 +154,10 @@ def tone_wav(f0, seconds=1.0, sr=22050, seed=0):
 
 
 def port_tool(name):
-    """The port's tool module ``daft_exprt_torch.scripts.<name>``."""
-    return importlib.import_module(f'daft_exprt_torch.scripts.{name}')
+    """The port's tool module ``daft_exprt_torch.scripts.<name>`` (a name
+    under a sub-directory of ``scripts`` with '/' or '.')."""
+    return importlib.import_module(
+        f'daft_exprt_torch.scripts.{name.replace("/", ".")}')
 
 
 def prosody_lines(hp, rng, n=3, k_max=9, d_max=8):
